@@ -110,6 +110,29 @@ def inpaint_unet_state_dict(variables: Mapping[str, Any]) -> Dict[str, np.ndarra
     return t.out
 
 
+def _vgg16_conv_indices():
+    """torchvision ``vgg16.features`` index of each conv: a conv is
+    followed by its relu, a pool stands alone."""
+    idx, out = 0, []
+    for v in (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
+              512, 512, 512, "M"):
+        if v == "M":
+            idx += 1
+        else:
+            out.append(idx)
+            idx += 2
+    return out
+
+
+def vgg16_features_state_dict(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """``VGG16Features`` variables (flax ``conv{j}``) -> torchvision names
+    ``features.{i}`` (as many convs as the tree holds)."""
+    t = _Tree(variables)
+    for j, idx in enumerate(_vgg16_conv_indices()[: len(_indices(t.params, r"conv(\d+)"))]):
+        t.conv((f"conv{j}",), f"features.{idx}")
+    return t.out
+
+
 def load_state_dict(module: torch.nn.Module, state_dict: Mapping[str, np.ndarray]) -> None:
     """``module.load_state_dict(..., strict=True)`` from numpy arrays."""
     module.load_state_dict(

@@ -4,8 +4,7 @@ Counterpart of ``text_segmentation_image_inpainting_tpu/models/mobilenet_v2.py``
 Activations are NHWC; parameters keep torch's layout and the torch
 oracle's state_dict names (``stem.0``, ``blocks.{i}.block.{j}``). Each
 layer computes in the module's ``dtype`` from f32 parameters, as the
-flax modules do. BatchNorm runs with its running statistics only:
-training comes with the training port.
+flax modules do. BatchNorm trains in flax's arithmetic (see ``BatchNorm``).
 """
 
 from __future__ import annotations
@@ -49,20 +48,35 @@ _ACTS = {
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Inference BatchNorm on NHWC input, in flax's arithmetic: the
-    statistics and affine stay f32, the input is promoted to f32 and the
-    result cast back to the input's dtype (flax ``BatchNorm(dtype=bf16,
-    param_dtype=f32)`` in eval mode). eps 1e-5; torch momentum 0.1 is
-    flax momentum 0.9."""
+    """BatchNorm on NHWC input, in flax's arithmetic (flax
+    ``BatchNorm(dtype=bf16, param_dtype=f32, momentum=0.9, epsilon=1e-5)``):
+    the statistics and affine stay f32, the input is promoted to f32 and
+    the result cast back to the input's dtype.
+
+    In training mode (unless ``frozen``) it normalises with the batch's
+    mean and variance, taken in f32 over N, H, W as flax's
+    ``_compute_stats`` takes them (var = max(E[x^2] - E[x]^2, 0)), and
+    moves the running statistics by ``r = 0.9 r + 0.1 batch`` with the
+    BIASED batch variance. ``F.batch_norm(training=True)`` would update
+    ``running_var`` with the unbiased one, so it is not used.
+    """
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("batch-statistics BatchNorm is not ported yet; call .eval()")
-        y = x.float() - self.running_mean
-        y = y * (torch.rsqrt(self.running_var + self.eps) * self.weight)
+    def forward(self, x: torch.Tensor, *, frozen: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if self.training and not frozen:
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = xf - mean
+        y = y * (torch.rsqrt(var + self.eps) * self.weight)
         y = y + self.bias
         return y.to(x.dtype)
 

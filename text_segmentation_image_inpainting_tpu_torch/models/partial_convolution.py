@@ -96,8 +96,14 @@ class InpaintUNet(nn.Module):
             c = skip_c
         self.head = PartialConv(c + cin, 3, 3, bias=True, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """x (N,H,W,3) with holes zeroed, mask (N,H,W,1) with 1 = valid -> (N,H,W,3)."""
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, *,
+                freeze_enc_bn: bool = False) -> torch.Tensor:
+        """x (N,H,W,3) with holes zeroed, mask (N,H,W,1) with 1 = valid -> (N,H,W,3).
+
+        In training mode ``freeze_enc_bn=True`` runs the *encoder*
+        BatchNorms on their running averages while the decoder's keep
+        training: the Liu et al. phase-2 fine-tune.
+        """
         size = 1 << self.depth
         if x.shape[1] % size or x.shape[2] % size:
             raise ValueError(
@@ -107,13 +113,30 @@ class InpaintUNet(nn.Module):
         f, m = x, mask
         for conv, bn in zip(self.enc_convs, self.enc_bns):
             f, m = conv(f, m)
-            f = F.relu(bn(f))
+            if isinstance(bn, BatchNorm):
+                f = bn(f, frozen=freeze_enc_bn)
+            f = F.relu(f)
             skips.append((f, m))
         for j, (conv, bn) in enumerate(zip(self.dec_convs, self.dec_bns)):
             f, m = self._up_cat_conv(conv, f, m, *skips[self.depth - 1 - j])
             f = F.leaky_relu(bn(f), 0.2)
         out, _ = self._up_cat_conv(self.head, f, m, *skips[0])
         return out
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator | None = None) -> "InpaintUNet":
+        """flax's initialisers, as the JAX model's ``init``: every kernel
+        He-normal (a normal truncated at 2 sigma, sigma scaled so the
+        variance is 2 / fan_in), biases 0, BatchNorm the identity."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                std = (2.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, BatchNorm):
+                m.reset_parameters()
+        return self
 
     @staticmethod
     def _up_cat_conv(conv, f, m, sf, sm):

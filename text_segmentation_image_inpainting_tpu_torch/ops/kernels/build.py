@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-At first use the sources are compiled by ``nvcc`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build
+At first use each source is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ``ctypes``. The build
 directory is keyed by a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses its library. There is no fallback:
 a missing ``nvcc`` or a failed build raises.
@@ -24,7 +25,7 @@ BUILD_DIR = PKG_DIR / "_build"
 CUDA_HOME = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -66,17 +67,31 @@ def build_library() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libtsii_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc, tag = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(srcs, objs))
+    ]
+    logs = []
+    for cmd, proc in procs:  # wait for every compile, so none outlives a failure
+        out, _ = proc.communicate()
+        logs.append((cmd, proc.returncode, out))
+    for cmd, code, out in logs:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{out}")
+    tmp = out_dir / f"libtsii_kernels.{tag}.so"
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib_path)  # atomic: concurrent builders never see a partial file
-    last_build.update(seconds=seconds, log=proc.stdout + proc.stderr)
+    last_build.update(seconds=time.perf_counter() - t0, log="".join(out for _, _, out in logs))
     return lib_path
 
 
@@ -93,6 +108,10 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_pconv_k1.restype = i32
         lib.tsii_pconv_k2.argtypes = [ptr] * 6 + [i32] * 12 + [ptr]
         lib.tsii_pconv_k2.restype = i32
+        lib.tsii_stem_dx.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+        lib.tsii_stem_dx.restype = i32
+        lib.tsii_stem_pool.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        lib.tsii_stem_pool.restype = i32
         lib.tsii_error_string.argtypes = [i32]
         lib.tsii_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,4 +1,5 @@
-"""Fused partial-convolution kernels K1 and K2 and their plain version.
+"""Fused partial-convolution kernels K1 and K2, their backward K3, and the
+plain version.
 
 Counterpart of
 ``text_segmentation_image_inpainting_tpu/ops/pallas/partial_conv_kernel.py``.
@@ -7,9 +8,12 @@ top): K1 is an NHWC implicit GEMM on the tensor cores for Cout >= 8,
 K2 a CUDA-core kernel for Cout <= 7. Scope: stride 1, dilation 1,
 square kernel, G in {1, 2} mask groups, bf16.
 
-``partial_conv2d_fused`` takes the plain version only for a tensor on
-the CPU. On a CUDA tensor it launches K1 or K2, or raises; nothing falls
-back. ``K1_LAUNCHES`` / ``K2_LAUNCHES`` count the launches.
+``partial_conv2d_fused`` is differentiable: ``PartialConvFunction``
+runs K1 or K2 forward and K3 backward, the counterpart of the custom VJP
+``partial_conv2d_pallas`` (``_fwd`` / ``_bwd``, ``partial_conv_kernel.py:542-676``).
+The forward takes the plain version only for a tensor on the CPU. On a
+CUDA tensor it launches K1 or K2, or raises; nothing falls back.
+``K1_LAUNCHES`` / ``K2_LAUNCHES`` count the launches.
 """
 
 from __future__ import annotations
@@ -67,7 +71,12 @@ def partial_conv2d_fused(
     padding: Tuple[int, int],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stride-1 partial conv: K1 (Cout >= 8) or K2 (Cout <= 7) on CUDA,
-    the plain version on the CPU. Shapes as ``ops.partial_conv.partial_conv2d``."""
+    the plain version on the CPU; differentiable in x, weight and bias
+    (K3). Shapes as ``ops.partial_conv.partial_conv2d``."""
+    return PartialConvFunction.apply(x, mask, weight, bias, tuple(group_sizes), tuple(padding))
+
+
+def _forward(x, mask, weight, bias, group_sizes, padding):
     if x.device.type == "cpu":
         return partial_conv2d_reference(
             x, mask, weight, bias, group_sizes=group_sizes, padding=padding
@@ -75,6 +84,60 @@ def partial_conv2d_fused(
     if weight.shape[0] <= _K2_MAX_COUT:
         return _launch_k2(x, mask, weight, bias, group_sizes, padding)
     return _launch_k1(x, mask, weight, bias, group_sizes, padding)
+
+
+def partial_conv2d_backward(g, x, mask, weight, bias, group_sizes, padding,
+                            needs=(True, True, True)):
+    """K3: (dx, dW, db) of a stride-1 partial conv, given the cotangent
+    ``g`` of y (the mask output gets none: it is binary).
+
+    The counterpart of ``partial_conv_kernel.py::_bwd``: msum is
+    recomputed, ``dacc = g * scale * valid`` is rounded to x.dtype, and
+    the two products accumulate in f32 (cuDNN; JAX leaves them to XLA as
+    well): dx = conv_transpose(dacc, W) * M, dW = corr(x * M, dacc), each
+    rounded once to its input's dtype; db = sum(g * valid) in f32.
+    ``needs`` says which of (dx, dW, db) to compute; the others are None.
+    """
+    _, cin, kh, kw = weight.shape
+    msum = mask_window_sum(mask, group_sizes, (kh, kw), stride=(1, 1), padding=padding)
+    valid = msum > 0
+    scale = torch.where(valid, float(kh * kw * cin) / torch.clamp(msum, min=1.0), 0.0)
+    dacc = to_nchw((g.float() * scale).to(x.dtype))
+    mask_t = mask.to(x.dtype)
+    dx = dw = db = None
+    if needs[0]:
+        dxm = torch.nn.grad.conv2d_input(
+            (x.shape[0], cin, x.shape[1], x.shape[2]), weight.to(x.dtype), dacc, padding=padding
+        )
+        dx = apply_mask(to_nhwc(dxm), mask_t, group_sizes)
+    if needs[1]:
+        xm = to_nchw(apply_mask(x, mask_t, group_sizes))
+        dw = torch.nn.grad.conv2d_weight(xm, weight.shape, dacc, padding=padding)
+        dw = dw.to(weight.dtype)
+    if needs[2] and bias is not None:
+        db = (g.float() * valid).sum(dim=(0, 1, 2)).to(bias.dtype)
+    return dx, dw, db
+
+
+class PartialConvFunction(torch.autograd.Function):
+    """Forward: K1/K2 (the plain version on the CPU). Backward: K3."""
+
+    @staticmethod
+    def forward(ctx, x, mask, weight, bias, group_sizes, padding):
+        y, m_out = _forward(x, mask, weight, bias, group_sizes, padding)
+        ctx.save_for_backward(x, mask, weight, bias)
+        ctx.group_sizes, ctx.padding = group_sizes, padding
+        ctx.mark_non_differentiable(m_out)
+        return y, m_out
+
+    @staticmethod
+    def backward(ctx, g, _g_mask):
+        x, mask, weight, bias = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, dw, db = partial_conv2d_backward(
+            g, x, mask, weight, bias, ctx.group_sizes, ctx.padding, (need[0], need[2], need[3])
+        )
+        return dx, None, dw, db, None, None
 
 
 def _check_inputs(x, mask, weight, bias, group_sizes, padding):

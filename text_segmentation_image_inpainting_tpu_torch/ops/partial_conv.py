@@ -14,11 +14,11 @@ OIHW.
 
 ``partial_conv2d`` routes by static shape only: stride 1, dilation 1 and
 a square kernel go to the fused kernels (``ops/kernels/partial_conv.py``:
-K1, or K2 when Cout <= 7), which take their plain version on a CPU
-tensor and launch the CUDA kernel, or raise, on a CUDA tensor. Every
-other configuration (the U-Net's stride-2 encoder) runs the plain
-cuDNN formulation ``_partial_conv2d_plain``, the counterpart of JAX's
-``_partial_conv2d_xla``.
+K1, or K2 when Cout <= 7, with K3 as their backward), which take their
+plain version on a CPU tensor and launch the CUDA kernel, or raise, on a
+CUDA tensor. Every other configuration (the U-Net's stride-2 encoder)
+runs the plain cuDNN formulation ``_partial_conv2d_plain``, the
+counterpart of JAX's ``_partial_conv2d_xla``, differentiated by autograd.
 """
 
 from __future__ import annotations
