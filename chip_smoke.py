@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``text_segmentation_image_inpainting_tpu_torch``'s two main paths
+Drives ``text_segmentation_image_inpainting_tpu_torch``'s three main paths
 at full width: the page pipeline (segment -> dilate -> inpaint:
 MobileNetV2 segmenter at width 1.0, the depth-8 partial-conv U-Net, bf16,
-a batch of eight 512x512 pages) and the inpainting trainer (the same
+a batch of eight 512x512 pages), the inpainting trainer (the same
 U-Net in training mode, the VGG16 perceptual/style loss with the fused
-stem, Adam), weights from a seeded ``torch.Generator``. Phases, each
-printing its lines before the last:
+stem, Adam) and the segmentation trainer (the same segmenter in training
+mode, BCE + dice, Adam, with ``ops/depthwise.py::USE_CUSTOM_WGRAD`` on so
+that its depthwise weight gradients run on K6), weights from a seeded
+``torch.Generator``. Phases, each printing its lines before the last:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds csrc/*.cu into the package's _build/ directory
@@ -27,11 +29,21 @@ printing its lines before the last:
               term finite, every U-Net gradient finite and the decoder's and
               head's nonzero, parameters and decoder BN statistics moved,
               and with ``freeze_bn`` (the third step) the encoder's not
-  6. timing   CUDA events, median after warm-up: each kernel against
-              its plain version per shape, ``run`` in pages/s, the train
-              step in pages/s; then torch.profiler over ``run`` and over a
-              train step: the device's busy share and the kernels that
-              take the most time
+  6. seg      K6 (the depthwise weight gradient) against the f64 truth,
+              beside its plain version, at the segmenter's 5 shapes and at
+              ragged ones; one backward of the full-width segmenter with
+              the flag on against the flag off (cuDNN's wgrad), per
+              depthwise layer; then three seg train steps at 512^2, batch 8,
+              bf16, with the counter reset before each: K6 14 launches per
+              step, loss terms and grad_norm finite, parameters and every
+              BN statistic moved, and with ``freeze_encoder`` (the third
+              step) the encoder's parameters not
+  7. timing   CUDA events, median after warm-up: each kernel against
+              its plain version per shape (K6 also against cuDNN's bf16
+              wgrad), ``run`` in pages/s, the train steps in pages/s (the
+              seg step with the flag on and off, alternating); then
+              torch.profiler over ``run`` and over each train step: the
+              device's busy share and the kernels that take the most time
 
 The last line is ``{"ok": true, "device": {...}}``; the one before it
 lists the kernels. Any failed check raises: the script then exits
@@ -64,6 +76,30 @@ CSRC_STEM = "text_segmentation_image_inpainting_tpu_torch/csrc/vgg_stem.cu"
 TPU_KERNEL = "text_segmentation_image_inpainting_tpu/ops/pallas/partial_conv_kernel.py"
 TPU_STEM_BWD = "text_segmentation_image_inpainting_tpu/ops/pallas/vgg_stem_bwd.py"
 TPU_STEM = "text_segmentation_image_inpainting_tpu/ops/pallas/vgg_stem.py"
+CSRC_DW = "text_segmentation_image_inpainting_tpu_torch/csrc/depthwise_wgrad.cu"
+TPU_DW = "text_segmentation_image_inpainting_tpu/ops/pallas/depthwise_wgrad.py"
+
+# The stride-1 depthwise convs with C >= 128 of TextSegmenter(width 1.0,
+# output stride 8) at 512^2 pages, whose weight gradient is K6 with
+# ops/depthwise.py::USE_CUSTOM_WGRAD on: (MobileNetV2 blocks, H = W, C,
+# dilation, launches per train step). 14 launches per step, k = 3.
+SEG_SHAPES = (
+    ("block 2", 128, 144, 1, 1),
+    ("blocks 4-6", 64, 192, 1, 3),
+    ("blocks 7-10", 64, 384, 2, 4),
+    ("blocks 11-13", 64, 576, 2, 3),
+    ("blocks 14-16", 64, 960, 4, 3),
+)
+# K6 away from the train shapes: (name, N, H, W, C, k, d, dtype). Odd
+# maps and C off the CTA's 32-channel tile, k = 5, f32 inputs, and a 4^2
+# map at d = 4 whose off-centre taps all lie in the padding.
+K6_RAGGED = (
+    ("odd 37x29, C 200, d 2", 3, 37, 29, 200, 3, 2, torch.bfloat16),
+    ("k 5, 33x47, C 160", 2, 33, 47, 160, 5, 1, torch.bfloat16),
+    ("f32, 45x31, C 136, d 4", 2, 45, 31, 136, 3, 4, torch.float32),
+    ("f32, k 5, d 4, 19x70, C 130", 1, 19, 70, 130, 5, 4, torch.float32),
+    ("4x4, d 4, C 128", 2, 4, 4, 128, 3, 4, torch.bfloat16),
+)
 
 # The stride-1 partial convs of InpaintUNet(depth=8) at 512^2 pages:
 # (layer, H = W, C_lo, C_skip, Cout). Decoder levels have no bias; the
@@ -206,6 +242,70 @@ def check_stem_dx(name, x, g, w0, b0, w1, b1, *, compare_max: bool = True) -> di
     return res
 
 
+def wgrad_truth(x, dy, k: int, d: int):
+    """The depthwise weight gradient in f64, and the sum of the magnitudes
+    of its terms, Σ|x·dy|; each (k, k, 1, C)."""
+    import torch.nn.functional as F
+
+    n, h, w, c = x.shape
+    p = d * (k - 1) // 2
+    xp = F.pad(x.double(), (0, 0, p, p, p, p))
+    dyd = dy.double()
+    sums, mags = [], []
+    for ki in range(k):
+        for kj in range(k):
+            prod = xp[:, ki * d: ki * d + h, kj * d: kj * d + w, :] * dyd
+            sums.append(prod.sum(dim=(0, 1, 2)))
+            mags.append(prod.abs().sum(dim=(0, 1, 2)))
+    return torch.stack(sums).reshape(k, k, 1, c), torch.stack(mags).reshape(k, k, 1, c)
+
+
+def check_wgrad(name, x, dy, k: int, d: int) -> dict:
+    """K6 (one launch) and its plain version against the f64 truth on the
+    card. A product of two bf16 values is exact in f32 (of two f32 values,
+    rounded once), so what either side can get wrong is the order of an
+    f32 sum: each (tap, channel) must be within 1e-5 · Σ|x·dy| of the
+    truth (K6's longest chain of f32 adds is about 110: 110 · 2^-24 <
+    1e-5). Returns the max |error| of each side and max |K6 - plain|."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
+
+    before = kdw.K6_LAUNCHES
+    got = kdw.depthwise_wgrad(x, dy, k, d)
+    torch.cuda.synchronize()
+    if kdw.K6_LAUNCHES != before + 1:
+        raise AssertionError(f"{name}: K6 launched {kdw.K6_LAUNCHES - before} times, want 1")
+    plain = kdw.depthwise_wgrad_reference(x, dy, k, d)
+    truth, mag = wgrad_truth(x, dy, k, d)
+    want_shape = (k, k, 1, x.shape[-1])
+    if got.dtype != torch.float32 or tuple(got.shape) != want_shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: dW {got.dtype} {tuple(got.shape)} or non-finite")
+    res = {}
+    for what, a in (("K6", got), ("plain", plain)):
+        err = (a.double() - truth).abs()
+        over = err > 1e-5 * mag
+        if over.any():
+            raise AssertionError(f"{name}: {what} off the f64 truth by more than 1e-5 Σ|x·dy| at "
+                                 f"{int(over.sum())} of {err.numel()} (tap, channel); max |d| "
+                                 f"{err.max().item():.4g}")
+        res[what] = err.max().item()
+    res["vs_plain"] = (got - plain).abs().max().item()
+    return res
+
+
+def text_targets(rng: np.random.Generator, n: int, h: int, w: int) -> np.ndarray:
+    """(n, h, w, 1) float32 in {0, 1}: lines of glyph-sized boxes, 5-15%
+    of each page (the card's machine has no PIL to render text)."""
+    m = np.zeros((n, h, w, 1), np.float32)
+    for i in range(n):
+        target = rng.uniform(0.05, 0.15)
+        while m[i].mean() < target:
+            gh = int(rng.integers(8, 24))
+            y, x = int(rng.integers(0, h - gh)), int(rng.integers(0, w // 2))
+            for gx in range(x, min(w, x + int(rng.integers(w // 8, w // 2))), gh * 4 // 5):
+                m[i, y: y + gh, gx: gx + max(2, gh // 2)] = 1
+    return m
+
+
 def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     """Median milliseconds of ``fn`` over ``iters`` runs, after ``warmup`` runs."""
     for _ in range(warmup):
@@ -344,7 +444,10 @@ def main() -> int:
     # 5. train --------------------------------------------------------------
     tr = train_phase(dev, rng, cases)
 
-    # 6. timing -------------------------------------------------------------
+    # 6. seg ----------------------------------------------------------------
+    sg = seg_phase(dev, rng)
+
+    # 7. timing -------------------------------------------------------------
     totals = {"K1": [0.0, 0.0, 0.0, 0], "K2": [0.0, 0.0, 0.0, 0]}  # ms, plain ms, max err, n
     for kname, name, x, mask, w, b, kw, err in cases:
         plain = lambda: kpc.partial_conv2d_reference(x, mask, w, b, **kw)  # noqa: E731
@@ -375,6 +478,7 @@ def main() -> int:
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_run(run, "run")
     stem_times = time_train(tr)
+    k6_ms, k6_plain_ms = time_seg(sg)
 
     kernels = []
     for kname, line, fn in (("K1", 184, "pconv_k1"), ("K2", 415, "pconv_k2")):
@@ -395,6 +499,13 @@ def main() -> int:
             "launches": tr["launches"][kname], "max_abs_err": tr["err"][kname],
             "ms": ms, "plain_ms": plain_ms,
         })
+    log("K6: 5 shape(s), ms and plain_ms are sums over one seg train step's 14 launches; "
+        "launches from the first seg step, max_abs_err K6 against the plain at those shapes")
+    kernels.append({
+        "name": "K6 dw_wgrad", "route": "cuda", "source": CSRC_DW, "replaces": f"{TPU_DW}:144",
+        "launches": sg["launches"], "max_abs_err": max(r["vs_plain"] for *_, r in sg["k6"]),
+        "ms": k6_ms, "plain_ms": k6_plain_ms,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -572,6 +683,230 @@ def time_train(tr) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_run(lambda: step(state, batch), "train step", runs=2)
     return {"K4": k4, "K5": k5}
+
+
+def seg_phase(dev, rng) -> dict:
+    """Phase 6: K6 against the f64 truth at the segmenter's 5 shapes and
+    the ragged cases; one full-width backward with the flag on against
+    the flag off, per depthwise layer; then three seg train steps (the
+    third with ``freeze_encoder``), each checked. Returns what the timing
+    phase needs."""
+    from text_segmentation_image_inpainting_tpu_torch.losses.segmentation import (
+        segmentation_loss,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.models import TextSegmenter
+    from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import (
+        BatchNorm,
+        ConvBNAct,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
+    from text_segmentation_image_inpainting_tpu_torch.train.config import SegTrainConfig
+    from text_segmentation_image_inpainting_tpu_torch.train.seg import make_seg_train_step
+    from text_segmentation_image_inpainting_tpu_torch.train.state import (
+        create_train_state,
+        freeze_mask_for,
+    )
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    k6 = []
+    for name, h, c, d, count in SEG_SHAPES:
+        x = torch.randn((BATCH, h, h, c), generator=gen, device=dev).to(bf)
+        dy = torch.randn((BATCH, h, h, c), generator=gen, device=dev).to(bf)
+        res = check_wgrad(f"K6 {name}", x, dy, 3, d)
+        log(f"parity K6 {name}: x, dy {tuple(x.shape)} bf16, d {d} -> dW (3, 3, 1, {c}) f32; max "
+            f"|d| to the f64 truth {res['K6']:.4g} (plain {res['plain']:.4g}), to the plain "
+            f"{res['vs_plain']:.4g}")
+        k6.append((name, x, dy, d, count, res))
+    for name, n, h, w, c, k, d, dt in K6_RAGGED:
+        x = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
+        dy = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
+        res = check_wgrad(f"K6 {name}", x, dy, k, d)
+        log(f"parity K6 {name}: ({n}, {h}, {w}, {c}) {str(dt)[6:]}, k {k}, d {d}: max |d| to the "
+            f"f64 truth {res['K6']:.4g} (plain {res['plain']:.4g})")
+
+    cfg = SegTrainConfig()  # run_seg's defaults: 512^2, batch 8, bf16, Adam 2e-4, pos_weight 3
+    model = TextSegmenter(dtype=bf).init_weights(torch.Generator().manual_seed(SEED)).to(dev)
+    pages = rng.uniform(0.6, 1.0, (BATCH, PAGE, PAGE, 3)).astype(np.float32)
+    masks = text_targets(rng, BATCH, PAGE, PAGE)
+    pages = np.where(masks > 0, rng.uniform(0.0, 0.3, pages.shape), pages).astype(np.float32)
+    batch = {"image": torch.from_numpy(pages).to(dev), "mask": torch.from_numpy(masks).to(dev)}
+    depthwise.USE_CUSTOM_WGRAD = True
+    dw_layers = [(n, m[0]) for n, m in model.named_modules() if isinstance(m, ConvBNAct)
+                 and depthwise.supports(m[0].out_channels, m[0].groups, m[0].in_channels,
+                                        m[0].kernel_size[0], m[0].stride[0])]
+    if len(dw_layers) != 14:
+        raise AssertionError(f"{len(dw_layers)} depthwise layers in K6's scope, want 14")
+
+    real_wgrad, caught = depthwise.depthwise_wgrad, []
+
+    def catch(x, dy, k, d):
+        """Keep each K6 call's real inputs and output (for the checks below)."""
+        dw = real_wgrad(x, dy, k, d)
+        caught.append((x, dy.contiguous(), k, d, dw))
+        return dw
+
+    def dw_grads(flag: bool):
+        depthwise.USE_CUSTOM_WGRAD = flag
+        model.zero_grad(set_to_none=True)
+        kdw.K6_LAUNCHES = 0
+        logits = model(batch["image"])
+        segmentation_loss(logits, batch["mask"], pos_weight=cfg.pos_weight)[0].backward()
+        torch.cuda.synchronize()
+        return kdw.K6_LAUNCHES, {n: conv.weight.grad.clone() for n, conv in dw_layers}
+
+    model.train()
+    depthwise.depthwise_wgrad = catch
+    try:
+        n_on, on = dw_grads(True)
+    finally:
+        depthwise.depthwise_wgrad = real_wgrad
+    n_off, off = dw_grads(False)
+    model.zero_grad(set_to_none=True)
+    if (n_on, n_off, len(caught)) != (14, 0, 14):
+        raise AssertionError(f"one backward launched K6 {n_on} times with the flag on and "
+                             f"{n_off} with it off, want 14 and 0")
+    # (1) each layer's K6 dW on the backward's own x and dy: against the f64
+    # truth (check_wgrad), and against cuDNN's bf16 wgrad of the same x and
+    # dy, which must agree to relative L2 1e-2: both end in one bf16 rounding
+    own = {}
+    for (name, conv), (x, dy, k, d, dw) in zip(reversed(dw_layers), caught):
+        # autograd reaches the layers in the reverse of their forward order
+        if (x.shape[-1], d) != (conv.out_channels, conv.dilation[0]):
+            raise AssertionError(f"{name}: caught a K6 call on C {x.shape[-1]}, d {d}")
+        res = check_wgrad(f"K6 in the backward, {name}", x, dy, k, d)
+        c = x.shape[-1]
+        cudnn = torch.ops.aten.convolution_backward(
+            dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), torch.zeros((c, 1, k, k), dtype=bf,
+                                                                       device=dev),
+            None, [1, 1], [d, d], [d, d], False, [0, 0], c, [False, True, False])[1]
+        own[name] = rel_l2(dw.permute(3, 2, 0, 1).to(bf), cudnn.float())
+        if own[name] > 1e-2:
+            raise AssertionError(f"{name}: K6 against cuDNN's bf16 wgrad on the same x, dy: "
+                                 f"relative L2 {own[name]:.3g}")
+        log(f"grads {name}: x, dy {tuple(x.shape)}, d {d}: K6 to the f64 truth max |d| "
+            f"{res['K6']:.4g}; to cuDNN's bf16 wgrad of the same x, dy, relative L2 "
+            f"{own[name]:.3g}")
+    del caught
+    # (2) the whole backward with the flag on against the flag off. The two
+    # also differ upstream: dx is the flipped-kernel conv with the flag on,
+    # cuDNN's dgrad with it off, and BatchNorm's backward amplifies the
+    # different roundings layer by layer toward the input; so this bound is
+    # loose, a check for gross faults (a wrong tap or layout gives ~100%).
+    rels = {n: rel_l2(on[n], off[n].float()) for n in on}
+    worst = max(rels, key=rels.get)
+    if rels[worst] > 1e-1 or not all(torch.isfinite(g).all() for g in on.values()):
+        raise AssertionError(f"dW with the flag on against off: relative L2 {rels}")
+    log("grads: one backward at 512^2, batch 8, bf16: dW of the 14 layers, flag on (K6) against "
+        "flag off (cuDNN wgrad and dgrad), relative L2 by layer from the output: "
+        + ", ".join(f"{rels[n]:.3g}" for n, _ in reversed(dw_layers)))
+
+    depthwise.USE_CUSTOM_WGRAD = True
+    step = make_seg_train_step(model, cfg)
+    states = {False: create_train_state(model, cfg.optimizer),
+              True: create_train_state(model, cfg.optimizer,
+                                       frozen=freeze_mask_for(model, "encoder"))}
+    grads = {}
+
+    def keep_grads(opt, args, kwargs):
+        for name, p in model.named_parameters():
+            grads[name] = (p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                           0.0 if p.grad is None else p.grad.abs().max().item())
+
+    hooks = [st.optimizer.register_step_pre_hook(keep_grads) for st in states.values()]
+    bns = [(n, m) for n, m in model.named_modules() if isinstance(m, BatchNorm)]
+    stats = lambda: [torch.cat([m.running_mean, m.running_var]).clone() for _, m in bns]  # noqa: E731
+    first = None
+    for i, freeze in enumerate((False, False, True)):
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        bn0 = stats()
+        kdw.K6_LAUNCHES = 0
+        _, metrics = step(states[freeze], batch)
+        torch.cuda.synchronize()
+        launches = kdw.K6_LAUNCHES
+        first = first or launches
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        not_finite = [n for n, (fin, _) in grads.items() if not fin]
+        zero = [n for n, (_, mx) in grads.items() if mx == 0]
+        moved = {n: not torch.equal(p, params[n]) for n, p in model.named_parameters()}
+        enc_moved = [n for n, m in moved.items() if n.startswith("encoder.") and m]
+        # Adam moves a parameter by about lr whenever its gradient is not 0
+        unmoved = [n for n, m in moved.items() if not m and n not in zero
+                   and not (freeze and n.startswith("encoder."))]
+        bn_same = [bns[j][0] for j, (a, b) in enumerate(zip(bn0, stats())) if torch.equal(a, b)]
+        if launches != 14 or bad or not_finite or unmoved or bn_same or (freeze and enc_moved):
+            raise AssertionError(
+                f"seg step {i}: K6 launched {launches} (want 14), non-finite metrics {bad}, "
+                f"grads {not_finite}, unmoved params {unmoved}, unmoved BN statistics "
+                f"{bn_same}, encoder moved under freeze_encoder {enc_moved}")
+        log(f"seg step {i} (freeze_encoder={freeze}): K6 {launches} launches; "
+            + ", ".join(f"{k} {v.item():.5g}" for k, v in metrics.items())
+            + f"; {len(grads)} grads finite ({len(zero)} exactly 0: {zero[:4]}), "
+            + ("encoder unchanged, decoder moved" if freeze else
+               f"{sum(moved.values())} of {len(moved)} parameters moved")
+            + f", all {len(bns)} BN statistics moved")
+    for hk in hooks:
+        hk.remove()
+    return {"k6": k6, "launches": first, "step": step, "state": states[False], "batch": batch}
+
+
+def time_seg(sg) -> tuple:
+    """Phase 7, seg part: K6 per shape against its plain version and
+    cuDNN's bf16 wgrad alone, and the two ways to the same layer's dx (the
+    Function's flipped-kernel conv, cuDNN's dgrad); the seg train step
+    with the flag on and off (on, off, off, on); torch.profiler over one
+    step each way. Returns K6's (ms, plain ms) summed over one step's 14
+    launches."""
+    from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
+    from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
+
+    tot = [0.0] * 5
+    for name, x, dy, d, count, _ in sg["k6"]:
+        c = x.shape[-1]
+        w = torch.randn((c, 1, 3, 3), device=x.device).to(x.dtype)
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # channels_last NCHW views
+        kern = lambda: kdw.depthwise_wgrad(x, dy, 3, d)  # noqa: E731
+        plain = lambda: kdw.depthwise_wgrad_reference(x, dy, 3, d)  # noqa: E731
+        cudnn = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            dyn, xn, w, None, [1, 1], [d, d], [d, d], False, [0, 0], c, [False, True, False])
+        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+        t_cudnn = cuda_ms(cudnn)
+        dx_flip = cuda_ms(lambda: conv2d(dy, w.flip((2, 3)), padding=d, dilation=d, groups=c))
+        dx_dgrad = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            dyn, xn, w, None, [1, 1], [d, d], [d, d], False, [0, 0], c, [True, False, False]))
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        gbytes = 2 * x.numel() * x.element_size() / 1e9
+        log(f"time K6 {name} {tuple(x.shape)} d {d}: kernel {k_ms:.4f} ms ({gbytes / k_ms * 1e3:.0f} "
+            f"GB/s of x and dy), plain f32 {p_ms:.4f} ms, cuDNN bf16 wgrad {t_cudnn:.4f} ms; dx "
+            f"as the flipped-kernel conv {dx_flip:.4f} ms, as cuDNN's dgrad {dx_dgrad:.4f} ms; "
+            f"{count} per step")
+        for i, t in enumerate((k_ms, p_ms, t_cudnn, dx_flip, dx_dgrad)):
+            tot[i] += count * t
+    log(f"time K6 (one step's 14 launches): {tot[0]:.4f} ms, plain f32 {tot[1]:.4f} ms, cuDNN "
+        f"bf16 wgrad {tot[2]:.4f} ms; their dx: flipped-kernel conv {tot[3]:.4f} ms, cuDNN "
+        f"dgrad {tot[4]:.4f} ms")
+
+    step, state, batch = sg["step"], sg["state"], sg["batch"]
+    runs = []
+    for flag in (True, False, False, True):
+        depthwise.USE_CUSTOM_WGRAD = flag
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(state, batch), iters=TRAIN_ITERS, warmup=2)
+        runs.append((flag, ms, torch.cuda.max_memory_allocated() / 2**30))
+    for flag in (True, False):
+        ms = [m for f, m, _ in runs if f == flag]
+        peak = max(g for f, _, g in runs if f == flag)
+        log(f"time seg step, flag {'on (K6)' if flag else 'off (cuDNN wgrad)'}: "
+            + ", ".join(f"{m:.3f}" for m in ms) + f" ms per batch of {BATCH} (medians of "
+            f"{TRAIN_ITERS}, order on/off/off/on) = {2 * BATCH / sum(ms) * 1e3:.2f} training "
+            f"pages/s; peak device memory {peak:.2f} GiB")
+    for flag in (True, False):
+        depthwise.USE_CUSTOM_WGRAD = flag
+        profile_run(lambda: step(state, batch), f"seg step, flag {'on' if flag else 'off'}",
+                    runs=1)
+    return tot[0], tot[1]
 
 
 def profile_run(fn, label: str, runs: int = 3) -> None:

@@ -122,8 +122,8 @@ def test_bridge_rejects_a_mismatched_model(seg_variables):
 
 def test_port_imports_no_jax_or_flax():
     """In a fresh interpreter (this one has jax loaded by the conftest):
-    every module of the port, and a synthetic training page drawn through
-    the JAX package's framework-free generators."""
+    every module of the port, and a synthetic training page of each kind
+    drawn through the JAX package's framework-free generators."""
     code = (
         "import sys\n"
         "import text_segmentation_image_inpainting_tpu_torch.pipeline\n"
@@ -131,12 +131,18 @@ def test_port_imports_no_jax_or_flax():
         "import text_segmentation_image_inpainting_tpu_torch.ops.kernels.build\n"
         "import text_segmentation_image_inpainting_tpu_torch.ops.kernels.partial_conv\n"
         "import text_segmentation_image_inpainting_tpu_torch.ops.kernels.vgg_stem\n"
+        "import text_segmentation_image_inpainting_tpu_torch.ops.kernels.depthwise_wgrad\n"
+        "import text_segmentation_image_inpainting_tpu_torch.ops.depthwise\n"
         "import text_segmentation_image_inpainting_tpu_torch.models.vgg\n"
         "import text_segmentation_image_inpainting_tpu_torch.losses\n"
+        "import text_segmentation_image_inpainting_tpu_torch.losses.segmentation\n"
         "import text_segmentation_image_inpainting_tpu_torch.train\n"
+        "import text_segmentation_image_inpainting_tpu_torch.train.seg\n"
         "import text_segmentation_image_inpainting_tpu_torch.train.run_inpaint\n"
+        "import text_segmentation_image_inpainting_tpu_torch.train.run_seg\n"
         "from text_segmentation_image_inpainting_tpu_torch.data.pipeline import PageSource\n"
-        "assert PageSource(size=(32, 32))[0]['mask'].shape == (32, 32, 1)\n"
+        "for kind in ('seg', 'inpaint'):\n"
+        "    assert PageSource(kind=kind, size=(32, 32))[0]['mask'].shape == (32, 32, 1)\n"
         "import text_segmentation_image_inpainting_tpu.data.masks\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
         "assert not bad, bad\n"

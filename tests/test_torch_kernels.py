@@ -1,4 +1,4 @@
-"""Kernels K1-K5 against their plain versions, on an NVIDIA card.
+"""Kernels K1-K6 against their plain versions, on an NVIDIA card.
 
 Marked ``gpu``: without a CUDA device each test skips (decided inside the
 fixture, never at import). On the card, where jax is not installed and
@@ -14,15 +14,19 @@ y exactly 0 in empty windows, elsewhere one bf16 step of |y| plus 1e-3
 of max |y|. K3 (the backward), K4 (the VGG stem's dx) and K5 (its pooled
 forward) are held to f32 truth no worse than the bf16 plain version, with
 the bounds stated at each test; and gradients reach every U-Net parameter
-through K1/K2 on the card.
+through K1/K2 on the card. K6 (the depthwise weight gradient) and its
+plain version are held to the f64 truth within 1e-5 of Σ|x·dy| per
+(tap, channel) (chip_smoke.py's ``check_wgrad``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import check_close, check_grads, check_stem_dx
+from chip_smoke import K6_RAGGED, check_close, check_grads, check_stem_dx, check_wgrad
 from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet
+from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
+from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
 from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import partial_conv2d
@@ -183,3 +187,50 @@ def test_frozen_stem_backward_runs_k4(cuda):
     assert x.grad.dtype == torch.float32 and torch.isfinite(x.grad).all()
     with pytest.raises(ValueError, match="frozen"):
         kvs.vgg_stem_frozen(x, w0.requires_grad_(), b0, w1, b1, torch.bfloat16)
+
+
+@pytest.mark.parametrize("name,n,h,w,c,k,d,dtype", K6_RAGGED, ids=[r[0] for r in K6_RAGGED])
+def test_k6_matches_truth(cuda, name, n, h, w, c, k, d, dtype):
+    """Odd maps, C off the 32-channel tile, k = 5, f32 inputs, and a 4^2
+    map at d = 4 (every off-centre tap in the padding: exactly 0)."""
+    gen = torch.Generator(cuda).manual_seed(n * h * w + c)
+    x = torch.randn((n, h, w, c), generator=gen, device=cuda).to(dtype)
+    dy = torch.randn((n, h, w, c), generator=gen, device=cuda).to(dtype)
+    check_wgrad(name, x, dy, k, d)
+    if h == w == 4:
+        dw = kdw.depthwise_wgrad(x, dy, k, d)
+        dw[k // 2, k // 2] = 0
+        assert (dw == 0).all()
+
+
+def test_depthwise_backward_launches_k6(cuda):
+    """The Function's backward on CUDA: K6 once, dW in the weight's dtype,
+    rounded once from the plain f32 sum (up to its summation order), and
+    dy taken from autograd with another layout (an NCHW tensor's view)."""
+    gen = torch.Generator(cuda).manual_seed(11)
+    c, d = 192, 2
+    x = torch.randn((2, 24, 20, c), generator=gen, device=cuda).to(torch.bfloat16)
+    wt = (torch.randn((c, 1, 3, 3), generator=gen, device=cuda) * 0.3).to(torch.bfloat16)
+    wt.requires_grad_(True)
+    g = torch.randn((2, c, 24, 20), generator=gen, device=cuda).to(torch.bfloat16)
+    before = kdw.K6_LAUNCHES
+    depthwise.depthwise_conv2d(x, wt, d).backward(g.permute(0, 2, 3, 1))
+    torch.cuda.synchronize()
+    assert kdw.K6_LAUNCHES == before + 1
+    want = kdw.depthwise_wgrad_reference(x, g.permute(0, 2, 3, 1), 3, d).permute(3, 2, 0, 1)
+    assert wt.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(wt.grad.float(), want, rtol=2**-8, atol=1e-5 * want.abs().max().item())
+
+
+def test_k6_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 8, 8, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        kdw._launch_k6(x.permute(0, 2, 1, 3), x, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kdw._launch_k6(x, x.transpose(1, 2), 3, 1)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        kdw._launch_k6(x.half(), x.half(), 3, 1)
+    with pytest.raises(ValueError, match="dy must match"):
+        kdw._launch_k6(x, x.float(), 3, 1)
+    with pytest.raises(ValueError, match="built for"):
+        kdw._launch_k6(x, x, 9, 1)

@@ -1,0 +1,140 @@
+"""The port's segmentation data and training CLI on the CPU, at a tiny size.
+
+``PageSource('seg')`` gives the JAX package's pages bit for bit (synthetic
+and from a data directory); the segmenter's init draws as flax's.
+``run_seg`` trains, logs, checkpoints and resumes at 32², width 0.35,
+with the depthwise weight gradients on K6's plain version;
+``--freeze-encoder`` keeps the encoder where it started; flags whose
+machinery is not ported are refused by name.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import text_segmentation_image_inpainting_tpu_torch.ops.depthwise as tdw
+from tests.test_torch_bridge import SEG_WIDTH
+from text_segmentation_image_inpainting_tpu.data.pipeline import PageSource as JaxPageSource
+from text_segmentation_image_inpainting_tpu.models import TextSegmenter as JaxTextSegmenter
+from text_segmentation_image_inpainting_tpu_torch.compat.from_jax import text_segmenter_state_dict
+from text_segmentation_image_inpainting_tpu_torch.data.pipeline import PageSource
+from text_segmentation_image_inpainting_tpu_torch.models import TextSegmenter
+from text_segmentation_image_inpainting_tpu_torch.train import run_seg
+from text_segmentation_image_inpainting_tpu_torch.train.config import SegTrainConfig
+from text_segmentation_image_inpainting_tpu_torch.train.val import make_val_batches
+
+TINY = ["--batch-size", "2", "--image-size", "32", "--width-mult", "0.35", "--log-every", "1",
+        "--val-batches", "1", "--custom-wgrad"]
+
+
+@pytest.fixture(autouse=True)
+def _restore_flag():
+    prev = tdw.USE_CUSTOM_WGRAD
+    yield
+    tdw.USE_CUSTOM_WGRAD = prev
+
+
+def _logged(out: str):
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def _assert_same_pages(got, want):
+    assert sorted(got) == sorted(want) == ["image", "mask"]
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("idx", [0, 5])
+def test_seg_pages_equal_jax(idx):
+    _assert_same_pages(PageSource(kind="seg", size=(48, 40), seed=3)[idx],
+                       JaxPageSource(kind="seg", size=(48, 40), seed=3)[idx])
+
+
+def test_seg_pages_from_a_data_dir_equal_jax(tmp_path):
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    paths = []
+    for i, size in enumerate(((50, 70), (20, 24))):  # one needs the upscale
+        paths.append(str(tmp_path / f"p{i}.png"))
+        Image.fromarray(rng.integers(0, 255, (*size, 3), dtype=np.uint8)).save(paths[-1])
+    for idx in range(3):
+        _assert_same_pages(PageSource(kind="seg", size=(32, 32), seed=1, paths=paths)[idx],
+                           JaxPageSource(kind="seg", size=(32, 32), seed=1, paths=paths)[idx])
+
+
+def test_seg_val_batches():
+    cfg = SegTrainConfig(image_size=(32, 32), batch_size=2)
+    (b,) = make_val_batches("seg", cfg, seed=9, n=1, device="cpu")
+    assert b["image"].shape == (2, 32, 32, 3) and b["mask"].shape == (2, 32, 32, 1)
+    assert b["image"].dtype == torch.float32
+    assert set(torch.unique(b["mask"]).tolist()) <= {0.0, 1.0}
+
+
+def test_init_weights_follow_flax():
+    """``TextSegmenter.init_weights`` (run_seg's init) draws as the JAX
+    model's ``init``: LeCun-normal truncated at 2 sigma (sigma^2 = 1 /
+    fan_in), so each kernel's spread matches JAX's draw within sampling
+    error; biases 0; BatchNorm the identity."""
+    want = text_segmenter_state_dict(jax.jit(JaxTextSegmenter(width_mult=SEG_WIDTH).init)(
+        jax.random.key(0), jnp.zeros((1, 32, 32, 3))))
+    got = TextSegmenter(width_mult=SEG_WIDTH).init_weights(torch.Generator().manual_seed(0))
+    got = {k: v.numpy() for k, v in got.state_dict().items()}
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        g = got[k]
+        if g.ndim == 4:
+            std = (1.0 / g[0].size) ** 0.5 / 0.87962566103423978
+            assert np.abs(g).max() <= 2 * std * (1 + 1e-6), k
+            if g.size >= 1024:
+                assert abs(g.std() / np.asarray(w).std() - 1) < 0.15, k
+        else:
+            np.testing.assert_array_equal(g, np.asarray(w), err_msg=k)
+
+
+def test_trains_checkpoints_and_resumes(tmp_path, capsys):
+    ckpt = str(tmp_path / "ckpt")
+    state = run_seg.main(["--steps", "2", "--ckpt-every", "2", "--ckpt-dir", ckpt, *TINY])
+    assert tdw.USE_CUSTOM_WGRAD
+    assert state.step == 2 and (tmp_path / "ckpt" / "step_2.pt").exists()
+    logs = _logged(capsys.readouterr().out)
+    assert [r["step"] for r in logs] == [1, 2]
+    for key in ("bce", "dice", "total", "grad_norm", "val_iou", "val_precision", "val_recall"):
+        assert all(np.isfinite(r[key]) for r in logs), key
+    assert "pages_per_sec" in logs[1]
+
+    state = run_seg.main(["--steps", "3", "--ckpt-every", "2", "--ckpt-dir", ckpt, *TINY])
+    out = capsys.readouterr().out
+    assert "resumed from step 2" in out
+    assert [r["step"] for r in _logged(out)] == [3] and state.step == 3
+    saved = torch.load(tmp_path / "ckpt" / "step_2.pt", weights_only=True)
+    assert saved["step"] == 2 and sorted(saved) == ["model", "optimizer", "scheduler", "step"]
+
+
+def test_freeze_encoder_keeps_the_encoder(tmp_path):
+    state = run_seg.main(["--steps", "1", "--ckpt-dir", str(tmp_path), "--freeze-encoder",
+                          "--seed", "4", *TINY])
+    init = TextSegmenter(width_mult=0.35, dtype=torch.bfloat16).init_weights(
+        torch.Generator().manual_seed(4))
+    start = dict(init.named_parameters())
+    for name, p in state.model.named_parameters():
+        same = torch.equal(p, start[name])
+        assert same == name.startswith("encoder."), name
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--backbone", "xception"], "item 13"),
+    (["--head", "deeplab"], "item 13"),
+    (["--grad-accum", "2"], "accum"),
+    (["--steps-per-dispatch", "2"], "multistep"),
+    (["--export", "model.msgpack"], "snapshot"),
+])
+def test_unported_flags_are_refused(tmp_path, flags, item):
+    with pytest.raises(SystemExit, match=item):
+        run_seg.main(["--steps", "1", "--ckpt-dir", str(tmp_path), *TINY, *flags])
+    assert not any(tmp_path.iterdir())

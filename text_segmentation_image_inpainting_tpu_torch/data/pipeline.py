@@ -1,8 +1,7 @@
-"""Page batches for inpainting training.
+"""Page batches for segmentation and inpainting training.
 
-Counterpart of the inpainting part of
-``text_segmentation_image_inpainting_tpu/data/pipeline.py``
-(``PageSource(kind='inpaint')``, ``list_image_paths``, ``make_dataset``).
+Counterpart of ``text_segmentation_image_inpainting_tpu/data/pipeline.py``
+(``PageSource``, ``list_image_paths``, ``make_dataset``).
 Sample ``idx`` is drawn from ``np.random.default_rng((seed << 32) ^ idx)``
 as in JAX, by the JAX package's framework-free generators
 (``data/text_overlay.py``, ``data/native_masks.py``: numpy, PIL and
@@ -25,23 +24,25 @@ IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
 
 @dataclasses.dataclass
 class PageSource:
-    """Random-access (clean page, hole mask) pairs, mask 1 = valid.
+    """Random-access training pairs:
+
+      kind='seg'     -> (page with text, text mask)
+      kind='inpaint' -> (clean page, hole mask), mask 1 = valid
 
     With ``paths``, real images are decoded with PIL (random crop, an
     aspect-preserving upscale when too small, random flip) and get the
-    same synthetic holes.
+    same synthetic text or holes.
     """
 
-    kind: str = "inpaint"
+    kind: str = "seg"
     size: tuple[int, int] = (512, 512)
     length: int = 1 << 16
     seed: int = 0
     paths: Sequence[str] | None = None
 
     def __post_init__(self):
-        if self.kind != "inpaint":
-            raise ValueError(f"kind {self.kind!r}: only 'inpaint' is ported "
-                             "(segmentation data comes with segmentation training)")
+        if self.kind not in ("seg", "inpaint"):
+            raise ValueError(f"kind {self.kind!r}: 'seg' or 'inpaint'")
 
     def __len__(self) -> int:
         return self.length
@@ -66,6 +67,18 @@ class PageSource:
 
     def __getitem__(self, idx: int) -> dict:
         rng = np.random.default_rng((self.seed << 32) ^ int(idx))
+        if self.kind == "seg":
+            if not self.paths:
+                from text_segmentation_image_inpainting_tpu.data.text_overlay import (
+                    segmentation_sample,
+                )
+
+                img, mask = segmentation_sample(rng, self.size)
+            else:
+                from text_segmentation_image_inpainting_tpu.data.text_overlay import overlay_text
+
+                img, mask = overlay_text(self._load_base(rng), rng)
+            return {"image": img, "mask": mask}
         if not self.paths:
             from text_segmentation_image_inpainting_tpu.data.text_overlay import inpainting_sample
 

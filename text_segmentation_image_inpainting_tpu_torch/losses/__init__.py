@@ -1,4 +1,4 @@
-"""Training losses of the port (the inpainting suite so far)."""
+"""Training losses of the port: the inpainting suite and the segmentation losses."""
 
 from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import (
     InpaintLossConfig,
@@ -7,11 +7,21 @@ from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import (
     make_vgg,
     total_variation_loss,
 )
+from text_segmentation_image_inpainting_tpu_torch.losses.segmentation import (
+    bce_with_logits,
+    dice_loss,
+    focal_loss,
+    segmentation_loss,
+)
 
 __all__ = [
     "InpaintLossConfig",
+    "bce_with_logits",
+    "dice_loss",
+    "focal_loss",
     "gram_matrix",
     "inpainting_loss",
     "make_vgg",
+    "segmentation_loss",
     "total_variation_loss",
 ]

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
 from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d, torch_same_padding
 
 # (expansion t, out channels c, repeats n, first-block stride s)
@@ -81,6 +82,22 @@ class BatchNorm(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
+@torch.no_grad()
+def flax_init_(model: nn.Module, scale: float, generator: torch.Generator | None = None) -> None:
+    """flax's initialisers, as a JAX model's ``init`` applies them: every
+    conv kernel a normal truncated at 2 sigma, sigma scaled so the variance
+    is ``scale`` / fan_in (1: LeCun-normal, 2: He-normal); biases 0;
+    BatchNorm the identity."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            std = (scale / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.reset_parameters()
+
+
 def apply_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """Run ``conv``'s parameters and geometry on NHWC ``x`` (in x.dtype)."""
     return conv2d(
@@ -90,7 +107,11 @@ def apply_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 
 class ConvBNAct(nn.Sequential):
-    """Conv -> BatchNorm -> activation; children ``0`` (conv) and ``1`` (bn)."""
+    """Conv -> BatchNorm -> activation; children ``0`` (conv) and ``1`` (bn).
+
+    A depthwise conv in ``depthwise.supports``'s scope (flag on, stride 1,
+    C >= 128) runs through ``depthwise.depthwise_conv2d``: the same
+    forward and parameters, its weight gradient on K6."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
                  dilation: int = 1, groups: int = 1, act: str = "relu6",
@@ -107,7 +128,14 @@ class ConvBNAct(nn.Sequential):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _ACTS[self.act](self[1](apply_conv(self[0], x.to(self.dtype))))
+        conv, x = self[0], x.to(self.dtype)
+        if depthwise.supports(conv.out_channels, conv.groups, x.shape[-1], conv.kernel_size[0],
+                              conv.stride[0]):
+            # the same forward conv; the weight gradient is K6 (ops/depthwise.py)
+            y = depthwise.depthwise_conv2d(x, conv.weight.to(self.dtype), conv.dilation[0])
+        else:
+            y = apply_conv(conv, x)
+        return _ACTS[self.act](self[1](y))
 
 
 class InvertedResidual(nn.Module):

@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import BatchNorm
+from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import BatchNorm, flax_init_
 from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import partial_conv2d
 from text_segmentation_image_inpainting_tpu_torch.ops.resize import upsample_nearest
 
@@ -123,19 +123,10 @@ class InpaintUNet(nn.Module):
         out, _ = self._up_cat_conv(self.head, f, m, *skips[0])
         return out
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator | None = None) -> "InpaintUNet":
-        """flax's initialisers, as the JAX model's ``init``: every kernel
-        He-normal (a normal truncated at 2 sigma, sigma scaled so the
-        variance is 2 / fan_in), biases 0, BatchNorm the identity."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                std = (2.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, BatchNorm):
-                m.reset_parameters()
+        """flax's initialisers, as the JAX model's ``init``: He-normal
+        kernels (``flax_init_``), biases 0, BatchNorm the identity."""
+        flax_init_(self, 2.0, generator)
         return self
 
     @staticmethod

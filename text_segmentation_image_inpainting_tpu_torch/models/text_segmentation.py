@@ -17,6 +17,7 @@ from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import (
     ConvBNAct,
     MobileNetV2Encoder,
     apply_conv,
+    flax_init_,
     round_channels,
 )
 from text_segmentation_image_inpainting_tpu_torch.ops.resize import resize_bilinear
@@ -68,6 +69,12 @@ class TextSegmenter(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.encoder(x))
+
+    def init_weights(self, generator: torch.Generator | None = None) -> "TextSegmenter":
+        """flax's initialisers, as the JAX model's ``init``: LeCun-normal
+        kernels (``flax_init_``), biases 0, BatchNorm the identity."""
+        flax_init_(self, 1.0, generator)
+        return self
 
     @torch.no_grad()
     def predict_mask(self, x: torch.Tensor, *, threshold: float = 0.5) -> torch.Tensor:

@@ -112,6 +112,10 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_stem_dx.restype = i32
         lib.tsii_stem_pool.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
         lib.tsii_stem_pool.restype = i32
+        lib.tsii_dw_wgrad_scratch.argtypes = [i32] * 5
+        lib.tsii_dw_wgrad_scratch.restype = ctypes.c_longlong
+        lib.tsii_dw_wgrad.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        lib.tsii_dw_wgrad.restype = i32
         lib.tsii_error_string.argtypes = [i32]
         lib.tsii_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,4 +1,4 @@
-"""Training of the port (inpainting so far)."""
+"""Training of the port: segmentation and inpainting."""
 
 from text_segmentation_image_inpainting_tpu_torch.train.config import (
     InpaintTrainConfig,
@@ -9,9 +9,14 @@ from text_segmentation_image_inpainting_tpu_torch.train.inpaint import (
     make_inpaint_eval_step,
     make_inpaint_train_step,
 )
+from text_segmentation_image_inpainting_tpu_torch.train.seg import (
+    make_seg_eval_step,
+    make_seg_train_step,
+)
 from text_segmentation_image_inpainting_tpu_torch.train.state import (
     TrainState,
     create_train_state,
+    freeze_mask_for,
     make_optimizer,
 )
 
@@ -21,7 +26,10 @@ __all__ = [
     "SegTrainConfig",
     "TrainState",
     "create_train_state",
+    "freeze_mask_for",
     "make_inpaint_eval_step",
     "make_inpaint_train_step",
     "make_optimizer",
+    "make_seg_eval_step",
+    "make_seg_train_step",
 ]

@@ -1,0 +1,61 @@
+"""The training CLIs' loop: resume, step, log, checkpoint.
+
+Shared by ``run_inpaint`` and ``run_seg``, as the JAX CLIs share theirs
+line for line: one JSON line per ``log_every`` window with the step's
+metrics, held-out eval and training pages/s (the first step after a
+start or resume, which builds the kernels and warms up, is not timed).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+
+from text_segmentation_image_inpainting_tpu_torch.data.pipeline import to_device
+from text_segmentation_image_inpainting_tpu_torch.train.checkpoint import CheckpointManager
+from text_segmentation_image_inpainting_tpu_torch.train.val import scored_eval
+
+
+def train_loop(state, train_step, eval_step, host_it, val_batches, cfg, *, steps: int,
+               ckpt_dir: str, device):
+    """Resume ``state`` from the latest checkpoint in ``ckpt_dir``, then
+    run ``train_step`` on batches of ``host_it`` up to ``steps`` updates.
+    Returns the state."""
+    ckpt = CheckpointManager(ckpt_dir, save_interval_steps=cfg.checkpoint_every)
+    state, restored_step = ckpt.restore_latest(state)
+    if restored_step is not None:
+        print(f"resumed from step {restored_step}")
+    first_step = state.step
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.time()
+    window_start = first_step
+    for step in range(first_step, steps):
+        batch = to_device(next(host_it), device)
+        state, metrics = train_step(state, batch)
+        done = step + 1
+        if step == first_step:
+            sync()
+            t0 = time.time()
+            window_start = done
+        if done % cfg.log_every == 0:
+            sync()
+            train_elapsed = time.time() - t0
+            m = {k: float(v) for k, v in metrics.items()}
+            m.update(scored_eval(eval_step, state, val_batches) if val_batches
+                     else scored_eval(eval_step, state, [batch], prefix=""))
+            if done > window_start:
+                m["pages_per_sec"] = (done - window_start) * cfg.batch_size / max(train_elapsed, 1e-9)
+            print(json.dumps({"step": done, **m}), flush=True)
+            t0 = time.time()
+            window_start = done
+        ckpt.save(done, state)
+    ckpt.wait()
+    ckpt.close()
+    print("done:", state.step, "steps")
+    return state

@@ -15,16 +15,10 @@ Flags whose machinery is not ported yet raise ``SystemExit``.
 from __future__ import annotations
 
 import argparse
-import json
-import time
 
 import torch
 
-from text_segmentation_image_inpainting_tpu_torch.data.pipeline import (
-    list_image_paths,
-    make_dataset,
-    to_device,
-)
+from text_segmentation_image_inpainting_tpu_torch.data.pipeline import list_image_paths, make_dataset
 from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import (
     InpaintLossConfig,
     make_vgg,
@@ -34,7 +28,6 @@ from text_segmentation_image_inpainting_tpu_torch.models.vgg import (
     VGG16Features,
     load_vgg16_state_dict,
 )
-from text_segmentation_image_inpainting_tpu_torch.train.checkpoint import CheckpointManager
 from text_segmentation_image_inpainting_tpu_torch.train.config import (
     InpaintTrainConfig,
     OptimizerConfig,
@@ -43,8 +36,9 @@ from text_segmentation_image_inpainting_tpu_torch.train.inpaint import (
     make_inpaint_eval_step,
     make_inpaint_train_step,
 )
+from text_segmentation_image_inpainting_tpu_torch.train.loop import train_loop
 from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
-from text_segmentation_image_inpainting_tpu_torch.train.val import make_val_batches, scored_eval
+from text_segmentation_image_inpainting_tpu_torch.train.val import make_val_batches
 
 
 def parse_args(argv=None):
@@ -142,47 +136,13 @@ def main(argv=None):
     host_it = make_dataset("inpaint", batch_size=cfg.batch_size, size=cfg.image_size,
                            seed=args.seed, paths=paths)
 
-    state = create_train_state(model, cfg.optimizer)
-    ckpt = CheckpointManager(args.ckpt_dir, save_interval_steps=cfg.checkpoint_every)
-    state, restored_step = ckpt.restore_latest(state)
-    if restored_step is not None:
-        print(f"resumed from step {restored_step}")
-    first_step = state.step
-
-    train_step = make_inpaint_train_step(model, cfg, vgg)
-    eval_step = make_inpaint_eval_step(model)
     # a fixed held-out set from a disjoint seed stream
     val_batches = make_val_batches("inpaint", cfg, seed=args.seed + 100_000, n=args.val_batches,
                                    device=device, paths=paths)
-
-    t0 = time.time()
-    window_start = first_step
-    for step in range(first_step, args.steps):
-        batch = to_device(next(host_it), device)
-        state, terms = train_step(state, batch)
-        done = step + 1
-        if step == first_step:
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            t0 = time.time()  # the first step (kernel build, warm-up) is not timed
-            window_start = done
-        if done % cfg.log_every == 0:
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            train_elapsed = time.time() - t0
-            m = {k: float(v) for k, v in terms.items()}
-            m.update(scored_eval(eval_step, state, val_batches) if val_batches
-                     else scored_eval(eval_step, state, [batch], prefix=""))
-            if done > window_start:
-                m["pages_per_sec"] = (done - window_start) * cfg.batch_size / max(train_elapsed, 1e-9)
-            print(json.dumps({"step": done, **m}), flush=True)
-            t0 = time.time()
-            window_start = done
-        ckpt.save(done, state)
-    ckpt.wait()
-    ckpt.close()
-    print("done:", state.step, "steps")
-    return state
+    return train_loop(create_train_state(model, cfg.optimizer),
+                      make_inpaint_train_step(model, cfg, vgg), make_inpaint_eval_step(model),
+                      host_it, val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir,
+                      device=device)
 
 
 if __name__ == "__main__":

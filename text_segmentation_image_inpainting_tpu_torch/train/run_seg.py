@@ -1,0 +1,134 @@
+"""The segmentation training CLI, the port's counterpart of
+``text_segmentation_image_inpainting_tpu/train/run_seg.py``.
+
+    python -m text_segmentation_image_inpainting_tpu_torch.train.run_seg \\
+        --steps 1000 --batch-size 8 --ckpt-dir checkpoints/seg
+
+The same flags as the JAX CLI. Runs on the first CUDA device when there
+is one, else on the CPU. ``--custom-wgrad`` sets
+``ops/depthwise.py::USE_CUSTOM_WGRAD``, so the encoder's depthwise weight
+gradients run on kernel K6 (off by default, as in JAX). Train with
+``--freeze-encoder`` for the staged fine-tune. Logs one JSON line per
+``--log-every`` window to stdout. Flags whose machinery is not ported yet
+raise ``SystemExit``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from text_segmentation_image_inpainting_tpu_torch.data.pipeline import list_image_paths, make_dataset
+from text_segmentation_image_inpainting_tpu_torch.models import TextSegmenter
+from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
+from text_segmentation_image_inpainting_tpu_torch.train.config import (
+    OptimizerConfig,
+    SegTrainConfig,
+)
+from text_segmentation_image_inpainting_tpu_torch.train.seg import (
+    make_seg_eval_step,
+    make_seg_train_step,
+)
+from text_segmentation_image_inpainting_tpu_torch.train.loop import train_loop
+from text_segmentation_image_inpainting_tpu_torch.train.state import (
+    create_train_state,
+    freeze_mask_for,
+)
+from text_segmentation_image_inpainting_tpu_torch.train.val import make_val_batches
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--image-size", type=int, default=512)
+    p.add_argument("--width-mult", type=float, default=1.0)
+    p.add_argument("--backbone", choices=("mobilenet_v2", "xception"), default="mobilenet_v2",
+                   help="only mobilenet_v2: xception is not ported yet (ROADMAP Queue 1 item 13)")
+    p.add_argument("--head", choices=("mini", "deeplab"), default="mini",
+                   help="only mini: deeplab is not ported yet (ROADMAP Queue 1 item 13)")
+    p.add_argument("--output-stride", type=int, default=8, choices=(8, 16, 32))
+    p.add_argument("--decoder-mid", type=int, default=128)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--pos-weight", type=float, default=3.0)
+    p.add_argument("--freeze-encoder", action="store_true")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="only 1: accumulation waits for train/accum.py (ROADMAP Queue 1 item 10)")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="only 1: multi-step dispatch waits for train/multistep.py "
+                        "(ROADMAP Queue 1 item 10)")
+    p.add_argument("--bf16", action="store_true", default=True)
+    p.add_argument("--no-bf16", dest="bf16", action="store_false")
+    p.add_argument("--custom-wgrad", action="store_true", default=False,
+                   help="depthwise weight gradients on kernel K6 (csrc/depthwise_wgrad.cu)")
+    p.add_argument("--ckpt-dir", type=str, default="checkpoints/seg")
+    p.add_argument("--data-dir", type=str, default=None, help="image folder; synthetic if unset")
+    p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--ckpt-every", type=int, default=500)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--val-batches", type=int, default=2,
+                   help="held-out val batches scored every --log-every window "
+                        "(0 = score the train batch)")
+    p.add_argument("--export", type=str, default=None,
+                   help="not ported yet (ROADMAP Queue 1 item 10): refused")
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args) -> None:
+    if args.backbone != "mobilenet_v2" or args.head != "mini":
+        raise SystemExit("--backbone xception / --head deeplab: the experiment tracks are not "
+                         "ported (ROADMAP Queue 1 item 13)")
+    if args.grad_accum != 1:
+        raise SystemExit("--grad-accum > 1: gradient accumulation is not ported "
+                         "(ROADMAP Queue 1 item 10, train/accum.py)")
+    if args.steps_per_dispatch != 1:
+        raise SystemExit("--steps-per-dispatch > 1: multi-step dispatch is not ported "
+                         "(ROADMAP Queue 1 item 10, train/multistep.py)")
+    if args.export:
+        raise SystemExit("--export: the model snapshot is not ported "
+                         "(ROADMAP Queue 1 item 10, models/base.py)")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    _refuse_unported(args)
+    cfg = SegTrainConfig(
+        image_size=(args.image_size, args.image_size),
+        batch_size=args.batch_size,
+        width_mult=args.width_mult,
+        backbone=args.backbone,
+        head=args.head,
+        output_stride=args.output_stride,
+        decoder_mid=args.decoder_mid,
+        pos_weight=args.pos_weight,
+        freeze_encoder=args.freeze_encoder,
+        grad_accum=args.grad_accum,
+        bf16_compute=args.bf16,
+        optimizer=OptimizerConfig(learning_rate=args.lr),
+        checkpoint_every=args.ckpt_every,
+        log_every=args.log_every,
+    )
+    if args.custom_wgrad:
+        depthwise.USE_CUSTOM_WGRAD = True  # read at every forward (ops/depthwise.py)
+    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    dtype = torch.bfloat16 if cfg.bf16_compute else torch.float32
+    model = TextSegmenter(width_mult=cfg.width_mult, output_stride=cfg.output_stride,
+                          decoder_mid=cfg.decoder_mid, dtype=dtype)
+    model = model.init_weights(torch.Generator().manual_seed(args.seed)).to(device)
+
+    paths = list_image_paths(args.data_dir) if args.data_dir else None
+    host_it = make_dataset("seg", batch_size=cfg.batch_size, size=cfg.image_size,
+                           seed=args.seed, paths=paths)
+
+    frozen = freeze_mask_for(model, "encoder") if cfg.freeze_encoder else frozenset()
+    # a fixed held-out set from a disjoint seed stream
+    val_batches = make_val_batches("seg", cfg, seed=args.seed + 100_000, n=args.val_batches,
+                                   device=device, paths=paths)
+    return train_loop(create_train_state(model, cfg.optimizer, frozen=frozen),
+                      make_seg_train_step(model, cfg), make_seg_eval_step(model), host_it,
+                      val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,75 @@
+"""Segmentation training step.
+
+Counterpart of ``text_segmentation_image_inpainting_tpu/train/seg.py``:
+forward through the segmenter in training mode (BatchNorm moves its
+statistics, with ``freeze_encoder`` too, as in JAX), BCE + dice, backward,
+one optimizer update. With ``ops/depthwise.py::USE_CUSTOM_WGRAD`` on, the
+encoder's stride-1 depthwise convs with C >= 128 take their weight
+gradient from K6.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from text_segmentation_image_inpainting_tpu_torch.losses.segmentation import segmentation_loss
+from text_segmentation_image_inpainting_tpu_torch.train.config import SegTrainConfig
+from text_segmentation_image_inpainting_tpu_torch.train.state import TrainState
+
+
+def make_seg_train_step(model, cfg: SegTrainConfig):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    batch: {'image': (N,H,W,3) float, 'mask': (N,H,W,1) in {0,1}}.
+    metrics: the loss terms and ``grad_norm``, detached.
+    """
+    if cfg.grad_accum > 1:
+        raise NotImplementedError("grad_accum > 1 waits for the port of train/accum.py "
+                                  "(ROADMAP Queue 1 item 10)")
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model.train()
+        logits = model(batch["image"])
+        loss, terms = segmentation_loss(
+            logits, batch["mask"], bce_weight=cfg.bce_weight, dice_weight=cfg.dice_weight,
+            focal_weight=cfg.focal_weight, pos_weight=cfg.pos_weight,
+        )
+        loss.backward()
+        # before apply_gradients, which clips in place: JAX takes the norm of
+        # the raw gradients of every parameter, frozen ones included
+        grads = [p.grad for p in state.clip_params if p.grad is not None]
+        grad_norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+        state.apply_gradients()
+        metrics = {k: v.detach() for k, v in terms.items()}
+        metrics["grad_norm"] = grad_norm
+        return state, metrics
+
+    return train_step
+
+
+def make_seg_eval_step(model, *, threshold: float = 0.5):
+    """eval_step(state, batch) -> IoU, precision and recall of the batch.
+
+    It thresholds ``sigmoid`` of the f32 logits, as JAX's eval step does
+    (the page pipeline thresholds in logit space instead; the two are
+    kept apart on purpose)."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch):
+        model.eval()
+        logits = model(batch["image"])
+        pred = (torch.sigmoid(logits.float()) > threshold).float()
+        gt = batch["mask"].float()
+        tp = (pred * gt).sum()
+        fp = (pred * (1 - gt)).sum()
+        fn = ((1 - pred) * gt).sum()
+        eps = 1e-6
+        return {
+            "iou": tp / (tp + fp + fn + eps),
+            "precision": tp / (tp + fp + eps),
+            "recall": tp / (tp + fn + eps),
+        }
+
+    return eval_step

@@ -102,14 +102,17 @@ class TrainState:
     step: int = 0
 
     def apply_gradients(self) -> None:
-        """Clip, update, advance the schedule, clear the gradients."""
+        """Clip, update, advance the schedule, clear the gradients (of
+        frozen parameters too, which the optimizer does not hold: the next
+        step's clip and ``grad_norm`` must not see them accumulate)."""
         if self.grad_clip_norm:
             grads = [p for p in self.clip_params if p.grad is not None]
             torch.nn.utils.clip_grad_norm_(grads, self.grad_clip_norm)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        for p in self.clip_params:
+            p.grad = None
         self.step += 1
 
     def state_dict(self) -> dict:
