@@ -14,7 +14,10 @@ that its depthwise weight gradients run on K6), weights from a seeded
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds csrc/*.cu into the package's _build/ directory
   3. parity   K1 and K2 against their plain PyTorch version at the eight
-              shapes the U-Net gives them, on the card
+              shapes the U-Net gives them, on the card; K1 also at a
+              ragged shape and with one mask group, on an all-hole page
+              (exactly 0) and twice on the same inputs (bit-identical) at
+              a split-K level, a one-pass level and a halo-form level
   4. pipeline ``run`` and ``inpaint`` once each with the launch counters
               reset: K1 must run 7 times and K2 once per U-Net forward;
               outputs finite, masks binary, non-text pixels bit-identical
@@ -39,8 +42,10 @@ that its depthwise weight gradients run on K6), weights from a seeded
               BN statistic moved, and with ``freeze_encoder`` (the third
               step) the encoder's parameters not
   7. timing   CUDA events, median after warm-up: each kernel against
-              its plain version per shape (K6 also against cuDNN's bf16
-              wgrad), ``run`` in pages/s, the train steps in pages/s (the
+              its plain version per shape, beside one cuDNN call of the
+              same product as a yardstick (never called by the port) and
+              the least time the card could take (``bound``),
+              ``run`` in pages/s, the train steps in pages/s (the
               seg step with the flag on and off, alternating); then
               torch.profiler over ``run`` and over each train step: the
               device's busy share and the kernels that take the most time
@@ -100,6 +105,24 @@ K6_RAGGED = (
     ("f32, k 5, d 4, 19x70, C 130", 1, 19, 70, 130, 5, 4, torch.float32),
     ("4x4, d 4, C 128", 2, 4, 4, 128, 3, 4, torch.bfloat16),
 )
+
+# K1 away from the U-Net's shapes: (name, N, H, W, group sizes, Cout).
+# Groups off the 8-channel chunk, Cin off the 64-channel K step, Cout off
+# every tile and an odd map (split K); one mask group; the halo form at
+# both its tile widths, ragged.
+K1_EXTRA = (
+    ("ragged: Cin 200 = 123 + 77, Cout 72, 37x29", 3, 37, 29, (123, 77), 72),
+    ("G 1: Cin 256, Cout 256, 16x24", 2, 16, 24, (256,), 256),
+    ("halo form, width 128: Cin 200 = 123 + 77, Cout 72, 3x128", 2, 3, 128, (123, 77), 72),
+    ("halo form, width 64, G 1: Cin 96, Cout 40, 6x64", 2, 6, 64, (96,), 40),
+    ("halo form, BM 256: Cin 200 = 123 + 77, Cout 40, 66x256", 2, 66, 256, (123, 77), 40),
+)
+# The card's peak rate and memory rate (NVIDIA's H100 SXM data sheet,
+# dense, at 700 W): the least time of a kernel is the larger of its
+# operations over the peak of their inputs' type (bf16 for every kernel
+# timed here) and its bytes over the rate.
+PEAK_BF16 = 989e12
+HBM_BYTES_PER_S = 3.35e12
 
 # The stride-1 partial convs of InpaintUNet(depth=8) at 512^2 pages:
 # (layer, H = W, C_lo, C_skip, Cout). Decoder levels have no bias; the
@@ -180,6 +203,25 @@ def check_close(name: str, got, want, *, require_empty: bool = False) -> float:
 
 def rel_l2(a: torch.Tensor, ref: torch.Tensor) -> float:
     return ((a.float() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def bound(flop: float, nbytes: float, peak: float = PEAK_BF16) -> tuple:
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for ``flop`` operations at ``peak`` and ``nbytes`` moved once."""
+    t_op, t_mem = flop / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+
+def pconv_work(x, mask, w) -> tuple:
+    """(FLOP, bytes) of one stride-1, same-size partial conv: 2 P Cout k^2
+    Cin multiply-adds; x, the mask and the weights read once, y and M'
+    written once, all bf16."""
+    n, h, wd, cin = x.shape
+    cout, _, k, _ = w.shape
+    p = n * h * wd
+    flop = 2.0 * p * cout * k * k * cin
+    nbytes = 2.0 * (x.numel() + mask.numel() + w.numel() + p * cout + p)
+    return flop, nbytes
 
 
 def check_grads(name, x, mask, w, b, g, kw) -> float:
@@ -322,6 +364,29 @@ def cuda_ms(fn, iters: int = ITERS, warmup: int = WARMUP) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, prefix: str = "", runs: int = 10) -> float:
+    """Device time per call of ``fn`` spent in kernels named ``prefix...``
+    (torch.profiler; K1's are ``pconv_k1<BN, MT>``, ``pconv_k1_halo<BN,
+    MT>`` and ``pconv_k1_reduce``; every kernel for ``prefix`` ""): the
+    kernels alone, without the host time that a CUDA-event measurement of
+    a short call also sees."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler window now and then records no kernel at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and (not prefix or f"::{prefix}" in e.key))
+        if total > 0:
+            return total / 1e3 / runs
+    raise RuntimeError(f"torch.profiler recorded no {prefix or 'kernel'} in three windows")
+
+
 def main() -> int:
     # 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -377,6 +442,7 @@ def main() -> int:
         log(f"parity {kname} {name}: x {tuple(x.shape)} -> y {tuple(got[0].shape)}, "
             f"M' bit-exact, {empty} empty windows exactly 0, max|dy| {err:.4g}")
         cases.append((kname, name, x, mask, w, b, kw, err))
+    k1_extra(dev, rng, gen, cases)
 
     # 4. pipeline -----------------------------------------------------------
     pipe = TextRemovalPipeline().init_weights(torch.Generator().manual_seed(SEED))
@@ -448,24 +514,60 @@ def main() -> int:
     sg = seg_phase(dev, rng)
 
     # 7. timing -------------------------------------------------------------
-    totals = {"K1": [0.0, 0.0, 0.0, 0], "K2": [0.0, 0.0, 0.0, 0]}  # ms, plain ms, max err, n
+    from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import apply_mask
+
+    # per kernel: ms, plain ms, max err, shapes, library ms, bound ms, bf16 twin ms
+    totals = {kn: {"ms": 0.0, "plain": 0.0, "err": 0.0, "n": 0, "lib": 0.0, "bound": 0.0,
+                   "twin": 0.0, "flop": 0.0} for kn in ("K1", "K2")}
     for kname, name, x, mask, w, b, kw, err in cases:
         plain = lambda: kpc.partial_conv2d_reference(x, mask, w, b, **kw)  # noqa: E731
-        kern = lambda: kpc.partial_conv2d_fused(x, mask, w, b, **kw)  # noqa: E731
+        # the kernel as the U-Net's modules call it: bf16 weights, which the
+        # wrapper re-lays in every call (K1); the re-lay also timed alone
+        wb16 = w.to(torch.bfloat16)
+        kern = lambda: kpc.partial_conv2d_fused(x, mask, wb16, b, **kw)  # noqa: E731
         twin = lambda: _partial_conv2d_plain(  # noqa: E731
             x, mask, w, b, kw["group_sizes"], (1, 1), kw["padding"], (1, 1)
         )
+        # the yardstick: cuDNN's bf16 product alone, on x already masked,
+        # channels-last (never called by the port)
+        xm = apply_mask(x, mask, kw["group_sizes"]).permute(0, 3, 1, 2)
+        wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        lib = lambda: torch.nn.functional.conv2d(xm, wb, padding=kw["padding"])  # noqa: E731
         p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-        t_twin = cuda_ms(twin)
+        t_twin, t_lib = cuda_ms(twin), cuda_ms(lib)
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        flop = 2.0 * x.shape[0] * x.shape[1] * x.shape[2] * w.shape[0] * w.shape[1] * 9
+        flop, nbytes = pconv_work(x, mask, w)
+        if kname == "K1":
+            b_ms, b_by = bound(flop, nbytes)
+            relay = device_ms(lambda: kpc.k1_weight_relayout(wb16, kw["group_sizes"]))
+            plan = kpc.k1_plan(*x.shape[:3], w.shape[0], kpc.k1_channels(kw["group_sizes"])[2],
+                               w.shape[2], kw["padding"][0])
+            dev_ms = device_ms(kern, "pconv_k1")
+            totals["K1"]["device"] = totals["K1"].get("device", 0.0) + dev_ms
+            extra = (f", {plan}; device time {dev_ms:.4f} ms "
+                     f"({flop / dev_ms / 1e9:.1f} TFLOP/s); the weight re-lay in each call "
+                     f"{relay:.4f} ms of device time ({relay / dev_ms:.1%} of K1's)")
+        else:
+            b_ms, b_by = bound(flop, nbytes)
+            extra = ""
         log(f"time {kname} {name}: kernel {k_ms:.4f} ms ({flop / k_ms / 1e9:.1f} TFLOP/s), "
-            f"plain f32 {p_ms:.4f} ms, plain bf16 cuDNN {t_twin:.4f} ms")
+            f"plain f32 {p_ms:.4f} ms, plain bf16 cuDNN twin {t_twin:.4f} ms, cuDNN bf16 conv "
+            f"alone {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}){extra}")
         t = totals[kname]
-        t[0] += k_ms
-        t[1] += p_ms
-        t[2] = max(t[2], err)
-        t[3] += 1
+        for key, v in (("ms", k_ms), ("plain", p_ms), ("lib", t_lib), ("bound", b_ms),
+                       ("twin", t_twin), ("flop", flop)):
+            t[key] += v
+        t["err"] = max(t["err"], err)
+        t["n"] += 1
+        t["by"] = b_by
+    # the last case's temporaries (the head's masked x: 281 MB) would count
+    # in the train step's peak memory below
+    del xm, wb, wb16, plain, kern, twin, lib
+    t = totals["K1"]
+    log(f"time K1 (sum over the {t['n']} decoder levels): kernel {t['ms']:.4f} ms "
+        f"({t['flop'] / t['ms'] / 1e9:.1f} TFLOP/s), device time {t['device']:.4f} ms "
+        f"({t['flop'] / t['device'] / 1e9:.1f} TFLOP/s), plain f32 {t['plain']:.4f} ms, bf16 twin "
+        f"{t['twin']:.4f} ms, cuDNN bf16 conv alone {t['lib']:.4f} ms, bound {t['bound']:.4f} ms")
 
     def run():
         pipe.run(pages)
@@ -478,38 +580,80 @@ def main() -> int:
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_run(run, "run")
     stem_times = time_train(tr)
-    k6_ms, k6_plain_ms = time_seg(sg)
+    k6 = time_seg(sg)
 
     kernels = []
     for kname, line, fn in (("K1", 184, "pconv_k1"), ("K2", 415, "pconv_k2")):
-        ms, plain_ms, err, n = totals[kname]
-        log(f"{kname}: {n} shape(s), ms and plain_ms are sums over them (one U-Net forward); "
-            f"launches from the pipeline run, {tr['launches'][kname]} per train step")
+        t = totals[kname]
+        log(f"{kname}: {t['n']} shape(s), ms, plain_ms, library_ms and bound_ms are sums over "
+            f"them (one U-Net forward); launches from the pipeline run, "
+            f"{tr['launches'][kname]} per train step")
         kernels.append({
             "name": f"{kname} {fn}", "route": "cuda", "source": CSRC,
             "replaces": f"{TPU_KERNEL}:{line}", "launches": launches[kname],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain"],
+            "bound_ms": t["bound"], "bound_by": t["by"], "library_ms": t["lib"],
         })
     for kname, fn, tpu in (("K4", "stem_dx", f"{TPU_STEM_BWD}:366"),
                            ("K5", "stem_pool", f"{TPU_STEM}:191")):
-        ms, plain_ms = stem_times[kname]
+        st = stem_times[kname]
         log(f"{kname}: launches from the first train step")
         kernels.append({
             "name": f"{kname} {fn}", "route": "cuda", "source": CSRC_STEM, "replaces": tpu,
             "launches": tr["launches"][kname], "max_abs_err": tr["err"][kname],
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": st["ms"], "plain_ms": st["plain"], "bound_ms": st["bound"],
+            "bound_by": st["by"], "library_ms": st["lib"],
         })
     log("K6: 5 shape(s), ms and plain_ms are sums over one seg train step's 14 launches; "
         "launches from the first seg step, max_abs_err K6 against the plain at those shapes")
     kernels.append({
         "name": "K6 dw_wgrad", "route": "cuda", "source": CSRC_DW, "replaces": f"{TPU_DW}:144",
         "launches": sg["launches"], "max_abs_err": max(r["vs_plain"] for *_, r in sg["k6"]),
-        "ms": k6_ms, "plain_ms": k6_plain_ms,
+        "ms": k6["ms"], "plain_ms": k6["plain"], "bound_ms": k6["bound"], "bound_by": k6["by"],
+        "library_ms": k6["lib"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def k1_extra(dev, rng, gen, cases) -> None:
+    """K1 where the U-Net's shapes do not reach: ``K1_EXTRA`` against the
+    plain version; an all-hole page, whose output must be exactly 0 even
+    with an infinite x in the holes; and two launches on the same inputs,
+    bit-identical, at a split-K level (dec7), a one-pass level (dec3) and
+    a level of the halo form (dec1)."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+
+    for name, n, h, w, groups, cout in K1_EXTRA:
+        cin = sum(groups)
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(torch.bfloat16)
+        m = torch.from_numpy(rng.random((n, h, w, len(groups))) < 0.6).to(dev, torch.bfloat16)
+        m[0, :3, :3] = 0
+        wt = torch.randn((cout, cin, 3, 3), generator=gen, device=dev) * (2.0 / (9 * cin)) ** 0.5
+        kw = dict(group_sizes=groups, padding=(1, 1))
+        plan = kpc.k1_plan(n, h, w, cout, kpc.k1_channels(groups)[2], 3, 1)
+        err = check_close(f"K1 {name}", kpc.partial_conv2d_fused(x, m, wt, None, **kw),
+                          kpc.partial_conv2d_reference(x, m, wt, None, **kw), require_empty=True)
+        log(f"parity K1 {name}: {plan}, M' bit-exact, max|dy| {err:.4g}")
+    for _, name, x, mask, w, b, kw, _ in cases:
+        if name not in ("dec7", "dec3", "dec1"):
+            continue
+        hole = torch.zeros_like(mask)
+        xi = x.clone()
+        xi[0, 0, 0, 0] = float("inf")
+        y, m_out = kpc.partial_conv2d_fused(xi, hole, w, b, **kw)
+        first = kpc.partial_conv2d_fused(x, mask, w, b, **kw)
+        again = kpc.partial_conv2d_fused(x, mask, w, b, **kw)
+        torch.cuda.synchronize()
+        if not ((y == 0).all() and (m_out == 0).all()):
+            raise AssertionError(f"K1 {name}: an all-hole page gave a nonzero output or M'")
+        if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
+            raise AssertionError(f"K1 {name}: two launches on the same inputs differ")
+        plan = kpc.k1_plan(*x.shape[:3], w.shape[0], x.shape[3], 3, 1)
+        log(f"parity K1 {name} ({plan}): all-hole page exactly 0 (x inf in a hole), two "
+            f"launches bit-identical")
 
 
 def train_phase(dev, rng, cases) -> dict:
@@ -617,16 +761,28 @@ def train_phase(dev, rng, cases) -> dict:
 
 def time_train(tr) -> dict:
     """Phase 6, train part: K3 per shape, K4, K5 and the train step.
-    Returns {kernel: (ms, plain ms)} for K4 and K5."""
+    Returns {kernel: {ms, plain, lib, bound, by}} for K4 and K5."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
-    from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import _partial_conv2d_plain
+    from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
+        _partial_conv2d_plain,
+        apply_mask,
+    )
 
     bf = torch.bfloat16
-    tot = [0.0, 0.0, 0.0]
+    tot = [0.0, 0.0, 0.0, 0.0, 0.0]  # K3, plain f32, bf16 twin, cuDNN backward alone, bound
     for name, x, mask, w, b, kw, g in tr["k3"]:
         wb = w.to(bf)
         bb = None if b is None else b.to(bf)
+        # the yardstick: cuDNN's dgrad and wgrad of the bf16 product in one
+        # call, on x already masked and g as the scaled cotangent would be
+        xm = apply_mask(x, mask, kw["group_sizes"]).permute(0, 3, 1, 2)
+        pad = list(kw["padding"])
+        lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            g.permute(0, 3, 1, 2), xm, wb, None, [1, 1], pad, [1, 1], False, [0, 0], 1,
+            [True, True, False])
+        flop, nbytes = pconv_work(x, mask, w)
+        b_ms, _ = bound(2.0 * flop, 2.0 * nbytes)  # dx and dW: two products of the forward's size
 
         def grad_of(fn):
             """Autograd of ``fn(x, w, b)`` with the graph built once."""
@@ -640,15 +796,18 @@ def time_train(tr) -> dict:
         twin = grad_of(lambda xx, ww, bbb: _partial_conv2d_plain(
             xx, mask, ww, bbb, kw["group_sizes"], (1, 1), kw["padding"], (1, 1)))
         p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-        t_twin = cuda_ms(twin)
+        t_twin, t_lib = cuda_ms(twin), cuda_ms(lib)
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
         log(f"time K3 {name}: backward {k_ms:.4f} ms, autograd of the plain f32 version "
-            f"{p_ms:.4f} ms, autograd of the bf16 cuDNN twin {t_twin:.4f} ms")
-        tot[0] += k_ms
-        tot[1] += p_ms
-        tot[2] += t_twin
+            f"{p_ms:.4f} ms, autograd of the bf16 cuDNN twin {t_twin:.4f} ms, cuDNN's bf16 "
+            f"backward alone {t_lib:.4f} ms, bound {b_ms:.4f} ms")
+        for i, t in enumerate((k_ms, p_ms, t_twin, t_lib, b_ms)):
+            tot[i] += t
+    del xm, lib  # the head's masked x (281 MB) would count in the step's peak below
     log(f"time K3 (sum over the 8 shapes, one U-Net backward): {tot[0]:.4f} ms, plain f32 "
-        f"{tot[1]:.4f} ms, bf16 cuDNN twin {tot[2]:.4f} ms")
+        f"{tot[1]:.4f} ms, bf16 cuDNN twin {tot[2]:.4f} ms, cuDNN's bf16 backward alone "
+        f"{tot[3]:.4f} ms, bound {tot[4]:.4f} ms (per layer the larger of operations and "
+        f"bytes)")
 
     xs, gs, w0, b0, w1, b1, z0 = tr["stem"]
     rb = [t.to(bf).float() for t in (w0, b0, w1, b1)]
@@ -661,26 +820,44 @@ def time_train(tr) -> dict:
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
     t_bwd = cuda_ms(bwd_only)
     t_f32 = cuda_ms(lambda: kvs.stem_dx_reference(xf, gf, *rb), iters=5, warmup=1)
-    k4 = ((k1 + k2) / 2, (p1 + p2) / 2)
-    flop = 2.0 * xs.shape[0] * xs.shape[1] * xs.shape[2] * 64 * 64 * 9 * 2
-    log(f"time K4 x {tuple(xs.shape)}: kernel {k4[0]:.4f} ms ({flop / k4[0] / 1e9:.1f} TFLOP/s "
-        f"of the two useful 64->64 products), plain bf16 cuDNN forward+backward {k4[1]:.4f} ms, "
-        f"its backward alone {t_bwd:.4f} ms, plain f32 forward+backward {t_f32:.4f} ms")
+    k4 = {"ms": (k1 + k2) / 2, "plain": (p1 + p2) / 2, "lib": t_bwd}
+    px = xs.shape[0] * xs.shape[1] * xs.shape[2]
+    flop = 2.0 * px * 64 * 64 * 9 * 2
+    # the bound counts all four products: conv1's forward and dgrad (flop)
+    # and conv0's, 2 * 2 * px * 64 * 27; bytes: x, g and the weights read
+    # once, dx (f32) written once
+    k4["bound"], k4["by"] = bound(flop + 4.0 * px * 64 * 27,
+                                  2.0 * (xs.numel() + gs.numel() + w0.numel() + w1.numel())
+                                  + 4.0 * xs.numel())
+    log(f"time K4 x {tuple(xs.shape)}: kernel {k4['ms']:.4f} ms ({flop / k4['ms'] / 1e9:.1f} "
+        f"TFLOP/s of the two useful 64->64 products), plain bf16 cuDNN forward+backward "
+        f"{k4['plain']:.4f} ms, its backward alone {t_bwd:.4f} ms, plain f32 forward+backward "
+        f"{t_f32:.4f} ms, bound {k4['bound']:.4f} ms ({k4['by']})")
     del out, xr
     kern = lambda: kvs.stem_pool(z0, w1, b1)  # noqa: E731
     plain = lambda: kvs.stem_pool_reference(z0, w1, b1)  # noqa: E731
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-    k5 = ((k1 + k2) / 2, (p1 + p2) / 2)
+    z0n = z0.permute(0, 3, 1, 2)  # channels-last view
+    w1b = w1.to(bf).contiguous(memory_format=torch.channels_last)
+    t_conv = cuda_ms(lambda: torch.nn.functional.conv2d(z0n, w1b, padding=1))
+    k5 = {"ms": (k1 + k2) / 2, "plain": (p1 + p2) / 2, "lib": t_conv}
     flop = 2.0 * z0.shape[0] * z0.shape[1] * z0.shape[2] * 64 * 64 * 9
-    log(f"time K5 z0 {tuple(z0.shape)}: kernel {k5[0]:.4f} ms ({flop / k5[0] / 1e9:.1f} TFLOP/s), "
-        f"plain bf16 cuDNN {k5[1]:.4f} ms")
+    k5["bound"], k5["by"] = bound(flop, 2.0 * (z0.numel() * 5 / 4 + w1.numel()))
+    log(f"time K5 z0 {tuple(z0.shape)}: kernel {k5['ms']:.4f} ms ({flop / k5['ms'] / 1e9:.1f} "
+        f"TFLOP/s), plain bf16 cuDNN {k5['plain']:.4f} ms, cuDNN bf16 conv1 alone {t_conv:.4f} "
+        f"ms, bound {k5['bound']:.4f} ms ({k5['by']})")
 
     step, state, batch = tr["step"], tr["state"], tr["batch"]
+    # the peak counts what is held before the step too: the model, Adam's
+    # state, the batch, and this script's own test tensors (``before``)
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(lambda: step(state, batch), iters=TRAIN_ITERS, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
     log(f"time train step: {step_ms:.3f} ms per batch of {BATCH} (median of {TRAIN_ITERS}) = "
         f"{BATCH / step_ms * 1e3:.2f} training pages/s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{peak / 2**30:.2f} GiB, of which {before / 2**30:.3f} GiB held before the step "
+        f"({(peak - before) / 2**30:.3f} GiB above it)")
     profile_run(lambda: step(state, batch), "train step", runs=2)
     return {"K4": k4, "K5": k5}
 
@@ -851,13 +1028,13 @@ def seg_phase(dev, rng) -> dict:
     return {"k6": k6, "launches": first, "step": step, "state": states[False], "batch": batch}
 
 
-def time_seg(sg) -> tuple:
+def time_seg(sg) -> dict:
     """Phase 7, seg part: K6 per shape against its plain version and
     cuDNN's bf16 wgrad alone, and the two ways to the same layer's dx (the
     Function's flipped-kernel conv, cuDNN's dgrad); the seg train step
     with the flag on and off (on, off, off, on); torch.profiler over one
-    step each way. Returns K6's (ms, plain ms) summed over one step's 14
-    launches."""
+    step each way. Returns K6's {ms, plain, lib, bound, by}, times summed
+    over one step's 14 launches."""
     from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
     from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
@@ -884,29 +1061,36 @@ def time_seg(sg) -> tuple:
             f"{count} per step")
         for i, t in enumerate((k_ms, p_ms, t_cudnn, dx_flip, dx_dgrad)):
             tot[i] += count * t
+    # K6's bytes: x and dy read once per launch (dW is a few KB)
+    nbytes = sum(count * 2.0 * x.numel() * x.element_size() for _, x, _, _, count, _ in sg["k6"])
+    flop = sum(count * 2.0 * x.numel() * 9 for _, x, _, _, count, _ in sg["k6"])
+    k6 = {"ms": tot[0], "plain": tot[1], "lib": tot[2]}
+    k6["bound"], k6["by"] = bound(flop, nbytes)
     log(f"time K6 (one step's 14 launches): {tot[0]:.4f} ms, plain f32 {tot[1]:.4f} ms, cuDNN "
-        f"bf16 wgrad {tot[2]:.4f} ms; their dx: flipped-kernel conv {tot[3]:.4f} ms, cuDNN "
-        f"dgrad {tot[4]:.4f} ms")
+        f"bf16 wgrad {tot[2]:.4f} ms, bound {k6['bound']:.4f} ms ({k6['by']}); their dx: "
+        f"flipped-kernel conv {tot[3]:.4f} ms, cuDNN dgrad {tot[4]:.4f} ms")
 
     step, state, batch = sg["step"], sg["state"], sg["batch"]
     runs = []
     for flag in (True, False, False, True):
         depthwise.USE_CUSTOM_WGRAD = flag
+        before = torch.cuda.memory_allocated() / 2**30  # as in time_train
         torch.cuda.reset_peak_memory_stats()
         ms = cuda_ms(lambda: step(state, batch), iters=TRAIN_ITERS, warmup=2)
-        runs.append((flag, ms, torch.cuda.max_memory_allocated() / 2**30))
+        runs.append((flag, ms, torch.cuda.max_memory_allocated() / 2**30, before))
     for flag in (True, False):
-        ms = [m for f, m, _ in runs if f == flag]
-        peak = max(g for f, _, g in runs if f == flag)
+        ms = [m for f, m, *_ in runs if f == flag]
+        peak, before = max((g, b) for f, _, g, b in runs if f == flag)
         log(f"time seg step, flag {'on (K6)' if flag else 'off (cuDNN wgrad)'}: "
             + ", ".join(f"{m:.3f}" for m in ms) + f" ms per batch of {BATCH} (medians of "
             f"{TRAIN_ITERS}, order on/off/off/on) = {2 * BATCH / sum(ms) * 1e3:.2f} training "
-            f"pages/s; peak device memory {peak:.2f} GiB")
+            f"pages/s; peak device memory {peak:.2f} GiB, of which {before:.3f} GiB held before "
+            f"the step")
     for flag in (True, False):
         depthwise.USE_CUSTOM_WGRAD = flag
         profile_run(lambda: step(state, batch), f"seg step, flag {'on' if flag else 'off'}",
                     runs=1)
-    return tot[0], tot[1]
+    return k6
 
 
 def profile_run(fn, label: str, runs: int = 3) -> None:

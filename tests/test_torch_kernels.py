@@ -7,9 +7,10 @@ so tests/conftest.py cannot load:
     python -m pytest -m gpu --noconftest tests/test_torch_kernels.py
 
 Shapes are small but cover what the U-Net's shapes do not: G=1, square
-k of 1, 3, 5 and 7, Cin not a multiple of 8 (K1's scalar load path), Cout
-not a multiple of 8 (its scalar store path), every Cout of K2, bias on
-and off. The tolerance is chip_smoke.py's ``check_close``: M' bit-exact,
+k of 1, 3, 5 and 7, Cin and group sizes not a multiple of 8 (K1's
+re-laid x), Cout not a multiple of 8, every Cout of K2, bias on and off;
+K1 also at its split-K shapes, on an all-hole page and twice on the same
+inputs (bit-identical). The tolerance is chip_smoke.py's ``check_close``: M' bit-exact,
 y exactly 0 in empty windows, elsewhere one bf16 step of |y| plus 1e-3
 of max |y|. K3 (the backward), K4 (the VGG stem's dx) and K5 (its pooled
 forward) are held to f32 truth no worse than the bf16 plain version, with
@@ -23,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K6_RAGGED, check_close, check_grads, check_stem_dx, check_wgrad
+from chip_smoke import K1_EXTRA, K6_RAGGED, check_close, check_grads, check_stem_dx, check_wgrad
 from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet
 from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
@@ -61,8 +62,8 @@ def _case(dev, seed, n, h, w, groups, cout, k, bias):
     ((64,), 64, 3, False),
     ((32, 32), 128, 3, True),
     ((48, 16), 200, 3, False),   # two Cout tiles, the second partial
-    ((5, 14), 24, 3, True),      # Cin 19: scalar loads
-    ((16, 8), 12, 5, False),     # Cout 12: scalar stores; k 5
+    ((5, 14), 24, 3, True),      # Cin 19: groups off the 8-channel chunk (re-laid x)
+    ((16, 8), 12, 5, False),     # Cout 12: off the 8-channel tile; k 5
     ((40,), 16, 1, True),        # 1x1
 ])
 def test_k1_matches_plain(cuda, groups, cout, k, bias):
@@ -73,6 +74,44 @@ def test_k1_matches_plain(cuda, groups, cout, k, bias):
     torch.cuda.synchronize()
     assert kpc.K1_LAUNCHES == before + 1
     check_close("K1", got, kpc.partial_conv2d_reference(x, m, w, b, **kw), require_empty=True)
+
+
+@pytest.mark.parametrize("name,n,h,w,groups,cout", [
+    ("dec7 4x4, split K", 8, 4, 4, (512, 512), 512),
+    ("dec6 8x8, split K", 8, 8, 8, (512, 512), 512),
+    *K1_EXTRA,
+])
+def test_k1_v2_matches_plain(cuda, name, n, h, w, groups, cout):
+    """K1 at its split-K shapes (the decoder's two deepest levels), at a
+    ragged shape (groups off the 8-channel chunk, Cin off the 64-channel
+    K step, Cout off every tile, P off the 128-pixel tile), with one mask
+    group, and in the halo form at both tile widths."""
+    x, m, wt, b = _case(cuda, n * h, n, h, w, groups, cout, 3, False)
+    kw = dict(group_sizes=groups, padding=(1, 1))
+    got = kpc.partial_conv2d_fused(x, m, wt, b, **kw)
+    torch.cuda.synchronize()
+    check_close(name, got, kpc.partial_conv2d_reference(x, m, wt, b, **kw), require_empty=True)
+
+
+def test_k1_all_hole_page_is_exactly_zero(cuda):
+    x, m, w, b = _case(cuda, 3, 2, 16, 16, (64, 64), 128, 3, True)
+    m = torch.zeros_like(m)
+    x[0, 0, 0, 0] = float("inf")  # a hole's value never reaches the sum
+    y, m_out = kpc.partial_conv2d_fused(x, m, w, b, group_sizes=(64, 64), padding=(1, 1))
+    torch.cuda.synchronize()
+    assert (y == 0).all() and (m_out == 0).all()
+
+
+@pytest.mark.parametrize("h,cout", [(4, 512), (64, 256), (64, 64)],
+                         ids=["split K", "one pass", "halo form"])
+def test_k1_launches_are_bit_identical(cuda, h, cout):
+    """No atomics: the split-K partials are added in a fixed order."""
+    x, m, w, _ = _case(cuda, h, 8, h, h, (256, 256), cout, 3, False)
+    kw = dict(group_sizes=(256, 256), padding=(1, 1))
+    y1, m1 = kpc.partial_conv2d_fused(x, m, w, None, **kw)
+    y2, m2 = kpc.partial_conv2d_fused(x, m, w, None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(m1, m2)
 
 
 @pytest.mark.parametrize("cout", range(1, 8))

@@ -5,7 +5,8 @@ and from a data directory); the segmenter's init draws as flax's.
 ``run_seg`` trains, logs, checkpoints and resumes at 32², width 0.35,
 with the depthwise weight gradients on K6's plain version;
 ``--freeze-encoder`` keeps the encoder where it started; flags whose
-machinery is not ported are refused by name.
+machinery is not ported are refused by name, and so is a run that asks
+for CUDA (the default) where there is none.
 """
 
 import json
@@ -28,7 +29,7 @@ from text_segmentation_image_inpainting_tpu_torch.train.config import SegTrainCo
 from text_segmentation_image_inpainting_tpu_torch.train.val import make_val_batches
 
 TINY = ["--batch-size", "2", "--image-size", "32", "--width-mult", "0.35", "--log-every", "1",
-        "--val-batches", "1", "--custom-wgrad"]
+        "--val-batches", "1", "--custom-wgrad", "--device", "cpu"]
 
 
 @pytest.fixture(autouse=True)
@@ -137,4 +138,12 @@ def test_freeze_encoder_keeps_the_encoder(tmp_path):
 def test_unported_flags_are_refused(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=item):
         run_seg.main(["--steps", "1", "--ckpt-dir", str(tmp_path), *TINY, *flags])
+    assert not any(tmp_path.iterdir())
+
+
+def test_cuda_is_the_default_and_never_falls_back(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = [a for a in TINY if a not in ("--device", "cpu")]
+    with pytest.raises(SystemExit, match="--device"):
+        run_seg.main(["--steps", "1", "--ckpt-dir", str(tmp_path), *tiny])
     assert not any(tmp_path.iterdir())

@@ -1,7 +1,8 @@
 """The port's training CLI end to end on the CPU, at a tiny size: it trains,
 logs, checkpoints and resumes; it loads a torchvision VGG16 state_dict
-and decodes a data directory; flags whose machinery is not ported are
-refused by name.
+and decodes a data directory; its logged numbers depend on ``--seed``
+alone; flags whose machinery is not ported are refused by name, and so
+is a run that asks for CUDA (the default) where there is none.
 """
 
 import json
@@ -13,7 +14,7 @@ import torch
 from text_segmentation_image_inpainting_tpu_torch.train import run_inpaint
 
 TINY = ["--batch-size", "2", "--image-size", "32", "--depth", "3", "--log-every", "1",
-        "--val-batches", "1", "--fused-stem"]
+        "--val-batches", "1", "--fused-stem", "--device", "cpu"]
 
 
 def _logged(out: str):
@@ -72,3 +73,26 @@ def test_unported_flags_are_refused(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=item):
         run_inpaint.main(["--steps", "1", "--ckpt-dir", str(tmp_path), *TINY, *flags])
     assert not any(tmp_path.iterdir())
+
+
+def test_cuda_is_the_default_and_never_falls_back(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = [a for a in TINY if a not in ("--device", "cpu")]
+    with pytest.raises(SystemExit, match="--device"):
+        run_inpaint.main(["--steps", "1", "--ckpt-dir", str(tmp_path), *tiny])
+    assert not any(tmp_path.iterdir())
+
+
+def test_metrics_depend_on_the_seed_alone(tmp_path, capsys):
+    """The random VGG16 trunk is drawn from ``--seed`` as the U-Net is: the
+    process-global torch RNG changes nothing that is logged."""
+    logs = []
+    for i, global_seed in enumerate((1, 7)):
+        torch.manual_seed(global_seed)
+        run_inpaint.main(["--steps", "1", "--seed", "3", "--ckpt-dir", str(tmp_path / str(i)),
+                          *TINY])
+        logs.append(_logged(capsys.readouterr().out))
+    assert [[r["step"] for r in run] for run in logs] == [[1], [1]]
+    for run in logs:
+        run[0].pop("pages_per_sec", None)
+    assert logs[0] == logs[1]

@@ -5,23 +5,61 @@
 //   y    = msum > 0 ? acc * (k*k*Cin / max(msum, 1)) + b : 0       (one cast)
 //   M'   = msum > 0
 //
-// K1 `pconv_k1` replaces the TPU kernel `_kernel` / `_pallas_forward`
+// K1 `pconv_k1` (and its halo form `pconv_k1_halo`) replaces the TPU
+// kernel `_kernel` / `_pallas_forward`
 // (text_segmentation_image_inpainting_tpu/ops/pallas/partial_conv_kernel.py)
 // for stride 1, dilation 1, square k and Cout >= 8: the U-Net decoder levels.
-// It is an implicit GEMM: M = output pixels, N = Cout, K = k*k*Cin. A CTA
-// owns 128 pixels x BN output channels and walks the taps and 32-channel
-// chunks of Cin. The prologue of every K step gathers the shifted x tile
-// into shared memory already multiplied by its group's mask, so x*M never
-// reaches device memory; the products run on the tensor cores through
-// nvcuda::wmma (bf16 in, f32 accumulate). At the decoder's shapes
-// (Cin 192..1024, Cout 64..512) the arithmetic intensity is far above the
-// card's ~295 FLOP/byte, so the bound is on-chip: each 32-channel K step
-// waits on its own global->shared gather between two block barriers. The
-// design hides part of that latency by loading step s+1 into registers
-// while step s multiplies. At the deepest levels (4^2..16^2 pixels per
-// image) the grid has only 4..64 CTAs, each walking all k*k*Cin/32 steps,
-// so there the bound is the serial K loop. Split K, multi-stage cp.async
-// or TMA loads, wgmma and warp specialisation are left for later work.
+// It is an implicit GEMM, M = output pixels, N = Cout, K = k*k*Cin, bound
+// by the tensor cores at every decoder level (2*P*Cout*9*Cin FLOP against
+// a few MB moved: 116 GFLOP at dec3..dec1, 1.2 GFLOP at dec7). A K step is
+// one tap x 64 channels, so every pixel's slice of x is one 128-byte row
+// and every weight slice one 128-byte row per output channel: both
+// operands are K-major tiles in shared memory with the 128-byte swizzle
+// that `wgmma` reads without bank conflicts. On the card what bounds it is
+// the operand traffic from L2 into shared memory (the im2col gather reads
+// each x row once per tap), so the tiles are as large as the registers
+// allow and the halo form gathers a window row once for its three taps.
+//
+//   - A CTA owns BM (128, or 256 with two m64 tiles per warpgroup) output
+//     pixels x BN (64, 128 or 256) output channels. Warpgroups 0 and 1 are
+//     consumers: they run `wgmma.mma_async` m64nBNk16 with f32
+//     accumulators in registers (setmaxnreg 224). Warpgroup 2 is the
+//     producer (setmaxnreg 56): it keeps a ring of shared stages (as many
+//     as fit in 200 KB, 3..8) filled with 16-byte `cp.async` copies (the
+//     im2col gather of x and the weight tile), each stage handed over by
+//     an mbarrier that the copies themselves complete
+//     (`cp.async.mbarrier.arrive.noinc`) and handed back by an mbarrier
+//     the consumers arrive on once the `wgmma` that read it has retired.
+//   - The mask: a tap whose group mask is 0, or that lies outside the
+//     image, is zero-filled by the copy itself (src-size 0), so x*M
+//     never exists anywhere. This is exact for binary masks, which is
+//     every mask the U-Net makes (hole masks, M' of the level below); a
+//     mask value other than 0 takes x as it is. It also gives 0 where
+//     x*0 would be NaN for an infinite x. The prologue reads each pixel's
+//     window of the mask once: msum, and one bit per (tap, group) that
+//     the producer tests instead of reading the mask at every K step.
+//   - The halo form (3x3 windows, same-size maps of a width that is a
+//     multiple of 64: dec2 and dec1): a K step is one window row x 64
+//     channels; the tile's input rows with one pixel of halo are gathered
+//     once and the three taps read them at offsets of 0, 1 and 2 rows of
+//     128 bytes (the hardware swizzles by address, so a descriptor may
+//     start at any row). A third of the plain form's gathered bytes.
+//   - Split K, for launches whose tile grid does not fill the 132 SMs
+//     (the deep levels dec7..dec4: 4..128 tiles of 144 K steps): the
+//     wrapper picks the tile and `splits` (a pure function of the shape
+//     in ops/kernels/partial_conv.py::k1_plan, by a cost model of waves x
+//     steps x stage bytes) and CTA z takes K steps
+//     [z*steps/splits, (z+1)*steps/splits). Each writes its f32 partial
+//     tile to a workspace; `pconv_k1_reduce` adds the partials in split
+//     order, counts msum and applies the epilogue. No atomics: two
+//     launches give the same bits.
+//   - The epilogue (no split) scales by the prologue's per-pixel factor,
+//     adds the bias, zeroes empty windows and rounds once to bf16.
+//
+// The wrapper lays x out so that every 8-channel chunk lies in one mask
+// group (a copy only when a group size is not a multiple of 8) and the
+// weights as (k*k, Cout_p, Cin_p), zero padded (PartialConv keeps them
+// between calls while its parameter is unchanged).
 //
 // K2 `pconv_k2` replaces `_kernel_small_cout` / `_pallas_forward_small_cout`
 // (same file) for Cout <= 7: the U-Net's RGB head (67 -> 3 at full
@@ -43,27 +81,25 @@
 // columns, K2's transposed layout) exists for Mosaic and is not ported.
 //
 // Plain C interface (loaded with ctypes); each launcher returns
-// cudaGetLastError() right after its launch.
+// cudaGetLastError() right after its launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
 struct Params {
-  const __nv_bfloat16* x;     // (N, H, W, Cin)
+  const __nv_bfloat16* x;     // K1: (N, H, W, cin_x); K2: (N, H, W, Cin)
   const __nv_bfloat16* mask;  // (N, H, W, G), G in {1, 2}
-  const __nv_bfloat16* w;     // K1: (k*k, Cin_p, Cout_p); K2: (k*k, Cin, Cout)
+  const __nv_bfloat16* w;     // K1: (k*k, Cout_p, Cin_p); K2: (k*k, Cin, Cout)
   const float* bias;          // (Cout_p) or nullptr
   __nv_bfloat16* y;           // (N, Hout, Wout, Cout)
   __nv_bfloat16* mask_out;    // (N, Hout, Wout, 1)
-  int n, h, w_in, cin, g, size0, size1;
+  float* partial;             // K1 with splits > 1: (splits, P, Cout_p)
+  int n, h, w_in, cin, g, size0, size1;  // cin and group sizes as the layer has them
   int hout, wout, cout, cin_p, cout_p, k, pad;
-  int vec_ok;  // Cin % 8 == 0 and x 16-byte aligned: 8-channel vector loads
+  int cin_x, gb, splits;  // K1: x's channel count, group 1's first channel in x
 };
 
 __device__ __forceinline__ const __nv_bfloat16* mask_at(const Params& p, int n, int ih, int iw) {
@@ -71,8 +107,12 @@ __device__ __forceinline__ const __nv_bfloat16* mask_at(const Params& p, int n, 
 }
 
 // Weighted window count of valid taps: raw per-group counts in f32, then
-// one weighting by the group sizes (exact for binary masks).
-__device__ __forceinline__ float window_mask_sum(const Params& p, int n, int oh, int ow) {
+// one weighting by the group sizes (exact for binary masks). Also the tap
+// bits: bit 2 tap + g set when tap `tap` lies in the image and its group-g
+// mask is not 0 (taps below 16).
+__device__ __forceinline__ float window_scan(const Params& p, int n, int oh, int ow,
+                                             unsigned& bits) {
+  const unsigned short* mbits = reinterpret_cast<const unsigned short*>(p.mask);
   float c0 = 0.f, c1 = 0.f;
   for (int dy = 0; dy < p.k; ++dy) {
     const int ih = oh + dy - p.pad;
@@ -80,9 +120,12 @@ __device__ __forceinline__ float window_mask_sum(const Params& p, int n, int oh,
     for (int dx = 0; dx < p.k; ++dx) {
       const int iw = ow + dx - p.pad;
       if (iw < 0 || iw >= p.w_in) continue;
-      const __nv_bfloat16* m = mask_at(p, n, ih, iw);
-      c0 += __bfloat162float(m[0]);
-      if (p.g == 2) c1 += __bfloat162float(m[1]);
+      const int tap = dy * p.k + dx;
+      const unsigned short* m = mbits + ((size_t)(n * p.h + ih) * p.w_in + iw) * p.g;
+      const unsigned short m0 = m[0], m1 = p.g == 2 ? m[1] : 0;
+      c0 += __bfloat162float(__ushort_as_bfloat16(m0));
+      c1 += __bfloat162float(__ushort_as_bfloat16(m1));
+      if (tap < 16) bits |= ((m0 & 0x7fff) ? 1u : 0u) << (2 * tap) | ((m1 & 0x7fff) ? 2u : 0u) << (2 * tap);
     }
   }
   return __fadd_rn(__fmul_rn((float)p.size0, c0), __fmul_rn((float)p.size1, c1));
@@ -94,192 +137,594 @@ __device__ __forceinline__ float epilogue(float acc, float scale, float b) {
   return scale > 0.f ? __fadd_rn(__fmul_rn(acc, scale), b) : 0.f;
 }
 
+// -------------------------------------------------- Hopper primitives ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// 16 bytes global -> shared; `bytes` 0 writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// The barrier counts one arrival of this thread once all its earlier
+// cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile of 128-byte rows with
+// the 128-byte swizzle: 8-row core groups 1024 bytes apart (SBO), the
+// leading offset unused by this layout, base offset 0. The hardware
+// swizzles by the absolute address (bits 7..9 into bits 4..6), as the
+// producers write the rows, so a tile may start at any 128-byte row (the
+// halo form's taps dx = 1, 2), and a k16 slice 32 bytes further in.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses to the accumulators across the
+// asynchronous wgmma that owns them.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D(64 x N, f32) += A(64 x 16, bf16, K-major smem) * B(16 x N, bf16, K-major smem)
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
 // ---------------------------------------------------------------- K1 ----
 
-constexpr int BM = 128;       // output pixels per CTA
-constexpr int BK = 32;        // input channels per K step
-constexpr int THREADS = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int A_LD = BK + 8;  // padded shared row, bf16 elements
-constexpr int C_LD = 20;      // per-warp f32 staging row
+constexpr int K1_BK = 64;                  // channels per K step: 128-byte rows
+constexpr int K1_CONSUMERS = 256;          // warpgroups 0 and 1
+constexpr int K1_PRODUCERS = 128;          // warpgroup 2
+constexpr int K1_THREADS = K1_CONSUMERS + K1_PRODUCERS;
+constexpr int K1_RING = 200 * 1024;        // shared bytes for the ring of stages
 
-union Vec8 {
-  uint4 u;
-  __nv_bfloat16 h[8];
+// A CTA tile: 2 consumer warpgroups x MT m64 row tiles = BM pixels, BN channels.
+template <int BN, int MT>
+struct K1Tile {
+  static constexpr int BM = 128 * MT;
+  static constexpr int A_BYTES = BM * K1_BK * 2;
+  static constexpr int STAGE = A_BYTES + BN * K1_BK * 2;
+  static constexpr int STAGES = K1_RING / STAGE < 8 ? K1_RING / STAGE : 8;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + slack to align the ring to 1024
 };
 
-template <int BN>
-__global__ void __launch_bounds__(THREADS) pconv_k1(Params p) {
-  constexpr int WN = BN / 2;   // warp tile columns
-  constexpr int FN = WN / 16;  // accumulator fragments along N per warp
-  constexpr int FM = 2;        // 32 rows per warp
-  constexpr int B_LD = BN + 8;
-  constexpr int B_VECS = BK * BN / 8 / THREADS;  // 8-wide vectors per thread
+// byte offset of 16-byte chunk `c` of row `r` in a 128-byte-swizzled tile
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
 
-  __shared__ __align__(128) __nv_bfloat16 As[BM][A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK][B_LD];
-  __shared__ __align__(128) float Cs[THREADS / 32][16][C_LD];
+// K1's epilogue for one consumer warpgroup. Accumulator layout of
+// m64nBN: register 4 j + 2 h + e holds row 16 warp + lane / 4 + 8 h,
+// column 8 j + 2 (lane % 4) + e. Without split K: scale, bias, zero in
+// empty windows, one cast to bf16; with it: the f32 partial tile.
+template <int BN, int MT>
+__device__ __forceinline__ void k1_store(const Params& p, float (&acc)[MT][BN / 2],
+                                         const float* s_scale, long long m0, int n0, int wg,
+                                         int tid) {
+  const long long P = (long long)p.n * p.hout * p.wout;
+  const bool split = p.splits > 1;
+  const int lane = tid & 31, warp = (tid & 127) >> 5;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = (MT * m + wg) * 64 + warp * 16 + (lane >> 2) + 8 * h;
+      const long long pix = m0 + row;
+      if (pix >= P) continue;
+      const float scale = s_scale[row];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + j * 8 + (lane & 3) * 2;
+        const float v0 = acc[m][4 * j + 2 * h], v1 = acc[m][4 * j + 2 * h + 1];
+        if (split) {
+          if (col < p.cout_p)
+            *reinterpret_cast<float2*>(p.partial + ((size_t)blockIdx.z * P + pix) * p.cout_p +
+                                       col) = make_float2(v0, v1);
+          continue;
+        }
+        if (col >= p.cout) continue;
+        const float b0 = p.bias ? p.bias[col] : 0.f, b1 = p.bias ? p.bias[col + 1] : 0.f;
+        __nv_bfloat16* dst = p.y + pix * p.cout + col;
+        const __nv_bfloat16 y0 = __float2bfloat16(epilogue(v0, scale, b0));
+        const __nv_bfloat16 y1 = __float2bfloat16(epilogue(v1, scale, b1));
+        if ((p.cout & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __halves2bfloat162(y0, y1);
+        } else {
+          dst[0] = y0;
+          if (col + 1 < p.cout) dst[1] = y1;
+        }
+      }
+    }
+  }
+}
+
+template <int BN, int MT>
+__global__ void __launch_bounds__(K1_THREADS, 1) pconv_k1(const Params p) {
+  using T = K1Tile<BN, MT>;
+  constexpr int BM = T::BM, SB = T::STAGE, ST = T::STAGES;
+  extern __shared__ uint8_t k1_smem_raw[];
+  // per output pixel: (x's pixel index of the window's centre, oh, ow,
+  // bit 2 tap + g set when tap `tap` lies in the image and its group-g mask
+  // is not 0); oh far out of range for pixels past P
+  __shared__ int4 s_row[BM];
   __shared__ float s_scale[BM];
+  __shared__ __align__(8) uint64_t full_bar[ST], empty_bar[ST];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(k1_smem_raw) + 1023) & ~(uintptr_t)1023);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
   const long long P = (long long)p.n * p.hout * p.wout;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const float winsize = (float)(p.k * p.k * p.cin);
+  const int chunks = p.cin_p / K1_BK;
+  const int steps = p.k * p.k * chunks;
+  const int s_begin = (int)((long long)blockIdx.z * steps / p.splits);
+  const int s_end = (int)((long long)(blockIdx.z + 1) * steps / p.splits);
+  const bool split = p.splits > 1;
+  const bool tap_bits = p.k * p.k * 2 <= 32;  // else the producer reads the mask itself
+  const unsigned short* mbits = reinterpret_cast<const unsigned short*>(p.mask);
 
-  // Per-pixel renormalisation; the first Cout tile also writes M'.
-  if (tid < BM) {
-    const long long pix = m0 + tid;
+  // Prologue: each pixel's coordinates and tap bits; without split K also
+  // its renormalisation (the first Cout tile writes M').
+  for (int r = tid; r < BM; r += K1_THREADS) {
+    const long long pix = m0 + r;
+    int4 row = make_int4(0, -(1 << 29), 0, 0);
     float scale = -1.f;  // <= 0 marks an empty window
     if (pix < P) {
       const int ow = (int)(pix % p.wout);
       const long long t = pix / p.wout;
       const int oh = (int)(t % p.hout);
       const int nn = (int)(t / p.hout);
-      const float msum = window_mask_sum(p, nn, oh, ow);
+      unsigned bits = 0;
+      const float msum = window_scan(p, nn, oh, ow, bits);
+      row = make_int4((nn * p.h + oh) * p.w_in + ow, oh, ow, (int)bits);
+      if (!split) {
+        const bool valid = msum > 0.f;
+        if (valid) scale = (float)(p.k * p.k * p.cin) / fmaxf(msum, 1.f);
+        if (blockIdx.y == 0) p.mask_out[pix] = __float2bfloat16(valid ? 1.f : 0.f);
+      }
+    }
+    s_row[r] = row;
+    s_scale[r] = scale;
+  }
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full_bar[i], K1_PRODUCERS);
+      mbar_init(&empty_bar[i], K1_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 2) {
+    // ---- producer: thread t copies 16-byte chunk t % 8 of rows t / 8 + 16 j
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const int t = tid - K1_CONSUMERS, c = t & 7, r0 = t >> 3;
+    const uint32_t dst0 = sw128(r0, c);  // rows r0 + 16 j: + 2048 j, the same swizzle
+    for (int s = s_begin, i = 0; s < s_end; ++s, ++i) {
+      const int stage = i % ST;
+      if (i >= ST) mbar_wait(&empty_bar[stage], (i / ST - 1) & 1);
+      const int tap = s / chunks, cb = s - tap * chunks;
+      const int dy = tap / p.k, dx = tap - dy * p.k;
+      const int toff = (dy - p.pad) * p.w_in + (dx - p.pad);  // the tap's pixel offset in x
+      const int ch = cb * K1_BK + c * 8;
+      const bool ch_ok = ch < p.cin_x;
+      const int grp = (p.g == 2 && ch >= p.gb) ? 1 : 0;
+      const unsigned bit = tap_bits ? 1u << (2 * tap + grp) : 0u;
+      const __nv_bfloat16* xs = p.x + ch;
+      const uint32_t a = smem_u32(ring + stage * SB) + dst0;
+      const uint32_t b = a + T::A_BYTES;
+#pragma unroll 8
+      for (int j = 0; j < BM / 16; ++j) {
+        const int4 ri = s_row[r0 + 16 * j];
+        bool take;
+        if (tap_bits) {
+          take = ch_ok && ((unsigned)ri.w & bit);
+        } else {
+          const int ih = ri.y + dy - p.pad, iw = ri.z + dx - p.pad;
+          take = ch_ok && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in &&
+                 (__ldg(mbits + (size_t)(ri.x + toff) * p.g + grp) & 0x7fff);
+        }
+        cp_async16(a + 2048 * j, take ? (const void*)(xs + (size_t)(ri.x + toff) * p.cin_x) : p.x,
+                   take ? 16 : 0);
+      }
+      const __nv_bfloat16* wrow =
+          p.w + ((size_t)tap * p.cout_p + n0 + r0) * p.cin_p + cb * K1_BK + c * 8;
+#pragma unroll 4
+      for (int j = 0; j < BN / 16; ++j) {
+        const bool take = n0 + r0 + 16 * j < p.cout_p;
+        cp_async16(b + 2048 * j, take ? (const void*)(wrow + (size_t)16 * j * p.cin_p) : p.w,
+                   take ? 16 : 0);
+      }
+      cp_async_arrive(&full_bar[stage]);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    // ---- consumers: warpgroup wg multiplies pixel rows 64 (MT m + wg) + 0..63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    float acc[MT][BN / 2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[m][i] = 0.f;
+    for (int s = s_begin, i = 0; s < s_end; ++s, ++i) {
+      const int stage = i % ST;
+      mbar_wait(&full_bar[stage], (i / ST) & 1);
+      // the copies wrote through the generic proxy; wgmma reads through the async one
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const uint32_t a = smem_u32(ring + stage * SB);
+      const uint32_t b = a + T::A_BYTES;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int kk = 0; kk < K1_BK / 16; ++kk)  // 32 bytes along K per k16 slice
+          wgmma_m64k16(acc[m], desc_sw128(a + (MT * m + wg) * 64 * 128 + kk * 32),
+                       desc_sw128(b + kk * 32));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous step's products have retired: free its stage
+#pragma unroll
+      for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
+      if (i > 0) mbar_arrive(&empty_bar[(i - 1) % ST]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
+
+    k1_store<BN, MT>(p, acc, s_scale, m0, n0, wg, tid);
+  }
+}
+
+// Split K's second pass: one thread per pixel and 4 channels adds the
+// partials in split order, then as K1's epilogue; the first 4 channels'
+// thread writes M'.
+__global__ void pconv_k1_reduce(const Params p) {
+  const long long P = (long long)p.n * p.hout * p.wout;
+  const int q = p.cout_p / 4;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= P * q) return;
+  const long long pix = idx / q;
+  const int c4 = (int)(idx - pix * q) * 4;
+  float4 s = *reinterpret_cast<const float4*>(p.partial + pix * p.cout_p + c4);
+  for (int z = 1; z < p.splits; ++z) {
+    const float4 v = *reinterpret_cast<const float4*>(p.partial + ((size_t)z * P + pix) * p.cout_p + c4);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  const int ow = (int)(pix % p.wout);
+  const long long t = pix / p.wout;
+  unsigned bits = 0;
+  const float msum = window_scan(p, (int)(t / p.hout), (int)(t % p.hout), ow, bits);
+  const bool valid = msum > 0.f;
+  const float scale = valid ? (float)(p.k * p.k * p.cin) / fmaxf(msum, 1.f) : -1.f;
+  if (c4 == 0) p.mask_out[pix] = __float2bfloat16(valid ? 1.f : 0.f);
+  const float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int col = c4 + e;
+    if (col < p.cout)
+      p.y[pix * p.cout + col] = __float2bfloat16(epilogue(v[e], scale, p.bias ? p.bias[col] : 0.f));
+  }
+}
+
+template <int BN, int MT>
+cudaError_t launch_k1(const Params& p, cudaStream_t stream) {
+  using T = K1Tile<BN, MT>;
+  cudaError_t e = cudaFuncSetAttribute(pconv_k1<BN, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       T::SMEM);
+  if (e != cudaSuccess) return e;
+  const long long P = (long long)p.n * p.hout * p.wout;
+  const dim3 grid((unsigned)((P + T::BM - 1) / T::BM), (unsigned)((p.cout_p + BN - 1) / BN),
+                  (unsigned)p.splits);
+  pconv_k1<BN, MT><<<grid, K1_THREADS, T::SMEM, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || p.splits == 1) return e;
+  const long long items = P * (p.cout_p / 4);
+  pconv_k1_reduce<<<(unsigned)((items + 255) / 256), 256, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The halo form of K1, for 3x3 windows over same-size maps whose width is
+// 64 or a multiple of 128 (dec2 and dec1 of the U-Net). A tile of BM
+// pixels (128, or 256 with two m64 tiles per consumer warpgroup) is one
+// image row segment or whole rows, and each m64 tile lies in one row. A K step is
+// one window row dy x 64 channels: the producer gathers the tile's input
+// rows for dy with one pixel of halo on either side, (rows) x (width + 2)
+// pixels, once, and the three taps dx = 0, 1, 2 read it at pixel offsets
+// 0, 1, 2 (a wgmma descriptor may start at any 128-byte row). That is a
+// third of the gathered A bytes of the plain form. The halo pixels outside
+// the image or whose group mask is 0 are zero-filled, as there.
+template <int BN, int MT>
+struct K1Halo {
+  static constexpr int BM = 128 * MT;
+  // halo pixels: at most BM + 4 (two rows of width 64: 2 x 66), rounded up to 8
+  static constexpr int A_ROWS = BM + 8;
+  static constexpr int A_BYTES = A_ROWS * 128;
+  static constexpr int STAGE = A_BYTES + 3 * BN * K1_BK * 2;
+  static constexpr int STAGES = K1_RING / STAGE < 8 ? K1_RING / STAGE : 8;
+  static constexpr int SMEM = STAGES * STAGE + 1024;
+};
+
+template <int BN, int MT>
+__global__ void __launch_bounds__(K1_THREADS, 1) pconv_k1_halo(const Params p) {
+  using T = K1Halo<BN, MT>;
+  constexpr int BM = T::BM, SB = T::STAGE, ST = T::STAGES, AR = T::A_ROWS;
+  extern __shared__ uint8_t k1_smem_raw[];
+  __shared__ float s_scale[BM];
+  __shared__ int s_pix[AR];          // x's pixel index of halo pixel q for dy = 0
+  __shared__ uint8_t s_ok[3][AR];    // bit g: in the image and the group-g mask not 0
+  __shared__ __align__(8) uint64_t full_bar[ST], empty_bar[ST];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(k1_smem_raw) + 1023) & ~(uintptr_t)1023);
+
+  const int tid = threadIdx.x;
+  const long long P = (long long)p.n * p.hout * p.wout;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int wt = p.wout < BM ? p.wout : BM;  // tile width
+  const int pitch = wt + 2;                  // halo pixels per tile row
+  const int halo = (BM / wt) * pitch;
+  const int ow0 = (int)(m0 % p.wout);
+  const int oh0 = (int)((m0 / p.wout) % p.hout);
+  const int img = (int)(m0 / ((long long)p.wout * p.hout));
+  const int chunks = p.cin_p / K1_BK;
+  const int steps = 3 * chunks;
+  const int s_begin = (int)((long long)blockIdx.z * steps / p.splits);
+  const int s_end = (int)((long long)(blockIdx.z + 1) * steps / p.splits);
+  const unsigned short* mbits = reinterpret_cast<const unsigned short*>(p.mask);
+
+  // Prologue: the renormalisation of each output pixel (without split K;
+  // the first Cout tile writes M'), and each halo pixel's index and flags.
+  for (int r = tid; r < BM; r += K1_THREADS) {
+    const long long pix = m0 + r;
+    float scale = -1.f;
+    if (pix < P && p.splits == 1) {
+      const int ow = (int)(pix % p.wout);
+      const long long t = pix / p.wout;
+      unsigned bits = 0;
+      const float msum = window_scan(p, (int)(t / p.hout), (int)(t % p.hout), ow, bits);
       const bool valid = msum > 0.f;
-      if (valid) scale = winsize / fmaxf(msum, 1.f);
+      if (valid) scale = (float)(9 * p.cin) / fmaxf(msum, 1.f);
       if (blockIdx.y == 0) p.mask_out[pix] = __float2bfloat16(valid ? 1.f : 0.f);
     }
-    s_scale[tid] = scale;
+    s_scale[r] = scale;
   }
-
-  // This thread's two A-tile vectors: pixel rows r and r + 64, channel
-  // sub-vector cv (8 channels).
-  const int cv = tid & 3;
-  int a_n[2], a_oh[2], a_ow[2];
-#pragma unroll
-  for (int v = 0; v < 2; ++v) {
-    const long long pix = m0 + (tid >> 2) + 64 * v;
-    if (pix < P) {
-      a_ow[v] = (int)(pix % p.wout);
-      const long long t = pix / p.wout;
-      a_oh[v] = (int)(t % p.hout);
-      a_n[v] = (int)(t / p.hout);
-    } else {
-      a_n[v] = -1;
-      a_oh[v] = a_ow[v] = 0;
+  for (int e = tid; e < 3 * AR; e += K1_THREADS) {
+    const int dy = e / AR, q = e - dy * AR;
+    const int r = q / pitch, col = q - r * pitch;
+    const int ih = oh0 + r + dy - 1, iw = ow0 + col - 1;
+    uint8_t ok = 0;
+    if (q < halo && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
+      const unsigned short* m = mbits + ((size_t)(img * p.h + ih) * p.w_in + iw) * p.g;
+      ok = ((m[0] & 0x7fff) ? 1 : 0) | ((p.g == 2 && (m[1] & 0x7fff)) ? 2 : 0);
     }
+    s_ok[dy][q] = ok;
+    if (dy == 0) s_pix[q] = (img * p.h + oh0 + r - 1) * p.w_in + ow0 + col - 1;
   }
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full_bar[i], K1_PRODUCERS);
+      mbar_init(&empty_bar[i], K1_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int chunks = p.cin_p / BK;
-  const int steps = p.k * p.k * chunks;
-  uint4 a_reg[2];
-  uint4 b_reg[B_VECS];
-
-  auto load_step = [&](int s) {
-    const int tap = s / chunks;
-    const int c0 = (s - tap * chunks) * BK;
-    const int dy = tap / p.k, dx = tap - dy * p.k;
+  const int wg = tid / 128;
+  if (wg == 2) {
+    // ---- producer: thread t copies 16-byte chunk t % 8 of halo pixels and
+    // weight rows t / 8 + 16 j
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const int t = tid - K1_CONSUMERS, c = t & 7, q0 = t >> 3;
+    const uint32_t dst0 = sw128(q0, c);  // rows q0 + 16 j: + 2048 j, the same swizzle
+    for (int s = s_begin, i = 0; s < s_end; ++s, ++i) {
+      const int stage = i % ST;
+      if (i >= ST) mbar_wait(&empty_bar[stage], (i / ST - 1) & 1);
+      const int dy = s / chunks, cb = s - dy * chunks;
+      const int ch = cb * K1_BK + c * 8;
+      const bool ch_ok = ch < p.cin_x;
+      const int gbit = (p.g == 2 && ch >= p.gb) ? 2 : 1;
+      const int drow = dy * p.w_in;  // halo row r of step dy is input row oh0 + r + dy - 1
+      const uint32_t a = smem_u32(ring + stage * SB) + dst0;
+      const uint32_t b = a + T::A_BYTES;
 #pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      Vec8 val;
-      val.u = make_uint4(0u, 0u, 0u, 0u);
-      const int ih = a_oh[v] + dy - p.pad, iw = a_ow[v] + dx - p.pad;
-      const int c = c0 + cv * 8;
-      if (a_n[v] >= 0 && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in && c < p.cin) {
-        const __nv_bfloat16* m = mask_at(p, a_n[v], ih, iw);
-        const float m0v = __bfloat162float(m[0]);
-        const float m1v = p.g == 2 ? __bfloat162float(m[1]) : m0v;
-        const __nv_bfloat16* src = p.x + ((size_t)(a_n[v] * p.h + ih) * p.w_in + iw) * p.cin + c;
-        if (p.vec_ok) {
-          val.u = __ldg(reinterpret_cast<const uint4*>(src));
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (c + j < p.cin) val.h[j] = src[j];
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float mv = (c + j < p.size0) ? m0v : m1v;
-          val.h[j] = __float2bfloat16(__bfloat162float(val.h[j]) * mv);
-        }
+      for (int j = 0; j < (AR + 15) / 16; ++j) {
+        const int q = q0 + 16 * j;
+        if (q >= halo) break;
+        const bool take = ch_ok && (s_ok[dy][q] & gbit);
+        cp_async16(a + 2048 * j,
+                   take ? (const void*)(p.x + (size_t)(s_pix[q] + drow) * p.cin_x + ch) : p.x,
+                   take ? 16 : 0);
       }
-      a_reg[v] = val.u;
-    }
-#pragma unroll
-    for (int v = 0; v < B_VECS; ++v) {
-      const int i = tid + v * THREADS;
-      const int row = i / (BN / 8), col = n0 + (i % (BN / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (col < p.cout_p)
-        val = __ldg(reinterpret_cast<const uint4*>(
-            p.w + ((size_t)tap * p.cin_p + c0 + row) * p.cout_p + col));
-      b_reg[v] = val;
-    }
-  };
-
-  auto store_step = [&]() {
-#pragma unroll
-    for (int v = 0; v < 2; ++v)
-      *reinterpret_cast<uint4*>(&As[(tid >> 2) + 64 * v][cv * 8]) = a_reg[v];
-#pragma unroll
-    for (int v = 0; v < B_VECS; ++v) {
-      const int i = tid + v * THREADS;
-      *reinterpret_cast<uint4*>(&Bs[i / (BN / 8)][(i % (BN / 8)) * 8]) = b_reg[v];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  load_step(0);
-  for (int s = 0; s < steps; ++s) {
-    store_step();
-    __syncthreads();
-    if (s + 1 < steps) load_step(s + 1);  // in flight while the tensor cores run
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) wmma::load_matrix_sync(af[i], &As[wm * 32 + i * 16][kk], A_LD);
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::load_matrix_sync(bf[j], &Bs[kk][wn * WN + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: stage each 16x16 fragment per warp, then 8 channels per lane.
-  float* cs = &Cs[warp][0][0];
-  const int row = lane >> 1, colh = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], C_LD, wmma::mem_row_major);
-      __syncwarp();
-      const int r = wm * 32 + i * 16 + row;
-      const long long pix = m0 + r;
-      const int col = n0 + wn * WN + j * 16 + colh;
-      if (pix < P && col < p.cout) {
-        const float scale = s_scale[r];
-        Vec8 out;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float b = p.bias ? p.bias[col + e] : 0.f;
-          out.h[e] = __float2bfloat16(epilogue(cs[row * C_LD + colh + e], scale, b));
-        }
-        __nv_bfloat16* dst = p.y + pix * p.cout + col;
-        if ((p.cout & 7) == 0) {
-          *reinterpret_cast<uint4*>(dst) = out.u;
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (col + e < p.cout) dst[e] = out.h[e];
-        }
+#pragma unroll 4
+      for (int j = 0; j < 3 * BN / 16; ++j) {
+        const int row = q0 + 16 * j, dx = row / BN, o = n0 + row - dx * BN;
+        const bool take = o < p.cout_p;
+        const __nv_bfloat16* src =
+            p.w + ((size_t)(dy * 3 + dx) * p.cout_p + o) * p.cin_p + cb * K1_BK + c * 8;
+        cp_async16(b + 2048 * j, take ? (const void*)src : p.w, take ? 16 : 0);
       }
-      __syncwarp();
+      cp_async_arrive(&full_bar[stage]);
     }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    // ---- consumers: m64 tile MT m + wg (pixels 64 (MT m + wg) + 0..63 of
+    // the tile) starts at halo pixel arow[m] for the tap dx = 0
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    int arow[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int first = 64 * (MT * m + wg);
+      arow[m] = first / wt * pitch + first % wt;
+    }
+    float acc[MT][BN / 2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[m][i] = 0.f;
+    for (int s = s_begin, i = 0; s < s_end; ++s, ++i) {
+      const int stage = i % ST;
+      mbar_wait(&full_bar[stage], (i / ST) & 1);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const uint32_t a = smem_u32(ring + stage * SB);
+      const uint32_t b = a + T::A_BYTES;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
+      wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int kk = 0; kk < K1_BK / 16; ++kk)
+            wgmma_m64k16(acc[m], desc_sw128(a + (arow[m] + dx) * 128 + kk * 32),
+                         desc_sw128(b + dx * BN * 128 + kk * 32));
+      wgmma_commit();
+      wgmma_wait<1>();
+#pragma unroll
+      for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
+      if (i > 0) mbar_arrive(&empty_bar[(i - 1) % ST]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
+    k1_store<BN, MT>(p, acc, s_scale, m0, n0, wg, tid);
   }
+}
+
+template <int BN, int MT>
+cudaError_t launch_k1_halo(const Params& p, cudaStream_t stream) {
+  using T = K1Halo<BN, MT>;
+  cudaError_t e = cudaFuncSetAttribute(pconv_k1_halo<BN, MT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return e;
+  const long long P = (long long)p.n * p.hout * p.wout;
+  const dim3 grid((unsigned)(P / T::BM), (unsigned)((p.cout_p + BN - 1) / BN), (unsigned)p.splits);
+  pconv_k1_halo<BN, MT><<<grid, K1_THREADS, T::SMEM, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || p.splits == 1) return e;
+  const long long items = P * (p.cout_p / 4);
+  pconv_k1_reduce<<<(unsigned)((items + 255) / 256), 256, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- K2 ----
@@ -397,8 +842,7 @@ cudaError_t launch_k2(const Params& p, cudaStream_t stream) {
 
 Params make_params(const void* x, const void* mask, const void* w, const void* bias, void* y,
                    void* mask_out, int n, int h, int w_in, int cin, int g, int size0, int size1,
-                   int hout, int wout, int cout, int cin_p, int cout_p, int k, int pad,
-                   int vec_ok) {
+                   int hout, int wout, int cout, int cin_p, int cout_p, int k, int pad) {
   Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.mask = static_cast<const __nv_bfloat16*>(mask);
@@ -406,9 +850,11 @@ Params make_params(const void* x, const void* mask, const void* w, const void* b
   p.bias = static_cast<const float*>(bias);
   p.y = static_cast<__nv_bfloat16*>(y);
   p.mask_out = static_cast<__nv_bfloat16*>(mask_out);
+  p.partial = nullptr;
   p.n = n; p.h = h; p.w_in = w_in; p.cin = cin; p.g = g; p.size0 = size0; p.size1 = size1;
   p.hout = hout; p.wout = wout; p.cout = cout; p.cin_p = cin_p; p.cout_p = cout_p;
-  p.k = k; p.pad = pad; p.vec_ok = vec_ok;
+  p.k = k; p.pad = pad;
+  p.cin_x = cin; p.gb = size0; p.splits = 1;
   return p;
 }
 
@@ -416,24 +862,50 @@ Params make_params(const void* x, const void* mask, const void* w, const void* b
 
 extern "C" {
 
-// K1. w: (k*k, cin_p, cout_p) bf16 with cin_p % 32 == 0, cout_p % 8 == 0,
-// zero outside (cin, cout); bias: (cout_p) f32 or NULL.
+// K1. x: (n, h, w_in, cin_x) bf16, 16-byte aligned, cin_x % 8 == 0, group 1
+// from channel gb (gb % 8 == 0); w: (k*k, cout_p, cin_p) bf16 with
+// cin_p % 64 == 0, cout_p % 8 == 0, zero where x has no channel; bias:
+// (cout_p) f32 or NULL; partial: (splits, n*hout*wout, cout_p) f32 when
+// splits > 1; (bm, bn) in {128} x {64, 128, 256} or {256} x {64, 128};
+// halo: the halo form (k 3, pad 1, same-size maps of a width that is a
+// multiple of 64 and of bm or a divisor of it, H*W a multiple of bm;
+// (bm, bn) in {(128, 64), (128, 128), (256, 64)}). cin, size0, size1: the layer's own
+// channel counts (for the renormalisation).
 int tsii_pconv_k1(const void* x, const void* mask, const void* w, const void* bias, void* y,
-                  void* mask_out, int n, int h, int w_in, int cin, int g, int size0, int size1,
-                  int hout, int wout, int cout, int cin_p, int cout_p, int k, int pad, int vec_ok,
+                  void* mask_out, void* partial, int n, int h, int w_in, int cin, int g,
+                  int size0, int size1, int hout, int wout, int cout, int cin_x, int gb,
+                  int cin_p, int cout_p, int k, int pad, int splits, int bm, int bn, int halo,
                   void* stream) {
-  const Params p = make_params(x, mask, w, bias, y, mask_out, n, h, w_in, cin, g, size0, size1,
-                               hout, wout, cout, cin_p, cout_p, k, pad, vec_ok);
-  const long long P = (long long)n * hout * wout;
+  Params p = make_params(x, mask, w, bias, y, mask_out, n, h, w_in, cin, g, size0, size1, hout,
+                         wout, cout, cin_p, cout_p, k, pad);
+  p.partial = static_cast<float*>(partial);
+  p.cin_x = cin_x;
+  p.gb = gb;
+  p.splits = splits;
+  if (cin_x % 8 || gb % 8 || cin_p % K1_BK || cout_p % 8 || splits < 1 ||
+      splits > k * k * (cin_p / K1_BK) || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cout <= 64) {
-    const dim3 grid((unsigned)((P + BM - 1) / BM), (unsigned)((cout + 63) / 64));
-    pconv_k1<64><<<grid, THREADS, 0, s>>>(p);
-  } else {
-    const dim3 grid((unsigned)((P + BM - 1) / BM), (unsigned)((cout + 127) / 128));
-    pconv_k1<128><<<grid, THREADS, 0, s>>>(p);
+  if (halo) {
+    // every m64 tile in one image row, no tile across two images
+    const bool fits = k == 3 && pad == 1 && hout == h && wout == w_in && w_in % 64 == 0 &&
+                      (w_in % bm == 0 || bm % w_in == 0) && ((long long)h * w_in) % bm == 0;
+    if (!fits) return (int)cudaErrorInvalidValue;
+    switch (bm * 1000 + bn) {
+      case 128064: return (int)launch_k1_halo<64, 1>(p, s);
+      case 128128: return (int)launch_k1_halo<128, 1>(p, s);
+      case 256064: return (int)launch_k1_halo<64, 2>(p, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
-  return (int)cudaGetLastError();
+  switch (bm * 1000 + bn) {
+    case 128064: return (int)launch_k1<64, 1>(p, s);
+    case 128128: return (int)launch_k1<128, 1>(p, s);
+    case 128256: return (int)launch_k1<256, 1>(p, s);
+    case 256064: return (int)launch_k1<64, 2>(p, s);
+    case 256128: return (int)launch_k1<128, 2>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K2. w: (k*k, cin, cout) bf16, 1 <= cout <= 7; bias: (cout) f32 or NULL.
@@ -441,7 +913,7 @@ int tsii_pconv_k2(const void* x, const void* mask, const void* w, const void* bi
                   void* mask_out, int n, int h, int w_in, int cin, int g, int size0, int size1,
                   int hout, int wout, int cout, int k, int pad, void* stream) {
   const Params p = make_params(x, mask, w, bias, y, mask_out, n, h, w_in, cin, g, size0, size1,
-                               hout, wout, cout, cin, cout, k, pad, 0);
+                               hout, wout, cout, cin, cout, k, pad);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cout) {
     case 1: return (int)launch_k2<1>(p, s);

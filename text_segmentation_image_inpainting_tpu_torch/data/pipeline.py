@@ -3,9 +3,11 @@
 Counterpart of ``text_segmentation_image_inpainting_tpu/data/pipeline.py``
 (``PageSource``, ``list_image_paths``, ``make_dataset``).
 Sample ``idx`` is drawn from ``np.random.default_rng((seed << 32) ^ idx)``
-as in JAX, by the JAX package's framework-free generators
-(``data/text_overlay.py``, ``data/native_masks.py``: numpy, PIL and
-ctypes, no jax), imported where they are used. Batches are taken in
+as in JAX, by the port's own copy of the JAX package's generators
+(``data/text_overlay.py``, ``data/native_masks.py``, ``data/masks.py``,
+``data/native_pages.py`` and their C++ sources under ``data/native/``:
+numpy, PIL and ctypes), imported where they are used, so the two
+packages draw the same pages from the same seeds. Batches are taken in
 index order and stacked by hand: there is no grain shuffle and no
 device prefetcher yet.
 """
@@ -69,23 +71,23 @@ class PageSource:
         rng = np.random.default_rng((self.seed << 32) ^ int(idx))
         if self.kind == "seg":
             if not self.paths:
-                from text_segmentation_image_inpainting_tpu.data.text_overlay import (
+                from text_segmentation_image_inpainting_tpu_torch.data.text_overlay import (
                     segmentation_sample,
                 )
 
                 img, mask = segmentation_sample(rng, self.size)
             else:
-                from text_segmentation_image_inpainting_tpu.data.text_overlay import overlay_text
+                from text_segmentation_image_inpainting_tpu_torch.data.text_overlay import overlay_text
 
                 img, mask = overlay_text(self._load_base(rng), rng)
             return {"image": img, "mask": mask}
         if not self.paths:
-            from text_segmentation_image_inpainting_tpu.data.text_overlay import inpainting_sample
+            from text_segmentation_image_inpainting_tpu_torch.data.text_overlay import inpainting_sample
 
             img, mask = inpainting_sample(rng, self.size)
             return {"image": img, "mask": mask}
-        from text_segmentation_image_inpainting_tpu.data import native_masks
-        from text_segmentation_image_inpainting_tpu.data.text_overlay import overlay_text
+        from text_segmentation_image_inpainting_tpu_torch.data import native_masks
+        from text_segmentation_image_inpainting_tpu_torch.data.text_overlay import overlay_text
 
         img = self._load_base(rng)
         if rng.random() < 0.5:  # text-shaped holes, the product case

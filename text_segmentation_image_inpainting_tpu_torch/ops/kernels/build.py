@@ -104,7 +104,7 @@ def load_library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build_library()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tsii_pconv_k1.argtypes = [ptr] * 6 + [i32] * 15 + [ptr]
+        lib.tsii_pconv_k1.argtypes = [ptr] * 7 + [i32] * 20 + [ptr]
         lib.tsii_pconv_k1.restype = i32
         lib.tsii_pconv_k2.argtypes = [ptr] * 6 + [i32] * 12 + [ptr]
         lib.tsii_pconv_k2.restype = i32

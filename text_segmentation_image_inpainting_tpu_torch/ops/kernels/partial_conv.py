@@ -4,9 +4,12 @@ plain version.
 Counterpart of
 ``text_segmentation_image_inpainting_tpu/ops/pallas/partial_conv_kernel.py``.
 The CUDA sources are ``csrc/partial_conv.cu`` (see the note at their
-top): K1 is an NHWC implicit GEMM on the tensor cores for Cout >= 8,
-K2 a CUDA-core kernel for Cout <= 7. Scope: stride 1, dilation 1,
-square kernel, G in {1, 2} mask groups, bf16.
+top): K1 is an NHWC implicit GEMM on Hopper's ``wgmma`` for Cout >= 8
+(a producer warpgroup gathering tiles with ``cp.async`` into a ring of
+shared stages; a halo form that gathers a window row once for its three
+taps; split K where the tile grid does not fill the card: ``k1_plan``),
+K2 a CUDA-core kernel for Cout <= 7. Scope: stride 1, dilation 1, square
+kernel, G in {1, 2} mask groups, bf16.
 
 ``partial_conv2d_fused`` is differentiable: ``PartialConvFunction``
 runs K1 or K2 forward and K3 backward, the counterpart of the custom VJP
@@ -18,7 +21,7 @@ CUDA tensor it launches K1 or K2, or raises; nothing falls back.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +36,8 @@ from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 
-_BK = 32  # K1's channel chunk: the re-laid weights pad Cin to a multiple of it
+_BK = 64  # K1's K step: one tap x 64 channels; the re-laid weights pad Cin to it
+_SMS = 132  # streaming multiprocessors of an H100 SXM: K1's grid fills at least one wave
 _K2_MAX_COUT = 7
 
 
@@ -183,30 +187,179 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def k1_channels(group_sizes: Sequence[int]) -> Tuple[int, int, int]:
+    """K1's channel layout of x: (gb, cin_x, cin_p). Each mask group
+    starts on a multiple of 8 channels, so a 16-byte chunk of x lies in one
+    group: group 1 starts at ``gb``, x has ``cin_x`` channels (a multiple of
+    8), and the weights' K axis is padded to ``cin_p``, a multiple of the
+    64-channel K step. Equal to the layer's own layout when every group
+    size is a multiple of 8, as at every U-Net level."""
+    s0 = group_sizes[0]
+    gb = -(-s0 // 8) * 8
+    cin_x = gb + (-(-group_sizes[1] // 8) * 8 if len(group_sizes) == 2 else 0)
+    return gb, cin_x, -(-cin_x // _BK) * _BK
+
+
+class K1Plan(NamedTuple):
+    """How K1 runs one call: the halo form or the plain gather, the CTA
+    tile (BM pixels x BN channels) and the number of K splits."""
+
+    halo: bool
+    bm: int
+    bn: int
+    splits: int
+
+    def steps(self, cin_p: int, k: int) -> int:
+        """K steps of one tile: (tap, 64 channels), or in the halo form
+        (window row, 64 channels) with the row's k taps in one step."""
+        return (k if self.halo else k * k) * cin_p // _BK
+
+
+def k1_plan(n: int, h: int, w: int, cout: int, cin_p: int, k: int, pad: int) -> K1Plan:
+    """K1's plan for N images of H x W, Cout output channels, Cin_p
+    channels (``k1_channels``), a k x k window and ``pad``: a pure
+    function of the shape, the same on every call.
+
+    The halo form (``csrc/partial_conv.cu::pconv_k1_halo``) where it
+    applies and Cout <= 128: a 3 x 3 same-size window, a width of 64 or a
+    multiple of 128 and H * W a multiple of 128 (dec2 and dec1 of the
+    U-Net); BM 256 for BN 64 where the geometry and the grid allow (dec1),
+    else 128. Else the plain gather, whose time is the operand tiles it
+    moves from L2 into shared memory: the tile (BM x BN) and the number of
+    K splits that give the fewest waves x K steps x stage bytes, plus the
+    split partials' round trip (``_k1_gather_cost``). A grid of 132 tiles
+    or more never splits; a smaller one splits K into ``splits`` CTAs per
+    tile, so that the grid holds at least 132 CTAs, each over a nonempty
+    contiguous range of K steps (``k1_split_ranges``)."""
+    cout_p = -(-cout // 8) * 8
+    p = n * (h + 2 * pad - k + 1) * (w + 2 * pad - k + 1)
+
+    def tiles(bm, bn):
+        return -(-p // bm) * -(-cout_p // bn)
+
+    def halo_fits(bm):  # each m64 tile in one image row, no tile across two images
+        return (k == 3 and pad == 1 and w % 64 == 0 and (w % bm == 0 or bm % w == 0)
+                and (h * w) % bm == 0)
+
+    if cout_p <= 128 and halo_fits(128):
+        bn = 128 if cout_p > 64 else 64
+        bm = 256 if bn == 64 and halo_fits(256) and tiles(256, bn) >= _SMS else 128
+        plan, t = K1Plan(True, bm, bn, 1), tiles(bm, bn)
+        if t >= _SMS:
+            return plan
+        return plan._replace(splits=min(plan.steps(cin_p, k), -(-_SMS // t)))
+    best = None
+    for bm, bn in _K1_GATHER_TILES:
+        if bn > 64 and bn // 2 >= cout_p:  # at least half the tile's channels real
+            continue
+        t = tiles(bm, bn)
+        steps = K1Plan(False, bm, bn, 1).steps(cin_p, k)
+        first = 1 if t >= _SMS else min(steps, -(-_SMS // t))
+        for splits in range(first, (first if t >= _SMS else min(steps, 4 * first)) + 1):
+            cost = _k1_gather_cost(t, steps, bm, bn, splits, p, cout_p)
+            if best is None or cost < best[0]:
+                best = (cost, K1Plan(False, bm, bn, splits))
+    return best[1]
+
+
+# The gather form's CTA tiles, (BM, BN), in the order that breaks ties.
+_K1_GATHER_TILES = ((128, 256), (256, 128), (128, 128), (256, 64), (128, 64))
+# Operand traffic from L2 into shared memory that one SM sustains in the
+# gather form, and the device memory rate for the split partials (an H100
+# SXM; chip_smoke.py measured 2.1-3.5 TB/s over the card, PERF.md).
+_K1_SM_BYTES_PER_S = 3.0e12 / _SMS
+_HBM_BYTES_PER_S = 3.35e12
+
+
+def _k1_gather_cost(t: int, steps: int, bm: int, bn: int, splits: int, p: int,
+                    cout_p: int) -> float:
+    """Estimated seconds of the gather form: waves of one CTA per SM x K
+    steps per CTA x the bytes of one stage, plus writing and reading the
+    f32 partials when K is split."""
+    waves = -(-t * splits // _SMS)
+    cost = waves * -(-steps // splits) * (bm + bn) * _BK * 2 / _K1_SM_BYTES_PER_S
+    if splits > 1:
+        cost += 2 * splits * p * cout_p * 4 / _HBM_BYTES_PER_S
+    return cost
+
+
+def k1_split_ranges(steps: int, splits: int) -> list:
+    """The K steps [begin, end) that CTA z of a split launch takes; the
+    kernel computes the same ``z * steps // splits`` bounds."""
+    return [(z * steps // splits, (z + 1) * steps // splits) for z in range(splits)]
+
+
+def k1_weight_relayout(weight: torch.Tensor, group_sizes: Sequence[int]) -> torch.Tensor:
+    """OIHW weights -> K1's (k*k, Cout_p, Cin_p) bf16: per tap, one row of
+    Cin_p channels per output channel (the K-major B operand of
+    ``wgmma``), channels placed as ``k1_channels`` lays x out, zero
+    elsewhere. Where no padding is needed (every U-Net level) it is one
+    permute copy."""
+    cout, cin, kh, kw = weight.shape
+    gb, cin_x, cin_p = k1_channels(group_sizes)
+    cout_p = -(-cout // 8) * 8
+    wt = weight.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(kh * kw, cout, cin)
+    if (cout_p, cin_p, gb) == (cout, cin, group_sizes[0]):
+        return wt.contiguous()
+    out = torch.zeros((kh * kw, cout_p, cin_p), dtype=torch.bfloat16, device=weight.device)
+    s0 = group_sizes[0]
+    out[:, :cout, :s0] = wt[..., :s0]
+    out[:, :cout, gb:gb + cin - s0] = wt[..., s0:]
+    return out
+
+
+def k1_input_relayout(x: torch.Tensor, group_sizes: Sequence[int]) -> torch.Tensor:
+    """x as K1 reads it: (N, H, W, cin_x), each group from a multiple of 8
+    channels (``k1_channels``), zero between, 16-byte aligned. ``x`` itself
+    where it already is (every U-Net level)."""
+    gb, cin_x, _ = k1_channels(group_sizes)
+    s0 = group_sizes[0]
+    if cin_x == x.shape[-1] and gb == s0:
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+    out = x.new_zeros((*x.shape[:3], cin_x))
+    out[..., :s0] = x[..., :s0]
+    out[..., gb:gb + x.shape[-1] - s0] = x[..., s0:]
+    return out
+
+
 def _launch_k1(x, mask, weight, bias, group_sizes, padding):
+    """K1 (``csrc/partial_conv.cu``: ``pconv_k1``, ``pconv_k1_halo``, as
+    ``k1_plan`` says), with the weights re-laid in this call
+    (``k1_weight_relayout``).
+
+    The mask must be binary; this is not checked (a check would cost a
+    device-to-host sync per call). A tap whose group mask is 0
+    contributes nothing (the copy zero-fills it) and any other value
+    takes x as it is: that equals x*M exactly for binary masks, which are
+    all the U-Net makes, and differs from the plain version for any other
+    value. msum and M' count the mask values as they are. Every other
+    input outside the scope raises (``_check_inputs``)."""
     global K1_LAUNCHES
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
     n, h, w, cin, g, cout, k, pad, hout, wout = _check_inputs(x, mask, weight, bias, group_sizes, padding)
     lib = load_library()
-    cin_p = -(-cin // _BK) * _BK
+    gb, cin_x, cin_p = k1_channels(group_sizes)
     cout_p = -(-cout // 8) * 8
-    # OIHW -> (k*k, Cin_p, Cout_p) bf16, zero padded: re-laid on every
-    # call (a copy of the weights per launch; caching it is later work)
-    wk = torch.zeros((k * k, cin_p, cout_p), dtype=torch.bfloat16, device=x.device)
-    wk[:, :cin, :cout] = weight.to(torch.bfloat16).permute(2, 3, 1, 0).reshape(k * k, cin, cout)
+    p = n * hout * wout
+    plan = k1_plan(n, h, w, cout, cin_p, k, pad)
+    xk = k1_input_relayout(x, group_sizes)
+    wk = k1_weight_relayout(weight, group_sizes)
     b = None
     if bias is not None:
         b = torch.zeros((cout_p,), dtype=torch.float32, device=x.device)
         b[:cout] = bias.to(x.dtype).float()
     y = torch.empty((n, hout, wout, cout), dtype=x.dtype, device=x.device)
     m_out = torch.empty((n, hout, wout, 1), dtype=x.dtype, device=x.device)
-    vec_ok = int(cin % 8 == 0 and x.data_ptr() % 16 == 0)
+    part = None
+    if plan.splits > 1:
+        part = torch.empty((plan.splits, p, cout_p), dtype=torch.float32, device=x.device)
     s0, s1 = _sizes(group_sizes)
     code = lib.tsii_pconv_k1(
-        x.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
-        y.data_ptr(), m_out.data_ptr(), n, h, w, cin, g, s0, s1, hout, wout, cout,
-        cin_p, cout_p, k, pad, vec_ok, _stream(),
+        xk.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
+        y.data_ptr(), m_out.data_ptr(), 0 if part is None else part.data_ptr(),
+        n, h, w, cin, g, s0, s1, hout, wout, cout, cin_x, gb, cin_p, cout_p, k, pad, plan.splits,
+        plan.bm, plan.bn, int(plan.halo), _stream(),
     )
     check(lib, code, "K1 (partial conv, Cout >= 8)")
     K1_LAUNCHES += 1

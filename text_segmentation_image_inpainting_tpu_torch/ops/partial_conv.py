@@ -109,7 +109,10 @@ def partial_conv2d(
 
     Args:
       x: (N, H, W, Cin) features.
-      mask: (N, H, W, G) binary validity mask (1 = valid pixel).
+      mask: (N, H, W, G) binary validity mask (1 = valid pixel). Binary
+        is a contract, not checked: kernel K1 (CUDA, Cout >= 8) skips the
+        taps whose mask is 0 and takes x as it is at every other value,
+        so a soft mask gives other numbers there than x * M.
       weight: (Cout, Cin, kh, kw) OIHW.
       bias: optional (Cout,). Not renormalised; zeroed in empty windows.
       group_sizes: channel count covered by each mask group; defaults to

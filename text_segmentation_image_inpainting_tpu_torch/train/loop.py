@@ -18,6 +18,23 @@ from text_segmentation_image_inpainting_tpu_torch.train.checkpoint import Checkp
 from text_segmentation_image_inpainting_tpu_torch.train.val import scored_eval
 
 
+def add_device_flag(parser) -> None:
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="where to train: the first CUDA device (default) or the CPU, "
+                             "where every kernel runs its plain version")
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device ``--device`` names. CUDA that is not available is an
+    error, never a silent fallback to the CPU."""
+    if name == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("--device cuda: torch.cuda.is_available() is False; pass "
+                         "--device cpu to train on the CPU")
+    return torch.device("cuda", 0)
+
+
 def train_loop(state, train_step, eval_step, host_it, val_batches, cfg, *, steps: int,
                ckpt_dir: str, device):
     """Resume ``state`` from the latest checkpoint in ``ckpt_dir``, then

@@ -4,11 +4,14 @@
     python -m text_segmentation_image_inpainting_tpu_torch.train.run_inpaint \\
         --steps 1000 --batch-size 8 --fused-stem --ckpt-dir checkpoints/inpaint
 
-The same flags as the JAX CLI. Runs on the first CUDA device when there
-is one, else on the CPU (the plain versions of the kernels). Train with
-``--freeze-bn`` for the paper's phase-2 fine-tune. VGG16 weights load
-from ``--vgg-ckpt`` (a torchvision ``vgg16`` state_dict) or are random,
-with a warning. Logs one JSON line per ``--log-every`` window to stdout.
+The same flags as the JAX CLI, plus ``--device``: the first CUDA device
+(the default; a host without CUDA is an error) or ``cpu`` (the plain
+versions of the kernels). Train with ``--freeze-bn`` for the paper's
+phase-2 fine-tune. VGG16 weights load from ``--vgg-ckpt`` (a torchvision
+``vgg16`` state_dict) or are random, with a warning: then the U-Net and
+the trunk draw their initial weights, in that order, from one
+``torch.Generator`` seeded with ``--seed`` (flax's initialisers, as
+JAX), so a run depends on its flags alone. Logs one JSON line per ``--log-every`` window to stdout.
 Flags whose machinery is not ported yet raise ``SystemExit``.
 """
 
@@ -23,6 +26,7 @@ from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import (
     InpaintLossConfig,
     make_vgg,
 )
+from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import flax_init_
 from text_segmentation_image_inpainting_tpu_torch.models.partial_convolution import InpaintUNet
 from text_segmentation_image_inpainting_tpu_torch.models.vgg import (
     VGG16Features,
@@ -36,7 +40,11 @@ from text_segmentation_image_inpainting_tpu_torch.train.inpaint import (
     make_inpaint_eval_step,
     make_inpaint_train_step,
 )
-from text_segmentation_image_inpainting_tpu_torch.train.loop import train_loop
+from text_segmentation_image_inpainting_tpu_torch.train.loop import (
+    add_device_flag,
+    resolve_device,
+    train_loop,
+)
 from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
 from text_segmentation_image_inpainting_tpu_torch.train.val import make_val_batches
 
@@ -81,6 +89,7 @@ def parse_args(argv=None):
                         "(0 = score the train batch)")
     p.add_argument("--export", type=str, default=None,
                    help="not ported yet (ROADMAP Queue 1 item 10): refused")
+    add_device_flag(p)
     return p.parse_args(argv)
 
 
@@ -99,10 +108,15 @@ def _refuse_unported(args) -> None:
                          "(ROADMAP Queue 1 item 10, models/base.py)")
 
 
-def load_vgg(vgg: VGG16Features, ckpt_path: str | None) -> VGG16Features:
+def load_vgg(vgg: VGG16Features, ckpt_path: str | None,
+             generator: torch.Generator) -> VGG16Features:
+    """``ckpt_path``'s weights, or without one random weights drawn from
+    ``generator`` with flax's ``nn.Conv`` initialisers (LeCun-normal
+    kernels, zero biases), as the JAX CLI draws them from its key."""
     if not ckpt_path:
         print("WARNING: random VGG16 weights (no --vgg-ckpt given); "
               "perceptual/style terms are untrained-feature losses")
+        flax_init_(vgg, 1.0, generator)
         return vgg
     load_vgg16_state_dict(vgg, torch.load(ckpt_path, map_location="cpu", weights_only=True))
     return vgg
@@ -126,11 +140,11 @@ def main(argv=None):
         checkpoint_every=args.ckpt_every,
         log_every=args.log_every,
     )
-    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    device = resolve_device(args.device)
     dtype = torch.bfloat16 if cfg.bf16_compute else torch.float32
     gen = torch.Generator().manual_seed(args.seed)
     model = InpaintUNet(depth=cfg.depth, dtype=dtype).init_weights(gen).to(device)
-    vgg = load_vgg(make_vgg(cfg.loss), args.vgg_ckpt).to(device)
+    vgg = load_vgg(make_vgg(cfg.loss), args.vgg_ckpt, gen).to(device)
 
     paths = list_image_paths(args.data_dir) if args.data_dir else None
     host_it = make_dataset("inpaint", batch_size=cfg.batch_size, size=cfg.image_size,

@@ -4,8 +4,8 @@
     python -m text_segmentation_image_inpainting_tpu_torch.train.run_seg \\
         --steps 1000 --batch-size 8 --ckpt-dir checkpoints/seg
 
-The same flags as the JAX CLI. Runs on the first CUDA device when there
-is one, else on the CPU. ``--custom-wgrad`` sets
+The same flags as the JAX CLI, plus ``--device``: the first CUDA device
+(the default; a host without CUDA is an error) or ``cpu``. ``--custom-wgrad`` sets
 ``ops/depthwise.py::USE_CUSTOM_WGRAD``, so the encoder's depthwise weight
 gradients run on kernel K6 (off by default, as in JAX). Train with
 ``--freeze-encoder`` for the staged fine-tune. Logs one JSON line per
@@ -30,7 +30,11 @@ from text_segmentation_image_inpainting_tpu_torch.train.seg import (
     make_seg_eval_step,
     make_seg_train_step,
 )
-from text_segmentation_image_inpainting_tpu_torch.train.loop import train_loop
+from text_segmentation_image_inpainting_tpu_torch.train.loop import (
+    add_device_flag,
+    resolve_device,
+    train_loop,
+)
 from text_segmentation_image_inpainting_tpu_torch.train.state import (
     create_train_state,
     freeze_mask_for,
@@ -72,6 +76,7 @@ def parse_args(argv=None):
                         "(0 = score the train batch)")
     p.add_argument("--export", type=str, default=None,
                    help="not ported yet (ROADMAP Queue 1 item 10): refused")
+    add_device_flag(p)
     return p.parse_args(argv)
 
 
@@ -111,7 +116,7 @@ def main(argv=None):
     )
     if args.custom_wgrad:
         depthwise.USE_CUSTOM_WGRAD = True  # read at every forward (ops/depthwise.py)
-    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    device = resolve_device(args.device)
     dtype = torch.bfloat16 if cfg.bf16_compute else torch.float32
     model = TextSegmenter(width_mult=cfg.width_mult, output_stride=cfg.output_stride,
                           decoder_mid=cfg.decoder_mid, dtype=dtype)
