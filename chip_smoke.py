@@ -26,7 +26,10 @@ that its depthwise weight gradients run on K6), weights from a seeded
   5. train    K3 (the partial conv's backward) against autograd of the
               plain version at the 8 shapes; K4 (the VGG stem's dx) and K5
               (its pooled forward) against their plain versions at the
-              train shapes; then three train steps at depth 8, 512^2,
+              train shapes (K5 at the step's 8 ground-truth pages and at
+              16) and at ``STEM_EXTRA`` (one tile, ragged pages, a partial
+              last wave of the persistent CTAs), each twice on the same
+              inputs, bit-identical; then three train steps at depth 8, 512^2,
               batch 8, bf16, fused stem, with the launch counters reset
               before each: K1 7, K2 1, K4 1 and K5 1 per step, every loss
               term finite, every U-Net gradient finite and the decoder's and
@@ -46,7 +49,9 @@ that its depthwise weight gradients run on K6), weights from a seeded
               same product as a yardstick (never called by the port) and
               the least time the card could take (``bound``),
               ``run`` in pages/s, the train steps in pages/s (the
-              seg step with the flag on and off, alternating); then
+              seg step with the flag on and off, alternating), K4 and K5
+              also in device time and TFLOP/s with and without the halos;
+              then
               torch.profiler over ``run`` and over each train step: the
               device's busy share and the kernels that take the most time
 
@@ -105,6 +110,12 @@ K6_RAGGED = (
     ("f32, k 5, d 4, 19x70, C 130", 1, 19, 70, 130, 5, 4, torch.float32),
     ("4x4, d 4, C 128", 2, 4, 4, 128, 3, 4, torch.bfloat16),
 )
+
+# K4 and K5 away from the train shapes: (M, H, W) pages. One 16x16 tile
+# (fewer tiles than SMs), ragged M, non-square pages, partial tiles at the
+# bottom and right edge, and 143 tiles: a partial last wave of the
+# persistent CTAs on a card of 132 SMs.
+STEM_EXTRA = ((1, 16, 16), (3, 16, 16), (2, 32, 48), (1, 48, 32), (2, 18, 26), (1, 176, 208))
 
 # K1 away from the U-Net's shapes: (name, N, H, W, group sizes, Cout).
 # Groups off the 8-channel chunk, Cin off the 64-channel K step, Cout off
@@ -282,6 +293,43 @@ def check_stem_dx(name, x, g, w0, b0, w1, b1, *, compare_max: bool = True) -> di
             compare_max and res["max"] > 1.5 * res["max_cudnn"]):
         raise AssertionError(f"{name}: K4 is further from the f32 truth than the bf16 cuDNN stem: {res}")
     return res
+
+
+def stem_weights(gen, dev) -> tuple:
+    """Random VGG stem weights (w0, b0, w1, b1) at about the scale of
+    torchvision's, for the stem's checks away from the train step."""
+    return (torch.randn((64, 3, 3, 3), generator=gen, device=dev) * 0.3,
+            torch.randn((64,), generator=gen, device=dev) * 0.1,
+            torch.randn((64, 64, 3, 3), generator=gen, device=dev) * 0.06,
+            torch.randn((64,), generator=gen, device=dev) * 0.1)
+
+
+def check_stem_dx_repeats(name, x, g, w0, b0, w1, b1) -> None:
+    """Two K4 launches on the same inputs must be bit-identical: no
+    atomics, every sum in a fixed order."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
+
+    first, again = kvs.stem_dx(x, g, w0, b0, w1, b1), kvs.stem_dx(x, g, w0, b0, w1, b1)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError(f"{name}: two K4 launches on the same inputs differ")
+
+
+def check_stem_pool(name, z0, w1, b1) -> float:
+    """K5 against its plain version (``check_close``: one bf16 step of
+    |y| plus 1e-3 of max |y|; both round one f32 sum, the plain version
+    the conv and then the sum with the bias), then a second launch on the
+    same inputs, bit-identical. Returns max |dy|."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
+
+    got, again = kvs.stem_pool(z0, w1, b1), kvs.stem_pool(z0, w1, b1)
+    want = kvs.stem_pool_reference(z0, w1, b1)
+    torch.cuda.synchronize()
+    ones = torch.ones_like(want[..., :1])
+    err = check_close(name, (got, ones), (want, ones))
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two K5 launches on the same inputs differ")
+    return err
 
 
 def wgrad_truth(x, dy, k: int, d: int):
@@ -597,7 +645,8 @@ def main() -> int:
     for kname, fn, tpu in (("K4", "stem_dx", f"{TPU_STEM_BWD}:366"),
                            ("K5", "stem_pool", f"{TPU_STEM}:191")):
         st = stem_times[kname]
-        log(f"{kname}: launches from the first train step")
+        log(f"{kname}: launches from the first train step"
+            + ("; timed at the step's shape, z0 of its 8 ground-truth pages" if kname == "K5" else ""))
         kernels.append({
             "name": f"{kname} {fn}", "route": "cuda", "source": CSRC_STEM, "replaces": tpu,
             "launches": tr["launches"][kname], "max_abs_err": tr["err"][kname],
@@ -698,16 +747,30 @@ def train_phase(dev, rng, cases) -> dict:
     xs = imagenet_normalize(torch.cat([pages, pages * holes])).to(bf).contiguous()
     gs = torch.randn((2 * BATCH, PAGE // 2, PAGE // 2, 64), generator=gen, device=dev).to(bf)
     res = check_stem_dx("K4 train shape", xs, gs, w0, b0, w1, b1)
+    check_stem_dx_repeats("K4 train shape", xs, gs, w0, b0, w1, b1)
     log(f"parity K4 x {tuple(xs.shape)} g {tuple(gs.shape)}: relative L2 to the f32 plain "
         f"{res['rel']:.4g} (bf16 cuDNN autograd {res['rel_cudnn']:.4g}), max |d| "
-        f"{res['max']:.4g} (cuDNN {res['max_cudnn']:.4g})")
+        f"{res['max']:.4g} (cuDNN {res['max_cudnn']:.4g}); two launches bit-identical")
     z0 = conv2d(xs, w0, b0, padding=1).contiguous()
-    got, want = kvs.stem_pool(z0, w1, b1), kvs.stem_pool_reference(z0, w1, b1)
-    torch.cuda.synchronize()
-    ones = torch.ones_like(want[..., :1])
-    err5 = check_close("K5", (got, ones), (want, ones))
-    log(f"parity K5 z0 {tuple(z0.shape)} -> {tuple(got.shape)}: max |d| {err5:.4g} "
-        f"(max |y| {want.abs().max().item():.4g})")
+    # the step launches K5 on the ground-truth branch alone: conv0 of the
+    # first BATCH pages of xs
+    z0_gt = z0[:BATCH]
+    err5 = {}  # by pages
+    for z in (z0_gt, z0):
+        err5[len(z)] = check_stem_pool(f"K5 {tuple(z.shape)}", z, w1, b1)
+        log(f"parity K5 z0 {tuple(z.shape)}: max |d| {err5[len(z)]:.4g}, two launches "
+            f"bit-identical")
+    sgen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for m, h, w in STEM_EXTRA:
+        ws = stem_weights(sgen, dev)
+        x = torch.randn((m, h, w, 3), generator=sgen, device=dev).to(bf)
+        g = torch.randn((m, h // 2, w // 2, 64), generator=sgen, device=dev).to(bf)
+        r = check_stem_dx(f"K4 {m}x{h}x{w}", x, g, *ws, compare_max=False)
+        check_stem_dx_repeats(f"K4 {m}x{h}x{w}", x, g, *ws)
+        z = torch.randn((m, h, w, 64), generator=sgen, device=dev).to(bf)
+        e = check_stem_pool(f"K5 {m}x{h}x{w}", z, ws[2], ws[3])
+        log(f"parity K4/K5 {m}x{h}x{w} ({kvs.stem_tiles(m, h, w)} tiles): K4 relative L2 "
+            f"{r['rel']:.4g} (cuDNN {r['rel_cudnn']:.4g}); K5 max |d| {e:.4g}")
 
     model = InpaintUNet(depth=8, dtype=bf).init_weights(torch.Generator().manual_seed(SEED)).to(dev)
     cfg = InpaintTrainConfig(loss=loss_cfg)
@@ -754,8 +817,8 @@ def train_phase(dev, rng, cases) -> dict:
             + f"; {len(grads)} grads finite, decoder/head nonzero, params moved, decoder BN "
             f"moved, encoder BN {'unchanged' if freeze else 'moved'}")
     hook.remove()
-    return {"launches": first, "err": {"K4": res["max"], "K5": err5}, "k3": k3,
-            "stem": (xs, gs, w0, b0, w1, b1, z0), "step": steps[False], "state": state,
+    return {"launches": first, "err": {"K4": res["max"], "K5": err5[BATCH]}, "k3": k3,
+            "stem": (xs, gs, w0, b0, w1, b1, z0, z0_gt), "step": steps[False], "state": state,
             "batch": batch}
 
 
@@ -809,7 +872,7 @@ def time_train(tr) -> dict:
         f"{tot[3]:.4f} ms, bound {tot[4]:.4f} ms (per layer the larger of operations and "
         f"bytes)")
 
-    xs, gs, w0, b0, w1, b1, z0 = tr["stem"]
+    xs, gs, w0, b0, w1, b1, z0, z0_gt = tr["stem"]
     rb = [t.to(bf).float() for t in (w0, b0, w1, b1)]
     xf, gf = xs.float(), gs.float()
     kern = lambda: kvs.stem_dx(xs, gs, w0, b0, w1, b1)  # noqa: E731
@@ -821,31 +884,48 @@ def time_train(tr) -> dict:
     t_bwd = cuda_ms(bwd_only)
     t_f32 = cuda_ms(lambda: kvs.stem_dx_reference(xf, gf, *rb), iters=5, warmup=1)
     k4 = {"ms": (k1 + k2) / 2, "plain": (p1 + p2) / 2, "lib": t_bwd}
-    px = xs.shape[0] * xs.shape[1] * xs.shape[2]
+    dev4 = device_ms(kern, "stem_dx_kernel")
+    m, h, w = xs.shape[:3]
+    px = m * h * w
     flop = 2.0 * px * 64 * 64 * 9 * 2
+    # what the tensor cores execute, per 16x16 tile (csrc/vgg_stem.cu): conv1
+    # forward over 2 x 224 pixel rows and its dgrad over 2 x 200, conv0 over
+    # 496 rows with K 32, the last dgrad's product over 400 rows with M 64
+    done = 2.0 * kvs.stem_tiles(m, h, w) * (64 * 64 * 9 * (448 + 400) + 496 * 64 * 32
+                                            + 64 * 400 * 64)
     # the bound counts all four products: conv1's forward and dgrad (flop)
     # and conv0's, 2 * 2 * px * 64 * 27; bytes: x, g and the weights read
     # once, dx (f32) written once
     k4["bound"], k4["by"] = bound(flop + 4.0 * px * 64 * 27,
                                   2.0 * (xs.numel() + gs.numel() + w0.numel() + w1.numel())
                                   + 4.0 * xs.numel())
-    log(f"time K4 x {tuple(xs.shape)}: kernel {k4['ms']:.4f} ms ({flop / k4['ms'] / 1e9:.1f} "
-        f"TFLOP/s of the two useful 64->64 products), plain bf16 cuDNN forward+backward "
+    log(f"time K4 x {tuple(xs.shape)}: kernel {k4['ms']:.4f} ms, device time {dev4:.4f} ms "
+        f"({flop / dev4 / 1e9:.1f} TFLOP/s of the two useful 64->64 products; "
+        f"{done / dev4 / 1e9:.1f} TFLOP/s of the {done / 1e12:.4f} TFLOP executed with the "
+        f"halos), plain bf16 cuDNN forward+backward "
         f"{k4['plain']:.4f} ms, its backward alone {t_bwd:.4f} ms, plain f32 forward+backward "
         f"{t_f32:.4f} ms, bound {k4['bound']:.4f} ms ({k4['by']})")
     del out, xr
-    kern = lambda: kvs.stem_pool(z0, w1, b1)  # noqa: E731
-    plain = lambda: kvs.stem_pool_reference(z0, w1, b1)  # noqa: E731
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-    z0n = z0.permute(0, 3, 1, 2)  # channels-last view
     w1b = w1.to(bf).contiguous(memory_format=torch.channels_last)
-    t_conv = cuda_ms(lambda: torch.nn.functional.conv2d(z0n, w1b, padding=1))
-    k5 = {"ms": (k1 + k2) / 2, "plain": (p1 + p2) / 2, "lib": t_conv}
-    flop = 2.0 * z0.shape[0] * z0.shape[1] * z0.shape[2] * 64 * 64 * 9
-    k5["bound"], k5["by"] = bound(flop, 2.0 * (z0.numel() * 5 / 4 + w1.numel()))
-    log(f"time K5 z0 {tuple(z0.shape)}: kernel {k5['ms']:.4f} ms ({flop / k5['ms'] / 1e9:.1f} "
-        f"TFLOP/s), plain bf16 cuDNN {k5['plain']:.4f} ms, cuDNN bf16 conv1 alone {t_conv:.4f} "
-        f"ms, bound {k5['bound']:.4f} ms ({k5['by']})")
+    k5 = {}  # by pages
+    for z in (z0_gt, z0):
+        kern = lambda: kvs.stem_pool(z, w1, b1)  # noqa: E731
+        plain = lambda: kvs.stem_pool_reference(z, w1, b1)  # noqa: E731
+        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+        zn = z.permute(0, 3, 1, 2)  # channels-last view
+        t_conv = cuda_ms(lambda: torch.nn.functional.conv2d(zn, w1b, padding=1))
+        t = {"ms": (k1 + k2) / 2, "plain": (p1 + p2) / 2, "lib": t_conv}
+        dev5 = device_ms(kern, "stem_pool_kernel")
+        m, h, w = z.shape[:3]
+        flop = 2.0 * m * h * w * 64 * 64 * 9
+        done = 2.0 * kvs.stem_tiles(m, h, w) * 288 * 64 * 64 * 9  # 2 x 144 rows per tile
+        t["bound"], t["by"] = bound(flop, 2.0 * (z.numel() * 5 / 4 + w1.numel()))
+        log(f"time K5 z0 {tuple(z.shape)}: kernel {t['ms']:.4f} ms, device time {dev5:.4f} ms "
+            f"({flop / dev5 / 1e9:.1f} TFLOP/s useful, {done / dev5 / 1e9:.1f} TFLOP/s executed "
+            f"with the halo), plain "
+            f"bf16 cuDNN {t['plain']:.4f} ms, cuDNN bf16 conv1 alone {t_conv:.4f} ms, bound "
+            f"{t['bound']:.4f} ms ({t['by']})" + ("; the step's shape" if z is z0_gt else ""))
+        k5[len(z)] = t
 
     step, state, batch = tr["step"], tr["state"], tr["batch"]
     # the peak counts what is held before the step too: the model, Adam's
@@ -858,8 +938,10 @@ def time_train(tr) -> dict:
         f"{BATCH / step_ms * 1e3:.2f} training pages/s; peak device memory "
         f"{peak / 2**30:.2f} GiB, of which {before / 2**30:.3f} GiB held before the step "
         f"({(peak - before) / 2**30:.3f} GiB above it)")
-    profile_run(lambda: step(state, batch), "train step", runs=2)
-    return {"K4": k4, "K5": k5}
+    busy = profile_run(lambda: step(state, batch), "train step", runs=2)
+    log(f"inpaint step: device busy {busy:.3f} ms per step, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    return {"K4": k4, "K5": k5[BATCH]}  # K5 at the step's shape
 
 
 def seg_phase(dev, rng) -> dict:
@@ -1093,10 +1175,10 @@ def time_seg(sg) -> dict:
     return k6
 
 
-def profile_run(fn, label: str, runs: int = 3) -> None:
+def profile_run(fn, label: str, runs: int = 3) -> float:
     """torch.profiler over ``runs`` calls of ``fn``: the device's busy share
     (kernel time over the window's wall time) and the kernels that take
-    the most device time, per call."""
+    the most device time, per call. Returns the busy ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1116,6 +1198,7 @@ def profile_run(fn, label: str, runs: int = 3) -> None:
     for e in kernels[:15]:
         log(f"  profile: {e.self_device_time_total / 1e3 / runs:8.3f} ms {e.count / runs:5.0f}x "
             f"{e.key[:90]}")
+    return busy_ms
 
 
 if __name__ == "__main__":

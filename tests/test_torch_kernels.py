@@ -14,7 +14,9 @@ inputs (bit-identical). The tolerance is chip_smoke.py's ``check_close``: M' bit
 y exactly 0 in empty windows, elsewhere one bf16 step of |y| plus 1e-3
 of max |y|. K3 (the backward), K4 (the VGG stem's dx) and K5 (its pooled
 forward) are held to f32 truth no worse than the bf16 plain version, with
-the bounds stated at each test; and gradients reach every U-Net parameter
+the bounds stated at each test, K4 and K5 also with more tiles than SMs,
+fewer, and a partial last wave of their persistent CTAs, each launched
+twice (bit-identical); and gradients reach every U-Net parameter
 through K1/K2 on the card. K6 (the depthwise weight gradient) and its
 plain version are held to the f64 truth within 1e-5 of Σ|x·dy| per
 (tap, channel) (chip_smoke.py's ``check_wgrad``).
@@ -24,7 +26,18 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K1_EXTRA, K6_RAGGED, check_close, check_grads, check_stem_dx, check_wgrad
+from chip_smoke import (
+    K1_EXTRA,
+    K6_RAGGED,
+    STEM_EXTRA,
+    check_close,
+    check_grads,
+    check_stem_dx,
+    check_stem_dx_repeats,
+    check_stem_pool,
+    check_wgrad,
+    stem_weights,
+)
 from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet
 from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
@@ -213,6 +226,25 @@ def test_k5_matches_plain(cuda, m, h, w):
     want = kvs.stem_pool_reference(z0, w1, b1)
     ones = torch.ones_like(want[..., :1])
     check_close("K5", (got, ones), (want, ones))
+
+
+@pytest.mark.parametrize("m,h,w", [(2, 512, 512), *STEM_EXTRA],
+                         ids=[f"{m}x{h}x{w}" for m, h, w in [(2, 512, 512), *STEM_EXTRA]])
+def test_stem_kernels_over_the_persistent_grid(cuda, m, h, w):
+    """K4 and K5 where the tiles outnumber the SMs (2048 tiles), where one
+    tile is the whole grid, and at a partial last wave (143 tiles on 132
+    SMs): against their plain versions, and two launches bit-identical
+    (``check_stem_dx``, ``check_stem_pool``)."""
+    gen = torch.Generator(cuda).manual_seed(m * h + w)
+    w0, b0, w1, b1 = stem_weights(gen, cuda)
+    x = torch.randn((m, h, w, 3), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((m, h // 2, w // 2, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    z0 = torch.randn((m, h, w, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    k4, k5 = kvs.K4_LAUNCHES, kvs.K5_LAUNCHES
+    check_stem_dx(f"K4 {m}x{h}x{w}", x, g, w0, b0, w1, b1, compare_max=h * w * m >= 2**19)
+    check_stem_dx_repeats(f"K4 {m}x{h}x{w}", x, g, w0, b0, w1, b1)
+    check_stem_pool(f"K5 {m}x{h}x{w}", z0, w1, b1)
+    assert (kvs.K4_LAUNCHES - k4, kvs.K5_LAUNCHES - k5) == (3, 2)
 
 
 def test_frozen_stem_backward_runs_k4(cuda):

@@ -12,33 +12,67 @@
 //   gz0 = dgrad_conv1(gz1), only where a0 > 0      halo +-1
 //   dx  = dgrad_conv0(gz0)                         f32 out
 //
-// A CTA owns a 16x16 tile of dx and keeps every 64-channel tensor of the
-// chain in shared memory: x is read once (plus a 4-pixel halo), g once,
-// dx written once. The bound is the two 64->64 products per tile, which
-// run on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate,
-// operands from shared memory through ldmatrix), 16 warps per CTA; with
-// the halos they do 1.75x and 1.56x the useful work of a 16x16 tile.
-// conv0 (K = 27, padded to 32, as an im2col product) and the last dgrad
-// (N = 3, padded to 8) run on the tensor cores as well: on the CUDA
-// cores they took about 40% of the kernel.
-//
-// Layout: every 64-channel buffer is a flat list of pixels with one pitch
-// P = tile width + 6 (a0's width) and a pixel stride of 72 bf16 (144 B:
-// each ldmatrix row is 16-B aligned and 8 rows fall in 8 different bank
-// groups). A 3x3 tap is then a constant offset in the flat list, so one
-// m16 fragment is 16 consecutive pixels; the 2 columns past each row's
-// end are computed and ignored. gz1 overwrites z1 and gz0 overwrites a0 in
-// place, which keeps the tile within the 227 KB of shared memory. The
-// weights of conv1 sit in shared memory once, as [tap][out][in]: the
-// forward product reads them with ldmatrix, the dgrad with ldmatrix.trans.
-// The TPU kernel's row-pair lane packing exists for Mosaic and is not
-// ported.
-//
 // K5 `stem_pool` replaces `_kernel` / `stem_pool_packed`
 // (text_segmentation_image_inpainting_tpu/ops/pallas/vgg_stem.py):
 // maxpool2(relu(conv1(relu(z0)) + b1)) from z0 (pre-relu conv0 output),
-// with K4's conv1 product and the pool in shared memory; only the pooled
-// quarter is written.
+// rounded once (f32 sum plus bias); only the pooled quarter is written.
+// Relu passes nothing at exactly 0. H and W are even; tiles at the
+// bottom and right edge are partial.
+//
+// What bounds both is conv1's 3x3 64->64 product (K4: its forward and
+// its dgrad, with halos of 1.75x and 1.56x the useful work of a 16x16
+// tile; K5: its forward, 1.125x). The design:
+//
+//   - Persistent CTAs, one per SM: the wrapper launches min(SMs, tiles)
+//     CTAs (ops/kernels/vgg_stem.py::stem_grid) and CTA b walks tiles b,
+//     b + grid, ... over (image, tile row, tile column), column fastest.
+//     Each CTA stages conv1's weights (and K4 conv0's) in shared memory
+//     once, with 16-byte cp.async, not once per tile.
+//   - Warpgroups 0 and 1 compute (setmaxnreg 216 or 200), warpgroup 2 is
+//     the producer: it loads the next tile's input while the consumers
+//     work, handed over by an mbarrier each way per buffer. K5: z0's 18x18
+//     pixel rows through the producer's registers (relu applied there)
+//     into the third of three buffers. K4: x (24x24x3, 6-byte pixels)
+//     through registers once the im2col is done with the last one, g
+//     (10x10x64) by cp.async once the pool gradient is.
+//   - Every 64-channel buffer is a flat list of pixels with one pitch P
+//     (the tile width plus the halo), one 128-byte row per pixel, with
+//     the 128-byte swizzle. A 3x3 tap is then a constant row offset
+//     (ky*P + kx forward, (2-ky)*P + (2-kx) for the dgrad): the columns
+//     past each row's end are computed and ignored.
+//   - conv1 runs on `wgmma` m64nNk16: A = one tap's weights, 64 output
+//     channels x 64 input channels, K-major as (9, 64 out, 64 in) is
+//     stored; B = N pixel rows from the tap's offset; the accumulator is
+//     (channel x pixel). The dgrad contracts over the output channel and
+//     reads the same weight copy as an MN-major A (the transpose bit).
+//     Each consumer warpgroup takes half the pixel rows: K5 2 x 144, K4's
+//     forward 2 x 224 and its dgrad 2 x 200. The epilogue stores z1 (or
+//     gz0 where a0 > 0) back to pixel rows with stmatrix.trans.
+//   - K5 issues the next tile's products into a second accumulator before
+//     this tile's epilogue and pool, and writes z1 into the input buffer
+//     its products have just read (rows the other warpgroup does not read).
+//   - K4's two small products run on `wgmma` too: conv0 with K = 27 taps
+//     x channels and a column of ones that multiplies the bias, padded to
+//     32 (an im2col built one pixel row per thread, all zero outside the
+//     image, so the epilogue is a relu alone; 64-byte rows with the
+//     64-byte swizzle; A = [W0 | b0], m64n248), and the last
+//     dgrad as Q = W0^T gz0 (A = W0 transposed, its 27 (tap, channel) rows
+//     padded to 64; B = gz0's rows, each read once; m64n200) followed by a
+//     9-tap gather of Q per dx pixel. The pool gradient takes two channels
+//     at a time as 16-bit integers.
+//
+// Shared bytes read per tile by the conv1 products: K5 72 wgmma x (2 KB
+// of A + 144 x 32 B of B) = 0.48 MB (v1, 16 pixels x all 64 channels of B
+// per warp: 1.66 MB); K4 72 x (2 KB + 224 x 32 B) + 72 x (2 KB + 200 x
+// 32 B) = 1.27 MB (v1: 4.9 MB). Shared memory per CTA (PL_SMEM, DX_SMEM):
+// K5 200,960 B (weights 73,728, three input buffers of 41,984, bias 256,
+// 1 KB to align); K4 224,384 B (conv1's weights 73,728, conv0's 4,096 and
+// their transpose 8,192, a0/gz0 63,488, z1/gz1 57,344, x 3,456, g 12,800,
+// conv1's bias 256, 1 KB). K4's tile stays
+// 16x16: a 16x32 tile needs about 278 KB. In K4 gz1 overwrites z1 and gz0
+// overwrites a0 in place; z1's buffer holds the im2col of x before conv1
+// and Q after the conv1 dgrad. The TPU kernel's row-pair lane packing
+// exists for Mosaic and is not ported.
 //
 // Plain C interface (loaded with ctypes); each launcher returns
 // cudaGetLastError() right after its launch.
@@ -47,59 +81,87 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int C = 64;           // stem width
-constexpr int LDS = 72;         // shared pixel stride in bf16 (144 B)
-constexpr int THREADS = 512;    // 16 warps: one CTA per SM (shared memory), so
-                                // the warps of one CTA hide the latency
-constexpr int WARPS = THREADS / 32;
+constexpr int C = 64;            // stem width: one 128-byte row per pixel
+constexpr int CONSUMERS = 256;   // warpgroups 0 and 1
+constexpr int PRODUCERS = 128;   // warpgroup 2
+constexpr int THREADS = CONSUMERS + PRODUCERS;
+constexpr int CWARPS = CONSUMERS / 32;
+constexpr int ROW = 128;         // bytes per pixel row
+constexpr int W1_BYTES = 9 * C * ROW;  // (9 taps, 64 out) rows of 64 in: 73,728
+constexpr int TAP_BYTES = C * ROW;     // one tap's weights: 8 KB, 1024-aligned
 
-constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int up8(int a) { return (a + 7) / 8 * 8; }
 
-// K4 tile: 16x16 dx pixels.
+// K4 tile: 16x16 dx pixels. a0 rows/cols [-3, T+3) with pitch P = T + 6.
 constexpr int DX_TH = 16, DX_TW = 16;
-constexpr int DX_P = DX_TW + 6;                              // a0's width
-constexpr int DX_Z1_FRAGS = cdiv((DX_TH + 4) * DX_P, 16);    // z1 rows [-2, TH+2)
-constexpr int DX_GZ0_FRAGS = cdiv((DX_TH + 2) * DX_P, 16);   // gz0 rows [-1, TH+1)
-constexpr int DX_A0_FRAGS = cdiv((DX_TH + 6) * DX_P, 16);    // a0 rows [-3, TH+3)
-constexpr int DX_DX_FRAGS = cdiv(DX_TH * DX_P, 16);          // dx rows [0, TH)
-constexpr int DX_Z1_PIX = DX_Z1_FRAGS * 16;
-constexpr int DX_A0_PIX = cmax(DX_A0_FRAGS * 16, DX_Z1_PIX + 2 * DX_P + 2);
-constexpr int DX_XR = DX_TH + 8, DX_XC = DX_TW + 8;          // x rows [-4, TH+4)
+constexpr int DX_P = DX_TW + 6;
+constexpr int DX_Z1_N = 224;     // z1 pixels per consumer warpgroup (rows [-2, T+2))
+constexpr int DX_GZ0_N = 200;    // gz0 pixels per consumer warpgroup (rows [-1, T+1))
+constexpr int DX_C0_N = 248;     // a0 pixels per consumer warpgroup (rows [-3, T+3), then 0)
+constexpr int DX_Z1_ROWS = 2 * DX_Z1_N;
+constexpr int DX_A0_ROWS = 2 * DX_C0_N;  // conv0 writes every row, zero past the halo
+constexpr int DX_XR = DX_TH + 8, DX_XC = DX_TW + 8;         // x rows [-4, TH+4)
+constexpr int DX_X_BYTES = DX_XR * DX_XC * 3 * 2;
+constexpr int DX_GR = DX_TH / 2 + 2, DX_GC = DX_TW / 2 + 2;  // g windows [-1, T/2+1)
+constexpr int DX_G_BYTES = DX_GR * DX_GC * ROW;
 // conv0 as a product: im2col rows of K = 27 taps x channels, padded to 32
-constexpr int XK = 32, XLD = 40;  // 80 B rows: 16-B aligned, 8 rows in 8 bank groups
-static_assert(DX_GZ0_FRAGS * 16 + 2 * DX_P + 2 <= DX_Z1_PIX, "dgrad reads past z1");
-static_assert(DX_DX_FRAGS * 16 + 4 * DX_P + 4 <= DX_A0_PIX, "the last dgrad reads past gz0");
+// (64-byte rows with the 64-byte swizzle)
+constexpr int XK = 32, XROW = XK * 2;
+constexpr int Q_LD = 2 * DX_GZ0_N + 24;  // Q's row pitch in f32: = 8 (mod 32), float2 stores
+                                         // of 4 rows x 4 pairs hit 32 banks
+static_assert(DX_Z1_ROWS >= (DX_TH + 4 - 1) * DX_P + DX_TW + 4, "z1 must cover the pool windows");
+static_assert(2 * DX_GZ0_N >= (DX_TH + 2 - 1) * DX_P + DX_TW + 2, "gz0 must cover dx's taps");
+static_assert(2 * DX_GZ0_N + 2 * DX_P + 2 <= DX_Z1_ROWS, "the conv1 dgrad reads past z1");
+static_assert((DX_TH - 1) * DX_P + DX_TW - 1 + 2 * DX_P + 2 < 2 * DX_GZ0_N,
+              "the last dgrad reads past gz0");
+static_assert(DX_A0_ROWS >= (DX_TH + 6) * DX_P, "a0 must cover rows/cols [-3, T+3)");
+static_assert(DX_Z1_ROWS + 2 * DX_P + 2 <= DX_A0_ROWS, "conv1 reads past a0");
 static_assert(DX_TH % 2 == 0 && DX_TW % 2 == 0, "tiles must keep the 2x2 pool windows whole");
+static_assert(DX_Z1_N % 8 == 0 && DX_GZ0_N % 8 == 0 && DX_C0_N % 8 == 0 && DX_Z1_N <= 256 &&
+              DX_GZ0_N <= 256 && DX_C0_N <= 256, "wgmma N is a multiple of 8 up to 256");
 
-constexpr size_t DX_A0_BYTES = (size_t)DX_A0_PIX * LDS * 2;
-constexpr size_t DX_Z1_BYTES = (size_t)DX_Z1_PIX * LDS * 2;
-constexpr size_t W1_BYTES = (size_t)9 * C * LDS * 2;
-// scratch that lives in z1's buffer before conv1 (im2col of x, conv0's
-// weights) and after the conv1 dgrad (the last dgrad's weights)
-constexpr size_t XCOL_BYTES = (size_t)DX_A0_FRAGS * 16 * XLD * 2;
-constexpr size_t W0C_BYTES = (size_t)C * XLD * 2;
-constexpr size_t W0D_BYTES = (size_t)9 * 8 * LDS * 2;
-static_assert(XCOL_BYTES + W0C_BYTES <= DX_Z1_BYTES && W0D_BYTES <= DX_Z1_BYTES,
-              "conv0's scratch must fit in z1's buffer");
-constexpr size_t DX_SMEM = DX_A0_BYTES + DX_Z1_BYTES + W1_BYTES + 2 * C * 4 +
-                           (size_t)DX_XR * DX_XC * 3 * 2;
-static_assert(DX_SMEM <= 232448, "K4 tile exceeds the 227 KB of shared memory");
+constexpr int DX_A0_BYTES = DX_A0_ROWS * ROW;
+constexpr int DX_Z1_BYTES = DX_Z1_ROWS * ROW;
+constexpr int XCOL_BYTES = DX_A0_ROWS * XROW;
+constexpr int W0C_BYTES = C * XROW;  // conv0's weights: 64 out rows of 32 k
+constexpr int W0T_BYTES = C * ROW;   // W0 transposed: 64 rows (27 (tap, channel) used) of 64 out
+constexpr int Q_BYTES = 27 * Q_LD * 4;
+static_assert(XCOL_BYTES <= DX_Z1_BYTES && Q_BYTES <= DX_Z1_BYTES,
+              "the im2col of x and Q must fit in z1's buffer");
+static_assert(DX_X_BYTES % 16 == 0 && W0T_BYTES % 1024 == 0 && W0C_BYTES % 1024 == 0,
+              "aligned buffers");
+// + 1024: slack to align the tiles to 1024 bytes (the swizzle's period)
+constexpr int DX_SMEM = 1024 + W1_BYTES + W0T_BYTES + W0C_BYTES + DX_A0_BYTES + DX_Z1_BYTES +
+                        DX_X_BYTES + DX_G_BYTES + C * 4;
+static_assert(DX_SMEM <= 232448, "K4 exceeds the 227 KB of shared memory");
 
-// K5 tile: 16x16 z1 pixels, 8x8 pooled.
+// K5 tile: 16x16 z1 pixels, 8x8 pooled. a0 rows/cols [-1, T+1), P = T + 2.
 constexpr int PL_TH = 16, PL_TW = 16;
 constexpr int PL_P = PL_TW + 2;
-constexpr int PL_Z1_FRAGS = cdiv(PL_TH * PL_P, 16);
-constexpr int PL_Z1_PIX = PL_Z1_FRAGS * 16;
-constexpr int PL_A0_PIX = cmax((PL_TH + 2) * PL_P, PL_Z1_PIX + 2 * PL_P + 2);
-constexpr size_t PL_A0_BYTES = (size_t)PL_A0_PIX * LDS * 2;
-constexpr size_t PL_Z1_BYTES = (size_t)PL_Z1_PIX * LDS * 2;
-constexpr size_t PL_SMEM = PL_A0_BYTES + PL_Z1_BYTES + W1_BYTES + C * 4;
-static_assert(PL_SMEM <= 232448, "K5 tile exceeds the 227 KB of shared memory");
+constexpr int PL_N = PL_TH / 2 * PL_P;   // z1 pixels per consumer warpgroup: 8 tile rows
+constexpr int PL_IN_ROWS = (PL_TH + 2) * PL_P;
+constexpr int PL_A0_ROWS = up8(cmax(PL_IN_ROWS, 2 * PL_N + 2 * PL_P + 2));
+constexpr int PL_A0_BYTES = PL_A0_ROWS * ROW;
+constexpr int PL_STAGES = 3;  // input buffers: one multiplied, one issued early, one loading
+// Each warpgroup writes its z1 into the input buffer its products have
+// just read, at rows the other warpgroup's products do not read:
+// warpgroup 0 reads rows [0, N + 2P + 2), warpgroup 1 [N, 2N + 2P + 2).
+constexpr int PL_Z1_ROW1 = PL_N + 2 * PL_P + 2;
+static_assert(PL_Z1_ROW1 + PL_N <= PL_A0_ROWS, "warpgroup 1's z1 must fit in the input buffer");
+static_assert(PL_N % 8 == 0 && PL_N <= 256, "wgmma N is a multiple of 8 up to 256");
+static_assert(PL_TH % 4 == 0 && PL_TW % 2 == 0, "each warpgroup pools whole windows");
+constexpr int PL_SMEM = 1024 + W1_BYTES + PL_STAGES * PL_A0_BYTES + C * 4;
+static_assert(PL_SMEM <= 232448, "K5 exceeds the 227 KB of shared memory");
+static_assert(W1_BYTES % 1024 == 0 && DX_A0_BYTES % 1024 == 0 && PL_A0_BYTES % 1024 == 0,
+              "the swizzled tiles must start on 1024 bytes");
 
 struct StemParams {
   const bf16* x;      // K4: (M, H, W, 3) normalised image; K5: z0 (M, H, W, 64)
@@ -110,335 +172,567 @@ struct StemParams {
   const float* b1;    // (64)
   float* dx;          // K4: (M, H, W, 3)
   bf16* pooled;       // K5: (M, H/2, W/2, 64)
-  int h, w;
+  int m, h, w;
 };
 
-union Vec8 {
-  uint4 u;
-  bf16 h[8];
+// Which tile of the persistent walk: (image, first row, first column).
+struct Tile {
+  int n, y0, x0;
 };
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+__device__ __forceinline__ Tile tile_at(int t, int h, int w, int th, int tw) {
+  const int tx = cdiv(w, tw), ty = cdiv(h, th);
+  Tile r;
+  r.x0 = (t % tx) * tw;
+  r.y0 = (t / tx % ty) * th;
+  r.n = t / (tx * ty);
+  return r;
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
 }
 
-// d += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Four 8x8 bf16 matrices to shared memory, transposed: lanes 8i..8i+7
+// give the row addresses of matrix i, register i holds this lane's
+// fragment of it (row lane / 4, columns 2 (lane % 4) and + 1), and a
+// fragment row becomes a memory column. ldsm_x4_trans is its inverse.
+__device__ __forceinline__ void stsm_x4_trans(uint32_t a, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1,%2,%3,%4};\n"
+               ::"r"(a), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
 }
 
-// conv1 weights (9, 64 out, 64 in) -> shared [tap*64 + out][in], pitch LDS.
-__device__ __forceinline__ void stage_w1(const bf16* w1, bf16* w1s) {
-  for (int i = threadIdx.x; i < 9 * C * (C / 8); i += THREADS) {
-    const int row = i >> 3, c8 = (i & 7) * 8;
-    *reinterpret_cast<uint4*>(w1s + row * LDS + c8) =
-        __ldg(reinterpret_cast<const uint4*>(w1 + row * C + c8));
+// The first two matrices only (lanes 0..15 give the addresses).
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void stsm_x2_trans(uint32_t a, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1,%2};\n"
+               ::"r"(a), "r"(r[0]), "r"(r[1]) : "memory");
+}
+
+// Two floats rounded to a bf16 pair, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Once per CTA, every thread: conv1's weights (9, 64 out, 64 in) into
+// swizzled rows [tap*64 + out] of 64 in, and its bias. Returns after the
+// copies have landed and are visible to wgmma.
+__device__ __forceinline__ void stage_weights(const StemParams& p, uint8_t* w1s, float* b1s) {
+  const uint32_t dst = smem_u32(w1s);
+  for (int i = threadIdx.x; i < 9 * C * 8; i += THREADS)
+    cp_async16(dst + sw128(i >> 3, i & 7), p.w1 + (size_t)i * 8, 16);
+  if (threadIdx.x < C) b1s[threadIdx.x] = p.b1[threadIdx.x];
+  cp_async_wait_all();
+  fence_proxy_async();
+}
+
+// A consumer warpgroup's accumulator (channel x pixel, 2 R pixels) to
+// pixel rows [row0, row0 + 2 R) of a 128-byte-swizzled buffer with
+// stmatrix.trans: 8 pixels x 8 channels per matrix, four matrices (two
+// 8-pixel blocks x this thread's two channel rows ch0 and ch0 + 8) per
+// instruction. The pair of values at channel ch0 + 8 h and pixel rows f,
+// f + 1 is stored as fn(h, f, v0, v1, old), a bf16 pair; with LOAD, `old`
+// is the pair already there.
+template <bool LOAD, int R, typename Fn>
+__device__ __forceinline__ void store_acc(const float (&acc)[R], uint32_t buf, int row0, Fn fn) {
+  constexpr int J = R / 4;  // blocks of 8 pixels
+  const int lane = threadIdx.x & 31, cw = (threadIdx.x >> 5) & 3;
+  const int i = lane >> 3, k = lane & 7;  // the matrix and row this lane addresses
+#pragma unroll
+  for (int j = 0; j < J; j += 2) {
+    const uint32_t addr = buf + sw128(row0 + 8 * (j + (i >> 1)) + k, 2 * cw + (i & 1));
+    uint32_t r[4], old[4] = {0u, 0u, 0u, 0u};
+    if constexpr (LOAD) {
+      if (j + 1 < J) ldsm_x4_trans(old, addr);
+      else ldsm_x2_trans(old, addr);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int jj = j + (m >> 1), h = m & 1;
+      if (jj >= J) break;
+      r[m] = fn(h, row0 + 8 * jj + 2 * (lane & 3), acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1],
+                old[m]);
+    }
+    if (j + 1 < J) stsm_x4_trans(addr, r);
+    else stsm_x2_trans(addr, r);
   }
 }
 
-// The 3x3 64->64 product over a flat pixel list, on the tensor cores.
-//   forward (DGRAD false): out[f] = sum_t src[f + ky*P + kx] . W1[:, :, t]^T
-//   dgrad   (DGRAD true):  out[f] = sum_t src[f + (2-ky)*P + (2-kx)] . W1[:, :, t]
-// for f in [0, 16*frags). A warp takes a unit of 16 pixels x 64 channels
-// (one A fragment feeds 8 independent mma) and hands each finished pair
-// (row, col), (row, col + 1) to `epi`.
-template <bool DGRAD, typename Epi>
-__device__ __forceinline__ void conv1_product(const bf16* src, const bf16* w1s, int pitch,
-                                              int frags, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: which 8x8 matrix, which row
-  for (int u = warp; u < frags; u += WARPS) {
-    const int f0 = u * 16;
-    float acc[8][4];
+// The f32 accumulator registers as wgmma leaves them: zeroed, then fenced.
+template <int R>
+__device__ __forceinline__ void wgmma_begin(float (&acc)[R]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  fence_acc(acc);
+  wgmma_fence();
+}
+
+// Commit, wait for every product in flight, and hand the registers back.
+template <int R>
+__device__ __forceinline__ void wgmma_end(float (&acc)[R]) {
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+// conv1 over pixel rows [n0, n0 + N) of this consumer warpgroup, on wgmma:
+//   forward (DGRAD false): D[o][f] = sum_t W1[t][o][:] . src[f + ky*P + kx][:]
+//   dgrad   (DGRAD true):  D[i][f] = sum_t W1[t][:][i] . src[f + (2-ky)*P + (2-kx)][:]
+// Issued as one commit group. The descriptors are built once and
+// advanced by the start address (in 16-byte units), one tap per
+// iteration: unrolled, the 72 descriptors of the chain would be hoisted
+// into registers and spill.
+template <bool DGRAD, int R>
+__device__ __forceinline__ void conv1_issue(float (&acc)[R], uint32_t w1, uint32_t src, int pitch,
+                                            int n0) {
+  const uint64_t da = DGRAD ? desc_sw128_mn(w1) : desc_sw128(w1);
+  const uint64_t db = desc_sw128(src + n0 * ROW);
+  wgmma_begin(acc);
 #pragma unroll 1
-    for (int t = 0; t < 9; ++t) {
-      const int ky = t / 3, kx = t - 3 * (t / 3);
-      const int off = DGRAD ? (2 - ky) * pitch + (2 - kx) : ky * pitch + kx;
-      const bf16* arow = src + (f0 + off + (lane & 15)) * LDS + (lane >> 4) * 8;
-      const bf16* wt = w1s + t * C * LDS;
+  for (int t = 0; t < 9; ++t) {
+    const int ky = t / 3, kx = t - 3 * ky;
+    const int off = DGRAD ? (2 - ky) * pitch + (2 - kx) : ky * pitch + kx;
+    const uint64_t a = da + t * (TAP_BYTES >> 4), b = db + off * (ROW >> 4);
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        uint32_t a[4];
-        ldsm_x4(a, arow + kc * 16);
-#pragma unroll
-        for (int nb = 0; nb < 8; nb += 2) {
-          uint32_t b[4];
-          // matrix `mat`: output block nb + (mat >> 1), K half (mat & 1)
-          if (DGRAD) {  // B[k = out][n = in], stored k-major: transpose on load
-            ldsm_x4_trans(b, wt + (kc * 16 + (mat & 1) * 8 + mrow) * LDS + (nb + (mat >> 1)) * 8);
-          } else {      // B[k = in][n = out], stored n-major
-            ldsm_x4(b, wt + ((nb + (mat >> 1)) * 8 + mrow) * LDS + kc * 16 + (mat & 1) * 8);
-          }
-          mma_bf16(acc[nb], a, b[0], b[1]);
-          mma_bf16(acc[nb + 1], a, b[2], b[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      const int col = nb * 8 + (lane & 3) * 2;
-      epi(f0 + (lane >> 2), col, acc[nb][0], acc[nb][1]);
-      epi(f0 + (lane >> 2) + 8, col, acc[nb][2], acc[nb][3]);
+    for (int kk = 0; kk < 4; ++kk) {
+      // K = the output channel (dgrad): 16 weight rows per k16 slice; K =
+      // the input channel (forward): 32 bytes of every weight row
+      wgmma_m64k16<DGRAD ? 1 : 0>(acc, a + (DGRAD ? kk * 16 * ROW : kk * 32) / 16, b + kk * 2);
     }
   }
+  wgmma_commit();
+}
+
+// conv1_issue, then wait: returns with the products retired (the source
+// may be overwritten).
+template <bool DGRAD, int R>
+__device__ __forceinline__ void conv1_wgmma(float (&acc)[R], uint32_t w1, uint32_t src, int pitch,
+                                            int n0) {
+  conv1_issue<DGRAD>(acc, w1, src, pitch, n0);
+  wgmma_wait<0>();
+  fence_acc(acc);
 }
 
 // ---------------------------------------------------------------- K4 ----
 
-__global__ void __launch_bounds__(THREADS, 1) stem_dx_kernel(StemParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* a0 = reinterpret_cast<bf16*>(smem);                          // a0, then gz0
-  bf16* z1 = reinterpret_cast<bf16*>(smem + DX_A0_BYTES);            // z1, then gz1
-  bf16* w1s = reinterpret_cast<bf16*>(smem + DX_A0_BYTES + DX_Z1_BYTES);
-  float* b0s = reinterpret_cast<float*>(smem + DX_A0_BYTES + DX_Z1_BYTES + W1_BYTES);
-  float* b1s = b0s + C;
-  bf16* xs = reinterpret_cast<bf16*>(b1s + C);                       // (XR, XC, 3)
-  bf16* xcol = z1;                                                   // (A0 frags*16, XLD)
-  bf16* w0c = z1 + DX_A0_FRAGS * 16 * XLD;                           // (64 out, XLD)
+struct DxSmem {  // K4's shared buffers (byte pointers into the dynamic block)
+  uint8_t *w1, *w0t, *w0c, *a0, *z1, *x, *g;
+  float* b1;
+  uint64_t* bar;  // x full, x empty, g full, g empty
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int mat = lane >> 3, mrow = lane & 7;
-  const int n = blockIdx.z;
-  const int ty0 = blockIdx.y * DX_TH, tx0 = blockIdx.x * DX_TW;
-  const int h2 = p.h / 2, w2 = p.w / 2;
+// K4's consumers: warpgroups 0 and 1 (the 8 warps cw), one tile at a time.
+__device__ __forceinline__ void stem_dx_consumers(const StemParams& p, const DxSmem& sm, int tiles) {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+  const int tid = threadIdx.x, wg = tid >> 7, cw = tid >> 5, lane = tid & 31;
+  const uint32_t w1a = smem_u32(sm.w1), w0ta = smem_u32(sm.w0t), w0ca = smem_u32(sm.w0c);
+  const uint32_t a0a = smem_u32(sm.a0), z1a = smem_u32(sm.z1);
+  const uint16_t* xs = reinterpret_cast<const uint16_t*>(sm.x);
+  // this thread's accumulator rows (channels ch0, ch0 + 8)
+  const int ch0 = 16 * (cw & 3) + (lane >> 2);
+  const float bias1[2] = {sm.b1[ch0], sm.b1[ch0 + 8]};
+
+  for (int tile = blockIdx.x, i = 0; tile < tiles; tile += gridDim.x, ++i) {
+    const Tile tl = tile_at(tile, p.h, p.w, DX_TH, DX_TW);
+
+    // 1. the im2col of x, one pixel row per thread: k = ky*9 + kx*3 + in
+    //    lies at xs[(r + ky)*XC*3 + c*3 + kx*3 + in]; k = 27 is 1 (times
+    //    W0's column 27, the bias); a row outside the image or past the
+    //    halo is 0, so that a0 = relu(row . W0) is 0 there
+    mbar_wait(&sm.bar[0], i & 1);
+    for (int pix = tid; pix < DX_A0_ROWS; pix += CONSUMERS) {
+      const int r = pix / DX_P, c = pix - r * DX_P, ih = tl.y0 - 3 + r, iw = tl.x0 - 3 + c;
+      uint32_t w[XK / 2];
+#pragma unroll
+      for (int q = 0; q < XK / 2; ++q) w[q] = 0u;
+      if (r < DX_TH + 6 && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w) {
+        const uint16_t* src = xs + (r * DX_XC + c) * 3;
+#pragma unroll
+        for (int k = 0; k < 27; ++k)
+          w[k >> 1] |= (uint32_t)src[(k / 9) * DX_XC * 3 + k % 9] << (16 * (k & 1));
+        w[27 >> 1] |= (uint32_t)0x3F80u << 16;  // bf16 1.0 at k = 27
+      }
+#pragma unroll
+      for (int q = 0; q < XK / 8; ++q)
+        *reinterpret_cast<uint4*>(sm.z1 + sw64(pix, q)) =
+            make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+    }
+    fence_proxy_async();
+    mbar_arrive(&sm.bar[1]);  // x may be refilled
+    named_sync(1, CONSUMERS);
+
+    // 2. a0 = relu(conv0(x) + b0) over rows/cols [-3, T+3), 0 outside the
+    //    image and past the tile: the im2col product on wgmma (K 32)
+    {
+      float acc[DX_C0_N / 2];
+      wgmma_begin(acc);
+      const uint64_t da = desc_sw64(w0ca), db = desc_sw64(z1a + wg * DX_C0_N * XROW);
+#pragma unroll
+      for (int kk = 0; kk < XK / 16; ++kk) wgmma_m64k16<0>(acc, da + kk * 2, db + kk * 2);
+      wgmma_end(acc);
+      store_acc<false>(acc, a0a, wg * DX_C0_N, [](int, int, float v0, float v1, uint32_t) {
+        return pack_bf16(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+      });
+    }
+    fence_proxy_async();
+    named_sync(1, CONSUMERS);
+
+    // 3. z1 = conv1(a0) + b1 over rows/cols [-2, T+2), on wgmma
+    {
+      float acc[DX_Z1_N / 2];
+      conv1_wgmma<false>(acc, w1a, a0a, DX_P, wg * DX_Z1_N);
+      store_acc<false>(acc, z1a, wg * DX_Z1_N, [&](int h, int, float v0, float v1, uint32_t) {
+        return pack_bf16(v0 + bias1[h], v1 + bias1[h]);
+      });
+    }
+    mbar_wait(&sm.bar[2], i & 1);
+    named_sync(1, CONSUMERS);
+
+    // 4. pool gradient, in place: each window's g goes to its first maximum
+    //    of relu(z1) in row-major order, and only where z1 > 0. Two
+    //    channels at a time as 16-bit integers: a bf16 > 0 compares as its
+    //    bits do, and relu maps negative values and -0 to 0
+    for (int e = tid; e < DX_GR * DX_GC * 8; e += CONSUMERS) {
+      const int win = e >> 3, c = e & 7;
+      const int wr = win / DX_GC, wc = win - wr * DX_GC;
+      const uint4 gv = *reinterpret_cast<const uint4*>(sm.g + e * 16);
+      const int q0 = 2 * wr * DX_P + 2 * wc;
+      const int q[4] = {q0, q0 + 1, q0 + DX_P, q0 + DX_P + 1};
+      uint4 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = *reinterpret_cast<const uint4*>(sm.z1 + sw128(q[k], c));
+      const uint32_t* g32 = reinterpret_cast<const uint32_t*>(&gv);
+      uint32_t o[4][4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const uint32_t a[4] = {reinterpret_cast<const uint32_t*>(&v[0])[w],
+                               reinterpret_cast<const uint32_t*>(&v[1])[w],
+                               reinterpret_cast<const uint32_t*>(&v[2])[w],
+                               reinterpret_cast<const uint32_t*>(&v[3])[w]};
+        const uint32_t mx = __vimax3_s16x2_relu(a[0], a[1], __vimax_s16x2_relu(a[2], a[3]));
+        const uint32_t pos = __vcmpgts2(mx, 0u);
+        const uint32_t s0 = __vcmpeq2(a[0], mx) & pos;
+        const uint32_t s1 = __vcmpeq2(a[1], mx) & pos & ~s0;
+        const uint32_t s2 = __vcmpeq2(a[2], mx) & pos & ~(s0 | s1);
+        const uint32_t s3 = pos & ~(s0 | s1 | s2);
+        o[0][w] = g32[w] & s0;
+        o[1][w] = g32[w] & s1;
+        o[2][w] = g32[w] & s2;
+        o[3][w] = g32[w] & s3;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        *reinterpret_cast<uint4*>(sm.z1 + sw128(q[k], c)) = make_uint4(o[k][0], o[k][1], o[k][2], o[k][3]);
+    }
+    fence_proxy_async();
+    mbar_arrive(&sm.bar[3]);  // g may be refilled
+    named_sync(1, CONSUMERS);
+
+    // 5. gz0 = dgrad_conv1(gz1) over rows/cols [-1, T+1), where a0 > 0;
+    //    written over a0 at the same pixel, 2 rows and 2 columns in
+    {
+      float acc[DX_GZ0_N / 2];
+      conv1_wgmma<true>(acc, w1a, z1a, DX_P, wg * DX_GZ0_N);
+      store_acc<true>(acc, a0a, wg * DX_GZ0_N + 2 * DX_P + 2,
+                      [](int, int, float v0, float v1, uint32_t old) {
+                        const __nv_bfloat162 o = *reinterpret_cast<const __nv_bfloat162*>(&old);
+                        return pack_bf16(__low2float(o) > 0.f ? v0 : 0.f,
+                                         __high2float(o) > 0.f ? v1 : 0.f);
+                      });
+    }
+    named_sync(1, CONSUMERS);
+
+    // 6. dx = dgrad_conv0(gz0), in two steps. A product on wgmma reads each
+    //    gz0 row once: Q[n][g] = sum_o W0[o][n] gz0[g][o] for the 27 (tap,
+    //    channel) rows n = 3 t + ch of W0's transpose (padded to 64), f32,
+    //    in z1's buffer; then dx[d][ch] = sum_t Q[3 t + ch][d + (2-ky)*P + (2-kx)]
+    {
+      float acc[DX_GZ0_N / 2];
+      wgmma_begin(acc);
+      const uint64_t da = desc_sw128(w0ta);
+      const uint64_t db = desc_sw128(a0a + (wg * DX_GZ0_N + 2 * DX_P + 2) * ROW);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_m64k16<0>(acc, da + kk * 2, db + kk * 2);
+      wgmma_end(acc);
+      float* q = reinterpret_cast<float*>(sm.z1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = ch0 + 8 * h;
+        if (n >= 27) continue;
+#pragma unroll
+        for (int j = 0; j < DX_GZ0_N / 8; ++j)
+          *reinterpret_cast<float2*>(q + n * Q_LD + wg * DX_GZ0_N + 8 * j + 2 * (lane & 3)) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+    named_sync(1, CONSUMERS);
+    {
+      const float* q = reinterpret_cast<const float*>(sm.z1);
+      const int r = tid / DX_TW, c = tid % DX_TW, ih = tl.y0 + r, iw = tl.x0 + c;
+      static_assert(DX_TH * DX_TW == CONSUMERS, "one dx pixel per consumer thread");
+      if (ih < p.h && iw < p.w) {
+        const int d = r * DX_P + c;
+        float s[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+        for (int t = 0; t < 9; ++t)
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch)
+            s[ch] += q[(3 * t + ch) * Q_LD + d + (2 - t / 3) * DX_P + (2 - t % 3)];
+        float* out = p.dx + ((size_t)(tl.n * p.h + ih) * p.w + iw) * 3;
+        out[0] = s[0];
+        out[1] = s[1];
+        out[2] = s[2];
+      }
+    }
+    named_sync(1, CONSUMERS);  // z1's buffer and a0 are rewritten by the next tile
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) stem_dx_kernel(StemParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar[4];
+  DxSmem sm;
+  sm.w1 = align1024(smem_raw);
+  sm.w0t = sm.w1 + W1_BYTES;       // W0 transposed, (27 used of 64) rows of 64 out
+  sm.w0c = sm.w0t + W0T_BYTES;     // W0 as (64 out) rows of 32 k, 64-byte swizzle
+  sm.a0 = sm.w0c + W0C_BYTES;      // a0, then gz0
+  sm.z1 = sm.a0 + DX_A0_BYTES;     // the im2col of x; z1, then gz1; Q
+  sm.x = sm.z1 + DX_Z1_BYTES;      // (XR, XC, 3) bf16
+  sm.g = sm.x + DX_X_BYTES;        // (GR x GC windows, 64) bf16
+  sm.b1 = reinterpret_cast<float*>(sm.g + DX_G_BYTES);
+  sm.bar = bar;
+
+  const int tid = threadIdx.x;
+  const int tiles = p.m * cdiv(p.h, DX_TH) * cdiv(p.w, DX_TW);
   const bf16 zero = __float2bfloat16(0.f);
 
-  // 1. weights, biases, the x tile (zero outside the image)
-  stage_w1(p.w1, w1s);
-  for (int i = tid; i < C * XK; i += THREADS) {
-    const int o = i / XK, k = i % XK;
-    w0c[o * XLD + k] = k < 27 ? p.w0[o * 27 + k] : zero;
+  stage_weights(p, sm.w1, sm.b1);
+  for (int e = tid; e < C * XK; e += THREADS) {  // w0c[o][k] = W0[o][k], w0c[o][27] = b0[o]
+    const int o = e / XK, k = e % XK;
+    *reinterpret_cast<bf16*>(sm.w0c + sw64(o, k >> 3) + (k & 7) * 2) =
+        k < 27 ? p.w0[o * 27 + k] : k == 27 ? __float2bfloat16(p.b0[o]) : zero;
   }
-  if (tid < C) {
-    b0s[tid] = p.b0[tid];
-    b1s[tid] = p.b1[tid];
+  for (int e = tid; e < C * C; e += THREADS) {  // w0t[n][o] = W0[o][n]
+    const int n = e / C, o = e % C;
+    *reinterpret_cast<bf16*>(sm.w0t + sw128(n, o >> 3) + (o & 7) * 2) = n < 27 ? p.w0[o * 27 + n] : zero;
   }
-  for (int i = tid; i < DX_XR * DX_XC; i += THREADS) {
-    const int ih = ty0 - 4 + i / DX_XC, iw = tx0 - 4 + i % DX_XC;
-    const bool in = ih >= 0 && ih < p.h && iw >= 0 && iw < p.w;
-    const bf16* src = p.x + ((size_t)(n * p.h + ih) * p.w + iw) * 3;
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) xs[i * 3 + ch] = in ? src[ch] : zero;
+  fence_proxy_async();
+  if (tid == 0) {
+    for (int k = 0; k < 4; ++k) mbar_init(&bar[k], k % 2 ? CONSUMERS : PRODUCERS);
+    mbar_init_fence();
   }
   __syncthreads();
 
-  // 2. a0 = relu(conv0(x) + b0) over rows/cols [-3, T+3), 0 outside the
-  //    image and past the tile: an im2col product on the tensor cores
-  for (int i = tid; i < DX_A0_FRAGS * 16 * XK; i += THREADS) {
-    const int pix = i / XK, k = i % XK, t = k / 3;
-    const int r = pix / DX_P, c = pix % DX_P;
-    xcol[pix * XLD + k] = k < 27 && r < DX_TH + 6
-        ? xs[((r + t / 3) * DX_XC + c + t % 3) * 3 + k % 3] : zero;
-  }
-  __syncthreads();
-  for (int u = warp; u < DX_A0_FRAGS; u += WARPS) {
-    float acc[8][4];
+  if (tid >= CONSUMERS) {
+    // ---- producer: the next tile's x (through registers, as 4-byte words:
+    // its pixels are 6 bytes, a tile row starts 4-byte aligned for an even
+    // W, and no word straddles the image's edge, 3 x an even number of
+    // pixels in) as soon as the consumers' im2col is done with it, and its
+    // g (cp.async) as soon as their pool gradient is
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n");
+    const int t = tid - CONSUMERS;
+    constexpr int XRW = DX_XC * 3 / 2, XN = DX_XR * XRW, XPER = cdiv(XN, PRODUCERS);
+    const int h2 = p.h / 2, w2 = p.w / 2;
+    uint32_t* xs = reinterpret_cast<uint32_t*>(sm.x);
+    const uint32_t* xg = reinterpret_cast<const uint32_t*>(p.x);
+    for (int tile = blockIdx.x, i = 0; tile < tiles; tile += gridDim.x, ++i) {
+      const Tile tl = tile_at(tile, p.h, p.w, DX_TH, DX_TW);
+      uint32_t v[XPER];  // all loads in flight before the first store
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < XK / 16; ++kc) {
-      uint32_t a[4];
-      ldsm_x4(a, xcol + (u * 16 + (lane & 15)) * XLD + kc * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int nb = 0; nb < 8; nb += 2) {
-        uint32_t b[4];
-        ldsm_x4(b, w0c + ((nb + (mat >> 1)) * 8 + mrow) * XLD + kc * 16 + (mat & 1) * 8);
-        mma_bf16(acc[nb], a, b[0], b[1]);
-        mma_bf16(acc[nb + 1], a, b[2], b[3]);
+      for (int j = 0; j < XPER; ++j) {
+        const int e = t + j * PRODUCERS, r = e / XRW, wi = e - r * XRW;
+        const int ih = tl.y0 - 4 + r, iw = tl.x0 - 4 + 2 * wi / 3;
+        const bool in = e < XN && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w;
+        v[j] = in ? __ldg(xg + (((size_t)(tl.n * p.h + ih) * p.w + tl.x0 - 4) * 3 + 2 * wi) / 2) : 0u;
       }
-    }
+      if (i > 0) mbar_wait(&bar[1], (i - 1) & 1);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int pix = u * 16 + (lane >> 2) + half * 8;
-      const int r = pix / DX_P, c = pix % DX_P;
-      const int ih = ty0 - 3 + r, iw = tx0 - 3 + c;
-      const bool in = r < DX_TH + 6 && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w;
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
-        const int col = nb * 8 + (lane & 3) * 2;
-        *reinterpret_cast<__nv_bfloat162*>(a0 + pix * LDS + col) = __floats2bfloat162_rn(
-            in ? fmaxf(acc[nb][2 * half] + b0s[col], 0.f) : 0.f,
-            in ? fmaxf(acc[nb][2 * half + 1] + b0s[col + 1], 0.f) : 0.f);
+      for (int j = 0; j < XPER; ++j)
+        if (t + j * PRODUCERS < XN) xs[t + j * PRODUCERS] = v[j];
+      mbar_arrive(&bar[0]);
+      if (i > 0) mbar_wait(&bar[3], (i - 1) & 1);
+      const uint32_t gdst = smem_u32(sm.g);
+      for (int e = t; e < DX_GR * DX_GC * 8; e += PRODUCERS) {
+        const int win = e >> 3, c8 = (e & 7) * 8;
+        const int py = tl.y0 / 2 - 1 + win / DX_GC, px = tl.x0 / 2 - 1 + win % DX_GC;
+        const bool in = py >= 0 && py < h2 && px >= 0 && px < w2;
+        cp_async16(gdst + e * 16, in ? p.g + ((size_t)(tl.n * h2 + py) * w2 + px) * C + c8 : p.g,
+                   in ? 16 : 0);
       }
+      cp_async_wait_all();
+      mbar_arrive(&bar[2]);
     }
-  }
-  __syncthreads();
-
-  // 3. z1 = conv1(a0) + b1 over rows/cols [-2, T+2)
-  conv1_product<false>(a0, w1s, DX_P, DX_Z1_FRAGS, [&](int row, int col, float v0, float v1) {
-    *reinterpret_cast<__nv_bfloat162*>(z1 + row * LDS + col) =
-        __floats2bfloat162_rn(v0 + b1s[col], v1 + b1s[col + 1]);
-  });
-  __syncthreads();
-
-  // 4. pool gradient, in place: each window's g goes to its first maximum
-  //    of relu(z1) in row-major order, and only where z1 > 0
-  constexpr int WR = (DX_TH + 4) / 2, WC = (DX_TW + 4) / 2;
-  for (int i = tid; i < WR * WC * 8; i += THREADS) {
-    const int win = i >> 3, c0 = (i & 7) * 8;
-    const int wr = win / WC, wc = win % WC;
-    const int py = ty0 / 2 - 1 + wr, px = tx0 / 2 - 1 + wc;
-    Vec8 gv;
-    gv.u = make_uint4(0u, 0u, 0u, 0u);
-    if (py >= 0 && py < h2 && px >= 0 && px < w2)
-      gv.u = __ldg(reinterpret_cast<const uint4*>(p.g + ((size_t)(n * h2 + py) * w2 + px) * C + c0));
-    bf16* q[4];
-    q[0] = z1 + (2 * wr * DX_P + 2 * wc) * LDS + c0;
-    q[1] = q[0] + LDS;
-    q[2] = q[0] + DX_P * LDS;
-    q[3] = q[2] + LDS;
-    Vec8 v[4], o[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) v[k].u = *reinterpret_cast<const uint4*>(q[k]);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float a[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) a[k] = fmaxf(__bfloat162float(v[k].h[e]), 0.f);
-      const float m = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
-      // m == 0: the first max has z1 <= 0, so nothing passes
-      const int sel = m <= 0.f ? 4 : a[0] == m ? 0 : a[1] == m ? 1 : a[2] == m ? 2 : 3;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) o[k].h[e] = sel == k ? gv.h[e] : zero;
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) *reinterpret_cast<uint4*>(q[k]) = o[k].u;
-  }
-  __syncthreads();
-
-  // 5. gz0 = dgrad_conv1(gz1) over rows/cols [-1, T+1), where a0 > 0;
-  //    written over a0 at the same pixel
-  conv1_product<true>(z1, w1s, DX_P, DX_GZ0_FRAGS, [&](int row, int col, float v0, float v1) {
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(a0 + (row + 2 * DX_P + 2) * LDS + col);
-    const __nv_bfloat162 act = *dst;
-    *dst = __floats2bfloat162_rn(__bfloat162float(act.x) > 0.f ? v0 : 0.f,
-                                 __bfloat162float(act.y) > 0.f ? v1 : 0.f);
-  });
-  __syncthreads();
-
-  // 6. dx = dgrad_conv0(gz0) = sum_t gz0[f + (4-ky)*P + (4-kx)] . W0[:, :, t]
-  //    on the tensor cores, N = 3 output channels padded to 8; the
-  //    weights, as [tap][out channel][in], go where z1 was
-  bf16* w0d = z1;
-  for (int i = tid; i < 9 * 8 * C; i += THREADS) {
-    const int t = i / (8 * C), ch = (i / C) % 8, o = i % C;
-    w0d[(t * 8 + ch) * LDS + o] = ch < 3 ? p.w0[o * 27 + t * 3 + ch] : zero;
-  }
-  __syncthreads();
-  for (int u = warp; u < DX_DX_FRAGS; u += WARPS) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 1
-    for (int t = 0; t < 9; ++t) {
-      const int off = (4 - t / 3) * DX_P + (4 - t % 3);
-      const bf16* arow = a0 + (u * 16 + off + (lane & 15)) * LDS + (lane >> 4) * 8;
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        uint32_t a[4], b[4];
-        ldsm_x4(a, arow + kc * 16);
-        // matrices 0/1: the K halves of the one output block (2/3 repeat them)
-        ldsm_x4(b, w0d + (t * 8 + mrow) * LDS + kc * 16 + (mat & 1) * 8);
-        mma_bf16(acc, a, b[0], b[1]);
-      }
-    }
-    const int ch = (lane & 3) * 2;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int pix = u * 16 + (lane >> 2) + half * 8;
-      const int i = pix / DX_P, j = pix % DX_P;
-      const int ih = ty0 + i, iw = tx0 + j;
-      if (ch >= 3 || j >= DX_TW || ih >= p.h || iw >= p.w) continue;
-      float* out = p.dx + ((size_t)(n * p.h + ih) * p.w + iw) * 3 + ch;
-      out[0] = acc[2 * half];
-      if (ch + 1 < 3) out[1] = acc[2 * half + 1];
-    }
+  } else {
+    stem_dx_consumers(p, sm, tiles);
   }
 }
 
 // ---------------------------------------------------------------- K5 ----
 
+// K5's consumers: warpgroup wg takes tile rows [8 wg, 8 wg + 8): its z1
+// pixels, then its 4 rows of pool windows. The products of the next tile
+// are issued before this tile's epilogue and pool, into the other of two
+// accumulators, so that the tensor cores keep working through them.
+__device__ __forceinline__ void stem_pool_consumers(const StemParams& p, uint8_t* w1s, uint8_t* in,
+                                                    const float* b1s, uint64_t* full_bar,
+                                                    uint64_t* empty_bar, int tiles) {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n");
+  const int h2 = p.h / 2, w2 = p.w / 2;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, cw = tid >> 5, lane = tid & 31;
+  const uint32_t w1a = smem_u32(w1s);
+  const int z1row = wg ? PL_Z1_ROW1 : 0;
+  const int ch0 = 16 * (cw & 3) + (lane >> 2);  // this thread's accumulator rows: ch0, ch0 + 8
+  const float bias[2] = {b1s[ch0], b1s[ch0 + 8]};
+  const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
+  const int count = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+
+  // the products of this CTA's tile i, into acc
+  auto issue = [&](float (&acc)[PL_N / 2], int i) {
+    mbar_wait(&full_bar[i % PL_STAGES], (i / PL_STAGES) & 1);
+    fence_proxy_async();
+    conv1_issue<false>(acc, w1a, smem_u32(in + i % PL_STAGES * PL_A0_BYTES), PL_P, wg * PL_N);
+  };
+  // tile i's z1 from acc (its products retired), then relu + 2x2 max pool;
+  // only the pooled quarter leaves the chip
+  auto finish = [&](const float (&acc)[PL_N / 2], int i) {
+    uint8_t* z1 = in + i % PL_STAGES * PL_A0_BYTES;
+    const Tile tl = tile_at(blockIdx.x + i * gridDim.x, p.h, p.w, PL_TH, PL_TW);
+    store_acc<false>(acc, smem_u32(z1), z1row, [&](int h, int, float v0, float v1, uint32_t) {
+      return pack_bf16(v0 + bias[h], v1 + bias[h]);
+    });
+    named_sync(1 + wg, 128);
+    for (int e = wt; e < (PL_TH / 4) * (PL_TW / 2) * 8; e += 128) {
+      const int win = e >> 3, c = e & 7;
+      const int wr = win / (PL_TW / 2), wc = win % (PL_TW / 2);
+      const int py = tl.y0 / 2 + wg * (PL_TH / 4) + wr, px = tl.x0 / 2 + wc;
+      if (py >= h2 || px >= w2) continue;
+      const int q0 = z1row + 2 * wr * PL_P + 2 * wc;
+      uint4 v[4];
+      v[0] = *reinterpret_cast<const uint4*>(z1 + sw128(q0, c));
+      v[1] = *reinterpret_cast<const uint4*>(z1 + sw128(q0 + 1, c));
+      v[2] = *reinterpret_cast<const uint4*>(z1 + sw128(q0 + PL_P, c));
+      v[3] = *reinterpret_cast<const uint4*>(z1 + sw128(q0 + PL_P + 1, c));
+      uint4 out;
+      const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(v);
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        o[k] = __hmax2(__hmax2(__hmax2(a[k], a[4 + k]), __hmax2(a[8 + k], a[12 + k])), zero2);
+      *reinterpret_cast<uint4*>(p.pooled + ((size_t)(tl.n * h2 + py) * w2 + px) * C + c * 8) = out;
+    }
+    mbar_arrive(&empty_bar[i % PL_STAGES]);  // the buffer may be refilled
+  };
+
+  float acc0[PL_N / 2], acc1[PL_N / 2];
+  issue(acc0, 0);
+  for (int i = 0; i < count; i += 2) {
+    if (i + 1 < count) {
+      issue(acc1, i + 1);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_acc(acc0);
+    finish(acc0, i);
+    if (i + 1 == count) break;
+    if (i + 2 < count) {
+      issue(acc0, i + 2);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_acc(acc1);
+    finish(acc1, i + 1);
+  }
+}
+
 __global__ void __launch_bounds__(THREADS, 1) stem_pool_kernel(StemParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* a0 = reinterpret_cast<bf16*>(smem);
-  bf16* z1 = reinterpret_cast<bf16*>(smem + PL_A0_BYTES);
-  bf16* w1s = reinterpret_cast<bf16*>(smem + PL_A0_BYTES + PL_Z1_BYTES);
-  float* b1s = reinterpret_cast<float*>(smem + PL_A0_BYTES + PL_Z1_BYTES + W1_BYTES);
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[PL_STAGES], empty_bar[PL_STAGES];
+  uint8_t* w1s = align1024(smem_raw);
+  uint8_t* in = w1s + W1_BYTES;  // PL_STAGES x a0 = relu(z0), rows/cols [-1, T+1), then z1
+  float* b1s = reinterpret_cast<float*>(in + PL_STAGES * PL_A0_BYTES);
 
   const int tid = threadIdx.x;
-  const int n = blockIdx.z;
-  const int ty0 = blockIdx.y * PL_TH, tx0 = blockIdx.x * PL_TW;
-  const int h2 = p.h / 2, w2 = p.w / 2;
+  const int tiles = p.m * cdiv(p.h, PL_TH) * cdiv(p.w, PL_TW);
 
-  // 1. weights, bias, a0 = relu(z0) over rows/cols [-1, T+1), 0 outside
-  stage_w1(p.w1, w1s);
-  if (tid < C) b1s[tid] = p.b1[tid];
-  const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
-  for (int i = tid; i < PL_A0_PIX * 8; i += THREADS) {
-    const int pix = i >> 3, c0 = (i & 7) * 8;
-    const int r = pix / PL_P, c = pix % PL_P;
-    const int ih = ty0 - 1 + r, iw = tx0 - 1 + c;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < PL_TH + 2 && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w) {
-      v = __ldg(reinterpret_cast<const uint4*>(p.x + ((size_t)(n * p.h + ih) * p.w + iw) * C + c0));
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) h[e] = __hmax2(h[e], zero2);
+  // The rows of a buffer past the halo are read only for the ignored
+  // columns, which depend on nothing else: they are never cleared.
+  stage_weights(p, w1s, b1s);
+  if (tid == 0) {
+    for (int b = 0; b < PL_STAGES; ++b) {
+      mbar_init(&full_bar[b], PRODUCERS);
+      mbar_init(&empty_bar[b], CONSUMERS);
     }
-    *reinterpret_cast<uint4*>(a0 + pix * LDS + c0) = v;
+    mbar_init_fence();
   }
   __syncthreads();
 
-  // 2. z1 = conv1(a0) + b1 over the tile
-  conv1_product<false>(a0, w1s, PL_P, PL_Z1_FRAGS, [&](int row, int col, float v0, float v1) {
-    *reinterpret_cast<__nv_bfloat162*>(z1 + row * LDS + col) =
-        __floats2bfloat162_rn(v0 + b1s[col], v1 + b1s[col + 1]);
-  });
-  __syncthreads();
-
-  // 3. relu + 2x2 max pool; only the pooled quarter leaves the chip
-  for (int i = tid; i < (PL_TH / 2) * (PL_TW / 2) * 8; i += THREADS) {
-    const int win = i >> 3, c0 = (i & 7) * 8;
-    const int wr = win / (PL_TW / 2), wc = win % (PL_TW / 2);
-    const int py = ty0 / 2 + wr, px = tx0 / 2 + wc;
-    if (py >= h2 || px >= w2) continue;
-    const bf16* q = z1 + (2 * wr * PL_P + 2 * wc) * LDS + c0;
-    uint4 v[4];
-    v[0] = *reinterpret_cast<const uint4*>(q);
-    v[1] = *reinterpret_cast<const uint4*>(q + LDS);
-    v[2] = *reinterpret_cast<const uint4*>(q + PL_P * LDS);
-    v[3] = *reinterpret_cast<const uint4*>(q + (PL_P + 1) * LDS);
-    uint4 out;
-    const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(v);
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+  if (tid >= CONSUMERS) {
+    // ---- producer: thread t loads 16-byte chunk t % 8 of pixel rows
+    // t / 8 + 16 j into registers, in three batches with two in flight, and
+    // stores their relu once the buffer is free
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n");
+    const int t = tid - CONSUMERS, c = t & 7;
+    constexpr int STEP = PRODUCERS / 8, BATCH = 7, BATCHES = cdiv(PL_IN_ROWS, STEP * BATCH);
+    const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
+    for (int tile = blockIdx.x, i = 0; tile < tiles; tile += gridDim.x, ++i) {
+      const int b = i % PL_STAGES;
+      const Tile tl = tile_at(tile, p.h, p.w, PL_TH, PL_TW);
+      uint8_t* buf = in + b * PL_A0_BYTES;
+      auto load = [&](uint4 (&v)[BATCH], int k) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o[e] = __hmax2(__hmax2(__hmax2(a[e], a[4 + e]), __hmax2(a[8 + e], a[12 + e])), zero2);
-    *reinterpret_cast<uint4*>(p.pooled + ((size_t)(n * h2 + py) * w2 + px) * C + c0) = out;
+        for (int j = 0; j < BATCH; ++j) {
+          const int r = (t >> 3) + (k * BATCH + j) * STEP;
+          const int ih = tl.y0 - 1 + r / PL_P, iw = tl.x0 - 1 + r % PL_P;
+          const bool ok = r < PL_IN_ROWS && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w;
+          v[j] = ok ? __ldg(reinterpret_cast<const uint4*>(
+                          p.x + ((size_t)(tl.n * p.h + ih) * p.w + iw) * C + c * 8))
+                    : make_uint4(0u, 0u, 0u, 0u);
+        }
+      };
+      auto store = [&](uint4 (&v)[BATCH], int k) {
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          const int r = (t >> 3) + (k * BATCH + j) * STEP;
+          if (r >= PL_IN_ROWS) break;
+          __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&v[j]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hv[e] = __hmax2(hv[e], zero2);
+          *reinterpret_cast<uint4*>(buf + sw128(r, c)) = v[j];
+        }
+      };
+      uint4 v[2][BATCH];
+      load(v[0], 0);
+#pragma unroll
+      for (int k = 0; k < BATCHES; ++k) {
+        if (k + 1 < BATCHES) load(v[(k + 1) & 1], k + 1);
+        if (k == 0 && i >= PL_STAGES) mbar_wait(&empty_bar[b], (i / PL_STAGES + 1) & 1);
+        store(v[k & 1], k);
+      }
+      fence_proxy_async();
+      mbar_arrive(&full_bar[b]);
+    }
+  } else {
+    stem_pool_consumers(p, w1s, in, b1s, full_bar, empty_bar, tiles);
   }
 }
 
 StemParams make_params(const void* x, const void* g, const void* w0, const void* b0,
-                       const void* w1, const void* b1, void* dx, void* pooled, int h, int w) {
+                       const void* w1, const void* b1, void* dx, void* pooled, int m, int h,
+                       int w) {
   StemParams p;
   p.x = static_cast<const bf16*>(x);
   p.g = static_cast<const bf16*>(g);
@@ -448,6 +742,7 @@ StemParams make_params(const void* x, const void* g, const void* w0, const void*
   p.b1 = static_cast<const float*>(b1);
   p.dx = static_cast<float*>(dx);
   p.pooled = static_cast<bf16*>(pooled);
+  p.m = m;
   p.h = h;
   p.w = w;
   return p;
@@ -458,28 +753,28 @@ StemParams make_params(const void* x, const void* g, const void* w0, const void*
 extern "C" {
 
 // K4. x (m, h, w, 3) bf16, g (m, h/2, w/2, 64) bf16, w0 (64 out, 27) bf16,
-// b0/b1 (64) f32, w1 (9, 64 out, 64 in) bf16 -> dx (m, h, w, 3) f32.
-// h and w even.
+// b0/b1 (64) f32, w1 (9, 64 out, 64 in) bf16, 16-byte aligned -> dx (m, h,
+// w, 3) f32. h and w even; grid: persistent CTAs, 1 <= grid <= tiles.
 int tsii_stem_dx(const void* x, const void* g, const void* w0, const void* b0, const void* w1,
-                 const void* b1, void* dx, int m, int h, int w, void* stream) {
+                 const void* b1, void* dx, int m, int h, int w, int grid, void* stream) {
+  if (grid < 1 || grid > m * cdiv(h, DX_TH) * cdiv(w, DX_TW)) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
-      stem_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DX_SMEM);
+      stem_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DX_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const StemParams p = make_params(x, g, w0, b0, w1, b1, dx, nullptr, h, w);
-  const dim3 grid((unsigned)cdiv(w, DX_TW), (unsigned)cdiv(h, DX_TH), (unsigned)m);
+  const StemParams p = make_params(x, g, w0, b0, w1, b1, dx, nullptr, m, h, w);
   stem_dx_kernel<<<grid, THREADS, DX_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
 // K5. z0 (m, h, w, 64) bf16, w1 (9, 64 out, 64 in) bf16, b1 (64) f32
-// -> pooled (m, h/2, w/2, 64) bf16. h and w even.
+// -> pooled (m, h/2, w/2, 64) bf16. h and w even; grid as for K4.
 int tsii_stem_pool(const void* z0, const void* w1, const void* b1, void* pooled, int m, int h,
-                   int w, void* stream) {
+                   int w, int grid, void* stream) {
+  if (grid < 1 || grid > m * cdiv(h, PL_TH) * cdiv(w, PL_TW)) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
-      stem_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PL_SMEM);
+      stem_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PL_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const StemParams p = make_params(z0, nullptr, nullptr, nullptr, w1, b1, nullptr, pooled, h, w);
-  const dim3 grid((unsigned)cdiv(w, PL_TW), (unsigned)cdiv(h, PL_TH), (unsigned)m);
+  const StemParams p = make_params(z0, nullptr, nullptr, nullptr, w1, b1, nullptr, pooled, m, h, w);
   stem_pool_kernel<<<grid, THREADS, PL_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

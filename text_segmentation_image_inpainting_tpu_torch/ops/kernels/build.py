@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu`` with ``csrc/*.cuh``).
 
 At first use each source is compiled by its own ``nvcc``, all started
 together, and the objects are linked into one shared library with a plain
@@ -108,9 +108,9 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_pconv_k1.restype = i32
         lib.tsii_pconv_k2.argtypes = [ptr] * 6 + [i32] * 12 + [ptr]
         lib.tsii_pconv_k2.restype = i32
-        lib.tsii_stem_dx.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+        lib.tsii_stem_dx.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
         lib.tsii_stem_dx.restype = i32
-        lib.tsii_stem_pool.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        lib.tsii_stem_pool.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.tsii_stem_pool.restype = i32
         lib.tsii_dw_wgrad_scratch.argtypes = [i32] * 5
         lib.tsii_dw_wgrad_scratch.restype = ctypes.c_longlong

@@ -10,6 +10,11 @@ relu, 2x2 max pool. The CUDA source is ``csrc/vgg_stem.cu``.
 the CPU. On a CUDA tensor they launch K4 or K5, or raise; nothing falls
 back. ``K4_LAUNCHES`` / ``K5_LAUNCHES`` count the launches.
 
+Both kernels are persistent: the wrapper launches ``stem_grid`` CTAs, at
+most one per SM, and CTA ``b`` walks the 16x16 tiles ``b``, ``b + grid``,
+... in the order of ``stem_schedule`` (the kernel's own walk, in Python,
+for the CPU tests).
+
 Semantics the kernels and the plain versions share:
   * the pool gradient goes to the FIRST maximum of each 2x2 window, in
     row-major order (torch's ``max_pool2d`` backward and XLA's
@@ -34,6 +39,31 @@ from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d, to_nch
 
 K4_LAUNCHES = 0
 K5_LAUNCHES = 0
+# Both kernels' tile: 16x16 output pixels (dx for K4, z1 for K5), as
+# DX_TH/DX_TW and PL_TH/PL_TW in csrc/vgg_stem.cu.
+STEM_TILE = 16
+
+
+def stem_tiles(m: int, h: int, w: int) -> int:
+    """How many 16x16 tiles cover ``m`` pages of ``h`` x ``w`` (partial
+    tiles at the bottom and right edge)."""
+    return m * -(-h // STEM_TILE) * -(-w // STEM_TILE)
+
+
+def stem_grid(m: int, h: int, w: int, sms: int) -> int:
+    """The persistent grid: one CTA per SM, or one per tile when there
+    are fewer tiles than SMs."""
+    return min(sms, stem_tiles(m, h, w))
+
+
+def stem_schedule(m: int, h: int, w: int, sms: int) -> list:
+    """Each CTA's tiles in the order it takes them, as (page, first row,
+    first column): CTA ``b`` takes tiles ``b, b + grid, ...`` over (page,
+    tile row, tile column), column fastest."""
+    tx, ty = -(-w // STEM_TILE), -(-h // STEM_TILE)
+    grid = stem_grid(m, h, w, sms)
+    return [[(t // (tx * ty), t // tx % ty * STEM_TILE, t % tx * STEM_TILE)
+             for t in range(b, stem_tiles(m, h, w), grid)] for b in range(grid)]
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -145,6 +175,10 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _grid(t: torch.Tensor, m: int, h: int, w: int) -> int:
+    return stem_grid(m, h, w, torch.cuda.get_device_properties(t.device).multi_processor_count)
+
+
 def _launch_k4(x, g, w0, b0, w1, b1):
     global K4_LAUNCHES
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
@@ -163,7 +197,8 @@ def _launch_k4(x, g, w0, b0, w1, b1):
     w1t, b0f, b1f = _w1_taps(w1), _bias(b0), _bias(b1)
     dx = torch.empty((m, h, w, 3), dtype=torch.float32, device=x.device)
     code = lib.tsii_stem_dx(x.data_ptr(), g.data_ptr(), w0t.data_ptr(), b0f.data_ptr(),
-                            w1t.data_ptr(), b1f.data_ptr(), dx.data_ptr(), m, h, w, _stream())
+                            w1t.data_ptr(), b1f.data_ptr(), dx.data_ptr(), m, h, w,
+                            _grid(x, m, h, w), _stream())
     check(lib, code, "K4 (VGG stem dx)")
     K4_LAUNCHES += 1
     return dx
@@ -184,7 +219,7 @@ def _launch_k5(z0, w1, b1):
     w1t, b1f = _w1_taps(w1), _bias(b1)
     out = torch.empty((m, h // 2, w // 2, 64), dtype=torch.bfloat16, device=z0.device)
     code = lib.tsii_stem_pool(z0.data_ptr(), w1t.data_ptr(), b1f.data_ptr(), out.data_ptr(),
-                              m, h, w, _stream())
+                              m, h, w, _grid(z0, m, h, w), _stream())
     check(lib, code, "K5 (VGG stem pool)")
     K5_LAUNCHES += 1
     return out
