@@ -17,21 +17,27 @@ that its depthwise weight gradients run on K6), weights from a seeded
               shapes the U-Net gives them, on the card; K1 also at a
               ragged shape and with one mask group, on an all-hole page
               (exactly 0) and twice on the same inputs (bit-identical) at
-              a split-K level, a one-pass level and a halo-form level
+              a split-K level, a one-pass level and a halo-form level; K2
+              also at a ragged shape, with one mask group, on an all-hole
+              page and twice on the head's inputs
   4. pipeline ``run`` and ``inpaint`` once each with the launch counters
               reset: K1 must run 7 times and K2 once per U-Net forward;
               outputs finite, masks binary, non-text pixels bit-identical
               to the input; every stride-1 partial conv's real inputs,
               caught by forward hooks, re-run through the plain version
-  5. train    K3 (the partial conv's backward) against autograd of the
-              plain version at the 8 shapes; K4 (the VGG stem's dx) and K5
+  5. train    K3 (the partial conv's backward: ``pconv_k3_prep`` and
+              ``pconv_k3_mask`` around the two library products at the
+              decoder levels, ``pconv_k2_bwd`` at the head) against
+              autograd of the plain version at the 8 shapes, its ``valid``
+              equal to the forward's M' bit for bit, and twice on the same
+              inputs (dx, dW, db bit-identical); K4 (the VGG stem's dx) and K5
               (its pooled forward) against their plain versions at the
               train shapes (K5 at the step's 8 ground-truth pages and at
               16) and at ``STEM_EXTRA`` (one tile, ragged pages, a partial
               last wave of the persistent CTAs), each twice on the same
               inputs, bit-identical; then three train steps at depth 8, 512^2,
               batch 8, bf16, fused stem, with the launch counters reset
-              before each: K1 7, K2 1, K4 1 and K5 1 per step, every loss
+              before each: K1 7, K2 1, K3 8, K4 1 and K5 1 per step, every loss
               term finite, every U-Net gradient finite and the decoder's and
               head's nonzero, parameters and decoder BN statistics moved,
               and with ``freeze_bn`` (the third step) the encoder's not
@@ -49,9 +55,10 @@ that its depthwise weight gradients run on K6), weights from a seeded
               same product as a yardstick (never called by the port) and
               the least time the card could take (``bound``),
               ``run`` in pages/s, the train steps in pages/s (the
-              seg step with the flag on and off, alternating), K4 and K5
-              also in device time and TFLOP/s with and without the halos;
-              then
+              seg step with the flag on and off, alternating), K2 and K3
+              also in device time (K3 with its device kernels per call),
+              K4 and K5 in device time and TFLOP/s with and without the
+              halos; then
               torch.profiler over ``run`` and over each train step: the
               device's busy share and the kernels that take the most time
 
@@ -121,6 +128,13 @@ STEM_EXTRA = ((1, 16, 16), (3, 16, 16), (2, 32, 48), (1, 48, 32), (2, 18, 26), (
 # Groups off the 8-channel chunk, Cin off the 64-channel K step, Cout off
 # every tile and an odd map (split K); one mask group; the halo form at
 # both its tile widths, ragged.
+# K2 away from the head's shape: (name, N, H, W, group sizes, Cout). The
+# head's 134-byte pixels on an odd map (tiles cut at both edges, rows that
+# start off 16 bytes), and one mask group with a narrow Cin.
+K2_EXTRA = (
+    ("ragged: Cin 67 = 64 + 3, Cout 3, 37x29", 3, 37, 29, (64, 3), 3),
+    ("G 1: Cin 12, Cout 5, 16x24", 2, 16, 24, (12,), 5),
+)
 K1_EXTRA = (
     ("ragged: Cin 200 = 123 + 77, Cout 72, 37x29", 3, 37, 29, (123, 77), 72),
     ("G 1: Cin 256, Cout 256, 16x24", 2, 16, 24, (256,), 256),
@@ -235,13 +249,22 @@ def pconv_work(x, mask, w) -> tuple:
     return flop, nbytes
 
 
+def pconv_bwd_work(x, mask, w, g) -> tuple:
+    """(FLOP, bytes) of that conv's backward: dx and dW are two products of
+    the forward's size; x, g, the mask and the weights read once, dx and dW
+    written once, all bf16."""
+    flop, _ = pconv_work(x, mask, w)
+    nbytes = 2.0 * (2 * x.numel() + g.numel() + mask.numel() + 2 * w.numel())
+    return 2.0 * flop, nbytes
+
+
 def check_grads(name, x, mask, w, b, g, kw) -> float:
     """K3: dx, dW, db of the kernel path (bf16, the weights as the U-Net
     passes them) against autograd of the plain version in f32 from the
     same bf16 values. Both sides accumulate in f32; the kernel path rounds
     dacc, dx and dW to bf16 once each, so each gradient must be within 1%
     in relative L2 and 2^-5 of its max |value| everywhere. Returns the
-    largest relative L2."""
+    largest relative L2 and the largest |error|."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
 
     bf = torch.bfloat16
@@ -256,15 +279,15 @@ def check_grads(name, x, mask, w, b, g, kw) -> float:
     y_ref, _ = kpc.partial_conv2d_reference(ref_leaves[0], mask.float(), ref_leaves[1], ref_bias,
                                             **kw)
     want = torch.autograd.grad(y_ref, ref_leaves, g.float())
-    worst = 0.0
+    worst, worst_abs = 0.0, 0.0
     for what, a, r in zip(("dx", "dW", "db"), got, want):
         a = a.float()
         rel, err = rel_l2(a, r), (a - r).abs().max().item()
         if not torch.isfinite(a).all() or rel > 1e-2 or err > 2**-5 * r.abs().max().item():
             raise AssertionError(f"{name} {what}: relative L2 {rel:.3g}, max |d| {err:.4g} "
                                  f"(max |ref| {r.abs().max().item():.4g})")
-        worst = max(worst, rel)
-    return worst
+        worst, worst_abs = max(worst, rel), max(worst_abs, err)
+    return worst, worst_abs
 
 
 def check_stem_dx(name, x, g, w0, b0, w1, b1, *, compare_max: bool = True) -> dict:
@@ -467,7 +490,7 @@ def main() -> int:
     log(f"build: nvcc {build.last_build['seconds']:.1f} s, ready in "
         f"{time.perf_counter() - t0:.1f} s: {build.last_build['path']}")
     for line in build.last_build["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry function" in line:
             log(f"  ptxas: {line.strip()}")
 
     # 3. kernel parity ------------------------------------------------------
@@ -491,6 +514,7 @@ def main() -> int:
             f"M' bit-exact, {empty} empty windows exactly 0, max|dy| {err:.4g}")
         cases.append((kname, name, x, mask, w, b, kw, err))
     k1_extra(dev, rng, gen, cases)
+    k2_extra(dev, rng, gen, cases)
 
     # 4. pipeline -----------------------------------------------------------
     pipe = TextRemovalPipeline().init_weights(torch.Generator().manual_seed(SEED))
@@ -597,7 +621,9 @@ def main() -> int:
                      f"{relay:.4f} ms of device time ({relay / dev_ms:.1%} of K1's)")
         else:
             b_ms, b_by = bound(flop, nbytes)
-            extra = ""
+            dev_ms = device_ms(kern, "pconv_k2")
+            extra = (f", {kpc.k2_plan(x.shape[3], w.shape[0], w.shape[2])}; device time "
+                     f"{dev_ms:.4f} ms ({nbytes / dev_ms / 1e9:.3f} TB/s of the bytes moved once)")
         log(f"time {kname} {name}: kernel {k_ms:.4f} ms ({flop / k_ms / 1e9:.1f} TFLOP/s), "
             f"plain f32 {p_ms:.4f} ms, plain bf16 cuDNN twin {t_twin:.4f} ms, cuDNN bf16 conv "
             f"alone {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}){extra}")
@@ -642,6 +668,16 @@ def main() -> int:
             "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain"],
             "bound_ms": t["bound"], "bound_by": t["by"], "library_ms": t["lib"],
         })
+    t3 = stem_times["K3"]
+    log("K3: 8 shape(s), ms, plain_ms, library_ms and bound_ms are sums over them (one U-Net "
+        "backward); launches from the first train step, max_abs_err against autograd of the "
+        "plain version in f32")
+    kernels.append({
+        "name": "K3 pconv_k3_prep, pconv_k3_mask, pconv_k2_bwd", "route": "cuda", "source": CSRC,
+        "replaces": f"{TPU_KERNEL}:600", "launches": tr["launches"]["K3"],
+        "max_abs_err": tr["err"]["K3"], "ms": t3["ms"], "plain_ms": t3["plain"],
+        "bound_ms": t3["bound"], "bound_by": t3["by"], "library_ms": t3["lib"],
+    })
     for kname, fn, tpu in (("K4", "stem_dx", f"{TPU_STEM_BWD}:366"),
                            ("K5", "stem_pool", f"{TPU_STEM}:191")):
         st = stem_times[kname]
@@ -705,6 +741,88 @@ def k1_extra(dev, rng, gen, cases) -> None:
             f"launches bit-identical")
 
 
+def k2_extra(dev, rng, gen, cases) -> None:
+    """K2 where the head's shape does not reach: ``K2_EXTRA`` against the
+    plain version; on the head's inputs an all-hole page, whose output
+    must be exactly 0 even with an infinite x in a hole, and two launches,
+    bit-identical."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+
+    for name, n, h, w, groups, cout in K2_EXTRA:
+        cin = sum(groups)
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(torch.bfloat16)
+        m = torch.from_numpy(rng.random((n, h, w, len(groups))) < 0.6).to(dev, torch.bfloat16)
+        m[0, :3, :3] = 0
+        wt = torch.randn((cout, cin, 3, 3), generator=gen, device=dev) * (2.0 / (9 * cin)) ** 0.5
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+        kw = dict(group_sizes=groups, padding=(1, 1))
+        err = check_close(f"K2 {name}", kpc.partial_conv2d_fused(x, m, wt, b, **kw),
+                          kpc.partial_conv2d_reference(x, m, wt, b, **kw), require_empty=True)
+        log(f"parity K2 {name}: {kpc.k2_plan(cin, cout, 3)}, M' bit-exact, max|dy| {err:.4g}")
+    _, name, x, mask, w, b, kw, _ = next(c for c in cases if c[0] == "K2")
+    xi = x.clone()
+    xi[0, 0, 0, 0] = float("inf")
+    y, m_out = kpc.partial_conv2d_fused(xi, torch.zeros_like(mask), w, b, **kw)
+    first = kpc.partial_conv2d_fused(x, mask, w, b, **kw)
+    again = kpc.partial_conv2d_fused(x, mask, w, b, **kw)
+    torch.cuda.synchronize()
+    if not ((y == 0).all() and (m_out == 0).all()):
+        raise AssertionError(f"K2 {name}: an all-hole page gave a nonzero output or M'")
+    if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
+        raise AssertionError(f"K2 {name}: two launches on the same inputs differ")
+    log(f"parity K2 {name}: all-hole page exactly 0 (x inf in a hole), two launches bit-identical")
+
+
+def check_k3_valid_and_repeats(name, x, mask, w, b, g, kw) -> None:
+    """K3's ``valid`` against the forward's M', bit for bit: at a decoder
+    level ``pconv_k3_prep`` of a cotangent of ones is nonzero exactly where
+    M' is 1; at the head, where the window count lives inside
+    ``pconv_k2_bwd``, db of a cotangent of ones is the number of windows
+    with M' = 1 (an integer below 2^24, exact in f32), and dx is exactly 0
+    wherever every window that covers the pixel is empty. Then two
+    backward launches on the same inputs: dx, dW, db bit-identical."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+
+    bf = torch.bfloat16
+    wb, bb = w.to(bf), None if b is None else b.to(bf)
+    _, m_out = kpc.partial_conv2d_fused(x, mask, wb, bb, **kw)
+    ones = torch.ones_like(g)
+    if w.shape[0] > 7:
+        dacc, _ = kpc.k3_prep(ones, mask, x.shape[3], kw["group_sizes"], w.shape[2],
+                              kw["padding"][0], need_db=False)
+        same = torch.equal(dacc[..., :1] != 0, m_out != 0)
+    else:
+        fb = torch.zeros((w.shape[0],), device=x.device)  # an f32 bias keeps db in f32
+        dx1, _, db = kpc.partial_conv2d_backward(ones, x, mask, wb, fb, kw["group_sizes"],
+                                                 kw["padding"])
+        same = bool((db == m_out.float().sum()).all())
+        reach = torch.nn.functional.max_pool2d(m_out.float().permute(0, 3, 1, 2), w.shape[2], 1,
+                                               kw["padding"][0])
+        same = same and bool((dx1[reach.permute(0, 2, 3, 1).expand_as(dx1) == 0] == 0).all())
+    if not same:
+        raise AssertionError(f"{name}: K3's valid differs from the forward's M'")
+    args = (g, x, mask, wb, bb, kw["group_sizes"], kw["padding"])
+    first, again = kpc.partial_conv2d_backward(*args), kpc.partial_conv2d_backward(*args)
+    torch.cuda.synchronize()
+    for what, a, a2 in zip(("dx", "dW", "db"), first, again):
+        if a is not None and not torch.equal(a, a2):
+            raise AssertionError(f"{name}: two K3 launches on the same inputs differ in {what}")
+
+
+def kernels_per_call(fn, runs: int = 3) -> float:
+    """Device kernels (and memsets) launched per call of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / runs
+
+
 def train_phase(dev, rng, cases) -> dict:
     """Phase 5: K3, K4 and K5 against their plain versions at the train
     shapes, then three full-width train steps (the third with
@@ -727,13 +845,16 @@ def train_phase(dev, rng, cases) -> dict:
 
     bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    k3 = []
+    k3, err3 = [], 0.0
     for _, name, x, mask, w, b, kw, _ in cases:
         g = torch.randn((*x.shape[:3], w.shape[0]), generator=gen, device=dev).to(bf)
-        rel = check_grads(f"K3 {name}", x, mask, w, b, g, kw)
+        rel, err = check_grads(f"K3 {name}", x, mask, w, b, g, kw)
+        check_k3_valid_and_repeats(f"K3 {name}", x, mask, w, b, g, kw)
         log(f"parity K3 {name}: dx, dW{', db' if b is not None else ''} against autograd of the "
-            f"plain version in f32, largest relative L2 {rel:.3g}")
+            f"plain version in f32, largest relative L2 {rel:.3g}, max |d| {err:.4g}; valid == "
+            f"M' bit for bit; two launches bit-identical")
         k3.append((name, x, mask, w, b, kw, g))
+        err3 = max(err3, err)
 
     torch.manual_seed(SEED)  # the VGG trunk's default init
     loss_cfg = InpaintLossConfig(vgg_dtype="bfloat16", fused_stem=True)
@@ -792,14 +913,16 @@ def train_phase(dev, rng, cases) -> dict:
     for i, freeze in enumerate((False, False, True)):
         params = {n: p.detach().clone() for n, p in model.named_parameters()}
         enc0, dec0 = stats(enc_bns), stats(model.dec_bns)
-        kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = kvs.K4_LAUNCHES = kvs.K5_LAUNCHES = 0
+        kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = kpc.K3_LAUNCHES = 0
+        kvs.K4_LAUNCHES = kvs.K5_LAUNCHES = 0
         state, terms = steps[freeze](state, batch)
         torch.cuda.synchronize()
-        got = {"K1": kpc.K1_LAUNCHES, "K2": kpc.K2_LAUNCHES, "K4": kvs.K4_LAUNCHES,
-               "K5": kvs.K5_LAUNCHES}
+        got = {"K1": kpc.K1_LAUNCHES, "K2": kpc.K2_LAUNCHES, "K3": kpc.K3_LAUNCHES,
+               "K4": kvs.K4_LAUNCHES, "K5": kvs.K5_LAUNCHES}
         first = first or got
-        if got != {"K1": 7, "K2": 1, "K4": 1, "K5": 1}:
-            raise AssertionError(f"train step {i} launched {got}, want K1 7, K2 1, K4 1, K5 1")
+        if got != {"K1": 7, "K2": 1, "K3": 8, "K4": 1, "K5": 1}:
+            raise AssertionError(f"train step {i} launched {got}, want K1 7, K2 1, K3 8, K4 1, "
+                                 f"K5 1")
         bad = [k for k, v in terms.items() if not torch.isfinite(v)]
         not_finite = [n for n, (fin, _) in grads.items() if not fin]
         zero = [n for n, (_, mx) in grads.items() if n.startswith(("dec_", "head")) and mx == 0]
@@ -817,14 +940,14 @@ def train_phase(dev, rng, cases) -> dict:
             + f"; {len(grads)} grads finite, decoder/head nonzero, params moved, decoder BN "
             f"moved, encoder BN {'unchanged' if freeze else 'moved'}")
     hook.remove()
-    return {"launches": first, "err": {"K4": res["max"], "K5": err5[BATCH]}, "k3": k3,
+    return {"launches": first, "err": {"K3": err3, "K4": res["max"], "K5": err5[BATCH]}, "k3": k3,
             "stem": (xs, gs, w0, b0, w1, b1, z0, z0_gt), "step": steps[False], "state": state,
             "batch": batch}
 
 
 def time_train(tr) -> dict:
     """Phase 6, train part: K3 per shape, K4, K5 and the train step.
-    Returns {kernel: {ms, plain, lib, bound, by}} for K4 and K5."""
+    Returns {kernel: {ms, plain, lib, bound, by}} for K3, K4 and K5."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
     from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
@@ -833,7 +956,10 @@ def time_train(tr) -> dict:
     )
 
     bf = torch.bfloat16
-    tot = [0.0, 0.0, 0.0, 0.0, 0.0]  # K3, plain f32, bf16 twin, cuDNN backward alone, bound
+    # K3, its plain version, autograd of the plain f32 forward, of the bf16
+    # twin, cuDNN's backward alone, the bound, device kernels per call
+    tot = [0.0] * 7
+    by_kind = {"operations": 0.0, "bytes": 0.0}  # the bound, split by what sets it per layer
     for name, x, mask, w, b, kw, g in tr["k3"]:
         wb = w.to(bf)
         bb = None if b is None else b.to(bf)
@@ -844,8 +970,7 @@ def time_train(tr) -> dict:
         lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
             g.permute(0, 3, 1, 2), xm, wb, None, [1, 1], pad, [1, 1], False, [0, 0], 1,
             [True, True, False])
-        flop, nbytes = pconv_work(x, mask, w)
-        b_ms, _ = bound(2.0 * flop, 2.0 * nbytes)  # dx and dW: two products of the forward's size
+        b_ms, b_by = bound(*pconv_bwd_work(x, mask, w, g))
 
         def grad_of(fn):
             """Autograd of ``fn(x, w, b)`` with the graph built once."""
@@ -855,22 +980,30 @@ def time_train(tr) -> dict:
 
         kern = lambda: kpc.partial_conv2d_backward(  # noqa: E731
             g, x, mask, wb, bb, kw["group_sizes"], kw["padding"])
+        ref = lambda: kpc.partial_conv2d_backward_reference(  # noqa: E731
+            g, x, mask, wb, bb, kw["group_sizes"], kw["padding"])
         plain = grad_of(lambda xx, ww, bbb: kpc.partial_conv2d_reference(xx, mask, ww, bbb, **kw))
         twin = grad_of(lambda xx, ww, bbb: _partial_conv2d_plain(
             xx, mask, ww, bbb, kw["group_sizes"], (1, 1), kw["padding"], (1, 1)))
         p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-        t_twin, t_lib = cuda_ms(twin), cuda_ms(lib)
+        t_twin, t_lib, t_ref = cuda_ms(twin), cuda_ms(lib), cuda_ms(ref)
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        log(f"time K3 {name}: backward {k_ms:.4f} ms, autograd of the plain f32 version "
-            f"{p_ms:.4f} ms, autograd of the bf16 cuDNN twin {t_twin:.4f} ms, cuDNN's bf16 "
-            f"backward alone {t_lib:.4f} ms, bound {b_ms:.4f} ms")
-        for i, t in enumerate((k_ms, p_ms, t_twin, t_lib, b_ms)):
+        dev_ms, n_kern = device_ms(kern), kernels_per_call(kern)
+        log(f"time K3 {name}: backward {k_ms:.4f} ms (device time {dev_ms:.4f} ms in "
+            f"{n_kern:.0f} kernels), its plain version {t_ref:.4f} ms, autograd of the plain f32 "
+            f"forward {p_ms:.4f} ms, autograd of the bf16 cuDNN twin {t_twin:.4f} ms, cuDNN's "
+            f"bf16 backward alone {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        for i, t in enumerate((k_ms, t_ref, p_ms, t_twin, t_lib, b_ms, n_kern)):
             tot[i] += t
+        by_kind[b_by] += b_ms
     del xm, lib  # the head's masked x (281 MB) would count in the step's peak below
-    log(f"time K3 (sum over the 8 shapes, one U-Net backward): {tot[0]:.4f} ms, plain f32 "
-        f"{tot[1]:.4f} ms, bf16 cuDNN twin {tot[2]:.4f} ms, cuDNN's bf16 backward alone "
-        f"{tot[3]:.4f} ms, bound {tot[4]:.4f} ms (per layer the larger of operations and "
-        f"bytes)")
+    log(f"time K3 (sum over the 8 shapes, one U-Net backward): {tot[0]:.4f} ms in "
+        f"{tot[6]:.0f} device kernels, its plain version {tot[1]:.4f} ms, autograd of the plain "
+        f"f32 forward {tot[2]:.4f} ms, of the bf16 cuDNN twin {tot[3]:.4f} ms, cuDNN's bf16 "
+        f"backward alone {tot[4]:.4f} ms, bound {tot[5]:.4f} ms (per layer the larger of "
+        f"operations and bytes)")
+    k3_times = {"ms": tot[0], "plain": tot[1], "lib": tot[4], "bound": tot[5],
+                "by": max(by_kind, key=by_kind.get)}  # what sets most of the summed bound
 
     xs, gs, w0, b0, w1, b1, z0, z0_gt = tr["stem"]
     rb = [t.to(bf).float() for t in (w0, b0, w1, b1)]
@@ -941,7 +1074,7 @@ def time_train(tr) -> dict:
     busy = profile_run(lambda: step(state, batch), "train step", runs=2)
     log(f"inpaint step: device busy {busy:.3f} ms per step, peak device memory "
         f"{peak / 2**30:.2f} GiB")
-    return {"K4": k4, "K5": k5[BATCH]}  # K5 at the step's shape
+    return {"K3": k3_times, "K4": k4, "K5": k5[BATCH]}  # K5 at the step's shape
 
 
 def seg_phase(dev, rng) -> dict:

@@ -10,9 +10,14 @@ Shapes are small but cover what the U-Net's shapes do not: G=1, square
 k of 1, 3, 5 and 7, Cin and group sizes not a multiple of 8 (K1's
 re-laid x), Cout not a multiple of 8, every Cout of K2, bias on and off;
 K1 also at its split-K shapes, on an all-hole page and twice on the same
-inputs (bit-identical). The tolerance is chip_smoke.py's ``check_close``: M' bit-exact,
-y exactly 0 in empty windows, elsewhere one bf16 step of |y| plus 1e-3
-of max |y|. K3 (the backward), K4 (the VGG stem's dx) and K5 (its pooled
+inputs (bit-identical); K2 also over two channel blocks, with a mask
+that is not binary and with a non-finite x in a hole; both also without
+padding and with padding 2. The tolerance is chip_smoke.py's
+``check_close``: M' bit-exact, y exactly 0 in empty windows, elsewhere
+one bf16 step of |y| plus 1e-3 of max |y|. K3's own kernels
+(``pconv_k3_prep``, ``pconv_k3_mask``, ``pconv_k2_bwd``) are held bit for
+bit to the tensor operations they replace where these round at the same
+places. K3 (the backward), K4 (the VGG stem's dx) and K5 (its pooled
 forward) are held to f32 truth no worse than the bf16 plain version, with
 the bounds stated at each test, K4 and K5 also with more tiles than SMs,
 fewer, and a partial last wave of their persistent CTAs, each launched
@@ -43,7 +48,11 @@ from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
-from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import partial_conv2d
+from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
+    apply_mask,
+    mask_window_sum,
+    partial_conv2d,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -149,6 +158,37 @@ def test_k2_other_kernel_sizes(cuda, k):
     check_close("K2", got, kpc.partial_conv2d_reference(x, m, w, b, **kw), require_empty=True)
 
 
+def test_k2_over_two_channel_blocks(cuda):
+    """Cin 130 is two blocks of 80 channels, the second partly padding."""
+    x, m, w, b = _case(cuda, 5, 2, 21, 19, (100, 30), 3, 3, True)
+    assert kpc.k2_plan(130, 3, 3).nblk == 2
+    kw = dict(group_sizes=(100, 30), padding=(1, 1))
+    got = kpc.partial_conv2d_fused(x, m, w, b, **kw)
+    torch.cuda.synchronize()
+    check_close("K2", got, kpc.partial_conv2d_reference(x, m, w, b, **kw), require_empty=True)
+
+
+def test_k2_multiplies_by_the_mask_value_and_skips_holes(cuda):
+    """K2 keeps x * M for a mask that is not binary, a hole's x (here
+    infinite and NaN) never reaches the sum, and two launches agree bit
+    for bit."""
+    x, m, w, b = _case(cuda, 6, 2, 21, 19, (64, 3), 3, 3, True)
+    kw = dict(group_sizes=(64, 3), padding=(1, 1))
+    soft = m * 0.5
+    got = kpc.partial_conv2d_fused(x, soft, w, b, **kw)
+    check_close("K2 soft", got, kpc.partial_conv2d_reference(x, soft, w, b, **kw),
+                require_empty=True)
+    xi = x.clone()
+    xi[0, 0, 0, 0], xi[0, 1, 1, 65] = float("inf"), float("nan")
+    assert m[0, 0, 0, 0] == 0 and m[0, 1, 1, 1] == 0
+    first = kpc.partial_conv2d_fused(xi, m, w, b, **kw)
+    again = kpc.partial_conv2d_fused(xi, m, w, b, **kw)
+    torch.cuda.synchronize()
+    check_close("K2 inf", first, kpc.partial_conv2d_reference(x, m, w, b, **kw),
+                require_empty=True)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
 def test_routing_on_cuda(cuda):
     """Stride 1 launches a kernel; stride 2 runs the plain cuDNN form."""
     x, m, w, _ = _case(cuda, 0, 1, 16, 16, (8, 8), 16, 3, False)
@@ -194,6 +234,124 @@ def test_k3_backward_matches_plain(cuda, groups, cout, bias):
     g = torch.randn((2, 15, 18, cout), generator=torch.Generator(cuda).manual_seed(3),
                     device=cuda).to(torch.bfloat16)
     check_grads(f"K3 {groups}->{cout}", x, m, w, b, g, dict(group_sizes=groups, padding=(1, 1)))
+
+
+def _cotangent(dev, shape, seed=3):
+    return torch.randn(shape, generator=torch.Generator(dev).manual_seed(seed),
+                       device=dev).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("groups,cout,k", [((32, 16), 16, 3), ((5, 14), 24, 3), ((7, 5), 12, 5),
+                                           ((40,), 300, 1)],
+                         ids=["16B", "16B-odd-groups", "scalar-k5", "G1-k1-two-chunk-rows"])
+def test_k3_prep_matches_plain(cuda, groups, cout, k):
+    """dacc bit for bit (one f32 product, rounded once, on both sides), db
+    up to the order of an f32 sum, and dacc nonzero exactly where the
+    forward's M' is 1."""
+    x, m, w, _ = _case(cuda, 60 + cout, 2, 13, 17, groups, cout, k, False)
+    g = _cotangent(cuda, (2, 13, 17, cout)).abs() + 0.5
+    cin, pad = sum(groups), k // 2
+    dacc, db = kpc.k3_prep(g, m, cin, groups, k, pad)
+    torch.cuda.synchronize()
+    msum = mask_window_sum(m, groups, (k, k), stride=(1, 1), padding=(pad, pad))
+    valid = msum > 0
+    # a true f32 division, as the kernel's and JAX's (``scalar / tensor`` in
+    # torch is a reciprocal and a product: one more rounding)
+    scale = torch.where(valid, torch.full_like(msum, k * k * cin) / torch.clamp(msum, min=1.0), 0.0)
+    assert torch.equal(dacc, (g.float() * scale).to(torch.bfloat16))
+    want = (g.float() * valid).sum(dim=(0, 1, 2))
+    torch.testing.assert_close(db, want, rtol=1e-5, atol=0)
+    _, m_out = kpc.partial_conv2d_fused(x, m, w, None, group_sizes=groups, padding=(pad, pad))
+    assert torch.equal(dacc[..., :1] != 0, m_out != 0) and int((m_out == 0).sum()) > 0
+    again = kpc.k3_prep(g, m, cin, groups, k, pad)
+    assert torch.equal(dacc, again[0]) and torch.equal(db, again[1])
+    assert kpc.k3_prep(g, m, cin, groups, k, pad, need_db=False)[1] is None
+
+
+@pytest.mark.parametrize("groups", [(64, 3), (12, 12), (16,), (5, 14)],
+                         ids=["scalar-67", "16B-boundary-off-8", "G1", "scalar-19"])
+def test_k3_mask_matches_plain(cuda, groups):
+    """x * M with the group picked by the channel, also where a 16-byte
+    chunk straddles the two groups; out of place and in place."""
+    x, m, _, _ = _case(cuda, 70 + len(groups), 2, 13, 17, groups, 8, 3, False)
+    want = apply_mask(x, m, groups)
+    assert torch.equal(kpc.k3_mask(x, m, groups), want)
+    y = x.clone()
+    assert kpc.k3_mask(y, m, groups, out=y) is y and torch.equal(y, want)
+
+
+@pytest.mark.parametrize("groups,cout,k,bias", [((64, 3), 3, 3, True), ((9,), 5, 3, False),
+                                               ((100, 30), 2, 3, True), ((24, 3), 3, 5, True),
+                                               ((20,), 7, 1, True)],
+                         ids=["head", "G1", "two-blocks", "k5-three-passes", "k1"])
+def test_k2_bwd_matches_plain(cuda, groups, cout, k, bias):
+    """``pconv_k2_bwd`` (dx, dW, db in one kernel) by chip_smoke's
+    ``check_grads``; then on the same inputs against K3's plain version in
+    bf16, dx within one bf16 step, twice, bit-identical."""
+    x, m, w, b = _case(cuda, 80 + cout, 2, 21, 19, groups, cout, k, bias)
+    g = _cotangent(cuda, (2, 21, 19, cout))
+    kw = dict(group_sizes=groups, padding=(k // 2, k // 2))
+    check_grads(f"K3 {groups}->{cout}", x, m, w, b, g, kw)
+    wb, bb = w.to(torch.bfloat16), None if b is None else b.to(torch.bfloat16)
+    args = (g, x, m, wb, bb, groups, (k // 2, k // 2))
+    before = kpc.K3_LAUNCHES
+    first, again = kpc.partial_conv2d_backward(*args), kpc.partial_conv2d_backward(*args)
+    torch.cuda.synchronize()
+    assert kpc.K3_LAUNCHES == before + 2
+    want = kpc.partial_conv2d_backward_reference(*args)
+    for a, a2, r in zip(first, again, want):
+        assert (a is None) == (r is None)
+        if a is not None:
+            assert torch.equal(a, a2) and a.dtype == r.dtype and a.shape == r.shape
+            top = r.float().abs().max().item()
+            torch.testing.assert_close(a.float(), r.float(), rtol=2**-7, atol=2e-3 * top)
+    only_dw = kpc.partial_conv2d_backward(*args, needs=(False, True, False))
+    assert only_dw[0] is None and only_dw[2] is None and torch.equal(only_dw[1], first[1])
+
+
+@pytest.mark.parametrize("groups,cout,pad", [((24, 3), 3, 0), ((24, 3), 3, 2), ((32, 16), 16, 0)],
+                         ids=["K2-valid", "K2-full", "K1-valid"])
+def test_forward_and_backward_at_other_paddings(cuda, groups, cout, pad):
+    """A 3 x 3 window without padding (the output two pixels smaller) and
+    with padding 2 (two larger): forward against the plain version, then
+    ``check_grads``."""
+    x, m, w, b = _case(cuda, 85 + pad + cout, 2, 21, 19, groups, cout, 3, True)
+    kw = dict(group_sizes=groups, padding=(pad, pad))
+    got = kpc.partial_conv2d_fused(x, m, w, b, **kw)
+    assert got[0].shape == (2, 19 + 2 * pad, 17 + 2 * pad, cout)
+    check_close("forward", got, kpc.partial_conv2d_reference(x, m, w, b, **kw), require_empty=True)
+    check_grads(f"K3 pad {pad}", x, m, w, b, _cotangent(cuda, got[0].shape), kw)
+
+
+def test_k3_all_hole_page_passes_no_gradient(cuda):
+    """Every window empty: dx, dW and db exactly 0 on both routes, whatever
+    x holds."""
+    for groups, cout in (((64, 3), 3), ((32, 16), 16)):
+        x, m, w, b = _case(cuda, 90 + cout, 2, 21, 19, groups, cout, 3, True)
+        x[0, 0, 0, 0] = float("inf")
+        g = _cotangent(cuda, (2, 21, 19, cout))
+        out = kpc.partial_conv2d_backward(g, x, torch.zeros_like(m), w.to(torch.bfloat16),
+                                          b.to(torch.bfloat16), groups, (1, 1))
+        for a in out:
+            assert (a == 0).all()
+
+
+def test_k3_launches_are_bit_identical_and_counted(cuda):
+    x, m, w, _ = _case(cuda, 95, 4, 32, 32, (64, 32), 64, 3, False)
+    g = _cotangent(cuda, (4, 32, 32, 64))
+    wb = w.to(torch.bfloat16)
+    bb = torch.zeros((64,), device=cuda, dtype=torch.bfloat16)
+    before = kpc.K3_LAUNCHES
+    first = kpc.partial_conv2d_backward(g, x, m, wb, bb, (64, 32), (1, 1))
+    again = kpc.partial_conv2d_backward(g, x, m, wb, bb, (64, 32), (1, 1))
+    torch.cuda.synchronize()
+    assert kpc.K3_LAUNCHES == before + 2
+    for a, a2 in zip(first, again):
+        assert torch.equal(a, a2)
+    want = kpc.partial_conv2d_backward_reference(g, x, m, wb, bb, (64, 32), (1, 1))
+    for a, r in zip(first, want):  # the same products, perhaps by another cuDNN engine
+        top = r.float().abs().max().item()
+        torch.testing.assert_close(a.float(), r.float(), rtol=2**-7, atol=2e-3 * top)
 
 
 @pytest.mark.parametrize("m,h,w", [(3, 16, 16), (2, 32, 48), (1, 48, 32), (2, 18, 26)])

@@ -62,16 +62,12 @@
 //
 // K2 `pconv_k2` replaces `_kernel_small_cout` / `_pallas_forward_small_cout`
 // (same file) for Cout <= 7: the U-Net's RGB head (67 -> 3 at full
-// resolution). An N = 3 GEMM cannot feed the tensor cores; the layer is
-// bound by reading its input from device memory (at the head 8 x 512^2 x 67
-// bf16 = 281 MB, read once plus the halo of each tile). A CTA owns
-// 4 x 32 output pixels, one per thread, and walks Cin in chunks of 32
-// channels: the (4+k-1) x (32+k-1) input halo of a chunk is loaded with
-// neighbouring threads on neighbouring channels (coalesced), multiplied by
-// its group's mask (a hole is not read at all) and kept in shared memory
-// as f32 with a padded pixel stride, so the per-pixel tap loops read it
-// without bank conflicts; the weight chunk sits beside it. Each thread
-// keeps its Cout sums in f32 registers.
+// resolution), bound by reading its input from device memory (at the head
+// 8 x 512^2 x 67 bf16 = 281 MB). It is a GEMM with N padded to 8 on
+// `mma.sync`; `pconv_k2_bwd` is its backward and `pconv_k3_prep`,
+// `pconv_k3_mask` and `pconv_colsum` are K3, the backward of K1, around
+// two library products (the custom VJP `_bwd` of the same file). Their
+// notes stand at their sections below.
 //
 // Both kernels count the window's mask taps per group in f32 and weight
 // them by the group sizes afterwards, so msum is an exact integer: a
@@ -93,14 +89,20 @@ namespace {
 struct Params {
   const __nv_bfloat16* x;     // K1: (N, H, W, cin_x); K2: (N, H, W, Cin)
   const __nv_bfloat16* mask;  // (N, H, W, G), G in {1, 2}
-  const __nv_bfloat16* w;     // K1: (k*k, Cout_p, Cin_p); K2: (k*k, Cin, Cout)
+  const __nv_bfloat16* w;     // K1: (k*k, Cout_p, Cin_p); K2: (blocks, k*k, 8, cb); its backward: (blocks * cb, kj)
   const float* bias;          // (Cout_p) or nullptr
   __nv_bfloat16* y;           // (N, Hout, Wout, Cout)
   __nv_bfloat16* mask_out;    // (N, Hout, Wout, 1)
-  float* partial;             // K1 with splits > 1: (splits, P, Cout_p)
+  float* partial;             // K1 with splits > 1: (splits, P, Cout_p); K3: per-CTA partial sums
   int n, h, w_in, cin, g, size0, size1;  // cin and group sizes as the layer has them
   int hout, wout, cout, cin_p, cout_p, k, pad;
   int cin_x, gb, splits;  // K1: x's channel count, group 1's first channel in x
+  // K2, its backward and K3
+  const __nv_bfloat16* gout;  // the cotangent of y, (N, Hout, Wout, Cout)
+  __nv_bfloat16* dx;          // (N, H, W, Cin)
+  size_t x_bytes;             // the size of x
+  int cb, nblk, kj;           // channels per block, blocks, k*k*Cout padded to 16
+  int need_dx, need_dw, need_db;
 };
 
 __device__ __forceinline__ const __nv_bfloat16* mask_at(const Params& p, int n, int ih, int iw) {
@@ -576,117 +578,783 @@ cudaError_t launch_k1_halo(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- K2 ----
+// ------------------------------------------------- K2 and its backward ----
+//
+// K2 `pconv_k2` (Cout <= 7, the RGB head) is a GEMM with M = pixels,
+// N = Cout padded to 8 and K = taps x channels on `mma.sync.m16n8k16`
+// (bf16 in, f32 accumulate): 24 GFLOP padded at the head, a twentieth of
+// a millisecond of tensor time, so what bounds it is reading x (281 MB).
+// `wgmma` is not used: its smallest tile is m64n8 with B from shared
+// memory and both operands in the swizzled layouts, which 134-byte pixels
+// cannot be copied into; `mma.sync` reads its A rows with `ldmatrix` at
+// any 16-byte-aligned pitch. A CTA owns K2_TH x K2_TW output pixels, one
+// m16 row tile per warp, and walks Cin in blocks of `cb` channels (one
+// block at the head: 67 padded to 80):
+//   - staging: a pixel is Cin * 2 bytes, so pixels are only 2-byte
+//     aligned. Each halo pixel's slice of the block is copied with 16-byte
+//     `cp.async` from the 16-byte boundary at or below its first byte into
+//     its own slot of shared memory (`k2_stage`); pixels outside the image
+//     are not read;
+//   - re-laying: a second pass (`k2_relay`) writes each pixel's channels as
+//     one row of the K-major operand, x * M_g rounded to bf16 as the plain
+//     version rounds it, exactly 0 where the mask is 0 (whatever x holds)
+//     or the pixel lies outside the image, and 0 in the K padding. A
+//     thread shifts one 16-byte chunk of a row out of two aligned 16-byte
+//     reads of the slot; a slot and a row have the same size, and the
+//     forward re-lays in place. The row pitch is cb + 8 elements, an odd
+//     number of 16-byte chunks, so the eight rows of an `ldmatrix` fall
+//     into different banks;
+//   - the product: a tap is a pixel offset into the halo. The weights
+//     arrive as (blocks, taps, 8, cb) bf16, zero padded, and stay in shared
+//     memory for the block; a B fragment is two 4-byte loads;
+//   - msum, scale, bias, zero and M' as K1: raw per-group counts weighted
+//     once, no FMA contraction. y rows are gathered in shared memory and
+//     written with 16-byte stores where the row allows.
+// A tile is 49 KB of shared memory at the head, so three or four CTAs share
+// an SM and one's copies fly under another's products. On the card the
+// kernel is held by the instructions it issues per tile (the staging's
+// address arithmetic, the re-lay, the B fragments' loads), not yet by its
+// bytes: tools/k2_phase_clocks.py reads the cycles of each phase.
+//
+// `pconv_k2_bwd` is the head's whole backward (dx, dW, db) in one kernel.
+// A CTA owns K2_TH x K2_TW pixels of x, and persistent CTAs walk the
+// tiles. With D[q, j] = dacc[q - tap + pad, o] for j = tap * Cout + o (the
+// scaled cotangent, bf16, gathered from a halo of g that the tile scales
+// itself by the forward's window count, so `valid` is M' bit for bit):
+//   dx[q, c] = M(q, c) * sum_j D[q, j] * W[j, c]      (A = D, B = W)
+//   dW[j, c] = sum_q D[q, j] * (x * M)[q, c]          (A = D^T, B = x * M)
+// both on `mma.sync`, D^T and x * M read with `ldmatrix.trans`. x is read
+// once (staged and re-laid as in the forward, without a halo), g once
+// plus its halo, dx written once. Each warp keeps its part of dW in
+// registers over all its tiles; the CTA adds its warps' parts in a fixed
+// order and writes one partial, and `pconv_colsum` adds the CTAs'
+// partials in a fixed order: no atomics, two launches give the same bits.
+// The same holds for db. Cin above one block and k * k * Cout above 32 run
+// as further passes over the tiles (correct, not fast; the head has one).
 
-constexpr int K2_TH = 4;                  // output rows per CTA
-constexpr int K2_TW = 32;                 // output columns per CTA: one warp per row
-constexpr int K2_THREADS = K2_TH * K2_TW;  // one output pixel per thread
-constexpr int K2_CK = 32;                 // input channels staged per step
-constexpr int K2_LD = K2_CK + 1;          // padded pixel stride: column reads hit 32 banks
+constexpr int K2_TH = 8;               // tile rows
+constexpr int K2_TW = 16;              // tile columns: one m16 row tile per tile row
+constexpr int K2_PIX = K2_TH * K2_TW;  // pixels per tile
+constexpr int K2_THREADS = 256;        // 8 warps, one per tile row
+constexpr int K2_NPAD = 8;             // Cout padded to the mma's N
+constexpr int K2_CB_MAX = 80;          // most channels per block, a multiple of 16
+constexpr int K2_OPAD = 8;             // operand row padding, elements
+constexpr int K2_JB = 32;              // dW rows (tap, o) per pass: two m16 tiles
 
-// Dynamic shared memory of K2: the masked input halo (f32), the weight
-// chunk (f32) and the halo's two mask groups.
-inline size_t k2_smem_bytes(int k, int cout) {
-  const int tpix = (K2_TH + k - 1) * (K2_TW + k - 1);
-  return sizeof(float) * ((size_t)tpix * K2_LD + (size_t)k * k * K2_CK * cout + 2 * tpix);
+__host__ __device__ constexpr int k2_align16(int bytes) { return (bytes + 15) / 16 * 16; }
+// bytes of a pixel's slot: cb channels and up to 14 bytes before the first;
+// also an operand row's, (cb + K2_OPAD) * 2
+__host__ __device__ constexpr int k2_raw_slot(int cb) { return k2_align16(cb * 2 + 14); }
+
+struct K2Smem {
+  int raw, op, ws, d, da, mreg, joff, gpix, mk, scale, ys, total;
+};
+
+// The forward's dynamic shared memory: byte offsets of its parts.
+__host__ __device__ inline K2Smem k2_fwd_smem(int k, int cb) {
+  const int npx = (K2_TH + k - 1) * (K2_TW + k - 1);
+  K2Smem s = {};
+  int o = 0;
+  s.raw = o;                                                    // staged slices, re-laid in
+  s.op = o;    o += npx * k2_raw_slot(cb);                      // place into the operand rows
+  s.ws = o;    o += k * k * K2_NPAD * (cb + K2_OPAD) * 2;       // the block's weights
+  s.gpix = o;  o += k2_align16(npx * 4);                        // x's pixel index, -1 outside
+  s.mk = o;    o += k2_align16(npx * 8);                        // the two mask groups
+  s.scale = o; o += K2_PIX * 4;
+  s.ys = o;    o += K2_PIX * K2_NPAD * 2;
+  s.total = o;
+  return s;
 }
 
-template <int COUT>
-__global__ void __launch_bounds__(K2_THREADS) pconv_k2(Params p) {
-  extern __shared__ float smem[];
-  const int k = p.k;
-  const int tiw = K2_TW + k - 1, tpix = (K2_TH + k - 1) * tiw;
-  float* xs = smem;                         // (tpix, K2_LD) masked x, one channel chunk
-  float* ws = xs + tpix * K2_LD;            // (k*k, K2_CK, COUT) weight chunk
-  float* ms = ws + k * k * K2_CK * COUT;    // (tpix, 2) mask groups, 0 outside the image
+// The backward's: `raw` and `op` are also the staging of dx and the
+// warps' dW parts at the end of a pass.
+__host__ __device__ inline K2Smem k2_bwd_smem(int k, int cb, int kj) {
+  const int npx = (K2_TH + k - 1) * (K2_TW + k - 1);
+  K2Smem s = {};
+  int o = 0;
+  s.raw = o;  o += K2_PIX * k2_raw_slot(cb);
+  s.op = o;   o += K2_PIX * (cb + K2_OPAD) * 2;
+  s.d = o;    o += K2_PIX * (kj + K2_OPAD) * 2;                 // D rows
+  s.ws = o;   o += cb * (kj + K2_OPAD) * 2;                     // W as (c, j)
+  s.da = o;   o += npx * K2_NPAD * 4;                           // dacc over the halo
+  s.mreg = o; o += (K2_TH + 2 * k - 2) * (K2_TW + 2 * k - 2) * 8;  // masks, k - 1 around the tile
+  s.joff = o; o += k2_align16(kj * 4);
+  s.gpix = o; o += K2_PIX * 4;
+  s.mk = o;   o += K2_PIX * 8;
+  s.total = o;
+  return s;
+}
 
-  const int tid = threadIdx.x, tx = tid % K2_TW, ty = tid / K2_TW;
-  const int n = blockIdx.z;
-  const int oh = blockIdx.y * K2_TH + ty, ow = blockIdx.x * K2_TW + tx;
-  const int ih0 = blockIdx.y * K2_TH - p.pad, iw0 = blockIdx.x * K2_TW - p.pad;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
 
-  for (int i = tid; i < tpix; i += K2_THREADS) {
-    const int ih = ih0 + i / tiw, iw = iw0 + i % tiw;
-    float m0 = 0.f, m1 = 0.f;
-    if (ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
-      const __nv_bfloat16* m = mask_at(p, n, ih, iw);
-      m0 = __bfloat162float(m[0]);
-      if (p.g == 2) m1 = __bfloat162float(m[1]);
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// D(16 x 8, f32) += A(16 x 16, bf16, row) * B(16 x 8, bf16, col). Lane l
+// holds A rows l / 4 and + 8, k 2 (l % 4) + {0, 1} and + 8 (a[0..3]: row,
+// row + 8, then k + 8); B k 2 (l % 4) + {0, 1} (b0) and + 8 (b1) of column
+// l / 4; D rows l / 4 (d[0], d[1]) and + 8 (d[2], d[3]), columns
+// 2 (l % 4) + {0, 1}.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x * m as the plain version rounds it; exactly 0 where the mask is 0.
+__device__ __forceinline__ __nv_bfloat16 masked(__nv_bfloat16 x, float m) {
+  return m != 0.f ? __float2bfloat16(__bfloat162float(x) * m) : __float2bfloat16(0.f);
+}
+
+// Copies channels [cb0, cb0 + nb) of every listed pixel (s_gpix >= 0) into
+// the pixel's slot: 16-byte chunks from the 16-byte boundary at or below
+// the slice's first byte (x itself starts on 16 bytes), the last one cut at
+// the end of x.
+__device__ __forceinline__ void k2_stage(const Params& p, int cb0, int nb, const int* s_gpix,
+                                         int npx, uint32_t raw, int raws, int tid) {
+  const uint8_t* xb = reinterpret_cast<const uint8_t*>(p.x);
+  const int cpp = raws / 16;
+  for (int i = tid; i < npx * cpp; i += K2_THREADS) {
+    const int hp = i / cpp, j = i - hp * cpp;
+    const int gp = s_gpix[hp];
+    if (gp < 0) continue;
+    const size_t first = ((size_t)gp * p.cin + cb0) * 2;
+    const size_t src = (first & ~(size_t)15) + 16 * j;
+    if (src >= first + (size_t)nb * 2) continue;
+    const size_t left = p.x_bytes - src;
+    cp_async16(raw + hp * raws + 16 * j, xb + src, left < 16 ? (int)left : 16);
+  }
+}
+
+// The staged slices as operand rows: row hp holds x * M_g of the block's
+// channels, zero from nb to cb and for a pixel outside the image. cb / 8
+// lanes take a pixel (three pixels per warp at the head), one 16-byte chunk
+// of its row each: bytes [phase,
+// phase + 16) of two aligned 16-byte reads of the slot, the word picked by
+// two levels of selects and the 2-byte phase taken out with funnel shifts.
+// A chunk in one mask group is four packed bf16 products (x and M are
+// bf16, so the packed product rounds as the plain version's f32 product
+// does); one that straddles the groups goes element by element. `op` may
+// be `raw` (a row and a slot have the same size): every lane of the warp
+// has read before any of them writes.
+__device__ __forceinline__ void k2_relay(const Params& p, int cb0, int nb, const int* s_gpix,
+                                         const float2* s_mk, int npx, const uint8_t* raw,
+                                         uint8_t* op, int tid) {
+  const int lane = tid & 31, raws = k2_raw_slot(p.cb);
+  const int nch = p.cb / 8, ppw = 32 / nch;   // chunks per row, pixels per warp and step
+  const int pl = lane / nch, sub = lane - pl * nch;
+  const int ch0 = sub * 8;  // this lane's first channel of the block
+  for (int h0 = (tid >> 5) * ppw; h0 < npx; h0 += K2_THREADS / 32 * ppw) {
+    const int hp = h0 + pl;
+    const bool act = pl < ppw && hp < npx;
+    uint4 out = make_uint4(0u, 0u, 0u, 0u);
+    const int gp = act ? s_gpix[hp] : -1;
+    if (gp >= 0 && ch0 < nb) {
+      const float2 mk = s_mk[hp];
+      const int phase = (int)((((size_t)gp * p.cin + cb0) * 2) & 15);
+      const uint4* s4 = reinterpret_cast<const uint4*>(raw + hp * raws) + sub;
+      const uint4 lo = s4[0], hi = s4[1];
+      const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      uint32_t t[6], u[5], v[4];
+#pragma unroll
+      for (int e = 0; e < 6; ++e) t[e] = (phase & 8) ? w[e + 2] : w[e];
+#pragma unroll
+      for (int e = 0; e < 5; ++e) u[e] = (phase & 4) ? t[e + 1] : t[e];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = __funnelshift_r(u[e], u[e + 1], (phase & 2) * 8);
+      uint32_t r[4];
+      const int first = cb0 + ch0;
+      if (first + 8 <= p.size0 || first >= p.size0) {
+        const float m = first < p.size0 ? mk.x : mk.y;
+        const __nv_bfloat162 mm = __float2bfloat162_rn(m);
+        const uint32_t keep = m != 0.f ? 0xffffffffu : 0u;  // exactly 0 under a hole
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 pr = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&v[e]), mm);
+          const int ch = ch0 + 2 * e;
+          const uint32_t in = ch + 1 < nb ? 0xffffffffu : ch < nb ? 0x0000ffffu : 0u;
+          r[e] = *reinterpret_cast<const uint32_t*>(&pr) & keep & in;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ch = ch0 + 2 * e;
+          const float m0 = cb0 + ch < p.size0 ? mk.x : mk.y, m1 = cb0 + ch + 1 < p.size0 ? mk.x : mk.y;
+          const float f0 = __uint_as_float(v[e] << 16), f1 = __uint_as_float(v[e] & 0xffff0000u);
+          const __nv_bfloat16 zero = __float2bfloat16(0.f);
+          const __nv_bfloat16 r0 = (ch < nb && m0 != 0.f) ? __float2bfloat16(f0 * m0) : zero;
+          const __nv_bfloat16 r1 = (ch + 1 < nb && m1 != 0.f) ? __float2bfloat16(f1 * m1) : zero;
+          r[e] = (uint32_t)__bfloat16_as_ushort(r0) | ((uint32_t)__bfloat16_as_ushort(r1) << 16);
+        }
+      }
+      out = make_uint4(r[0], r[1], r[2], r[3]);
     }
-    ms[2 * i] = m0;
-    ms[2 * i + 1] = m1;
+    __syncwarp();
+    if (act) *reinterpret_cast<uint4*>(op + hp * raws + sub * 16) = out;
+  }
+}
+
+// NKB: k16 steps of a channel block, cb = 16 NKB.
+template <int NKB>
+__global__ void __launch_bounds__(K2_THREADS, 3) pconv_k2(const Params p) {
+  extern __shared__ __align__(16) uint8_t k2_smem[];
+  constexpr int cb = 16 * NKB;
+  const int k = p.k, taps = k * k;
+  const int hw = K2_TW + k - 1, npx = (K2_TH + k - 1) * hw;
+  constexpr int pitch = cb + K2_OPAD, raws = k2_raw_slot(cb);
+  const K2Smem L = k2_fwd_smem(k, cb);
+  uint8_t* raw = k2_smem + L.raw;  // and the operand rows, after `k2_relay`
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(k2_smem + L.ws);
+  int* s_gpix = reinterpret_cast<int*>(k2_smem + L.gpix);
+  float2* s_mk = reinterpret_cast<float2*>(k2_smem + L.mk);
+  float* s_scale = reinterpret_cast<float*>(k2_smem + L.scale);
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(k2_smem + L.ys);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = blockIdx.z, oh0 = blockIdx.y * K2_TH, ow0 = blockIdx.x * K2_TW;
+
+  // the halo's pixels and masks (0 outside the image)
+  for (int i = tid; i < npx; i += K2_THREADS) {
+    const int hr = i / hw, hc = i - hr * hw;
+    const int ih = oh0 - p.pad + hr, iw = ow0 - p.pad + hc;
+    int gp = -1;
+    float2 mk = make_float2(0.f, 0.f);
+    if (ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
+      gp = (n * p.h + ih) * p.w_in + iw;
+      const __nv_bfloat16* m = p.mask + (size_t)gp * p.g;
+      mk.x = __bfloat162float(m[0]);
+      if (p.g == 2) mk.y = __bfloat162float(m[1]);
+    }
+    s_gpix[i] = gp;
+    s_mk[i] = mk;
   }
   __syncthreads();
-
-  // raw per-group tap counts, weighted once by the group sizes
-  float c0 = 0.f, c1 = 0.f;
-  for (int dy = 0; dy < k; ++dy)
-    for (int dx = 0; dx < k; ++dx) {
-      const int i = (ty + dy) * tiw + tx + dx;
-      c0 += ms[2 * i];
-      c1 += ms[2 * i + 1];
-    }
-
-  float acc[COUT];
-#pragma unroll
-  for (int o = 0; o < COUT; ++o) acc[o] = 0.f;
-
-  for (int cb = 0; cb < p.cin; cb += K2_CK) {
-    const int cn = min(K2_CK, p.cin - cb);  // the last chunk may be short
-    __syncthreads();                        // the previous chunk has been consumed
-    // neighbouring threads take neighbouring channels of one pixel
-    for (int i = tid; i < tpix * cn; i += K2_THREADS) {
-      const int pix = i / cn, c = i % cn, ch = cb + c;
-      const float mv = ms[2 * pix + (ch < p.size0 ? 0 : 1)];  // 0 outside the image
-      float v = 0.f;
-      if (mv != 0.f) {
-        const int ih = ih0 + pix / tiw, iw = iw0 + pix % tiw;
-        const float xv = __bfloat162float(p.x[((size_t)(n * p.h + ih) * p.w_in + iw) * p.cin + ch]);
-        v = __bfloat162float(__float2bfloat16(xv * mv));  // x*M rounded as the plain version does
+  if (tid < K2_PIX) {
+    // raw per-group tap counts, weighted once by the group sizes
+    const int r = tid / K2_TW, c = tid % K2_TW;
+    float c0 = 0.f, c1 = 0.f;
+    for (int dy = 0; dy < k; ++dy)
+      for (int dx = 0; dx < k; ++dx) {
+        const float2 mk = s_mk[(r + dy) * hw + c + dx];
+        c0 += mk.x;
+        c1 += mk.y;
       }
-      xs[pix * K2_LD + c] = v;
+    const float msum = __fadd_rn(__fmul_rn((float)p.size0, c0), __fmul_rn((float)p.size1, c1));
+    const bool valid = msum > 0.f;
+    s_scale[tid] = valid ? (float)(taps * p.cin) / fmaxf(msum, 1.f) : -1.f;
+    const int oh = oh0 + r, ow = ow0 + c;
+    if (oh < p.hout && ow < p.wout)
+      p.mask_out[((size_t)n * p.hout + oh) * p.wout + ow] = __float2bfloat16(valid ? 1.f : 0.f);
+  }
+
+  // two accumulators, so that consecutive products do not wait on each other
+  float acc0[4] = {0.f, 0.f, 0.f, 0.f}, acc1[4] = {0.f, 0.f, 0.f, 0.f};
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 8;
+  const uint32_t op_u = smem_u32(raw), ws_u = smem_u32(ws);
+  const uint32_t* ws32 = reinterpret_cast<const uint32_t*>(ws);
+  constexpr int pw = pitch / 2, wch = cb / 8;
+  for (int b = 0; b < p.nblk; ++b) {
+    const int cb0 = b * cb, nb = min(cb, p.cin - cb0);
+    k2_stage(p, cb0, nb, s_gpix, npx, smem_u32(raw), raws, tid);
+    const __nv_bfloat16* wsrc = p.w + (size_t)b * taps * K2_NPAD * cb;
+    for (int i = tid; i < taps * K2_NPAD * wch; i += K2_THREADS) {
+      const int row = i / wch, j = i - row * wch;
+      cp_async16(ws_u + (row * pitch + j * 8) * 2, wsrc + row * cb + j * 8, 16);
     }
-    for (int i = tid; i < k * k * cn * COUT; i += K2_THREADS) {
-      const int tap = i / (cn * COUT), r = i % (cn * COUT);
-      ws[tap * K2_CK * COUT + r] = __bfloat162float(p.w[((size_t)tap * p.cin + cb) * COUT + r]);
-    }
+    cp_async_wait_all();
+    __syncthreads();
+    k2_relay(p, cb0, nb, s_gpix, s_mk, npx, raw, raw, tid);
     __syncthreads();
     for (int dy = 0; dy < k; ++dy)
       for (int dx = 0; dx < k; ++dx) {
-        const float* xp = xs + ((ty + dy) * tiw + tx + dx) * K2_LD;
-        const float* wp = ws + (dy * k + dx) * K2_CK * COUT;
-#pragma unroll 8
-        for (int c = 0; c < cn; ++c) {
-          const float xv = xp[c];
+        const uint32_t a0 = op_u + (((warp + dy) * hw + dx + lrow) * pitch + lcol) * 2;
+        const uint32_t* wt = ws32 + ((dy * k + dx) * K2_NPAD + (lane >> 2)) * pw + (lane & 3);
+        uint32_t a[NKB][4];
 #pragma unroll
-          for (int o = 0; o < COUT; ++o) acc[o] = fmaf(xv, wp[c * COUT + o], acc[o]);
+        for (int kb = 0; kb < NKB; ++kb) ldmatrix_x4(a[kb], a0 + kb * 32);
+#pragma unroll
+        for (int kb = 0; kb < NKB; ++kb) {
+          if (kb & 1)
+            mma_bf16(acc1, a[kb], wt[kb * 8], wt[kb * 8 + 4]);
+          else
+            mma_bf16(acc0, a[kb], wt[kb * 8], wt[kb * 8 + 4]);
         }
       }
+    __syncthreads();  // the next block overwrites the slots, the rows and the weights
   }
 
-  if (oh >= p.hout || ow >= p.wout) return;
-  const float msum = __fadd_rn(__fmul_rn((float)p.size0, c0), __fmul_rn((float)p.size1, c1));
-  const bool valid = msum > 0.f;
-  const float scale = valid ? (float)(k * k * p.cin) / fmaxf(msum, 1.f) : -1.f;
-  const size_t pix = ((size_t)n * p.hout + oh) * p.wout + ow;
+  // epilogue into the tile's y rows, then whole rows to y
+  const int o0 = (lane & 3) * 2;
 #pragma unroll
-  for (int o = 0; o < COUT; ++o)
-    p.y[pix * COUT + o] = __float2bfloat16(epilogue(acc[o], scale, p.bias ? p.bias[o] : 0.f));
-  p.mask_out[pix] = __float2bfloat16(valid ? 1.f : 0.f);
+  for (int h = 0; h < 2; ++h) {
+    const int q = warp * K2_TW + (lane >> 2) + 8 * h;
+    const float scale = s_scale[q];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int o = o0 + e;
+      if (o < p.cout)
+        ys[q * p.cout + o] = __float2bfloat16(
+            epilogue(acc0[2 * h + e] + acc1[2 * h + e], scale, p.bias ? p.bias[o] : 0.f));
+    }
+  }
+  __syncthreads();
+  const int oh = oh0 + warp;
+  if (oh >= p.hout || ow0 >= p.wout) return;
+  const int ne = min(K2_TW, p.wout - ow0) * p.cout;  // the row's elements
+  __nv_bfloat16* dst = p.y + ((size_t)(n * p.hout + oh) * p.wout + ow0) * p.cout;
+  const __nv_bfloat16* src = ys + warp * K2_TW * p.cout;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0 && ne % 8 == 0 &&
+      (warp * K2_TW * p.cout) % 8 == 0) {
+    for (int i = lane; i < ne / 8; i += 32)
+      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+  } else {
+    for (int i = lane; i < ne; i += 32) dst[i] = src[i];
+  }
 }
 
-template <int COUT>
+template <int NKB>
 cudaError_t launch_k2(const Params& p, cudaStream_t stream) {
-  const size_t smem = k2_smem_bytes(p.k, COUT);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pconv_k2<COUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  const int smem = k2_fwd_smem(p.k, p.cb).total;
+  cudaError_t e =
+      cudaFuncSetAttribute(pconv_k2<NKB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid((unsigned)((p.wout + K2_TW - 1) / K2_TW), (unsigned)((p.hout + K2_TH - 1) / K2_TH),
                   (unsigned)p.n);
-  pconv_k2<COUT><<<grid, K2_THREADS, smem, stream>>>(p);
+  pconv_k2<NKB><<<grid, K2_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The head's backward. Persistent: CTA b takes tiles b, b + grid, ... of
+// the (max(H, Hout), max(W, Wout)) plane of each image; pass (cbi, jb)
+// covers channel block cbi and dW rows [32 jb, 32 jb + 32). dx comes from
+// the passes with jb = 0, db from the first pass.
+__global__ void __launch_bounds__(K2_THREADS, 2) pconv_k2_bwd(const Params p) {
+  extern __shared__ __align__(16) uint8_t k2_smem[];
+  const int k = p.k, cb = p.cb, kj = p.kj, co = p.cout;
+  const int hw = K2_TW + k - 1, npxh = (K2_TH + k - 1) * hw;
+  const int pitch = cb + K2_OPAD, dpitch = kj + K2_OPAD, raws = k2_raw_slot(cb);
+  const K2Smem L = k2_bwd_smem(k, cb, kj);
+  uint8_t* raw = k2_smem + L.raw;
+  __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(k2_smem + L.op);
+  __nv_bfloat16* sd = reinterpret_cast<__nv_bfloat16*>(k2_smem + L.d);
+  __nv_bfloat16* wd = reinterpret_cast<__nv_bfloat16*>(k2_smem + L.ws);
+  float* s_da = reinterpret_cast<float*>(k2_smem + L.da);
+  float2* s_mreg = reinterpret_cast<float2*>(k2_smem + L.mreg);
+  int* s_joff = reinterpret_cast<int*>(k2_smem + L.joff);
+  int* s_gpix = reinterpret_cast<int*>(k2_smem + L.gpix);
+  float2* s_mk = reinterpret_cast<float2*>(k2_smem + L.mk);
+  __nv_bfloat16* dxs = reinterpret_cast<__nv_bfloat16*>(raw);  // dx of the tile, (pixel, nb)
+  float* red = reinterpret_cast<float*>(raw);                  // the warps' dW parts, db
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hh = max(p.h, p.hout), ww = max(p.w_in, p.wout);
+  const int tx_n = (ww + K2_TW - 1) / K2_TW, ty_n = (hh + K2_TH - 1) / K2_TH;
+  const int tiles = p.n * ty_n * tx_n;
+  const int cw = p.nblk * cb;                       // columns of a dW partial
+  float* part = p.partial + (size_t)blockIdx.x * ((size_t)kj * cw + K2_NPAD);
+  const float kkc = (float)(k * k * p.cin);
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 8;
+  const uint32_t sd_u = smem_u32(sd), op_u = smem_u32(op);
+  const uint32_t* wd32 = reinterpret_cast<const uint32_t*>(wd);
+  const int dpw = dpitch / 2, nkk = kj / 16;
+  const int mw = K2_TW + 2 * k - 2, mreg_n = (K2_TH + 2 * k - 2) * mw, jn = k * k * co;
+
+  // j = tap * Cout + o reads dacc of the halo pixel (k - 1 - dy, k - 1 - dx)
+  // past the tile pixel's own: its offset in s_da, -1 in the padding of j
+  for (int j = tid; j < kj; j += K2_THREADS) {
+    int off = -1;
+    if (j < jn) {
+      const int tap = j / co, o = j - tap * co, dy = tap / k, dx = tap - dy * k;
+      off = ((k - 1 - dy) * hw + (k - 1 - dx)) * K2_NPAD + o;
+    }
+    s_joff[j] = off;
+  }
+  // the padding of j in the D rows stays 0 over all tiles
+  for (int i = tid; i < K2_PIX * (kj - jn); i += K2_THREADS)
+    sd[(i / (kj - jn)) * dpitch + jn + i % (kj - jn)] = __float2bfloat16(0.f);
+  float db[K2_NPAD];
+#pragma unroll
+  for (int o = 0; o < K2_NPAD; ++o) db[o] = 0.f;
+
+  const int njb = (kj + K2_JB - 1) / K2_JB;
+  for (int pass = 0; pass < p.nblk * njb; ++pass) {
+    const int cbi = pass / njb, jb = pass - cbi * njb;
+    const int cb0 = cbi * cb, nb = min(cb, p.cin - cb0);
+    const bool do_dx = p.need_dx && jb == 0, do_db = p.need_db && pass == 0;
+    __syncthreads();  // the last pass has been written out
+    // W of this channel block as (c, j) rows
+    {
+      const __nv_bfloat16* wsrc = p.w + (size_t)cb0 * kj;
+      const int wch = kj / 8;
+      for (int i = tid; i < cb * wch; i += K2_THREADS) {
+        const int row = i / wch, j = i - row * wch;
+        cp_async16(smem_u32(wd) + (row * dpitch + j * 8) * 2, wsrc + (size_t)row * kj + j * 8, 16);
+      }
+    }
+    float accw[K2_CB_MAX / 8][4];
+#pragma unroll
+    for (int i = 0; i < K2_CB_MAX / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accw[i][e] = 0.f;
+    const int mt = warp & 1, pg = warp >> 1;   // this warp's dW row tile and pixel rows pg, pg + 4
+    const int j0 = jb * K2_JB + mt * 16;
+
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int tx = tile % tx_n, ty = (tile / tx_n) % ty_n, n = tile / (tx_n * ty_n);
+      const int ih0 = ty * K2_TH, iw0 = tx * K2_TW;
+      __syncthreads();  // the last tile's buffers are free
+      if (tid < K2_PIX) {
+        const int ih = ih0 + tid / K2_TW, iw = iw0 + tid % K2_TW;
+        int gp = -1;
+        float2 mk = make_float2(0.f, 0.f);
+        if (ih < p.h && iw < p.w_in) {
+          gp = (n * p.h + ih) * p.w_in + iw;
+          const __nv_bfloat16* m = p.mask + (size_t)gp * p.g;
+          mk.x = __bfloat162float(m[0]);
+          if (p.g == 2) mk.y = __bfloat162float(m[1]);
+        }
+        s_gpix[tid] = gp;
+        s_mk[tid] = mk;
+      }
+      // the masks of the tile and k - 1 pixels around it: every window of
+      // the halo's output pixels (0 outside the image)
+      for (int i = tid; i < mreg_n; i += K2_THREADS) {
+        const int mr = i / mw, mc = i - mr * mw;
+        const int ih = ih0 - (k - 1) + mr, iw = iw0 - (k - 1) + mc;
+        float2 mk = make_float2(0.f, 0.f);
+        if (ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
+          const __nv_bfloat16* m = mask_at(p, n, ih, iw);
+          mk.x = __bfloat162float(m[0]);
+          if (p.g == 2) mk.y = __bfloat162float(m[1]);
+        }
+        s_mreg[i] = mk;
+      }
+      __syncthreads();
+      // dacc over the halo of output pixels: the tile's own and k - 1 before
+      for (int i = tid; i < npxh; i += K2_THREADS) {
+        const int hr = i / hw, hc = i - hr * hw;
+        const int oh = ih0 + p.pad - (k - 1) + hr, ow = iw0 + p.pad - (k - 1) + hc;
+        float da[K2_NPAD];
+#pragma unroll
+        for (int o = 0; o < K2_NPAD; ++o) da[o] = 0.f;
+        if (oh >= 0 && oh < p.hout && ow >= 0 && ow < p.wout) {
+          // raw per-group tap counts, weighted once by the group sizes: tap
+          // (dy, dx) of this pixel's window is (hr + dy, hc + dx) of the masks
+          float c0 = 0.f, c1 = 0.f;
+          for (int dy = 0; dy < k; ++dy)
+            for (int dx = 0; dx < k; ++dx) {
+              const float2 mk = s_mreg[(hr + dy) * mw + hc + dx];
+              c0 += mk.x;
+              c1 += mk.y;
+            }
+          const float msum =
+              __fadd_rn(__fmul_rn((float)p.size0, c0), __fmul_rn((float)p.size1, c1));
+          const bool valid = msum > 0.f;
+          const float scale = valid ? kkc / fmaxf(msum, 1.f) : 0.f;
+          const __nv_bfloat16* g = p.gout + ((size_t)(n * p.hout + oh) * p.wout + ow) * co;
+          const bool own = do_db && valid && oh >= ih0 && oh < ih0 + K2_TH && ow >= iw0 &&
+                           ow < iw0 + K2_TW;
+#pragma unroll
+          for (int o = 0; o < K2_NPAD; ++o)
+            if (o < co) {
+              const float gv = __bfloat162float(g[o]);
+              if (valid) da[o] = __bfloat162float(__float2bfloat16(gv * scale));
+              if (own) db[o] += gv;
+            }
+        }
+#pragma unroll
+        for (int o = 0; o < K2_NPAD; ++o) s_da[i * K2_NPAD + o] = da[o];
+      }
+      __syncthreads();
+      k2_stage(p, cb0, nb, s_gpix, K2_PIX, smem_u32(raw), raws, tid);
+      // D rows, while the copies fly
+#pragma unroll 4
+      for (int i = tid; i < K2_PIX * jn; i += K2_THREADS) {
+        const int q = i / jn, j = i - q * jn;
+        sd[q * dpitch + j] = __float2bfloat16(
+            s_da[((q / K2_TW) * hw + q % K2_TW) * K2_NPAD + s_joff[j]]);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      k2_relay(p, cb0, nb, s_gpix, s_mk, K2_PIX, raw, reinterpret_cast<uint8_t*>(op), tid);
+      __syncthreads();  // the slots are free: dx is staged over them
+
+      if (do_dx) {
+        // warp = tile row: dx[q, c] = M * sum_j D[q, j] W[j, c], 16 channels
+        // (two independent chains of products) at a time
+        const uint32_t a0 = sd_u + ((warp * K2_TW + lrow) * dpitch + lcol) * 2;
+        const float2 mkq[2] = {s_mk[warp * K2_TW + (lane >> 2)],
+                               s_mk[warp * K2_TW + (lane >> 2) + 8]};
+        for (int nt = 0; nt < cb / 8; nt += 2) {
+          float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          const uint32_t* wt = wd32 + (nt * 8 + (lane >> 2)) * dpw + (lane & 3);
+          for (int kk = 0; kk < nkk; ++kk) {
+            uint32_t a[4];
+            ldmatrix_x4(a, a0 + kk * 32);
+            mma_bf16(acc[0], a, wt[kk * 8], wt[kk * 8 + 4]);
+            mma_bf16(acc[1], a, wt[8 * dpw + kk * 8], wt[8 * dpw + kk * 8 + 4]);
+          }
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int q = warp * K2_TW + (lane >> 2) + 8 * h;
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int ch = (nt + t) * 8 + (lane & 3) * 2 + e;
+                if (ch < nb)
+                  dxs[q * nb + ch] = masked(__float2bfloat16(acc[t][2 * h + e]),
+                                            cb0 + ch < p.size0 ? mkq[h].x : mkq[h].y);
+              }
+            }
+        }
+      }
+      if (p.need_dw && j0 < kj) {
+        // dW[j, c] += sum_q D[q, j] (x * M)[q, c] over tile rows pg and pg + 4
+        const int mi = lane >> 3, rr = lane & 7;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int q0 = (pg + 4 * s) * K2_TW;
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, sd_u + ((q0 + rr + (mi >= 2 ? 8 : 0)) * dpitch + j0 +
+                                       ((mi & 1) ? 8 : 0)) * 2);
+          const uint32_t b0 = op_u + ((q0 + rr + ((mi & 1) ? 8 : 0)) * pitch + (mi >= 2 ? 8 : 0)) * 2;
+#pragma unroll
+          for (int np = 0; np < K2_CB_MAX / 16; ++np)
+            if (np * 16 < cb) {
+              uint32_t bb[4];
+              ldmatrix_x4_trans(bb, b0 + np * 32);
+              mma_bf16(accw[2 * np], a, bb[0], bb[1]);
+              mma_bf16(accw[2 * np + 1], a, bb[2], bb[3]);
+            }
+        }
+      }
+      __syncthreads();
+      if (do_dx) {
+        // the tile's dx rows to device memory: this block's channels of each pixel
+        if (nb == p.cin) {
+          const int ih = ih0 + warp;
+          if (ih < p.h && iw0 < p.w_in) {
+            const int ne = min(K2_TW, p.w_in - iw0) * nb;
+            const size_t first = ((size_t)(n * p.h + ih) * p.w_in + iw0) * nb;
+            __nv_bfloat16* dst = p.dx + first;
+            const __nv_bfloat16* src = dxs + warp * K2_TW * nb;
+            if ((first & 1) == 0 && (ne & 1) == 0 && ((warp * K2_TW * nb) & 1) == 0) {
+              for (int i = lane; i < ne / 2; i += 32)
+                reinterpret_cast<uint32_t*>(dst)[i] = reinterpret_cast<const uint32_t*>(src)[i];
+            } else {
+              for (int i = lane; i < ne; i += 32) dst[i] = src[i];
+            }
+          }
+        } else {
+          for (int q = warp; q < K2_PIX; q += K2_THREADS / 32) {
+            const int gp = s_gpix[q];
+            if (gp < 0) continue;
+            for (int ch = lane; ch < nb; ch += 32)
+              p.dx[(size_t)gp * p.cin + cb0 + ch] = dxs[q * nb + ch];
+          }
+        }
+      }
+    }
+
+    // this pass's dW: the four pixel groups' parts added in order
+    __syncthreads();
+    if (p.need_dw) {
+      if (j0 < kj) {
+#pragma unroll
+        for (int nt = 0; nt < K2_CB_MAX / 8; ++nt)
+          if (nt * 8 < cb) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = mt * 16 + (lane >> 2) + (e >= 2 ? 8 : 0);
+              const int col = nt * 8 + (lane & 3) * 2 + (e & 1);
+              red[(pg * K2_JB + row) * cb + col] = accw[nt][e];
+            }
+          }
+      }
+      __syncthreads();
+      for (int row = warp; row < K2_JB; row += K2_THREADS / 32) {
+        const int j = jb * K2_JB + row;
+        if (j >= kj) break;
+        for (int col = lane; col < cb; col += 32) {
+          float s = red[row * cb + col];
+          for (int g = 1; g < 4; ++g) s += red[(g * K2_JB + row) * cb + col];
+          part[(size_t)j * cw + cb0 + col] = s;
+        }
+      }
+    }
+    if (do_db) {
+      __syncthreads();
+#pragma unroll
+      for (int o = 0; o < K2_NPAD; ++o) red[tid * K2_NPAD + o] = db[o];
+      __syncthreads();
+      if (tid < K2_NPAD) {
+        float s = 0.f;
+        for (int t = 0; t < K2_THREADS; ++t) s += red[t * K2_NPAD + tid];
+        part[(size_t)kj * cw + tid] = s;
+      }
+    }
+  }
+}
+
+cudaError_t launch_k2_bwd(const Params& p, int grid, cudaStream_t stream) {
+  const int smem = k2_bwd_smem(p.k, p.cb, p.kj).total;
+  cudaError_t e =
+      cudaFuncSetAttribute(pconv_k2_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  pconv_k2_bwd<<<grid, K2_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- K3 ----
+//
+// K3 is the backward of K1/K2, the counterpart of the custom VJP `_bwd`
+// (partial_conv_kernel.py): dacc = bf16(g * scale), dx = conv_transpose(dacc,
+// W) * M, dW = corr(x * M, dacc), db = sum g * valid. At the K1 layers the
+// two large products are library calls, as JAX leaves them to XLA; what
+// surrounds them is these kernels, each one pass over its tensor, bound by
+// bytes. `pconv_k3_prep` counts each output pixel's window with
+// `window_scan` (the forward's arithmetic, so `valid` is M' bit for bit),
+// writes dacc channels-last as the products read it and sums db per CTA;
+// `pconv_k3_mask` multiplies a channels-last tensor by its pixels' group
+// masks (x for the dW product; dx in place on the product's output);
+// `pconv_colsum` adds per-CTA partials in a fixed order. At Cout <= 7 the
+// whole backward is `pconv_k2_bwd` above.
+
+constexpr int K3_THREADS = 256;
+constexpr int K3_PIX = 128;  // pixels per tile of pconv_k3_prep
+
+// VEC channels per thread and access: 8 (16 bytes) where Cout is a
+// multiple of 8, else 1.
+template <int VEC>
+__global__ void __launch_bounds__(K3_THREADS) pconv_k3_prep(const Params p) {
+  __shared__ float s_scale[K3_PIX];
+  __shared__ float s_red[K3_THREADS * VEC];
+  const int tid = threadIdx.x;
+  const long long P = (long long)p.n * p.hout * p.wout;
+  const long long tiles = (P + K3_PIX - 1) / K3_PIX;
+  const int cpp = p.cout / VEC;                               // chunks per pixel
+  const int cw = cpp < K3_THREADS ? cpp : K3_THREADS;         // chunks taken at once
+  const int lanes = K3_THREADS / cw;                          // pixels taken at once
+  const int pl0 = tid / cw, ci = tid - pl0 * cw;
+  const float kkc = (float)(p.k * p.k * p.cin);
+  for (int cbk = 0; cbk < cpp; cbk += cw) {
+    const int c = cbk + ci;
+    const bool act = pl0 < lanes && c < cpp;
+    float db[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) db[e] = 0.f;
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      __syncthreads();
+      if (tid < K3_PIX) {
+        const long long pix = tile * K3_PIX + tid;
+        float scale = 0.f;  // 0 marks an empty window
+        if (pix < P) {
+          const int ow = (int)(pix % p.wout);
+          const long long t = pix / p.wout;
+          unsigned bits = 0;
+          const float msum = window_scan(p, (int)(t / p.hout), (int)(t % p.hout), ow, bits);
+          if (msum > 0.f) scale = kkc / fmaxf(msum, 1.f);
+        }
+        s_scale[tid] = scale;
+      }
+      __syncthreads();
+      if (!act) continue;
+      for (int pl = pl0; pl < K3_PIX; pl += lanes) {
+        const long long pix = tile * K3_PIX + pl;
+        if (pix >= P) break;
+        const float scale = s_scale[pl];
+        const size_t at = (size_t)pix * p.cout + (size_t)c * VEC;
+        if constexpr (VEC == 8) {
+          const uint4 v = *reinterpret_cast<const uint4*>(p.gout + at);
+          const __nv_bfloat16* gv = reinterpret_cast<const __nv_bfloat16*>(&v);
+          uint4 out;
+          __nv_bfloat16* ov = reinterpret_cast<__nv_bfloat16*>(&out);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float f = __bfloat162float(gv[e]);
+            ov[e] = __float2bfloat16(scale > 0.f ? f * scale : 0.f);
+            if (scale > 0.f) db[e] += f;
+          }
+          *reinterpret_cast<uint4*>(p.y + at) = out;
+        } else {
+          const float f = __bfloat162float(p.gout[at]);
+          p.y[at] = __float2bfloat16(scale > 0.f ? f * scale : 0.f);
+          if (scale > 0.f) db[0] += f;
+        }
+      }
+    }
+    if (p.need_db) {
+      // the CTA's db: its pixel lanes' sums added in order
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) s_red[tid * VEC + e] = db[e];
+      __syncthreads();
+      if (tid < cw && cbk + tid < cpp) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          float s = 0.f;
+          for (int l = 0; l < lanes; ++l) s += s_red[(l * cw + tid) * VEC + e];
+          p.partial[(size_t)blockIdx.x * p.cout + (size_t)(cbk + tid) * VEC + e] = s;
+        }
+      }
+    }
+  }
+}
+
+// out = x * M, the group picked by the channel: P pixels of C channels.
+// In place when out == x.
+template <int VEC>
+__global__ void __launch_bounds__(K3_THREADS) pconv_k3_mask(const __nv_bfloat16* x,
+                                                            const __nv_bfloat16* mask,
+                                                            __nv_bfloat16* out, unsigned items,
+                                                            int c, int g, int size0) {
+  const unsigned cpp = (unsigned)(c / VEC);
+  for (unsigned i = blockIdx.x * K3_THREADS + threadIdx.x; i < items;
+       i += gridDim.x * K3_THREADS) {
+    const unsigned pix = i / cpp;
+    const int ch = (int)(i - pix * cpp) * VEC;
+    const float m0 = __bfloat162float(mask[(size_t)pix * g]);
+    const float m1 = g == 2 ? __bfloat162float(mask[(size_t)pix * g + 1]) : m0;
+    const size_t at = (size_t)pix * c + ch;
+    if constexpr (VEC == 8) {
+      uint4 v = *reinterpret_cast<const uint4*>(x + at);
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = masked(e[j], ch + j < size0 ? m0 : m1);
+      *reinterpret_cast<uint4*>(out + at) = v;
+    } else {
+      out[at] = masked(x[at], ch < size0 ? m0 : m1);
+    }
+  }
+}
+
+// out[c] = sum over r of part[r, c], rows added in a fixed order: thread
+// (x, y) adds rows y, y + 8, ... of column x, then the 8 sums in order.
+__global__ void __launch_bounds__(256) pconv_colsum(const float* part, float* out, int rows,
+                                                    int len) {
+  __shared__ float s[8][32];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float v = 0.f;
+  if (col < len)
+    for (int r = threadIdx.y; r < rows; r += 8) v += part[(size_t)r * len + col];
+  s[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < len) {
+    float t = s[0][threadIdx.x];
+    for (int y = 1; y < 8; ++y) t += s[y][threadIdx.x];
+    out[col] = t;
+  }
 }
 
 Params make_params(const void* x, const void* mask, const void* w, const void* bias, void* y,
@@ -704,6 +1372,10 @@ Params make_params(const void* x, const void* mask, const void* w, const void* b
   p.hout = hout; p.wout = wout; p.cout = cout; p.cin_p = cin_p; p.cout_p = cout_p;
   p.k = k; p.pad = pad;
   p.cin_x = cin; p.gb = size0; p.splits = 1;
+  p.gout = nullptr; p.dx = nullptr;
+  p.x_bytes = (size_t)n * h * w_in * cin * sizeof(__nv_bfloat16);
+  p.cb = 0; p.nblk = 0; p.kj = 0;
+  p.need_dx = p.need_dw = p.need_db = 0;
   return p;
 }
 
@@ -757,23 +1429,108 @@ int tsii_pconv_k1(const void* x, const void* mask, const void* w, const void* bi
   }
 }
 
-// K2. w: (k*k, cin, cout) bf16, 1 <= cout <= 7; bias: (cout) f32 or NULL.
+// Whether K2's geometry is one the kernels take: cb a multiple of 16 up to
+// K2_CB_MAX, and for the backward kj a multiple of 16.
+static bool k2_geometry_ok(int cout, int cb, int nblk, int cin, int kj) {
+  return cout >= 1 && cout < K2_NPAD && cb >= 16 && cb <= K2_CB_MAX && cb % 16 == 0 &&
+         nblk >= 1 && (long long)nblk * cb >= cin && kj % 16 == 0;
+}
+
+// K2. x: 16-byte aligned; w: (nblk, k*k, 8, cb) bf16, zero where there is
+// no channel or output; 1 <= cout <= 7; bias: (cout) f32 or NULL.
 int tsii_pconv_k2(const void* x, const void* mask, const void* w, const void* bias, void* y,
                   void* mask_out, int n, int h, int w_in, int cin, int g, int size0, int size1,
-                  int hout, int wout, int cout, int k, int pad, void* stream) {
-  const Params p = make_params(x, mask, w, bias, y, mask_out, n, h, w_in, cin, g, size0, size1,
-                               hout, wout, cout, cin, cout, k, pad);
+                  int hout, int wout, int cout, int k, int pad, int cb, int nblk, void* stream) {
+  Params p = make_params(x, mask, w, bias, y, mask_out, n, h, w_in, cin, g, size0, size1, hout,
+                         wout, cout, cin, cout, k, pad);
+  p.cb = cb;
+  p.nblk = nblk;
+  if (!k2_geometry_ok(cout, cb, nblk, cin, 0) || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (reinterpret_cast<uintptr_t>(w) & 15))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cout) {
+  switch (cb / 16) {
     case 1: return (int)launch_k2<1>(p, s);
     case 2: return (int)launch_k2<2>(p, s);
     case 3: return (int)launch_k2<3>(p, s);
     case 4: return (int)launch_k2<4>(p, s);
-    case 5: return (int)launch_k2<5>(p, s);
-    case 6: return (int)launch_k2<6>(p, s);
-    case 7: return (int)launch_k2<7>(p, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return (int)launch_k2<K2_CB_MAX / 16>(p, s);
   }
+}
+
+// K2's backward. gout: (n, hout, wout, cout) bf16; w: (nblk * cb, kj) bf16,
+// row c column tap * cout + o, zero elsewhere; dx: (n, h, w_in, cin) bf16 or
+// NULL; partial: (grid, kj * nblk * cb + 8) f32, each CTA's dW as (kj,
+// nblk * cb) and then its db.
+int tsii_pconv_k2_bwd(const void* gout, const void* x, const void* mask, const void* w, void* dx,
+                      void* partial, int n, int h, int w_in, int cin, int g, int size0,
+                      int size1, int hout, int wout, int cout, int k, int pad, int cb, int nblk,
+                      int kj, int grid, int need_dx, int need_dw, int need_db, void* stream) {
+  Params p = make_params(x, mask, w, nullptr, nullptr, nullptr, n, h, w_in, cin, g, size0, size1,
+                         hout, wout, cout, cin, cout, k, pad);
+  p.gout = static_cast<const __nv_bfloat16*>(gout);
+  p.dx = static_cast<__nv_bfloat16*>(dx);
+  p.partial = static_cast<float*>(partial);
+  p.cb = cb;
+  p.nblk = nblk;
+  p.kj = kj;
+  p.need_dx = need_dx && dx != nullptr;
+  p.need_dw = need_dw;
+  p.need_db = need_db;
+  if (!k2_geometry_ok(cout, cb, nblk, cin, kj) || kj < k * k * cout || grid < 1 ||
+      partial == nullptr || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (reinterpret_cast<uintptr_t>(w) & 15))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_k2_bwd(p, grid, static_cast<cudaStream_t>(stream));
+}
+
+// K3's first pass. gout, dacc: (n, hout, wout, cout) bf16; partial: (grid,
+// cout) f32 when need_db. cin, size0, size1, k, pad: the layer's own (for
+// the window count).
+int tsii_pconv_k3_prep(const void* gout, const void* mask, void* dacc, void* partial, int n, int h,
+                       int w_in, int cin, int g, int size0, int size1, int hout, int wout,
+                       int cout, int k, int pad, int grid, int need_db, void* stream) {
+  Params p = make_params(nullptr, mask, nullptr, nullptr, dacc, nullptr, n, h, w_in, cin, g, size0,
+                         size1, hout, wout, cout, cin, cout, k, pad);
+  p.gout = static_cast<const __nv_bfloat16*>(gout);
+  p.partial = static_cast<float*>(partial);
+  p.need_db = need_db;
+  if (grid < 1 || (need_db && partial == nullptr)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = cout % 8 == 0 && !((reinterpret_cast<uintptr_t>(gout) |
+                                       reinterpret_cast<uintptr_t>(dacc)) & 15);
+  if (vec)
+    pconv_k3_prep<8><<<grid, K3_THREADS, 0, s>>>(p);
+  else
+    pconv_k3_prep<1><<<grid, K3_THREADS, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// out = x * M over `pixels` pixels of c channels (out may be x).
+int tsii_pconv_k3_mask(const void* x, const void* mask, void* out, long long pixels, int c, int g,
+                       int size0, void* stream) {
+  const bool vec = c % 8 == 0 && !((reinterpret_cast<uintptr_t>(x) |
+                                    reinterpret_cast<uintptr_t>(out)) & 15);
+  const long long items = pixels * (vec ? c / 8 : c);
+  if (items <= 0 || items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((items + K3_THREADS - 1) / K3_THREADS);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* mp = static_cast<const __nv_bfloat16*>(mask);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (vec)
+    pconv_k3_mask<8><<<grid, K3_THREADS, 0, s>>>(xp, mp, op, (unsigned)items, c, g, size0);
+  else
+    pconv_k3_mask<1><<<grid, K3_THREADS, 0, s>>>(xp, mp, op, (unsigned)items, c, g, size0);
+  return (int)cudaGetLastError();
+}
+
+// out[c] = sum_r part[r, c], f32, in a fixed order.
+int tsii_pconv_colsum(const void* part, void* out, int rows, int len, void* stream) {
+  if (rows < 1 || len < 1) return (int)cudaErrorInvalidValue;
+  pconv_colsum<<<(unsigned)((len + 31) / 32), dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), rows, len);
+  return (int)cudaGetLastError();
 }
 
 const char* tsii_error_string(int code) {

@@ -115,10 +115,15 @@ def list_image_paths(data_dir: str) -> list[str]:
 
 
 def make_dataset(kind: str, *, batch_size: int = 8, size: tuple[int, int] = (512, 512),
-                 seed: int = 0, paths: Sequence[str] | None = None) -> Iterator[dict]:
-    """Infinite iterator of numpy batches {'image': (B,H,W,3), 'mask': (B,H,W,1)}."""
+                 seed: int = 0, paths: Sequence[str] | None = None,
+                 start: int = 0) -> Iterator[dict]:
+    """Infinite iterator of numpy batches {'image': (B,H,W,3), 'mask': (B,H,W,1)}.
+
+    Pages come in index order from page ``start``: the stream from
+    ``start = k`` is the stream from 0 with its first ``k`` pages
+    skipped, which is how a resumed run continues where it stopped."""
     source = PageSource(kind=kind, size=tuple(size), seed=seed, paths=paths)
-    i = 0
+    i = start
     while True:
         samples = [source[(i + j) % len(source)] for j in range(batch_size)]
         i += batch_size

@@ -106,8 +106,16 @@ def load_library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.tsii_pconv_k1.argtypes = [ptr] * 7 + [i32] * 20 + [ptr]
         lib.tsii_pconv_k1.restype = i32
-        lib.tsii_pconv_k2.argtypes = [ptr] * 6 + [i32] * 12 + [ptr]
+        lib.tsii_pconv_k2.argtypes = [ptr] * 6 + [i32] * 14 + [ptr]
         lib.tsii_pconv_k2.restype = i32
+        lib.tsii_pconv_k2_bwd.argtypes = [ptr] * 6 + [i32] * 19 + [ptr]
+        lib.tsii_pconv_k2_bwd.restype = i32
+        lib.tsii_pconv_k3_prep.argtypes = [ptr] * 4 + [i32] * 14 + [ptr]
+        lib.tsii_pconv_k3_prep.restype = i32
+        lib.tsii_pconv_k3_mask.argtypes = [ptr] * 3 + [ctypes.c_longlong] + [i32] * 3 + [ptr]
+        lib.tsii_pconv_k3_mask.restype = i32
+        lib.tsii_pconv_colsum.argtypes = [ptr] * 2 + [i32] * 2 + [ptr]
+        lib.tsii_pconv_colsum.restype = i32
         lib.tsii_stem_dx.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
         lib.tsii_stem_dx.restype = i32
         lib.tsii_stem_pool.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]

@@ -8,15 +8,22 @@ top): K1 is an NHWC implicit GEMM on Hopper's ``wgmma`` for Cout >= 8
 (a producer warpgroup gathering tiles with ``cp.async`` into a ring of
 shared stages; a halo form that gathers a window row once for its three
 taps; split K where the tile grid does not fill the card: ``k1_plan``),
-K2 a CUDA-core kernel for Cout <= 7. Scope: stride 1, dilation 1, square
-kernel, G in {1, 2} mask groups, bf16.
+K2, for Cout <= 7, a GEMM with N padded to 8 on ``mma.sync`` that stages
+its 2-byte-aligned pixels with 16-byte copies and re-lays them masked
+(``k2_plan``). Scope: stride 1, dilation 1, square kernel, G in {1, 2}
+mask groups, bf16.
 
 ``partial_conv2d_fused`` is differentiable: ``PartialConvFunction``
 runs K1 or K2 forward and K3 backward, the counterpart of the custom VJP
 ``partial_conv2d_pallas`` (``_fwd`` / ``_bwd``, ``partial_conv_kernel.py:542-676``).
-The forward takes the plain version only for a tensor on the CPU. On a
-CUDA tensor it launches K1 or K2, or raises; nothing falls back.
-``K1_LAUNCHES`` / ``K2_LAUNCHES`` count the launches.
+K3 (``partial_conv2d_backward``) is, at Cout >= 8, ``pconv_k3_prep`` (the
+scaled cotangent and db in one pass over g) and ``pconv_k3_mask`` (x * M
+for the dW product; dx masked in place) around the two large products,
+which stay one library call as JAX leaves them to XLA; at Cout <= 7 it is
+one kernel, ``pconv_k2_bwd``. Forward and backward take the plain version
+only for a tensor on the CPU. On a CUDA tensor they launch their kernels,
+or raise; nothing falls back. ``K1_LAUNCHES`` / ``K2_LAUNCHES`` /
+``K3_LAUNCHES`` count the launches (K3: one per layer backward).
 """
 
 from __future__ import annotations
@@ -35,10 +42,18 @@ from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+K3_LAUNCHES = 0
 
 _BK = 64  # K1's K step: one tap x 64 channels; the re-laid weights pad Cin to it
 _SMS = 132  # streaming multiprocessors of an H100 SXM: K1's grid fills at least one wave
 _K2_MAX_COUT = 7
+# K2's geometry, as csrc/partial_conv.cu has it (tests/test_torch_k2_plan.py
+# holds the two against each other)
+K2_TH, K2_TW = 8, 16  # a CTA's tile of pixels: rows x columns
+K2_NPAD = 8  # Cout padded to the mma's N
+K2_CB_MAX = 80  # most channels per block, a multiple of 16
+K2_OPAD = 8  # operand row padding, elements
+SMEM_LIMIT = 232448  # bytes of shared memory a CTA can take on Hopper
 
 
 def partial_conv2d_reference(
@@ -97,11 +112,35 @@ def partial_conv2d_backward(g, x, mask, weight, bias, group_sizes, padding,
 
     The counterpart of ``partial_conv_kernel.py::_bwd``: msum is
     recomputed, ``dacc = g * scale * valid`` is rounded to x.dtype, and
-    the two products accumulate in f32 (cuDNN; JAX leaves them to XLA as
-    well): dx = conv_transpose(dacc, W) * M, dW = corr(x * M, dacc), each
-    rounded once to its input's dtype; db = sum(g * valid) in f32.
-    ``needs`` says which of (dx, dW, db) to compute; the others are None.
-    """
+    the two products accumulate in f32: dx = conv_transpose(dacc, W) * M,
+    dW = corr(x * M, dacc), each rounded once to its input's dtype;
+    db = sum(g * valid) in f32. ``needs`` says which of (dx, dW, db) to
+    compute; the others are None, and no kernel or product runs for them.
+
+    On a CUDA tensor: at Cout >= 8 ``pconv_k3_prep`` and ``pconv_k3_mask``
+    around one library call of the two products (``_launch_k3``), at
+    Cout <= 7 ``pconv_k2_bwd`` alone (``_launch_k2_bwd``); a failed build
+    or launch raises. On a CPU tensor the plain version."""
+    global K3_LAUNCHES
+    needs = (needs[0], needs[1], needs[2] and bias is not None)
+    if not any(needs):
+        return None, None, None
+    if x.device.type == "cpu":
+        return partial_conv2d_backward_reference(g, x, mask, weight, bias, group_sizes, padding,
+                                                 needs)
+    if weight.shape[0] <= _K2_MAX_COUT:
+        out = _launch_k2_bwd(g, x, mask, weight, bias, group_sizes, padding, needs)
+    else:
+        out = _launch_k3(g, x, mask, weight, bias, group_sizes, padding, needs)
+    K3_LAUNCHES += 1
+    return out
+
+
+def partial_conv2d_backward_reference(g, x, mask, weight, bias, group_sizes, padding,
+                                      needs=(True, True, True)):
+    """K3's plain PyTorch version: the same arithmetic as
+    ``partial_conv2d_backward`` in tensor operations, the two products on
+    the library. The CPU path and the tests use it."""
     _, cin, kh, kw = weight.shape
     msum = mask_window_sum(mask, group_sizes, (kh, kw), stride=(1, 1), padding=padding)
     valid = msum > 0
@@ -366,23 +405,235 @@ def _launch_k1(x, mask, weight, bias, group_sizes, padding):
     return y, m_out
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+class K2Plan(NamedTuple):
+    """How K2 and its backward cut one layer: ``nblk`` blocks of ``cb``
+    channels (the K of one staged operand, a multiple of 16), and ``kj``,
+    the backward's k*k*Cout rows (tap, o) padded to a multiple of 16."""
+
+    cb: int
+    nblk: int
+    kj: int
+
+
+def k2_plan(cin: int, cout: int, k: int) -> K2Plan:
+    """K2's plan for Cin channels, Cout <= 7 outputs and a k x k window: a
+    pure function of the shape. The fewest blocks of at most ``K2_CB_MAX``
+    channels, all of one width (the head: 67 -> one block of 80)."""
+    nblk = -(-cin // K2_CB_MAX)
+    return K2Plan(_round_up(-(-cin // nblk), 16), nblk, _round_up(k * k * cout, 16))
+
+
+def k2_smem_bytes(k: int, cb: int, kj: int = 0) -> int:
+    """Dynamic shared memory of K2 (``kj`` 0) or of its backward, in bytes:
+    ``k2_fwd_smem`` / ``k2_bwd_smem`` of csrc/partial_conv.cu."""
+    a16 = lambda b: _round_up(b, 16)  # noqa: E731
+    npx = (K2_TH + k - 1) * (K2_TW + k - 1)  # a tile with its halo
+    pix = K2_TH * K2_TW
+    slot, row = a16(cb * 2 + 14), (cb + K2_OPAD) * 2
+    if kj == 0:  # the slots become the operand rows in place
+        return (npx * slot + k * k * K2_NPAD * row + a16(npx * 4) + a16(npx * 8)
+                + pix * 4 + pix * K2_NPAD * 2)
+    masks = (K2_TH + 2 * k - 2) * (K2_TW + 2 * k - 2) * 8  # the tile and k - 1 around it
+    return (pix * slot + pix * row + pix * (kj + K2_OPAD) * 2 + cb * (kj + K2_OPAD) * 2
+            + npx * K2_NPAD * 4 + masks + a16(kj * 4) + pix * 4 + pix * 8)
+
+
+def k2_weight_relayout(weight: torch.Tensor, plan: K2Plan) -> torch.Tensor:
+    """OIHW weights -> K2's (nblk, k*k, 8, cb) bf16: per channel block and
+    tap, one row of ``cb`` channels per output (the K-major B operand of
+    ``mma.sync``), zero in the padding of Cin and Cout."""
+    cout, cin, kh, kw = weight.shape
+    wp = torch.zeros((K2_NPAD, plan.nblk * plan.cb, kh * kw), dtype=torch.bfloat16,
+                     device=weight.device)
+    wp[:cout, :cin] = weight.to(torch.bfloat16).reshape(cout, cin, kh * kw)
+    return wp.reshape(K2_NPAD, plan.nblk, plan.cb, kh * kw).permute(1, 3, 0, 2).contiguous()
+
+
+def k2_bwd_weight_relayout(weight: torch.Tensor, plan: K2Plan) -> torch.Tensor:
+    """OIHW weights -> the backward's (nblk * cb, kj) bf16: row c, column
+    tap * Cout + o, zero in the padding."""
+    cout, cin, kh, kw = weight.shape
+    wp = torch.zeros((plan.nblk * plan.cb, plan.kj), dtype=torch.bfloat16, device=weight.device)
+    wp[:cin, :kh * kw * cout] = weight.to(torch.bfloat16).permute(1, 2, 3, 0).reshape(cin, -1)
+    return wp
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_k2(x, mask, weight, bias, group_sizes, padding):
+    """K2 (``csrc/partial_conv.cu``: ``pconv_k2``), with the weights
+    re-laid in this call (``k2_weight_relayout``). Unlike K1 it multiplies
+    by the mask's value, so a mask that is not binary gives x * M as the
+    plain version does."""
     global K2_LAUNCHES
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
     n, h, w, cin, g, cout, k, pad, hout, wout = _check_inputs(x, mask, weight, bias, group_sizes, padding)
     lib = load_library()
-    # OIHW -> (k*k, Cin, Cout) bf16, re-laid on every call
-    wk = weight.to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()
+    plan = k2_plan(cin, cout, k)
+    if k2_smem_bytes(k, plan.cb) > SMEM_LIMIT:
+        raise ValueError(f"K2 takes no {k} x {k} window: its tile would not fit in shared memory")
+    xk, wk = _aligned16(x), k2_weight_relayout(weight, plan)
     b = None if bias is None else bias.to(x.dtype).float().contiguous()
     y = torch.empty((n, hout, wout, cout), dtype=x.dtype, device=x.device)
     m_out = torch.empty((n, hout, wout, 1), dtype=x.dtype, device=x.device)
     s0, s1 = _sizes(group_sizes)
     code = lib.tsii_pconv_k2(
-        x.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
+        xk.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
         y.data_ptr(), m_out.data_ptr(), n, h, w, cin, g, s0, s1, hout, wout, cout, k, pad,
-        _stream(),
+        plan.cb, plan.nblk, _stream(),
     )
     check(lib, code, "K2 (partial conv, Cout <= 7)")
     K2_LAUNCHES += 1
     return y, m_out
+
+
+def _check_cotangent(g, x, n, hout, wout, cout):
+    if g.shape != (n, hout, wout, cout) or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"the cotangent must be ({n}, {hout}, {wout}, {cout}) {x.dtype} on "
+                         f"{x.device}, got {tuple(g.shape)} {g.dtype} on {g.device}")
+    return g.contiguous()
+
+
+def _colsum(lib, part: torch.Tensor) -> torch.Tensor:
+    """Per-CTA f32 partials (rows, len) -> their sum over the rows, added
+    in a fixed order (``pconv_colsum``)."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check
+
+    out = torch.empty((part.shape[1],), dtype=torch.float32, device=part.device)
+    code = lib.tsii_pconv_colsum(part.data_ptr(), out.data_ptr(), part.shape[0], part.shape[1],
+                                 _stream())
+    check(lib, code, "K3 (sum of the per-CTA partials)")
+    return out
+
+
+def _launch_k2_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
+    """The backward at Cout <= 7 (``pconv_k2_bwd``): dx, dW and db in one
+    kernel that reads x, g and the mask once and writes dx once; each CTA
+    writes its f32 part of dW and db, and ``pconv_colsum`` adds the parts in
+    a fixed order, so two launches give the same bits."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
+
+    n, h, w, cin, gr, cout, k, pad, hout, wout = _check_inputs(x, mask, weight, bias, group_sizes, padding)
+    g = _check_cotangent(g, x, n, hout, wout, cout)
+    if pad > k - 1:
+        raise ValueError(f"K2's backward takes padding up to k - 1, got {pad} for k = {k}")
+    lib = load_library()
+    plan = k2_plan(cin, cout, k)
+    if k2_smem_bytes(k, plan.cb, plan.kj) > SMEM_LIMIT:
+        raise ValueError(f"K2's backward takes no {k} x {k} window with {cout} outputs: its "
+                         f"tile would not fit in shared memory")
+    need_dx, need_dw, need_db = needs
+    xk, wk = _aligned16(x), k2_bwd_weight_relayout(weight, plan)
+    tiles = n * -(-max(h, hout) // K2_TH) * -(-max(w, wout) // K2_TW)
+    grid = min(tiles, 2 * _SMS)
+    cw = plan.nblk * plan.cb
+    part = torch.empty((grid, plan.kj * cw + K2_NPAD), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x) if need_dx else None
+    s0, s1 = _sizes(group_sizes)
+    code = lib.tsii_pconv_k2_bwd(
+        g.data_ptr(), xk.data_ptr(), mask.data_ptr(), wk.data_ptr(),
+        0 if dx is None else dx.data_ptr(), part.data_ptr(), n, h, w, cin, gr, s0, s1, hout, wout,
+        cout, k, pad, plan.cb, plan.nblk, plan.kj, grid, int(need_dx), int(need_dw), int(need_db),
+        _stream(),
+    )
+    check(lib, code, "K3 (partial conv backward, Cout <= 7)")
+    dw = db = None
+    if need_dw or need_db:
+        total = _colsum(lib, part)
+        if need_dw:  # (kj, cw) rows (tap, o) -> OIHW, rounded once as the plain version rounds it
+            dw = total[:plan.kj * cw].reshape(plan.kj, cw)[:k * k * cout, :cin]
+            dw = dw.reshape(k, k, cout, cin).permute(2, 3, 0, 1).to(x.dtype).to(weight.dtype)
+        if need_db:
+            db = total[plan.kj * cw:plan.kj * cw + cout].to(bias.dtype)
+    return dx, dw, db
+
+
+def _check_nhwc_bf16(name: str, t: torch.Tensor) -> None:
+    if not (t.is_cuda and t.dtype == torch.bfloat16 and t.dim() == 4 and t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous (N, H, W, C) bfloat16 CUDA tensor, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def k3_prep(g, mask, cin: int, group_sizes, k: int, pad: int, need_db: bool = True):
+    """K3's first pass (``pconv_k3_prep``) over the cotangent ``g``
+    (N, Hout, Wout, Cout) of a layer with ``cin`` input channels: returns
+    (dacc, db). dacc = bf16(g * scale) where the window has a valid tap,
+    else 0, channels-last as the products read it; db = sum of g over the
+    valid windows, (Cout,) f32, the per-CTA parts added in a fixed order
+    (None without ``need_db``). The window count is ``window_scan``'s, the
+    forward's own, so dacc is nonzero exactly where M' is 1."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
+
+    _check_nhwc_bf16("g", g)
+    _check_nhwc_bf16("mask", mask)
+    lib = load_library()
+    n, h, w, gr = mask.shape
+    _, hout, wout, cout = g.shape
+    if (gr != len(group_sizes) or sum(group_sizes) != cin
+            or (hout, wout) != (h + 2 * pad - k + 1, w + 2 * pad - k + 1)):
+        raise ValueError(f"g {tuple(g.shape)} and mask {tuple(mask.shape)} do not fit groups "
+                         f"{tuple(group_sizes)} of {cin} channels, k = {k}, padding {pad}")
+    s0, s1 = _sizes(group_sizes)
+    dacc = torch.empty_like(g)
+    grid = min(-(-n * hout * wout // 128), 8 * _SMS)
+    part = torch.empty((grid, cout), dtype=torch.float32, device=g.device) if need_db else None
+    code = lib.tsii_pconv_k3_prep(
+        g.data_ptr(), mask.data_ptr(), dacc.data_ptr(), 0 if part is None else part.data_ptr(),
+        n, h, w, cin, gr, s0, s1, hout, wout, cout, k, pad, grid, int(need_db), _stream(),
+    )
+    check(lib, code, "K3 (scaled cotangent and db)")
+    return dacc, (_colsum(lib, part) if need_db else None)
+
+
+def k3_mask(src, mask, group_sizes, out=None):
+    """src * M for a contiguous (N, H, W, C) bf16 tensor, the group picked
+    by the channel (``pconv_k3_mask``): one read, one write. Into a new
+    tensor, or into ``out`` (in place when ``out`` is ``src``)."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
+
+    _check_nhwc_bf16("src", src)
+    _check_nhwc_bf16("mask", mask)
+    if mask.shape != (*src.shape[:3], len(group_sizes)) or sum(group_sizes) != src.shape[-1]:
+        raise ValueError(f"mask {tuple(mask.shape)} and groups {tuple(group_sizes)} do not fit "
+                         f"src {tuple(src.shape)}")
+    lib = load_library()
+    out = torch.empty_like(src) if out is None else out
+    _check_nhwc_bf16("out", out)
+    c = src.shape[-1]
+    code = lib.tsii_pconv_k3_mask(src.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                                  src.numel() // c, c, len(group_sizes), group_sizes[0], _stream())
+    check(lib, code, "K3 (x * M)")
+    return out
+
+
+def _launch_k3(g, x, mask, weight, bias, group_sizes, padding, needs):
+    """The backward at Cout >= 8: ``k3_prep`` writes dacc and db in one
+    pass over g; ``k3_mask`` writes x * M; one ``aten::convolution_backward``
+    computes both products on channels-last bf16 views (no layout copy);
+    ``k3_mask`` masks dx in place on that call's own output."""
+    n, h, w, cin, gr, cout, k, pad, hout, wout = _check_inputs(x, mask, weight, bias, group_sizes, padding)
+    g = _check_cotangent(g, x, n, hout, wout, cout)
+    need_dx, need_dw, need_db = needs
+    dacc, db = k3_prep(g, mask, cin, group_sizes, k, pad, need_db)
+    dx = dw = None
+    if need_dx or need_dw:
+        xin = k3_mask(x, mask, group_sizes) if need_dw else x
+        wb = weight.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        dxm, dw, _ = torch.ops.aten.convolution_backward(
+            to_nchw(dacc), to_nchw(xin), wb, None, [1, 1], [pad, pad], [1, 1], False, [0, 0], 1,
+            [need_dx, need_dw, False])
+        if need_dx:
+            dx = dxm.permute(0, 2, 3, 1)
+            if not dx.is_contiguous():
+                dx = dx.contiguous()
+            k3_mask(dx, mask, group_sizes, out=dx)
+        if need_dw:
+            dw = dw.to(weight.dtype)
+    return dx, dw, (db.to(bias.dtype) if need_db else None)

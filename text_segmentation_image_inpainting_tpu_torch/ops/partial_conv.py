@@ -23,6 +23,7 @@ counterpart of JAX's ``_partial_conv2d_xla``, differentiated by autograd.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -49,12 +50,20 @@ def mask_window_sum(
     g = mask.shape[-1]
     if len(group_sizes) != g:
         raise ValueError(f"{len(group_sizes)} group sizes for a mask of {g} groups")
-    w = torch.tensor(group_sizes, dtype=torch.float32, device=mask.device)
-    w = w.reshape(1, g, 1, 1).expand(1, g, kh, kw)
+    w = _window_weights(tuple(group_sizes), kh, kw, mask.device)
     out = F.conv2d(
         to_nchw(mask.float()), w, None, stride=stride, padding=padding, dilation=dilation
     )
     return to_nhwc(out)
+
+
+@functools.lru_cache(maxsize=64)
+def _window_weights(group_sizes: Tuple[int, ...], kh: int, kw: int, device) -> torch.Tensor:
+    """The window count's (1, G, kh, kw) f32 weights, group g's all
+    ``group_sizes[g]``: built once per (sizes, window, device) and kept, so
+    a call makes no host-to-device copy."""
+    w = torch.tensor(group_sizes, dtype=torch.float32, device=device)
+    return w.reshape(1, len(group_sizes), 1, 1).expand(1, len(group_sizes), kh, kw).contiguous()
 
 
 def broadcast_mask(mask: torch.Tensor, group_sizes: Sequence[int]) -> torch.Tensor:

@@ -35,16 +35,21 @@ def resolve_device(name: str) -> torch.device:
     return torch.device("cuda", 0)
 
 
-def train_loop(state, train_step, eval_step, host_it, val_batches, cfg, *, steps: int,
+def train_loop(state, train_step, eval_step, make_batches, val_batches, cfg, *, steps: int,
                ckpt_dir: str, device):
     """Resume ``state`` from the latest checkpoint in ``ckpt_dir``, then
-    run ``train_step`` on batches of ``host_it`` up to ``steps`` updates.
-    Returns the state."""
+    run ``train_step`` up to ``steps`` updates on the batches of
+    ``make_batches(start)``, the stream of training batches from page
+    index ``start``. The stream is built after the restore, at the first
+    page no finished step has seen (0 for a fresh start), so a resumed run
+    trains on the same pages, in the same order, as one that never
+    stopped. Returns the state."""
     ckpt = CheckpointManager(ckpt_dir, save_interval_steps=cfg.checkpoint_every)
     state, restored_step = ckpt.restore_latest(state)
     if restored_step is not None:
         print(f"resumed from step {restored_step}")
     first_step = state.step
+    host_it = make_batches(first_step * cfg.batch_size)
 
     def sync():
         if device.type == "cuda":

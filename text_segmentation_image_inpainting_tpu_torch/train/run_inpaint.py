@@ -147,15 +147,17 @@ def main(argv=None):
     vgg = load_vgg(make_vgg(cfg.loss), args.vgg_ckpt, gen).to(device)
 
     paths = list_image_paths(args.data_dir) if args.data_dir else None
-    host_it = make_dataset("inpaint", batch_size=cfg.batch_size, size=cfg.image_size,
-                           seed=args.seed, paths=paths)
+
+    def make_batches(start: int):  # the loop picks the start after it has restored the state
+        return make_dataset("inpaint", batch_size=cfg.batch_size, size=cfg.image_size,
+                            seed=args.seed, paths=paths, start=start)
 
     # a fixed held-out set from a disjoint seed stream
     val_batches = make_val_batches("inpaint", cfg, seed=args.seed + 100_000, n=args.val_batches,
                                    device=device, paths=paths)
     return train_loop(create_train_state(model, cfg.optimizer),
                       make_inpaint_train_step(model, cfg, vgg), make_inpaint_eval_step(model),
-                      host_it, val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir,
+                      make_batches, val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir,
                       device=device)
 
 

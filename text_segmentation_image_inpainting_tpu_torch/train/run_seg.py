@@ -123,15 +123,17 @@ def main(argv=None):
     model = model.init_weights(torch.Generator().manual_seed(args.seed)).to(device)
 
     paths = list_image_paths(args.data_dir) if args.data_dir else None
-    host_it = make_dataset("seg", batch_size=cfg.batch_size, size=cfg.image_size,
-                           seed=args.seed, paths=paths)
+
+    def make_batches(start: int):  # the loop picks the start after it has restored the state
+        return make_dataset("seg", batch_size=cfg.batch_size, size=cfg.image_size,
+                            seed=args.seed, paths=paths, start=start)
 
     frozen = freeze_mask_for(model, "encoder") if cfg.freeze_encoder else frozenset()
     # a fixed held-out set from a disjoint seed stream
     val_batches = make_val_batches("seg", cfg, seed=args.seed + 100_000, n=args.val_batches,
                                    device=device, paths=paths)
     return train_loop(create_train_state(model, cfg.optimizer, frozen=frozen),
-                      make_seg_train_step(model, cfg), make_seg_eval_step(model), host_it,
+                      make_seg_train_step(model, cfg), make_seg_eval_step(model), make_batches,
                       val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir, device=device)
 
 

@@ -17,23 +17,11 @@ time the kernels with ``chip_smoke.py``, not with this.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
-from pathlib import Path
 
 import torch
+from phase_clocks import CSRC, PRELUDE, START, build_copy, card, cycles, marked, patch, report
 
-ROOT = Path(__file__).resolve().parents[1]
-CSRC = ROOT / "text_segmentation_image_inpainting_tpu_torch" / "csrc"
-OUT = ROOT / "text_segmentation_image_inpainting_tpu_torch" / "_build" / "phase_clocks"
-
-PRELUDE = """__device__ unsigned long long g_clk[32];
-#define CLKT(k, th) if (threadIdx.x == th) { const long long now_ = clock64(); \\
-  atomicAdd(&g_clk[k], (unsigned long long)(now_ - clk_last)); clk_last = now_; }
-#define CLK(k) CLKT(k, 0)
-#define CLKP(k) CLKT(k, 256)
-"""
-START = " long long clk_last = clock64();"
 K4_PHASES = {0: "wait for x", 10: "im2col", 11: "conv0 (wgmma) + epilogue",
              1: "conv1 forward (wgmma)", 3: "z1 epilogue", 12: "wait for g",
              13: "pool gradient", 2: "conv1 dgrad (wgmma)", 14: "gz0 epilogue",
@@ -41,21 +29,6 @@ K4_PHASES = {0: "wait for x", 10: "im2col", 11: "conv0 (wgmma) + epilogue",
 K5_PHASES = {24: "issue next products", 20: "wait for input", 21: "wait for products",
              22: "z1 epilogue", 23: "pool", 26: "producer: issue loads",
              25: "producer: wait for a free buffer", 27: "producer: relu + store"}
-
-
-def patch(src: str, old: str, new: str, count: int = 1) -> str:
-    """Replace ``old`` exactly ``count`` times; a missing anchor is an error,
-    so a changed kernel cannot be measured with stale markers."""
-    if src.count(old) != count:
-        raise SystemExit(f"anchor found {src.count(old)} times, want {count}: {old!r}")
-    return src.replace(old, new)
-
-
-def marked(body: str, sync: str, first: int) -> str:
-    """CLK(first + n) after the n-th ``sync`` of ``body``."""
-    parts = body.split(sync)
-    return "".join(p + (f"{sync} CLK({first + n});" if n < len(parts) - 1 else "")
-                   for n, p in enumerate(parts))
 
 
 def instrumented() -> str:
@@ -101,38 +74,22 @@ def instrumented() -> str:
                "if (k == 0) { CLKP(26); } if (k == 0 && i >= PL_STAGES)"
                " mbar_wait(&empty_bar[b], (i / PL_STAGES + 1) & 1); if (k == 0) { CLKP(25); }")
     k5 = patch(k5, "      mbar_arrive(&full_bar[b]);\n", "      mbar_arrive(&full_bar[b]); CLKP(27);\n")
-    return src[:a] + k5 + src[b:] + """
-extern "C" int tsii_clk(unsigned long long* out) {
-  cudaMemcpyFromSymbol(out, g_clk, sizeof(g_clk));
-  unsigned long long z[32] = {};
-  return (int)cudaMemcpyToSymbol(g_clk, z, sizeof(z));
-}
-"""
+    return src[:a] + k5 + src[b:]
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("stem_phase_clocks: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
-    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import build
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
 
-    OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "vgg_stem_clk.cu").write_text(instrumented())
-    (OUT / "sm90.cuh").write_bytes((CSRC / "sm90.cuh").read_bytes())
-    lib_path = OUT / "libclk.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib_path),
-                    str(OUT / "vgg_stem_clk.cu")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = ctypes.CDLL(str(build_copy("phase_clocks", instrumented())))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tsii_stem_dx.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
     lib.tsii_stem_pool.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-    lib.tsii_clk.argtypes = [ptr]
 
     dev, bf = torch.device("cuda"), torch.bfloat16
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(card())
     gen = torch.Generator(dev).manual_seed(0)
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
     w0, b0, w1, b1 = rnd(64, 3, 3, 3) * 0.3, rnd(64) * 0.1, rnd(64, 64, 3, 3) * 0.06, rnd(64) * 0.1
@@ -152,21 +109,14 @@ def main() -> int:
                                          pooled.data_ptr(), 8, 512, 512,
                                          kvs.stem_grid(8, 512, 512, sms), stream),
     }
-    clk = (ctypes.c_ulonglong * 32)()
+
+    def checked(kind):
+        if launch[kind]() != 0:
+            raise RuntimeError(f"{kind} launch failed")
+
     for kind, phases, count in (("K4", K4_PHASES, 31), ("K5", K5_PHASES, 30)):
-        for _ in range(2):  # the first launch warms up; the second is read
-            lib.tsii_clk(clk)
-            if launch[kind]() != 0:
-                raise RuntimeError(f"{kind} launch failed")
-            torch.cuda.synchronize()
-        lib.tsii_clk(clk)
-        v = list(clk)
-        tiles = max(v[count], 1)
-        print(f"{kind}: cycles per tile on thread 0 of each CTA ({v[count]} tiles)")
-        for k, name in phases.items():
-            print(f"  {name:34s} {v[k] / tiles:8.0f}")
-        consumers = sum(v[k] for k in phases if k not in (25, 26, 27))
-        print(f"  {'sum over the consumers':34s} {consumers / tiles:8.0f}")
+        v = cycles(lib, lambda: checked(kind))
+        report(kind, v, phases, count, total="sum over the consumers", skip=(25, 26, 27))
         if kind == "K5":
             print(f"  clock: {v[28] / max(v[29], 1):.3f} GHz (cycles over globaltimer ns)")
     return 0
