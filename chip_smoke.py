@@ -43,20 +43,24 @@ that its depthwise weight gradients run on K6), weights from a seeded
               and with ``freeze_bn`` (the third step) the encoder's not
   6. seg      K6 (the depthwise weight gradient) against the f64 truth,
               beside its plain version, at the segmenter's 5 shapes and at
-              ragged ones; one backward of the full-width segmenter with
-              the flag on against the flag off (cuDNN's wgrad), per
-              depthwise layer; then three seg train steps at 512^2, batch 8,
-              bf16, with the counter reset before each: K6 14 launches per
-              step, loss terms and grad_norm finite, parameters and every
-              BN statistic moved, and with ``freeze_encoder`` (the third
-              step) the encoder's parameters not
+              ``K6_RAGGED`` (odd maps, C off the channel blocks and off 16
+              bytes, k 1/5/7, f32, a partial last wave, column strips),
+              each launched twice (bit-identical); one backward of the
+              full-width segmenter with the flag on against the flag off
+              (cuDNN's wgrad), per depthwise layer; then three seg train
+              steps at 512^2, batch 8, bf16, with the counter reset before
+              each: K6 14 launches per step, loss terms and grad_norm
+              finite, parameters and every BN statistic moved, and with
+              ``freeze_encoder`` (the third step) the encoder's parameters
+              not; on this path a CUDA tensor that reached K6's plain
+              version would fail the phase
   7. timing   CUDA events, median after warm-up: each kernel against
               its plain version per shape, beside one cuDNN call of the
               same product as a yardstick (never called by the port) and
               the least time the card could take (``bound``),
               ``run`` in pages/s, the train steps in pages/s (the
-              seg step with the flag on and off, alternating), K2 and K3
-              also in device time (K3 with its device kernels per call),
+              seg step with the flag on and off, alternating), K2, K3 and
+              K6 also in device time (K3 with its device kernels per call),
               K4 and K5 in device time and TFLOP/s with and without the
               halos; then
               torch.profiler over ``run`` and over each train step: the
@@ -108,14 +112,22 @@ SEG_SHAPES = (
     ("blocks 14-16", 64, 960, 4, 3),
 )
 # K6 away from the train shapes: (name, N, H, W, C, k, d, dtype). Odd
-# maps and C off the CTA's 32-channel tile, k = 5, f32 inputs, and a 4^2
-# map at d = 4 whose off-centre taps all lie in the padding.
+# maps and C off the CTA's channel block, k = 5 and 7, f32 inputs, a 4^2
+# map at d = 4 whose off-centre taps all lie in the padding, C off 16
+# bytes (the ring filled by plain loads), more CTAs than fit on the card
+# at once (a partial last wave), and a dilation whose rows need column
+# strips (k6_plan).
 K6_RAGGED = (
     ("odd 37x29, C 200, d 2", 3, 37, 29, 200, 3, 2, torch.bfloat16),
     ("k 5, 33x47, C 160", 2, 33, 47, 160, 5, 1, torch.bfloat16),
     ("f32, 45x31, C 136, d 4", 2, 45, 31, 136, 3, 4, torch.float32),
     ("f32, k 5, d 4, 19x70, C 130", 1, 19, 70, 130, 5, 4, torch.float32),
     ("4x4, d 4, C 128", 2, 4, 4, 128, 3, 4, torch.bfloat16),
+    ("C 131 off 16 bytes, 9x11, d 2", 2, 9, 11, 131, 3, 2, torch.bfloat16),
+    ("k 7, 21x18, C 256", 2, 21, 18, 256, 7, 1, torch.bfloat16),
+    ("k 1, 16x16, C 192", 2, 16, 16, 192, 1, 1, torch.bfloat16),
+    ("partial last wave: 40 pages 8x8, C 960", 40, 8, 8, 960, 3, 1, torch.bfloat16),
+    ("column strips: d 20, 50x100, C 128", 1, 50, 100, 128, 3, 20, torch.bfloat16),
 )
 
 # K4 and K5 away from the train shapes: (M, H, W) pages. One 16x16 tile
@@ -374,19 +386,25 @@ def wgrad_truth(x, dy, k: int, d: int):
 
 
 def check_wgrad(name, x, dy, k: int, d: int) -> dict:
-    """K6 (one launch) and its plain version against the f64 truth on the
-    card. A product of two bf16 values is exact in f32 (of two f32 values,
-    rounded once), so what either side can get wrong is the order of an
-    f32 sum: each (tap, channel) must be within 1e-5 · Σ|x·dy| of the
-    truth (K6's longest chain of f32 adds is about 110: 110 · 2^-24 <
-    1e-5). Returns the max |error| of each side and max |K6 - plain|."""
+    """K6 (two launches on the same inputs, bit-identical) and its plain
+    version against the f64 truth on the card. A product of two bf16
+    values is exact in f32 (of two f32 values, rounded once), so what
+    either side can get wrong is the order of an f32 sum: each (tap,
+    channel) must be within 1e-5 · Σ|x·dy| of the truth (K6's longest chain
+    of f32 adds, over one band's columns and rows and then the slots, is
+    about 130 at the segmenter's shapes: 130 · 2^-24 < 1e-5). Returns the
+    max |error| of each side and max |K6 - plain|."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
 
     before = kdw.K6_LAUNCHES
     got = kdw.depthwise_wgrad(x, dy, k, d)
+    again = kdw.depthwise_wgrad(x, dy, k, d)
     torch.cuda.synchronize()
-    if kdw.K6_LAUNCHES != before + 1:
-        raise AssertionError(f"{name}: K6 launched {kdw.K6_LAUNCHES - before} times, want 1")
+    if kdw.K6_LAUNCHES != before + 2:
+        raise AssertionError(f"{name}: K6 launched {kdw.K6_LAUNCHES - before} times, want 2")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two K6 launches on the same inputs differ in "
+                             f"{int((got != again).sum())} values")
     plain = kdw.depthwise_wgrad_reference(x, dy, k, d)
     truth, mag = wgrad_truth(x, dy, k, d)
     want_shape = (k, k, 1, x.shape[-1])
@@ -692,7 +710,7 @@ def main() -> int:
     log("K6: 5 shape(s), ms and plain_ms are sums over one seg train step's 14 launches; "
         "launches from the first seg step, max_abs_err K6 against the plain at those shapes")
     kernels.append({
-        "name": "K6 dw_wgrad", "route": "cuda", "source": CSRC_DW, "replaces": f"{TPU_DW}:144",
+        "name": "K6 dw_wgrad_band", "route": "cuda", "source": CSRC_DW, "replaces": f"{TPU_DW}:144",
         "launches": sg["launches"], "max_abs_err": max(r["vs_plain"] for *_, r in sg["k6"]),
         "ms": k6["ms"], "plain_ms": k6["plain"], "bound_ms": k6["bound"], "bound_by": k6["by"],
         "library_ms": k6["lib"],
@@ -1109,14 +1127,15 @@ def seg_phase(dev, rng) -> dict:
         res = check_wgrad(f"K6 {name}", x, dy, 3, d)
         log(f"parity K6 {name}: x, dy {tuple(x.shape)} bf16, d {d} -> dW (3, 3, 1, {c}) f32; max "
             f"|d| to the f64 truth {res['K6']:.4g} (plain {res['plain']:.4g}), to the plain "
-            f"{res['vs_plain']:.4g}")
+            f"{res['vs_plain']:.4g}; two launches bit-identical; "
+            f"{kdw.k6_plan(*x.shape, 3, d, x.element_size(), kdw._sm_count(0))}")
         k6.append((name, x, dy, d, count, res))
     for name, n, h, w, c, k, d, dt in K6_RAGGED:
         x = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
         dy = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
         res = check_wgrad(f"K6 {name}", x, dy, k, d)
         log(f"parity K6 {name}: ({n}, {h}, {w}, {c}) {str(dt)[6:]}, k {k}, d {d}: max |d| to the "
-            f"f64 truth {res['K6']:.4g} (plain {res['plain']:.4g})")
+            f"f64 truth {res['K6']:.4g} (plain {res['plain']:.4g}); two launches bit-identical")
 
     cfg = SegTrainConfig()  # run_seg's defaults: 512^2, batch 8, bf16, Adam 2e-4, pos_weight 3
     model = TextSegmenter(dtype=bf).init_weights(torch.Generator().manual_seed(SEED)).to(dev)
@@ -1148,13 +1167,22 @@ def seg_phase(dev, rng) -> dict:
         torch.cuda.synchronize()
         return kdw.K6_LAUNCHES, {n: conv.weight.grad.clone() for n, conv in dw_layers}
 
+    real_plain = kdw.depthwise_wgrad_reference
+
+    def no_plain(x, *args):
+        """On the main path a CUDA tensor must launch K6, never reach its plain version."""
+        if x.is_cuda:
+            raise AssertionError("a CUDA tensor reached K6's plain version on the main path")
+        return real_plain(x, *args)
+
     model.train()
-    depthwise.depthwise_wgrad = catch
+    depthwise.depthwise_wgrad, kdw.depthwise_wgrad_reference = catch, no_plain
     try:
         n_on, on = dw_grads(True)
     finally:
-        depthwise.depthwise_wgrad = real_wgrad
+        depthwise.depthwise_wgrad, kdw.depthwise_wgrad_reference = real_wgrad, real_plain
     n_off, off = dw_grads(False)
+    _, off2 = dw_grads(False)
     model.zero_grad(set_to_none=True)
     if (n_on, n_off, len(caught)) != (14, 0, 14):
         raise AssertionError(f"one backward launched K6 {n_on} times with the flag on and "
@@ -1181,18 +1209,25 @@ def seg_phase(dev, rng) -> dict:
             f"{res['K6']:.4g}; to cuDNN's bf16 wgrad of the same x, dy, relative L2 "
             f"{own[name]:.3g}")
     del caught
-    # (2) the whole backward with the flag on against the flag off. The two
-    # also differ upstream: dx is the flipped-kernel conv with the flag on,
-    # cuDNN's dgrad with it off, and BatchNorm's backward amplifies the
-    # different roundings layer by layer toward the input; so this bound is
-    # loose, a check for gross faults (a wrong tap or layout gives ~100%).
+    # (2) the whole backward with the flag on against the flag off. Both
+    # take dx from cuDNN's dgrad, and each layer's own dW agrees to about
+    # 3e-4 in (1); but the two backwards also differ upstream of each layer,
+    # as two flag-off backwards of the same batch do (printed beside), and
+    # BatchNorm's backward amplifies that toward the input. The card put
+    # flag on against off at 0.004 to 0.020 per layer, with the dx as the
+    # flipped-kernel conv and as the dgrad alike (NVIDIA H100 80GB HBM3,
+    # 700 W); 4e-2 leaves twice that and still fails a wrong tap or layout
+    # (about 100%).
     rels = {n: rel_l2(on[n], off[n].float()) for n in on}
+    noise = {n: rel_l2(off2[n], off[n].float()) for n in on}
     worst = max(rels, key=rels.get)
-    if rels[worst] > 1e-1 or not all(torch.isfinite(g).all() for g in on.values()):
+    if rels[worst] > 4e-2 or not all(torch.isfinite(g).all() for g in on.values()):
         raise AssertionError(f"dW with the flag on against off: relative L2 {rels}")
-    log("grads: one backward at 512^2, batch 8, bf16: dW of the 14 layers, flag on (K6) against "
-        "flag off (cuDNN wgrad and dgrad), relative L2 by layer from the output: "
-        + ", ".join(f"{rels[n]:.3g}" for n, _ in reversed(dw_layers)))
+    log("grads: one backward at 512^2, batch 8, bf16: dW of the 14 layers, flag on (K6, cuDNN "
+        "dgrad) against flag off (cuDNN wgrad and dgrad), relative L2 by layer from the output: "
+        + ", ".join(f"{rels[n]:.3g}" for n, _ in reversed(dw_layers))
+        + "; two flag-off backwards against each other: "
+        + ", ".join(f"{noise[n]:.3g}" for n, _ in reversed(dw_layers)))
 
     depthwise.USE_CUSTOM_WGRAD = True
     step = make_seg_train_step(model, cfg)
@@ -1210,6 +1245,7 @@ def seg_phase(dev, rng) -> dict:
     bns = [(n, m) for n, m in model.named_modules() if isinstance(m, BatchNorm)]
     stats = lambda: [torch.cat([m.running_mean, m.running_var]).clone() for _, m in bns]  # noqa: E731
     first = None
+    kdw.depthwise_wgrad_reference = no_plain
     for i, freeze in enumerate((False, False, True)):
         params = {n: p.detach().clone() for n, p in model.named_parameters()}
         bn0 = stats()
@@ -1238,6 +1274,7 @@ def seg_phase(dev, rng) -> dict:
             + ("encoder unchanged, decoder moved" if freeze else
                f"{sum(moved.values())} of {len(moved)} parameters moved")
             + f", all {len(bns)} BN statistics moved")
+    kdw.depthwise_wgrad_reference = real_plain
     for hk in hooks:
         hk.remove()
     return {"k6": k6, "launches": first, "step": step, "state": states[False], "batch": batch}
@@ -1246,7 +1283,7 @@ def seg_phase(dev, rng) -> dict:
 def time_seg(sg) -> dict:
     """Phase 7, seg part: K6 per shape against its plain version and
     cuDNN's bf16 wgrad alone, and the two ways to the same layer's dx (the
-    Function's flipped-kernel conv, cuDNN's dgrad); the seg train step
+    flipped-kernel conv, and cuDNN's dgrad, which the Function calls); the seg train step
     with the flag on and off (on, off, off, on); torch.profiler over one
     step each way. Returns K6's {ms, plain, lib, bound, by}, times summed
     over one step's 14 launches."""
@@ -1254,7 +1291,7 @@ def time_seg(sg) -> dict:
     from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
 
-    tot = [0.0] * 5
+    tot = [0.0] * 6
     for name, x, dy, d, count, _ in sg["k6"]:
         c = x.shape[-1]
         w = torch.randn((c, 1, 3, 3), device=x.device).to(x.dtype)
@@ -1269,21 +1306,24 @@ def time_seg(sg) -> dict:
         dx_dgrad = cuda_ms(lambda: torch.ops.aten.convolution_backward(
             dyn, xn, w, None, [1, 1], [d, d], [d, d], False, [0, 0], c, [True, False, False]))
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        dev_ms = device_ms(kern, "dw_wgrad")
         gbytes = 2 * x.numel() * x.element_size() / 1e9
-        log(f"time K6 {name} {tuple(x.shape)} d {d}: kernel {k_ms:.4f} ms ({gbytes / k_ms * 1e3:.0f} "
-            f"GB/s of x and dy), plain f32 {p_ms:.4f} ms, cuDNN bf16 wgrad {t_cudnn:.4f} ms; dx "
-            f"as the flipped-kernel conv {dx_flip:.4f} ms, as cuDNN's dgrad {dx_dgrad:.4f} ms; "
+        log(f"time K6 {name} {tuple(x.shape)} d {d}: kernel {k_ms:.4f} ms, device time "
+            f"{dev_ms:.4f} ms ({gbytes / dev_ms * 1e3:.0f} GB/s of x and dy), plain f32 "
+            f"{p_ms:.4f} ms, cuDNN bf16 wgrad {t_cudnn:.4f} ms; dx as the flipped-kernel conv "
+            f"{dx_flip:.4f} ms, as cuDNN's dgrad (the Function's) {dx_dgrad:.4f} ms; "
             f"{count} per step")
-        for i, t in enumerate((k_ms, p_ms, t_cudnn, dx_flip, dx_dgrad)):
+        for i, t in enumerate((k_ms, p_ms, t_cudnn, dx_flip, dx_dgrad, dev_ms)):
             tot[i] += count * t
     # K6's bytes: x and dy read once per launch (dW is a few KB)
     nbytes = sum(count * 2.0 * x.numel() * x.element_size() for _, x, _, _, count, _ in sg["k6"])
     flop = sum(count * 2.0 * x.numel() * 9 for _, x, _, _, count, _ in sg["k6"])
     k6 = {"ms": tot[0], "plain": tot[1], "lib": tot[2]}
     k6["bound"], k6["by"] = bound(flop, nbytes)
-    log(f"time K6 (one step's 14 launches): {tot[0]:.4f} ms, plain f32 {tot[1]:.4f} ms, cuDNN "
-        f"bf16 wgrad {tot[2]:.4f} ms, bound {k6['bound']:.4f} ms ({k6['by']}); their dx: "
-        f"flipped-kernel conv {tot[3]:.4f} ms, cuDNN dgrad {tot[4]:.4f} ms")
+    log(f"time K6 (one step's 14 launches): {tot[0]:.4f} ms, device time {tot[5]:.4f} ms, plain "
+        f"f32 {tot[1]:.4f} ms, cuDNN bf16 wgrad {tot[2]:.4f} ms, bound {k6['bound']:.4f} ms "
+        f"({k6['by']}); their dx: flipped-kernel conv {tot[3]:.4f} ms, cuDNN dgrad (the "
+        f"Function's) {tot[4]:.4f} ms")
 
     step, state, batch = sg["step"], sg["state"], sg["batch"]
     runs = []

@@ -59,20 +59,49 @@ def test_plain_wgrad_matches_jax_vjp(n, h, w, c, k, d):
     assert _rel_max(got.numpy(), want) < 1e-5
 
 
-def test_function_forward_is_conv2d_and_grads_match_jax():
-    rng = np.random.default_rng(1)
-    c, d = 160, 2
-    x = rng.standard_normal((2, 12, 11, c)).astype(np.float32)
-    kern = rng.standard_normal((3, 3, 1, c)).astype(np.float32)
-    dy = rng.standard_normal((2, 12, 11, c)).astype(np.float32)
+@pytest.mark.parametrize("c,d,k,h,w", [
+    (160, 2, 3, 12, 11),
+    (128, 1, 3, 9, 10),
+    (144, 4, 3, 13, 12),   # d = 4: most taps of the 13x12 map reach the padding
+    (128, 1, 5, 8, 9),     # k = 5
+])
+def test_function_forward_is_conv2d_and_grads_match_jax(c, d, k, h, w):
+    """f32: the forward is the plain conv; dx (the library's data gradient
+    on channels-last views) equals the flipped-kernel conv and JAX's VJP,
+    and dW JAX's, within 1e-5 of max |ref|."""
+    rng = np.random.default_rng(1 + c + d + k)
+    x = rng.standard_normal((2, h, w, c)).astype(np.float32)
+    kern = rng.standard_normal((k, k, 1, c)).astype(np.float32)
+    dy = rng.standard_normal((2, h, w, c)).astype(np.float32)
     xt = torch.from_numpy(x).requires_grad_(True)
     wt = torch.from_numpy(kern.transpose(3, 2, 0, 1).copy()).requires_grad_(True)
     y = tdw.depthwise_conv2d(xt, wt, d)
-    assert torch.equal(y, conv2d(xt, wt, padding=d, dilation=d, groups=c))
+    p = d * (k - 1) // 2
+    assert torch.equal(y, conv2d(xt, wt, padding=p, dilation=d, groups=c))
     y.backward(torch.from_numpy(dy))
+    flipped = conv2d(torch.from_numpy(dy), wt.detach().flip((2, 3)), padding=p, dilation=d,
+                     groups=c)
     dx, dw = _jax_vjp(x, kern, dy, d)
+    assert xt.grad.shape == xt.shape
+    assert _rel_max(xt.grad.numpy(), flipped.numpy()) < 1e-5
     assert _rel_max(xt.grad.numpy(), dx) < 1e-5
     assert _rel_max(wt.grad.numpy(), np.asarray(dw).transpose(3, 2, 0, 1)) < 1e-5
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_function_dx_in_bf16(d):
+    """bf16: dx is the f32 flipped-kernel conv of the same bf16 values,
+    rounded once (one bf16 step, 2^-8 relative, plus 1e-5 of max |ref| for
+    the order of the sums), and comes back NHWC in x's dtype."""
+    g = torch.Generator().manual_seed(5 + d)
+    c, k = 128, 3
+    x = torch.randn((2, 11, 9, c), generator=g).to(torch.bfloat16).requires_grad_(True)
+    w = (torch.randn((c, 1, k, k), generator=g) * 0.3).to(torch.bfloat16)
+    dy = torch.randn((2, 11, 9, c), generator=g).to(torch.bfloat16)
+    tdw.depthwise_conv2d(x, w, d).backward(dy)
+    want = conv2d(dy.float(), w.float().flip((2, 3)), padding=d, dilation=d, groups=c)
+    assert x.grad.dtype == torch.bfloat16 and x.grad.shape == x.shape
+    torch.testing.assert_close(x.grad.float(), want, rtol=2**-8, atol=1e-5 * want.abs().max().item())
 
 
 def test_dw_is_rounded_once_to_the_weight_dtype():

@@ -24,7 +24,11 @@ fewer, and a partial last wave of their persistent CTAs, each launched
 twice (bit-identical); and gradients reach every U-Net parameter
 through K1/K2 on the card. K6 (the depthwise weight gradient) and its
 plain version are held to the f64 truth within 1e-5 of Σ|x·dy| per
-(tap, channel) (chip_smoke.py's ``check_wgrad``).
+(tap, channel), K6 launched twice and bit-identical (chip_smoke.py's
+``check_wgrad``), at ``K6_RAGGED`` (C off 16 bytes, k 1/5/7, f32, a
+partial last wave, column strips); its workspace is shared by calls of
+other shapes without changing a bit, and its result permutes to the
+weight's (C, 1, k, k) layout without a copy.
 """
 
 import numpy as np
@@ -449,6 +453,48 @@ def test_depthwise_backward_launches_k6(cuda):
     want = kdw.depthwise_wgrad_reference(x, g.permute(0, 2, 3, 1), 3, d).permute(3, 2, 0, 1)
     assert wt.grad.dtype == torch.bfloat16
     torch.testing.assert_close(wt.grad.float(), want, rtol=2**-8, atol=1e-5 * want.abs().max().item())
+
+
+def test_depthwise_backward_dx_is_the_flipped_conv(cuda):
+    """The Function's dx on the card (cuDNN's dgrad on channels-last views)
+    is the flipped-kernel conv of the same bf16 values, within one bf16
+    step plus 1e-5 of max |ref| for the order of the sums."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d
+
+    gen = torch.Generator(cuda).manual_seed(12)
+    c = 144
+    for d in (1, 2, 4):
+        x = torch.randn((2, 20, 18, c), generator=gen, device=cuda).to(torch.bfloat16)
+        x.requires_grad_(True)
+        wt = (torch.randn((c, 1, 3, 3), generator=gen, device=cuda) * 0.3).to(torch.bfloat16)
+        g = torch.randn((2, 20, 18, c), generator=gen, device=cuda).to(torch.bfloat16)
+        depthwise.depthwise_conv2d(x, wt, d).backward(g)
+        want = conv2d(g.float(), wt.float().flip((2, 3)), padding=d, dilation=d, groups=c)
+        assert x.grad.dtype == torch.bfloat16 and x.grad.is_contiguous()
+        torch.testing.assert_close(x.grad.float(), want, rtol=2**-8,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+def test_k6_result_is_a_channels_major_view(cuda):
+    """dW comes back as (k, k, 1, C), a view of a (C, k*k) tensor: the
+    Function's permutation to (C, 1, k, k) needs no copy."""
+    x = torch.randn((1, 8, 8, 128), device=cuda).to(torch.bfloat16)
+    dw = kdw.depthwise_wgrad(x, x, 3, 1)
+    assert tuple(dw.shape) == (3, 3, 1, 128)
+    assert dw.permute(3, 2, 0, 1).is_contiguous()
+
+
+def test_k6_workspace_shared_across_shapes(cuda):
+    """Calls of other shapes share K6's partial sums and tickets: results
+    stay bit-identical when they alternate (every launch leaves its tickets
+    at zero)."""
+    gen = torch.Generator(cuda).manual_seed(13)
+    cases = [(torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16), d)
+             for shape, d in (((8, 32, 32, 384), 2), ((2, 9, 11, 200), 1), ((40, 8, 8, 960), 1))]
+    first = [kdw.depthwise_wgrad(x, x.flip(1), 3, d) for x, d in cases]
+    for _ in range(2):
+        for (x, d), want in zip(reversed(cases), reversed(first)):
+            assert torch.equal(kdw.depthwise_wgrad(x, x.flip(1), 3, d), want)
 
 
 def test_k6_refuses_what_it_does_not_take(cuda):

@@ -2,9 +2,11 @@
 
 Counterpart of ``text_segmentation_image_inpainting_tpu/ops/depthwise.py``.
 The forward is the plain depthwise conv (``ops/conv.py::conv2d``, cuDNN on
-the card, as JAX leaves it to XLA). The backward computes dx as the same
-conv with the spatially flipped kernel (a stride-1 'same'-padded depthwise
-conv is self-adjoint up to that flip), also on cuDNN, and dW with
+the card, as JAX leaves it to XLA). The backward computes dx with the
+library's data gradient, ``aten::convolution_backward`` on channels-last
+views of the NHWC tensors (cuDNN's dgrad on the card, no layout copy),
+which is what JAX computes outside Pallas as the same conv with the
+spatially flipped kernel; and dW with
 ``ops/kernels/depthwise_wgrad.py::depthwise_wgrad`` (K6 on CUDA, its plain
 version on the CPU).
 
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d, torch_same_padding
+from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d, to_nchw, torch_same_padding
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels.depthwise_wgrad import (
     depthwise_wgrad,
 )
@@ -63,10 +65,14 @@ class DepthwiseConv2d(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = conv2d(dy, weight.flip((2, 3)).to(dy.dtype), padding=torch_same_padding(k, d),
-                        dilation=d, groups=c).to(x.dtype)
+            p = torch_same_padding(k, d)[0]
+            dx = torch.ops.aten.convolution_backward(
+                to_nchw(dy), to_nchw(x.contiguous()), weight.to(dy.dtype), None, [1, 1], [p, p],
+                [d, d], False, [0, 0], c, [True, False, False])[0]
+            dx = dx.permute(0, 2, 3, 1).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            # (k, k, 1, C) f32 -> (C, 1, k, k), rounded once to the weight's dtype
+            # (k, k, 1, C) f32 -> (C, 1, k, k), rounded once to the weight's dtype;
+            # K6's result is a (C, k*k) tensor's view, so contiguous() copies nothing
             dw = depthwise_wgrad(x, dy, k, d).permute(3, 2, 0, 1).contiguous().to(weight.dtype)
         return dx, dw, None
 

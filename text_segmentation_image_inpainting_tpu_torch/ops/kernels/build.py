@@ -120,9 +120,7 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_stem_dx.restype = i32
         lib.tsii_stem_pool.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.tsii_stem_pool.restype = i32
-        lib.tsii_dw_wgrad_scratch.argtypes = [i32] * 5
-        lib.tsii_dw_wgrad_scratch.restype = ctypes.c_longlong
-        lib.tsii_dw_wgrad.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        lib.tsii_dw_wgrad.argtypes = [ptr] * 5 + [i32] * 9 + [ptr]
         lib.tsii_dw_wgrad.restype = i32
         lib.tsii_error_string.argtypes = [i32]
         lib.tsii_error_string.restype = ctypes.c_char_p

@@ -7,12 +7,19 @@ torch-'same' padding p = d*(k-1)/2:
     dW[ki, kj, 0, c] = sum_{n, oh, ow} x[n, oh + ki*d - p, ow + kj*d - p, c] * dy[n, oh, ow, c]
 
 with x zero outside the image, summed in f32. The CUDA source is
-``csrc/depthwise_wgrad.cu``. ``depthwise_wgrad`` takes the plain version
-only for a tensor on the CPU; on a CUDA tensor it launches K6 or raises,
-nothing falls back. ``K6_LAUNCHES`` counts the launches.
+``csrc/depthwise_wgrad.cu``: one launch in which each CTA walks a band of
+rows of one image and channel block with its x rows in a shared-memory
+ring, and the last CTA of each channel block adds the CTAs' partial sums in
+a fixed order. ``k6_plan`` (pure Python, CPU-tested) chooses the channel
+block, the bands and the column strips. ``depthwise_wgrad`` takes the plain
+version only for a tensor on the CPU; on a CUDA tensor it launches K6 or
+raises, nothing falls back. ``K6_LAUNCHES`` counts the launches.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +27,91 @@ import torch.nn.functional as F
 K6_LAUNCHES = 0
 # the kernel sizes K6 is compiled for (one template instance each)
 K6_KERNEL_SIZES = (1, 3, 5, 7)
+
+# K6's geometry, as csrc/depthwise_wgrad.cu has it (tests/test_torch_k6_plan.py
+# holds the two against each other)
+K6_THREADS = 256  # NT: threads per CTA
+K6_G = 4  # G: output rows summed per step
+K6_PRE = 1  # PRE: steps in flight ahead of the step being summed
+K6_MIN_CTAS = 2  # MIN_CTAS: CTAs per SM the kernel's registers are capped for
+K6_MAX_BOX = 256  # MAX_BOX: most pixels of one TMA row
+K6_ALIGN = 128  # ALIGN: ring rows start on 128 bytes
+K6_PIXEL_BYTES = 64  # PB: bytes of a pixel's channel block, the one a CTA owns
+SMEM_LIMIT = 232448 - 64  # MAX_SMEM: dynamic shared bytes a CTA can take beside its barriers
+K6_MIN_ROWS = 4  # the fewest rows a band is cut to
+
+
+class K6Plan(NamedTuple):
+    """How K6 cuts (N, H, W, C): CTA (slot, cb) owns image ``slot // (bands
+    * strips)``, rows ``[band * rows, +rows)`` and columns ``[strip * tw,
+    +tw)`` of it (band, strip from the slot, strip fastest), channels
+    ``[cb * cb_ch, +cb_ch)``, 64 bytes of each pixel."""
+
+    cb_ch: int
+    cblocks: int
+    rows: int
+    bands: int
+    tw: int
+    strips: int
+    smem: int
+
+    def slots(self, n: int) -> int:
+        """CTAs per channel block: the grid is (slots(n), cblocks)."""
+        return n * self.bands * self.strips
+
+
+def k6_cpt(k: int) -> int:
+    """Channels per lane: 4 at k <= 3, 2 at k 5, 1 at k 7 (the k*k sums and
+    the k*k window of each channel stay in registers)."""
+    return 4 if k <= 3 else 2 if k == 5 else 1
+
+
+def _up128(b: int) -> int:
+    return -(-b // K6_ALIGN) * K6_ALIGN
+
+
+def k6_ring_bytes(p: int, tw: int) -> int:
+    """The x ring (2p + G(PRE+1) rows of tw+2p pixels) and the dy ring
+    (G(PRE+1) rows of tw pixels), each row on 128 bytes."""
+    rows, pb = K6_G * (K6_PRE + 1), K6_PIXEL_BYTES
+    return (2 * p + rows) * _up128((tw + 2 * p) * pb) + rows * _up128(tw * pb)
+
+
+def k6_smem_bytes(k: int, p: int, tw: int, elem: int) -> int:
+    """A CTA's dynamic shared memory: 128 bytes of alignment, then the rings
+    or the warps' sums after them, whichever is larger."""
+    red = (K6_THREADS // 32) * k * k * (K6_PIXEL_BYTES // elem) * 4
+    return K6_ALIGN + max(k6_ring_bytes(p, tw), red)
+
+
+@functools.lru_cache(maxsize=256)
+def k6_plan(n: int, h: int, w: int, c: int, k: int, d: int, elem: int, sms: int) -> K6Plan:
+    """K6's cut of one call. A row strip is the whole row unless one TMA row
+    (256 pixels) or the rings would not fit. The bands minimise the rows
+    one SM sums, ``ceil(CTAs / sms) * (rows + p + 2)`` (p for the halo rows
+    a band re-reads, 2 for its start and end), ties to more bands. Raises
+    ValueError when even a one-column strip does not fit (a dilation far
+    beyond the segmenter's)."""
+    p = d * (k - 1) // 2
+    tw = min(w, K6_MAX_BOX - 2 * p)
+    while tw >= 1 and k6_smem_bytes(k, p, tw, elem) > SMEM_LIMIT:
+        tw -= 1
+    if tw < 1:
+        raise ValueError(f"K6's rows do not fit in shared memory at k={k}, d={d}")
+    strips = -(-w // tw)
+    tw = -(-w // strips)
+    cb_ch = K6_PIXEL_BYTES // elem
+    cblocks = -(-c // cb_ch)
+    pairs = n * cblocks * strips
+    best = None
+    for b in range(1, max(1, h // K6_MIN_ROWS) + 1):
+        rows = -(-h // b)
+        bands = -(-h // rows)
+        cost = -(-pairs * bands // sms) * (rows + p + 2)
+        if best is None or cost < best[0] or (cost == best[0] and bands > best[2]):
+            best = (cost, rows, bands)
+    _, rows, bands = best
+    return K6Plan(cb_ch, cblocks, rows, bands, tw, strips, k6_smem_bytes(k, p, tw, elem))
 
 
 def supported(stride, dilation, kernel_shape) -> bool:
@@ -52,10 +144,33 @@ def depthwise_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int, d: int) -> torch.
     """dW (k, k, 1, C) f32 of a stride-1 'same'-padded depthwise conv from
     its input ``x`` and output cotangent ``dy``, both (N, H, W, C) in one
     float dtype. K6 on CUDA (``dy`` is made contiguous NHWC first, as
-    autograd hands it over with any strides), the plain version on the CPU."""
+    autograd hands it over with any strides), the plain version on the CPU.
+    K6's result is a view of a (C, k*k) tensor, so its (C, 1, k, k)
+    permutation is contiguous."""
     if x.device.type == "cpu":
         return depthwise_wgrad_reference(x, dy, k, d)
     return _launch_k6(x.contiguous(), dy.contiguous(), k, d)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# Per device: K6's partial sums and its tickets (zero between launches; each
+# launch's last CTAs reset theirs). Launches on one device share them, so
+# K6 runs on one stream at a time, as autograd's backward does.
+_WORKSPACE: dict = {}
+
+
+def _workspace(device: torch.device, floats: int, cblocks: int):
+    part, tickets = _WORKSPACE.get(device.index, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1 << 20), dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < cblocks:
+        tickets = torch.zeros(max(cblocks, 1024), dtype=torch.int32, device=device)
+    _WORKSPACE[device.index] = (part, tickets)
+    return part, tickets
 
 
 def _launch_k6(x: torch.Tensor, dy: torch.Tensor, k: int, d: int) -> torch.Tensor:
@@ -74,13 +189,16 @@ def _launch_k6(x: torch.Tensor, dy: torch.Tensor, k: int, d: int) -> torch.Tenso
     if k not in K6_KERNEL_SIZES or d < 1:
         raise ValueError(f"K6 is built for k in {K6_KERNEL_SIZES} and d >= 1, got k={k}, d={d}")
     n, h, w, c = x.shape
+    elem = x.element_size()
+    plan = k6_plan(n, h, w, c, k, d, elem, _sm_count(x.device.index))
     lib = load_library()
-    partial = torch.empty(lib.tsii_dw_wgrad_scratch(n, h, w, c, k), dtype=torch.float32,
-                          device=x.device)
-    dw = torch.empty((k, k, 1, c), dtype=torch.float32, device=x.device)
-    code = lib.tsii_dw_wgrad(x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-                             n, h, w, c, k, d, int(x.dtype == torch.bfloat16),
-                             torch.cuda.current_stream().cuda_stream)
+    # the CTAs' partial sums: (cblocks, CTAs per block, k*k, cb_ch) f32
+    part, tickets = _workspace(x.device, plan.cblocks * plan.slots(n) * k * k * plan.cb_ch,
+                               plan.cblocks)
+    dw = torch.empty((c, k, k), dtype=torch.float32, device=x.device)
+    code = lib.tsii_dw_wgrad(x.data_ptr(), dy.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+                             dw.data_ptr(), n, h, w, c, k, d, int(elem == 2), plan.rows, plan.tw,
+                             torch.cuda.current_stream(x.device).cuda_stream)
     check(lib, code, "K6 (depthwise wgrad)")
     K6_LAUNCHES += 1
-    return dw
+    return dw.permute(1, 2, 0).unsqueeze(2)
