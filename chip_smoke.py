@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``text_segmentation_image_inpainting_tpu_torch``'s three main paths
+Drives ``text_segmentation_image_inpainting_tpu_torch``'s main paths
 at full width: the page pipeline (segment -> dilate -> inpaint:
 MobileNetV2 segmenter at width 1.0, the depth-8 partial-conv U-Net, bf16,
 a batch of eight 512x512 pages), the inpainting trainer (the same
 U-Net in training mode, the VGG16 perceptual/style loss with the fused
 stem, Adam) and the segmentation trainer (the same segmenter in training
 mode, BCE + dice, Adam, with ``ops/depthwise.py::USE_CUSTOM_WGRAD`` on so
-that its depthwise weight gradients run on K6), weights from a seeded
-``torch.Generator``. Phases, each printing its lines before the last:
+that its depthwise weight gradients run on K6) and the page server over
+the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing its lines before the last:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds csrc/*.cu into the package's _build/ directory
@@ -65,6 +65,18 @@ that its depthwise weight gradients run on K6), weights from a seeded
               halos; then
               torch.profiler over ``run`` and over each train step: the
               device's busy share and the kernels that take the most time
+  8. serve    ``PageStreamServer`` on the same pipeline over 512^2 uint8
+              pages of the native page engine (``make_page_stream_u8``),
+              the segmenter's head bias moved so that the dilated text
+              leaves room for the sparse wire: dense ``serve()`` at depth
+              2 and chunk-2 ``submit``/``collect`` with a flushed tail
+              bit-identical to ``run``; the changed-tile wire at budgets 64
+              (adaptive), 256 and with a forced undershoot equal to the
+              dense results in the text and to the input bytes elsewhere;
+              K1 7 and K2 1 per ``run`` dispatched; no blocking host call
+              (``tools/host_syncs.py``) inside one profiled ``run``; then
+              serve pages/s beside closed-loop ``run`` with a blocking
+              read, the busy share while serving and wire bytes a page
 
 The last line is ``{"ok": true, "device": {...}}``; the one before it
 lists the kernels. Any failed check raises: the script then exits
@@ -92,6 +104,10 @@ SEED = 0
 ITERS = 20
 WARMUP = 3
 TRAIN_ITERS = 5
+# the serve phase: batches drawn, of which the gates serve the first
+# SERVE_GATED (the true-text wire serves all)
+SERVE_BATCHES = 20
+SERVE_GATED = 6
 CSRC = "text_segmentation_image_inpainting_tpu_torch/csrc/partial_conv.cu"
 CSRC_STEM = "text_segmentation_image_inpainting_tpu_torch/csrc/vgg_stem.cu"
 TPU_KERNEL = "text_segmentation_image_inpainting_tpu/ops/pallas/partial_conv_kernel.py"
@@ -673,6 +689,9 @@ def main() -> int:
     profile_run(run, "run")
     stem_times = time_train(tr)
     k6 = time_seg(sg)
+
+    # 8. serve --------------------------------------------------------------
+    serve_phase(pipe, dev, smi)
 
     kernels = []
     for kname, line, fn in (("K1", 184, "pconv_k1"), ("K2", 415, "pconv_k2")):
@@ -1346,6 +1365,280 @@ def time_seg(sg) -> dict:
         profile_run(lambda: step(state, batch), f"seg step, flag {'on' if flag else 'off'}",
                     runs=1)
     return k6
+
+
+class TrueText(torch.nn.Module):
+    """A segmenter that runs in full and then answers with the pages' own
+    text masks (logit +1 on text, -1 elsewhere): serving traffic with the
+    tile structure of real text at the same device work. The batch is
+    found by comparing the pages on the device, so nothing syncs."""
+
+    def __init__(self, seg, pages: torch.Tensor, masks: torch.Tensor):
+        super().__init__()
+        self.seg = seg
+        self.pages = pages  # (batches, N, H, W, 3), the pipeline's input
+        self.logits = masks * 2.0 - 1.0  # (batches, N, H, W, 1)
+
+    def forward(self, x):
+        logits = self.seg(x)
+        hit = (self.pages == x).flatten(1).all(dim=1).int().argmax()
+        return torch.index_select(self.logits, 0, hit.view(1))[0].to(logits.dtype)
+
+
+def serve_phase(pipe, dev, smi: str) -> None:
+    """``PageStreamServer`` on the default pipeline at 512^2, batch 8, bf16,
+    over pages of the native engine (``make_page_stream_u8``) and their
+    text masks. The segmenter's head bias is moved so that the first
+    batch's predicted text covers as many pixels as its true text. Gates:
+    dense ``serve()`` at depth 2 and chunk-2 ``submit``/``collect`` with a
+    flushed odd tail bit-identical to ``run`` on the same pages and uint8
+    conversion, in order; the sparse wire at budgets 64 (adaptive) and 256
+    and with a forced undershoot (the budget set to 16) against the dense
+    results; K1 7 and K2 1 per ``run`` dispatched; no blocking host call
+    inside one profiled ``run``. Random weights scatter their text over the
+    page, so the wire is also served the true text (``TrueText``), its
+    masks checked against the dilated truth. Then serve pages/s beside
+    closed-loop ``run`` with a blocking read, the host's paste time on the
+    sparse wire, the device's busy share while serving, and wire bytes per
+    page."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from host_syncs import blocking_calls
+
+    from text_segmentation_image_inpainting_tpu_torch.data import native_pages
+    from text_segmentation_image_inpainting_tpu_torch.data.pipeline import make_page_stream_u8
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+    from text_segmentation_image_inpainting_tpu_torch.ops.morphology import dilate_mask
+    from text_segmentation_image_inpainting_tpu_torch.pipeline import PageStreamServer
+    from text_segmentation_image_inpainting_tpu_torch.pipeline import serve as serve_mod
+    from text_segmentation_image_inpainting_tpu_torch.pipeline.serve import to_compute
+    from text_segmentation_image_inpainting_tpu_torch.pipeline.sparse import to_uint8
+
+    t0 = time.perf_counter()
+    stream = make_page_stream_u8(BATCH, (PAGE, PAGE), seed=SEED)
+    batches = [next(stream)["image"] for _ in range(SERVE_BATCHES)]
+    log(f"serve: {SERVE_BATCHES} batches of {BATCH} uint8 pages {PAGE}^2 from the native page "
+        f"engine in {time.perf_counter() - t0:.2f} s")
+    # the same pages' text masks, from the seeds make_page_stream_u8 draws
+    # batch i from (the pages must come out equal)
+    truth = []
+    for i, b in enumerate(batches):
+        seeds = [((SEED + 1) << 40) ^ (i * BATCH + j) for j in range(BATCH)]
+        img, m = native_pages.synth_pages_u8(seeds, (PAGE, PAGE), mode="seg")
+        if not np.array_equal(img, b):
+            raise AssertionError(f"serve: batch {i} is not the pages of its seeds")
+        truth.append(m)
+    cd = pipe.compute_dtype
+    truth_dev = torch.from_numpy(np.stack(truth)).to(dev, cd)  # (batches, N, H, W, 1)
+    truth_dil = torch.stack([dilate_mask(t, pipe.dilate_radius) for t in truth_dev])
+
+    def tile_counts(masks) -> np.ndarray:
+        """Changed 32^2 tiles of each page of (..., N, H, W, 1) masks."""
+        m = np.asarray(masks)[..., 0]
+        t = m.reshape(*m.shape[:-2], PAGE // 32, 32, PAGE // 32, 32).max(axis=(-3, -1)) > 0
+        return t.sum(axis=(-2, -1))
+
+    def show(counts: np.ndarray) -> str:
+        return "; ".join(" ".join(str(c) for c in row) for row in counts)
+
+    true_tiles = tile_counts(truth_dil.cpu().float().numpy())
+    log(f"serve: true text {truth_dev.float().mean().item():.2%} of the pixels, "
+        f"{truth_dil.float().mean().item():.2%} after dilation by {pipe.dilate_radius}; median "
+        f"{np.median(true_tiles):.0f} changed 32^2 tiles a page (of {(PAGE // 32) ** 2}): "
+        + show(true_tiles))
+
+    first = to_compute(torch.from_numpy(batches[0]).to(dev), cd)
+    bias = pipe.seg.decoder.head.bias
+    with torch.no_grad():
+        logits = pipe.seg(first)[..., 0].float()
+        share = truth_dev[0].float().mean()
+        q = torch.quantile(logits.flatten(), 1.0 - share)
+        bias.sub_(q)
+        text = pipe.segment(first, dilate=False)
+    log(f"serve: head bias moved by {-q.item():+.4f}, the {1 - share.item():.2%} quantile of the "
+        f"first batch's logits: {text.float().mean().item():.2%} of its pixels predicted text "
+        f"before dilation, {truth_dev[0].float().mean().item():.2%} truly")
+
+    runs = [0]
+    plain_run = pipe.run
+
+    def counted_run(pages):
+        runs[0] += 1
+        return plain_run(pages)
+
+    def direct(pages: np.ndarray):
+        clean, mask = plain_run(to_compute(torch.from_numpy(pages).to(dev), cd))
+        return to_uint8(clean).cpu().numpy(), mask.to(torch.uint8).cpu().numpy()
+
+    want = [direct(b) for b in batches]
+    tiles = tile_counts(np.stack([m for _, m in want]))  # (batches, pages)
+    text = np.mean([m.mean() for _, m in want])
+    log(f"serve: {text:.2%} of the pixels predicted text after dilation; median "
+        f"{np.median(tiles):.0f} changed 32^2 tiles a page: " + show(tiles))
+
+    def check_launches(what: str) -> None:
+        got = (kpc.K1_LAUNCHES, kpc.K2_LAUNCHES)
+        if runs[0] == 0 or got != (7 * runs[0], runs[0]):
+            raise AssertionError(f"serve {what}: K1/K2 launched {got} for {runs[0]} runs, want "
+                                 f"7 and 1 per run")
+        log(f"serve {what}: {runs[0]} runs dispatched, K1 {got[0]}, K2 {got[1]} launches")
+
+    def gated(what: str, server, feed) -> list:
+        runs[0] = 0
+        kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = 0
+        out = feed(server)
+        check_launches(what)
+        return out
+
+    def check_dense(what: str, got, ref) -> None:
+        if len(got) != len(ref):
+            raise AssertionError(f"serve {what}: {len(got)} results for {len(ref)} batches")
+        for i, ((gc, gm), (wc, wm)) in enumerate(zip(got, ref)):
+            if gc.dtype != np.uint8 or not (np.array_equal(gc, wc) and np.array_equal(gm, wm)):
+                raise AssertionError(f"serve {what}: batch {i} differs from run")
+        log(f"serve {what}: {len(got)} batches bit-identical to run, in order")
+
+    def check_sparse(what: str, got, pages, ref, over) -> None:
+        """Masks equal; the clean page equals the dense one inside changed
+        tiles and the input bytes outside, but on a page over the largest
+        budget (``over``), which is redone densely: there it equals the
+        dense page throughout (in bf16, u8 -> x/255 -> u8 moves some bytes
+        by 1, so a dense page is not the input outside its text)."""
+        if len(got) != len(ref):
+            raise AssertionError(f"serve {what}: {len(got)} results for {len(ref)} batches")
+        for i, ((sc, sm), (dc, dm), p) in enumerate(zip(got, ref, pages)):
+            flags = dm[..., 0].reshape(BATCH, PAGE // 32, 32, PAGE // 32, 32).max(axis=(2, 4)) > 0
+            region = np.repeat(np.repeat(flags, 32, axis=1), 32, axis=2)
+            region[over[i]] = True
+            if not (np.array_equal(sm, dm) and np.array_equal(sc[region], dc[region])
+                    and np.array_equal(sc[~region], p[~region])):
+                raise AssertionError(f"serve {what}: batch {i} differs from the dense result")
+
+    def sparse_gate(label: str, k: int, k_first, n: int, ref, counted) -> float:
+        server = PageStreamServer(pipe, depth=2, sparse_tiles=k)
+        if k_first is not None:
+            server._k_next = k_first
+        got = gated(label, server, lambda sv: list(sv.serve(iter(batches[:n]))))
+        check_sparse(label, got, batches, ref[:n], counted[:n] > k)
+        over = int((counted[:n] > k).sum())
+        first_over = int((counted[0] > (k_first or k)).sum())
+        per_page = server.wire_bytes / (n * BATCH)
+        log(f"serve {label}: {n} batches match the dense results (masks; clean inside changed "
+            f"tiles, input bytes outside, a page over the budget dense throughout); {over} of "
+            f"{counted[:n].size} pages over the budget went dense; {first_over} pages of the "
+            f"first batch over its budget; budget now "
+            f"{server._k_next}; {per_page:.0f} wire bytes a page")
+        return per_page
+
+    real_seg = pipe.seg
+    oracle = TrueText(real_seg, torch.stack([to_compute(torch.from_numpy(b).to(dev), cd)
+                                             for b in batches]), truth_dev)
+    pipe.run = counted_run
+    try:
+        dense = gated("dense, depth 2", PageStreamServer(pipe, depth=2),
+                      lambda sv: list(sv.serve(iter(batches[:SERVE_GATED]))))
+        check_dense("dense, depth 2", dense, want[:SERVE_GATED])
+
+        def chunked_feed(sv):
+            for b in batches[:5]:
+                sv.submit(b)
+            return list(sv.drain())
+
+        check_dense("submit/collect, chunk 2, 5 batches (a flushed tail of 1)",
+                    gated("submit/collect, chunk 2", PageStreamServer(pipe, chunk=2), chunked_feed),
+                    want[:5])
+        wire = {}
+        for label, k, k_first in (("sparse 64, adaptive", 64, None), ("sparse 256", 256, None),
+                                  ("sparse 64, forced undershoot to 16", 64, 16)):
+            wire[label] = sparse_gate(label, k, k_first, SERVE_GATED, want, tiles)
+
+        # the true text: the wire at the tile counts of real text
+        pipe.seg = oracle
+        truth_out = gated("true text, dense, depth 2", PageStreamServer(pipe, depth=2),
+                          lambda sv: list(sv.serve(iter(batches))))
+        want_truth = truth_dil.to(torch.uint8).cpu().numpy()
+        for i, (_, m) in enumerate(truth_out):
+            if not np.array_equal(m, want_truth[i]):
+                raise AssertionError(f"serve true text: batch {i}'s mask is not the dilated truth")
+        log(f"serve true text, dense: {SERVE_BATCHES} batches' masks equal the dilated truth")
+        for k in (64, 256):
+            label = f"true text, sparse {k}, adaptive"
+            wire[label] = sparse_gate(label, k, None, SERVE_BATCHES, truth_out, true_tiles)
+    finally:
+        del pipe.run  # the instance attribute: the method again
+        pipe.seg = real_seg
+
+    x = to_compute(torch.from_numpy(batches[0]).to(dev), cd)
+    control = blocking_calls(lambda: torch.tensor(0.5, device=dev))
+    calls = blocking_calls(lambda: pipe.run(x))
+    log(f"serve: blocking host calls in one profiled run: {sum(calls.values())} {dict(calls)} "
+        f"(a blocking torch.tensor(..., device=cuda) shows {dict(control)}, an empty window "
+        f"{dict(blocking_calls(lambda: None))})")
+    if not control:
+        raise AssertionError("the profiler recorded no blocking call for a blocking copy")
+    if calls:
+        raise AssertionError(f"run blocks the host: {dict(calls)}")
+
+    # the host's paste on the sparse wire, timed inside the served runs
+    paste = [0.0]
+
+    def timed(fn):
+        def wrapped(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                paste[0] += time.perf_counter() - t
+        return wrapped
+
+    def served(server) -> None:
+        for _ in server.serve(iter(batches)):
+            pass
+
+    def with_truth(fn):
+        def run_it():
+            pipe.seg = oracle
+            try:
+                fn()
+            finally:
+                pipe.seg = real_seg
+        return run_it
+
+    served(PageStreamServer(pipe, depth=2))  # warm the pinned host blocks
+    times = {}
+    unflatten, recompose = serve_mod.sparse_unflatten, serve_mod.sparse_recompose
+    serve_mod.sparse_unflatten, serve_mod.sparse_recompose = timed(unflatten), timed(recompose)
+    try:
+        for label, fn in (
+                ("closed-loop run + blocking .cpu()", lambda: [direct(b) for b in batches]),
+                ("serve dense, depth 2", lambda: served(PageStreamServer(pipe, depth=2))),
+                ("serve sparse 64, depth 2",
+                 lambda: served(PageStreamServer(pipe, depth=2, sparse_tiles=64))),
+                ("true text, serve dense, depth 2",
+                 with_truth(lambda: served(PageStreamServer(pipe, depth=2)))),
+                ("true text, serve sparse 64, depth 2",
+                 with_truth(lambda: served(PageStreamServer(pipe, depth=2, sparse_tiles=64)))),
+                ("true text, serve sparse 256, depth 2",
+                 with_truth(lambda: served(PageStreamServer(pipe, depth=2, sparse_tiles=256)))),
+                ("closed-loop run + blocking .cpu() (again)",
+                 lambda: [direct(b) for b in batches])):
+            paste[0] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[label] = time.perf_counter() - t0
+            host = (f"; host paste (sparse_unflatten + sparse_recompose) {paste[0] * 1e3:.1f} ms "
+                    f"= {paste[0] * 1e3 / SERVE_BATCHES:.2f} ms a batch" if paste[0] else "")
+            log(f"time {label}: {SERVE_BATCHES} batches of {BATCH} in {times[label]:.3f} s = "
+                f"{SERVE_BATCHES * BATCH / times[label]:.2f} pages/s{host}  [{smi}]")
+    finally:
+        serve_mod.sparse_unflatten, serve_mod.sparse_recompose = unflatten, recompose
+    profile_run(lambda: served(PageStreamServer(pipe, depth=2)), "serve dense, depth 2, "
+                f"{SERVE_BATCHES} batches", runs=1)
+    dense_bytes = PAGE * PAGE * 4
+    log(f"serve wire bytes a page: dense {dense_bytes} (clean 3 + mask 1 byte a pixel), "
+        + ", ".join(f"{k} {v:.0f} ({v / dense_bytes:.1%})" for k, v in wire.items())
+        + f"  [{smi}]")
 
 
 def profile_run(fn, label: str, runs: int = 3) -> float:

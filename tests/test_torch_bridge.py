@@ -78,6 +78,18 @@ def port_unet(variables, **kw):
     return model
 
 
+def one_torch_thread():
+    """Generator for a module fixture: torch's CPU ops on one thread, then
+    the count restored. The test workers share the host's cores, and each
+    worker's pool of intra-op threads would oversubscribe them: every op
+    then waits for threads that are not running (the serving tests took
+    20-100x longer under six workers than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def seg_variables():
     return jax_segmenter_variables(JaxTextSegmenter(width_mult=SEG_WIDTH))
@@ -122,9 +134,10 @@ def test_bridge_rejects_a_mismatched_model(seg_variables):
 
 def test_port_imports_no_jax_or_flax():
     """In a fresh interpreter (this one has jax loaded by the conftest):
-    every module of the port, and a synthetic training page of each kind
-    drawn through the port's own generators, load neither jax nor flax
-    nor any module of the JAX package."""
+    every module of the port, a synthetic training page of each kind
+    drawn through the port's own generators, and a serving batch through
+    its prefetcher load neither jax nor flax nor any module of the JAX
+    package."""
     code = (
         "import sys\n"
         "import text_segmentation_image_inpainting_tpu_torch.pipeline\n"
@@ -141,9 +154,21 @@ def test_port_imports_no_jax_or_flax():
         "import text_segmentation_image_inpainting_tpu_torch.train.seg\n"
         "import text_segmentation_image_inpainting_tpu_torch.train.run_inpaint\n"
         "import text_segmentation_image_inpainting_tpu_torch.train.run_seg\n"
-        "from text_segmentation_image_inpainting_tpu_torch.data.pipeline import PageSource\n"
+        "import text_segmentation_image_inpainting_tpu_torch.pipeline.serve\n"
+        "import text_segmentation_image_inpainting_tpu_torch.pipeline.sparse\n"
+        "import text_segmentation_image_inpainting_tpu_torch.pipeline.demo\n"
+        "import text_segmentation_image_inpainting_tpu_torch.models.base\n"
+        "import text_segmentation_image_inpainting_tpu_torch.compat.msgpack\n"
+        "import text_segmentation_image_inpainting_tpu_torch.ops.resize\n"
+        "import text_segmentation_image_inpainting_tpu_torch.ops.morphology\n"
+        "import text_segmentation_image_inpainting_tpu_torch.ops.conv\n"
+        "from text_segmentation_image_inpainting_tpu_torch.data.pipeline import (\n"
+        "    DevicePrefetcher, PageSource, make_page_stream_u8)\n"
         "for kind in ('seg', 'inpaint'):\n"
         "    assert PageSource(kind=kind, size=(32, 32))[0]['mask'].shape == (32, 32, 1)\n"
+        "pf = DevicePrefetcher(make_page_stream_u8(2, (32, 32)), device='cpu')\n"
+        "assert next(pf)['image'].shape == (2, 32, 32, 3)\n"
+        "pf.close()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'text_segmentation_image_inpainting_tpu'))\n"
         "assert not bad, bad\n"

@@ -28,7 +28,9 @@ plain version are held to the f64 truth within 1e-5 of Σ|x·dy| per
 ``check_wgrad``), at ``K6_RAGGED`` (C off 16 bytes, k 1/5/7, f32, a
 partial last wave, column strips); its workspace is shared by calls of
 other shapes without changing a bit, and its result permutes to the
-weight's (C, 1, k, k) layout without a copy.
+weight's (C, 1, k, k) layout without a copy. The page server on the card
+(prefetcher stream, pinned result copies, depth 2 and chunk 2) returns
+``run``'s bytes exactly, with K1/K2 launched once per ``run``.
 """
 
 import numpy as np
@@ -509,3 +511,39 @@ def test_k6_refuses_what_it_does_not_take(cuda):
         kdw._launch_k6(x, x.float(), 3, 1)
     with pytest.raises(ValueError, match="built for"):
         kdw._launch_k6(x, x, 9, 1)
+
+
+def test_dense_serve_is_run_bit_for_bit(cuda):
+    """The page server on the card (prefetcher stream, pinned results,
+    depth 2, and chunk 2 with a flushed tail) returns exactly what
+    ``run`` gives on the same uint8 pages, with K1 and K2 launched as
+    many times as ``run`` was dispatched."""
+    from text_segmentation_image_inpainting_tpu_torch.models import TextSegmenter
+    from text_segmentation_image_inpainting_tpu_torch.pipeline import (
+        PageStreamServer,
+        TextRemovalPipeline,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.pipeline.serve import to_compute
+    from text_segmentation_image_inpainting_tpu_torch.pipeline.sparse import to_uint8
+
+    pipe = TextRemovalPipeline(TextSegmenter(width_mult=0.35, dtype=torch.bfloat16),
+                               InpaintUNet(depth=3, dtype=torch.bfloat16)).init_weights(
+        torch.Generator().manual_seed(3)).to(cuda).eval()
+    rng = np.random.default_rng(3)
+    batches = [rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8) for _ in range(5)]
+    want = []
+    for pages in batches:
+        clean, mask = pipe.run(to_compute(torch.from_numpy(pages).to(cuda), pipe.compute_dtype))
+        want.append((to_uint8(clean).cpu().numpy(), mask.to(torch.uint8).cpu().numpy()))
+    kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = 0
+    served = list(PageStreamServer(pipe, depth=2).serve(iter(batches)))
+    chunked = PageStreamServer(pipe, chunk=2)
+    for pages in batches:
+        chunked.submit(pages)
+    served += list(chunked.drain())
+    assert (kpc.K1_LAUNCHES, kpc.K2_LAUNCHES) == (2 * 10, 10)  # depth 3: 2 K1 levels
+    assert len(served) == 10
+    for (wc, wm), (gc, gm) in zip(want + want, served):
+        assert gc.dtype == np.uint8 and gm.dtype == np.uint8
+        np.testing.assert_array_equal(gc, wc)
+        np.testing.assert_array_equal(gm, wm)

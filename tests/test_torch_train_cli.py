@@ -67,7 +67,6 @@ def test_vgg_checkpoint_and_data_dir(tmp_path, capsys):
     (["--steps-per-dispatch", "2"], "multistep"),
     (["--attention"], "attention"),
     (["--attention-sn"], "attention"),
-    (["--export", "model.msgpack"], "snapshot"),
 ])
 def test_unported_flags_are_refused(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=item):

@@ -4,8 +4,9 @@
 procedural manga-ish page, the glyph-run text overlay, the composite,
 and the exact text mask — in one C++ pass, producing uint8 directly
 (the form serving ships and the device pipeline uploads). Glyph SHAPES
-come from a PIL-prerendered atlas of the same default font the Python
-path uses, so the text statistics match ``data/text_overlay.py``; only
+come from an atlas of the same default font the Python path uses,
+prerendered with PIL and kept in ``data/glyph_atlas.npz`` (drawing a page
+needs no PIL), so the text statistics match ``data/text_overlay.py``; only
 the RNG stream differs (xorshift vs numpy PCG), making samples
 *statistically* equivalent, not bit-identical.
 
@@ -34,6 +35,7 @@ _build_failed = False
 # atlas covers the overlay_text font-size range [12, 48)
 _SIZES = tuple(range(12, 48))
 _atlas = None  # (bits u8, meta i32 (S*C,4), sizes i32)
+ATLAS_PATH = os.path.join(os.path.dirname(__file__), "glyph_atlas.npz")
 
 
 def _load():
@@ -70,49 +72,58 @@ def _load():
         return _lib
 
 
+def render_atlas():
+    """Prerender every (size, char) glyph with PIL into a flat alpha atlas
+    + [offset, gw, gh, advance] metadata: (bits u8, meta i32 (S*C, 4),
+    sizes i32). About 0.5 s. ``data/glyph_atlas.npz`` holds its result,
+    so that pages can be drawn where PIL is not installed (the GPU host);
+    ``python -m text_segmentation_image_inpainting_tpu_torch.data.native_pages``
+    writes it anew, and a CPU test holds the file to this function."""
+    from PIL import Image, ImageDraw
+
+    from text_segmentation_image_inpainting_tpu_torch.data.text_overlay import (
+        _CHARS, _font)
+
+    chars = list(_CHARS)
+    bits_parts: list[np.ndarray] = []
+    meta = np.zeros((len(_SIZES) * len(chars), 4), dtype=np.int32)
+    offset = 0
+    for si, size in enumerate(_SIZES):
+        font = _font(size)
+        tile = max(8, int(size * 2))
+        for ci, ch in enumerate(chars):
+            img = Image.new("L", (tile, tile), 0)
+            ImageDraw.Draw(img).text((0, 0), ch, fill=255, font=font)
+            a = np.asarray(img, dtype=np.uint8)
+            ys, xs = np.nonzero(a)
+            if len(ys):
+                gh = int(ys.max()) + 1
+                gw = int(xs.max()) + 1
+                g = np.ascontiguousarray(a[:gh, :gw])
+            else:  # glyph the font can't render -> 1x1 empty
+                gh = gw = 1
+                g = np.zeros((1, 1), dtype=np.uint8)
+            try:
+                adv = int(round(font.getlength(ch)))
+            except AttributeError:  # very old PIL
+                adv = gw
+            meta[si * len(chars) + ci] = (offset, gw, gh, max(1, adv))
+            bits_parts.append(g.reshape(-1))
+            offset += g.size
+    bits = np.concatenate(bits_parts) if bits_parts else np.zeros(1, np.uint8)
+    sizes = np.asarray(_SIZES, dtype=np.int32)
+    return np.ascontiguousarray(bits), np.ascontiguousarray(meta), sizes
+
+
 def _build_atlas():
-    """Prerender every (size, char) glyph with PIL into a flat alpha
-    atlas + [offset, gw, gh, advance] metadata. One-time (~0.5 s)."""
+    """The glyph atlas, read once from ``data/glyph_atlas.npz``."""
     global _atlas
     if _atlas is not None:
         return _atlas
     with _lock:
-        if _atlas is not None:
-            return _atlas
-        from PIL import Image, ImageDraw
-
-        from text_segmentation_image_inpainting_tpu_torch.data.text_overlay import (
-            _CHARS, _font)
-
-        chars = list(_CHARS)
-        bits_parts: list[np.ndarray] = []
-        meta = np.zeros((len(_SIZES) * len(chars), 4), dtype=np.int32)
-        offset = 0
-        for si, size in enumerate(_SIZES):
-            font = _font(size)
-            tile = max(8, int(size * 2))
-            for ci, ch in enumerate(chars):
-                img = Image.new("L", (tile, tile), 0)
-                ImageDraw.Draw(img).text((0, 0), ch, fill=255, font=font)
-                a = np.asarray(img, dtype=np.uint8)
-                ys, xs = np.nonzero(a)
-                if len(ys):
-                    gh = int(ys.max()) + 1
-                    gw = int(xs.max()) + 1
-                    g = np.ascontiguousarray(a[:gh, :gw])
-                else:  # glyph the font can't render -> 1x1 empty
-                    gh = gw = 1
-                    g = np.zeros((1, 1), dtype=np.uint8)
-                try:
-                    adv = int(round(font.getlength(ch)))
-                except AttributeError:  # very old PIL
-                    adv = gw
-                meta[si * len(chars) + ci] = (offset, gw, gh, max(1, adv))
-                bits_parts.append(g.reshape(-1))
-                offset += g.size
-        bits = np.concatenate(bits_parts) if bits_parts else np.zeros(1, np.uint8)
-        sizes = np.asarray(_SIZES, dtype=np.int32)
-        _atlas = (np.ascontiguousarray(bits), np.ascontiguousarray(meta), sizes)
+        if _atlas is None:
+            with np.load(ATLAS_PATH) as f:
+                _atlas = (f["bits"], f["meta"], f["sizes"])
         return _atlas
 
 
@@ -169,3 +180,9 @@ def inpainting_page_native(rng: np.random.Generator, size=(512, 512)):
     """(clean_page f32, text_mask f32) — callers build hole masks."""
     img, mask = synth_pages_u8([int(rng.integers(0, 2**63))], size, mode="inpaint")
     return (img[0].astype(np.float32) / 255.0, mask[0].astype(np.float32))
+
+
+if __name__ == "__main__":
+    bits, meta, sizes = render_atlas()
+    np.savez_compressed(ATLAS_PATH, bits=bits, meta=meta, sizes=sizes)
+    print(f"wrote {ATLAS_PATH}: {bits.nbytes} glyph bytes, {meta.shape[0]} glyphs")

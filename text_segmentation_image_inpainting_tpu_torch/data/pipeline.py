@@ -8,15 +8,19 @@ as in JAX, by the port's own copy of the JAX package's generators
 ``data/native_pages.py`` and their C++ sources under ``data/native/``:
 numpy, PIL and ctypes), imported where they are used, so the two
 packages draw the same pages from the same seeds. Batches are taken in
-index order and stacked by hand: there is no grain shuffle and no
-device prefetcher yet.
+index order and stacked by hand: there is no grain shuffle.
+``make_page_stream_u8`` draws serving pages from the native engine, and
+``DevicePrefetcher`` uploads host batches on a CUDA stream of its own
+from a worker thread.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Iterator, Sequence
+import queue
+import threading
+from typing import Any, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -133,3 +137,146 @@ def make_dataset(kind: str, *, batch_size: int = 8, size: tuple[int, int] = (512
 def to_device(batch: dict, device) -> dict:
     """numpy batch -> float32 tensors on ``device``."""
     return {k: torch.from_numpy(np.asarray(v, np.float32)).to(device) for k, v in batch.items()}
+
+
+def make_page_stream_u8(batch_size: int = 8, size: tuple[int, int] = (512, 512),
+                        seed: int = 0) -> Iterator[dict]:
+    """Infinite iterator of serving batches {'image': (B,H,W,3) uint8}.
+
+    Batch ``i`` draws pages ``((seed + 1) << 40) ^ (i*B + j)`` from the
+    native page engine in mode 'seg', as the JAX package does, so both
+    packages stream the same bytes. Without the native engine (no C++
+    compiler) it quantizes ``make_dataset('seg')``, which needs PIL.
+    """
+    from text_segmentation_image_inpainting_tpu_torch.data import native_pages
+
+    if native_pages.available():
+        def _native():
+            i = 0
+            while True:
+                seeds = [((seed + 1) << 40) ^ (i + j) for j in range(batch_size)]
+                img, _ = native_pages.synth_pages_u8(seeds, size, mode="seg")
+                i += batch_size
+                yield {"image": img}
+
+        return _native()
+
+    it = make_dataset("seg", batch_size=batch_size, size=size, seed=seed)
+    return ({"image": np.round(b["image"] * 255.0).astype(np.uint8)} for b in it)
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the array leaves of a dict / list / tuple batch."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def upload(x, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device`` without blocking the host.
+
+    On CUDA the bytes are staged in pinned memory and copied
+    ``non_blocking`` on the current stream (a pageable source would make
+    the copy wait for the stream to drain); the caching host allocator
+    keeps the staging block until the copy has run. A tensor already on
+    ``device`` is returned as it is; on the CPU this is ``torch.as_tensor``.
+    """
+    if isinstance(x, torch.Tensor) and x.device == device:
+        return x
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class DevicePrefetcher:
+    """Overlap host batch production and host-to-device copies with compute.
+
+    A worker thread pulls host batches and uploads them, keeping at most
+    ``depth`` uploaded batches queued. On CUDA each batch is copied on the
+    prefetcher's own stream and an event is recorded after it;
+    ``__next__`` makes the consumer's current stream wait on that event
+    and marks each tensor as used there (``record_stream``), so the
+    caching allocator does not hand the memory to the next upload while
+    the consumer's kernels may still read it. On a CPU ``device`` the
+    batches are only converted to tensors.
+
+    A batch the worker fails on is raised once from ``__next__``, after
+    which the iterator stops; ``close()`` stops the worker, drains the
+    queue and joins the thread.
+    """
+
+    def __init__(self, host_iter: Iterator, device: Any = "cuda", depth: int = 2):
+        self._it = host_iter
+        self._device = torch.device(device)
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._dead = False
+        self._stream = (torch.cuda.Stream(self._device) if self._device.type == "cuda"
+                        else None)
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        # bounded put, so that close() can stop a worker blocked on a full
+        # queue (an infinite stream never returns to the loop's check)
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _upload(self, batch):
+        if self._stream is None:
+            return _tree_map(lambda x: upload(x, self._device), batch), None
+        with torch.cuda.stream(self._stream):
+            batch = _tree_map(lambda x: upload(x, self._device), batch)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return batch, done
+
+    def _worker(self) -> None:
+        try:
+            for batch in self._it:
+                if self._stop.is_set() or not self._put(self._upload(batch)):
+                    return
+        except BaseException as e:  # noqa: BLE001 — re-raised once in __next__
+            self._put(e)
+            return
+        self._put(None)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        # a dead worker delivered its exception once and never sends the
+        # end marker: later calls must not block on get()
+        if self._dead:
+            raise StopIteration
+        item = self._q.get()
+        if item is None:
+            self._dead = True
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self._dead = True
+            raise item
+        batch, done = item
+        if done is not None:
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(done)
+            _tree_map(lambda t: t.record_stream(stream), batch)
+        return batch
+
+    def close(self) -> None:
+        self._stop.set()
+        # drain, so a worker blocked mid-put finishes and drops its batches
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5)

@@ -65,3 +65,9 @@ def conv2d(
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
+
+
+def conv_output_size(size: int, kernel: int, stride: int, padding: int, dilation: int = 1) -> int:
+    """Torch Conv2d output-size formula (floor)."""
+    eff = dilation * (kernel - 1) + 1
+    return (size + 2 * padding - eff) // stride + 1

@@ -34,3 +34,13 @@ def dilate_mask(mask: torch.Tensor, radius: int = 3, iterations: int = 1) -> tor
         out = F.max_pool2d(out, (1, k), stride=1, padding=(0, radius))
     out = out.permute(0, 2, 3, 1)
     return out[..., 0] if squeezed else out.contiguous()
+
+
+def erode_mask(mask: torch.Tensor, radius: int = 1) -> torch.Tensor:
+    """Binary erosion (a (2r+1)x(2r+1) min-pool) of (N, H, W, C), the dual
+    of :func:`dilate_mask`. Like the JAX window, the border counts as 1."""
+    if radius <= 0:
+        return mask
+    k = 2 * radius + 1
+    padded = F.pad(mask.permute(0, 3, 1, 2), (radius,) * 4, value=1.0)
+    return (-F.max_pool2d(-padded, k, stride=1)).permute(0, 2, 3, 1).contiguous()

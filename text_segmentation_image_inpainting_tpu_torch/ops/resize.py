@@ -2,7 +2,8 @@
 
 Counterpart of ``text_segmentation_image_inpainting_tpu/ops/resize.py``:
 bilinear with half-pixel centres and no antialias (torch
-``align_corners=False``), and exact integer-factor nearest upsampling.
+``align_corners=False``) or with aligned corners, and exact
+integer-factor nearest upsampling.
 """
 
 from __future__ import annotations
@@ -13,15 +14,43 @@ import torch.nn.functional as F
 from text_segmentation_image_inpainting_tpu_torch.ops.conv import to_nchw, to_nhwc
 
 
-def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of (N, H, W, C) to (N, out_h, out_w, C), half-pixel centres."""
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int], *,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of (N, H, W, C) to (N, out_h, out_w, C).
+
+    ``align_corners=False``: half-pixel centres (``F.interpolate``).
+    ``align_corners=True``: sample positions i * (H-1)/(out_h-1), computed
+    as the JAX package computes them (in float32 or wider, rows first,
+    then columns), so the two agree to the last bits.
+    """
     oh, ow = out_hw
-    if (oh, ow) == tuple(x.shape[1:3]):
+    n, h, w, c = x.shape
+    if (oh, ow) == (h, w):
         return x
-    out = F.interpolate(
-        to_nchw(x), size=(oh, ow), mode="bilinear", align_corners=False, antialias=False
-    )
-    return to_nhwc(out)
+    if not align_corners:
+        out = F.interpolate(
+            to_nchw(x), size=(oh, ow), mode="bilinear", align_corners=False, antialias=False
+        )
+        return to_nhwc(out)
+    dtype = torch.promote_types(x.dtype, torch.float32)
+
+    def axis_weights(in_size: int, out_size: int):
+        if out_size == 1:
+            src = torch.zeros(1, dtype=dtype, device=x.device)
+        else:
+            src = torch.arange(out_size, dtype=dtype, device=x.device) * (
+                (in_size - 1) / (out_size - 1))
+        lo = torch.floor(src).long().clamp(0, in_size - 1)
+        hi = (lo + 1).clamp(0, in_size - 1)
+        return lo, hi, src - lo.to(dtype)
+
+    ylo, yhi, yf = axis_weights(h, oh)
+    xlo, xhi, xf = axis_weights(w, ow)
+    xf32 = x.to(dtype)
+    yf, xf = yf[None, :, None, None], xf[None, None, :, None]
+    rows = xf32[:, ylo] * (1 - yf) + xf32[:, yhi] * yf
+    out = rows[:, :, xlo] * (1 - xf) + rows[:, :, xhi] * xf
+    return out.to(x.dtype)
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

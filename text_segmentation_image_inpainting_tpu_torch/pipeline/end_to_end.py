@@ -72,11 +72,13 @@ class TextRemovalPipeline(nn.Module):
         """pages (N,H,W,3) -> dilated VALID mask (N,H,W), in compute_dtype.
 
         sigmoid(x) > t  <=>  x > logit(t); the comparison runs in the
-        logits' dtype, with logit(t) rounded to it.
+        logits' dtype, with logit(t) rounded to it. The threshold is a fill
+        on the device: ``torch.tensor(logit_t, device=...)`` would be a
+        blocking host-to-device copy, a stream synchronize in every call.
         """
         logits = self.seg(pages.to(self.compute_dtype))
         logit_t = float(np.log(self.threshold / (1.0 - self.threshold)))
-        thr = torch.tensor(logit_t, dtype=logits.dtype, device=logits.device)
+        thr = torch.full((), logit_t, dtype=logits.dtype, device=logits.device)
         text2d = (logits[..., 0] > thr).to(self.compute_dtype)
         if dilate:
             text2d = dilate_mask(text2d, self.dilate_radius)

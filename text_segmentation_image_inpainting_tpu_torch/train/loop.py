@@ -14,6 +14,7 @@ import time
 import torch
 
 from text_segmentation_image_inpainting_tpu_torch.data.pipeline import to_device
+from text_segmentation_image_inpainting_tpu_torch.models.base import save_model
 from text_segmentation_image_inpainting_tpu_torch.train.checkpoint import CheckpointManager
 from text_segmentation_image_inpainting_tpu_torch.train.val import scored_eval
 
@@ -31,8 +32,15 @@ def resolve_device(name: str) -> torch.device:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise SystemExit("--device cuda: torch.cuda.is_available() is False; pass "
-                         "--device cpu to train on the CPU")
+                         "--device cpu to run on the CPU")
     return torch.device("cuda", 0)
+
+
+def export(path: str | None, model) -> None:
+    """``--export``: the final model's snapshot (``models/base.py``)."""
+    if path:
+        save_model(path, model)
+        print("exported model snapshot to", path)
 
 
 def train_loop(state, train_step, eval_step, make_batches, val_batches, cfg, *, steps: int,

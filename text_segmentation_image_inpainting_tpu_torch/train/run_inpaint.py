@@ -42,6 +42,7 @@ from text_segmentation_image_inpainting_tpu_torch.train.inpaint import (
 )
 from text_segmentation_image_inpainting_tpu_torch.train.loop import (
     add_device_flag,
+    export,
     resolve_device,
     train_loop,
 )
@@ -58,20 +59,20 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--freeze-bn", action="store_true", help="phase-2 fine-tune")
     p.add_argument("--attention", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 13): refused")
+                   help="not ported yet (ROADMAP Queue 1 item 7): refused")
     p.add_argument("--attention-sn", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 13): refused")
+                   help="not ported yet (ROADMAP Queue 1 item 7): refused")
     p.add_argument("--pconv-impl", choices=["xla", "pallas"], default="xla",
                    help="accepted for the JAX CLI's sake; the port routes each partial "
                         "conv by device and shape alone (kernels K1/K2 on CUDA)")
     p.add_argument("--grad-accum", type=int, default=1,
-                   help="only 1: accumulation waits for train/accum.py (ROADMAP Queue 1 item 10)")
+                   help="only 1: accumulation waits for train/accum.py (ROADMAP Queue 1 item 3)")
     p.add_argument("--remat", choices=["none", "full"], default="none",
                    help="'full' recomputes the U-Net forward in the backward "
                         "(torch.utils.checkpoint)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="only 1: multi-step dispatch waits for train/multistep.py "
-                        "(ROADMAP Queue 1 item 10)")
+                        "(ROADMAP Queue 1 item 3)")
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false",
                    help="a float32 step: runs on the CPU; on CUDA the partial-conv "
@@ -88,7 +89,8 @@ def parse_args(argv=None):
                    help="held-out val batches scored every --log-every window "
                         "(0 = score the train batch)")
     p.add_argument("--export", type=str, default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 10): refused")
+                   help="write the final model snapshot here (models/base.py::save_model; "
+                        "load_model reads it)")
     add_device_flag(p)
     return p.parse_args(argv)
 
@@ -96,16 +98,13 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     if args.attention or args.attention_sn:
         raise SystemExit("--attention/--attention-sn: the attention track is not ported "
-                         "(ROADMAP Queue 1 item 13)")
+                         "(ROADMAP Queue 1 item 7)")
     if args.grad_accum != 1:
         raise SystemExit("--grad-accum > 1: gradient accumulation is not ported "
-                         "(ROADMAP Queue 1 item 10, train/accum.py)")
+                         "(ROADMAP Queue 1 item 3, train/accum.py)")
     if args.steps_per_dispatch != 1:
         raise SystemExit("--steps-per-dispatch > 1: multi-step dispatch is not ported "
-                         "(ROADMAP Queue 1 item 10, train/multistep.py)")
-    if args.export:
-        raise SystemExit("--export: the model snapshot is not ported "
-                         "(ROADMAP Queue 1 item 10, models/base.py)")
+                         "(ROADMAP Queue 1 item 3, train/multistep.py)")
 
 
 def load_vgg(vgg: VGG16Features, ckpt_path: str | None,
@@ -155,10 +154,12 @@ def main(argv=None):
     # a fixed held-out set from a disjoint seed stream
     val_batches = make_val_batches("inpaint", cfg, seed=args.seed + 100_000, n=args.val_batches,
                                    device=device, paths=paths)
-    return train_loop(create_train_state(model, cfg.optimizer),
-                      make_inpaint_train_step(model, cfg, vgg), make_inpaint_eval_step(model),
-                      make_batches, val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir,
-                      device=device)
+    state = train_loop(create_train_state(model, cfg.optimizer),
+                       make_inpaint_train_step(model, cfg, vgg), make_inpaint_eval_step(model),
+                       make_batches, val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir,
+                       device=device)
+    export(args.export, state.model)
+    return state
 
 
 if __name__ == "__main__":

@@ -32,6 +32,7 @@ from text_segmentation_image_inpainting_tpu_torch.train.seg import (
 )
 from text_segmentation_image_inpainting_tpu_torch.train.loop import (
     add_device_flag,
+    export,
     resolve_device,
     train_loop,
 )
@@ -49,19 +50,19 @@ def parse_args(argv=None):
     p.add_argument("--image-size", type=int, default=512)
     p.add_argument("--width-mult", type=float, default=1.0)
     p.add_argument("--backbone", choices=("mobilenet_v2", "xception"), default="mobilenet_v2",
-                   help="only mobilenet_v2: xception is not ported yet (ROADMAP Queue 1 item 13)")
+                   help="only mobilenet_v2: xception is not ported yet (ROADMAP Queue 1 item 7)")
     p.add_argument("--head", choices=("mini", "deeplab"), default="mini",
-                   help="only mini: deeplab is not ported yet (ROADMAP Queue 1 item 13)")
+                   help="only mini: deeplab is not ported yet (ROADMAP Queue 1 item 7)")
     p.add_argument("--output-stride", type=int, default=8, choices=(8, 16, 32))
     p.add_argument("--decoder-mid", type=int, default=128)
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--pos-weight", type=float, default=3.0)
     p.add_argument("--freeze-encoder", action="store_true")
     p.add_argument("--grad-accum", type=int, default=1,
-                   help="only 1: accumulation waits for train/accum.py (ROADMAP Queue 1 item 10)")
+                   help="only 1: accumulation waits for train/accum.py (ROADMAP Queue 1 item 3)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="only 1: multi-step dispatch waits for train/multistep.py "
-                        "(ROADMAP Queue 1 item 10)")
+                        "(ROADMAP Queue 1 item 3)")
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--custom-wgrad", action="store_true", default=False,
@@ -75,7 +76,8 @@ def parse_args(argv=None):
                    help="held-out val batches scored every --log-every window "
                         "(0 = score the train batch)")
     p.add_argument("--export", type=str, default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 10): refused")
+                   help="write the final model snapshot here (models/base.py::save_model; "
+                        "load_model reads it)")
     add_device_flag(p)
     return p.parse_args(argv)
 
@@ -83,16 +85,13 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     if args.backbone != "mobilenet_v2" or args.head != "mini":
         raise SystemExit("--backbone xception / --head deeplab: the experiment tracks are not "
-                         "ported (ROADMAP Queue 1 item 13)")
+                         "ported (ROADMAP Queue 1 item 7)")
     if args.grad_accum != 1:
         raise SystemExit("--grad-accum > 1: gradient accumulation is not ported "
-                         "(ROADMAP Queue 1 item 10, train/accum.py)")
+                         "(ROADMAP Queue 1 item 3, train/accum.py)")
     if args.steps_per_dispatch != 1:
         raise SystemExit("--steps-per-dispatch > 1: multi-step dispatch is not ported "
-                         "(ROADMAP Queue 1 item 10, train/multistep.py)")
-    if args.export:
-        raise SystemExit("--export: the model snapshot is not ported "
-                         "(ROADMAP Queue 1 item 10, models/base.py)")
+                         "(ROADMAP Queue 1 item 3, train/multistep.py)")
 
 
 def main(argv=None):
@@ -132,9 +131,11 @@ def main(argv=None):
     # a fixed held-out set from a disjoint seed stream
     val_batches = make_val_batches("seg", cfg, seed=args.seed + 100_000, n=args.val_batches,
                                    device=device, paths=paths)
-    return train_loop(create_train_state(model, cfg.optimizer, frozen=frozen),
-                      make_seg_train_step(model, cfg), make_seg_eval_step(model), make_batches,
-                      val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir, device=device)
+    state = train_loop(create_train_state(model, cfg.optimizer, frozen=frozen),
+                       make_seg_train_step(model, cfg), make_seg_eval_step(model), make_batches,
+                       val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir, device=device)
+    export(args.export, state.model)
+    return state
 
 
 if __name__ == "__main__":
