@@ -77,6 +77,25 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               (``tools/host_syncs.py``) inside one profiled ``run``; then
               serve pages/s beside closed-loop ``run`` with a blocking
               read, the busy share while serving and wire bytes a page
+  9. xception the Xception seg track (``TextSegmenter(backbone='xception',
+              head='deeplab')``, output stride 8, 8 middle blocks, flag
+              on): K6 against the f64 truth at ``XCEPTION_SHAPES`` (twice,
+              bit-identical), three train steps (35 K6 launches each, at
+              those shapes; every parameter with a gradient and every BN
+              statistic moved; no CUDA tensor reaches K6's plain version),
+              K6 per shape timed, the step flag on/off/off/on, peak memory
+ 10. attention three steps of the spectral-norm attention U-Net (K1 7, K2
+              1, K3 8, K4 1, K5 1 each; u and v move, gamma leaves 0), an
+              eval forward (u and v fixed) and one step with
+              ``grad_accum=2`` (the launches twice over)
+ 11. graph    ``make_multi_step`` as a CUDA graph for the inpaint and seg
+              steps against the same steps run eagerly (``graph_phase``);
+              ms per step eager and graph, device kernels per replay
+ 12. evaluate ``train/evaluate.py --task seg|inpaint|pipeline --batches 2``
+              on the card: finite numbers under JAX's keys
+ (Phases 9-12 run before the serve phase; each phase prints its seconds.)
+ The inpaint step also may not block the host: no blocking CUDA call in
+ one profiled step (``tools/host_syncs.py``).
 
 The last line is ``{"ok": true, "device": {...}}``; the one before it
 lists the kernels. Any failed check raises: the script then exits
@@ -93,6 +112,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -613,11 +633,21 @@ def main() -> int:
         raise AssertionError(f"inpaint launched {got}, want K1 7 and K2 1")
     check_page_out("inpaint (given hole mask)", inpainted, text_in)
 
+    phase_s = {"build, parity, pipeline": time.perf_counter() - t0}
+
+    def timed_phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
     # 5. train --------------------------------------------------------------
-    tr = train_phase(dev, rng, cases)
+    tr = timed_phase("train", train_phase, dev, rng, cases)
 
     # 6. seg ----------------------------------------------------------------
-    sg = seg_phase(dev, rng)
+    sg = timed_phase("seg", seg_phase, dev, rng)
+    t_timing = time.perf_counter()
 
     # 7. timing -------------------------------------------------------------
     from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import apply_mask
@@ -689,9 +719,19 @@ def main() -> int:
     profile_run(run, "run")
     stem_times = time_train(tr)
     k6 = time_seg(sg)
+    phase_s["timing"] = time.perf_counter() - t_timing
+    log(f"phase timing: {phase_s['timing']:.1f} s")
 
-    # 8. serve --------------------------------------------------------------
-    serve_phase(pipe, dev, smi)
+    # 8. the experiment tracks, accumulation, CUDA graphs, evaluate ----------
+    xk6 = timed_phase("xception", xception_phase, dev, rng, smi)
+    timed_phase("attention", attention_phase, dev, rng, tr)
+    timed_phase("graph", graph_phase, dev, rng, tr, smi)
+    timed_phase("evaluate", evaluate_phase, smi)
+
+    # 9. serve --------------------------------------------------------------
+    timed_phase("serve", serve_phase, pipe, dev, smi)
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+        + f"; total {time.perf_counter() - t0:.1f}")
 
     kernels = []
     for kname, line, fn in (("K1", 184, "pconv_k1"), ("K2", 415, "pconv_k2")):
@@ -733,6 +773,15 @@ def main() -> int:
         "launches": sg["launches"], "max_abs_err": max(r["vs_plain"] for *_, r in sg["k6"]),
         "ms": k6["ms"], "plain_ms": k6["plain"], "bound_ms": k6["bound"], "bound_by": k6["by"],
         "library_ms": k6["lib"],
+    })
+    log("K6 (Xception): 9 shape(s), ms and plain_ms are sums over one Xception seg step's 35 "
+        "launches; launches from the first Xception step, max_abs_err K6 against the plain at "
+        "those shapes")
+    kernels.append({
+        "name": "K6 dw_wgrad_band (Xception seg step)", "route": "cuda", "source": CSRC_DW,
+        "replaces": f"{TPU_DW}:144", "launches": xk6["launches"], "max_abs_err": xk6["err"],
+        "ms": xk6["ms"], "plain_ms": xk6["plain"], "bound_ms": xk6["bound"],
+        "bound_by": xk6["by"], "library_ms": xk6["lib"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -872,7 +921,6 @@ def train_phase(dev, rng, cases) -> dict:
     )
     from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet
     from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import BatchNorm
-    from text_segmentation_image_inpainting_tpu_torch.models.vgg import imagenet_normalize
     from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
@@ -902,7 +950,7 @@ def train_phase(dev, rng, cases) -> dict:
     pages = pages.to(dev)
     holes = torch.from_numpy(hole_mask(rng, BATCH, PAGE, PAGE)[..., None]).to(dev)
     # the stem's input in the step: [out, comp], 2N pages, normalised, bf16
-    xs = imagenet_normalize(torch.cat([pages, pages * holes])).to(bf).contiguous()
+    xs = vgg.normalize_input(torch.cat([pages, pages * holes])).to(bf).contiguous()
     gs = torch.randn((2 * BATCH, PAGE // 2, PAGE // 2, 64), generator=gen, device=dev).to(bf)
     res = check_stem_dx("K4 train shape", xs, gs, w0, b0, w1, b1)
     check_stem_dx_repeats("K4 train shape", xs, gs, w0, b0, w1, b1)
@@ -979,7 +1027,7 @@ def train_phase(dev, rng, cases) -> dict:
     hook.remove()
     return {"launches": first, "err": {"K3": err3, "K4": res["max"], "K5": err5[BATCH]}, "k3": k3,
             "stem": (xs, gs, w0, b0, w1, b1, z0, z0_gt), "step": steps[False], "state": state,
-            "batch": batch}
+            "batch": batch, "vgg": vgg, "loss_cfg": loss_cfg}
 
 
 def time_train(tr) -> dict:
@@ -1109,6 +1157,14 @@ def time_train(tr) -> dict:
         f"{peak / 2**30:.2f} GiB, of which {before / 2**30:.3f} GiB held before the step "
         f"({(peak - before) / 2**30:.3f} GiB above it)")
     busy = profile_run(lambda: step(state, batch), "train step", runs=2)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from host_syncs import blocking_calls
+
+    calls = blocking_calls(lambda: step(state, batch))
+    log(f"inpaint step: blocking host calls in one profiled step: {sum(calls.values())} "
+        f"{dict(calls)}")
+    if calls:
+        raise AssertionError(f"the inpaint step blocks the host: {dict(calls)}")
     log(f"inpaint step: device busy {busy:.3f} ms per step, peak device memory "
         f"{peak / 2**30:.2f} GiB")
     return {"K3": k3_times, "K4": k4, "K5": k5[BATCH]}  # K5 at the step's shape
@@ -1639,6 +1695,421 @@ def serve_phase(pipe, dev, smi: str) -> None:
     log(f"serve wire bytes a page: dense {dense_bytes} (clean 3 + mask 1 byte a pixel), "
         + ", ".join(f"{k} {v:.0f} ({v / dense_bytes:.1%})" for k, v in wire.items())
         + f"  [{smi}]")
+
+
+
+# The stride-1 depthwise convs with C >= 128 of TextSegmenter(backbone=
+# 'xception', head='deeplab', output_stride=8, middle_repeats=8) at 512^2
+# pages, whose weight gradient is K6 with USE_CUSTOM_WGRAD on: (blocks,
+# H = W, C, dilation, launches per train step); 35 launches, k = 3. The
+# phase checks the list against the K6 calls of one backward.
+XCEPTION_SHAPES = (
+    ("entry0", 256, 128, 1, 1),
+    ("entry1 sep0", 128, 128, 1, 1),
+    ("entry1 sep1", 128, 256, 1, 1),
+    ("entry2 sep0", 64, 256, 1, 1),
+    ("entry2 sep1-2", 64, 728, 1, 2),
+    ("mid0-7, exit0 sep0-1", 64, 728, 2, 26),
+    ("exit0 sep2", 64, 1024, 2, 1),
+    ("exit1", 64, 1024, 4, 1),
+    ("exit2", 64, 1536, 4, 1),
+)
+XCEPTION_ITERS = 3
+
+
+def changed(before: dict, after: dict) -> list:
+    """Names whose tensors differ between two {name: tensor} snapshots."""
+    return [n for n in before if not torch.equal(before[n], after[n])]
+
+
+def xception_phase(dev, rng, smi: str) -> dict:
+    """The Xception seg track: K6 against the f64 truth at the
+    ``XCEPTION_SHAPES`` (each launched twice, bit-identical), the shapes
+    and count of one backward's K6 calls, three train steps at 512^2,
+    batch 8, bf16 with ``USE_CUSTOM_WGRAD`` on (35 K6 launches each; every
+    parameter with a gradient and every BN statistic moved; no CUDA tensor
+    reaches K6's plain version), then K6 per shape against its plain
+    version and cuDNN's wgrad, and the step timed flag on/off/off/on with
+    its peak memory and a profile. Returns K6's kernel-line numbers."""
+    from text_segmentation_image_inpainting_tpu_torch.models import TextSegmenter
+    from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
+    from text_segmentation_image_inpainting_tpu_torch.train.config import SegTrainConfig
+    from text_segmentation_image_inpainting_tpu_torch.train.seg import make_seg_train_step
+    from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    shapes = []
+    for name, h, c, d, count in XCEPTION_SHAPES:
+        x = torch.randn((BATCH, h, h, c), generator=gen, device=dev).to(bf)
+        dy = torch.randn((BATCH, h, h, c), generator=gen, device=dev).to(bf)
+        res = check_wgrad(f"K6 xception {name}", x, dy, 3, d)
+        log(f"parity K6 xception {name}: x, dy {tuple(x.shape)} bf16, d {d}: max |d| to the f64 "
+            f"truth {res['K6']:.4g} (plain {res['plain']:.4g}), to the plain "
+            f"{res['vs_plain']:.4g}; two launches bit-identical; "
+            f"{kdw.k6_plan(*x.shape, 3, d, x.element_size(), kdw._sm_count(0))}; {count} per step")
+        shapes.append((name, x, dy, d, count, res))
+    del x, dy
+
+    cfg = SegTrainConfig(backbone="xception", head="deeplab")
+    model = TextSegmenter(backbone="xception", head="deeplab", output_stride=8, middle_repeats=8,
+                          dtype=bf).init_weights(torch.Generator().manual_seed(SEED)).to(dev)
+    pages = rng.uniform(0.6, 1.0, (BATCH, PAGE, PAGE, 3)).astype(np.float32)
+    masks = text_targets(rng, BATCH, PAGE, PAGE)
+    pages = np.where(masks > 0, rng.uniform(0.0, 0.3, pages.shape), pages).astype(np.float32)
+    batch = {"image": torch.from_numpy(pages).to(dev), "mask": torch.from_numpy(masks).to(dev)}
+    depthwise.USE_CUSTOM_WGRAD = True
+    real_wgrad, real_plain, seen = depthwise.depthwise_wgrad, kdw.depthwise_wgrad_reference, []
+
+    def catch(x, dy, k, d):
+        seen.append((x.shape[1], x.shape[3], d))
+        return real_wgrad(x, dy, k, d)
+
+    def no_plain(x, *args):
+        if x.is_cuda:
+            raise AssertionError("a CUDA tensor reached K6's plain version on the Xception path")
+        return real_plain(x, *args)
+
+    step = make_seg_train_step(model, cfg)
+    state = create_train_state(model, cfg.optimizer)
+    grads = {}
+
+    def keep_grads(opt, args, kwargs):
+        for name, p in model.named_parameters():
+            grads[name] = 0.0 if p.grad is None else p.grad.abs().max().item()
+
+    hook = state.optimizer.register_step_pre_hook(keep_grads)
+    depthwise.depthwise_wgrad, kdw.depthwise_wgrad_reference = catch, no_plain
+    launches = []
+    try:
+        for i in range(3):
+            params = {n: p.detach().clone() for n, p in model.named_parameters()}
+            stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+            seen.clear()
+            kdw.K6_LAUNCHES = 0
+            _, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            launches.append(kdw.K6_LAUNCHES)
+            bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+            unmoved = [n for n, p in model.named_parameters()
+                       if grads[n] > 0 and torch.equal(p, params[n])]
+            zero = [n for n, g in grads.items() if g == 0]
+            moved = set(changed(stats, dict(model.named_buffers())))
+            still = [n for n in stats if n not in moved]
+            want = sorted(Counter({(h, c, d): n for _, h, c, d, n in XCEPTION_SHAPES}).elements())
+            if (kdw.K6_LAUNCHES != 35 or sorted(seen) != want or bad or unmoved or still
+                    or not all(np.isfinite(g) for g in grads.values())):
+                raise AssertionError(
+                    f"xception step {i}: K6 launched {kdw.K6_LAUNCHES} (want 35) at "
+                    f"{sorted(Counter(seen).items())}, non-finite metrics {bad}, unmoved params "
+                    f"{unmoved}, unmoved BN statistics {still}")
+            log(f"xception seg step {i}: K6 {kdw.K6_LAUNCHES} launches at the "
+                f"{len(set(seen))} shapes of XCEPTION_SHAPES; "
+                + ", ".join(f"{k} {v.item():.5g}" for k, v in metrics.items())
+                + f"; {len(grads)} grads finite ({len(zero)} exactly 0: {zero[:4]}), the others' "
+                f"parameters moved, all {len(stats) // 2} BN statistics moved")
+    finally:
+        depthwise.depthwise_wgrad, kdw.depthwise_wgrad_reference = real_wgrad, real_plain
+        hook.remove()
+
+    tot = [0.0] * 4
+    for name, x, dy, d, count, _ in shapes:
+        c = x.shape[-1]
+        w = torch.randn((c, 1, 3, 3), device=dev).to(bf)
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        kern = lambda: kdw.depthwise_wgrad(x, dy, 3, d)  # noqa: E731
+        plain = lambda: kdw.depthwise_wgrad_reference(x, dy, 3, d)  # noqa: E731
+        cudnn = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            dyn, xn, w, None, [1, 1], [d, d], [d, d], False, [0, 0], c, [False, True, False])
+        k_ms = (cuda_ms(kern, iters=10) + cuda_ms(kern, iters=10)) / 2
+        p_ms, t_cudnn = cuda_ms(plain, iters=3, warmup=1), cuda_ms(cudnn, iters=10)
+        dev_ms = device_ms(kern, "dw_wgrad")
+        log(f"time K6 xception {name} {tuple(x.shape)} d {d}: kernel {k_ms:.4f} ms, device time "
+            f"{dev_ms:.4f} ms ({2 * x.numel() * 2 / dev_ms / 1e6:.0f} GB/s of x and dy), plain f32 "
+            f"{p_ms:.4f} ms, cuDNN bf16 wgrad {t_cudnn:.4f} ms; {count} per step")
+        for i, t in enumerate((k_ms, p_ms, t_cudnn, dev_ms)):
+            tot[i] += count * t
+    nbytes = sum(count * 2.0 * x.numel() * x.element_size() for _, x, _, _, count, _ in shapes)
+    flop = sum(count * 2.0 * x.numel() * 9 for _, x, _, _, count, _ in shapes)
+    k6 = {"ms": tot[0], "plain": tot[1], "lib": tot[2], "launches": launches[0],
+          "err": max(r["vs_plain"] for *_, r in shapes)}
+    k6["bound"], k6["by"] = bound(flop, nbytes)
+    log(f"time K6 xception (one step's 35 launches): {tot[0]:.4f} ms, device time {tot[3]:.4f} "
+        f"ms, plain f32 {tot[1]:.4f} ms, cuDNN bf16 wgrad {tot[2]:.4f} ms, bound "
+        f"{k6['bound']:.4f} ms ({k6['by']})  [{smi}]")
+    del shapes
+
+    runs = []
+    for flag in (True, False, False, True):
+        depthwise.USE_CUSTOM_WGRAD = flag
+        before = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(state, batch), iters=XCEPTION_ITERS, warmup=1)
+        runs.append((flag, ms, torch.cuda.max_memory_allocated() / 2**30, before))
+    for flag in (True, False):
+        ms = [m for f, m, *_ in runs if f == flag]
+        peak, before = max((g, b) for f, _, g, b in runs if f == flag)
+        log(f"time xception seg step, flag {'on (K6)' if flag else 'off (cuDNN wgrad)'}: "
+            + ", ".join(f"{m:.3f}" for m in ms) + f" ms per batch of {BATCH} (medians of "
+            f"{XCEPTION_ITERS}, order on/off/off/on) = {2 * BATCH / sum(ms) * 1e3:.2f} training "
+            f"pages/s; peak device memory {peak:.2f} GiB, of which {before:.3f} GiB held before "
+            f"the step  [{smi}]")
+    depthwise.USE_CUSTOM_WGRAD = True
+    profile_run(lambda: step(state, batch), "xception seg step, flag on", runs=1)
+    return k6
+
+
+def attention_phase(dev, rng, tr) -> None:
+    """The attention U-Net (``InpaintUNet(attention=True, attention_sn=
+    True)``, depth 8, 512^2, batch 8, bf16, fused stem): three train steps
+    with K1 7, K2 1, K3 8, K4 1, K5 1 launches each, finite terms, u and v
+    of the four spectral-norm projections moved in each, ``gamma`` off 0
+    after the first; an eval forward leaves u and v as they are; one step
+    with ``grad_accum=2``: the launches twice over (once per microbatch),
+    finite terms."""
+    import dataclasses
+
+    from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
+    from text_segmentation_image_inpainting_tpu_torch.train.config import InpaintTrainConfig
+    from text_segmentation_image_inpainting_tpu_torch.train.inpaint import make_inpaint_train_step
+    from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
+
+    bf = torch.bfloat16
+    model = InpaintUNet(depth=8, attention=True, attention_sn=True, dtype=bf).init_weights(
+        torch.Generator().manual_seed(SEED + 6)).to(dev)
+    cfg = InpaintTrainConfig(attention=True, attention_sn=True, loss=tr["loss_cfg"])
+    state = create_train_state(model, cfg.optimizer)
+    batch, vgg = tr["batch"], tr["vgg"]
+    spectral = lambda: {n: b.clone() for n, b in model.named_buffers()  # noqa: E731
+                        if n.endswith((".u", ".v"))}
+
+    def counts():
+        return {"K1": kpc.K1_LAUNCHES, "K2": kpc.K2_LAUNCHES, "K3": kpc.K3_LAUNCHES,
+                "K4": kvs.K4_LAUNCHES, "K5": kvs.K5_LAUNCHES}
+
+    def reset():
+        kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = kpc.K3_LAUNCHES = 0
+        kvs.K4_LAUNCHES = kvs.K5_LAUNCHES = 0
+
+    one = {"K1": 7, "K2": 1, "K3": 8, "K4": 1, "K5": 1}
+    for accum in (1, 1, 1, 2):
+        step = make_inpaint_train_step(model, dataclasses.replace(cfg, grad_accum=accum), vgg)
+        uv = spectral()
+        reset()
+        _, terms = step(state, batch)
+        torch.cuda.synchronize()
+        got, want = counts(), {k: accum * v for k, v in one.items()}
+        bad = [k for k, v in terms.items() if not torch.isfinite(v)]
+        moved = set(changed(uv, spectral()))
+        still = [n for n in uv if n not in moved]
+        gamma = model.attn.gamma.item()
+        if got != want or bad or still or len(uv) != 8 or gamma == 0.0:
+            raise AssertionError(f"attention step (grad_accum {accum}): launches {got} (want "
+                                 f"{want}), non-finite terms {bad}, u/v unmoved {still}, gamma "
+                                 f"{gamma}")
+        log(f"attention step, grad_accum {accum}: launches {got}; terms "
+            + ", ".join(f"{k} {v.item():.5g}" for k, v in terms.items())
+            + f"; u and v of the 4 spectral-norm projections moved; gamma {gamma:.4g}")
+    model.eval()
+    uv = spectral()
+    with torch.no_grad():
+        out = model(batch["image"] * batch["mask"], batch["mask"])
+    torch.cuda.synchronize()
+    if changed(uv, spectral()) or not torch.isfinite(out).all():
+        raise AssertionError("attention eval forward moved u/v or gave non-finite output")
+    log(f"attention eval forward: out {tuple(out.shape)} finite; u and v unchanged")
+
+
+def state_snapshot(state) -> dict:
+    """Every tensor a train step moves: parameters, buffers (BN
+    statistics, u/v), the optimizer's state and the device lr."""
+    snap = {f"param {n}": p.detach().clone() for n, p in state.model.named_parameters()}
+    snap.update({f"buffer {n}": b.clone() for n, b in state.model.named_buffers()})
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    for p, st in state.optimizer.state.items():
+        for k, v in st.items():
+            snap[f"adam {k} {names[id(p)]}"] = v.clone()
+    if state.capturable:
+        snap["lr"] = state.lr.clone()
+    return snap
+
+
+def run_distance(a: dict, b: dict, names) -> float:
+    """Root mean square over ``names`` of each tensor's relative L2
+    distance between two runs' snapshots."""
+    rel = [rel_l2(a[n].double(), b[n].double()) if b[n].abs().max() > 0
+           else (a[n].double() - b[n].double()).norm().item() for n in names]
+    return float(np.sqrt(np.mean(np.square(rel)))) if rel else 0.0
+
+
+GRAPH_EAGER_RUNS = 3
+# the graph run against the eager runs' own spread, where they are not
+# bit-equal: an average over hundreds of tensors of the same kind of noise
+# lands near 1, a replay that went wrong orders of magnitude off
+GRAPH_NOISE_RATIO = 1.5
+
+
+def graph_phase(dev, rng, tr, smi: str) -> None:
+    """``make_multi_step`` on the card: k = 4 steps of the inpaint step
+    (fused stem) and of the seg step (``USE_CUSTOM_WGRAD`` on), each as a
+    CUDA graph, against the same 8 steps (two dispatches: a warm-up step,
+    the capture, 7 replays) run eagerly from the same state and batches,
+    ``GRAPH_EAGER_RUNS`` times, cuDNN deterministic in all runs. Every
+    tensor (parameters, buffers, optimizer state, lr, metrics) that the
+    eager runs leave bit-equal must be bit-equal in the graph run. Where
+    they differ (the seg step: the bilinear resizes' backward adds with
+    atomics), the graph run's distance to the eager runs (the RMS over
+    those tensors of the relative L2 distance, averaged over the eager
+    runs) may not exceed the eager runs' own (averaged over their pairs)
+    by more than ``GRAPH_NOISE_RATIO``: a replay that went wrong (a stale
+    lr or batch, gradients that pile up) moves it by orders of magnitude.
+    The inpaint run starts in warm-up (``warmup_steps=3``: lr 0 at step 0)
+    and its device lr must follow the schedule, eagerly and across the
+    replays. Then ms per step, eager and graph, and the device kernels per
+    replay."""
+    from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet, TextSegmenter
+    from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+    from text_segmentation_image_inpainting_tpu_torch.train.config import (
+        InpaintTrainConfig,
+        OptimizerConfig,
+        SegTrainConfig,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.train.inpaint import make_inpaint_train_step
+    from text_segmentation_image_inpainting_tpu_torch.train.multistep import make_multi_step
+    from text_segmentation_image_inpainting_tpu_torch.train.seg import make_seg_train_step
+    from text_segmentation_image_inpainting_tpu_torch.train.state import (
+        create_train_state,
+        learning_rate_at,
+    )
+
+    bf, k = torch.bfloat16, 4
+    depthwise.USE_CUSTOM_WGRAD = True
+    torch.backends.cudnn.deterministic = True  # in every run alike: less eager-to-eager noise
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def inpaint_case():
+        opt = OptimizerConfig(warmup_steps=3)
+        cfg = InpaintTrainConfig(loss=tr["loss_cfg"], optimizer=opt)
+        model = InpaintUNet(depth=8, dtype=bf).init_weights(
+            torch.Generator().manual_seed(SEED + 8)).to(dev)
+        holes = torch.from_numpy(np.stack([hole_mask(rng, BATCH, PAGE, PAGE)[..., None]
+                                           for _ in range(2 * k)])).to(dev)
+        pages = torch.rand((2 * k, BATCH, PAGE, PAGE, 3), generator=gen, device=dev)
+        return (model, opt, lambda m: make_inpaint_train_step(m, cfg, tr["vgg"]),
+                {"image": pages, "mask": holes})
+
+    def seg_case():
+        cfg = SegTrainConfig()
+        model = TextSegmenter(dtype=bf).init_weights(torch.Generator().manual_seed(SEED + 9)).to(dev)
+        masks = torch.from_numpy(np.stack([text_targets(rng, BATCH, PAGE, PAGE)
+                                           for _ in range(2 * k)])).to(dev)
+        pages = torch.rand((2 * k, BATCH, PAGE, PAGE, 3), generator=gen, device=dev)
+        pages = torch.where(masks > 0, pages * 0.3, 0.6 + 0.4 * pages)
+        return model, cfg.optimizer, lambda m: make_seg_train_step(m, cfg), {
+            "image": pages, "mask": masks}
+
+    for label, case in (("inpaint step", inpaint_case), ("seg step, flag on", seg_case)):
+        model, opt, make_step, batches = case()
+        init = {n: t.clone() for n, t in model.state_dict().items()}
+
+        def fresh():
+            model.load_state_dict(init)
+            return create_train_state(model, opt, capturable=True)
+
+        eager = []
+        for run in range(GRAPH_EAGER_RUNS):
+            state, step, metrics = fresh(), make_step(model), []
+            for i in range(2 * k):
+                state, m = step(state, {n: v[i] for n, v in batches.items()})
+                metrics.append(m)
+                want_lr = learning_rate_at(opt, i + 1)
+                if abs(state.lr.item() - want_lr) > 1e-6 * want_lr:
+                    raise AssertionError(f"{label}, eager run {run}: lr {state.lr.item()} after "
+                                         f"step {i}, the schedule's {want_lr}")
+            snap = state_snapshot(state)
+            snap.update({f"metric {n}": torch.stack([m[n] for m in metrics]) for n in metrics[0]})
+            eager.append(snap)
+        state = fresh()
+        multi = make_multi_step(make_step(model))
+        kpc.K1_LAUNCHES = kdw.K6_LAUNCHES = 0
+        metrics, lrs = [], []
+        for half in range(2):
+            state, m = multi(state, {n: v[half * k:(half + 1) * k] for n, v in batches.items()})
+            metrics.append(m)
+            lrs.append(state.lr.item())
+        torch.cuda.synchronize()
+        counted = {"K1": kpc.K1_LAUNCHES, "K6": kdw.K6_LAUNCHES}
+        graph = state_snapshot(state)
+        graph.update({f"metric {n}": torch.cat([m[n] for m in metrics]) for n in metrics[0]})
+        want_lrs = [learning_rate_at(opt, k), learning_rate_at(opt, 2 * k)]
+        if state.step != 2 * k or any(abs(a - b) > 1e-6 * b for a, b in zip(lrs, want_lrs)):
+            raise AssertionError(f"{label} graph: step {state.step}, lr {lrs} after the two "
+                                 f"dispatches, the schedule's {want_lrs}")
+        pairs = [(i, j) for i in range(len(eager)) for j in range(i + 1, len(eager))]
+        noisy = [n for n in graph if any(not torch.equal(eager[0][n], e[n]) for e in eager[1:])]
+        exact = [n for n in graph if n not in noisy]
+        off = [n for n in exact if not torch.equal(graph[n], eager[0][n])]
+        for group in ("param", "buffer", "adam", "lr", "metric"):
+            names = [n for n in graph if n.split(" ")[0] == group]
+            e_max = max([(eager[0][n].double() - eager[1][n].double()).abs().max().item()
+                         for n in names] or [0.0])
+            g_max = max([(graph[n].double() - eager[0][n].double()).abs().max().item()
+                         for n in names] or [0.0])
+            log(f"graph {label} {group}: {len(names)} tensors, bit-equal in all eager runs "
+                f"{sum(n in exact for n in names)}, and the graph run bit-equal to them in "
+                f"{sum(n in exact and n not in off for n in names)}; max |d| eager 1 - eager 2 "
+                f"{e_max:.4g}, graph - eager 1 {g_max:.4g}")
+        d_eager = float(np.mean([run_distance(eager[i], eager[j], noisy) for i, j in pairs]))
+        d_graph = float(np.mean([run_distance(graph, e, noisy) for e in eager]))
+        log(f"graph {label}: {len(noisy)} of {len(graph)} tensors differ between eager runs; "
+            f"RMS relative L2 distance eager-eager {d_eager:.4g}, graph-eager {d_graph:.4g} "
+            f"(ratio {d_graph / d_eager if d_eager else 0:.3f})")
+        if off or d_graph > GRAPH_NOISE_RATIO * d_eager:
+            raise AssertionError(f"{label}: the graph run is off eager: {len(off)} tensors "
+                                 f"bit-equal in every eager run differ ({off[:6]}), distance "
+                                 f"{d_graph:.4g} against the eager runs' {d_eager:.4g}")
+        log(f"graph {label}: {2 * k} steps as 2 dispatches of {k} (a warm-up step, the capture, "
+            f"7 replays); lr after each dispatch {lrs} = the schedule's; launch counters over "
+            f"both dispatches {counted} (the warm-up and the capture)")
+        step = make_step(model)
+        one = {n: v[0] for n, v in batches.items()}
+        four = {n: v[:k] for n, v in batches.items()}
+        times = []
+        for how in ("eager", "graph", "graph", "eager"):
+            if how == "eager":
+                times.append(cuda_ms(lambda: step(state, one), iters=2 * k, warmup=1))
+            else:
+                times.append(cuda_ms(lambda: multi(state, four), iters=2, warmup=1) / k)
+        per_replay = kernels_per_call(lambda: multi(state, four), runs=1) / k
+        log(f"time {label}: ms per step eager / graph / graph / eager "
+            + " / ".join(f"{t:.3f}" for t in times)
+            + f"; device kernels per replay (profiler, the batch copies included) "
+            f"{per_replay:.0f}  [{smi}]")
+        del model, batches, eager, graph, multi, state
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+
+
+def evaluate_phase(smi: str) -> None:
+    """``train/evaluate.py`` on the card at 512^2, batch 8, 2 batches per
+    task: finite numbers under JAX's keys."""
+    from text_segmentation_image_inpainting_tpu_torch.train import evaluate
+
+    keys = {"seg": {"iou", "precision", "recall"}, "inpaint": {"psnr", "ssim", "l1"},
+            "pipeline": {"mask_iou"}}
+    for task, want in keys.items():
+        t0 = time.perf_counter()
+        res = evaluate.main(["--task", task, "--batches", "2"])
+        got = {k for k in res if k not in ("task", "batches", "batch_size")}
+        if got != want or not all(np.isfinite(res[k]) for k in want):
+            raise AssertionError(f"evaluate --task {task}: {res}")
+        log(f"evaluate --task {task} --batches 2: {json.dumps(res)} in "
+            f"{time.perf_counter() - t0:.1f} s")
 
 
 def profile_run(fn, label: str, runs: int = 3) -> float:

@@ -162,6 +162,13 @@ def test_port_imports_no_jax_or_flax():
         "import text_segmentation_image_inpainting_tpu_torch.ops.resize\n"
         "import text_segmentation_image_inpainting_tpu_torch.ops.morphology\n"
         "import text_segmentation_image_inpainting_tpu_torch.ops.conv\n"
+        "import text_segmentation_image_inpainting_tpu_torch.models.experiments\n"
+        "import text_segmentation_image_inpainting_tpu_torch.models.xception\n"
+        "import text_segmentation_image_inpainting_tpu_torch.train.accum\n"
+        "import text_segmentation_image_inpainting_tpu_torch.train.multistep\n"
+        "import text_segmentation_image_inpainting_tpu_torch.train.evaluate\n"
+        "import text_segmentation_image_inpainting_tpu_torch.utils.logging\n"
+        "import text_segmentation_image_inpainting_tpu_torch.utils.profiling\n"
         "from text_segmentation_image_inpainting_tpu_torch.data.pipeline import (\n"
         "    DevicePrefetcher, PageSource, make_page_stream_u8)\n"
         "for kind in ('seg', 'inpaint'):\n"

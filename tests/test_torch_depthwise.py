@@ -20,6 +20,13 @@ from text_segmentation_image_inpainting_tpu.ops.pallas import depthwise_wgrad as
 from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import MobileNetV2Encoder
 from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
+from tests.test_torch_bridge import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
 
 
 @pytest.fixture(autouse=True)

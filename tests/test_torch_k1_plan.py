@@ -21,6 +21,14 @@ from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
     mask_window_sum,
     pconv_epilogue,
 )
+from tests.test_torch_bridge import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 SMS = 132
 # (level, N, H = W, Cout, Cin) of InpaintUNet(depth=8)'s decoder at 512^2, batch 8

@@ -35,6 +35,14 @@ from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
     mask_window_sum,
     pconv_epilogue,
 )
+from tests.test_torch_bridge import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 CU = Path(kpc.__file__).resolve().parents[2] / "csrc" / "partial_conv.cu"
 TH, TW = kpc.K2_TH, kpc.K2_TW

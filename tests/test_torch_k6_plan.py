@@ -33,6 +33,14 @@ import torch
 from chip_smoke import K6_RAGGED, SEG_SHAPES
 from text_segmentation_image_inpainting_tpu.ops.conv import conv2d as jconv2d
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
+from tests.test_torch_bridge import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 CU = Path(kdw.__file__).resolve().parents[2] / "csrc" / "depthwise_wgrad.cu"
 SMS = 132  # an H100 SXM

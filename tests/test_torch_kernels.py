@@ -28,9 +28,13 @@ plain version are held to the f64 truth within 1e-5 of Σ|x·dy| per
 ``check_wgrad``), at ``K6_RAGGED`` (C off 16 bytes, k 1/5/7, f32, a
 partial last wave, column strips); its workspace is shared by calls of
 other shapes without changing a bit, and its result permutes to the
-weight's (C, 1, k, k) layout without a copy. The page server on the card
-(prefetcher stream, pinned result copies, depth 2 and chunk 2) returns
-``run``'s bytes exactly, with K1/K2 launched once per ``run``.
+weight's (C, 1, k, k) layout without a copy; K6 also at an Xception
+shape (C 728, whose 64-byte channel blocks end 24 channels into the
+last). The page server on the card (prefetcher stream, pinned result
+copies, depth 2 and chunk 2) returns ``run``'s bytes exactly, with K1/K2
+launched once per ``run``. An inpaint step captured as a CUDA graph
+(``train/multistep.py``) replays bit-equal to the same steps run eagerly,
+its learning rate following the warm-up schedule across the replays.
 """
 
 import numpy as np
@@ -47,6 +51,7 @@ from chip_smoke import (
     check_stem_dx_repeats,
     check_stem_pool,
     check_wgrad,
+    state_snapshot,
     stem_weights,
 )
 from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet
@@ -547,3 +552,78 @@ def test_dense_serve_is_run_bit_for_bit(cuda):
         assert gc.dtype == np.uint8 and gm.dtype == np.uint8
         np.testing.assert_array_equal(gc, wc)
         np.testing.assert_array_equal(gm, wm)
+
+
+def test_k6_at_an_xception_shape(cuda):
+    """C 728 bf16 (1456 bytes a pixel) at d 2, the Xception middle flow's."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((2, 64, 64, 728), generator=g, device=cuda).to(torch.bfloat16)
+    dy = torch.randn((2, 64, 64, 728), generator=g, device=cuda).to(torch.bfloat16)
+    res = check_wgrad("K6 xception 64x64x728 d2", x, dy, 3, 2)
+    assert res["vs_plain"] < 1e-2
+
+
+def test_captured_inpaint_step_replays_eager_bit_for_bit(cuda):
+    """Two dispatches of k = 2 (a warm-up step, the capture, 3 replays)
+    against 4 eager steps from the same state and batches: every parameter,
+    buffer, optimizer state, the lr and the loss terms bit-equal (cuDNN
+    deterministic in both; two eager runs are bit-equal first)."""
+    from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import (
+        InpaintLossConfig,
+        make_vgg,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.train.config import (
+        InpaintTrainConfig,
+        OptimizerConfig,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.train.inpaint import (
+        make_inpaint_train_step,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.train.multistep import make_multi_step
+    from text_segmentation_image_inpainting_tpu_torch.train.state import (
+        create_train_state,
+        learning_rate_at,
+    )
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss = InpaintLossConfig(vgg_dtype="bfloat16", fused_stem=True)
+        opt = OptimizerConfig(warmup_steps=2)
+        cfg = InpaintTrainConfig(depth=3, loss=loss, optimizer=opt)
+        torch.manual_seed(0)
+        vgg = make_vgg(loss).to(cuda)
+        model = InpaintUNet(depth=3, dtype=torch.bfloat16).init_weights(
+            torch.Generator().manual_seed(1)).to(cuda)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        g = torch.Generator(device=cuda).manual_seed(2)
+        batches = {"image": torch.rand((4, 2, 64, 64, 3), generator=g, device=cuda),
+                   "mask": (torch.rand((4, 2, 64, 64, 1), generator=g, device=cuda) > 0.3).float()}
+        runs = []
+        for how in ("eager", "eager", "graph"):
+            model.load_state_dict(init)
+            state = create_train_state(model, opt, capturable=True)
+            step = make_inpaint_train_step(model, cfg, vgg)
+            terms = []
+            if how == "eager":
+                for i in range(4):
+                    state, t = step(state, {k: v[i] for k, v in batches.items()})
+                    terms.append(t)
+                terms = {k: torch.stack([t[k] for t in terms]) for k in terms[0]}
+            else:
+                multi = make_multi_step(step)
+                for half in (0, 1):
+                    state, t = multi(state, {k: v[2 * half:2 * half + 2]
+                                             for k, v in batches.items()})
+                    terms.append(t)
+                terms = {k: torch.cat([t[k] for t in terms]) for k in terms[0]}
+            assert state.step == 4
+            assert abs(state.lr.item() - learning_rate_at(opt, 4)) <= 1e-6 * learning_rate_at(opt, 4)
+            snap = state_snapshot(state)
+            snap.update({f"term {k}": v for k, v in terms.items()})
+            runs.append(snap)
+        eager, again, graph = runs
+        for k in eager:
+            assert torch.equal(again[k], eager[k]), f"two eager runs differ in {k}"
+            assert torch.equal(graph[k], eager[k]), f"the graph run differs from eager in {k}"
+    finally:
+        torch.backends.cudnn.deterministic = False

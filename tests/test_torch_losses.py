@@ -18,6 +18,14 @@ from text_segmentation_image_inpainting_tpu.losses import inpainting as jloss
 from text_segmentation_image_inpainting_tpu.train import metrics as jmetrics
 from text_segmentation_image_inpainting_tpu_torch.losses import inpainting as tloss
 from text_segmentation_image_inpainting_tpu_torch.train import metrics as tmetrics
+from tests.test_torch_bridge import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 RTOL, ATOL = 1e-4, 1e-6
 

@@ -16,6 +16,7 @@ import torch
 from tests.test_torch_bridge import (
     SEG_WIDTH,
     jax_unet_variables,
+    one_torch_thread,
     port_segmenter,
     port_unet,
 )
@@ -24,6 +25,13 @@ from text_segmentation_image_inpainting_tpu.models import MobileNetV2Encoder as 
 from text_segmentation_image_inpainting_tpu.models import TextSegmenter as JaxTextSegmenter
 from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet, MobileNetV2Encoder
 from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import round_channels
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 RTOL, ATOL = 1e-3, 1e-4
 

@@ -21,6 +21,14 @@ from text_segmentation_image_inpainting_tpu_torch.ops import partial_conv as tpc
 from text_segmentation_image_inpainting_tpu_torch.ops import resize as tresize
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import build
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+from tests.test_torch_bridge import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 RTOL, ATOL = 1e-3, 1e-4
 

@@ -26,6 +26,7 @@ from tests.test_torch_bridge import (
     SEG_WIDTH,
     jax_segmenter_variables,
     jax_unet_variables,
+    one_torch_thread,
     port_segmenter,
     port_unet,
 )
@@ -38,6 +39,13 @@ from text_segmentation_image_inpainting_tpu_torch.pipeline import (
     pad_to_multiple,
     preprocess_page,
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 RTOL, ATOL = 1e-3, 1e-4
 DEPTH = 3

@@ -16,6 +16,14 @@ import torch
 import text_segmentation_image_inpainting_tpu_torch.ops.depthwise as tdw
 from text_segmentation_image_inpainting_tpu_torch.data.pipeline import make_dataset
 from text_segmentation_image_inpainting_tpu_torch.train import loop, run_inpaint, run_seg
+from tests.test_torch_bridge import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 COMMON = ["--batch-size", "2", "--image-size", "32", "--log-every", "4", "--val-batches", "0",
           "--ckpt-every", "2", "--device", "cpu"]

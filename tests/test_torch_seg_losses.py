@@ -14,6 +14,14 @@ import torch
 
 from text_segmentation_image_inpainting_tpu.losses import segmentation as jseg
 from text_segmentation_image_inpainting_tpu_torch.losses import segmentation as tseg
+from tests.test_torch_bridge import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 RTOL = 1e-6
 

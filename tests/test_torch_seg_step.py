@@ -24,7 +24,7 @@ import pytest
 import torch
 
 import text_segmentation_image_inpainting_tpu_torch.ops.depthwise as tdw
-from tests.test_torch_bridge import jax_segmenter_variables, port_segmenter
+from tests.test_torch_bridge import jax_segmenter_variables, one_torch_thread, port_segmenter
 from text_segmentation_image_inpainting_tpu.models import TextSegmenter as JaxTextSegmenter
 from text_segmentation_image_inpainting_tpu.train import config as jconfig
 from text_segmentation_image_inpainting_tpu.train.seg import make_seg_train_step as jax_train_step
@@ -40,6 +40,13 @@ from text_segmentation_image_inpainting_tpu_torch.train.state import (
     create_train_state,
     freeze_mask_for,
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 HW, LR = (32, 32), 0.01
 
@@ -190,7 +197,14 @@ def test_eval_step_thresholds_sigmoid_of_f32_logits(setup):
     assert all(0.0 <= v.item() <= 1.0 for v in metrics.values())
 
 
-def test_grad_accum_waits_for_its_port():
-    cfg = dataclasses.replace(tconfig.SegTrainConfig(), grad_accum=2)
-    with pytest.raises(NotImplementedError, match="accum"):
-        make_seg_train_step(None, cfg)
+def test_grad_accum_waits_for_its_port(setup):
+    """grad_accum is ported (``train/accum.py``, held against JAX in
+    ``tests/test_torch_accum_multistep.py``); it refuses what JAX's
+    refuses: k < 1 and a batch that k does not divide."""
+    variables, batch, _ = setup
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for k, match in ((3, "divisible"), (0, ">= 1")):
+        model = port_segmenter(variables)
+        cfg = dataclasses.replace(_cfg(tconfig, False), grad_accum=k)
+        with pytest.raises(ValueError, match=match):
+            make_seg_train_step(model, cfg)(create_train_state(model, cfg.optimizer), tb)

@@ -29,6 +29,14 @@ import pytest
 import torch
 
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
+from tests.test_torch_bridge import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 CU = Path(kvs.__file__).resolve().parents[2] / "csrc" / "vgg_stem.cu"
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper

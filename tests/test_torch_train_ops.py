@@ -18,6 +18,14 @@ from text_segmentation_image_inpainting_tpu.ops import partial_conv as jpc
 from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import BatchNorm
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
 from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import partial_conv2d
+from tests.test_torch_bridge import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 RTOL, ATOL = 1e-4, 1e-5
 

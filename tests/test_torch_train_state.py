@@ -15,6 +15,14 @@ from text_segmentation_image_inpainting_tpu.train import config as jconfig
 from text_segmentation_image_inpainting_tpu.train import state as jstate
 from text_segmentation_image_inpainting_tpu_torch.train import config as tconfig
 from text_segmentation_image_inpainting_tpu_torch.train import state as tstate
+from tests.test_torch_bridge import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 SHAPES = {"a": (3, 4), "b": (5,)}
 

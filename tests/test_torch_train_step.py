@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_bridge import jax_unet_variables, port_unet
+from tests.test_torch_bridge import jax_unet_variables, one_torch_thread, port_unet
 from tests.test_torch_vgg import _jax_vgg, _port_vgg
 from text_segmentation_image_inpainting_tpu.losses.inpainting import (
     InpaintLossConfig as JaxLossConfig,
@@ -37,6 +37,13 @@ from text_segmentation_image_inpainting_tpu_torch.train.inpaint import (
     make_inpaint_train_step,
 )
 from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 DEPTH, HW, LR = 3, (32, 32), 0.01
 
@@ -156,7 +163,15 @@ def test_eval_step_and_remat(setup):
     assert all(np.isfinite(v.item()) for v in metrics.values())
 
 
-def test_grad_accum_waits_for_its_port():
-    cfg = dataclasses.replace(tconfig.InpaintTrainConfig(), grad_accum=2)
-    with pytest.raises(NotImplementedError, match="accum"):
-        make_inpaint_train_step(None, cfg, None)
+def test_grad_accum_waits_for_its_port(setup):
+    """grad_accum is ported (``train/accum.py``, held against JAX in
+    ``tests/test_torch_accum_multistep.py``); it refuses what JAX's
+    refuses: k < 1 and a batch that k does not divide."""
+    unet_vars, vgg_vars, batch = setup
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for k, match in ((3, "divisible"), (0, ">= 1")):
+        model = port_unet(unet_vars, depth=DEPTH)
+        cfg = dataclasses.replace(tconfig.InpaintTrainConfig(depth=DEPTH), grad_accum=k)
+        step = make_inpaint_train_step(model, cfg, _port_vgg(vgg_vars))
+        with pytest.raises(ValueError, match=match):
+            step(create_train_state(model, cfg.optimizer), tb)

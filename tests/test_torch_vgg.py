@@ -23,6 +23,14 @@ from text_segmentation_image_inpainting_tpu_torch.compat.from_jax import (
 )
 from text_segmentation_image_inpainting_tpu_torch.models import vgg as tvgg
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
+from tests.test_torch_bridge import one_torch_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # torch's CPU ops on one thread: six test workers share the cores
+    yield from one_torch_thread()
+
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -189,3 +197,39 @@ def test_loads_a_torchvision_state_dict():
     del sd["features.14.bias"]
     with pytest.raises(KeyError, match="features.14.bias"):
         tvgg.load_vgg16_state_dict(tvgg.VGG16Features(), sd)
+
+
+def _old_normalize(x):
+    """The per-call constants the module built before: two host-to-device
+    copies a call on CUDA."""
+    mean = torch.tensor(tvgg.IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(tvgg.IMAGENET_STD, dtype=x.dtype, device=x.device)
+    return (x - mean) / std
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64])
+def test_normalize_constants_live_on_the_module(vgg, dtype, monkeypatch):
+    """The ImageNet constants are buffers built once (f64, outside the
+    state_dict) and rounded once to x's dtype: the normalised input and
+    the loss terms are bit-equal to the per-call constants'."""
+    from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import (
+        InpaintLossConfig,
+        inpainting_loss,
+    )
+
+    _, variables, _, x = vgg
+    model = _port_vgg(variables, dtype=dtype)
+    if dtype == torch.float64:
+        model = model.double()
+    assert not any("imagenet" in k for k in model.state_dict())
+    xt = torch.from_numpy(x).to(dtype)
+    assert torch.equal(model.normalize_input(xt), _old_normalize(xt))
+    rng = np.random.default_rng(7)
+    gt = torch.from_numpy(rng.uniform(0, 1, x.shape).astype(np.float32)).to(dtype)
+    mask = torch.from_numpy((rng.random((*x.shape[:3], 1)) > 0.3).astype(np.float32)).to(dtype)
+    cfg = InpaintLossConfig(vgg_dtype=str(dtype).split(".")[1])
+    _, new = inpainting_loss(xt, gt, mask, model, config=cfg)
+    monkeypatch.setattr(model, "normalize_input", _old_normalize)
+    _, old = inpainting_loss(xt, gt, mask, model, config=cfg)
+    for k in old:
+        assert torch.equal(new[k], old[k]), k

@@ -9,10 +9,13 @@ parameter names of ``models/``:
   conv bias    as is
   BatchNorm    scale -> weight, bias -> bias, batch_stats mean/var ->
                running_mean/running_var, num_batches_tracked = 0
+  spectral     the 'spectral' collection's u/v -> the conv's buffers u/v
+  gamma        as is (the attention block's 0-d gate)
 
 It reads the block structure from the tree itself (how many MobileNetV2
-blocks, which have an expand layer, how deep the U-Net is), so it needs
-no model code from either package and never imports jax or flax.
+blocks, which have an expand layer, which backbone and head a segmenter
+has, how deep the U-Net is, whether it has an attention block), so it
+needs no model code from either package and never imports jax or flax.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ class _Tree:
     def __init__(self, variables: Mapping[str, Any]):
         self.params = variables["params"]
         self.stats = variables.get("batch_stats", {})
+        self.spectral = variables.get("spectral", {})
         self.out: Dict[str, np.ndarray] = {}
 
     @staticmethod
@@ -49,6 +53,13 @@ class _Tree:
         self.out[key + ".running_mean"] = np.asarray(s["mean"])
         self.out[key + ".running_var"] = np.asarray(s["var"])
         self.out[key + ".num_batches_tracked"] = np.asarray(0, np.int64)
+
+    def spectral_conv(self, path, key):
+        """A ``SpectralNormConv2d``: its kernel (and bias) and u/v."""
+        self.conv(path, key)
+        s = self._at(self.spectral, path)
+        self.out[key + ".u"] = np.asarray(s["u"])
+        self.out[key + ".v"] = np.asarray(s["v"])
 
     def conv_bn(self, path, key):
         """A ``ConvBNAct``: flax ``conv``/``bn`` -> children ``0``/``1``."""
@@ -73,6 +84,34 @@ def _encoder(t: _Tree, path: tuple, prefix: str) -> None:
         t.bn(bpath + ("project_bn",), f"{key}.{j + 2}")
 
 
+def _xception(t: _Tree, path: tuple, prefix: str) -> None:
+    def block(bpath, key):
+        for i in _indices(t._at(t.params, bpath), r"sep(\d+)"):
+            t.conv_bn(bpath + (f"sep{i}", "dw"), f"{key}.seps.{i}.dw")
+            t.conv_bn(bpath + (f"sep{i}", "pw"), f"{key}.seps.{i}.pw")
+        if "skip" in t._at(t.params, bpath):
+            t.conv_bn(bpath + ("skip",), f"{key}.skip")
+
+    names = t._at(t.params, path)
+    for name in ("stem1", "stem2"):
+        t.conv_bn(path + (name,), prefix + name)
+    for i in _indices(names, r"entry(\d+)"):
+        block(path + (f"entry{i}",), f"{prefix}entry.{i}")
+    for r in _indices(names, r"mid(\d+)"):
+        block(path + (f"mid{r}",), f"{prefix}mid.{r}")
+    block(path + ("exit0",), prefix + "exit0")
+    for name in ("exit1", "exit2"):
+        t.conv_bn(path + (name, "dw"), f"{prefix}{name}.dw")
+        t.conv_bn(path + (name, "pw"), f"{prefix}{name}.pw")
+
+
+def xception_encoder_state_dict(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """``XceptionEncoder`` variables (any width, output stride and middle depth)."""
+    t = _Tree(variables)
+    _xception(t, (), "")
+    return t.out
+
+
 def mobilenet_v2_encoder_state_dict(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """``MobileNetV2Encoder`` variables (any width and output stride)."""
     t = _Tree(variables)
@@ -81,27 +120,42 @@ def mobilenet_v2_encoder_state_dict(variables: Mapping[str, Any]) -> Dict[str, n
 
 
 def text_segmenter_state_dict(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """``TextSegmenter(backbone='mobilenet_v2', head='mini')`` variables."""
+    """``TextSegmenter`` variables, of either backbone and either head."""
     t = _Tree(variables)
-    _encoder(t, ("encoder",), "encoder.")
+    if "stem1" in t.params["encoder"]:
+        _xception(t, ("encoder",), "encoder.")
+    else:
+        _encoder(t, ("encoder",), "encoder.")
     dec = ("decoder",)
-    for i in range(3):
-        t.conv_bn(dec + (f"aspp{i}",), f"decoder.aspp.{i}")
-    for name in ("fuse", "skip4", "dec4", "skip2", "dec2"):
+    if "image_pool" in t.params["decoder"]:  # DeepLabASPPDecoder
+        for i in range(4):
+            t.conv_bn(dec + (f"aspp{i}",), f"decoder.aspp.{i}")
+        names = ("image_pool", "fuse", "skip4", "dec0", "dec1")
+    else:
+        for i in range(3):
+            t.conv_bn(dec + (f"aspp{i}",), f"decoder.aspp.{i}")
+        names = ("fuse", "skip4", "dec4", "skip2", "dec2")
+    for name in names:
         t.conv_bn(dec + (name,), f"decoder.{name}")
     t.conv(dec + ("head",), "decoder.head")
     return t.out
 
 
 def inpaint_unet_state_dict(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """``InpaintUNet`` variables (any depth; the decoder's ``dec{lvl}``
-    becomes ``dec_convs.{depth-1-lvl}``, the deepest level first)."""
+    """``InpaintUNet`` variables (any depth, with or without the attention
+    block; the decoder's ``dec{lvl}`` becomes ``dec_convs.{depth-1-lvl}``,
+    the deepest level first)."""
     t = _Tree(variables)
     depth = len(_indices(t.params, r"enc(\d+)"))
     for i in range(depth):
         t.conv((f"enc{i}",), f"enc_convs.{i}.conv")
         if f"enc{i}_bn" in t.params:
             t.bn((f"enc{i}_bn",), f"enc_bns.{i}")
+    if "attn" in t.params:
+        spectral = "attn" in t.spectral
+        for name in ("query", "key", "value", "out"):
+            (t.spectral_conv if spectral else t.conv)(("attn", name), f"attn.{name}")
+        t.out["attn.gamma"] = np.asarray(t.params["attn"]["gamma"])
     for j in range(depth - 1):
         lvl = depth - 1 - j
         t.conv((f"dec{lvl}",), f"dec_convs.{j}.conv")

@@ -11,7 +11,9 @@ renders random glyph runs with PIL onto any base image and returns the
 exact binary mask of rendered pixels. With no dataset on disk,
 ``synthetic_page`` procedurally generates
 manga-like base pages (panels, tones, line art) so the full training
-path is exercisable end-to-end.
+path is exercisable end-to-end. PIL is imported where it draws: the
+samplers' native path (``data/native_pages.py``) needs none, so pages are
+drawn on a machine without PIL too.
 """
 
 from __future__ import annotations
@@ -19,12 +21,13 @@ from __future__ import annotations
 import string
 
 import numpy as np
-from PIL import Image, ImageDraw, ImageFont
 
 _CHARS = string.ascii_letters + string.digits + "!?.,;:「」…ー一二三人大小中出日月火水木金土"
 
 
 def _font(size: int):
+    from PIL import ImageFont
+
     try:
         return ImageFont.load_default(size=size)
     except TypeError:  # older PIL: fixed-size bitmap font
@@ -34,6 +37,8 @@ def _font(size: int):
 def synthetic_page(rng: np.random.Generator, size: tuple[int, int] = (512, 512)) -> np.ndarray:
     """Procedural manga-ish page: white bg, panel borders, gray tones,
     random line art. Returns (H, W, 3) float32 in [0, 1]."""
+    from PIL import Image, ImageDraw
+
     h, w = size
     img = Image.new("L", (w, h), color=255)
     draw = ImageDraw.Draw(img)
@@ -71,6 +76,8 @@ def overlay_text(
     Returns (image_with_text, text_mask) where text_mask is (H,W,1)
     float32 with 1 exactly on rendered glyph pixels.
     """
+    from PIL import Image, ImageDraw
+
     h, w = image.shape[:2]
     text_layer = Image.new("L", (w, h), color=0)
     draw = ImageDraw.Draw(text_layer)

@@ -1,5 +1,9 @@
 """``nn.Module``s of the page pipeline (NHWC activations)."""
 
+from text_segmentation_image_inpainting_tpu_torch.models.experiments import (
+    SelfAttention2d,
+    SpectralNormConv2d,
+)
 from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import (
     ConvBNAct,
     InvertedResidual,
@@ -10,16 +14,22 @@ from text_segmentation_image_inpainting_tpu_torch.models.partial_convolution imp
     PartialConv,
 )
 from text_segmentation_image_inpainting_tpu_torch.models.text_segmentation import (
+    DeepLabASPPDecoder,
     TextSegament,
     TextSegmenter,
 )
+from text_segmentation_image_inpainting_tpu_torch.models.xception import XceptionEncoder
 
 __all__ = [
     "ConvBNAct",
+    "DeepLabASPPDecoder",
     "InvertedResidual",
     "MobileNetV2Encoder",
     "InpaintUNet",
     "PartialConv",
+    "SelfAttention2d",
+    "SpectralNormConv2d",
     "TextSegament",
     "TextSegmenter",
+    "XceptionEncoder",
 ]

@@ -8,7 +8,7 @@ statistics). :func:`load_model` reads either format:
   * the port's own, written by :func:`save_model` (``torch.save``; read
     with ``weights_only=True``);
   * the JAX package's, written by its ``save_model`` (flax msgpack of the
-    ``{"params", "batch_stats"}`` tree), decoded by ``compat/msgpack.py``
+    ``{"params", "batch_stats"[, "spectral"]}`` tree), decoded by ``compat/msgpack.py``
     and carried onto the module's names by ``compat/from_jax.py``, so a
     JAX-trained model is served on the card without jax.
 
@@ -83,7 +83,9 @@ def tolerant_merge(target: Mapping[str, torch.Tensor], loaded: Mapping[str, Any]
 
 
 def save_model(path: str, module: nn.Module) -> None:
-    """One-file snapshot of ``module``'s state_dict (``torch.save``)."""
+    """One-file snapshot of ``module``'s state_dict (``torch.save``): the
+    parameters and the buffers, BatchNorm statistics and spectral norm's
+    u and v included."""
     torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, path)
 
 
@@ -101,10 +103,12 @@ def _jax_state_dict(tree: Mapping[str, Any], module: nn.Module) -> Dict[str, np.
         TextSegmenter,
     )
     from text_segmentation_image_inpainting_tpu_torch.models.vgg import VGG16Features
+    from text_segmentation_image_inpainting_tpu_torch.models.xception import XceptionEncoder
 
     layouts = ((TextSegmenter, from_jax.text_segmenter_state_dict),
                (InpaintUNet, from_jax.inpaint_unet_state_dict),
                (MobileNetV2Encoder, from_jax.mobilenet_v2_encoder_state_dict),
+               (XceptionEncoder, from_jax.xception_encoder_state_dict),
                (VGG16Features, from_jax.vgg16_features_state_dict))
     for cls, build in layouts:
         if isinstance(module, cls):

@@ -51,8 +51,9 @@ _ACTS = {
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm on NHWC input, in flax's arithmetic (flax
     ``BatchNorm(dtype=bf16, param_dtype=f32, momentum=0.9, epsilon=1e-5)``):
-    the statistics and affine stay f32, the input is promoted to f32 and
-    the result cast back to the input's dtype.
+    the statistics and affine stay f32, the input is promoted to at least
+    f32 (f64 stays f64, as flax computes a float64 model) and the result
+    cast back to the input's dtype.
 
     In training mode (unless ``frozen``) it normalises with the batch's
     mean and variance, taken in f32 over N, H, W as flax's
@@ -66,7 +67,7 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor, *, frozen: bool = False) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training and not frozen:
             mean = xf.mean(dim=(0, 1, 2))
             var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)

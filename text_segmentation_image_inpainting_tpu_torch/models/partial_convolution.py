@@ -10,7 +10,8 @@ stride-2 encoder the plain cuDNN formulation.
 
 State_dict names follow the torch oracle: ``enc_convs.{i}.conv``,
 ``enc_bns.{i}``, ``dec_convs.{j}.conv`` (j = 0 is the deepest level),
-``dec_bns.{j}``, ``head.conv``.
+``dec_bns.{j}``, ``head.conv``; with ``attention``, ``attn.*``
+(``models/experiments.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from text_segmentation_image_inpainting_tpu_torch.models.experiments import SelfAttention2d
 from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import BatchNorm, flax_init_
 from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import partial_conv2d
 from text_segmentation_image_inpainting_tpu_torch.ops.resize import upsample_nearest
@@ -58,7 +60,10 @@ class InpaintUNet(nn.Module):
     the raw (image, mask) input and maps to RGB with bias.
 
     ``depth`` (default 8) fits 512x512 inputs; the spatial size must be
-    divisible by ``2**depth``.
+    divisible by ``2**depth``. ``attention`` puts a SAGAN self-attention
+    block (``SelfAttention2d``) on the bottleneck's features (the mask
+    stream is untouched); ``attention_sn`` spectral-normalises its
+    projections, whose u and v then move in training forwards only.
     """
 
     ENC: Tuple[Tuple[int, int, bool], ...] = (
@@ -72,7 +77,8 @@ class InpaintUNet(nn.Module):
         (512, 3, True),
     )
 
-    def __init__(self, depth: int = 8, cin: int = 3, dtype: torch.dtype = torch.float32):
+    def __init__(self, depth: int = 8, cin: int = 3, attention: bool = False,
+                 attention_sn: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if not 3 <= depth <= 8:
             raise ValueError(f"depth must be 3..8, got {depth}")
@@ -87,6 +93,7 @@ class InpaintUNet(nn.Module):
             self.enc_bns.append(BatchNorm(cout) if use_bn else nn.Identity())
             chans.append(cout)
             c = cout
+        self.attn = SelfAttention2d(c, spectral_norm=attention_sn, dtype=dtype) if attention else None
         self.dec_convs = nn.ModuleList()
         self.dec_bns = nn.ModuleList()
         for lvl in range(depth - 1, 0, -1):
@@ -117,6 +124,8 @@ class InpaintUNet(nn.Module):
                 f = bn(f, frozen=freeze_enc_bn)
             f = F.relu(f)
             skips.append((f, m))
+        if self.attn is not None:
+            f = self.attn(f)
         for j, (conv, bn) in enumerate(zip(self.dec_convs, self.dec_bns)):
             f, m = self._up_cat_conv(conv, f, m, *skips[self.depth - 1 - j])
             f = F.leaky_relu(bn(f), 0.2)
@@ -127,6 +136,8 @@ class InpaintUNet(nn.Module):
         """flax's initialisers, as the JAX model's ``init``: He-normal
         kernels (``flax_init_``), biases 0, BatchNorm the identity."""
         flax_init_(self, 2.0, generator)
+        if self.attn is not None:
+            self.attn.init_weights(generator)
         return self
 
     @staticmethod

@@ -36,11 +36,13 @@ VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
 STEM_LAYERS = 5  # features[0:5]: conv0, relu, conv1, relu, pool1
 
 
-def imagenet_normalize(x: torch.Tensor) -> torch.Tensor:
-    """(x - mean) / std with the constants in x's dtype, as JAX does."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
-    return (x - mean) / std
+def imagenet_normalize(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """(x - mean) / std with the constants in x's dtype, as JAX does.
+
+    ``mean`` and ``std`` are the (3,) constants on x's device, kept in f64
+    (``VGG16Features.imagenet_mean``/``imagenet_std``): one rounding to
+    x's dtype, as a literal gets, and no host-to-device copy per call."""
+    return (x - mean.to(x.dtype)) / std.to(x.dtype)
 
 
 class VGG16Features(nn.Module):
@@ -72,9 +74,17 @@ class VGG16Features(nn.Module):
                 c = v
         self.features = nn.Sequential(*layers)
         self.requires_grad_(False)
+        # built once, moved with the module; outside the state_dict
+        self.register_buffer("imagenet_mean", torch.tensor(IMAGENET_MEAN, dtype=torch.float64),
+                             persistent=False)
+        self.register_buffer("imagenet_std", torch.tensor(IMAGENET_STD, dtype=torch.float64),
+                             persistent=False)
+
+    def normalize_input(self, x: torch.Tensor) -> torch.Tensor:
+        return imagenet_normalize(x, self.imagenet_mean, self.imagenet_std)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        return self._trunk(imagenet_normalize(x) if self.normalize else x, 0)
+        return self._trunk(self.normalize_input(x) if self.normalize else x, 0)
 
     def _trunk(self, y: torch.Tensor, start: int) -> List[torch.Tensor]:
         """Run ``features[start:]`` on NHWC ``y``; the taps after each pool
@@ -100,7 +110,7 @@ def apply_vgg_features(model: VGG16Features, x: torch.Tensor, *,
     if not fused_stem or x.shape[1] % 16 or x.shape[2] % 16:
         return model(x)
     if model.normalize:
-        x = imagenet_normalize(x)
+        x = model.normalize_input(x)
     conv0, conv1 = model.features[0], model.features[2]
     y = vgg_stem_frozen(x, conv0.weight, conv0.bias, conv1.weight, conv1.bias, model.dtype)
     return model._trunk(y, STEM_LAYERS)

@@ -1,0 +1,54 @@
+"""Microbatched gradient accumulation.
+
+Counterpart of ``text_segmentation_image_inpainting_tpu/train/accum.py``:
+one batch is split into ``k`` microbatches, each runs its own forward and
+backward in order (so BatchNorm statistics and spectral norm's u and v
+move through the microbatches as k small steps would move them), and the
+step sees the microbatch MEAN of the gradients and of the loss terms, for
+one optimizer update. Normalisation layers see per-microbatch batch
+statistics, so the accumulated step equals the big-batch step exactly
+only when the microbatches are statistically interchangeable (duplicated
+halves, as the tests use).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable
+
+import torch
+
+
+def microbatches(batch: Dict[str, torch.Tensor], k: int):
+    """The ``k`` microbatches of ``batch``: microbatch j holds samples
+    j, k + j, 2k + j, ... (a STRIDED split, as JAX's: under data
+    parallelism each microbatch spans every device)."""
+    if k < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {k}")
+    n = next(iter(batch.values())).shape[0]
+    if n % k != 0:
+        raise ValueError(f"batch size {n} not divisible by grad_accum {k}")
+    return [{key: v[j::k] for key, v in batch.items()} for j in range(k)]
+
+
+def accumulate_grads(micro_step: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]],
+                     batch: Dict[str, torch.Tensor], k: int,
+                     params: Iterable[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Run ``micro_step`` on each of the ``k`` microbatches of ``batch``
+    and leave the mean gradient in each of ``params``' ``.grad``.
+
+    ``micro_step(microbatch)`` runs one forward and backward (its
+    gradients add into ``.grad``, which must be clear before the first)
+    and returns its loss terms, detached. Returns the terms' means. With
+    k == 1 it is ``micro_step(batch)``.
+    """
+    tsum: Dict[str, torch.Tensor] = {}
+    for mb in microbatches(batch, k):
+        for name, t in micro_step(mb).items():
+            tsum[name] = tsum[name] + t if name in tsum else t
+    if k == 1:
+        return tsum
+    inv = 1.0 / k
+    for p in params:
+        if p.grad is not None:
+            p.grad.mul_(inv)
+    return {name: t * inv for name, t in tsum.items()}

@@ -4,7 +4,9 @@ Counterpart of ``text_segmentation_image_inpainting_tpu/train/inpaint.py``:
 forward through the partial-conv U-Net in training mode, the Liu-2018
 loss through the frozen VGG16, backward, one optimizer update. On CUDA
 the U-Net's stride-1 partial convs run K1/K2 forward and K3 backward,
-and with ``cfg.loss.fused_stem`` the VGG stem's backward is K4.
+and with ``cfg.loss.fused_stem`` the VGG stem's backward is K4. With
+``cfg.grad_accum`` = k > 1 the forward and backward run on k microbatches
+and the update takes their mean gradient (``train/accum.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch.utils.checkpoint
 
 from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import inpainting_loss
 from text_segmentation_image_inpainting_tpu_torch.models.vgg import VGG16Features
+from text_segmentation_image_inpainting_tpu_torch.train.accum import accumulate_grads
 from text_segmentation_image_inpainting_tpu_torch.train.config import InpaintTrainConfig
 from text_segmentation_image_inpainting_tpu_torch.train.metrics import psnr, ssim
 from text_segmentation_image_inpainting_tpu_torch.train.state import TrainState
@@ -26,11 +29,9 @@ def make_inpaint_train_step(model, cfg: InpaintTrainConfig, vgg: VGG16Features):
 
     batch: {'image': (N,H,W,3) ground truth in [0,1],
             'mask':  (N,H,W,1) validity mask, 1 = keep, 0 = hole}.
-    The terms are the loss terms, detached.
+    The terms are the loss terms, detached (microbatch means with
+    ``cfg.grad_accum`` > 1).
     """
-    if cfg.grad_accum > 1:
-        raise NotImplementedError("grad_accum > 1 waits for the port of train/accum.py "
-                                  "(ROADMAP Queue 1 item 10)")
     if cfg.remat not in ("none", "full"):
         raise ValueError(f"InpaintTrainConfig.remat must be 'none'|'full', got {cfg.remat!r}")
 
@@ -38,9 +39,8 @@ def make_inpaint_train_step(model, cfg: InpaintTrainConfig, vgg: VGG16Features):
         # cfg.freeze_bn: Liu et al. phase 2, ONLY the encoder BNs frozen
         return model(x, m, freeze_enc_bn=cfg.freeze_bn)
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        gt, mask = batch["image"], batch["mask"]
-        model.train()
+    def micro_step(mb: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        gt, mask = mb["image"], mb["mask"]
         if cfg.remat == "full":
             # the recompute in backward would move the BN running stats a
             # second time: keep the first forward's and put them back
@@ -55,8 +55,13 @@ def make_inpaint_train_step(model, cfg: InpaintTrainConfig, vgg: VGG16Features):
             with torch.no_grad():
                 for b, saved in zip(model.buffers(), stats):
                     b.copy_(saved)
+        return {k: v.detach() for k, v in terms.items()}
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model.train()
+        terms = accumulate_grads(micro_step, batch, cfg.grad_accum, state.clip_params)
         state.apply_gradients()
-        return state, {k: v.detach() for k, v in terms.items()}
+        return state, terms
 
     return train_step
 

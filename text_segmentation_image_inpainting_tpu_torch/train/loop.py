@@ -1,14 +1,17 @@
 """The training CLIs' loop: resume, step, log, checkpoint.
 
 Shared by ``run_inpaint`` and ``run_seg``, as the JAX CLIs share theirs
-line for line: one JSON line per ``log_every`` window with the step's
-metrics, held-out eval and training pages/s (the first step after a
-start or resume, which builds the kernels and warms up, is not timed).
+line for line: one record per ``log_every`` window through
+``utils/logging.py::MetricLogger`` (``logs/<name>.jsonl`` and a line on
+stderr) with the freshest step's metrics, held-out eval and training
+pages/s (the first dispatch after a start or resume, which builds the
+kernels and warms up, is not timed). With ``steps_per_dispatch`` k > 1
+the steps run k at a time through ``train/multistep.py`` (a CUDA graph
+on the card), ``--steps`` truncated to a multiple of k, as in JAX.
 """
 
 from __future__ import annotations
 
-import json
 import time
 
 import torch
@@ -16,7 +19,13 @@ import torch
 from text_segmentation_image_inpainting_tpu_torch.data.pipeline import to_device
 from text_segmentation_image_inpainting_tpu_torch.models.base import save_model
 from text_segmentation_image_inpainting_tpu_torch.train.checkpoint import CheckpointManager
+from text_segmentation_image_inpainting_tpu_torch.train.multistep import (
+    clamp_steps_per_dispatch,
+    make_multi_step,
+    stack_host_batches,
+)
 from text_segmentation_image_inpainting_tpu_torch.train.val import scored_eval
+from text_segmentation_image_inpainting_tpu_torch.utils.logging import MetricLogger
 
 
 def add_device_flag(parser) -> None:
@@ -43,21 +52,51 @@ def export(path: str | None, model) -> None:
         print("exported model snapshot to", path)
 
 
+def check_grad_accum(cfg) -> None:
+    """JAX's CLI check: ``--grad-accum`` must divide ``--batch-size``."""
+    if cfg.grad_accum < 1 or cfg.batch_size % cfg.grad_accum != 0:
+        raise SystemExit(f"--grad-accum {cfg.grad_accum} must divide --batch-size "
+                         f"{cfg.batch_size}")
+
+
+def steps_per_dispatch(asked: int, cfg) -> int:
+    """``--steps-per-dispatch`` clamped to divide ``--log-every`` and
+    ``--ckpt-every``, with JAX's message when it moved."""
+    spd = clamp_steps_per_dispatch(asked, cfg.log_every, cfg.checkpoint_every)
+    if spd != asked:
+        print(f"steps-per-dispatch clamped {asked} -> {spd} "
+              "(must divide --log-every and --ckpt-every)")
+    return spd
+
+
 def train_loop(state, train_step, eval_step, make_batches, val_batches, cfg, *, steps: int,
-               ckpt_dir: str, device):
+               ckpt_dir: str, device, name: str, spd: int = 1):
     """Resume ``state`` from the latest checkpoint in ``ckpt_dir``, then
     run ``train_step`` up to ``steps`` updates on the batches of
     ``make_batches(start)``, the stream of training batches from page
-    index ``start``. The stream is built after the restore, at the first
-    page no finished step has seen (0 for a fresh start), so a resumed run
-    trains on the same pages, in the same order, as one that never
-    stopped. Returns the state."""
+    index ``start``, ``spd`` steps per dispatch. The stream is built after
+    the restore, at the first page no finished step has seen (0 for a
+    fresh start), so a resumed run trains on the same pages, in the same
+    order, as one that never stopped. Logs as ``name``. Returns the state."""
     ckpt = CheckpointManager(ckpt_dir, save_interval_steps=cfg.checkpoint_every)
     state, restored_step = ckpt.restore_latest(state)
     if restored_step is not None:
         print(f"resumed from step {restored_step}")
     first_step = state.step
+    if spd > 1 and first_step % spd != 0:
+        # a hand-placed checkpoint off the k grid: keep the log and
+        # checkpoint edges exact rather than drift them
+        print(f"steps-per-dispatch disabled: resumed step {first_step} not a multiple of {spd}")
+        spd = 1
     host_it = make_batches(first_step * cfg.batch_size)
+    end_step = steps
+    if spd > 1:
+        host_it = stack_host_batches(host_it, spd)
+        train_step = make_multi_step(train_step)
+        end_step = first_step + max(0, steps - first_step) // spd * spd
+        if end_step != steps:
+            print(f"--steps truncated {steps} -> {end_step} (multiple of steps-per-dispatch)")
+    logger = MetricLogger(name)
 
     def sync():
         if device.type == "cuda":
@@ -65,10 +104,13 @@ def train_loop(state, train_step, eval_step, make_batches, val_batches, cfg, *, 
 
     t0 = time.time()
     window_start = first_step
-    for step in range(first_step, steps):
+    for step in range(first_step, end_step, spd):
         batch = to_device(next(host_it), device)
         state, metrics = train_step(state, batch)
-        done = step + 1
+        done = step + spd
+        if spd > 1:
+            # metrics come back stacked (spd,); report the freshest step
+            metrics = {k: v[-1] for k, v in metrics.items()}
         if step == first_step:
             sync()
             t0 = time.time()
@@ -77,15 +119,20 @@ def train_loop(state, train_step, eval_step, make_batches, val_batches, cfg, *, 
             sync()
             train_elapsed = time.time() - t0
             m = {k: float(v) for k, v in metrics.items()}
-            m.update(scored_eval(eval_step, state, val_batches) if val_batches
-                     else scored_eval(eval_step, state, [batch], prefix=""))
+            if val_batches:
+                m.update(scored_eval(eval_step, state, val_batches))
+            else:
+                # in-batch eval of the freshest step's batch
+                last = {k: v[-1] for k, v in batch.items()} if spd > 1 else batch
+                m.update(scored_eval(eval_step, state, [last], prefix=""))
             if done > window_start:
                 m["pages_per_sec"] = (done - window_start) * cfg.batch_size / max(train_elapsed, 1e-9)
-            print(json.dumps({"step": done, **m}), flush=True)
+            logger.log(done, m)
             t0 = time.time()
             window_start = done
         ckpt.save(done, state)
     ckpt.wait()
     ckpt.close()
+    logger.close()
     print("done:", state.step, "steps")
     return state

@@ -11,8 +11,12 @@ phase-2 fine-tune. VGG16 weights load from ``--vgg-ckpt`` (a torchvision
 ``vgg16`` state_dict) or are random, with a warning: then the U-Net and
 the trunk draw their initial weights, in that order, from one
 ``torch.Generator`` seeded with ``--seed`` (flax's initialisers, as
-JAX), so a run depends on its flags alone. Logs one JSON line per ``--log-every`` window to stdout.
-Flags whose machinery is not ported yet raise ``SystemExit``.
+JAX), so a run depends on its flags alone. ``--attention`` puts the SAGAN
+block on the U-Net's bottleneck (``--attention-sn`` also spectral-
+normalises it); ``--grad-accum k`` averages k microbatches' gradients into
+one update; ``--steps-per-dispatch k`` runs k steps per dispatch, as a
+CUDA graph on the card. Logs one record per ``--log-every`` window to
+``logs/inpaint.jsonl`` and stderr.
 """
 
 from __future__ import annotations
@@ -42,8 +46,10 @@ from text_segmentation_image_inpainting_tpu_torch.train.inpaint import (
 )
 from text_segmentation_image_inpainting_tpu_torch.train.loop import (
     add_device_flag,
+    check_grad_accum,
     export,
     resolve_device,
+    steps_per_dispatch,
     train_loop,
 )
 from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
@@ -59,20 +65,21 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--freeze-bn", action="store_true", help="phase-2 fine-tune")
     p.add_argument("--attention", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 7): refused")
+                   help="SAGAN self-attention block at the U-Net bottleneck")
     p.add_argument("--attention-sn", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 7): refused")
+                   help="spectral-normalised attention projections (implies --attention)")
     p.add_argument("--pconv-impl", choices=["xla", "pallas"], default="xla",
                    help="accepted for the JAX CLI's sake; the port routes each partial "
                         "conv by device and shape alone (kernels K1/K2 on CUDA)")
     p.add_argument("--grad-accum", type=int, default=1,
-                   help="only 1: accumulation waits for train/accum.py (ROADMAP Queue 1 item 3)")
+                   help="split each batch into k microbatches, average their gradients, "
+                        "apply ONE optimizer update")
     p.add_argument("--remat", choices=["none", "full"], default="none",
                    help="'full' recomputes the U-Net forward in the backward "
                         "(torch.utils.checkpoint)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="only 1: multi-step dispatch waits for train/multistep.py "
-                        "(ROADMAP Queue 1 item 3)")
+                   help="run k train steps per dispatch, as a CUDA graph on the card "
+                        "(clamped to divide --log-every and --ckpt-every)")
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false",
                    help="a float32 step: runs on the CPU; on CUDA the partial-conv "
@@ -95,18 +102,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    if args.attention or args.attention_sn:
-        raise SystemExit("--attention/--attention-sn: the attention track is not ported "
-                         "(ROADMAP Queue 1 item 7)")
-    if args.grad_accum != 1:
-        raise SystemExit("--grad-accum > 1: gradient accumulation is not ported "
-                         "(ROADMAP Queue 1 item 3, train/accum.py)")
-    if args.steps_per_dispatch != 1:
-        raise SystemExit("--steps-per-dispatch > 1: multi-step dispatch is not ported "
-                         "(ROADMAP Queue 1 item 3, train/multistep.py)")
-
-
 def load_vgg(vgg: VGG16Features, ckpt_path: str | None,
              generator: torch.Generator) -> VGG16Features:
     """``ckpt_path``'s weights, or without one random weights drawn from
@@ -123,12 +118,14 @@ def load_vgg(vgg: VGG16Features, ckpt_path: str | None,
 
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
     cfg = InpaintTrainConfig(
         image_size=(args.image_size, args.image_size),
         batch_size=args.batch_size,
         depth=args.depth,
         freeze_bn=args.freeze_bn,
+        attention=args.attention or args.attention_sn,
+        attention_sn=args.attention_sn,
+        grad_accum=args.grad_accum,
         remat=args.remat,
         bf16_compute=args.bf16,
         # --no-bf16 is a fully f32 step: the VGG trunk follows the flag
@@ -139,10 +136,13 @@ def main(argv=None):
         checkpoint_every=args.ckpt_every,
         log_every=args.log_every,
     )
+    check_grad_accum(cfg)
+    spd = steps_per_dispatch(args.steps_per_dispatch, cfg)
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if cfg.bf16_compute else torch.float32
     gen = torch.Generator().manual_seed(args.seed)
-    model = InpaintUNet(depth=cfg.depth, dtype=dtype).init_weights(gen).to(device)
+    model = InpaintUNet(depth=cfg.depth, attention=cfg.attention, attention_sn=cfg.attention_sn,
+                        dtype=dtype).init_weights(gen).to(device)
     vgg = load_vgg(make_vgg(cfg.loss), args.vgg_ckpt, gen).to(device)
 
     paths = list_image_paths(args.data_dir) if args.data_dir else None
@@ -154,10 +154,12 @@ def main(argv=None):
     # a fixed held-out set from a disjoint seed stream
     val_batches = make_val_batches("inpaint", cfg, seed=args.seed + 100_000, n=args.val_batches,
                                    device=device, paths=paths)
-    state = train_loop(create_train_state(model, cfg.optimizer),
-                       make_inpaint_train_step(model, cfg, vgg), make_inpaint_eval_step(model),
-                       make_batches, val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir,
-                       device=device)
+    # a step captured in a CUDA graph needs the capturable optimizer
+    state = create_train_state(model, cfg.optimizer, capturable=spd > 1 and device.type == "cuda")
+    state = train_loop(state, make_inpaint_train_step(model, cfg, vgg),
+                       make_inpaint_eval_step(model), make_batches, val_batches, cfg,
+                       steps=args.steps, ckpt_dir=args.ckpt_dir, device=device, name="inpaint",
+                       spd=spd)
     export(args.export, state.model)
     return state
 

@@ -8,9 +8,12 @@ The same flags as the JAX CLI, plus ``--device``: the first CUDA device
 (the default; a host without CUDA is an error) or ``cpu``. ``--custom-wgrad`` sets
 ``ops/depthwise.py::USE_CUSTOM_WGRAD``, so the encoder's depthwise weight
 gradients run on kernel K6 (off by default, as in JAX). Train with
-``--freeze-encoder`` for the staged fine-tune. Logs one JSON line per
-``--log-every`` window to stdout. Flags whose machinery is not ported yet
-raise ``SystemExit``.
+``--freeze-encoder`` for the staged fine-tune. ``--backbone xception``
+and ``--head deeplab`` select the experiment tracks (the Xception encoder
+with its 8 middle blocks, the DeepLab-v3+ head); ``--grad-accum k``
+averages k microbatches' gradients into one update; ``--steps-per-dispatch
+k`` runs k steps per dispatch, as a CUDA graph on the card. Logs one
+record per ``--log-every`` window to ``logs/seg.jsonl`` and stderr.
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ from text_segmentation_image_inpainting_tpu_torch.train.seg import (
 )
 from text_segmentation_image_inpainting_tpu_torch.train.loop import (
     add_device_flag,
+    check_grad_accum,
     export,
     resolve_device,
+    steps_per_dispatch,
     train_loop,
 )
 from text_segmentation_image_inpainting_tpu_torch.train.state import (
@@ -49,20 +54,19 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--image-size", type=int, default=512)
     p.add_argument("--width-mult", type=float, default=1.0)
-    p.add_argument("--backbone", choices=("mobilenet_v2", "xception"), default="mobilenet_v2",
-                   help="only mobilenet_v2: xception is not ported yet (ROADMAP Queue 1 item 7)")
-    p.add_argument("--head", choices=("mini", "deeplab"), default="mini",
-                   help="only mini: deeplab is not ported yet (ROADMAP Queue 1 item 7)")
+    p.add_argument("--backbone", choices=("mobilenet_v2", "xception"), default="mobilenet_v2")
+    p.add_argument("--head", choices=("mini", "deeplab"), default="mini")
     p.add_argument("--output-stride", type=int, default=8, choices=(8, 16, 32))
     p.add_argument("--decoder-mid", type=int, default=128)
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--pos-weight", type=float, default=3.0)
     p.add_argument("--freeze-encoder", action="store_true")
     p.add_argument("--grad-accum", type=int, default=1,
-                   help="only 1: accumulation waits for train/accum.py (ROADMAP Queue 1 item 3)")
+                   help="split each batch into k microbatches, average their gradients, "
+                        "apply ONE optimizer update")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="only 1: multi-step dispatch waits for train/multistep.py "
-                        "(ROADMAP Queue 1 item 3)")
+                   help="run k train steps per dispatch, as a CUDA graph on the card "
+                        "(clamped to divide --log-every and --ckpt-every)")
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--custom-wgrad", action="store_true", default=False,
@@ -82,21 +86,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    if args.backbone != "mobilenet_v2" or args.head != "mini":
-        raise SystemExit("--backbone xception / --head deeplab: the experiment tracks are not "
-                         "ported (ROADMAP Queue 1 item 7)")
-    if args.grad_accum != 1:
-        raise SystemExit("--grad-accum > 1: gradient accumulation is not ported "
-                         "(ROADMAP Queue 1 item 3, train/accum.py)")
-    if args.steps_per_dispatch != 1:
-        raise SystemExit("--steps-per-dispatch > 1: multi-step dispatch is not ported "
-                         "(ROADMAP Queue 1 item 3, train/multistep.py)")
-
-
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
     cfg = SegTrainConfig(
         image_size=(args.image_size, args.image_size),
         batch_size=args.batch_size,
@@ -113,12 +104,15 @@ def main(argv=None):
         checkpoint_every=args.ckpt_every,
         log_every=args.log_every,
     )
+    check_grad_accum(cfg)
+    spd = steps_per_dispatch(args.steps_per_dispatch, cfg)
     if args.custom_wgrad:
         depthwise.USE_CUSTOM_WGRAD = True  # read at every forward (ops/depthwise.py)
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if cfg.bf16_compute else torch.float32
     model = TextSegmenter(width_mult=cfg.width_mult, output_stride=cfg.output_stride,
-                          decoder_mid=cfg.decoder_mid, dtype=dtype)
+                          decoder_mid=cfg.decoder_mid, backbone=cfg.backbone, head=cfg.head,
+                          dtype=dtype)
     model = model.init_weights(torch.Generator().manual_seed(args.seed)).to(device)
 
     paths = list_image_paths(args.data_dir) if args.data_dir else None
@@ -131,9 +125,12 @@ def main(argv=None):
     # a fixed held-out set from a disjoint seed stream
     val_batches = make_val_batches("seg", cfg, seed=args.seed + 100_000, n=args.val_batches,
                                    device=device, paths=paths)
-    state = train_loop(create_train_state(model, cfg.optimizer, frozen=frozen),
-                       make_seg_train_step(model, cfg), make_seg_eval_step(model), make_batches,
-                       val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir, device=device)
+    # a step captured in a CUDA graph needs the capturable optimizer
+    state = create_train_state(model, cfg.optimizer, frozen=frozen,
+                               capturable=spd > 1 and device.type == "cuda")
+    state = train_loop(state, make_seg_train_step(model, cfg), make_seg_eval_step(model),
+                       make_batches, val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir,
+                       device=device, name="seg", spd=spd)
     export(args.export, state.model)
     return state
 

@@ -3,7 +3,9 @@
 Counterpart of ``text_segmentation_image_inpainting_tpu/train/seg.py``:
 forward through the segmenter in training mode (BatchNorm moves its
 statistics, with ``freeze_encoder`` too, as in JAX), BCE + dice, backward,
-one optimizer update. With ``ops/depthwise.py::USE_CUSTOM_WGRAD`` on, the
+one optimizer update; with ``cfg.grad_accum`` = k > 1 the forward and
+backward run on k microbatches and the update takes their mean gradient
+(``train/accum.py``). With ``ops/depthwise.py::USE_CUSTOM_WGRAD`` on, the
 encoder's stride-1 depthwise convs with C >= 128 take their weight
 gradient from K6.
 """
@@ -15,6 +17,7 @@ from typing import Dict
 import torch
 
 from text_segmentation_image_inpainting_tpu_torch.losses.segmentation import segmentation_loss
+from text_segmentation_image_inpainting_tpu_torch.train.accum import accumulate_grads
 from text_segmentation_image_inpainting_tpu_torch.train.config import SegTrainConfig
 from text_segmentation_image_inpainting_tpu_torch.train.state import TrainState
 
@@ -23,27 +26,27 @@ def make_seg_train_step(model, cfg: SegTrainConfig):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     batch: {'image': (N,H,W,3) float, 'mask': (N,H,W,1) in {0,1}}.
-    metrics: the loss terms and ``grad_norm``, detached.
+    metrics: the loss terms and ``grad_norm``, detached (means over the
+    microbatches with ``cfg.grad_accum`` > 1).
     """
-    if cfg.grad_accum > 1:
-        raise NotImplementedError("grad_accum > 1 waits for the port of train/accum.py "
-                                  "(ROADMAP Queue 1 item 10)")
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        model.train()
-        logits = model(batch["image"])
+    def micro_step(mb: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        logits = model(mb["image"])
         loss, terms = segmentation_loss(
-            logits, batch["mask"], bce_weight=cfg.bce_weight, dice_weight=cfg.dice_weight,
+            logits, mb["mask"], bce_weight=cfg.bce_weight, dice_weight=cfg.dice_weight,
             focal_weight=cfg.focal_weight, pos_weight=cfg.pos_weight,
         )
         loss.backward()
+        return {k: v.detach() for k, v in terms.items()}
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model.train()
+        metrics = accumulate_grads(micro_step, batch, cfg.grad_accum, state.clip_params)
         # before apply_gradients, which clips in place: JAX takes the norm of
-        # the raw gradients of every parameter, frozen ones included
+        # the (mean) raw gradients of every parameter, frozen ones included
         grads = [p.grad for p in state.clip_params if p.grad is not None]
-        grad_norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+        metrics["grad_norm"] = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
         state.apply_gradients()
-        metrics = {k: v.detach() for k, v in terms.items()}
-        metrics["grad_norm"] = grad_norm
         return state, metrics
 
     return train_step

@@ -27,6 +27,15 @@ pins each difference:
   * global-norm clipping: ``clip_grad_norm_`` scales by
     max_norm / (norm + 1e-6) where optax scales by max_norm / norm
     (a relative difference of 1e-6 / norm).
+
+``create_train_state(capturable=True)`` builds a state whose update a
+CUDA graph can capture (``train/multistep.py``): Adam with
+``capturable=True`` and a 0-d f32 learning-rate tensor on the device,
+which ``apply_gradients`` rewrites in place from a device update count
+(``learning_rate_tensor``) in place of ``LambdaLR``'s Python float; the
+clip's coefficient stays on the device as well. Adam's capturable update
+computes its bias corrections on the device, so it agrees with the
+default one to rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -62,10 +71,43 @@ def learning_rate_at(cfg: OptimizerConfig, count: int) -> float:
     return lr
 
 
-def make_optimizer(cfg: OptimizerConfig, params: Iterable[torch.Tensor]):
-    """(optimizer, scheduler or None) for ``params``."""
+def learning_rate_tensor(cfg: OptimizerConfig, count: torch.Tensor) -> torch.Tensor:
+    """``learning_rate_at`` of a 0-d f64 tensor ``count``, computed on its
+    device (no host round trip, so a captured graph follows the schedule)."""
+    lr = cfg.learning_rate
+    if cfg.restart_period > 0:
+        period, warm = cfg.restart_period, cfg.warmup_steps
+        cycle = torch.clamp(torch.floor(count / period), max=cfg.restart_cycles - 1)
+        c = count - cycle * period
+        init = 0.0 if warm else lr
+        rise = init + (lr - init) * c / max(warm, 1)
+        decay = period - warm
+        cc = torch.clamp(c - warm, max=decay)
+        alpha = 0.01
+        fall = lr * ((1 - alpha) * 0.5 * (1 + torch.cos(math.pi * cc / decay)) + alpha)
+        return torch.where(c < warm, rise, fall)
+    if cfg.warmup_steps > 0:
+        return lr * torch.clamp(count, max=cfg.warmup_steps) / cfg.warmup_steps
+    return torch.full_like(count, lr)
+
+
+def make_optimizer(cfg: OptimizerConfig, params: Iterable[torch.Tensor], *,
+                   capturable: bool = False):
+    """(optimizer, scheduler or None) for ``params``. ``capturable``:
+    Adam/AdamW with ``capturable=True`` and a 0-d learning-rate tensor on
+    the parameters' device, no scheduler (``TrainState`` moves the lr)."""
     params = list(params)
     lr = cfg.learning_rate
+    if capturable:
+        if cfg.kind != "adam":
+            raise ValueError(f"a capturable train state needs kind='adam', got {cfg.kind!r} "
+                             "(torch's SGD reads a tensor learning rate on the host)")
+        lr_t = torch.full((), learning_rate_at(cfg, 0), dtype=torch.float32,
+                          device=params[0].device)
+        cls = torch.optim.AdamW if cfg.weight_decay else torch.optim.Adam
+        kw = dict(weight_decay=cfg.weight_decay) if cfg.weight_decay else {}
+        return cls(params, lr=lr_t, betas=(cfg.beta1, cfg.beta2), eps=1e-8, amsgrad=cfg.amsgrad,
+                   capturable=True, **kw), None
     if cfg.kind == "sgd":
         opt = torch.optim.SGD(params, lr=lr, momentum=cfg.beta1 or 0.0,
                               weight_decay=cfg.weight_decay)
@@ -91,7 +133,9 @@ class TrainState:
 
     ``clip_params`` are all parameters the global-norm clip sees, frozen
     ones included (optax clips before its frozen mask); the optimizer
-    holds only the trainable ones.
+    holds only the trainable ones. A capturable state (``cfg`` set) keeps
+    its learning rate ``lr`` and update count ``count`` as 0-d tensors on
+    the device; ``step`` stays the host's count.
     """
 
     model: nn.Module
@@ -100,6 +144,13 @@ class TrainState:
     grad_clip_norm: float | None
     clip_params: list
     step: int = 0
+    cfg: OptimizerConfig | None = None
+    lr: torch.Tensor | None = None
+    count: torch.Tensor | None = None
+
+    @property
+    def capturable(self) -> bool:
+        return self.lr is not None
 
     def apply_gradients(self) -> None:
         """Clip, update, advance the schedule, clear the gradients (of
@@ -111,6 +162,9 @@ class TrainState:
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
+        if self.capturable:
+            self.count.add_(1)
+            self.lr.copy_(learning_rate_tensor(self.cfg, self.count))
         for p in self.clip_params:
             p.grad = None
         self.step += 1
@@ -126,9 +180,15 @@ class TrainState:
     def load_state_dict(self, sd: dict) -> None:
         self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
-        if self.scheduler is not None:
-            self.scheduler.load_state_dict(sd["scheduler"])
         self.step = int(sd["step"])
+        if self.capturable:
+            # the groups' lr is this state's device tensor, at the schedule's count
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr
+            self.count.fill_(self.step)
+            self.lr.copy_(learning_rate_tensor(self.cfg, self.count))
+        elif self.scheduler is not None:
+            self.scheduler.load_state_dict(sd["scheduler"])
 
 
 def freeze_mask_for(model: nn.Module, *prefixes: str) -> Set[str]:
@@ -139,9 +199,14 @@ def freeze_mask_for(model: nn.Module, *prefixes: str) -> Set[str]:
 
 
 def create_train_state(model: nn.Module, cfg: OptimizerConfig, *,
-                       frozen: Set[str] = frozenset()) -> TrainState:
+                       frozen: Set[str] = frozenset(), capturable: bool = False) -> TrainState:
     """A TrainState whose optimizer updates every parameter not named in
-    ``frozen``."""
+    ``frozen``; ``capturable`` for a step captured in a CUDA graph."""
     named = list(model.named_parameters())
-    opt, sched = make_optimizer(cfg, [p for n, p in named if n not in frozen])
-    return TrainState(model, opt, sched, cfg.grad_clip_norm, [p for _, p in named])
+    opt, sched = make_optimizer(cfg, [p for n, p in named if n not in frozen],
+                                capturable=capturable)
+    state = TrainState(model, opt, sched, cfg.grad_clip_norm, [p for _, p in named])
+    if capturable:
+        state.cfg, state.lr = cfg, opt.param_groups[0]["lr"]
+        state.count = torch.zeros((), dtype=torch.float64, device=state.lr.device)
+    return state

@@ -13,9 +13,12 @@ recorded the same way shows that the count can see one; an empty window
 shows none. The script touches nothing but the port package, so it also
 runs in an older tree (copy it there) to count that tree's ``run``. Last
 it times ``run`` as ``chip_smoke.py`` does (CUDA events around each call,
-median of 20), for an A/B of two trees in one call.
+median of 20), for an A/B of two trees in one call. With
+``--inpaint-step`` it counts one inpaint train step instead (depth 8,
+512^2, batch 8, bf16, fused stem, Adam; random weights), after two
+warm-up steps, and times the step the same way.
 
-    python3 tools/host_syncs.py
+    python3 tools/host_syncs.py [--inpaint-step]
 """
 
 from __future__ import annotations
@@ -56,6 +59,29 @@ def blocking_calls(fn) -> Counter:
                    if e.name in BLOCKING and start <= e.time_range.start <= end)
 
 
+def inpaint_step(dev, pages):
+    """One inpaint train step's callable (depth 8, bf16, fused stem, Adam)."""
+    from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import (
+        InpaintLossConfig,
+        make_vgg,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet
+    from text_segmentation_image_inpainting_tpu_torch.train.config import InpaintTrainConfig
+    from text_segmentation_image_inpainting_tpu_torch.train.inpaint import make_inpaint_train_step
+    from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
+
+    loss = InpaintLossConfig(vgg_dtype="bfloat16", fused_stem=True)
+    torch.manual_seed(0)
+    vgg = make_vgg(loss).to(dev)
+    model = InpaintUNet(depth=8, dtype=torch.bfloat16).to(dev)
+    cfg = InpaintTrainConfig(loss=loss)
+    state = create_train_state(model, cfg.optimizer)
+    step = make_inpaint_train_step(model, cfg, vgg)
+    holes = (torch.rand((8, 512, 512, 1), generator=torch.Generator().manual_seed(1)) > 0.1)
+    batch = {"image": pages, "mask": holes.float().to(dev)}
+    return lambda: step(state, batch)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("host_syncs: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -66,29 +92,33 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     dev = torch.device("cuda", 0)
-    pipe = TextRemovalPipeline().init_weights(torch.Generator().manual_seed(0)).to(dev).eval()
     pages = np.random.default_rng(0).uniform(0.0, 1.0, (8, 512, 512, 3)).astype(np.float32)
     pages = torch.from_numpy(pages).to(dev)
+    if "--inpaint-step" in sys.argv[1:]:
+        label, fn = "inpaint step", inpaint_step(dev, pages)
+    else:
+        pipe = TextRemovalPipeline().init_weights(torch.Generator().manual_seed(0)).to(dev).eval()
+        label, fn = "run", lambda: pipe.run(pages)
     for _ in range(3):
-        pipe.run(pages)
+        fn()
     control = blocking_calls(lambda: torch.tensor(0.5, device=dev))
     if not control:
         raise RuntimeError("the profiler recorded no blocking call for a blocking copy")
-    calls = blocking_calls(lambda: pipe.run(pages))
-    print(f"host_syncs: one run at (8, 512, 512, 3) bf16: {sum(calls.values())} blocking "
+    calls = blocking_calls(fn)
+    print(f"host_syncs: one {label} at (8, 512, 512, 3) bf16: {sum(calls.values())} blocking "
           f"calls {dict(calls)}; a blocking torch.tensor(..., device=cuda): {dict(control)}; "
           f"an empty window: {dict(blocking_calls(lambda: None))}")
     times = []
     for _ in range(RUNS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        pipe.run(pages)
+        fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     ms = statistics.median(times)
-    print(f"host_syncs: run {ms:.3f} ms per batch of 8 = {8e3 / ms:.2f} pages/s (CUDA events, "
-          f"median of {RUNS})")
+    print(f"host_syncs: {label} {ms:.3f} ms per batch of 8 = {8e3 / ms:.2f} pages/s (CUDA "
+          f"events, median of {RUNS})")
     return 0
 
 
