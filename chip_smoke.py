@@ -93,7 +93,17 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               ms per step eager and graph, device kernels per replay
  12. evaluate ``train/evaluate.py --task seg|inpaint|pipeline --batches 2``
               on the card: finite numbers under JAX's keys
- (Phases 9-12 run before the serve phase; each phase prints its seconds.)
+ 13. parallel multi-device serving on one card (``parallel_phase``): K1/K2
+              with unequal padding and at the 4-band U-Net's halo-ed
+              shapes (padding (0, 1)); ``spatial_inpaint_unet`` (2048^2,
+              depth 8, bf16, 2 and 4 bands on cuda:0: K1 7 and K2 1 per
+              band; relative L2 to an f32 plain U-Net within 1.25x the
+              unsharded one's); ``pipeline2_run`` (512^2, batch 8, T 4 on
+              (cuda:0, cuda:0): bit-equal to ``run``, or within two runs'
+              spread); the data-parallel server on a 2-entry mesh (bit-equal
+              to ``run`` on each half); their times beside the plain paths
+ (Phases 9-12 run before the serve phase, 13 after it; each phase prints
+ its seconds.)
  The inpaint step also may not block the host: no blocking CUDA call in
  one profiled step (``tools/host_syncs.py``).
 
@@ -107,10 +117,12 @@ the repository, it exits nonzero as well.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -210,6 +222,28 @@ SHAPES = (
     ("dec1", 256, 128, 64, 64),
     ("head", 512, 64, 3, 3),
 )
+# The H-sharded U-Net (parallel/spatial.py): InpaintUNet(depth=8) on one
+# 2048^2 page cut into 2 and into 4 bands of rows on one card. Each band's
+# stride-1 partial convs take a halo row from either neighbour and run K1
+# or K2 with padding (0, 1): at 4 bands, (layer, local H + 2, W, C_lo,
+# C_skip, Cout), the local H of a level being SHAPES' H.
+SPATIAL_PAGE = 2048
+SPATIAL_BANDS = (2, 4)
+SHARD_SHAPES = tuple((name, h + 2, 4 * h, c_lo, c_skip, cout)
+                     for name, h, c_lo, c_skip, cout in SHAPES)
+# K1 and K2 with unequal H and W padding: (name, N, H, W, group sizes, Cout,
+# padding). Ragged maps, the halo form of K1 at (0, 1) (an output width of
+# 128), the head's channel split for K2.
+PAD_EXTRA = (
+    ("K1 ragged (0, 1): Cin 200 = 123 + 77, Cout 72, 37x29", 3, 37, 29, (123, 77), 72, (0, 1)),
+    ("K1 ragged (1, 0): Cin 200 = 123 + 77, Cout 72, 37x29", 3, 37, 29, (123, 77), 72, (1, 0)),
+    ("K1 halo form (0, 1): Cin 128 = 64 + 64, Cout 64, 10x128", 2, 10, 128, (64, 64), 64, (0, 1)),
+    ("K1 (1, 0): Cin 1024 = 512 + 512, Cout 512, 6x16", 1, 6, 16, (512, 512), 512, (1, 0)),
+    ("K2 ragged (0, 1): Cin 67 = 64 + 3, Cout 3, 37x29", 3, 37, 29, (64, 3), 3, (0, 1)),
+    ("K2 (1, 0): Cin 67 = 64 + 3, Cout 3, 34x64", 2, 34, 64, (64, 3), 3, (1, 0)),
+)
+# The two-stage pipeline: microbatches of BATCH pages PAGE^2.
+STAGE_MICROBATCHES = 4
 
 
 def log(msg: str) -> None:
@@ -285,13 +319,13 @@ def bound(flop: float, nbytes: float, peak: float = PEAK_BF16) -> tuple:
     return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
 
 
-def pconv_work(x, mask, w) -> tuple:
-    """(FLOP, bytes) of one stride-1, same-size partial conv: 2 P Cout k^2
-    Cin multiply-adds; x, the mask and the weights read once, y and M'
-    written once, all bf16."""
+def pconv_work(x, mask, w, p: int | None = None) -> tuple:
+    """(FLOP, bytes) of one stride-1 partial conv with P output pixels (by
+    default x's, a same-size conv): 2 P Cout k^2 Cin multiply-adds; x, the
+    mask and the weights read once, y and M' written once, all bf16."""
     n, h, wd, cin = x.shape
     cout, _, k, _ = w.shape
-    p = n * h * wd
+    p = n * h * wd if p is None else p
     flop = 2.0 * p * cout * k * k * cin
     nbytes = 2.0 * (x.numel() + mask.numel() + w.numel() + p * cout + p)
     return flop, nbytes
@@ -730,6 +764,9 @@ def main() -> int:
 
     # 9. serve --------------------------------------------------------------
     timed_phase("serve", serve_phase, pipe, dev, smi)
+
+    # 10. multi-device serving on one card ----------------------------------
+    timed_phase("parallel", parallel_phase, pipe, dev, rng, smi)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {time.perf_counter() - t0:.1f}")
 
@@ -2110,6 +2147,333 @@ def evaluate_phase(smi: str) -> None:
             raise AssertionError(f"evaluate --task {task}: {res}")
         log(f"evaluate --task {task} --batches 2: {json.dumps(res)} in "
             f"{time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def plain_stride1():
+    """The stride-1 partial convs on their plain version, so that an f32
+    U-Net runs on the card (the kernels take bf16 only): the reference of
+    the sharded U-Net's gate."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+
+    fused = kpc.partial_conv2d_fused
+
+    def plain(x, mask, weight, bias=None, *, group_sizes, padding):
+        return kpc.partial_conv2d_reference(x, mask, weight, bias, group_sizes=tuple(group_sizes),
+                                            padding=tuple(padding))
+
+    kpc.partial_conv2d_fused = plain
+    try:
+        yield
+    finally:
+        kpc.partial_conv2d_fused = fused
+
+
+@contextlib.contextmanager
+def recorded_stride1(calls: list):
+    """Every stride-1 partial conv's inputs and kernel outputs appended to
+    ``calls`` with the name of the host thread (the band) that ran it."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+
+    fused = kpc.partial_conv2d_fused
+
+    def record(x, mask, weight, bias=None, *, group_sizes, padding):
+        out = fused(x, mask, weight, bias, group_sizes=group_sizes, padding=padding)
+        calls.append((threading.current_thread().name, x, mask, weight, bias,
+                      tuple(group_sizes), tuple(padding), out))
+        return out
+
+    kpc.partial_conv2d_fused = record
+    try:
+        yield
+    finally:
+        kpc.partial_conv2d_fused = fused
+
+
+def launch_counts() -> tuple:
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+
+    return kpc.K1_LAUNCHES, kpc.K2_LAUNCHES
+
+
+def reset_launches() -> None:
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+
+    kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = 0
+
+
+def pad_gates(dev, rng, gen) -> None:
+    """K1 and K2 with unequal H and W padding (``PAD_EXTRA``), reached
+    through ``partial_conv2d`` (the routing: a kernel launches, nothing
+    raises): against the plain version (M' bit-exact), twice on the same
+    inputs (bit-identical), and the backward (K3) by ``check_grads``."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+    from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import partial_conv2d
+
+    for name, n, h, w, groups, cout, pad in PAD_EXTRA:
+        cin = sum(groups)
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(torch.bfloat16)
+        m = torch.from_numpy(rng.random((n, h, w, len(groups))) < 0.6).to(dev, torch.bfloat16)
+        m[0, :4, :4] = 0
+        wt = torch.randn((cout, cin, 3, 3), generator=gen, device=dev) * (2.0 / (9 * cin)) ** 0.5
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.1 if cout <= 7 else None
+        kw = dict(group_sizes=groups, padding=pad)
+        wb = wt.to(torch.bfloat16)
+        bb = None if b is None else b.to(torch.bfloat16)
+        before = launch_counts()
+        first = partial_conv2d(x, m, wb, bb, **kw)
+        after = launch_counts()
+        want = (0, 1) if cout <= 7 else (1, 0)
+        if (after[0] - before[0], after[1] - before[1]) != want:
+            raise AssertionError(f"{name}: partial_conv2d did not launch {'K2' if cout <= 7 else 'K1'}")
+        again = kpc.partial_conv2d_fused(x, m, wb, bb, **kw)
+        torch.cuda.synchronize()
+        hout, wout = h + 2 * pad[0] - 2, w + 2 * pad[1] - 2
+        if first[0].shape != (n, hout, wout, cout):
+            raise AssertionError(f"{name}: output {tuple(first[0].shape)}")
+        err = check_close(name, first, kpc.partial_conv2d_reference(x, m, wb, bb, **kw),
+                          require_empty=True)
+        if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        g = torch.randn(first[0].shape, generator=gen, device=dev).to(torch.bfloat16)
+        grel, gabs = check_grads(name, x, m, wt, b, g, kw)
+        plan = (kpc.k2_plan(cin, cout, 3) if cout <= 7 else
+                kpc.k1_plan(n, h, w, cout, kpc.k1_channels(groups)[2], 3, pad))
+        log(f"padding {name}: {plan}; routed by partial_conv2d, M' bit-exact, max|dy| "
+            f"{err:.4g}, two launches bit-identical; K3 relative L2 {grel:.3g}")
+
+
+def parallel_phase(pipe, dev, rng, smi: str) -> dict:
+    """Multi-device serving on one card (``parallel/``). Gates: K1 and K2
+    with unequal padding (``pad_gates``) and at the 4-band U-Net's halo-ed
+    shapes (``SHARD_SHAPES``, padding (0, 1): against the plain version,
+    twice bit-identical); ``spatial_inpaint_unet`` on a 2048^2 page, depth
+    8, bf16, over 2 and 4 bands on cuda:0 (K1 7 and K2 1 launches per
+    band, every stride-1 layer at padding (0, 1) on a band with its halo
+    and equal to the plain version on its inputs; relative L2 to an f32
+    plain U-Net no more than 1.25 x the unsharded bf16 U-Net's);
+    ``pipeline2_run`` at 512^2, batch 8, T 4 on (cuda:0, cuda:0) (K1 7T,
+    K2 T; bit-equal to ``run`` per microbatch, else no further from it than
+    two runs are from each other); ``PageStreamServer(mesh=)`` over 20
+    uint8 batches on a 2-entry mesh (K1 7 and K2 1 per half; bit-equal to
+    ``run`` on each half). Then the times: K1/K2 at the shard shapes,
+    the sharded U-Net beside the unsharded one, the stage pipeline beside
+    closed-loop ``run``, the DP server beside the plain one, each with the
+    device's kernel time over the wall time."""
+    from text_segmentation_image_inpainting_tpu_torch.data.pipeline import make_page_stream_u8
+    from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+    from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import apply_mask
+    from text_segmentation_image_inpainting_tpu_torch.parallel import (
+        make_mesh,
+        make_stage_mesh,
+        pipeline2_run,
+        pipeline2_throughput_model,
+        spatial_inpaint_unet,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.pipeline import PageStreamServer
+    from text_segmentation_image_inpainting_tpu_torch.pipeline.serve import to_compute
+    from text_segmentation_image_inpainting_tpu_torch.pipeline.sparse import to_uint8
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    pad_gates(dev, rng, gen)
+
+    # K1/K2 at the 4-band U-Net's shapes: gates, then times
+    shard_times = {}
+    for name, h, w, c_lo, c_skip, cout in SHARD_SHAPES:
+        cin = c_lo + c_skip
+        x = torch.randn((1, h, w, cin), generator=gen, device=dev).to(bf)
+        mask = grouped_mask(rng, 1, h, w, dev)
+        wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
+              * (2.0 / (9 * cin)) ** 0.5).to(bf)
+        b = (torch.randn((cout,), generator=gen, device=dev) * 0.1).to(bf) if cout <= 7 else None
+        kw = dict(group_sizes=(c_lo, c_skip), padding=(0, 1))
+        kern = lambda: kpc.partial_conv2d_fused(x, mask, wt, b, **kw)  # noqa: E731
+        plain = lambda: kpc.partial_conv2d_reference(x, mask, wt, b, **kw)  # noqa: E731
+        first, again = kern(), kern()
+        torch.cuda.synchronize()
+        err = check_close(f"shard {name}", first, plain())
+        if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
+            raise AssertionError(f"shard {name}: two launches on the same inputs differ")
+        kname = "K2" if cout <= 7 else "K1"
+        flop, nbytes = pconv_work(x, mask, wt, p=first[0].shape[1] * w)
+        b_ms, b_by = bound(flop, nbytes)
+        k_ms = device_ms(kern, "pconv_k2" if cout <= 7 else "pconv_k1")
+        ev_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
+        xm = apply_mask(x, mask, kw["group_sizes"]).permute(0, 3, 1, 2)
+        wl = wt.contiguous(memory_format=torch.channels_last)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(xm, wl, padding=(0, 1)))
+        plan = (kpc.k2_plan(cin, cout, 3) if cout <= 7 else
+                kpc.k1_plan(1, h, w, cout, kpc.k1_channels(kw["group_sizes"])[2], 3, (0, 1)))
+        shard_times[name] = (kname, k_ms, p_ms, b_ms, ev_ms, lib_ms)
+        log(f"shard {kname} {name}: x {tuple(x.shape)} padding (0, 1) -> y "
+            f"{tuple(first[0].shape)}, {plan}; M' bit-exact, max|dy| {err:.4g}, two launches "
+            f"bit-identical; kernel {ev_ms:.4f} ms (device time {k_ms:.4f}), plain f32 "
+            f"{p_ms:.4f} ms, cuDNN bf16 conv alone {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})  [{smi}]")
+        del first, again, x, mask, kern, plain, xm, wl
+    for kname in ("K1", "K2"):
+        rows = [v for v in shard_times.values() if v[0] == kname]
+        log(f"shard {kname} over the {len(rows)} layer(s) of one band: kernel "
+            f"{sum(r[4] for r in rows):.4f} ms (device time {sum(r[1] for r in rows):.4f}), "
+            f"plain f32 {sum(r[2] for r in rows):.4f} ms, cuDNN bf16 conv alone "
+            f"{sum(r[5] for r in rows):.4f} ms, bound {sum(r[3] for r in rows):.4f} ms  [{smi}]")
+
+    # the H-sharded U-Net
+    unet = pipe.unet
+    size = SPATIAL_PAGE
+    page = torch.from_numpy(rng.uniform(0.0, 1.0, (1, size, size, 3)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(hole_mask(rng, 1, size, size)[..., None]).to(dev)
+    x, m = (page * valid).to(bf), valid.to(bf)
+    ref_net = InpaintUNet(depth=unet.depth, dtype=torch.float32)
+    ref_net.load_state_dict(unet.state_dict())
+    ref_net = ref_net.to(dev).eval()
+    with torch.no_grad():
+        whole = unet(x, m)
+        with plain_stride1():
+            ref = ref_net(x.float(), m.float())
+    del ref_net
+    whole_err = rel_l2(whole, ref)
+    log(f"spatial: InpaintUNet(depth={unet.depth}) bf16 on a {size}^2 page, unsharded: "
+        f"relative L2 {whole_err:.4g} to the f32 plain U-Net")
+    meshes = {bands: make_mesh(devices=[dev] * bands) for bands in SPATIAL_BANDS}
+    for bands, mesh in meshes.items():
+        calls = []
+        reset_launches()
+        with recorded_stride1(calls):
+            got = spatial_inpaint_unet(mesh, unet, x, m)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        if launches != (7 * bands, bands):
+            raise AssertionError(f"spatial {bands} bands: K1/K2 launched {launches}, want "
+                                 f"{(7 * bands, bands)}")
+        per_band = Counter((c[0], "K2" if c[3].shape[0] <= 7 else "K1") for c in calls)
+        if sorted(per_band.values()) != sorted([7, 1] * bands) or len(per_band) != 2 * bands:
+            raise AssertionError(f"spatial {bands} bands: per band {dict(per_band)}, want K1 7 "
+                                 f"and K2 1 in each")
+        worst = 0.0
+        for thread, xi, mi, wi, bi, gs, pad, out in calls:
+            if pad != (0, 1) or out[0].shape[1] != xi.shape[1] - 2 or out[0].shape[2] != xi.shape[2]:
+                raise AssertionError(f"spatial {bands} bands: a layer ran at padding {pad} on "
+                                     f"{tuple(xi.shape)} -> {tuple(out[0].shape)}")
+            worst = max(worst, check_close(f"spatial {thread}", out, kpc.partial_conv2d_reference(
+                xi, mi, wi, bi, group_sizes=gs, padding=pad)))
+        del calls
+        err = rel_l2(got, ref)
+        if not (got.shape == x.shape and torch.isfinite(got).all() and err <= 1.25 * whole_err):
+            raise AssertionError(f"spatial {bands} bands: relative L2 {err:.4g} to the f32 plain "
+                                 f"U-Net, more than 1.25 x the unsharded {whole_err:.4g}")
+        log(f"spatial {bands} bands (local H {size // bands}): K1 {launches[0]}, K2 {launches[1]} "
+            f"(7 and 1 in each band), every layer at padding (0, 1) on its band + halo equal to "
+            f"the plain version (max|dy| {worst:.4g}); relative L2 {err:.4g} to the f32 plain "
+            f"U-Net (unsharded bf16 {whole_err:.4g}, gate 1.25x); vs the unsharded bf16 output "
+            f"{rel_l2(got, whole.float()):.4g}, bit-equal {torch.equal(got, whole)}")
+    del got, ref
+
+    # the two-stage pipeline on (cuda:0, cuda:0)
+    stage = make_stage_mesh([dev, dev])
+    pages_mb = torch.from_numpy(rng.uniform(0.0, 1.0, (STAGE_MICROBATCHES, BATCH, PAGE, PAGE, 3))
+                                .astype(np.float32)).to(dev)
+    reset_launches()
+    piped = pipeline2_run(stage, pipe, pages_mb)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    t_mb = STAGE_MICROBATCHES
+    if launches != (7 * t_mb, t_mb):
+        raise AssertionError(f"pipeline2 launched {launches}, want {(7 * t_mb, t_mb)}")
+    runs = [[pipe.run(p)[0] for p in pages_mb] for _ in range(2)]
+    torch.cuda.synchronize()
+    if piped.shape != pages_mb.shape or not torch.isfinite(piped).all():
+        raise AssertionError(f"pipeline2: output {tuple(piped.shape)} or non-finite values")
+    if all(torch.equal(piped[t], runs[0][t]) for t in range(t_mb)):
+        held = "bit-equal to run in every microbatch"
+    else:
+        d_pipe = max(rel_l2(piped[t], runs[0][t].float()) for t in range(t_mb))
+        d_runs = max(rel_l2(runs[1][t], runs[0][t].float()) for t in range(t_mb))
+        if d_pipe > d_runs:
+            raise AssertionError(f"pipeline2: relative L2 {d_pipe:.4g} to run, two runs "
+                                 f"{d_runs:.4g} apart")
+        held = (f"not bit-equal; relative L2 {d_pipe:.4g} to run, within two runs' spread "
+                f"{d_runs:.4g}")
+    log(f"pipeline2 on (cuda:0, cuda:0): {t_mb} microbatches of {BATCH} pages {PAGE}^2, K1 "
+        f"{launches[0]}, K2 {launches[1]}; {held}")
+    del runs
+
+    # the data-parallel server on a 2-entry mesh of cuda:0
+    cd = pipe.compute_dtype
+    stream = make_page_stream_u8(BATCH, (PAGE, PAGE), seed=SEED + 1)
+    batches = [next(stream)["image"] for _ in range(SERVE_BATCHES)]
+
+    def halves(pages: np.ndarray):
+        outs = [pipe.run(to_compute(torch.from_numpy(p).to(dev), cd)) for p in np.split(pages, 2)]
+        return (np.concatenate([to_uint8(c).cpu().numpy() for c, _ in outs]),
+                np.concatenate([mk.to(torch.uint8).cpu().numpy() for _, mk in outs]))
+
+    want = [halves(b) for b in batches]
+    mesh2 = meshes[2]
+    reset_launches()
+    served = list(PageStreamServer(pipe, depth=2, mesh=mesh2).serve(iter(batches)))
+    launches = launch_counts()
+    if launches != (7 * 2 * SERVE_BATCHES, 2 * SERVE_BATCHES):
+        raise AssertionError(f"DP serve launched {launches}, want K1 7 and K2 1 per half")
+    if len(served) != len(want):
+        raise AssertionError(f"DP serve: {len(served)} results for {len(want)} batches")
+    for i, ((gc, gm), (wc, wm)) in enumerate(zip(served, want)):
+        if not (np.array_equal(gc, wc) and np.array_equal(gm, wm)):
+            raise AssertionError(f"DP serve: batch {i} differs from run on its halves")
+    log(f"DP serve, 2-entry mesh of cuda:0, depth 2: {SERVE_BATCHES} batches of {BATCH} uint8 "
+        f"pages bit-equal to run on each half, in order; K1 {launches[0]}, K2 {launches[1]}")
+
+    # times
+    out = {}
+    with torch.no_grad():
+        t_whole = cuda_ms(lambda: unet(x, m), iters=5, warmup=2)
+    line = [f"unsharded {t_whole:.3f} ms"]
+    for bands, mesh in meshes.items():
+        t_b = cuda_ms(lambda: spatial_inpaint_unet(mesh, unet, x, m), iters=5, warmup=2)
+        out[f"spatial {bands}"] = t_b
+        line.append(f"{bands} bands {t_b:.3f} ms ({t_b / t_whole - 1:+.1%})")
+    log(f"time spatial U-Net, one {size}^2 page, depth {unet.depth}, bf16: " + ", ".join(line)
+        + f"  [{smi}]")
+    profile_run(lambda: spatial_inpaint_unet(meshes[4], unet, x, m), "spatial U-Net, 4 bands")
+    profile_run(lambda: unet(x, m), "U-Net unsharded, the same page")
+    p = pages_mb[0].to(cd)
+    with torch.no_grad():
+        v2 = pipe._segment2d(p)
+        t_seg = cuda_ms(lambda: pipe._segment2d(p), iters=5, warmup=2)
+        t_inp = cuda_ms(lambda: pipe._inpaint2d(p, v2), iters=5, warmup=2)
+    t_pipe = cuda_ms(lambda: pipeline2_run(stage, pipe, pages_mb), iters=5, warmup=2)
+    t_loop = cuda_ms(lambda: [pipe.run(q) for q in pages_mb], iters=5, warmup=2)
+    fused, model = pipeline2_throughput_model(t_seg, t_inp, t_mb)
+    log(f"time pipeline2, {t_mb} x {BATCH} pages {PAGE}^2 on (cuda:0, cuda:0): {t_pipe:.3f} ms = "
+        f"{t_mb * BATCH / t_pipe * 1e3:.2f} pages/s; closed-loop run {t_loop:.3f} ms = "
+        f"{t_mb * BATCH / t_loop * 1e3:.2f} pages/s ({t_pipe / t_loop - 1:+.1%}); stages: "
+        f"segment {t_seg:.3f} ms, inpaint {t_inp:.3f} ms, so the two-device model gives "
+        f"{model:.3f} ms against {fused:.3f} ms on one  [{smi}]")
+    profile_run(lambda: pipeline2_run(stage, pipe, pages_mb), "pipeline2", runs=2)
+
+    def served_all(server) -> None:
+        for _ in server.serve(iter(batches)):
+            pass
+
+    served_all(PageStreamServer(pipe, depth=2, mesh=mesh2))  # warm the pinned host blocks
+    for label, make in (("serve dense, depth 2", lambda: PageStreamServer(pipe, depth=2)),
+                        ("DP serve, 2-entry mesh of cuda:0, depth 2",
+                         lambda: PageStreamServer(pipe, depth=2, mesh=mesh2)),
+                        ("serve dense, depth 2 (again)", lambda: PageStreamServer(pipe, depth=2))):
+        server = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served_all(server)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        out[label] = t
+        log(f"time {label}: {SERVE_BATCHES} batches of {BATCH} in {t:.3f} s = "
+            f"{SERVE_BATCHES * BATCH / t:.2f} pages/s  [{smi}]")
+    profile_run(lambda: served_all(PageStreamServer(pipe, depth=2, mesh=mesh2)),
+                f"DP serve, 2-entry mesh, {SERVE_BATCHES} batches", runs=1)
+    return out
 
 
 def profile_run(fn, label: str, runs: int = 3) -> float:

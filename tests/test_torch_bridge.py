@@ -134,9 +134,10 @@ def test_bridge_rejects_a_mismatched_model(seg_variables):
 
 def test_port_imports_no_jax_or_flax():
     """In a fresh interpreter (this one has jax loaded by the conftest):
-    every module of the port, a synthetic training page of each kind
-    drawn through the port's own generators, and a serving batch through
-    its prefetcher load neither jax nor flax nor any module of the JAX
+    every module of the port (the multi-device ``parallel`` package too),
+    a synthetic training page of each kind drawn through the port's own
+    generators, and a serving batch through its prefetcher, whole and over
+    a 2-entry mesh, load neither jax nor flax nor any module of the JAX
     package."""
     code = (
         "import sys\n"
@@ -169,12 +170,20 @@ def test_port_imports_no_jax_or_flax():
         "import text_segmentation_image_inpainting_tpu_torch.train.evaluate\n"
         "import text_segmentation_image_inpainting_tpu_torch.utils.logging\n"
         "import text_segmentation_image_inpainting_tpu_torch.utils.profiling\n"
+        "import text_segmentation_image_inpainting_tpu_torch.parallel\n"
+        "import text_segmentation_image_inpainting_tpu_torch.parallel.mesh\n"
+        "import text_segmentation_image_inpainting_tpu_torch.parallel.spatial\n"
+        "import text_segmentation_image_inpainting_tpu_torch.parallel.stage_pipeline\n"
         "from text_segmentation_image_inpainting_tpu_torch.data.pipeline import (\n"
         "    DevicePrefetcher, PageSource, make_page_stream_u8)\n"
         "for kind in ('seg', 'inpaint'):\n"
         "    assert PageSource(kind=kind, size=(32, 32))[0]['mask'].shape == (32, 32, 1)\n"
         "pf = DevicePrefetcher(make_page_stream_u8(2, (32, 32)), device='cpu')\n"
         "assert next(pf)['image'].shape == (2, 32, 32, 3)\n"
+        "pf.close()\n"
+        "from text_segmentation_image_inpainting_tpu_torch.parallel import make_mesh\n"
+        "pf = DevicePrefetcher(make_page_stream_u8(2, (32, 32)), mesh=make_mesh(2, platform='cpu'))\n"
+        "assert [p['image'].shape for p in next(pf)] == [(1, 32, 32, 3)] * 2\n"
         "pf.close()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'text_segmentation_image_inpainting_tpu'))\n"

@@ -35,6 +35,14 @@ copies, depth 2 and chunk 2) returns ``run``'s bytes exactly, with K1/K2
 launched once per ``run``. An inpaint step captured as a CUDA graph
 (``train/multistep.py``) replays bit-equal to the same steps run eagerly,
 its learning rate following the warm-up schedule across the replays.
+K1 and K2 with unequal H and W padding ((0, 1) and (1, 0), chip_smoke.py's
+``PAD_EXTRA``) are reached through ``partial_conv2d`` (a kernel launches,
+nothing raises) and held to the plain version, twice bit-identical, their
+backward by ``check_grads``; both also at the halo-ed shapes of the U-Net
+on a 2048^2 page in 4 bands (``SHARD_SHAPES``, padding (0, 1)). The
+multi-device serving paths run on the card with every entry on one card:
+the H-sharded U-Net (K1/K2 per band, close to the unsharded forward), the
+two-stage pipeline and the data-parallel server (bit-equal to ``run``).
 """
 
 import numpy as np
@@ -44,6 +52,8 @@ import torch
 from chip_smoke import (
     K1_EXTRA,
     K6_RAGGED,
+    PAD_EXTRA,
+    SHARD_SHAPES,
     STEM_EXTRA,
     check_close,
     check_grads,
@@ -627,3 +637,94 @@ def test_captured_inpaint_step_replays_eager_bit_for_bit(cuda):
             assert torch.equal(graph[k], eager[k]), f"the graph run differs from eager in {k}"
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("name,n,h,w,groups,cout,pad", PAD_EXTRA, ids=[r[0] for r in PAD_EXTRA])
+def test_unequal_padding_launches_and_matches_plain(cuda, name, n, h, w, groups, cout, pad):
+    x, m, wt, b = _case(cuda, n * h + cout, n, h, w, groups, cout, 3, cout <= 7)
+    kw = dict(group_sizes=groups, padding=pad)
+    wb, bb = wt.to(torch.bfloat16), None if b is None else b.to(torch.bfloat16)
+    k1, k2 = kpc.K1_LAUNCHES, kpc.K2_LAUNCHES
+    got = partial_conv2d(x, m, wb, bb, **kw)
+    assert (kpc.K1_LAUNCHES - k1, kpc.K2_LAUNCHES - k2) == ((0, 1) if cout <= 7 else (1, 0))
+    again = kpc.partial_conv2d_fused(x, m, wb, bb, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == (n, h + 2 * pad[0] - 2, w + 2 * pad[1] - 2, cout)
+    check_close(name, got, kpc.partial_conv2d_reference(x, m, wb, bb, **kw), require_empty=True)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    check_grads(name, x, m, wt, b, _cotangent(cuda, got[0].shape), kw)
+
+
+@pytest.mark.parametrize("name,h,w,c_lo,c_skip,cout", SHARD_SHAPES,
+                         ids=[r[0] for r in SHARD_SHAPES])
+def test_kernels_at_the_shard_shapes(cuda, name, h, w, c_lo, c_skip, cout):
+    """A band of 2048 / 4 rows with a halo row from either neighbour,
+    padding (0, 1): the output has the band's rows and the page's width."""
+    x, m, wt, b = _case(cuda, h + cout, 1, h, w, (c_lo, c_skip), cout, 3, cout <= 7)
+    kw = dict(group_sizes=(c_lo, c_skip), padding=(0, 1))
+    got = kpc.partial_conv2d_fused(x, m, wt, b, **kw)
+    again = kpc.partial_conv2d_fused(x, m, wt, b, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == (1, h - 2, w, cout)
+    check_close(name, got, kpc.partial_conv2d_reference(x, m, wt, b, **kw))
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def _small_pipe(cuda, seed):
+    from text_segmentation_image_inpainting_tpu_torch.models import TextSegmenter
+    from text_segmentation_image_inpainting_tpu_torch.pipeline import TextRemovalPipeline
+
+    return TextRemovalPipeline(TextSegmenter(width_mult=0.35, dtype=torch.bfloat16),
+                               InpaintUNet(depth=3, dtype=torch.bfloat16)).init_weights(
+        torch.Generator().manual_seed(seed)).to(cuda).eval()
+
+
+def test_spatial_unet_on_the_card(cuda):
+    """4 bands of one card, each on its own stream and host thread: K1 2
+    and K2 1 launches per band (depth 3), every layer's kernel output as
+    in the unsharded forward up to bf16 rounding."""
+    from text_segmentation_image_inpainting_tpu_torch.parallel import (
+        make_mesh,
+        spatial_inpaint_unet,
+    )
+
+    rng = np.random.default_rng(5)
+    unet = _small_pipe(cuda, 5).unet
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 64, 48, 3)).astype(np.float32)).to(cuda)
+    m = torch.from_numpy((rng.random((2, 64, 48, 1)) > 0.3).astype(np.float32)).to(cuda)
+    x, m = (x * m).to(torch.bfloat16), m.to(torch.bfloat16)
+    kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = 0
+    got = spatial_inpaint_unet(make_mesh(devices=[cuda] * 4), unet, x, m)
+    assert (kpc.K1_LAUNCHES, kpc.K2_LAUNCHES) == (2 * 4, 4)
+    with torch.no_grad():
+        want = unet(x, m)
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert got.shape == want.shape and torch.isfinite(got).all() and rel < 2e-2, rel
+
+
+def test_pipeline2_and_dp_server_on_the_card(cuda):
+    """The stage pipeline on (cuda, cuda) and the server over a 2-entry
+    mesh of one card: bit-equal to ``run`` per microbatch and per half."""
+    from text_segmentation_image_inpainting_tpu_torch.parallel import (
+        make_mesh,
+        make_stage_mesh,
+        pipeline2_run,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.pipeline import PageStreamServer
+    from text_segmentation_image_inpainting_tpu_torch.pipeline.serve import to_compute
+    from text_segmentation_image_inpainting_tpu_torch.pipeline.sparse import to_uint8
+
+    pipe = _small_pipe(cuda, 6)
+    rng = np.random.default_rng(6)
+    pages_mb = torch.from_numpy(rng.uniform(0, 1, (3, 2, 64, 64, 3)).astype(np.float32)).to(cuda)
+    got = pipeline2_run(make_stage_mesh([cuda, cuda]), pipe, pages_mb)
+    for t in range(3):
+        assert torch.equal(got[t], pipe.run(pages_mb[t])[0])
+    batches = [rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8) for _ in range(4)]
+    served = list(PageStreamServer(pipe, depth=2, mesh=make_mesh(devices=[cuda] * 2)).serve(
+        iter(batches)))
+    for pages, (gc, gm) in zip(batches, served):
+        for half, (hc, hm) in zip(np.split(pages, 2), zip(np.split(gc, 2), np.split(gm, 2))):
+            clean, mask = pipe.run(to_compute(torch.from_numpy(half).to(cuda), pipe.compute_dtype))
+            np.testing.assert_array_equal(hc, to_uint8(clean).cpu().numpy())
+            np.testing.assert_array_equal(hm, mask.to(torch.uint8).cpu().numpy())

@@ -95,7 +95,7 @@ struct Params {
   __nv_bfloat16* mask_out;    // (N, Hout, Wout, 1)
   float* partial;             // K1 with splits > 1: (splits, P, Cout_p); K3: per-CTA partial sums
   int n, h, w_in, cin, g, size0, size1;  // cin and group sizes as the layer has them
-  int hout, wout, cout, cin_p, cout_p, k, pad;
+  int hout, wout, cout, cin_p, cout_p, k, ph, pw;  // ph, pw: zero padding of H and of W
   int cin_x, gb, splits;  // K1: x's channel count, group 1's first channel in x
   // K2, its backward and K3
   const __nv_bfloat16* gout;  // the cotangent of y, (N, Hout, Wout, Cout)
@@ -118,10 +118,10 @@ __device__ __forceinline__ float window_scan(const Params& p, int n, int oh, int
   const unsigned short* mbits = reinterpret_cast<const unsigned short*>(p.mask);
   float c0 = 0.f, c1 = 0.f;
   for (int dy = 0; dy < p.k; ++dy) {
-    const int ih = oh + dy - p.pad;
+    const int ih = oh + dy - p.ph;
     if (ih < 0 || ih >= p.h) continue;
     for (int dx = 0; dx < p.k; ++dx) {
-      const int iw = ow + dx - p.pad;
+      const int iw = ow + dx - p.pw;
       if (iw < 0 || iw >= p.w_in) continue;
       const int tap = dy * p.k + dx;
       const unsigned short* m = mbits + ((size_t)(n * p.h + ih) * p.w_in + iw) * p.g;
@@ -272,7 +272,7 @@ __global__ void __launch_bounds__(K1_THREADS, 1) pconv_k1(const Params p) {
       if (i >= ST) mbar_wait(&empty_bar[stage], (i / ST - 1) & 1);
       const int tap = s / chunks, cb = s - tap * chunks;
       const int dy = tap / p.k, dx = tap - dy * p.k;
-      const int toff = (dy - p.pad) * p.w_in + (dx - p.pad);  // the tap's pixel offset in x
+      const int toff = (dy - p.ph) * p.w_in + (dx - p.pw);  // the tap's pixel offset in x
       const int ch = cb * K1_BK + c * 8;
       const bool ch_ok = ch < p.cin_x;
       const int grp = (p.g == 2 && ch >= p.gb) ? 1 : 0;
@@ -287,7 +287,7 @@ __global__ void __launch_bounds__(K1_THREADS, 1) pconv_k1(const Params p) {
         if (tap_bits) {
           take = ch_ok && ((unsigned)ri.w & bit);
         } else {
-          const int ih = ri.y + dy - p.pad, iw = ri.z + dx - p.pad;
+          const int ih = ri.y + dy - p.ph, iw = ri.z + dx - p.pw;
           take = ch_ok && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in &&
                  (__ldg(mbits + (size_t)(ri.x + toff) * p.g + grp) & 0x7fff);
         }
@@ -394,8 +394,9 @@ cudaError_t launch_k1(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The halo form of K1, for 3x3 windows over same-size maps whose width is
-// 64 or a multiple of 128 (dec2 and dec1 of the U-Net). A tile of BM
+// The halo form of K1, for 3x3 windows whose output width is 64 or a
+// multiple of 128 (dec2 and dec1 of the U-Net, with padding (1, 1), or
+// (0, 1) on an H shard that carries its neighbours' rows). A tile of BM
 // pixels (128, or 256 with two m64 tiles per consumer warpgroup) is one
 // image row segment or whole rows, and each m64 tile lies in one row. A K step is
 // one window row dy x 64 channels: the producer gathers the tile's input
@@ -462,14 +463,14 @@ __global__ void __launch_bounds__(K1_THREADS, 1) pconv_k1_halo(const Params p) {
   for (int e = tid; e < 3 * AR; e += K1_THREADS) {
     const int dy = e / AR, q = e - dy * AR;
     const int r = q / pitch, col = q - r * pitch;
-    const int ih = oh0 + r + dy - 1, iw = ow0 + col - 1;
+    const int ih = oh0 + r + dy - p.ph, iw = ow0 + col - p.pw;
     uint8_t ok = 0;
     if (q < halo && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
       const unsigned short* m = mbits + ((size_t)(img * p.h + ih) * p.w_in + iw) * p.g;
       ok = ((m[0] & 0x7fff) ? 1 : 0) | ((p.g == 2 && (m[1] & 0x7fff)) ? 2 : 0);
     }
     s_ok[dy][q] = ok;
-    if (dy == 0) s_pix[q] = (img * p.h + oh0 + r - 1) * p.w_in + ow0 + col - 1;
+    if (dy == 0) s_pix[q] = (img * p.h + oh0 + r - p.ph) * p.w_in + ow0 + col - p.pw;
   }
   if (tid == 0) {
     for (int i = 0; i < ST; ++i) {
@@ -494,7 +495,7 @@ __global__ void __launch_bounds__(K1_THREADS, 1) pconv_k1_halo(const Params p) {
       const int ch = cb * K1_BK + c * 8;
       const bool ch_ok = ch < p.cin_x;
       const int gbit = (p.g == 2 && ch >= p.gb) ? 2 : 1;
-      const int drow = dy * p.w_in;  // halo row r of step dy is input row oh0 + r + dy - 1
+      const int drow = dy * p.w_in;  // halo row r of step dy is input row oh0 + r + dy - ph
       const uint32_t a = smem_u32(ring + stage * SB) + dst0;
       const uint32_t b = a + T::A_BYTES;
 #pragma unroll
@@ -618,7 +619,7 @@ cudaError_t launch_k1_halo(const Params& p, cudaStream_t stream) {
 //
 // `pconv_k2_bwd` is the head's whole backward (dx, dW, db) in one kernel.
 // A CTA owns K2_TH x K2_TW pixels of x, and persistent CTAs walk the
-// tiles. With D[q, j] = dacc[q - tap + pad, o] for j = tap * Cout + o (the
+// tiles. With D[q, j] = dacc[q - tap + (ph, pw), o] for j = tap * Cout + o (the
 // scaled cotangent, bf16, gathered from a halo of g that the tile scales
 // itself by the forward's window count, so `valid` is M' bit for bit):
 //   dx[q, c] = M(q, c) * sum_j D[q, j] * W[j, c]      (A = D, B = W)
@@ -826,7 +827,7 @@ __global__ void __launch_bounds__(K2_THREADS, 3) pconv_k2(const Params p) {
   // the halo's pixels and masks (0 outside the image)
   for (int i = tid; i < npx; i += K2_THREADS) {
     const int hr = i / hw, hc = i - hr * hw;
-    const int ih = oh0 - p.pad + hr, iw = ow0 - p.pad + hc;
+    const int ih = oh0 - p.ph + hr, iw = ow0 - p.pw + hc;
     int gp = -1;
     float2 mk = make_float2(0.f, 0.f);
     if (ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
@@ -1043,7 +1044,7 @@ __global__ void __launch_bounds__(K2_THREADS, 2) pconv_k2_bwd(const Params p) {
       // dacc over the halo of output pixels: the tile's own and k - 1 before
       for (int i = tid; i < npxh; i += K2_THREADS) {
         const int hr = i / hw, hc = i - hr * hw;
-        const int oh = ih0 + p.pad - (k - 1) + hr, ow = iw0 + p.pad - (k - 1) + hc;
+        const int oh = ih0 + p.ph - (k - 1) + hr, ow = iw0 + p.pw - (k - 1) + hc;
         float da[K2_NPAD];
 #pragma unroll
         for (int o = 0; o < K2_NPAD; ++o) da[o] = 0.f;
@@ -1359,7 +1360,7 @@ __global__ void __launch_bounds__(256) pconv_colsum(const float* part, float* ou
 
 Params make_params(const void* x, const void* mask, const void* w, const void* bias, void* y,
                    void* mask_out, int n, int h, int w_in, int cin, int g, int size0, int size1,
-                   int hout, int wout, int cout, int cin_p, int cout_p, int k, int pad) {
+                   int hout, int wout, int cout, int cin_p, int cout_p, int k, int ph, int pw) {
   Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.mask = static_cast<const __nv_bfloat16*>(mask);
@@ -1370,7 +1371,7 @@ Params make_params(const void* x, const void* mask, const void* w, const void* b
   p.partial = nullptr;
   p.n = n; p.h = h; p.w_in = w_in; p.cin = cin; p.g = g; p.size0 = size0; p.size1 = size1;
   p.hout = hout; p.wout = wout; p.cout = cout; p.cin_p = cin_p; p.cout_p = cout_p;
-  p.k = k; p.pad = pad;
+  p.k = k; p.ph = ph; p.pw = pw;
   p.cin_x = cin; p.gb = size0; p.splits = 1;
   p.gout = nullptr; p.dx = nullptr;
   p.x_bytes = (size_t)n * h * w_in * cin * sizeof(__nv_bfloat16);
@@ -1388,17 +1389,18 @@ extern "C" {
 // cin_p % 64 == 0, cout_p % 8 == 0, zero where x has no channel; bias:
 // (cout_p) f32 or NULL; partial: (splits, n*hout*wout, cout_p) f32 when
 // splits > 1; (bm, bn) in {128} x {64, 128, 256} or {256} x {64, 128};
-// halo: the halo form (k 3, pad 1, same-size maps of a width that is a
-// multiple of 64 and of bm or a divisor of it, H*W a multiple of bm;
+// ph, pw: the zero padding of H and of W; halo: the halo form (k 3, an output
+// width that is a multiple of 64 and of bm or a divisor of it, Hout*Wout a
+// multiple of bm;
 // (bm, bn) in {(128, 64), (128, 128), (256, 64)}). cin, size0, size1: the layer's own
 // channel counts (for the renormalisation).
 int tsii_pconv_k1(const void* x, const void* mask, const void* w, const void* bias, void* y,
                   void* mask_out, void* partial, int n, int h, int w_in, int cin, int g,
                   int size0, int size1, int hout, int wout, int cout, int cin_x, int gb,
-                  int cin_p, int cout_p, int k, int pad, int splits, int bm, int bn, int halo,
-                  void* stream) {
+                  int cin_p, int cout_p, int k, int ph, int pw, int splits, int bm, int bn,
+                  int halo, void* stream) {
   Params p = make_params(x, mask, w, bias, y, mask_out, n, h, w_in, cin, g, size0, size1, hout,
-                         wout, cout, cin_p, cout_p, k, pad);
+                         wout, cout, cin_p, cout_p, k, ph, pw);
   p.partial = static_cast<float*>(partial);
   p.cin_x = cin_x;
   p.gb = gb;
@@ -1409,8 +1411,8 @@ int tsii_pconv_k1(const void* x, const void* mask, const void* w, const void* bi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (halo) {
     // every m64 tile in one image row, no tile across two images
-    const bool fits = k == 3 && pad == 1 && hout == h && wout == w_in && w_in % 64 == 0 &&
-                      (w_in % bm == 0 || bm % w_in == 0) && ((long long)h * w_in) % bm == 0;
+    const bool fits = k == 3 && wout % 64 == 0 && (wout % bm == 0 || bm % wout == 0) &&
+                      ((long long)hout * wout) % bm == 0;
     if (!fits) return (int)cudaErrorInvalidValue;
     switch (bm * 1000 + bn) {
       case 128064: return (int)launch_k1_halo<64, 1>(p, s);
@@ -1440,9 +1442,10 @@ static bool k2_geometry_ok(int cout, int cb, int nblk, int cin, int kj) {
 // no channel or output; 1 <= cout <= 7; bias: (cout) f32 or NULL.
 int tsii_pconv_k2(const void* x, const void* mask, const void* w, const void* bias, void* y,
                   void* mask_out, int n, int h, int w_in, int cin, int g, int size0, int size1,
-                  int hout, int wout, int cout, int k, int pad, int cb, int nblk, void* stream) {
+                  int hout, int wout, int cout, int k, int ph, int pw, int cb, int nblk,
+                  void* stream) {
   Params p = make_params(x, mask, w, bias, y, mask_out, n, h, w_in, cin, g, size0, size1, hout,
-                         wout, cout, cin, cout, k, pad);
+                         wout, cout, cin, cout, k, ph, pw);
   p.cb = cb;
   p.nblk = nblk;
   if (!k2_geometry_ok(cout, cb, nblk, cin, 0) || (reinterpret_cast<uintptr_t>(x) & 15) ||
@@ -1464,10 +1467,10 @@ int tsii_pconv_k2(const void* x, const void* mask, const void* w, const void* bi
 // nblk * cb) and then its db.
 int tsii_pconv_k2_bwd(const void* gout, const void* x, const void* mask, const void* w, void* dx,
                       void* partial, int n, int h, int w_in, int cin, int g, int size0,
-                      int size1, int hout, int wout, int cout, int k, int pad, int cb, int nblk,
-                      int kj, int grid, int need_dx, int need_dw, int need_db, void* stream) {
+                      int size1, int hout, int wout, int cout, int k, int ph, int pw, int cb,
+                      int nblk, int kj, int grid, int need_dx, int need_dw, int need_db, void* stream) {
   Params p = make_params(x, mask, w, nullptr, nullptr, nullptr, n, h, w_in, cin, g, size0, size1,
-                         hout, wout, cout, cin, cout, k, pad);
+                         hout, wout, cout, cin, cout, k, ph, pw);
   p.gout = static_cast<const __nv_bfloat16*>(gout);
   p.dx = static_cast<__nv_bfloat16*>(dx);
   p.partial = static_cast<float*>(partial);
@@ -1485,13 +1488,13 @@ int tsii_pconv_k2_bwd(const void* gout, const void* x, const void* mask, const v
 }
 
 // K3's first pass. gout, dacc: (n, hout, wout, cout) bf16; partial: (grid,
-// cout) f32 when need_db. cin, size0, size1, k, pad: the layer's own (for
+// cout) f32 when need_db. cin, size0, size1, k, ph, pw: the layer's own (for
 // the window count).
 int tsii_pconv_k3_prep(const void* gout, const void* mask, void* dacc, void* partial, int n, int h,
                        int w_in, int cin, int g, int size0, int size1, int hout, int wout,
-                       int cout, int k, int pad, int grid, int need_db, void* stream) {
+                       int cout, int k, int ph, int pw, int grid, int need_db, void* stream) {
   Params p = make_params(nullptr, mask, nullptr, nullptr, dacc, nullptr, n, h, w_in, cin, g, size0,
-                         size1, hout, wout, cout, cin, cout, k, pad);
+                         size1, hout, wout, cout, cin, cout, k, ph, pw);
   p.gout = static_cast<const __nv_bfloat16*>(gout);
   p.partial = static_cast<float*>(partial);
   p.need_db = need_db;

@@ -16,6 +16,7 @@ from a worker thread.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import queue
@@ -203,19 +204,28 @@ class DevicePrefetcher:
     the consumer's kernels may still read it. On a CPU ``device`` the
     batches are only converted to tensors.
 
+    With ``mesh`` (``parallel.make_mesh``), the counterpart of JAX's
+    ``sharding``, each batch splits along its leading axis over the mesh's
+    entries (``parallel.shard_batch``): ``__next__`` returns one batch per
+    entry, each on its entry's device, copied on a stream of the
+    prefetcher's per distinct device.
+
     A batch the worker fails on is raised once from ``__next__``, after
     which the iterator stops; ``close()`` stops the worker, drains the
     queue and joins the thread.
     """
 
-    def __init__(self, host_iter: Iterator, device: Any = "cuda", depth: int = 2):
+    def __init__(self, host_iter: Iterator, device: Any = "cuda", depth: int = 2, mesh=None):
+        from text_segmentation_image_inpainting_tpu_torch.parallel.mesh import distinct_devices
+
         self._it = host_iter
-        self._device = torch.device(device)
+        self._mesh = mesh
+        self._device = torch.device(device) if mesh is None else mesh.device_list[0]
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._dead = False
-        self._stream = (torch.cuda.Stream(self._device) if self._device.type == "cuda"
-                        else None)
+        devices = [self._device] if mesh is None else distinct_devices(mesh)
+        self._streams = [torch.cuda.Stream(d) for d in devices if d.type == "cuda"]
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
@@ -231,12 +241,24 @@ class DevicePrefetcher:
         return False
 
     def _upload(self, batch):
-        if self._stream is None:
-            return _tree_map(lambda x: upload(x, self._device), batch), None
-        with torch.cuda.stream(self._stream):
-            batch = _tree_map(lambda x: upload(x, self._device), batch)
-            done = torch.cuda.Event()
-            done.record(self._stream)
+        from text_segmentation_image_inpainting_tpu_torch.parallel.mesh import shard_batch
+
+        def place():
+            if self._mesh is None:
+                return _tree_map(lambda x: upload(x, self._device), batch)
+            return shard_batch(self._mesh, batch)
+
+        if not self._streams:
+            return place(), None
+        with contextlib.ExitStack() as ctx:
+            for stream in self._streams:
+                ctx.enter_context(torch.cuda.stream(stream))
+            batch = place()
+        done = []
+        for stream in self._streams:
+            ev = torch.cuda.Event()
+            ev.record(stream)
+            done.append((stream.device, ev))
         return batch, done
 
     def _worker(self) -> None:
@@ -266,9 +288,9 @@ class DevicePrefetcher:
             raise item
         batch, done = item
         if done is not None:
-            stream = torch.cuda.current_stream(self._device)
-            stream.wait_event(done)
-            _tree_map(lambda t: t.record_stream(stream), batch)
+            for device, ev in done:
+                torch.cuda.current_stream(device).wait_event(ev)
+            _tree_map(lambda t: t.record_stream(torch.cuda.current_stream(t.device)), batch)
         return batch
 
     def close(self) -> None:

@@ -104,13 +104,13 @@ def load_library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build_library()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tsii_pconv_k1.argtypes = [ptr] * 7 + [i32] * 20 + [ptr]
+        lib.tsii_pconv_k1.argtypes = [ptr] * 7 + [i32] * 21 + [ptr]
         lib.tsii_pconv_k1.restype = i32
-        lib.tsii_pconv_k2.argtypes = [ptr] * 6 + [i32] * 14 + [ptr]
+        lib.tsii_pconv_k2.argtypes = [ptr] * 6 + [i32] * 15 + [ptr]
         lib.tsii_pconv_k2.restype = i32
-        lib.tsii_pconv_k2_bwd.argtypes = [ptr] * 6 + [i32] * 19 + [ptr]
+        lib.tsii_pconv_k2_bwd.argtypes = [ptr] * 6 + [i32] * 20 + [ptr]
         lib.tsii_pconv_k2_bwd.restype = i32
-        lib.tsii_pconv_k3_prep.argtypes = [ptr] * 4 + [i32] * 14 + [ptr]
+        lib.tsii_pconv_k3_prep.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
         lib.tsii_pconv_k3_prep.restype = i32
         lib.tsii_pconv_k3_mask.argtypes = [ptr] * 3 + [ctypes.c_longlong] + [i32] * 3 + [ptr]
         lib.tsii_pconv_k3_mask.restype = i32

@@ -28,6 +28,7 @@ or raise; nothing falls back. ``K1_LAUNCHES`` / ``K2_LAUNCHES`` /
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -43,6 +44,7 @@ from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 K3_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()  # the H-sharded U-Net launches from one thread per shard
 
 _BK = 64  # K1's K step: one tap x 64 channels; the re-laid weights pad Cin to it
 _SMS = 132  # streaming multiprocessors of an H100 SXM: K1's grid fills at least one wave
@@ -121,7 +123,6 @@ def partial_conv2d_backward(g, x, mask, weight, bias, group_sizes, padding,
     around one library call of the two products (``_launch_k3``), at
     Cout <= 7 ``pconv_k2_bwd`` alone (``_launch_k2_bwd``); a failed build
     or launch raises. On a CPU tensor the plain version."""
-    global K3_LAUNCHES
     needs = (needs[0], needs[1], needs[2] and bias is not None)
     if not any(needs):
         return None, None, None
@@ -132,7 +133,7 @@ def partial_conv2d_backward(g, x, mask, weight, bias, group_sizes, padding,
         out = _launch_k2_bwd(g, x, mask, weight, bias, group_sizes, padding, needs)
     else:
         out = _launch_k3(g, x, mask, weight, bias, group_sizes, padding, needs)
-    K3_LAUNCHES += 1
+    _count("K3_LAUNCHES")
     return out
 
 
@@ -206,16 +207,28 @@ def _check_inputs(x, mask, weight, bias, group_sizes, padding):
     if bias is not None and (bias.shape != (cout,) or bias.device != x.device):
         raise ValueError(f"bias must be ({cout},) on {x.device}, got {tuple(bias.shape)}")
     ph, pw = padding
-    if ph != pw:
-        raise ValueError(f"the kernels take symmetric square padding, got {padding}")
+    if ph < 0 or pw < 0:
+        raise ValueError(f"padding must be nonnegative, got {padding}")
     hout, wout = h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
     if hout <= 0 or wout <= 0:
         raise ValueError(f"empty output for x {tuple(x.shape)}, k={kh}, padding={padding}")
-    return n, h, w, cin, g, cout, kh, ph, hout, wout
+    return n, h, w, cin, g, cout, kh, (ph, pw), hout, wout
+
+
+def _pads(pad) -> Tuple[int, int]:
+    """(ph, pw) from one padding for both dimensions or a pair."""
+    return (pad, pad) if isinstance(pad, int) else (int(pad[0]), int(pad[1]))
 
 
 def _sizes(group_sizes):
     return group_sizes[0], (group_sizes[1] if len(group_sizes) == 2 else 0)
+
+
+def _count(name: str) -> None:
+    """Add one to the launch counter ``name``, under a lock: several host
+    threads may launch at once, and ``+=`` on a module global is not atomic."""
+    with _COUNT_LOCK:
+        globals()[name] += 1
 
 
 def _stream() -> int:
@@ -254,15 +267,17 @@ class K1Plan(NamedTuple):
         return (k if self.halo else k * k) * cin_p // _BK
 
 
-def k1_plan(n: int, h: int, w: int, cout: int, cin_p: int, k: int, pad: int) -> K1Plan:
+def k1_plan(n: int, h: int, w: int, cout: int, cin_p: int, k: int, pad) -> K1Plan:
     """K1's plan for N images of H x W, Cout output channels, Cin_p
-    channels (``k1_channels``), a k x k window and ``pad``: a pure
-    function of the shape, the same on every call.
+    channels (``k1_channels``), a k x k window and ``pad`` (one padding
+    for H and W, or the pair (ph, pw)): a pure function of the shape, the
+    same on every call.
 
     The halo form (``csrc/partial_conv.cu::pconv_k1_halo``) where it
-    applies and Cout <= 128: a 3 x 3 same-size window, a width of 64 or a
-    multiple of 128 and H * W a multiple of 128 (dec2 and dec1 of the
-    U-Net); BM 256 for BN 64 where the geometry and the grid allow (dec1),
+    applies and Cout <= 128: a 3 x 3 window, an output width of 64 or a
+    multiple of 128 and Hout * Wout a multiple of 128 (dec2 and dec1 of
+    the U-Net, whole or on an H shard); BM 256 for BN 64 where the
+    geometry and the grid allow (dec1),
     else 128. Else the plain gather, whose time is the operand tiles it
     moves from L2 into shared memory: the tile (BM x BN) and the number of
     K splits that give the fewest waves x K steps x stage bytes, plus the
@@ -271,14 +286,16 @@ def k1_plan(n: int, h: int, w: int, cout: int, cin_p: int, k: int, pad: int) -> 
     tile, so that the grid holds at least 132 CTAs, each over a nonempty
     contiguous range of K steps (``k1_split_ranges``)."""
     cout_p = -(-cout // 8) * 8
-    p = n * (h + 2 * pad - k + 1) * (w + 2 * pad - k + 1)
+    ph, pw = _pads(pad)
+    hout, wout = h + 2 * ph - k + 1, w + 2 * pw - k + 1
+    p = n * hout * wout
 
     def tiles(bm, bn):
         return -(-p // bm) * -(-cout_p // bn)
 
     def halo_fits(bm):  # each m64 tile in one image row, no tile across two images
-        return (k == 3 and pad == 1 and w % 64 == 0 and (w % bm == 0 or bm % w == 0)
-                and (h * w) % bm == 0)
+        return (k == 3 and wout % 64 == 0 and (wout % bm == 0 or bm % wout == 0)
+                and (hout * wout) % bm == 0)
 
     if cout_p <= 128 and halo_fits(128):
         bn = 128 if cout_p > 64 else 64
@@ -373,15 +390,15 @@ def _launch_k1(x, mask, weight, bias, group_sizes, padding):
     all the U-Net makes, and differs from the plain version for any other
     value. msum and M' count the mask values as they are. Every other
     input outside the scope raises (``_check_inputs``)."""
-    global K1_LAUNCHES
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
-    n, h, w, cin, g, cout, k, pad, hout, wout = _check_inputs(x, mask, weight, bias, group_sizes, padding)
+    n, h, w, cin, g, cout, k, (ph, pw), hout, wout = _check_inputs(x, mask, weight, bias,
+                                                                   group_sizes, padding)
     lib = load_library()
     gb, cin_x, cin_p = k1_channels(group_sizes)
     cout_p = -(-cout // 8) * 8
     p = n * hout * wout
-    plan = k1_plan(n, h, w, cout, cin_p, k, pad)
+    plan = k1_plan(n, h, w, cout, cin_p, k, (ph, pw))
     xk = k1_input_relayout(x, group_sizes)
     wk = k1_weight_relayout(weight, group_sizes)
     b = None
@@ -397,11 +414,11 @@ def _launch_k1(x, mask, weight, bias, group_sizes, padding):
     code = lib.tsii_pconv_k1(
         xk.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
         y.data_ptr(), m_out.data_ptr(), 0 if part is None else part.data_ptr(),
-        n, h, w, cin, g, s0, s1, hout, wout, cout, cin_x, gb, cin_p, cout_p, k, pad, plan.splits,
-        plan.bm, plan.bn, int(plan.halo), _stream(),
+        n, h, w, cin, g, s0, s1, hout, wout, cout, cin_x, gb, cin_p, cout_p, k, ph, pw,
+        plan.splits, plan.bm, plan.bn, int(plan.halo), _stream(),
     )
     check(lib, code, "K1 (partial conv, Cout >= 8)")
-    K1_LAUNCHES += 1
+    _count("K1_LAUNCHES")
     return y, m_out
 
 
@@ -471,10 +488,10 @@ def _launch_k2(x, mask, weight, bias, group_sizes, padding):
     re-laid in this call (``k2_weight_relayout``). Unlike K1 it multiplies
     by the mask's value, so a mask that is not binary gives x * M as the
     plain version does."""
-    global K2_LAUNCHES
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
-    n, h, w, cin, g, cout, k, pad, hout, wout = _check_inputs(x, mask, weight, bias, group_sizes, padding)
+    n, h, w, cin, g, cout, k, (ph, pw), hout, wout = _check_inputs(x, mask, weight, bias,
+                                                                   group_sizes, padding)
     lib = load_library()
     plan = k2_plan(cin, cout, k)
     if k2_smem_bytes(k, plan.cb) > SMEM_LIMIT:
@@ -486,11 +503,11 @@ def _launch_k2(x, mask, weight, bias, group_sizes, padding):
     s0, s1 = _sizes(group_sizes)
     code = lib.tsii_pconv_k2(
         xk.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
-        y.data_ptr(), m_out.data_ptr(), n, h, w, cin, g, s0, s1, hout, wout, cout, k, pad,
+        y.data_ptr(), m_out.data_ptr(), n, h, w, cin, g, s0, s1, hout, wout, cout, k, ph, pw,
         plan.cb, plan.nblk, _stream(),
     )
     check(lib, code, "K2 (partial conv, Cout <= 7)")
-    K2_LAUNCHES += 1
+    _count("K2_LAUNCHES")
     return y, m_out
 
 
@@ -520,10 +537,11 @@ def _launch_k2_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
     a fixed order, so two launches give the same bits."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
-    n, h, w, cin, gr, cout, k, pad, hout, wout = _check_inputs(x, mask, weight, bias, group_sizes, padding)
+    n, h, w, cin, gr, cout, k, (ph, pw), hout, wout = _check_inputs(x, mask, weight, bias,
+                                                                    group_sizes, padding)
     g = _check_cotangent(g, x, n, hout, wout, cout)
-    if pad > k - 1:
-        raise ValueError(f"K2's backward takes padding up to k - 1, got {pad} for k = {k}")
+    if max(ph, pw) > k - 1:
+        raise ValueError(f"K2's backward takes padding up to k - 1, got {padding} for k = {k}")
     lib = load_library()
     plan = k2_plan(cin, cout, k)
     if k2_smem_bytes(k, plan.cb, plan.kj) > SMEM_LIMIT:
@@ -540,7 +558,7 @@ def _launch_k2_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
     code = lib.tsii_pconv_k2_bwd(
         g.data_ptr(), xk.data_ptr(), mask.data_ptr(), wk.data_ptr(),
         0 if dx is None else dx.data_ptr(), part.data_ptr(), n, h, w, cin, gr, s0, s1, hout, wout,
-        cout, k, pad, plan.cb, plan.nblk, plan.kj, grid, int(need_dx), int(need_dw), int(need_db),
+        cout, k, ph, pw, plan.cb, plan.nblk, plan.kj, grid, int(need_dx), int(need_dw), int(need_db),
         _stream(),
     )
     check(lib, code, "K3 (partial conv backward, Cout <= 7)")
@@ -561,9 +579,10 @@ def _check_nhwc_bf16(name: str, t: torch.Tensor) -> None:
                          f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def k3_prep(g, mask, cin: int, group_sizes, k: int, pad: int, need_db: bool = True):
+def k3_prep(g, mask, cin: int, group_sizes, k: int, pad, need_db: bool = True):
     """K3's first pass (``pconv_k3_prep``) over the cotangent ``g``
-    (N, Hout, Wout, Cout) of a layer with ``cin`` input channels: returns
+    (N, Hout, Wout, Cout) of a layer with ``cin`` input channels and
+    padding ``pad`` (one for H and W, or the pair (ph, pw)): returns
     (dacc, db). dacc = bf16(g * scale) where the window has a valid tap,
     else 0, channels-last as the products read it; db = sum of g over the
     valid windows, (Cout,) f32, the per-CTA parts added in a fixed order
@@ -576,8 +595,9 @@ def k3_prep(g, mask, cin: int, group_sizes, k: int, pad: int, need_db: bool = Tr
     lib = load_library()
     n, h, w, gr = mask.shape
     _, hout, wout, cout = g.shape
+    ph, pw = _pads(pad)
     if (gr != len(group_sizes) or sum(group_sizes) != cin
-            or (hout, wout) != (h + 2 * pad - k + 1, w + 2 * pad - k + 1)):
+            or (hout, wout) != (h + 2 * ph - k + 1, w + 2 * pw - k + 1)):
         raise ValueError(f"g {tuple(g.shape)} and mask {tuple(mask.shape)} do not fit groups "
                          f"{tuple(group_sizes)} of {cin} channels, k = {k}, padding {pad}")
     s0, s1 = _sizes(group_sizes)
@@ -586,7 +606,7 @@ def k3_prep(g, mask, cin: int, group_sizes, k: int, pad: int, need_db: bool = Tr
     part = torch.empty((grid, cout), dtype=torch.float32, device=g.device) if need_db else None
     code = lib.tsii_pconv_k3_prep(
         g.data_ptr(), mask.data_ptr(), dacc.data_ptr(), 0 if part is None else part.data_ptr(),
-        n, h, w, cin, gr, s0, s1, hout, wout, cout, k, pad, grid, int(need_db), _stream(),
+        n, h, w, cin, gr, s0, s1, hout, wout, cout, k, ph, pw, grid, int(need_db), _stream(),
     )
     check(lib, code, "K3 (scaled cotangent and db)")
     return dacc, (_colsum(lib, part) if need_db else None)
@@ -618,7 +638,8 @@ def _launch_k3(g, x, mask, weight, bias, group_sizes, padding, needs):
     pass over g; ``k3_mask`` writes x * M; one ``aten::convolution_backward``
     computes both products on channels-last bf16 views (no layout copy);
     ``k3_mask`` masks dx in place on that call's own output."""
-    n, h, w, cin, gr, cout, k, pad, hout, wout = _check_inputs(x, mask, weight, bias, group_sizes, padding)
+    n, h, w, cin, gr, cout, k, pad, hout, wout = _check_inputs(x, mask, weight, bias, group_sizes,
+                                                               padding)
     g = _check_cotangent(g, x, n, hout, wout, cout)
     need_dx, need_dw, need_db = needs
     dacc, db = k3_prep(g, mask, cin, group_sizes, k, pad, need_db)
@@ -627,7 +648,7 @@ def _launch_k3(g, x, mask, weight, bias, group_sizes, padding, needs):
         xin = k3_mask(x, mask, group_sizes) if need_dw else x
         wb = weight.to(x.dtype).contiguous(memory_format=torch.channels_last)
         dxm, dw, _ = torch.ops.aten.convolution_backward(
-            to_nchw(dacc), to_nchw(xin), wb, None, [1, 1], [pad, pad], [1, 1], False, [0, 0], 1,
+            to_nchw(dacc), to_nchw(xin), wb, None, [1, 1], list(pad), [1, 1], False, [0, 0], 1,
             [need_dx, need_dw, False])
         if need_dx:
             dx = dxm.permute(0, 2, 3, 1)

@@ -25,6 +25,13 @@ buffer and the host pastes them over the caller's page. The budget
 adapts to the content (the smallest power-of-two level that covered the
 last 8 batches with 25% headroom); a page that overflows it is redone
 once on the sparse wire at K, then densely.
+
+``mesh=`` (``parallel.make_mesh``) serves data-parallel, the counterpart
+of JAX's ``sharding=``: each batch splits along its leading axis over the
+mesh's entries, each entry runs ``run`` on its part on its own device and
+stream (one replica of the pipeline per distinct device; entries that
+repeat a device share it), and the parts' results land in one pinned
+host buffer in page order, one event per entry.
 """
 
 from __future__ import annotations
@@ -36,6 +43,13 @@ import numpy as np
 import torch
 
 from text_segmentation_image_inpainting_tpu_torch.data.pipeline import DevicePrefetcher, upload
+from text_segmentation_image_inpainting_tpu_torch.parallel.mesh import (
+    distinct_devices,
+    entry_streams,
+    on_stream,
+    replicate,
+    shard_batch,
+)
 from text_segmentation_image_inpainting_tpu_torch.pipeline.sparse import (
     sparse_flatten,
     sparse_pack,
@@ -59,7 +73,7 @@ class _Inflight(NamedTuple):
     chunked: bool
     k_used: int  # 0: dense
     host: Tuple[torch.Tensor, ...]  # the result's host copies (pinned on CUDA)
-    done: torch.cuda.Event | None  # recorded after the copies (CUDA)
+    done: list | None  # events recorded after the copies, one per mesh entry (CUDA)
     pages_u8: np.ndarray | None  # the caller's pages, the sparse paste canvas
 
 
@@ -74,12 +88,22 @@ class PageStreamServer:
     chunk: stack k logical batches per dispatch and result read.
     sparse_tiles: > 0 returns changed tiles only (needs ``output_uint8``
       and ``tile % 8 == 0``).
+    mesh: serve data-parallel over the mesh's entries (a batch, or with
+      ``chunk`` a stack of batches, splits along its leading axis).
     """
 
     def __init__(self, pipe, *, depth: int = 2, output_uint8: bool = True, chunk: int = 1,
-                 sparse_tiles: int = 0, tile: int = 32):
+                 sparse_tiles: int = 0, tile: int = 32, mesh=None):
         self._pipe = pipe
-        self._device = next(pipe.parameters()).device
+        self._mesh = mesh
+        if mesh is None:
+            self._device = next(pipe.parameters()).device
+            self._entries = [(pipe, None)]  # the caller's current stream
+        else:
+            replicas = {d: replicate(pipe, d) for d in distinct_devices(mesh)}
+            self._entries = [(replicas[d], s) for d, s in
+                             zip(mesh.device_list, entry_streams(mesh.device_list))]
+            self._device = mesh.device_list[0]
         self._depth = max(1, depth)
         self._uint8 = output_uint8
         self._chunk = max(1, chunk)
@@ -109,28 +133,53 @@ class PageStreamServer:
         self._done: collections.deque = collections.deque()
         self._pending: list = []  # chunked submits, on the host
 
-    # -- device programs -----------------------------------------------------
-    def _run(self, pages: torch.Tensor):
-        clean, mask = self._pipe.run(to_compute(pages, self._pipe.compute_dtype))
+    # -- device programs (each on one replica of the pipeline) ---------------
+    def _run(self, pipe, pages: torch.Tensor):
+        clean, mask = pipe.run(to_compute(pages, pipe.compute_dtype))
         if self._uint8:
             return to_uint8(clean), mask.to(torch.uint8)
         # numpy has no bfloat16; float32 holds it exactly
         return tuple(r.float() if r.dtype == torch.bfloat16 else r for r in (clean, mask))
 
-    def _run_sparse(self, pages: torch.Tensor, k: int) -> torch.Tensor:
-        clean, mask = self._pipe.run(to_compute(pages, self._pipe.compute_dtype))
+    def _run_sparse(self, pipe, pages: torch.Tensor, k: int) -> torch.Tensor:
+        clean, mask = pipe.run(to_compute(pages, pipe.compute_dtype))
         return sparse_flatten(sparse_pack(clean, mask[..., 0], max_tiles=k, tile=self._tile))
 
-    def _run_chunk(self, stack: torch.Tensor):
+    def _run_chunk(self, pipe, stack: torch.Tensor):
         # one logical batch at a time, as lax.map does: the same shapes and
         # kernels as the per-batch path, so the same bits
-        outs = [self._run(pages) for pages in stack]
+        outs = [self._run(pipe, pages) for pages in stack]
         return torch.stack([c for c, _ in outs]), torch.stack([m for _, m in outs])
 
-    def _run_sparse_chunk(self, stack: torch.Tensor, k: int) -> torch.Tensor:
-        return torch.stack([self._run_sparse(pages, k) for pages in stack])
+    def _run_sparse_chunk(self, pipe, stack: torch.Tensor, k: int) -> torch.Tensor:
+        return torch.stack([self._run_sparse(pipe, pages, k) for pages in stack])
 
     # -- dispatch helpers ----------------------------------------------------
+    def _upload(self, pages) -> list:
+        """Host pages on the device: one part per mesh entry (without a
+        mesh, the whole batch)."""
+        if self._mesh is None:
+            return [upload(pages, self._device)]
+        return shard_batch(self._mesh, pages)
+
+    def _each(self, fn, parts: list) -> list:
+        """``fn(pipe, part)`` per entry, in page order, each on its entry's
+        stream after the caller's work (the upload); the results as tuples.
+        The entries are dispatched one after the other from this thread: a
+        thread per entry contends for the GIL and is slower
+        (``tools/parallel_times.py``)."""
+        outs = []
+        for (pipe, stream), part in zip(self._entries, parts):
+            if stream is None:  # without a mesh, or a CPU entry: the caller's stream
+                outs.append(fn(pipe, part))
+                continue
+            caller = torch.cuda.current_stream(stream.device)
+            with on_stream(stream.device, stream):
+                stream.wait_stream(caller)
+                part.record_stream(stream)
+                outs.append(fn(pipe, part))
+        return [o if isinstance(o, tuple) else (o,) for o in outs]
+
     def _host_u8(self, pages) -> np.ndarray:
         """The caller's pages as the uint8 canvas the sparse paste uses."""
         pages = np.asarray(pages)
@@ -138,42 +187,55 @@ class PageStreamServer:
             pages = np.round(np.clip(pages, 0.0, 1.0) * 255.0).astype(np.uint8)
         return pages
 
-    def _to_host(self, *results: torch.Tensor):
-        """Start the result's copy to the host: (host tensors, event). On
-        CUDA into fresh pinned memory, ``non_blocking``, with an event
-        recorded after the copies; a block stays with its numpy views
-        until the caller drops them, so none is reused unread."""
+    def _to_host(self, parts: list):
+        """Start the copy of the entries' results (``_each``) to the host:
+        (host tensors, events). On CUDA into one fresh pinned tensor per
+        output, each entry's part ``non_blocking`` at its offset on its
+        own stream, with an event recorded after; a block stays with its
+        numpy views until the caller drops them, so none is reused unread."""
         if self._device.type != "cuda":
-            return results, None
-        host = tuple(torch.empty(r.shape, dtype=r.dtype, pin_memory=True).copy_(
-            r, non_blocking=True) for r in results)
-        done = torch.cuda.Event()
-        done.record()
+            if len(parts) == 1:
+                return parts[0], None
+            return tuple(torch.cat(rs) for rs in zip(*parts)), None
+        host = tuple(torch.empty((sum(p[j].shape[0] for p in parts), *r.shape[1:]),
+                                 dtype=r.dtype, pin_memory=True)
+                     for j, r in enumerate(parts[0]))
+        done, off = [], 0
+        for (_, stream), part in zip(self._entries, parts):
+            n = part[0].shape[0]
+            with on_stream(self._device if stream is None else stream.device, stream):
+                for h, r in zip(host, part):
+                    h[off:off + n].copy_(r, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record()
+                done.append(ev)
+            off += n
         return host, done
 
     @staticmethod
     def _wait(host, done) -> list:
-        if done is not None:
-            done.synchronize()
+        for ev in done or ():
+            ev.synchronize()
         return [t.numpy() for t in host]
 
-    def _fetch(self, *results: torch.Tensor) -> list:
-        """A result on the host now (the retry and fallback paths)."""
-        return self._wait(*self._to_host(*results))
+    def _compute(self, fn, pages) -> list:
+        """``fn`` over host pages on every entry, its result on the host
+        now (the retry and fallback paths)."""
+        return self._wait(*self._to_host(self._each(fn, self._upload(pages))))
 
     def _dispatch(self, pages, *, chunked: bool) -> None:
         host = self._host_u8(pages) if self._sparse else None
-        self._enqueue(upload(host if host is not None else pages, self._device), host,
-                      chunked=chunked)
+        self._enqueue(self._upload(host if host is not None else pages), host, chunked=chunked)
 
-    def _enqueue(self, dev: torch.Tensor, host, *, chunked: bool) -> None:
+    def _enqueue(self, parts: list, host, *, chunked: bool) -> None:
         if self._sparse:
             k = self._k_next
-            res = self._run_sparse_chunk(dev, k) if chunked else self._run_sparse(dev, k)
+            run = self._run_sparse_chunk if chunked else self._run_sparse
+            res = self._each(lambda pipe, pages: run(pipe, pages, k), parts)
             self._inflight.append(_Inflight(chunked, k, *self._to_host(res), host))
         else:
-            res = self._run_chunk(dev) if chunked else self._run(dev)
-            self._inflight.append(_Inflight(chunked, 0, *self._to_host(*res), None))
+            res = self._each(self._run_chunk if chunked else self._run, parts)
+            self._inflight.append(_Inflight(chunked, 0, *self._to_host(res), None))
 
     def _observe_counts(self, counts: np.ndarray) -> None:
         """Track recent changed-tile demand; pick the next dispatch's
@@ -230,7 +292,8 @@ class PageStreamServer:
         if overflow.any() and k < kmax:
             # the adaptive budget undershot: redo at the largest budget,
             # still on the sparse wire
-            (buf2,) = self._fetch(self._run_sparse(upload(host, self._device), self._sparse))
+            (buf2,) = self._compute(
+                lambda pipe, pages: self._run_sparse(pipe, pages, self._sparse), host)
             self._wire_bytes += buf2.nbytes
             packed2 = sparse_unflatten(buf2, max_tiles=kmax, tile=self._tile)
             clean2, mask2, overflow2 = sparse_recompose(host, packed2, tile=self._tile)
@@ -239,7 +302,7 @@ class PageStreamServer:
         if overflow.any():
             # more changed tiles than even the largest budget: redo the
             # batch densely and keep the overflowed pages
-            dc, dm = self._fetch(*self._run(upload(host, self._device)))
+            dc, dm = self._compute(self._run, host)
             clean[overflow], mask[overflow] = dc[overflow], dm[overflow]
         return clean, mask
 
@@ -303,12 +366,12 @@ class PageStreamServer:
                 host_q.append(img)
                 yield {"image": img}
 
-        pf = DevicePrefetcher(_images(), device=self._device, depth=prefetch)
+        pf = DevicePrefetcher(_images(), device=self._device, depth=prefetch, mesh=self._mesh)
         try:
             for batch in pf:
-                img = batch["image"]
+                img = [batch["image"]] if self._mesh is None else [b["image"] for b in batch]
                 host = host_q.popleft()
-                chunked = self._chunk > 1 and img.dim() == 5
+                chunked = self._chunk > 1 and host.ndim == 5
                 self._enqueue(img, host if self._sparse else None, chunked=chunked)
                 while self.ready() and self._inflight:
                     yield self.collect()
