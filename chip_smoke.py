@@ -89,11 +89,25 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               eval forward (u and v fixed) and one step with
               ``grad_accum=2`` (the launches twice over)
  11. graph    ``make_multi_step`` as a CUDA graph for the inpaint and seg
-              steps against the same steps run eagerly (``graph_phase``);
-              ms per step eager and graph, device kernels per replay
- 12. evaluate ``train/evaluate.py --task seg|inpaint|pipeline --batches 2``
+              steps against the same steps run eagerly (``graph_phase``),
+              bit-equal in the set derived from the step's structure
+              (``probe_nondeterminism``, ``derived_exact``), elsewhere
+              within ``GRAPH_NOISE_RATIO`` of the eager runs' spread; ms
+              per step eager and graph, device kernels per replay
+ 12. f32      the f32 form of K1/K2 and of their backward (``f32_phase``)
+              at the U-Net's 8 shapes against the plain version in f64,
+              twice bit-identical; the f32 U-Net at 512^2, batch 8 (K1F 7,
+              K2F 1) and one f32 step (K3F 8); times beside cuDNN's f32
+              conv with TF32 off and the bound at the f32 peak
+ 13. ddp      data-parallel training (``ddp_phase``): the inpaint and seg
+              steps over a 1-rank NCCL mesh, eager and as the k = 4 graph,
+              at the graph phase's gate and launch counts; 2 gloo ranks on
+              cuda:0 against one process on the batch of 8 (per-rank BN
+              statistics must fail the gate); ``concurrent_train2``; ms
+              per step beside the plain step
+ 14. evaluate ``train/evaluate.py --task seg|inpaint|pipeline --batches 2``
               on the card: finite numbers under JAX's keys
- 13. parallel multi-device serving on one card (``parallel_phase``): K1/K2
+ 15. parallel multi-device serving on one card (``parallel_phase``): K1/K2
               with unequal padding and at the 4-band U-Net's halo-ed
               shapes (padding (0, 1)); ``spatial_inpaint_unet`` (2048^2,
               depth 8, bf16, 2 and 4 bands on cuda:0: K1 7 and K2 1 per
@@ -102,7 +116,7 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               (cuda:0, cuda:0): bit-equal to ``run``, or within two runs'
               spread); the data-parallel server on a 2-entry mesh (bit-equal
               to ``run`` on each half); their times beside the plain paths
- (Phases 9-12 run before the serve phase, 13 after it; each phase prints
+ (Phases 9-14 run before the serve phase, 15 after it; each phase prints
  its seconds.)
  The inpaint step also may not block the host: no blocking CUDA call in
  one profiled step (``tools/host_syncs.py``).
@@ -119,6 +133,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -207,6 +222,7 @@ K1_EXTRA = (
 # operations over the peak of their inputs' type (bf16 for every kernel
 # timed here) and its bytes over the rate.
 PEAK_BF16 = 989e12
+PEAK_F32 = 67e12  # FP32 without the tensor cores (the f32 form's FFMA)
 HBM_BYTES_PER_S = 3.35e12
 
 # The stride-1 partial convs of InpaintUNet(depth=8) at 512^2 pages:
@@ -548,6 +564,9 @@ def device_ms(fn, prefix: str = "", runs: int = 10) -> float:
 
 def main() -> int:
     # 1. device -----------------------------------------------------------
+    # cuBLAS keeps its results fixed with a fixed workspace; the graph
+    # phase's determinism probe needs it set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
         return 2
@@ -759,7 +778,11 @@ def main() -> int:
     # 8. the experiment tracks, accumulation, CUDA graphs, evaluate ----------
     xk6 = timed_phase("xception", xception_phase, dev, rng, smi)
     timed_phase("attention", attention_phase, dev, rng, tr)
-    timed_phase("graph", graph_phase, dev, rng, tr, smi)
+    gr = timed_phase("graph", graph_phase, dev, rng, tr, smi)
+    f32 = timed_phase("f32", f32_phase, dev, rng, cases, smi)
+    timed_phase("ddp", ddp_phase, dev, gr, smi)
+    del gr
+    torch.cuda.empty_cache()
     timed_phase("evaluate", evaluate_phase, smi)
 
     # 9. serve --------------------------------------------------------------
@@ -820,6 +843,21 @@ def main() -> int:
         "ms": xk6["ms"], "plain_ms": xk6["plain"], "bound_ms": xk6["bound"],
         "bound_by": xk6["by"], "library_ms": xk6["lib"],
     })
+    for kname, fn, line, tname in (("K1F", "pconv_f32 (Cout >= 8)", 184, "K1F"),
+                                   ("K2F", "pconv_f32 (Cout <= 7)", 415, "K2F"),
+                                   ("K3F", "pconv_k3_prep, pconv_k3_mask, pconv_f32_bwd_dx, "
+                                           "pconv_f32_bwd_dw (f32)", 600, "K3F")):
+        t = f32["totals"][tname]
+        log(f"{kname} (the f32 form): {t['n']} shape(s); ms, plain_ms, library_ms (cuDNN f32, "
+            f"TF32 off) and bound_ms (f32 peak without the tensor cores) are sums over them; "
+            f"launches from the f32 U-Net forward (K3F: the f32 step), max_abs_err against the "
+            f"plain version in f64")
+        kernels.append({
+            "name": f"{kname} {fn}", "route": "cuda", "source": CSRC,
+            "replaces": f"{TPU_KERNEL}:{line}", "launches": f32["launches"][kname],
+            "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain"],
+            "bound_ms": t["bound"], "bound_by": t["by"], "library_ms": t["lib"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1960,17 +1998,26 @@ def attention_phase(dev, rng, tr) -> None:
     log(f"attention eval forward: out {tuple(out.shape)} finite; u and v unchanged")
 
 
-def state_snapshot(state) -> dict:
+def state_snapshot(state, adam: bool = True) -> dict:
     """Every tensor a train step moves: parameters, buffers (BN
-    statistics, u/v), the optimizer's state and the device lr."""
+    statistics, u/v), the optimizer's state (without ``adam``: none) and
+    the device lr."""
     snap = {f"param {n}": p.detach().clone() for n, p in state.model.named_parameters()}
     snap.update({f"buffer {n}": b.clone() for n, b in state.model.named_buffers()})
     names = {id(p): n for n, p in state.model.named_parameters()}
-    for p, st in state.optimizer.state.items():
-        for k, v in st.items():
-            snap[f"adam {k} {names[id(p)]}"] = v.clone()
+    if adam:
+        for p, st in state.optimizer.state.items():
+            for k, v in st.items():
+                snap[f"adam {k} {names[id(p)]}"] = v.clone()
     if state.capturable:
         snap["lr"] = state.lr.clone()
+    return snap
+
+
+def add_metrics(snap: dict, metrics: list) -> dict:
+    """``snap`` with each step's metrics as ``metric <name> @<step>``."""
+    for i, m in enumerate(metrics):
+        snap.update({f"metric {n} @{i}": v.detach().clone() for n, v in m.items()})
     return snap
 
 
@@ -1989,127 +2036,338 @@ GRAPH_EAGER_RUNS = 3
 GRAPH_NOISE_RATIO = 1.5
 
 
-def graph_phase(dev, rng, tr, smi: str) -> None:
-    """``make_multi_step`` on the card: k = 4 steps of the inpaint step
-    (fused stem) and of the seg step (``USE_CUSTOM_WGRAD`` on), each as a
-    CUDA graph, against the same 8 steps (two dispatches: a warm-up step,
-    the capture, 7 replays) run eagerly from the same state and batches,
-    ``GRAPH_EAGER_RUNS`` times, cuDNN deterministic in all runs. Every
-    tensor (parameters, buffers, optimizer state, lr, metrics) that the
-    eager runs leave bit-equal must be bit-equal in the graph run. Where
-    they differ (the seg step: the bilinear resizes' backward adds with
-    atomics), the graph run's distance to the eager runs (the RMS over
-    those tensors of the relative L2 distance, averaged over the eager
-    runs) may not exceed the eager runs' own (averaged over their pairs)
-    by more than ``GRAPH_NOISE_RATIO``: a replay that went wrong (a stale
-    lr or batch, gradients that pile up) moves it by orders of magnitude.
-    The inpaint run starts in warm-up (``warmup_steps=3``: lr 0 at step 0)
-    and its device lr must follow the schedule, eagerly and across the
-    replays. Then ms per step, eager and graph, and the device kernels per
-    replay."""
-    from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet, TextSegmenter
-    from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
+def _graph_nodes(root) -> list:
+    """Every node of the autograd graph below ``root``, with its next nodes."""
+    seen, out, todo = set(), [], [root]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        nxt = [f for f, _ in node.next_functions if f is not None]
+        out.append((node, nxt))
+        todo.extend(nxt)
+    return out
+
+
+def _op_key(name: str) -> str:
+    return name.lower().replace("_", "")
+
+
+# Backward nodes whose CUDA kernels add with atomics outside torch's
+# deterministic mode: the ops with a backward in the lists of
+# normally-nondeterministic CUDA operations of
+# ``torch.use_deterministic_algorithms``. On the card's torch the
+# bilinear resize's backward no longer says so under that mode (nothing
+# warns, nothing raises), yet two runs of it differ: so the graph is
+# read for these nodes, besides the mode's warnings.
+ATOMIC_BACKWARD = frozenset((
+    "UpsampleLinear1DBackward", "UpsampleBilinear2DBackward", "UpsampleBicubic2DBackward",
+    "UpsampleTrilinear3DBackward", "AdaptiveAvgPool2DBackward", "AdaptiveAvgPool3DBackward",
+    "AdaptiveMaxPool2DBackward", "AvgPool3DBackward", "MaxPool3DWithIndicesBackward",
+    "FractionalMaxPool2DBackward", "FractionalMaxPool3DBackward", "ReflectionPad1DBackward",
+    "ReflectionPad2DBackward", "ReflectionPad3DBackward", "ReplicationPad1DBackward",
+    "ReplicationPad2DBackward", "ReplicationPad3DBackward", "IndexSelectBackward",
+    "GatherBackward", "IndexBackward", "EmbeddingBackward", "EmbeddingBagBackward",
+    "GridSampler2DBackward", "GridSampler3DBackward", "NllLoss2DBackward", "CtcLossBackward",
+    "CumsumBackward", "RepeatInterleaveBackward",
+))
+
+
+def probe_nondeterminism(step, fresh, batch, model) -> tuple:
+    """The nondeterministic ops of one run of ``step`` and the parameters
+    whose gradient crosses one: (ops, params). The step runs twice from
+    ``fresh()``: as it is, its own autograd graph caught at its
+    ``backward``, and under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` (cuDNN deterministic; CUBLAS_WORKSPACE_CONFIG set in
+    ``main``; the backward on the calling thread, so that its warnings
+    reach Python). The ops are those that warn and the graph's nodes in
+    ``ATOMIC_BACKWARD`` (with their counts); the params are found by
+    walking the graph from each such node down to the leaves. ``params``
+    is None when a warning names no backward node of the graph (a
+    nondeterministic forward, or an op inside a custom Function): then
+    nothing after the first forward can be called exact. (Under the mode
+    the card's torch swaps the bilinear resize for another implementation,
+    so the graph is read from the run as it is.)"""
+    import re
+    import warnings
+
+    graphs = []
+    orig = torch.Tensor.backward
+
+    def backward(self, *args, **kwargs):
+        graphs.append(_graph_nodes(self.grad_fn))
+        return orig(self, *args, **kwargs)
+
+    torch.Tensor.backward = backward
+    try:
+        step(fresh(), batch)
+    finally:
+        torch.Tensor.backward = orig
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    with warnings.catch_warnings(record=True) as caught, \
+            torch.autograd.set_multithreading_enabled(False):
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        try:
+            step(fresh(), batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+    warned = set()
+    for w in caught:
+        msg = str(w.message)
+        m = re.match(r"(\w+) does not have a deterministic implementation", msg)
+        if m:
+            warned.add(m.group(1))
+        elif "determinis" in msg:
+            warned.add(msg[:160])
+    names = {id(p): n for n, p in model.named_parameters()}
+    params, matched, found = set(), set(), Counter()
+    for nodes in graphs:
+        below = dict(nodes)
+        for node, _ in nodes:
+            name = re.sub(r"\d+$", "", node.name())
+            hits = {op for op in warned if _op_key(op).startswith(_op_key(name))}
+            if "Backward" not in name or not (hits or name in ATOMIC_BACKWARD):
+                continue
+            matched |= hits
+            found[node.name()] += 1
+            todo, seen = [node], set()
+            while todo:
+                cur = todo.pop()
+                if cur in seen:
+                    continue
+                seen.add(cur)
+                var = getattr(cur, "variable", None)
+                if var is not None and id(var) in names:
+                    params.add(names[id(var)])
+                todo.extend(below.get(cur, []))
+    ops = warned | {f"{n} x{c}" for n, c in found.items()}
+    return ops, (None if warned - matched else params)
+
+
+def derived_exact(names, noisy_params, steps: int) -> set:
+    """The tensors of a ``steps``-step snapshot that no gradient crossing a
+    nondeterministic op can reach, so that every run must give them bit
+    for bit: everything when no parameter's gradient crosses one; else the
+    counts (the lr, Adam's step, ``num_batches_tracked``) and the first
+    step's forward metrics (not its ``grad_norm``), plus after one step the
+    parameters (and their Adam moments) whose gradient crosses none and the
+    BN statistics (the first forward's). From the second step on, the
+    parameters that moved by a noisy gradient feed every later forward,
+    so every other tensor is noisy."""
+    if noisy_params is not None and not noisy_params:
+        return set(names)
+
+    def counter(n):
+        return n == "lr" or n.startswith("adam step ") or n.endswith("num_batches_tracked")
+
+    def first_forward(n):
+        return n.startswith("metric ") and n.endswith(" @0") and not n.startswith("metric grad_norm")
+
+    exact = {n for n in names if counter(n) or first_forward(n)}
+    if steps == 1 and noisy_params is not None:
+        for n in names:
+            kind, _, rest = n.partition(" ")
+            param = rest.split(" ", 1)[1] if kind == "adam" else rest
+            if kind == "buffer" or (kind in ("param", "adam") and param not in noisy_params):
+                exact.add(n)
+    return exact
+
+
+def check_against_runs(label: str, got: dict, runs: list, exact: set) -> float:
+    """``got`` against reference ``runs`` of the same steps: bit-equal in
+    ``exact`` (which every reference run must be too), and elsewhere no
+    farther from them (the RMS over those tensors of the relative L2
+    distance, averaged over the runs) than ``GRAPH_NOISE_RATIO`` times
+    their own spread. Returns the distance."""
+    names = list(runs[0])
+    if sorted(got) != sorted(names):
+        raise AssertionError(f"{label}: the snapshots name different tensors")
+    moved = [n for n in exact if any(not torch.equal(runs[0][n], r[n]) for r in runs[1:])]
+    if moved:
+        raise AssertionError(f"{label}: {len(moved)} tensors of the derived exact set differ "
+                             f"between the reference runs ({moved[:6]}): a nondeterministic "
+                             f"op was missed")
+    noisy = [n for n in names if n not in exact]
+    off = [n for n in exact if not torch.equal(got[n], runs[0][n])]
+    pairs = [(i, j) for i in range(len(runs)) for j in range(i + 1, len(runs))]
+    d_ref = float(np.mean([run_distance(runs[i], runs[j], noisy) for i, j in pairs])) if pairs \
+        else 0.0
+    d_got = float(np.mean([run_distance(got, r, noisy) for r in runs]))
+    for group in ("param", "buffer", "adam", "lr", "metric"):
+        grp = [n for n in names if n.split(" ")[0] == group]
+        if not grp:
+            continue
+        g_max = max((got[n].double() - runs[0][n].double()).abs().max().item() for n in grp)
+        log(f"{label} {group}: {len(grp)} tensors, {sum(n in exact for n in grp)} in the exact "
+            f"set, of them bit-equal {sum(n in exact and n not in off for n in grp)}; max |d| to "
+            f"reference run 1 {g_max:.4g}")
+    log(f"{label}: {len(exact)} of {len(names)} tensors exact, {len(noisy)} noisy; RMS relative "
+        f"L2 distance among the references {d_ref:.4g}, to them {d_got:.4g} (ratio "
+        f"{d_got / d_ref if d_ref else 0:.3f})")
+    if off or d_got > GRAPH_NOISE_RATIO * d_ref:
+        raise AssertionError(f"{label}: off the reference runs: {len(off)} tensors of the exact "
+                             f"set differ ({off[:6]}), distance {d_got:.4g} against their "
+                             f"{d_ref:.4g}")
+    return d_got
+
+
+def launch_counters() -> dict:
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
+
+    return {"K1": kpc.K1_LAUNCHES, "K2": kpc.K2_LAUNCHES, "K3": kpc.K3_LAUNCHES,
+            "K4": kvs.K4_LAUNCHES, "K5": kvs.K5_LAUNCHES, "K6": kdw.K6_LAUNCHES,
+            "K1F": kpc.K1F_LAUNCHES, "K2F": kpc.K2F_LAUNCHES, "K3F": kpc.K3F_LAUNCHES}
+
+
+def zero_launch_counters() -> None:
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
+
+    for mod, names in ((kpc, ("K1", "K2", "K3", "K1F", "K2F", "K3F")), (kvs, ("K4", "K5")),
+                       (kdw, ("K6",))):
+        for n in names:
+            setattr(mod, f"{n}_LAUNCHES", 0)
+
+
+def graph_cases(dev, rng, tr) -> list:
+    """The steps of ``graph_phase`` (and ``ddp_phase``): (label, model, opt,
+    make_step(model, mesh=None), batches stacked (2k, ...)). The inpaint
+    step (fused stem) starts in warm-up (``warmup_steps=3``: lr 0 at step
+    0); the seg step runs with ``USE_CUSTOM_WGRAD`` on."""
+    from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet, TextSegmenter
     from text_segmentation_image_inpainting_tpu_torch.train.config import (
         InpaintTrainConfig,
         OptimizerConfig,
         SegTrainConfig,
     )
     from text_segmentation_image_inpainting_tpu_torch.train.inpaint import make_inpaint_train_step
-    from text_segmentation_image_inpainting_tpu_torch.train.multistep import make_multi_step
     from text_segmentation_image_inpainting_tpu_torch.train.seg import make_seg_train_step
+
+    bf, k = torch.bfloat16, GRAPH_K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    opt = OptimizerConfig(warmup_steps=3)
+    icfg = InpaintTrainConfig(loss=tr["loss_cfg"], optimizer=opt)
+    unet = InpaintUNet(depth=8, dtype=bf).init_weights(torch.Generator().manual_seed(SEED + 8))
+    holes = torch.from_numpy(np.stack([hole_mask(rng, BATCH, PAGE, PAGE)[..., None]
+                                       for _ in range(2 * k)])).to(dev)
+    pages = torch.rand((2 * k, BATCH, PAGE, PAGE, 3), generator=gen, device=dev)
+    inpaint = ("inpaint step", unet.to(dev), opt,
+               lambda m, mesh=None: make_inpaint_train_step(m, icfg, tr["vgg"], mesh=mesh),
+               {"image": pages, "mask": holes})
+    scfg = SegTrainConfig()
+    seg = TextSegmenter(dtype=bf).init_weights(torch.Generator().manual_seed(SEED + 9)).to(dev)
+    masks = torch.from_numpy(np.stack([text_targets(rng, BATCH, PAGE, PAGE)
+                                       for _ in range(2 * k)])).to(dev)
+    pages = torch.rand((2 * k, BATCH, PAGE, PAGE, 3), generator=gen, device=dev)
+    pages = torch.where(masks > 0, pages * 0.3, 0.6 + 0.4 * pages)
+    segc = ("seg step, flag on", seg, scfg.optimizer,
+            lambda m, mesh=None: make_seg_train_step(m, scfg, mesh=mesh),
+            {"image": pages, "mask": masks})
+    return [inpaint, segc]
+
+
+GRAPH_K = 4
+
+
+def eager_snapshot(state, step, batches, opt, label: str) -> tuple:
+    """Run ``step`` over every batch of ``batches`` (stacked) eagerly,
+    checking the device lr against the schedule; (snapshot, launches)."""
+    from text_segmentation_image_inpainting_tpu_torch.train.state import learning_rate_at
+
+    metrics = []
+    zero_launch_counters()
+    for i in range(next(iter(batches.values())).shape[0]):
+        state, m = step(state, {n: v[i] for n, v in batches.items()})
+        metrics.append(m)
+        want_lr = learning_rate_at(opt, i + 1)
+        if abs(state.lr.item() - want_lr) > 1e-6 * want_lr:
+            raise AssertionError(f"{label}: lr {state.lr.item()} after step {i}, the "
+                                 f"schedule's {want_lr}")
+    torch.cuda.synchronize()
+    return add_metrics(state_snapshot(state), metrics), launch_counters()
+
+
+def graph_phase(dev, rng, tr, smi: str) -> dict:
+    """``make_multi_step`` on the card: k = 4 steps of the inpaint step
+    (fused stem) and of the seg step (``USE_CUSTOM_WGRAD`` on), each as a
+    CUDA graph, against the same 8 steps (two dispatches: a warm-up step,
+    the capture, 7 replays) run eagerly from the same state and batches,
+    ``GRAPH_EAGER_RUNS`` times, cuDNN deterministic in all runs. The
+    tensors that must be bit-equal (parameters, buffers, optimizer state,
+    lr, each step's metrics) are derived from the step's structure
+    (``probe_nondeterminism``, ``derived_exact``), not sampled: the seg
+    step's bilinear resizes add their backward with atomics, so every
+    parameter whose gradient crosses one, and from the second step on
+    every tensor but the counts and the first forward's metrics, is noisy;
+    the inpaint step has no such op, so all of it is exact. Noisy tensors
+    may be no farther from the eager runs than ``GRAPH_NOISE_RATIO`` times
+    the eager runs' own spread (``check_against_runs``): a replay that went
+    wrong (a stale lr or batch, gradients that pile up) moves them by
+    orders of magnitude. The inpaint run's device lr must follow the warm-up
+    schedule, eagerly and across the replays. Then ms per step, eager and
+    graph, and the device kernels per replay. Returns, per step, what
+    ``ddp_phase`` holds its data-parallel runs against."""
+    from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
+    from text_segmentation_image_inpainting_tpu_torch.train.multistep import make_multi_step
     from text_segmentation_image_inpainting_tpu_torch.train.state import (
         create_train_state,
         learning_rate_at,
     )
 
-    bf, k = torch.bfloat16, 4
+    k = GRAPH_K
     depthwise.USE_CUSTOM_WGRAD = True
     torch.backends.cudnn.deterministic = True  # in every run alike: less eager-to-eager noise
-    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-
-    def inpaint_case():
-        opt = OptimizerConfig(warmup_steps=3)
-        cfg = InpaintTrainConfig(loss=tr["loss_cfg"], optimizer=opt)
-        model = InpaintUNet(depth=8, dtype=bf).init_weights(
-            torch.Generator().manual_seed(SEED + 8)).to(dev)
-        holes = torch.from_numpy(np.stack([hole_mask(rng, BATCH, PAGE, PAGE)[..., None]
-                                           for _ in range(2 * k)])).to(dev)
-        pages = torch.rand((2 * k, BATCH, PAGE, PAGE, 3), generator=gen, device=dev)
-        return (model, opt, lambda m: make_inpaint_train_step(m, cfg, tr["vgg"]),
-                {"image": pages, "mask": holes})
-
-    def seg_case():
-        cfg = SegTrainConfig()
-        model = TextSegmenter(dtype=bf).init_weights(torch.Generator().manual_seed(SEED + 9)).to(dev)
-        masks = torch.from_numpy(np.stack([text_targets(rng, BATCH, PAGE, PAGE)
-                                           for _ in range(2 * k)])).to(dev)
-        pages = torch.rand((2 * k, BATCH, PAGE, PAGE, 3), generator=gen, device=dev)
-        pages = torch.where(masks > 0, pages * 0.3, 0.6 + 0.4 * pages)
-        return model, cfg.optimizer, lambda m: make_seg_train_step(m, cfg), {
-            "image": pages, "mask": masks}
-
-    for label, case in (("inpaint step", inpaint_case), ("seg step, flag on", seg_case)):
-        model, opt, make_step, batches = case()
+    out = {}
+    for label, model, opt, make_step, batches in graph_cases(dev, rng, tr):
         init = {n: t.clone() for n, t in model.state_dict().items()}
 
-        def fresh():
+        def fresh(model=model, init=init, opt=opt):
             model.load_state_dict(init)
             return create_train_state(model, opt, capturable=True)
 
-        eager = []
+        ops, noisy_params = probe_nondeterminism(make_step(model), fresh,
+                                                 {n: v[0] for n, v in batches.items()}, model)
+        n_params = sum(1 for _ in model.parameters())
+        log(f"graph {label}: nondeterministic ops in one step (deterministic mode's warnings, "
+            f"the graph's atomic backward nodes) {sorted(ops) or 'none'}; parameters whose "
+            f"gradient crosses one: "
+            + ("unknown (an op outside the backward graph): all noisy" if noisy_params is None
+               else f"{len(noisy_params)} of {n_params}"
+               + (f" (e.g. {sorted(noisy_params)[:4]})" if noisy_params else "")))
+        eager, counts = [], None
         for run in range(GRAPH_EAGER_RUNS):
-            state, step, metrics = fresh(), make_step(model), []
-            for i in range(2 * k):
-                state, m = step(state, {n: v[i] for n, v in batches.items()})
-                metrics.append(m)
-                want_lr = learning_rate_at(opt, i + 1)
-                if abs(state.lr.item() - want_lr) > 1e-6 * want_lr:
-                    raise AssertionError(f"{label}, eager run {run}: lr {state.lr.item()} after "
-                                         f"step {i}, the schedule's {want_lr}")
-            snap = state_snapshot(state)
-            snap.update({f"metric {n}": torch.stack([m[n] for m in metrics]) for n in metrics[0]})
+            snap, c = eager_snapshot(fresh(), make_step(model), batches, opt,
+                                     f"{label}, eager run {run}")
             eager.append(snap)
+            counts = counts or c
+        exact = derived_exact(list(eager[0]), noisy_params, 2 * k)
+        log(f"graph {label}: the derived exact set: {len(exact)} of {len(eager[0])} tensors "
+            f"({', '.join(sorted(exact)[:6])}{', ...' if len(exact) > 6 else ''})")
         state = fresh()
         multi = make_multi_step(make_step(model))
-        kpc.K1_LAUNCHES = kdw.K6_LAUNCHES = 0
+        zero_launch_counters()
         metrics, lrs = [], []
         for half in range(2):
             state, m = multi(state, {n: v[half * k:(half + 1) * k] for n, v in batches.items()})
             metrics.append(m)
             lrs.append(state.lr.item())
         torch.cuda.synchronize()
-        counted = {"K1": kpc.K1_LAUNCHES, "K6": kdw.K6_LAUNCHES}
-        graph = state_snapshot(state)
-        graph.update({f"metric {n}": torch.cat([m[n] for m in metrics]) for n in metrics[0]})
+        counted = {n: c for n, c in launch_counters().items() if n in ("K1", "K6")}
+        graph = add_metrics(state_snapshot(state), [
+            {n: v[i] for n, v in m.items()} for m in metrics for i in range(k)])
         want_lrs = [learning_rate_at(opt, k), learning_rate_at(opt, 2 * k)]
         if state.step != 2 * k or any(abs(a - b) > 1e-6 * b for a, b in zip(lrs, want_lrs)):
             raise AssertionError(f"{label} graph: step {state.step}, lr {lrs} after the two "
                                  f"dispatches, the schedule's {want_lrs}")
-        pairs = [(i, j) for i in range(len(eager)) for j in range(i + 1, len(eager))]
-        noisy = [n for n in graph if any(not torch.equal(eager[0][n], e[n]) for e in eager[1:])]
-        exact = [n for n in graph if n not in noisy]
-        off = [n for n in exact if not torch.equal(graph[n], eager[0][n])]
-        for group in ("param", "buffer", "adam", "lr", "metric"):
-            names = [n for n in graph if n.split(" ")[0] == group]
-            e_max = max([(eager[0][n].double() - eager[1][n].double()).abs().max().item()
-                         for n in names] or [0.0])
-            g_max = max([(graph[n].double() - eager[0][n].double()).abs().max().item()
-                         for n in names] or [0.0])
-            log(f"graph {label} {group}: {len(names)} tensors, bit-equal in all eager runs "
-                f"{sum(n in exact for n in names)}, and the graph run bit-equal to them in "
-                f"{sum(n in exact and n not in off for n in names)}; max |d| eager 1 - eager 2 "
-                f"{e_max:.4g}, graph - eager 1 {g_max:.4g}")
-        d_eager = float(np.mean([run_distance(eager[i], eager[j], noisy) for i, j in pairs]))
-        d_graph = float(np.mean([run_distance(graph, e, noisy) for e in eager]))
-        log(f"graph {label}: {len(noisy)} of {len(graph)} tensors differ between eager runs; "
-            f"RMS relative L2 distance eager-eager {d_eager:.4g}, graph-eager {d_graph:.4g} "
-            f"(ratio {d_graph / d_eager if d_eager else 0:.3f})")
-        if off or d_graph > GRAPH_NOISE_RATIO * d_eager:
-            raise AssertionError(f"{label}: the graph run is off eager: {len(off)} tensors "
-                                 f"bit-equal in every eager run differ ({off[:6]}), distance "
-                                 f"{d_graph:.4g} against the eager runs' {d_eager:.4g}")
+        check_against_runs(f"graph {label}", graph, eager, exact)
         log(f"graph {label}: {2 * k} steps as 2 dispatches of {k} (a warm-up step, the capture, "
             f"7 replays); lr after each dispatch {lrs} = the schedule's; launch counters over "
             f"both dispatches {counted} (the warm-up and the capture)")
@@ -2127,9 +2385,534 @@ def graph_phase(dev, rng, tr, smi: str) -> None:
             + " / ".join(f"{t:.3f}" for t in times)
             + f"; device kernels per replay (profiler, the batch copies included) "
             f"{per_replay:.0f}  [{smi}]")
-        del model, batches, eager, graph, multi, state
+        out[label] = {"model": model, "opt": opt, "make_step": make_step, "batches": batches,
+                      "fresh": fresh, "eager": eager, "exact": exact, "counts": counts,
+                      "noisy_params": noisy_params, "times": times}
+        del graph, multi, state, step
         torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
+    return out
+
+
+def check_f32(name, got, x, mask, w, b, kw) -> float:
+    """The f32 form's (y, M') against the plain version in f64 on the same
+    values: M' bit-exact, y within 1e-5 (|y| + max |y|), exactly 0 in
+    empty windows. Returns the largest |error|."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+
+    y, m = got
+    ref_y, ref_m = kpc.partial_conv2d_reference(
+        x.double(), mask.double(), w.double(), None if b is None else b.double(), **kw)
+    if y.dtype != torch.float32 or not torch.equal(m.double(), ref_m):
+        raise AssertionError(f"{name}: y {y.dtype}, or M' differs from the f64 plain version")
+    err = (y.double() - ref_y).abs()
+    if not (err <= 1e-5 * (ref_y.abs() + ref_y.abs().max())).all() or (y[ref_m[..., 0] == 0] != 0).any():
+        raise AssertionError(f"{name}: |dy| up to {err.max().item():.4g} against the f64 plain "
+                             f"version (max |y| {ref_y.abs().max().item():.4g})")
+    return err.max().item()
+
+
+def check_grads_f32(name, x, mask, w, b, g, kw) -> tuple:
+    """The f32 backward (K3F) against autograd of the plain version in f64:
+    each gradient within ``check_grads``' gate (1% relative L2, 2^-5 of
+    its max |value|); two launches bit-identical with cuDNN deterministic
+    (its f32 products otherwise pick atomic algorithms at some layers).
+    Returns (largest relative L2, largest |error|)."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+
+    gs, pad = kw["group_sizes"], kw["padding"]
+    needs = (True, True, b is not None)
+    # the library products pick atomic algorithms unless told to be deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = kpc.partial_conv2d_backward(g, x, mask, w, b, gs, pad, needs)
+        again = kpc.partial_conv2d_backward(g, x, mask, w, b, gs, pad, needs)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ref = [t.detach().double().requires_grad_(True) for t in (x, w, b) if t is not None]
+    y_ref, _ = kpc.partial_conv2d_reference(ref[0], mask.double(), ref[1],
+                                            ref[2] if b is not None else None, **kw)
+    want = torch.autograd.grad(y_ref, ref, g.double())
+    worst = worst_abs = 0.0
+    for what, a, a2, r in zip(("dx", "dW", "db"), got, again, want):
+        if a.dtype != torch.float32 or not torch.equal(a, a2):
+            raise AssertionError(f"{name} {what}: {a.dtype}, or two launches differ")
+        rel, err = rel_l2(a.double(), r), (a.double() - r).abs().max().item()
+        if not torch.isfinite(a).all() or rel > 1e-2 or err > 2**-5 * r.abs().max().item():
+            raise AssertionError(f"{name} {what}: relative L2 {rel:.3g}, max |d| {err:.4g}")
+        worst, worst_abs = max(worst, rel), max(worst_abs, err)
+    return worst, worst_abs
+
+
+def f32_phase(dev, rng, cases, smi: str) -> dict:
+    """The f32 form of K1/K2 (``pconv_f32``) and of their backward (K3F:
+    ``pconv_k3_prep`` and ``pconv_k3_mask`` in f32 around one f32
+    ``convolution_backward``, TF32 off, at the decoder levels; at the head
+    ``pconv_k3_prep``, ``pconv_f32_bwd_dx`` and ``pconv_f32_bwd_dw``), as
+    an f32 U-Net runs them: at the
+    U-Net's 8 stride-1 shapes against the plain version in f64 (M'
+    bit-exact, y within 1e-5 (|y| + max |y|); the gradients within
+    ``check_grads``' gate), each launched twice (bit-identical); the f32
+    U-Net forward at 512^2, batch 8, depth 8 (K1F 7, K2F 1; every layer's
+    own inputs re-run through the f64 plain version) and one f32 inpaint
+    step (K3F 8, terms finite). Times per layer with CUDA events beside the
+    plain version in f32, cuDNN's f32 conv on the masked input with TF32
+    off (the library column, never called by the port) and the bound at
+    the card's f32 peak without the tensor cores."""
+    from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import (
+        InpaintLossConfig,
+        make_vgg,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet, PartialConv
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+    from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import apply_mask
+    from text_segmentation_image_inpainting_tpu_torch.train.config import InpaintTrainConfig
+    from text_segmentation_image_inpainting_tpu_torch.train.inpaint import make_inpaint_train_step
+    from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
+
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    tot = {n: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "err": 0.0, "n": 0,
+               "operations": 0.0, "bytes": 0.0} for n in ("K1F", "K2F", "K3F")}
+    for kname, name, x, mask, w, b, kw, _ in cases:
+        x32, m32, w32 = x.float(), mask.float(), w.float()
+        b32 = None if b is None else b.float()
+        fname = "K2F" if kname == "K2" else "K1F"
+        got = kpc.partial_conv2d_fused(x32, m32, w32, b32, **kw)
+        again = kpc.partial_conv2d_fused(x32, m32, w32, b32, **kw)
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"{fname} {name}: two launches differ")
+        err = check_f32(f"{fname} {name}", got, x32, m32, w32, b32, kw)
+        g = torch.randn(got[0].shape, generator=gen, device=dev)
+        rel3, err3 = check_grads_f32(f"K3F {name}", x32, m32, w32, b32, g, kw)
+        gs, pad = kw["group_sizes"], kw["padding"]
+        xm = apply_mask(x32, m32, gs).permute(0, 3, 1, 2)  # channels-last NCHW view
+        wcl = w32.contiguous(memory_format=torch.channels_last)
+        gcl = g.permute(0, 3, 1, 2)
+        fwd = {"ms": lambda: kpc.partial_conv2d_fused(x32, m32, w32, b32, **kw),
+               "plain": lambda: kpc.partial_conv2d_reference(x32, m32, w32, b32, **kw),
+               "lib": lambda: torch.nn.functional.conv2d(xm, wcl, padding=pad)}
+        bwd = {"ms": lambda: kpc.partial_conv2d_backward(g, x32, m32, w32, b32, gs, pad),
+               "plain": lambda: kpc.partial_conv2d_backward_reference(g, x32, m32, w32, b32, gs,
+                                                                     pad),
+               "lib": lambda: torch.ops.aten.convolution_backward(
+                   gcl, xm, wcl, None, [1, 1], list(pad), [1, 1], False, [0, 0], 1,
+                   [True, True, False])}
+        flop, nbytes = pconv_work(x, mask, w)
+        bflop, bbytes = pconv_bwd_work(x, mask, w, g)
+        for tname, fns, work, e in ((fname, fwd, (flop, 2 * nbytes), err),
+                                    ("K3F", bwd, (bflop, 2 * bbytes), err3)):
+            t = {key: cuda_ms(fn) for key, fn in fns.items()}
+            b_ms, b_by = bound(*work, peak=PEAK_F32)
+            log(f"time {tname} {name}: kernel {t['ms']:.4f} ms ({work[0] / t['ms'] / 1e9:.1f} "
+                f"TFLOP/s), plain f32 {t['plain']:.4f} ms, cuDNN f32 (TF32 off) {t['lib']:.4f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by}; f32 peak {PEAK_F32 / 1e12:.0f} TFLOP/s)  "
+                f"[{smi}]")
+            acc = tot[tname]
+            for key in ("ms", "plain", "lib"):
+                acc[key] += t[key]
+            acc["bound"] += b_ms
+            acc[b_by] += b_ms  # what bounds the sum: the kind that bounds most of it
+            acc["by"] = max(("operations", "bytes"), key=lambda kind: acc[kind])
+            acc["err"], acc["n"] = max(acc["err"], e), acc["n"] + 1
+        log(f"parity {fname} {name}: x {tuple(x32.shape)} f32 -> y {tuple(got[0].shape)}, M' "
+            f"bit-exact, max |dy| to the f64 plain {err:.4g}; K3F relative L2 {rel3:.3g}, max "
+            f"|d| {err3:.4g}; two launches bit-identical")
+    del xm, wcl, gcl, fwd, bwd
+
+    # the f32 U-Net forward at full width, every layer's inputs re-run in f64
+    unet = InpaintUNet(depth=8, dtype=f32).init_weights(
+        torch.Generator().manual_seed(SEED + 12)).to(dev).eval()
+    pages = torch.rand((BATCH, PAGE, PAGE, 3), generator=gen, device=dev)
+    holes = torch.from_numpy(hole_mask(rng, BATCH, PAGE, PAGE)[..., None]).to(dev)
+    calls = []
+
+    def keep(module, args, kwargs, output):
+        if module.conv.stride == (1, 1):
+            calls.append((module, args[0], args[1], kwargs.get("group_sizes"), output))
+
+    hooks = [m.register_forward_hook(keep, with_kwargs=True) for m in unet.modules()
+             if isinstance(m, PartialConv)]
+    zero_launch_counters()
+    with torch.no_grad():
+        out = unet(pages * holes, holes)
+    torch.cuda.synchronize()
+    fwd_launches = launch_counters()
+    for hk in hooks:
+        hk.remove()
+    if (fwd_launches["K1F"], fwd_launches["K2F"], fwd_launches["K1"], fwd_launches["K2"]) != (
+            7, 1, 0, 0) or not torch.isfinite(out).all() or out.dtype != f32:
+        raise AssertionError(f"f32 U-Net: launches {fwd_launches}, output {out.dtype}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    for i, (module, x, m, gs, (y, mo)) in enumerate(calls):
+        c = module.conv
+        e = check_f32(f"f32 U-Net layer {i}", (y, mo), x, m, c.weight, c.bias,
+                      dict(group_sizes=gs, padding=c.padding))
+        log(f"f32 U-Net layer {i}: x {tuple(x.shape)} -> {c.out_channels}: the f32 form == the "
+            f"f64 plain on the U-Net's own inputs, max |dy| {e:.4g}")
+    del calls, out
+
+    # one f32 inpaint step (the VGG trunk in f32 on cuDNN: K4/K5 take bf16 only)
+    torch.manual_seed(SEED)
+    loss_cfg = InpaintLossConfig(vgg_dtype="float32", fused_stem=False)
+    vgg = make_vgg(loss_cfg).to(dev)
+    unet.train()
+    state = create_train_state(unet, InpaintTrainConfig().optimizer)
+    step = make_inpaint_train_step(unet, InpaintTrainConfig(loss=loss_cfg), vgg)
+    batch = {"image": pages, "mask": holes}
+    zero_launch_counters()
+    state, terms = step(state, batch)
+    torch.cuda.synchronize()
+    step_launches = launch_counters()
+    if (step_launches["K1F"], step_launches["K2F"], step_launches["K3F"], step_launches["K3"]) != (
+            7, 1, 8, 0) or not all(torch.isfinite(v) for v in terms.values()):
+        raise AssertionError(f"f32 step: launches {step_launches}, terms {terms}")
+    step_ms = cuda_ms(lambda: step(state, batch), iters=3, warmup=1)
+    log(f"f32 inpaint step (512^2, batch {BATCH}, depth 8, VGG f32 on cuDNN): launches "
+        f"{ {k: v for k, v in step_launches.items() if v} }; terms "
+        + ", ".join(f"{k} {v.item():.5g}" for k, v in terms.items())
+        + f"; {step_ms:.3f} ms per step  [{smi}]")
+    for n, acc in tot.items():
+        log(f"{n}: {acc['n']} shape(s); ms, plain_ms, library_ms and bound_ms summed over them")
+    del unet, state, step, vgg, batch, pages, holes
+    torch.cuda.empty_cache()
+    return {"totals": tot, "launches": {"K1F": fwd_launches["K1F"], "K2F": fwd_launches["K2F"],
+                                        "K3F": step_launches["K3F"]}}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+DP2_LABELS = ("inpaint step", "seg step, flag on")
+
+
+def dp2_case(label: str, dev, dtype=torch.bfloat16) -> tuple:
+    """The 2-rank runs' step, built alike in every process from seeds:
+    (model, opt, make_step(model, mesh=None), global batch of BATCH pages
+    whose halves differ: darker pages and fewer holes or less text in the
+    first). SGD, as the CPU step tests: Adam's first step is lr * sign(g)
+    wherever |g| is large beside its epsilon, so it turns rounding noise in
+    small gradients into whole steps. ``dtype`` float32 is the truth the
+    bf16 runs are held to (the VGG trunk then on cuDNN: K4/K5 take bf16)."""
+    from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import (
+        InpaintLossConfig,
+        make_vgg,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet, TextSegmenter
+    from text_segmentation_image_inpainting_tpu_torch.train.config import (
+        InpaintTrainConfig,
+        OptimizerConfig,
+        SegTrainConfig,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.train.inpaint import make_inpaint_train_step
+    from text_segmentation_image_inpainting_tpu_torch.train.seg import make_seg_train_step
+
+    bf, half = dtype, BATCH // 2
+    sgd = OptimizerConfig(kind="sgd", learning_rate=0.01)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    nrng = np.random.default_rng(SEED + 22)
+    pages = torch.rand((BATCH, PAGE, PAGE, 3), generator=gen, device=dev)
+    pages[:half] *= 0.5
+    if label == "inpaint step":
+        torch.manual_seed(SEED)  # the VGG trunk's default init, as the train phase's
+        f32 = dtype == torch.float32
+        loss_cfg = InpaintLossConfig(vgg_dtype="float32" if f32 else "bfloat16", fused_stem=not f32)
+        vgg = make_vgg(loss_cfg).to(dev)
+        cfg = InpaintTrainConfig(loss=loss_cfg, optimizer=sgd)
+        model = InpaintUNet(depth=8, dtype=bf).init_weights(
+            torch.Generator().manual_seed(SEED + 20)).to(dev)
+        holes = hole_mask(nrng, BATCH, PAGE, PAGE)
+        holes[half:] *= hole_mask(nrng, half, PAGE, PAGE)  # more holes in the second half
+        batch = {"image": pages, "mask": torch.from_numpy(holes[..., None]).to(dev)}
+        return model, cfg.optimizer, lambda m, mesh=None: make_inpaint_train_step(
+            m, cfg, vgg, mesh=mesh), batch
+    cfg = SegTrainConfig(optimizer=sgd)
+    model = TextSegmenter(dtype=bf).init_weights(torch.Generator().manual_seed(SEED + 23)).to(dev)
+    text = text_targets(nrng, BATCH, PAGE, PAGE)
+    text[half:] = np.maximum(text[half:], text_targets(nrng, half, PAGE, PAGE))  # more text
+    masks = torch.from_numpy(text).to(dev)
+    pages = torch.where(masks > 0, pages * 0.3, 0.6 + 0.4 * pages)
+    return model, cfg.optimizer, lambda m, mesh=None: make_seg_train_step(m, cfg, mesh=mesh), {
+        "image": pages, "mask": masks}
+
+
+@contextlib.contextmanager
+def per_rank_statistics():
+    """BatchNorm with each rank's own statistics: the cross-rank sum of
+    ``ops/collectives.py`` undone (a check that the gate has teeth; the
+    port has no such switch)."""
+    from text_segmentation_image_inpainting_tpu_torch.ops import collectives
+
+    summed = collectives.all_reduce_stats
+    collectives.all_reduce_stats = lambda x: x * collectives.dp_world()
+    try:
+        yield
+    finally:
+        collectives.all_reduce_stats = summed
+
+
+def moves(snap: dict, init: dict) -> dict:
+    """A 1-step snapshot as what the step did: each parameter's and float
+    buffer's move from ``init`` (the state dict it started from), and the
+    metrics."""
+    out = {}
+    for n, t in snap.items():
+        kind, _, key = n.partition(" ")
+        if kind in ("param", "buffer") and t.is_floating_point():
+            out[n] = t.double() - init[key].double()
+        else:
+            out[n] = t
+    return out
+
+
+def pooled_distances(a: dict, b: dict, names) -> dict:
+    """Per kind (parameters, buffers, metrics), the relative L2 distance of
+    all of the kind's ``names`` taken as one vector: the large moves weigh
+    as they are, and a tensor whose true move is rounding noise (a BN bias
+    that the next BN cancels) cannot swamp the rest as it would in a mean
+    of per-tensor ratios."""
+    out = {}
+    for kind in ("param", "buffer", "metric"):
+        grp = [n for n in names if n.split(" ")[0] == kind]
+        if grp:
+            va = torch.cat([a[n].double().reshape(-1) for n in grp])
+            vb = torch.cat([b[n].double().reshape(-1) for n in grp])
+            out[kind] = ((va - vb).norm() / vb.norm().clamp_min(1e-30)).item()
+    return out
+
+
+def cpu_snapshot(state, metrics) -> dict:
+    snap = add_metrics(state_snapshot(state, adam=False), [metrics])
+    return {n: t.cpu() for n, t in snap.items()}
+
+
+def dp2_worker(rank: int, port: int, out_dir: str) -> None:
+    """One of two ranks on one card (gloo, which takes CUDA tensors and two
+    ranks on one card; NCCL refuses): each step of ``DP2_LABELS`` over the
+    2-rank mesh on this rank's 4 pages of the global batch, with the
+    cross-rank BatchNorm statistics and without, its ms per step; then
+    ``concurrent_train2`` over ``make_group_meshes`` (rank 0 the seg
+    group, rank 1 the inpaint group), one step each on the whole batch.
+    Writes what it found to ``out_dir/rank<r>.pt``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch.distributed as dist
+
+    from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
+    from text_segmentation_image_inpainting_tpu_torch.parallel import (
+        concurrent_train2,
+        initialize_distributed,
+        make_group_meshes,
+        make_rank_mesh,
+        shard_batch,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    depthwise.USE_CUSTOM_WGRAD = True
+    dev = initialize_distributed(f"127.0.0.1:{port}", num_processes=2, process_id=rank,
+                                 local_device_ids=[0], backend="gloo")
+    mesh = make_rank_mesh()
+    out = {"position": mesh.position(), "backend": mesh.backend}
+    for label in DP2_LABELS:
+        model, opt, make_step, batch = dp2_case(label, dev)
+        init = {n: t.clone() for n, t in model.state_dict().items()}
+        step, shard = make_step(model, mesh=mesh), shard_batch(mesh, batch)
+        state = create_train_state(model, opt)
+        zero_launch_counters()
+        state, m = step(state, shard)
+        torch.cuda.synchronize()
+        out[label] = (cpu_snapshot(state, m), launch_counters())
+        out[f"{label} ms"] = cuda_ms(lambda: step(state, shard), iters=5, warmup=1)
+        model.load_state_dict(init)
+        state = create_train_state(model, opt)
+        with per_rank_statistics():
+            state, m = step(state, shard)
+        out[f"{label} per-rank"] = cpu_snapshot(state, m)
+        del model, state, step, shard, batch
+        torch.cuda.empty_cache()
+    seg_mesh, inp_mesh = make_group_meshes()
+    mine = DP2_LABELS[1] if seg_mesh.position() is not None else DP2_LABELS[0]
+    model, opt, make_step, batch = dp2_case(mine, dev)
+    state = create_train_state(model, opt)
+    if mine == DP2_LABELS[1]:
+        step = concurrent_train2(make_step(model, mesh=seg_mesh), make_step(None, mesh=inp_mesh))
+        state, m, _, _ = step(state, shard_batch(seg_mesh, batch), None, None)
+    else:
+        step = concurrent_train2(make_step(None, mesh=seg_mesh), make_step(model, mesh=inp_mesh))
+        _, _, state, m = step(None, None, state, shard_batch(inp_mesh, batch))
+    torch.cuda.synchronize()
+    out["concurrent"] = (mine, seg_mesh.ranks.ravel().tolist(), inp_mesh.ranks.ravel().tolist(),
+                         cpu_snapshot(state, m))
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ddp_phase(dev, gr, smi: str) -> dict:
+    """The data-parallel steps (``parallel/mesh.py`` rank meshes,
+    ``ops/collectives.py``) on the card, at the slice's full width (512^2,
+    batch 8, bf16, depth 8, width 1.0).
+
+    World 1 (NCCL, this process on cuda:0): the inpaint step (fused stem:
+    K1 7, K2 1, K3 8, K4 1, K5 1 a step) and the seg step (flag on: K6 14)
+    over the rank mesh, eagerly and as the k = 4 CUDA graph with the
+    all-reduces captured, against the graph phase's plain eager runs of the
+    same 8 steps with its gate (``check_against_runs``: the derived exact
+    set bit-equal, the rest within ``GRAPH_NOISE_RATIO`` of the eager
+    spread) and the same launch counts; ms per step beside the plain step.
+
+    Two ranks on the card (gloo; ``dp2_worker``): one SGD step of each on
+    4 pages a rank of a global batch of 8 whose halves differ. A rank's
+    kernels see 4 pages where one process's see 8, so their plans and
+    cuDNN's algorithms differ and the bf16 activations round differently
+    (reordering the batch, or the seg step's atomics, change no per-page
+    arithmetic, so their spreads are no yardstick: at one SGD step the seg
+    runs' spread is 3% of the 2-rank step's distance). So the 2-rank step
+    is held to the same step of one process in f32, the truth: in each
+    kind (the parameters' moves, the BN statistics' moves, the metrics;
+    ``pooled_distances``) no farther from it than ``GRAPH_NOISE_RATIO``
+    times the 1-process bf16 step is. The run with each rank's own
+    BatchNorm statistics must fail that gate in some kind (the BN
+    statistics: bf16 noise barely touches them); both ranks end
+    bit-equal, with the plain step's launches.
+    ``concurrent_train2`` (a group of one rank each): each group's step
+    equals its step run alone at the graph phase's gate."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from text_segmentation_image_inpainting_tpu_torch.parallel import (
+        initialize_distributed,
+        make_rank_mesh,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.train.multistep import make_multi_step
+    from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
+
+    from text_segmentation_image_inpainting_tpu_torch.ops import collectives, depthwise
+
+    k = GRAPH_K
+    depthwise.USE_CUSTOM_WGRAD = True
+    torch.backends.cudnn.deterministic = True
+    initialize_distributed(f"127.0.0.1:{free_port()}", num_processes=1, process_id=0,
+                           local_device_ids=[dev.index or 0])
+    mesh = make_rank_mesh()
+    if (mesh.backend, mesh.size, mesh.position()) != ("nccl", 1, 0):
+        raise AssertionError(f"world 1: backend {mesh.backend}, size {mesh.size}")
+    times = {}
+    for label, c in gr.items():
+        model, fresh, batches, opt = c["model"], c["fresh"], c["batches"], c["opt"]
+        make_step = c["make_step"]
+        snap, counts = eager_snapshot(fresh(), make_step(model, mesh=mesh), batches, opt,
+                                      f"ddp {label}, world 1, eager")
+        if counts != c["counts"]:
+            raise AssertionError(f"ddp {label}: launches {counts}, the plain step's {c['counts']}")
+        check_against_runs(f"ddp {label}, world 1, eager", snap, c["eager"], c["exact"])
+        state = fresh()
+        multi = make_multi_step(make_step(model, mesh=mesh))
+        metrics = []
+        for half in range(2):
+            state, m = multi(state, {n: v[half * k:(half + 1) * k] for n, v in batches.items()})
+            metrics.append(m)
+        graph = add_metrics(state_snapshot(state), [
+            {n: v[i] for n, v in m.items()} for m in metrics for i in range(k)])
+        check_against_runs(f"ddp {label}, world 1, graph", graph, c["eager"], c["exact"])
+        log(f"ddp {label}, world 1: launches over 8 eager steps {counts} = the plain step's")
+        plain, dp = make_step(model), make_step(model, mesh=mesh)
+        one = {n: v[0] for n, v in batches.items()}
+        four = {n: v[:k] for n, v in batches.items()}
+        t = [cuda_ms(lambda: f(state, one), iters=2 * k, warmup=1) for f in (plain, dp, dp, plain)]
+        t_graph = cuda_ms(lambda: multi(state, four), iters=2, warmup=1) / k
+        times[label] = {"plain": t, "graph": t_graph}
+        log(f"time ddp {label}: ms per step plain / DP world 1 / DP world 1 / plain "
+            + " / ".join(f"{x:.3f}" for x in t)
+            + f"; DP world 1 as the k = {k} graph {t_graph:.3f} (the graph phase's plain graph "
+            f"{c['times'][1]:.3f} / {c['times'][2]:.3f})  [{smi}]")
+        del graph, multi, state, plain, dp
+        torch.cuda.empty_cache()
+    # what one eager collective costs: a BatchNorm's (E[x], E[x^2]) of 512 channels
+    stats = torch.ones(1024, device=dev)
+    with mesh.data_parallel():
+        per_call = cuda_ms(lambda: [collectives.all_reduce_stats(stats) for _ in range(100)],
+                           iters=5, warmup=1) / 100
+        t0 = time.perf_counter()
+        for _ in range(100):
+            collectives.all_reduce_stats(stats)
+        host = (time.perf_counter() - t0) / 100 * 1e3
+        torch.cuda.synchronize()
+    times["all_reduce"] = per_call
+    log(f"ddp world 1: one eager all-reduce of 1024 floats {per_call:.4f} ms (events), "
+        f"{host:.4f} ms of host time per call  [{smi}]")
+    dist.destroy_process_group()
+
+    # the 1-process references of the 2-rank runs: the same step in bf16
+    # (three times) and in f32, the truth
+    refs, inits = {}, {}
+    for label in DP2_LABELS:
+        runs = []
+        for dtype in (torch.bfloat16,) * 3 + (torch.float32,):
+            model, opt, make_step, batch = dp2_case(label, dev, dtype)
+            inits[label] = {n: t.detach().cpu().clone() for n, t in model.state_dict().items()}
+            state = create_train_state(model, opt)
+            state, m = make_step(model)(state, batch)
+            runs.append(cpu_snapshot(state, m))
+            del model, state, batch
+            torch.cuda.empty_cache()
+        refs[label] = runs
+    out_dir = tempfile.mkdtemp(prefix="ddp2_")
+    t0 = time.perf_counter()
+    mp.spawn(dp2_worker, args=(free_port(), out_dir), nprocs=2, join=True)
+    ranks = [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
+    log(f"ddp 2 ranks on cuda:0 (gloo): {time.perf_counter() - t0:.1f} s for both processes, "
+        f"positions {[r['position'] for r in ranks]}, backend {ranks[0]['backend']}")
+    for label in DP2_LABELS:
+        (got, counts), (got1, _) = ranks[0][label], ranks[1][label]
+        if any(not torch.equal(got[n], got1[n]) for n in got):
+            raise AssertionError(f"ddp {label}, 2 ranks: the ranks' states differ")
+        if {n: v * 2 * GRAPH_K for n, v in counts.items()} != gr[label]["counts"]:
+            raise AssertionError(f"ddp {label}, 2 ranks: launches {counts} a step, the plain "
+                                 f"step's {gr[label]['counts']} over {2 * GRAPH_K}")
+        bf_runs, truth = [moves(r, inits[label]) for r in refs[label][:3]], moves(
+            refs[label][3], inits[label])
+        names = [n for n in truth if not n.endswith("num_batches_tracked")]
+        runs_d = [pooled_distances(r, truth, names) for r in bf_runs]
+        d_ref = {k: float(np.mean([d[k] for d in runs_d])) for k in runs_d[0]}
+        d = pooled_distances(moves(got, inits[label]), truth, names)
+        d_bad = pooled_distances(moves(ranks[0][f"{label} per-rank"], inits[label]), truth,
+                                 names)
+        log(f"ddp {label}, 2 ranks x 4 pages against 1 process x 8 (SGD; relative L2 to the "
+            f"f32 1-process step of the parameters' moves, the BN statistics' moves and the "
+            f"metrics, each kind pooled): "
+            + "; ".join(f"{k}: 2 ranks {d[k]:.4g}, 1 process bf16 {d_ref[k]:.4g} (ratio "
+                        f"{d[k] / d_ref[k]:.3f}), per-rank BN statistics {d_bad[k]:.4g} (ratio "
+                        f"{d_bad[k] / d_ref[k]:.2f})" for k in d_ref)
+            + f"; launches per rank { {n: v for n, v in counts.items() if v} }; "
+            f"{ranks[0][label + ' ms']:.3f} ms per step  [{smi}]")
+        far = [k for k in d_ref if d[k] > GRAPH_NOISE_RATIO * d_ref[k]]
+        if far:
+            raise AssertionError(f"ddp {label}, 2 ranks: farther from the f32 step than "
+                                 f"{GRAPH_NOISE_RATIO} x the 1-process bf16 step in {far}")
+        if not any(d_bad[k] > GRAPH_NOISE_RATIO * d_ref[k] for k in d_ref):
+            raise AssertionError(f"ddp {label}: per-rank statistics pass the gate in every kind "
+                                 f"({d_bad} against {d_ref}): it has no teeth")
+        times[f"{label} 2 ranks"] = ranks[0][f"{label} ms"]
+    for rank in ranks:
+        mine, seg_ranks, inp_ranks, snap = rank["concurrent"]
+        if (seg_ranks, inp_ranks) != ([0], [1]):
+            raise AssertionError(f"group meshes {seg_ranks}, {inp_ranks}")
+        runs = refs[mine][:3]
+        exact = derived_exact(list(runs[0]), gr[mine]["noisy_params"], 1)
+        check_against_runs(f"concurrent_train2 {mine} (rank {rank['position']})", snap, runs,
+                           exact)
+    torch.backends.cudnn.deterministic = False
+    return times
 
 
 def evaluate_phase(smi: str) -> None:

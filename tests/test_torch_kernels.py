@@ -43,6 +43,9 @@ on a 2048^2 page in 4 bands (``SHARD_SHAPES``, padding (0, 1)). The
 multi-device serving paths run on the card with every entry on one card:
 the H-sharded U-Net (K1/K2 per band, close to the unsharded forward), the
 two-stage pipeline and the data-parallel server (bit-equal to ``run``).
+The f32 form of K1/K2 and of the backward (an f32 x) against the plain
+version in f64, f16 refused, and an index-less ``"cuda"`` mesh entry that
+shares the module instead of copying it.
 """
 
 import numpy as np
@@ -220,11 +223,67 @@ def test_routing_on_cuda(cuda):
     assert kpc.K1_LAUNCHES == k1 + 1
 
 
-def test_kernels_refuse_float32(cuda):
-    """No silent conversion: the kernels take bf16, and say so."""
+@pytest.mark.parametrize("groups,cout,k,bias,pad", [
+    ((64,), 64, 3, False, (1, 1)),
+    ((48, 16), 200, 3, True, (1, 1)),   # two Cout tiles of 64 and a partial one
+    ((5, 14), 24, 5, True, (2, 2)),     # groups off any alignment; k 5
+    ((16, 8), 12, 3, False, (0, 1)),    # an H-sharded layer's padding
+    ((64, 3), 3, 3, True, (1, 1)),      # the RGB head: K2's scope
+    ((6, 13), 5, 5, True, (1, 2)),      # Cout 5, k 5, unequal padding
+    ((40,), 7, 1, False, (0, 0)),       # 1x1, Cout 7
+])
+def test_kernels_take_float32(cuda, groups, cout, k, bias, pad):
+    """An f32 x runs the f32 form (K1F at Cout >= 8, K2F at Cout <= 7, K3F
+    for the backward), as JAX's Pallas kernels take x's dtype: against the
+    plain version in f64, M' bit-exact, y within 1e-5 (|y| + max |y|), the
+    gradients within 1e-5 relative L2 of f64 autograd; twice bit-identical."""
+    x, m, w, b = _case(cuda, 21, 2, 13, 11, groups, cout, k, bias)
+    x, m = x.float(), m.float()
+    kw = dict(group_sizes=groups, padding=pad)
+    name = "K2F_LAUNCHES" if cout <= 7 else "K1F_LAUNCHES"
+    before = {c: getattr(kpc, c) for c in ("K1_LAUNCHES", "K2_LAUNCHES", name, "K3F_LAUNCHES")}
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, b) if t is not None]
+    y, nm = kpc.partial_conv2d_fused(leaves[0], m, leaves[1], leaves[2] if bias else None, **kw)
+    y2, nm2 = kpc.partial_conv2d_fused(x, m, w, b, **kw)
+    assert y.dtype == torch.float32 and torch.equal(y, y2) and torch.equal(nm, nm2)
+    ref = [t.detach().double().requires_grad_(True) for t in leaves]
+    y_ref, m_ref = kpc.partial_conv2d_reference(ref[0], m.double(), ref[1],
+                                                ref[2] if bias else None, **kw)
+    assert torch.equal(nm.double(), m_ref)
+    err = (y.double() - y_ref).abs()
+    assert (err <= 1e-5 * (y_ref.abs() + y_ref.abs().max())).all(), err.max().item()
+    g = torch.randn(y.shape, generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    got = torch.autograd.grad(y, leaves, g)
+    want = torch.autograd.grad(y_ref, ref, g.double())
+    for what, a, r in zip(("dx", "dW", "db"), got, want):
+        assert a.dtype == torch.float32, what
+        rel = ((a.double() - r).norm() / r.norm().clamp_min(1e-30)).item()
+        assert rel < 1e-5, (what, rel)
+    assert {c: getattr(kpc, c) - v for c, v in before.items()} == {
+        "K1_LAUNCHES": 0, "K2_LAUNCHES": 0, name: 2, "K3F_LAUNCHES": 1}
+
+
+def test_kernels_refuse_float16(cuda):
+    """No silent conversion: the kernels take bf16 or f32, and say so."""
     x, m, w, _ = _case(cuda, 1, 1, 8, 8, (16,), 16, 3, False)
-    with pytest.raises(ValueError, match="bfloat16"):
-        kpc.partial_conv2d_fused(x.float(), m.float(), w, None, group_sizes=(16,), padding=(1, 1))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        kpc.partial_conv2d_fused(x.half(), m.half(), w, None, group_sizes=(16,), padding=(1, 1))
+
+
+def test_replicate_keeps_the_module_on_an_index_less_cuda_entry(cuda):
+    """A mesh entry "cuda" is the current device: one device, and the
+    module itself where its parameters already live (no copy)."""
+    from text_segmentation_image_inpainting_tpu_torch.parallel.mesh import (
+        distinct_devices,
+        make_mesh,
+        replicate,
+    )
+
+    model = torch.nn.Linear(4, 4).to(cuda)
+    mesh = make_mesh(devices=["cuda", "cuda:0" if torch.cuda.current_device() == 0 else "cuda"])
+    assert distinct_devices(mesh) == [torch.device("cuda", torch.cuda.current_device())]
+    assert all(replicate(model, d) is model for d in mesh.device_list)
+    assert replicate(model, "cuda") is model
 
 
 def test_unet_gradients_reach_every_parameter(cuda):

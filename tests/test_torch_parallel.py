@@ -40,6 +40,7 @@ from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
     spatial_axis,
 )
 from text_segmentation_image_inpainting_tpu_torch.parallel import (
+    batch_sharding,
     gather,
     make_mesh,
     make_mesh_for_batch,
@@ -50,7 +51,9 @@ from text_segmentation_image_inpainting_tpu_torch.parallel import (
     spatial_conv2d,
     spatial_inpaint_unet,
     spatial_partial_conv2d,
+    stacked_batch_sharding,
 )
+from text_segmentation_image_inpainting_tpu_torch.parallel.mesh import distinct_devices
 from text_segmentation_image_inpainting_tpu_torch.parallel.spatial import run_bands
 from text_segmentation_image_inpainting_tpu_torch.pipeline import (
     PageStreamServer,
@@ -328,6 +331,35 @@ def test_make_mesh_repeats_a_device_only_when_asked():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh()
+
+
+def test_an_index_less_cuda_entry_is_the_current_device(monkeypatch):
+    """``"cuda"`` and ``"cuda:0"`` name one card when it is the current
+    one: one distinct device, one entry in a stage mesh, so ``replicate``
+    keeps the module (without a card: the current device is faked)."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    mesh = make_mesh(devices=["cuda", "cuda:0"])
+    assert mesh.device_list == [torch.device("cuda", 0)] * 2
+    assert distinct_devices(mesh) == [torch.device("cuda", 0)]
+    assert make_stage_mesh(["cuda", "cuda:0"]).devices == (torch.device("cuda", 0),) * 2
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert distinct_devices(make_mesh(devices=["cuda", "cuda:0"])) == [
+        torch.device("cuda", 1), torch.device("cuda", 0)]
+
+
+def test_batch_shardings_cut_the_batch_axis_in_entry_order(rng):
+    """``batch_sharding`` cuts the leading axis, ``stacked_batch_sharding``
+    the second of a (k, batch, ...) super-batch; ``shard_batch`` over a
+    device mesh follows either."""
+    mesh = make_mesh(2, platform="cpu")
+    stacked = rng.integers(0, 256, (3, 4, 2, 2, 3), dtype=np.uint8)
+    parts = shard_batch(mesh, {"image": stacked}, stacked_batch_sharding(mesh))
+    for i, part in enumerate(parts):
+        np.testing.assert_array_equal(part["image"].numpy(), stacked[:, 2 * i:2 * i + 2])
+    assert batch_sharding(mesh).local(stacked[0], 1).shape == (2, 2, 2, 3)
+    assert stacked_batch_sharding(mesh).local_shape((3, 4, 2)) == (3, 2, 2)
+    with pytest.raises(ValueError, match="does not split"):
+        stacked_batch_sharding(mesh).local(stacked[:, :3], 0)
 
 
 def test_shard_batch_and_gather_keep_page_order(rng):

@@ -716,6 +716,46 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ __nv_bfloat16 masked(__nv_bfloat16 x, float m) {
   return m != 0.f ? __float2bfloat16(__bfloat162float(x) * m) : __float2bfloat16(0.f);
 }
+__device__ __forceinline__ float masked(float x, float m) { return m != 0.f ? x * m : 0.f; }
+
+// Element conversions of the kernels that come in bf16 and f32 forms.
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+
+// window_scan's count for masks of element type T: f32 masks are counted
+// the same way, raw per-group counts first, then one weighting.
+template <typename T>
+__device__ __forceinline__ float window_count(const Params& p, int n, int oh, int ow) {
+  if constexpr (sizeof(T) == 2) {
+    unsigned bits = 0;
+    return window_scan(p, n, oh, ow, bits);
+  } else {
+    const float* mask = reinterpret_cast<const float*>(p.mask);
+    float c0 = 0.f, c1 = 0.f;
+    for (int dy = 0; dy < p.k; ++dy) {
+      const int ih = oh + dy - p.ph;
+      if (ih < 0 || ih >= p.h) continue;
+      for (int dx = 0; dx < p.k; ++dx) {
+        const int iw = ow + dx - p.pw;
+        if (iw < 0 || iw >= p.w_in) continue;
+        const float* m = mask + ((size_t)(n * p.h + ih) * p.w_in + iw) * p.g;
+        c0 += m[0];
+        if (p.g == 2) c1 += m[1];
+      }
+    }
+    return __fadd_rn(__fmul_rn((float)p.size0, c0), __fmul_rn((float)p.size1, c1));
+  }
+}
 
 // Copies channels [cb0, cb0 + nb) of every listed pixel (s_gpix >= 0) into
 // the pixel's slot: 16-byte chunks from the 16-byte boundary at or below
@@ -1235,12 +1275,14 @@ cudaError_t launch_k2_bwd(const Params& p, int grid, cudaStream_t stream) {
 constexpr int K3_THREADS = 256;
 constexpr int K3_PIX = 128;  // pixels per tile of pconv_k3_prep
 
-// VEC channels per thread and access: 8 (16 bytes) where Cout is a
-// multiple of 8, else 1.
-template <int VEC>
+// T the element type (bf16, or f32 for the f32 form); VEC channels per
+// thread and access: 16 bytes' worth where Cout is a multiple of it, else 1.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(K3_THREADS) pconv_k3_prep(const Params p) {
   __shared__ float s_scale[K3_PIX];
   __shared__ float s_red[K3_THREADS * VEC];
+  const T* gout = reinterpret_cast<const T*>(p.gout);
+  T* dacc = reinterpret_cast<T*>(p.y);
   const int tid = threadIdx.x;
   const long long P = (long long)p.n * p.hout * p.wout;
   const long long tiles = (P + K3_PIX - 1) / K3_PIX;
@@ -1263,8 +1305,7 @@ __global__ void __launch_bounds__(K3_THREADS) pconv_k3_prep(const Params p) {
         if (pix < P) {
           const int ow = (int)(pix % p.wout);
           const long long t = pix / p.wout;
-          unsigned bits = 0;
-          const float msum = window_scan(p, (int)(t / p.hout), (int)(t % p.hout), ow, bits);
+          const float msum = window_count<T>(p, (int)(t / p.hout), (int)(t % p.hout), ow);
           if (msum > 0.f) scale = kkc / fmaxf(msum, 1.f);
         }
         s_scale[tid] = scale;
@@ -1276,21 +1317,21 @@ __global__ void __launch_bounds__(K3_THREADS) pconv_k3_prep(const Params p) {
         if (pix >= P) break;
         const float scale = s_scale[pl];
         const size_t at = (size_t)pix * p.cout + (size_t)c * VEC;
-        if constexpr (VEC == 8) {
-          const uint4 v = *reinterpret_cast<const uint4*>(p.gout + at);
-          const __nv_bfloat16* gv = reinterpret_cast<const __nv_bfloat16*>(&v);
+        if constexpr (VEC > 1) {
+          const uint4 v = *reinterpret_cast<const uint4*>(gout + at);
+          const T* gv = reinterpret_cast<const T*>(&v);
           uint4 out;
-          __nv_bfloat16* ov = reinterpret_cast<__nv_bfloat16*>(&out);
+          T* ov = reinterpret_cast<T*>(&out);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float f = __bfloat162float(gv[e]);
-            ov[e] = __float2bfloat16(scale > 0.f ? f * scale : 0.f);
+          for (int e = 0; e < VEC; ++e) {
+            const float f = to_f32(gv[e]);
+            ov[e] = from_f32<T>(scale > 0.f ? f * scale : 0.f);
             if (scale > 0.f) db[e] += f;
           }
-          *reinterpret_cast<uint4*>(p.y + at) = out;
+          *reinterpret_cast<uint4*>(dacc + at) = out;
         } else {
-          const float f = __bfloat162float(p.gout[at]);
-          p.y[at] = __float2bfloat16(scale > 0.f ? f * scale : 0.f);
+          const float f = to_f32(gout[at]);
+          dacc[at] = from_f32<T>(scale > 0.f ? f * scale : 0.f);
           if (scale > 0.f) db[0] += f;
         }
       }
@@ -1315,28 +1356,309 @@ __global__ void __launch_bounds__(K3_THREADS) pconv_k3_prep(const Params p) {
 
 // out = x * M, the group picked by the channel: P pixels of C channels.
 // In place when out == x.
-template <int VEC>
-__global__ void __launch_bounds__(K3_THREADS) pconv_k3_mask(const __nv_bfloat16* x,
-                                                            const __nv_bfloat16* mask,
-                                                            __nv_bfloat16* out, unsigned items,
-                                                            int c, int g, int size0) {
+template <typename T, int VEC>
+__global__ void __launch_bounds__(K3_THREADS) pconv_k3_mask(const T* x, const T* mask, T* out,
+                                                            unsigned items, int c, int g,
+                                                            int size0) {
   const unsigned cpp = (unsigned)(c / VEC);
   for (unsigned i = blockIdx.x * K3_THREADS + threadIdx.x; i < items;
        i += gridDim.x * K3_THREADS) {
     const unsigned pix = i / cpp;
     const int ch = (int)(i - pix * cpp) * VEC;
-    const float m0 = __bfloat162float(mask[(size_t)pix * g]);
-    const float m1 = g == 2 ? __bfloat162float(mask[(size_t)pix * g + 1]) : m0;
+    const float m0 = to_f32(mask[(size_t)pix * g]);
+    const float m1 = g == 2 ? to_f32(mask[(size_t)pix * g + 1]) : m0;
     const size_t at = (size_t)pix * c + ch;
-    if constexpr (VEC == 8) {
+    if constexpr (VEC > 1) {
       uint4 v = *reinterpret_cast<const uint4*>(x + at);
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+      T* e = reinterpret_cast<T*>(&v);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = masked(e[j], ch + j < size0 ? m0 : m1);
+      for (int j = 0; j < VEC; ++j) e[j] = masked(e[j], ch + j < size0 ? m0 : m1);
       *reinterpret_cast<uint4*>(out + at) = v;
     } else {
       out[at] = masked(x[at], ch < size0 ? m0 : m1);
     }
+  }
+}
+
+// ------------------------------------------------------- the f32 form ----
+//
+// K1 and K2 in f32, for x.dtype float32 (JAX's Pallas kernels take x's
+// dtype as it comes, with f32 accumulators): one SIMT direct convolution
+// for every Cout, FFMA with f32 accumulation, no TF32 and no bf16 anywhere.
+// A CTA of 256 threads owns a tile of TH x 16 output pixels of one image
+// and 8 * CG output channels; each thread PPT pixels (rows of the tile,
+// NPT pixel threads apart) x 8 channels. Per chunk of `ck` input channels
+// the tile's input window with its halo is staged in shared memory as
+// x * M (zero outside the image and past Cin), channel-major so that a
+// warp's pixel threads read consecutive words, and the chunk's weights as
+// (tap, channel, 8 * CG); the sums run chunk by chunk, tap by tap, channel
+// by channel: a fixed order, so two launches give the same bits. The
+// epilogue counts each pixel's window (`window_count<float>`), scales,
+// adds the bias and zeroes empty windows, as the bf16 kernels do.
+
+struct F32Params {
+  const float* x;      // (N, H, W, Cin)
+  const float* mask;   // (N, H, W, G)
+  const float* w;      // (k*k, Cin, Cout)
+  const float* bias;   // (Cout) or nullptr
+  float* y;            // (N, Hout, Wout, Cout)
+  float* mask_out;     // (N, Hout, Wout, 1)
+  int n, h, w_in, cin, g, size0, size1, hout, wout, cout, k, ph, pw, ck;
+};
+
+constexpr int F32_THREADS = 256;
+constexpr int F32_TW = 16;  // output columns of a tile
+
+template <int CG, int PPT>
+struct F32Tile {
+  static constexpr int NPT = F32_THREADS / CG;  // pixel threads
+  static constexpr int TH = NPT * PPT / F32_TW;  // output rows of a tile
+  static constexpr int COT = 8 * CG;             // output channels of a CTA
+};
+
+// Shared floats of one chunk's input window, padded to 16 bytes.
+__host__ __device__ inline int f32_window(int th, int k) {
+  return ((th + k - 1) * (F32_TW + k - 1) + 3) / 4 * 4;
+}
+
+template <int CG, int PPT>
+__global__ void __launch_bounds__(F32_THREADS) pconv_f32(const F32Params p) {
+  using Tile = F32Tile<CG, PPT>;
+  extern __shared__ __align__(16) float f32_smem[];
+  const int ck = p.ck, kk = p.k * p.k;
+  const int ww = F32_TW + p.k - 1, win = f32_window(Tile::TH, p.k);
+  float* xs = f32_smem;            // [ck][window]
+  float* ws = f32_smem + ck * win;  // [k*k][ck][COT]
+  const int tiles_w = (p.wout + F32_TW - 1) / F32_TW;
+  const int oh0 = (int)(blockIdx.x / tiles_w) * Tile::TH;
+  const int ow0 = (int)(blockIdx.x % tiles_w) * F32_TW;
+  const int co0 = blockIdx.y * Tile::COT, n = blockIdx.z;
+  const int tid = threadIdx.x, pt = tid % Tile::NPT, cg = tid / Tile::NPT;
+  int prow[PPT], pcol[PPT];
+  float acc[PPT][8];
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) {
+    prow[j] = (pt + j * Tile::NPT) / F32_TW;
+    pcol[j] = (pt + j * Tile::NPT) % F32_TW;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[j][e] = 0.f;
+  }
+  const int wrows = Tile::TH + p.k - 1;
+  for (int c0 = 0; c0 < p.cin; c0 += ck) {
+    __syncthreads();
+    for (int i = tid; i < ck * wrows * ww; i += F32_THREADS) {
+      const int cc = i % ck, r = i / ck, ty = r / ww, tx = r % ww;
+      const int ih = oh0 + ty - p.ph, iw = ow0 + tx - p.pw, c = c0 + cc;
+      float v = 0.f;
+      if (c < p.cin && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
+        const size_t pix = ((size_t)n * p.h + ih) * p.w_in + iw;
+        v = masked(p.x[pix * p.cin + c], p.mask[pix * p.g + (c < p.size0 ? 0 : 1)]);
+      }
+      xs[cc * win + r] = v;
+    }
+    for (int i = tid; i < kk * ck * Tile::COT; i += F32_THREADS) {
+      const int co = i % Tile::COT, r = i / Tile::COT, cc = r % ck, tap = r / ck;
+      const int c = c0 + cc, o = co0 + co;
+      ws[i] = (c < p.cin && o < p.cout) ? p.w[((size_t)tap * p.cin + c) * p.cout + o] : 0.f;
+    }
+    __syncthreads();
+    for (int tap = 0; tap < kk; ++tap) {
+      const int dy = tap / p.k, dx = tap - dy * p.k;
+      for (int cc = 0; cc < ck; ++cc) {
+        const float* wv = ws + (tap * ck + cc) * Tile::COT + cg * 8;
+        const float4 wa = *reinterpret_cast<const float4*>(wv);
+        const float4 wb = *reinterpret_cast<const float4*>(wv + 4);
+        const float* xr = xs + cc * win;
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) {
+          const float xv = xr[(prow[j] + dy) * ww + pcol[j] + dx];
+          acc[j][0] = fmaf(xv, wa.x, acc[j][0]);
+          acc[j][1] = fmaf(xv, wa.y, acc[j][1]);
+          acc[j][2] = fmaf(xv, wa.z, acc[j][2]);
+          acc[j][3] = fmaf(xv, wa.w, acc[j][3]);
+          acc[j][4] = fmaf(xv, wb.x, acc[j][4]);
+          acc[j][5] = fmaf(xv, wb.y, acc[j][5]);
+          acc[j][6] = fmaf(xv, wb.z, acc[j][6]);
+          acc[j][7] = fmaf(xv, wb.w, acc[j][7]);
+        }
+      }
+    }
+  }
+  Params q;  // window_count's view of the geometry
+  q.mask = reinterpret_cast<const __nv_bfloat16*>(p.mask);
+  q.h = p.h; q.w_in = p.w_in; q.g = p.g; q.size0 = p.size0; q.size1 = p.size1;
+  q.k = p.k; q.ph = p.ph; q.pw = p.pw;
+  const float kkc = (float)(kk * p.cin);
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) {
+    const int oh = oh0 + prow[j], ow = ow0 + pcol[j];
+    if (oh >= p.hout || ow >= p.wout) continue;
+    const float msum = window_count<float>(q, n, oh, ow);
+    const float scale = msum > 0.f ? kkc / fmaxf(msum, 1.f) : 0.f;
+    const size_t pix = ((size_t)n * p.hout + oh) * p.wout + ow;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int o = co0 + cg * 8 + e;
+      if (o < p.cout) p.y[pix * p.cout + o] = epilogue(acc[j][e], scale, p.bias ? p.bias[o] : 0.f);
+    }
+    if (blockIdx.y == 0 && cg == 0) p.mask_out[pix] = msum > 0.f ? 1.f : 0.f;
+  }
+}
+
+template <int CG, int PPT>
+cudaError_t launch_f32(F32Params p, cudaStream_t stream) {
+  using Tile = F32Tile<CG, PPT>;
+  const int kk = p.k * p.k, win = f32_window(Tile::TH, p.k);
+  int ck = 8;  // input channels per staged chunk: as many of 8, 4, 2, 1 as fit
+  while (ck > 1 && (size_t)ck * (win + kk * Tile::COT) * sizeof(float) > 200 * 1024) ck /= 2;
+  const size_t smem = (size_t)ck * (win + kk * Tile::COT) * sizeof(float);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  p.ck = ck;
+  cudaError_t e = cudaFuncSetAttribute(pconv_f32<CG, PPT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (long long)((p.hout + Tile::TH - 1) / Tile::TH) *
+                          ((p.wout + F32_TW - 1) / F32_TW);
+  const int cot = (p.cout + Tile::COT - 1) / Tile::COT;
+  if (tiles >= (1ll << 31) || cot > 65535 || p.n > 65535) return cudaErrorInvalidValue;
+  pconv_f32<CG, PPT><<<dim3((unsigned)tiles, cot, p.n), F32_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The f32 form of K2's backward (Cout <= 7), after `pconv_k3_prep` has
+// written dacc = g * scale (f32) and db. Two SIMT kernels, FFMA in f32:
+//   - `pconv_f32_bwd_dx`: dx = conv_transpose(dacc, W) * M. A CTA owns 16 x
+//     16 input pixels of one image, a thread one pixel: the tile's window
+//     of dacc (k - 1 rows and columns more, 8 slots a pixel) and a chunk of
+//     16 input channels of the weights are staged in shared memory; for
+//     each tap and output channel a thread reads its dacc value once and
+//     adds it times the chunk's 16 weights (a broadcast) into 16 sums.
+//   - `pconv_f32_bwd_dw`: dW = corr(x * M, dacc). A thread owns one (input
+//     channel, tap) pair of a chunk of 256 / k^2 channels (at most 32) and all Cout
+//     outputs; a CTA walks the 16 x 16 output tiles b, b + grid, ... of the
+//     batch, staging each tile's x * M window and dacc, and writes its
+//     sums as row b of the f32 partials, which `pconv_colsum` adds in a
+//     fixed order: two launches give the same bits.
+
+struct F32Bwd {
+  const float* dacc;  // (N, Hout, Wout, Cout)
+  const float* x;     // (N, H, W, Cin)
+  const float* mask;  // (N, H, W, G)
+  const float* w;     // (k*k, Cout, Cin)
+  float* dx;          // (N, H, W, Cin)
+  float* part;        // (grid, k*k*Cout*Cin): row b = CTA b's dW as (tap, o, c)
+  int n, h, w_in, cin, g, size0, hout, wout, cout, k, ph, pw;
+};
+
+constexpr int F32B_T = 16;   // tile edge, pixels
+constexpr int F32B_CC = 16;  // input channels of a dx chunk
+constexpr int F32B_O = 8;    // dacc slots a pixel (Cout <= 7)
+
+// Input channels of a dW chunk: a thread per (channel, tap), at most 32.
+__host__ __device__ inline int f32b_channels(int kk) { return 256 / kk < 32 ? 256 / kk : 32; }
+
+__global__ void __launch_bounds__(256) pconv_f32_bwd_dx(const F32Bwd p) {
+  extern __shared__ __align__(16) float f32b_smem[];
+  const int k = p.k, kk = k * k, tid = threadIdx.x;
+  const int ww = F32B_T + k - 1;
+  float* ds = f32b_smem;                 // [ww * ww][8]: the tile's dacc window
+  float* ws = f32b_smem + ww * ww * F32B_O;  // [kk][8][CC]: a chunk of the weights
+  const int tiles_w = (p.w_in + F32B_T - 1) / F32B_T;
+  const int ih0 = (int)(blockIdx.x / tiles_w) * F32B_T, iw0 = (int)(blockIdx.x % tiles_w) * F32B_T;
+  const int n = blockIdx.z;
+  // input pixel (ih, iw) takes output (ih - dy + ph, iw - dx + pw) at tap (dy, dx)
+  const int oh0 = ih0 + p.ph - (k - 1), ow0 = iw0 + p.pw - (k - 1);
+  for (int i = tid; i < ww * ww * F32B_O; i += 256) {
+    const int o = i % F32B_O, r = i / F32B_O, oh = oh0 + r / ww, ow = ow0 + r % ww;
+    ds[i] = (o < p.cout && oh >= 0 && oh < p.hout && ow >= 0 && ow < p.wout)
+                ? p.dacc[(((size_t)n * p.hout + oh) * p.wout + ow) * p.cout + o] : 0.f;
+  }
+  const int ty = tid / F32B_T, tx = tid % F32B_T, ih = ih0 + ty, iw = iw0 + tx;
+  const bool in = ih < p.h && iw < p.w_in;
+  const size_t pix = ((size_t)n * p.h + ih) * p.w_in + iw;
+  const float m0 = in ? p.mask[pix * p.g] : 0.f;
+  const float m1 = in && p.g == 2 ? p.mask[pix * p.g + 1] : m0;
+  for (int c0 = 0; c0 < p.cin; c0 += F32B_CC) {
+    __syncthreads();
+    for (int i = tid; i < kk * F32B_O * F32B_CC; i += 256) {
+      const int cc = i % F32B_CC, r = i / F32B_CC, o = r % F32B_O, tap = r / F32B_O;
+      const int c = c0 + cc;
+      ws[i] = (o < p.cout && c < p.cin) ? p.w[((size_t)tap * p.cout + o) * p.cin + c] : 0.f;
+    }
+    __syncthreads();
+    float acc[F32B_CC];
+#pragma unroll
+    for (int cc = 0; cc < F32B_CC; ++cc) acc[cc] = 0.f;
+    for (int tap = 0; tap < kk; ++tap) {
+      const int dy = tap / k, dx = tap - dy * k;
+      const float* d = ds + ((ty + k - 1 - dy) * ww + (tx + k - 1 - dx)) * F32B_O;
+      for (int o = 0; o < p.cout; ++o) {
+        const float dv = d[o];
+        const float* wv = ws + (tap * F32B_O + o) * F32B_CC;
+#pragma unroll
+        for (int cc = 0; cc < F32B_CC; ++cc) acc[cc] = fmaf(dv, wv[cc], acc[cc]);
+      }
+    }
+    if (in) {
+#pragma unroll
+      for (int cc = 0; cc < F32B_CC; ++cc) {
+        const int c = c0 + cc;
+        if (c < p.cin) p.dx[pix * p.cin + c] = masked(acc[cc], c < p.size0 ? m0 : m1);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256) pconv_f32_bwd_dw(const F32Bwd p) {
+  extern __shared__ __align__(16) float f32b_smem[];
+  const int k = p.k, kk = k * k, tid = threadIdx.x;
+  const int ccw = f32b_channels(kk), ww = F32B_T + k - 1, win = ww * ww;
+  float* xs = f32b_smem;                       // [ccw][win]: x * M of the tile's window
+  float* ds = f32b_smem + ccw * win;           // [256][8]: the tile's dacc
+  const int c0 = blockIdx.y * ccw, my_c = tid / kk, tap = tid - my_c * kk;
+  const bool act = my_c < ccw && c0 + my_c < p.cin;
+  const int dy = tap / k, dx = tap - dy * k;
+  const int tiles_w = (p.wout + F32B_T - 1) / F32B_T, tiles_h = (p.hout + F32B_T - 1) / F32B_T;
+  const long long tiles = (long long)p.n * tiles_h * tiles_w;
+  float acc[F32B_O];
+#pragma unroll
+  for (int o = 0; o < F32B_O; ++o) acc[o] = 0.f;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int n = (int)(t / (tiles_h * tiles_w)), r0 = (int)(t % (tiles_h * tiles_w));
+    const int oh0 = (r0 / tiles_w) * F32B_T, ow0 = (r0 % tiles_w) * F32B_T;
+    __syncthreads();
+    for (int i = tid; i < ccw * win; i += 256) {
+      const int cc = i % ccw, r = i / ccw, c = c0 + cc;
+      const int ih = oh0 - p.ph + r / ww, iw = ow0 - p.pw + r % ww;
+      float v = 0.f;
+      if (c < p.cin && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
+        const size_t pix = ((size_t)n * p.h + ih) * p.w_in + iw;
+        v = masked(p.x[pix * p.cin + c], p.mask[pix * p.g + (c < p.size0 ? 0 : 1)]);
+      }
+      xs[cc * win + r] = v;
+    }
+    for (int i = tid; i < F32B_T * F32B_T * F32B_O; i += 256) {
+      const int o = i % F32B_O, q = i / F32B_O;
+      const int oh = oh0 + q / F32B_T, ow = ow0 + q % F32B_T;
+      ds[i] = (o < p.cout && oh < p.hout && ow < p.wout)
+                  ? p.dacc[(((size_t)n * p.hout + oh) * p.wout + ow) * p.cout + o] : 0.f;
+    }
+    __syncthreads();
+    if (!act) continue;
+    const float* xr = xs + my_c * win + dy * ww + dx;
+    for (int py = 0; py < F32B_T; ++py) {
+      for (int px = 0; px < F32B_T; ++px) {
+        const float xv = xr[py * ww + px];
+        const float* d = ds + (py * F32B_T + px) * F32B_O;
+#pragma unroll
+        for (int o = 0; o < F32B_O; ++o) acc[o] = fmaf(xv, d[o], acc[o]);
+      }
+    }
+  }
+  if (act) {
+    const size_t row = (size_t)blockIdx.x * kk * p.cout * p.cin;
+    for (int o = 0; o < p.cout; ++o)
+      p.part[row + ((size_t)tap * p.cout + o) * p.cin + c0 + my_c] = acc[o];
   }
 }
 
@@ -1356,6 +1678,51 @@ __global__ void __launch_bounds__(256) pconv_colsum(const float* part, float* ou
     for (int y = 1; y < 8; ++y) t += s[y][threadIdx.x];
     out[col] = t;
   }
+}
+
+Params make_params(const void* x, const void* mask, const void* w, const void* bias, void* y,
+                   void* mask_out, int n, int h, int w_in, int cin, int g, int size0, int size1,
+                   int hout, int wout, int cout, int cin_p, int cout_p, int k, int ph, int pw);
+
+template <typename T>
+int launch_k3_prep(const void* gout, const void* mask, void* dacc, void* partial, int n, int h,
+                   int w_in, int cin, int g, int size0, int size1, int hout, int wout, int cout,
+                   int k, int ph, int pw, int grid, int need_db, void* stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  Params p = make_params(nullptr, mask, nullptr, nullptr, dacc, nullptr, n, h, w_in, cin, g, size0,
+                         size1, hout, wout, cout, cin, cout, k, ph, pw);
+  p.gout = static_cast<const __nv_bfloat16*>(gout);
+  p.partial = static_cast<float*>(partial);
+  p.need_db = need_db;
+  if (grid < 1 || (need_db && partial == nullptr)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = cout % VEC == 0 && !((reinterpret_cast<uintptr_t>(gout) |
+                                         reinterpret_cast<uintptr_t>(dacc)) & 15);
+  if (vec)
+    pconv_k3_prep<T, VEC><<<grid, K3_THREADS, 0, s>>>(p);
+  else
+    pconv_k3_prep<T, 1><<<grid, K3_THREADS, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_k3_mask(const void* x, const void* mask, void* out, long long pixels, int c, int g,
+                   int size0, void* stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec = c % VEC == 0 && !((reinterpret_cast<uintptr_t>(x) |
+                                      reinterpret_cast<uintptr_t>(out)) & 15);
+  const long long items = pixels * (vec ? c / VEC : c);
+  if (items <= 0 || items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((items + K3_THREADS - 1) / K3_THREADS);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const T*>(x);
+  const auto* mp = static_cast<const T*>(mask);
+  auto* op = static_cast<T*>(out);
+  if (vec)
+    pconv_k3_mask<T, VEC><<<grid, K3_THREADS, 0, s>>>(xp, mp, op, (unsigned)items, c, g, size0);
+  else
+    pconv_k3_mask<T, 1><<<grid, K3_THREADS, 0, s>>>(xp, mp, op, (unsigned)items, c, g, size0);
+  return (int)cudaGetLastError();
 }
 
 Params make_params(const void* x, const void* mask, const void* w, const void* bias, void* y,
@@ -1487,45 +1854,98 @@ int tsii_pconv_k2_bwd(const void* gout, const void* x, const void* mask, const v
   return (int)launch_k2_bwd(p, grid, static_cast<cudaStream_t>(stream));
 }
 
-// K3's first pass. gout, dacc: (n, hout, wout, cout) bf16; partial: (grid,
-// cout) f32 when need_db. cin, size0, size1, k, ph, pw: the layer's own (for
-// the window count).
+// K3's first pass. gout, dacc: (n, hout, wout, cout) bf16 (f32 in the
+// _f32 form); partial: (grid, cout) f32 when need_db. cin, size0, size1, k,
+// ph, pw: the layer's own (for the window count).
 int tsii_pconv_k3_prep(const void* gout, const void* mask, void* dacc, void* partial, int n, int h,
                        int w_in, int cin, int g, int size0, int size1, int hout, int wout,
                        int cout, int k, int ph, int pw, int grid, int need_db, void* stream) {
-  Params p = make_params(nullptr, mask, nullptr, nullptr, dacc, nullptr, n, h, w_in, cin, g, size0,
-                         size1, hout, wout, cout, cin, cout, k, ph, pw);
-  p.gout = static_cast<const __nv_bfloat16*>(gout);
-  p.partial = static_cast<float*>(partial);
-  p.need_db = need_db;
-  if (grid < 1 || (need_db && partial == nullptr)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = cout % 8 == 0 && !((reinterpret_cast<uintptr_t>(gout) |
-                                       reinterpret_cast<uintptr_t>(dacc)) & 15);
-  if (vec)
-    pconv_k3_prep<8><<<grid, K3_THREADS, 0, s>>>(p);
-  else
-    pconv_k3_prep<1><<<grid, K3_THREADS, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  return launch_k3_prep<__nv_bfloat16>(gout, mask, dacc, partial, n, h, w_in, cin, g, size0,
+                                       size1, hout, wout, cout, k, ph, pw, grid, need_db, stream);
+}
+int tsii_pconv_k3_prep_f32(const void* gout, const void* mask, void* dacc, void* partial, int n,
+                           int h, int w_in, int cin, int g, int size0, int size1, int hout,
+                           int wout, int cout, int k, int ph, int pw, int grid, int need_db,
+                           void* stream) {
+  return launch_k3_prep<float>(gout, mask, dacc, partial, n, h, w_in, cin, g, size0, size1, hout,
+                               wout, cout, k, ph, pw, grid, need_db, stream);
 }
 
-// out = x * M over `pixels` pixels of c channels (out may be x).
+// out = x * M over `pixels` pixels of c channels (out may be x); bf16, or
+// f32 in the _f32 form.
 int tsii_pconv_k3_mask(const void* x, const void* mask, void* out, long long pixels, int c, int g,
                        int size0, void* stream) {
-  const bool vec = c % 8 == 0 && !((reinterpret_cast<uintptr_t>(x) |
-                                    reinterpret_cast<uintptr_t>(out)) & 15);
-  const long long items = pixels * (vec ? c / 8 : c);
-  if (items <= 0 || items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((items + K3_THREADS - 1) / K3_THREADS);
+  return launch_k3_mask<__nv_bfloat16>(x, mask, out, pixels, c, g, size0, stream);
+}
+int tsii_pconv_k3_mask_f32(const void* x, const void* mask, void* out, long long pixels, int c,
+                           int g, int size0, void* stream) {
+  return launch_k3_mask<float>(x, mask, out, pixels, c, g, size0, stream);
+}
+
+// K2's backward in f32 (Cout <= 7), after pconv_k3_prep: dacc (n, hout, wout,
+// cout) f32; x (n, h, w_in, cin) f32; mask (n, h, w_in, g) f32; w (k*k, cout,
+// cin) f32; dx (n, h, w_in, cin) f32 when need_dx; part (grid, k*k*cout*cin)
+// f32 when need_dw, row b CTA b's dW as (tap, o, c), for pconv_colsum.
+int tsii_pconv_k2_bwd_f32(const void* dacc, const void* x, const void* mask, const void* w,
+                          void* dx, void* part, int n, int h, int w_in, int cin, int g, int size0,
+                          int hout, int wout, int cout, int k, int ph, int pw, int grid,
+                          int need_dx, int need_dw, void* stream) {
+  F32Bwd p;
+  p.dacc = static_cast<const float*>(dacc);
+  p.x = static_cast<const float*>(x);
+  p.mask = static_cast<const float*>(mask);
+  p.w = static_cast<const float*>(w);
+  p.dx = static_cast<float*>(dx);
+  p.part = static_cast<float*>(part);
+  p.n = n; p.h = h; p.w_in = w_in; p.cin = cin; p.g = g; p.size0 = size0;
+  p.hout = hout; p.wout = wout; p.cout = cout; p.k = k; p.ph = ph; p.pw = pw;
+  const int kk = k * k, ww = F32B_T + k - 1;
+  if (cout < 1 || cout >= F32B_O || k < 1 || kk > 256 || n > 65535 || grid < 1 ||
+      (need_dx && dx == nullptr) || (need_dw && part == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* mp = static_cast<const __nv_bfloat16*>(mask);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if (vec)
-    pconv_k3_mask<8><<<grid, K3_THREADS, 0, s>>>(xp, mp, op, (unsigned)items, c, g, size0);
-  else
-    pconv_k3_mask<1><<<grid, K3_THREADS, 0, s>>>(xp, mp, op, (unsigned)items, c, g, size0);
-  return (int)cudaGetLastError();
+  cudaError_t e = cudaSuccess;
+  if (need_dx) {
+    const size_t smem = (size_t)(ww * ww * F32B_O + kk * F32B_O * F32B_CC) * sizeof(float);
+    e = cudaFuncSetAttribute(pconv_f32_bwd_dx, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)cudaGetLastError();
+    const unsigned tiles = (unsigned)(((h + F32B_T - 1) / F32B_T) * ((w_in + F32B_T - 1) / F32B_T));
+    pconv_f32_bwd_dx<<<dim3(tiles, 1, n), 256, smem, s>>>(p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (need_dw) {
+    const int ccw = f32b_channels(kk);
+    const size_t smem = (size_t)(ccw * ww * ww + F32B_T * F32B_T * F32B_O) * sizeof(float);
+    e = cudaFuncSetAttribute(pconv_f32_bwd_dw, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)cudaGetLastError();
+    pconv_f32_bwd_dw<<<dim3(grid, (cin + ccw - 1) / ccw), 256, smem, s>>>(p);
+    e = cudaGetLastError();
+  }
+  return (int)e;
+}
+
+// K1 and K2's f32 form. x: (n, h, w_in, cin) f32; mask: (n, h, w_in, g) f32;
+// w: (k*k, cin, cout) f32; bias: (cout) f32 or NULL; y: (n, hout, wout, cout)
+// f32; mask_out: (n, hout, wout, 1) f32.
+int tsii_pconv_f32(const void* x, const void* mask, const void* w, const void* bias, void* y,
+                   void* mask_out, int n, int h, int w_in, int cin, int g, int size0, int size1,
+                   int hout, int wout, int cout, int k, int ph, int pw, void* stream) {
+  F32Params p;
+  p.x = static_cast<const float*>(x);
+  p.mask = static_cast<const float*>(mask);
+  p.w = static_cast<const float*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.y = static_cast<float*>(y);
+  p.mask_out = static_cast<float*>(mask_out);
+  p.n = n; p.h = h; p.w_in = w_in; p.cin = cin; p.g = g; p.size0 = size0; p.size1 = size1;
+  p.hout = hout; p.wout = wout; p.cout = cout; p.k = k; p.ph = ph; p.pw = pw; p.ck = 1;
+  if (n < 1 || cin < 1 || cout < 1 || k < 1 || hout < 1 || wout < 1 || (g != 1 && g != 2))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return cout <= 8 ? (int)launch_f32<1, 1>(p, s) : (int)launch_f32<8, 4>(p, s);
 }
 
 // out[c] = sum_r part[r, c], f32, in a fixed order.

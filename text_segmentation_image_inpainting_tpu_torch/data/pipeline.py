@@ -208,23 +208,36 @@ class DevicePrefetcher:
     ``sharding``, each batch splits along its leading axis over the mesh's
     entries (``parallel.shard_batch``): ``__next__`` returns one batch per
     entry, each on its entry's device, copied on a stream of the
-    prefetcher's per distinct device.
+    prefetcher's per distinct device. With ``sharding``
+    (``parallel.batch_sharding`` or ``stacked_batch_sharding`` of a mesh)
+    the batches split along its axis instead; over a rank mesh each
+    ``__next__`` is this rank's rows of the global host batch, uploaded on
+    its device: every rank draws the same pages and uploads its own, as
+    JAX's ``device_put`` of one global batch leaves each process its shards.
 
     A batch the worker fails on is raised once from ``__next__``, after
     which the iterator stops; ``close()`` stops the worker, drains the
     queue and joins the thread.
     """
 
-    def __init__(self, host_iter: Iterator, device: Any = "cuda", depth: int = 2, mesh=None):
+    def __init__(self, host_iter: Iterator, device: Any = "cuda", depth: int = 2, mesh=None,
+                 sharding=None):
         from text_segmentation_image_inpainting_tpu_torch.parallel.mesh import distinct_devices
 
         self._it = host_iter
-        self._mesh = mesh
-        self._device = torch.device(device) if mesh is None else mesh.device_list[0]
+        self._sharding = sharding
+        self._mesh = mesh = sharding.mesh if sharding is not None else mesh
+        if mesh is None:
+            self._device = torch.device(device)
+        else:
+            self._device = mesh.local_device if mesh.ranks is not None else mesh.device_list[0]
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._dead = False
-        devices = [self._device] if mesh is None else distinct_devices(mesh)
+        if mesh is None or mesh.ranks is not None:
+            devices = [self._device]
+        else:
+            devices = distinct_devices(mesh)
         self._streams = [torch.cuda.Stream(d) for d in devices if d.type == "cuda"]
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
@@ -246,7 +259,7 @@ class DevicePrefetcher:
         def place():
             if self._mesh is None:
                 return _tree_map(lambda x: upload(x, self._device), batch)
-            return shard_batch(self._mesh, batch)
+            return shard_batch(self._mesh, batch, self._sharding)
 
         if not self._streams:
             return place(), None

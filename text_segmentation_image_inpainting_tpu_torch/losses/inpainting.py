@@ -13,6 +13,12 @@ forward (whose stem backward is kernel K4 with ``fused_stem``), and
 K5 with ``fused_stem``); style uses
 Gram matrices; TV runs over the 1-px dilation of the hole. Every sum
 accumulates in f32 (f64 stays f64), whatever the VGG dtype.
+
+Under ``ops/collectives.py::data_parallel`` each term is the rank's share
+of the global batch's term, so the ranks' terms add up to it: the masked
+L1 and TV terms are ratios of global sums (their mask denominators are
+summed over the ranks), the others means over equal shards (the rank's
+mean over the number of ranks).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from text_segmentation_image_inpainting_tpu_torch.models.vgg import (
     VGG16Features,
     apply_vgg_features,
 )
+from text_segmentation_image_inpainting_tpu_torch.ops.collectives import global_sum, local_share
 from text_segmentation_image_inpainting_tpu_torch.ops.morphology import dilate_mask
 
 
@@ -69,15 +76,15 @@ def total_variation_loss(comp: torch.Tensor, hole_region: torch.Tensor) -> torch
     region = hole_region.to(comp.dtype)
     dy = (comp[:, 1:] - comp[:, :-1]).abs() * (region[:, 1:] * region[:, :-1])
     dx = (comp[:, :, 1:] - comp[:, :, :-1]).abs() * (region[:, :, 1:] * region[:, :, :-1])
-    denom = torch.clamp(region.sum(), min=1.0) * comp.shape[-1]
+    denom = torch.clamp(global_sum(region.sum()), min=1.0) * comp.shape[-1]
     return (dy.sum() + dx.sum()) / denom
 
 
 def _masked_l1(a, b, m, *, normalize_by_mask: bool) -> torch.Tensor:
     diff = (_at_least_f32(a) - _at_least_f32(b)).abs() * m
     if normalize_by_mask:
-        return diff.sum() / (torch.clamp(m.sum(), min=1.0) * a.shape[-1])
-    return diff.mean()
+        return diff.sum() / (torch.clamp(global_sum(m.sum()), min=1.0) * a.shape[-1])
+    return local_share(diff.mean())
 
 
 def make_vgg(config: InpaintLossConfig) -> VGG16Features:
@@ -128,9 +135,9 @@ def inpainting_loss(
         g_gt = gram_matrix(fg)
         style_out = style_out + (gram_matrix(fo) - g_gt).abs().mean()
         style_comp = style_comp + (gram_matrix(fc) - g_gt).abs().mean()
-    terms["perceptual"] = perc
-    terms["style_out"] = style_out
-    terms["style_comp"] = style_comp
+    terms["perceptual"] = local_share(perc)
+    terms["style_out"] = local_share(style_out)
+    terms["style_comp"] = local_share(style_comp)
 
     terms["tv"] = total_variation_loss(comp, dilate_mask(hole, radius=1))
 

@@ -4,11 +4,17 @@ Counterpart of ``text_segmentation_image_inpainting_tpu/losses/segmentation.py``
 weighted BCE on logits plus dice, optionally focal. Inputs are logits
 (N, H, W, 1) and targets in {0, 1} of the same shape; bf16 and f16 are
 promoted to f32 (f64 stays f64); every reduction is a mean over the batch.
+Under ``ops/collectives.py::data_parallel`` each term is the rank's share
+of the global batch's mean (its shard's mean over the number of ranks: the
+shards are equal, and the dice is a mean of per-sample terms), so the
+ranks' terms add up to the global ones.
 """
 
 from __future__ import annotations
 
 import torch
+
+from text_segmentation_image_inpainting_tpu_torch.ops.collectives import local_share
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -32,7 +38,7 @@ def bce_with_logits(logits, targets, *, pos_weight: float | None = None) -> torc
         log_sig = torch.minimum(logits, logits.new_zeros(())) - softplus  # log(sigmoid(x))
         log_one_minus = -_max0(logits) - softplus  # log(1 - sigmoid(x))
         loss = -(pos_weight * targets * log_sig + (1.0 - targets) * log_one_minus)
-    return loss.mean()
+    return local_share(loss.mean())
 
 
 def dice_loss(logits, targets, *, eps: float = 1.0) -> torch.Tensor:
@@ -42,7 +48,7 @@ def dice_loss(logits, targets, *, eps: float = 1.0) -> torch.Tensor:
     axes = tuple(range(1, probs.dim()))
     inter = (probs * targets).sum(axes)
     denom = probs.sum(axes) + targets.sum(axes)
-    return (1.0 - (2.0 * inter + eps) / (denom + eps)).mean()
+    return local_share((1.0 - (2.0 * inter + eps) / (denom + eps)).mean())
 
 
 def focal_loss(logits, targets, *, gamma: float = 2.0, alpha: float = 0.25) -> torch.Tensor:
@@ -53,7 +59,7 @@ def focal_loss(logits, targets, *, gamma: float = 2.0, alpha: float = 0.25) -> t
     ce = _max0(logits) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
     p_t = p * targets + (1.0 - p) * (1.0 - targets)
     alpha_t = alpha * targets + (1.0 - alpha) * (1.0 - targets)
-    return (alpha_t * (1.0 - p_t) ** gamma * ce).mean()
+    return local_share((alpha_t * (1.0 - p_t) ** gamma * ce).mean())
 
 
 def segmentation_loss(logits, targets, *, bce_weight: float = 1.0, dice_weight: float = 1.0,

@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
+from text_segmentation_image_inpainting_tpu_torch.ops import collectives, depthwise
 from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d, torch_same_padding
 
 # (expansion t, out channels c, repeats n, first-block stride s)
@@ -61,6 +61,14 @@ class BatchNorm(nn.BatchNorm2d):
     moves the running statistics by ``r = 0.9 r + 0.1 batch`` with the
     BIASED batch variance. ``F.batch_norm(training=True)`` would update
     ``running_var`` with the unbiased one, so it is not used.
+
+    Under ``ops/collectives.py::data_parallel`` the moments are the global
+    batch's, as flax takes them over a batch-sharded array: each rank's
+    (E[x], E[x^2]) over its equal shard, summed over the ranks by a
+    differentiable all-reduce and divided by their number, so the gradient
+    through the statistics crosses ranks. ``torch.nn.SyncBatchNorm`` is not
+    used: it too moves ``running_var`` with the unbiased variance. Frozen
+    and eval mode take no collective.
     """
 
     def __init__(self, features: int):
@@ -70,7 +78,12 @@ class BatchNorm(nn.BatchNorm2d):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training and not frozen:
             mean = xf.mean(dim=(0, 1, 2))
-            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            mean2 = (xf * xf).mean(dim=(0, 1, 2))
+            if collectives.active() is not None:
+                both = collectives.all_reduce_stats(torch.cat([mean, mean2]))
+                both = both / collectives.dp_world()
+                mean, mean2 = both[:mean.shape[0]], both[mean.shape[0]:]
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * var)

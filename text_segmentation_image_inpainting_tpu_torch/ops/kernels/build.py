@@ -114,6 +114,14 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_pconv_k3_prep.restype = i32
         lib.tsii_pconv_k3_mask.argtypes = [ptr] * 3 + [ctypes.c_longlong] + [i32] * 3 + [ptr]
         lib.tsii_pconv_k3_mask.restype = i32
+        lib.tsii_pconv_k3_prep_f32.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
+        lib.tsii_pconv_k3_prep_f32.restype = i32
+        lib.tsii_pconv_k3_mask_f32.argtypes = [ptr] * 3 + [ctypes.c_longlong] + [i32] * 3 + [ptr]
+        lib.tsii_pconv_k3_mask_f32.restype = i32
+        lib.tsii_pconv_f32.argtypes = [ptr] * 6 + [i32] * 13 + [ptr]
+        lib.tsii_pconv_f32.restype = i32
+        lib.tsii_pconv_k2_bwd_f32.argtypes = [ptr] * 6 + [i32] * 15 + [ptr]
+        lib.tsii_pconv_k2_bwd_f32.restype = i32
         lib.tsii_pconv_colsum.argtypes = [ptr] * 2 + [i32] * 2 + [ptr]
         lib.tsii_pconv_colsum.restype = i32
         lib.tsii_stem_dx.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]

@@ -11,7 +11,14 @@ taps; split K where the tile grid does not fill the card: ``k1_plan``),
 K2, for Cout <= 7, a GEMM with N padded to 8 on ``mma.sync`` that stages
 its 2-byte-aligned pixels with 16-byte copies and re-lays them masked
 (``k2_plan``). Scope: stride 1, dilation 1, square kernel, G in {1, 2}
-mask groups, bf16.
+mask groups, bf16. A float32 x takes the f32 form instead, as JAX's
+Pallas kernels take x's dtype as it comes: one SIMT direct convolution
+for every Cout (``pconv_f32``: FFMA, f32 accumulation, no TF32 and no
+bf16 rounding); its backward is ``pconv_k3_prep`` and ``pconv_k3_mask``
+in f32 around one f32 ``convolution_backward`` with cuDNN's TF32 off for
+that call at Cout >= 8, and ``pconv_k3_prep`` with two SIMT kernels
+(``pconv_f32_bwd_dx``, ``pconv_f32_bwd_dw``) and ``pconv_colsum`` at
+Cout <= 7. Any other dtype raises.
 
 ``partial_conv2d_fused`` is differentiable: ``PartialConvFunction``
 runs K1 or K2 forward and K3 backward, the counterpart of the custom VJP
@@ -23,11 +30,14 @@ which stay one library call as JAX leaves them to XLA; at Cout <= 7 it is
 one kernel, ``pconv_k2_bwd``. Forward and backward take the plain version
 only for a tensor on the CPU. On a CUDA tensor they launch their kernels,
 or raise; nothing falls back. ``K1_LAUNCHES`` / ``K2_LAUNCHES`` /
-``K3_LAUNCHES`` count the launches (K3: one per layer backward).
+``K3_LAUNCHES`` count the launches (K3: one per layer backward), and
+``K1F_LAUNCHES`` / ``K2F_LAUNCHES`` / ``K3F_LAUNCHES`` those of the f32
+form (K1F at Cout >= 8, K2F at Cout <= 7).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import NamedTuple, Sequence, Tuple
 
@@ -44,6 +54,9 @@ from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 K3_LAUNCHES = 0
+K1F_LAUNCHES = 0
+K2F_LAUNCHES = 0
+K3F_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()  # the H-sharded U-Net launches from one thread per shard
 
 _BK = 64  # K1's K step: one tap x 64 channels; the re-laid weights pad Cin to it
@@ -102,6 +115,8 @@ def _forward(x, mask, weight, bias, group_sizes, padding):
         return partial_conv2d_reference(
             x, mask, weight, bias, group_sizes=group_sizes, padding=padding
         )
+    if x.dtype == torch.float32:
+        return _launch_f32(x, mask, weight, bias, group_sizes, padding)
     if weight.shape[0] <= _K2_MAX_COUT:
         return _launch_k2(x, mask, weight, bias, group_sizes, padding)
     return _launch_k1(x, mask, weight, bias, group_sizes, padding)
@@ -121,7 +136,9 @@ def partial_conv2d_backward(g, x, mask, weight, bias, group_sizes, padding,
 
     On a CUDA tensor: at Cout >= 8 ``pconv_k3_prep`` and ``pconv_k3_mask``
     around one library call of the two products (``_launch_k3``), at
-    Cout <= 7 ``pconv_k2_bwd`` alone (``_launch_k2_bwd``); a failed build
+    Cout <= 7 ``pconv_k2_bwd`` alone (``_launch_k2_bwd``); in f32 the
+    former at Cout >= 8, and at Cout <= 7 ``pconv_k3_prep`` before
+    ``pconv_f32_bwd_dx``/``_dw`` (``_launch_k2_bwd_f32``); a failed build
     or launch raises. On a CPU tensor the plain version."""
     needs = (needs[0], needs[1], needs[2] and bias is not None)
     if not any(needs):
@@ -129,11 +146,17 @@ def partial_conv2d_backward(g, x, mask, weight, bias, group_sizes, padding,
     if x.device.type == "cpu":
         return partial_conv2d_backward_reference(g, x, mask, weight, bias, group_sizes, padding,
                                                  needs)
-    if weight.shape[0] <= _K2_MAX_COUT:
+    if x.dtype == torch.float32:
+        small = weight.shape[0] <= _K2_MAX_COUT
+        out = (_launch_k2_bwd_f32 if small else _launch_k3)(g, x, mask, weight, bias,
+                                                             group_sizes, padding, needs)
+        _count("K3F_LAUNCHES")
+    elif weight.shape[0] <= _K2_MAX_COUT:
         out = _launch_k2_bwd(g, x, mask, weight, bias, group_sizes, padding, needs)
+        _count("K3_LAUNCHES")
     else:
         out = _launch_k3(g, x, mask, weight, bias, group_sizes, padding, needs)
-    _count("K3_LAUNCHES")
+        _count("K3_LAUNCHES")
     return out
 
 
@@ -188,8 +211,8 @@ def _check_inputs(x, mask, weight, bias, group_sizes, padding):
     """Validate what the kernels take; returns the launch geometry."""
     if not x.is_cuda:
         raise ValueError(f"the CUDA kernels take CUDA tensors, got x on {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernels take bfloat16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA kernels take bfloat16 or float32, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (N, H, W, Cin) tensor, got {tuple(x.shape)}")
     n, h, w, cin = x.shape
@@ -422,6 +445,37 @@ def _launch_k1(x, mask, weight, bias, group_sizes, padding):
     return y, m_out
 
 
+def f32_weight_relayout(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW weights -> the f32 form's (k*k, Cin, Cout) f32: per tap, a
+    row of Cout weights per input channel."""
+    cout, cin, kh, kw = weight.shape
+    return weight.to(torch.float32).permute(2, 3, 1, 0).reshape(kh * kw, cin, cout).contiguous()
+
+
+def _launch_f32(x, mask, weight, bias, group_sizes, padding):
+    """K1 and K2's f32 form (``csrc/partial_conv.cu``: ``pconv_f32``) for
+    an f32 x, every Cout; it multiplies by the mask's value, as the plain
+    version does. Counted as K1F at Cout >= 8, K2F at Cout <= 7."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
+
+    n, h, w, cin, g, cout, k, (ph, pw), hout, wout = _check_inputs(x, mask, weight, bias,
+                                                                   group_sizes, padding)
+    lib = load_library()
+    wk = f32_weight_relayout(weight)
+    b = None if bias is None else bias.to(torch.float32).contiguous()
+    y = torch.empty((n, hout, wout, cout), dtype=x.dtype, device=x.device)
+    m_out = torch.empty((n, hout, wout, 1), dtype=x.dtype, device=x.device)
+    s0, s1 = _sizes(group_sizes)
+    code = lib.tsii_pconv_f32(
+        x.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
+        y.data_ptr(), m_out.data_ptr(), n, h, w, cin, g, s0, s1, hout, wout, cout, k, ph, pw,
+        _stream(),
+    )
+    check(lib, code, "the f32 partial conv")
+    _count("K2F_LAUNCHES" if cout <= _K2_MAX_COUT else "K1F_LAUNCHES")
+    return y, m_out
+
+
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
@@ -573,9 +627,44 @@ def _launch_k2_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
     return dx, dw, db
 
 
-def _check_nhwc_bf16(name: str, t: torch.Tensor) -> None:
-    if not (t.is_cuda and t.dtype == torch.bfloat16 and t.dim() == 4 and t.is_contiguous()):
-        raise ValueError(f"{name} must be a contiguous (N, H, W, C) bfloat16 CUDA tensor, got "
+def _launch_k2_bwd_f32(g, x, mask, weight, bias, group_sizes, padding, needs):
+    """The f32 backward at Cout <= 7: ``k3_prep`` writes dacc and db in one
+    pass over g; ``pconv_f32_bwd_dx`` writes dx = conv_transpose(dacc, W) *
+    M, and ``pconv_f32_bwd_dw`` each CTA's f32 part of dW, which
+    ``pconv_colsum`` adds in a fixed order (two launches, the same bits)."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
+
+    n, h, w, cin, gr, cout, k, pad, hout, wout = _check_inputs(x, mask, weight, bias, group_sizes,
+                                                               padding)
+    g = _check_cotangent(g, x, n, hout, wout, cout)
+    need_dx, need_dw, need_db = needs
+    dacc, db = k3_prep(g, mask, cin, group_sizes, k, pad, need_db)
+    lib = load_library()
+    wk = weight.to(torch.float32).permute(2, 3, 0, 1).reshape(k * k, cout, cin).contiguous()
+    dx = torch.empty_like(x) if need_dx else None
+    tiles = n * -(-hout // 16) * -(-wout // 16)
+    grid = min(tiles, 2 * _SMS)
+    part = torch.empty((grid, k * k * cout * cin), dtype=torch.float32, device=x.device) \
+        if need_dw else None
+    code = lib.tsii_pconv_k2_bwd_f32(
+        dacc.data_ptr(), x.data_ptr(), mask.data_ptr(), wk.data_ptr(),
+        0 if dx is None else dx.data_ptr(), 0 if part is None else part.data_ptr(),
+        n, h, w, cin, gr, group_sizes[0], hout, wout, cout, k, pad[0], pad[1], grid,
+        int(need_dx), int(need_dw), _stream())
+    check(lib, code, "K3 (the f32 partial conv backward, Cout <= 7)")
+    dw = None
+    if need_dw:
+        dw = _colsum(lib, part).reshape(k, k, cout, cin).permute(2, 3, 0, 1).to(weight.dtype)
+    return dx, dw, (db.to(bias.dtype) if need_db else None)
+
+
+def _check_nhwc(name: str, t: torch.Tensor, dtype=None) -> None:
+    """A contiguous (N, H, W, C) CUDA tensor of bf16 or f32 (of ``dtype``
+    when given)."""
+    ok = t.dtype in (torch.bfloat16, torch.float32) and (dtype is None or t.dtype == dtype)
+    if not (t.is_cuda and ok and t.dim() == 4 and t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous (N, H, W, C) bfloat16 or float32 CUDA "
+                         f"tensor{'' if dtype is None else f' of {dtype}'}, got "
                          f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
@@ -583,15 +672,15 @@ def k3_prep(g, mask, cin: int, group_sizes, k: int, pad, need_db: bool = True):
     """K3's first pass (``pconv_k3_prep``) over the cotangent ``g``
     (N, Hout, Wout, Cout) of a layer with ``cin`` input channels and
     padding ``pad`` (one for H and W, or the pair (ph, pw)): returns
-    (dacc, db). dacc = bf16(g * scale) where the window has a valid tap,
-    else 0, channels-last as the products read it; db = sum of g over the
+    (dacc, db). dacc = g * scale in g's dtype (bf16 or f32) where the window
+    has a valid tap, else 0, channels-last as the products read it; db = sum of g over the
     valid windows, (Cout,) f32, the per-CTA parts added in a fixed order
     (None without ``need_db``). The window count is ``window_scan``'s, the
     forward's own, so dacc is nonzero exactly where M' is 1."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
-    _check_nhwc_bf16("g", g)
-    _check_nhwc_bf16("mask", mask)
+    _check_nhwc("g", g)
+    _check_nhwc("mask", mask, g.dtype)
     lib = load_library()
     n, h, w, gr = mask.shape
     _, hout, wout, cout = g.shape
@@ -604,7 +693,8 @@ def k3_prep(g, mask, cin: int, group_sizes, k: int, pad, need_db: bool = True):
     dacc = torch.empty_like(g)
     grid = min(-(-n * hout * wout // 128), 8 * _SMS)
     part = torch.empty((grid, cout), dtype=torch.float32, device=g.device) if need_db else None
-    code = lib.tsii_pconv_k3_prep(
+    prep = lib.tsii_pconv_k3_prep_f32 if g.dtype == torch.float32 else lib.tsii_pconv_k3_prep
+    code = prep(
         g.data_ptr(), mask.data_ptr(), dacc.data_ptr(), 0 if part is None else part.data_ptr(),
         n, h, w, cin, gr, s0, s1, hout, wout, cout, k, ph, pw, grid, int(need_db), _stream(),
     )
@@ -613,31 +703,46 @@ def k3_prep(g, mask, cin: int, group_sizes, k: int, pad, need_db: bool = True):
 
 
 def k3_mask(src, mask, group_sizes, out=None):
-    """src * M for a contiguous (N, H, W, C) bf16 tensor, the group picked
-    by the channel (``pconv_k3_mask``): one read, one write. Into a new
-    tensor, or into ``out`` (in place when ``out`` is ``src``)."""
+    """src * M for a contiguous (N, H, W, C) bf16 or f32 tensor, the group
+    picked by the channel (``pconv_k3_mask``): one read, one write. Into a
+    new tensor, or into ``out`` (in place when ``out`` is ``src``)."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
-    _check_nhwc_bf16("src", src)
-    _check_nhwc_bf16("mask", mask)
+    _check_nhwc("src", src)
+    _check_nhwc("mask", mask, src.dtype)
     if mask.shape != (*src.shape[:3], len(group_sizes)) or sum(group_sizes) != src.shape[-1]:
         raise ValueError(f"mask {tuple(mask.shape)} and groups {tuple(group_sizes)} do not fit "
                          f"src {tuple(src.shape)}")
     lib = load_library()
     out = torch.empty_like(src) if out is None else out
-    _check_nhwc_bf16("out", out)
+    _check_nhwc("out", out, src.dtype)
     c = src.shape[-1]
-    code = lib.tsii_pconv_k3_mask(src.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                                  src.numel() // c, c, len(group_sizes), group_sizes[0], _stream())
+    apply = lib.tsii_pconv_k3_mask_f32 if src.dtype == torch.float32 else lib.tsii_pconv_k3_mask
+    code = apply(src.data_ptr(), mask.data_ptr(), out.data_ptr(), src.numel() // c, c,
+                 len(group_sizes), group_sizes[0], _stream())
     check(lib, code, "K3 (x * M)")
     return out
 
 
+@contextlib.contextmanager
+def _no_tf32(on: bool):
+    """cuDNN without TF32 inside when ``on``, the flag as it was after."""
+    prev = torch.backends.cudnn.allow_tf32
+    if on:
+        torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 def _launch_k3(g, x, mask, weight, bias, group_sizes, padding, needs):
-    """The backward at Cout >= 8: ``k3_prep`` writes dacc and db in one
-    pass over g; ``k3_mask`` writes x * M; one ``aten::convolution_backward``
-    computes both products on channels-last bf16 views (no layout copy);
-    ``k3_mask`` masks dx in place on that call's own output."""
+    """The backward at Cout >= 8 (and in f32 at every Cout): ``k3_prep``
+    writes dacc and db in one pass over g; ``k3_mask`` writes x * M; one
+    ``aten::convolution_backward`` computes both products on channels-last
+    views of x's dtype (no layout copy); ``k3_mask`` masks dx in place on
+    that call's own output. In f32 cuDNN's TF32 is off for that call alone
+    (``torch.backends.cudnn.allow_tf32`` is on by default)."""
     n, h, w, cin, gr, cout, k, pad, hout, wout = _check_inputs(x, mask, weight, bias, group_sizes,
                                                                padding)
     g = _check_cotangent(g, x, n, hout, wout, cout)
@@ -647,9 +752,10 @@ def _launch_k3(g, x, mask, weight, bias, group_sizes, padding, needs):
     if need_dx or need_dw:
         xin = k3_mask(x, mask, group_sizes) if need_dw else x
         wb = weight.to(x.dtype).contiguous(memory_format=torch.channels_last)
-        dxm, dw, _ = torch.ops.aten.convolution_backward(
-            to_nchw(dacc), to_nchw(xin), wb, None, [1, 1], list(pad), [1, 1], False, [0, 0], 1,
-            [need_dx, need_dw, False])
+        with _no_tf32(x.dtype == torch.float32):
+            dxm, dw, _ = torch.ops.aten.convolution_backward(
+                to_nchw(dacc), to_nchw(xin), wb, None, [1, 1], list(pad), [1, 1], False, [0, 0],
+                1, [need_dx, need_dw, False])
         if need_dx:
             dx = dxm.permute(0, 2, 3, 1)
             if not dx.is_contiguous():

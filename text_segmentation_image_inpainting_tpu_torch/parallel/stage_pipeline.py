@@ -1,6 +1,7 @@
-"""Two-stage (segment | inpaint) pipeline over a pair of devices, inference.
+"""Two-stage (segment | inpaint) pipeline over a pair of devices, and the
+two stages trained at once on two groups of ranks.
 
-Counterpart of the inference part of
+Counterpart of
 ``text_segmentation_image_inpainting_tpu/parallel/stage_pipeline.py``.
 The segmenter runs on the stage mesh's first device and the U-Net on its
 second, each on a CUDA stream of its own. At step t the host queues the
@@ -23,7 +24,10 @@ import torch
 
 from text_segmentation_image_inpainting_tpu_torch.parallel.mesh import (
     _available,
+    _normalize,
+    _world,
     entry_streams,
+    make_rank_mesh,
     on_stream,
     replicate,
 )
@@ -46,7 +50,7 @@ class StageMesh:
 
 def make_stage_mesh(devices: Sequence[Any] | None = None) -> StageMesh:
     """A 2-device stage mesh (seg | inpaint); a device may be named twice."""
-    devices = _available(None) if devices is None else [torch.device(d) for d in devices]
+    devices = _available(None) if devices is None else [_normalize(d) for d in devices]
     if len(devices) < 2:
         raise ValueError("stage pipelining needs 2 devices; one card may be named twice, "
                          "as ['cuda:0', 'cuda:0']")
@@ -118,3 +122,50 @@ def pipeline2_throughput_model(t_seg: float, t_inpaint: float, t_mb: int) -> Tup
     fused = t_mb * (t_seg + t_inpaint)
     piped = (t_seg + t_inpaint) + (t_mb - 1) * max(t_seg, t_inpaint)
     return fused, piped
+
+
+# The two stages train independently (separate data, losses and models):
+# no gradient crosses the stage boundary, so the training analogue of the
+# stage pipeline is concurrency. ``make_group_meshes`` splits the ranks
+# into two disjoint groups, one per stage, and ``concurrent_train2`` runs
+# on each rank the step of its own group: the groups share no state and
+# no rank, and neither waits on the other. As in JAX, data parallelism of
+# each stage over every rank, one stage after the other, is the default
+# the CLIs take; this is the composition helper.
+
+
+def make_group_meshes(ranks: Sequence[int] | None = None, *, seg_fraction: float = 0.5):
+    """Split the ranks (all of the world by default) into two disjoint
+    rank meshes (seg, inpaint): the first round(n * seg_fraction) ranks,
+    at least one and at most n - 1, train the segmenter. Every rank of the
+    world must call it (each group is a ``new_group``)."""
+    ranks = list(range(_world())) if ranks is None else [int(r) for r in ranks]
+    if len(ranks) < 2:
+        raise ValueError("2-group training needs 2+ ranks")
+    k = max(1, min(len(ranks) - 1, int(round(len(ranks) * seg_fraction))))
+    return make_rank_mesh(ranks[:k]), make_rank_mesh(ranks[k:])
+
+
+def _mine(step) -> bool:
+    mesh = getattr(step, "mesh", None)
+    return mesh is None or mesh.ranks is None or mesh.position() is not None
+
+
+def concurrent_train2(seg_step, inpaint_step):
+    """Compose the two stages' train steps, each made over its group's
+    mesh (``make_seg_train_step(..., mesh=seg_mesh)``), into
+    ``step(seg_state, seg_batch, inp_state, inp_batch) -> (seg_state,
+    seg_metrics, inp_state, inp_metrics)``. A rank runs the step of the
+    group it belongs to; the other stage's state and batch (None there)
+    come back as they were, with metrics None. Steps made without a rank
+    mesh both run, one after the other. The math is each step's run alone."""
+
+    def step(seg_state, seg_batch, inp_state, inp_batch):
+        seg_metrics = inp_metrics = None
+        if _mine(seg_step):
+            seg_state, seg_metrics = seg_step(seg_state, seg_batch)
+        if _mine(inpaint_step):
+            inp_state, inp_metrics = inpaint_step(inp_state, inp_batch)
+        return seg_state, seg_metrics, inp_state, inp_metrics
+
+    return step

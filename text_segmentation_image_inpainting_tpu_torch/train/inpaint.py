@@ -6,7 +6,10 @@ loss through the frozen VGG16, backward, one optimizer update. On CUDA
 the U-Net's stride-1 partial convs run K1/K2 forward and K3 backward,
 and with ``cfg.loss.fused_stem`` the VGG stem's backward is K4. With
 ``cfg.grad_accum`` = k > 1 the forward and backward run on k microbatches
-and the update takes their mean gradient (``train/accum.py``).
+and the update takes their mean gradient (``train/accum.py``). Made over
+a rank mesh (``parallel/mesh.py``), the step is one rank's part of JAX's
+global-batch step: BatchNorm and the loss take the global batch's sums,
+and the gradients are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -18,19 +21,21 @@ import torch.utils.checkpoint
 
 from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import inpainting_loss
 from text_segmentation_image_inpainting_tpu_torch.models.vgg import VGG16Features
+from text_segmentation_image_inpainting_tpu_torch.ops.collectives import global_sum, local_share
 from text_segmentation_image_inpainting_tpu_torch.train.accum import accumulate_grads
 from text_segmentation_image_inpainting_tpu_torch.train.config import InpaintTrainConfig
 from text_segmentation_image_inpainting_tpu_torch.train.metrics import psnr, ssim
-from text_segmentation_image_inpainting_tpu_torch.train.state import TrainState
+from text_segmentation_image_inpainting_tpu_torch.train.state import TrainState, data_parallel
 
 
-def make_inpaint_train_step(model, cfg: InpaintTrainConfig, vgg: VGG16Features):
+def make_inpaint_train_step(model, cfg: InpaintTrainConfig, vgg: VGG16Features, *, mesh=None):
     """Returns ``train_step(state, batch) -> (state, terms)``.
 
     batch: {'image': (N,H,W,3) ground truth in [0,1],
-            'mask':  (N,H,W,1) validity mask, 1 = keep, 0 = hole}.
+            'mask':  (N,H,W,1) validity mask, 1 = keep, 0 = hole}; over a
+    rank ``mesh``, this rank's rows of the global batch (``shard_batch``).
     The terms are the loss terms, detached (microbatch means with
-    ``cfg.grad_accum`` > 1).
+    ``cfg.grad_accum`` > 1; the global batch's over a rank mesh).
     """
     if cfg.remat not in ("none", "full"):
         raise ValueError(f"InpaintTrainConfig.remat must be 'none'|'full', got {cfg.remat!r}")
@@ -59,15 +64,18 @@ def make_inpaint_train_step(model, cfg: InpaintTrainConfig, vgg: VGG16Features):
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model.train()
-        terms = accumulate_grads(micro_step, batch, cfg.grad_accum, state.clip_params)
+        with data_parallel(mesh):
+            terms = accumulate_grads(micro_step, batch, cfg.grad_accum, state.clip_params)
         state.apply_gradients()
         return state, terms
 
+    train_step.mesh = mesh
     return train_step
 
 
-def make_inpaint_eval_step(model):
-    """eval_step(state, batch) -> PSNR / SSIM / L1 of the composited output."""
+def make_inpaint_eval_step(model, *, mesh=None):
+    """eval_step(state, batch) -> PSNR / SSIM / L1 of the composited output
+    (over a rank ``mesh``, of the global batch)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
@@ -75,6 +83,8 @@ def make_inpaint_eval_step(model):
         model.eval()
         out = model(gt * mask, mask)
         comp = mask * gt + (1 - mask) * out.float()
-        return {"psnr": psnr(comp, gt), "ssim": ssim(comp, gt), "l1": (comp - gt).abs().mean()}
+        with data_parallel(mesh):
+            return {"psnr": psnr(comp, gt), "ssim": ssim(comp, gt),
+                    "l1": global_sum(local_share((comp - gt).abs().mean()))}
 
     return eval_step

@@ -1,7 +1,9 @@
 """Quality metrics: IoU, PSNR, SSIM.
 
 Counterpart of ``text_segmentation_image_inpainting_tpu/train/metrics.py``.
-Every metric computes in f32 and returns a 0-d tensor.
+Every metric computes in f32 and returns a 0-d tensor. Under
+``ops/collectives.py::data_parallel`` each is the global batch's: sums
+and means over the ranks' equal shards.
 """
 
 from __future__ import annotations
@@ -9,19 +11,20 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from text_segmentation_image_inpainting_tpu_torch.ops.collectives import global_sum, local_share
 from text_segmentation_image_inpainting_tpu_torch.ops.conv import to_nchw
 
 
 def iou(pred: torch.Tensor, target: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """Binary IoU over the whole batch; inputs in {0,1}."""
     pred, target = pred.float(), target.float()
-    inter = (pred * target).sum()
-    union = pred.sum() + target.sum() - inter
+    inter = global_sum((pred * target).sum())
+    union = global_sum(pred.sum() + target.sum()) - inter
     return inter / (union + eps)
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor, *, max_val: float = 1.0) -> torch.Tensor:
-    mse = (pred.float() - target.float()).square().mean()
+    mse = global_sum(local_share((pred.float() - target.float()).square().mean()))
     return 10.0 * torch.log10(max_val**2 / torch.clamp(mse, min=1e-12))
 
 
@@ -65,4 +68,4 @@ def ssim(pred: torch.Tensor, target: torch.Tensor, *, max_val: float = 1.0,
     c2 = (0.03 * max_val) ** 2
     num = (2 * mu_pt + c1) * (2 * sigma_pt + c2)
     den = (mu_pp + mu_tt + c1) * (sigma_p + sigma_t + c2)
-    return (num / den).mean()
+    return global_sum(local_share((num / den).mean()))

@@ -6,7 +6,9 @@ where ``lax.scan`` runs k steps in one jitted dispatch. Here
 batches stacked ``(k, ...)``, returning metrics stacked ``(k,)``. The
 route follows the batches' device alone:
 
-* CPU: a plain loop of ``train_step``.
+* CPU: a plain loop of ``train_step``. So is a step made over a rank mesh
+  whose group is not NCCL's (gloo's collectives run on the host and cannot
+  be captured).
 * CUDA: the step is captured once per state and batch shape into a
   ``torch.cuda.CUDAGraph`` and replayed. The first call's first step runs
   eagerly on a side stream: it is the warm-up, which builds the kernels,
@@ -22,7 +24,11 @@ route follows the batches' device alone:
   statistics and spectral norm's u and v are updated in place, so the
   replays carry them. ``TrainState.step`` stays the host's count, and the
   kernels' launch counters count the warm-up and the capture, not the
-  replays.
+  replays. A step over an NCCL rank mesh captures its collectives (the
+  BatchNorm statistics' and the gradients' all-reduces) in the graph; the
+  warm-up has built the communicator. Under data parallelism the stacked
+  batches are this rank's columns of the super-batch
+  (``parallel.stacked_batch_sharding``).
 """
 
 from __future__ import annotations
@@ -44,9 +50,12 @@ def make_multi_step(train_step: Callable) -> Callable:
     metric stacked ``(k,)``."""
     graphs: Dict[tuple, Any] = {}
 
+    mesh = getattr(train_step, "mesh", None)
+    host_collectives = mesh is not None and mesh.ranks is not None and mesh.backend != "nccl"
+
     def multi_step(state, batches: Dict[str, torch.Tensor]):
         k = next(iter(batches.values())).shape[0]
-        if next(iter(batches.values())).device.type != "cuda":
+        if next(iter(batches.values())).device.type != "cuda" or host_collectives:
             per_step = []
             for i in range(k):
                 state, m = train_step(state, {name: v[i] for name, v in batches.items()})

@@ -17,6 +17,10 @@ normalises it); ``--grad-accum k`` averages k microbatches' gradients into
 one update; ``--steps-per-dispatch k`` runs k steps per dispatch, as a
 CUDA graph on the card. Logs one record per ``--log-every`` window to
 ``logs/inpaint.jsonl`` and stderr.
+
+Started by ``torchrun --nproc-per-node N`` (``WORLD_SIZE`` > 1) it trains
+data-parallel over the global batch, one rank per device, as the JAX CLI
+does over every device (``train/loop.py::run_data_parallel``); no flag.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from text_segmentation_image_inpainting_tpu_torch.models.vgg import (
     VGG16Features,
     load_vgg16_state_dict,
 )
+from text_segmentation_image_inpainting_tpu_torch.parallel.mesh import replicated
 from text_segmentation_image_inpainting_tpu_torch.train.config import (
     InpaintTrainConfig,
     OptimizerConfig,
@@ -48,7 +53,7 @@ from text_segmentation_image_inpainting_tpu_torch.train.loop import (
     add_device_flag,
     check_grad_accum,
     export,
-    resolve_device,
+    run_data_parallel,
     steps_per_dispatch,
     train_loop,
 )
@@ -82,8 +87,8 @@ def parse_args(argv=None):
                         "(clamped to divide --log-every and --ckpt-every)")
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false",
-                   help="a float32 step: runs on the CPU; on CUDA the partial-conv "
-                        "kernels take bf16 only and raise (no fallback)")
+                   help="a float32 step: on CUDA the partial convs run the kernels' "
+                        "float32 forms (csrc/partial_conv_f32.cu)")
     p.add_argument("--fused-stem", action="store_true", default=False,
                    help="the VGG stem's backward on kernel K4 (csrc/vgg_stem.cu)")
     p.add_argument("--vgg-ckpt", type=str, default=None, help="torchvision vgg16 state_dict (.pth)")
@@ -138,12 +143,16 @@ def main(argv=None):
     )
     check_grad_accum(cfg)
     spd = steps_per_dispatch(args.steps_per_dispatch, cfg)
-    device = resolve_device(args.device)
+    device, mesh = run_data_parallel(args.device, cfg.batch_size)
+    if device is None:
+        return None  # a rank outside the data-parallel mesh: nothing to train
     dtype = torch.bfloat16 if cfg.bf16_compute else torch.float32
     gen = torch.Generator().manual_seed(args.seed)
     model = InpaintUNet(depth=cfg.depth, attention=cfg.attention, attention_sn=cfg.attention_sn,
                         dtype=dtype).init_weights(gen).to(device)
     vgg = load_vgg(make_vgg(cfg.loss), args.vgg_ckpt, gen).to(device)
+    if mesh is not None:  # one copy of the weights on every rank, as JAX's replicated(mesh)
+        model, vgg = replicated(mesh).place(model), replicated(mesh).place(vgg)
 
     paths = list_image_paths(args.data_dir) if args.data_dir else None
 
@@ -152,14 +161,15 @@ def main(argv=None):
                             seed=args.seed, paths=paths, start=start)
 
     # a fixed held-out set from a disjoint seed stream
-    val_batches = make_val_batches("inpaint", cfg, seed=args.seed + 100_000, n=args.val_batches,
-                                   device=device, paths=paths)
+    val_batches = make_val_batches("inpaint", cfg, mesh, seed=args.seed + 100_000,
+                                   n=args.val_batches, device=None if mesh else device,
+                                   paths=paths)
     # a step captured in a CUDA graph needs the capturable optimizer
     state = create_train_state(model, cfg.optimizer, capturable=spd > 1 and device.type == "cuda")
-    state = train_loop(state, make_inpaint_train_step(model, cfg, vgg),
-                       make_inpaint_eval_step(model), make_batches, val_batches, cfg,
+    state = train_loop(state, make_inpaint_train_step(model, cfg, vgg, mesh=mesh),
+                       make_inpaint_eval_step(model, mesh=mesh), make_batches, val_batches, cfg,
                        steps=args.steps, ckpt_dir=args.ckpt_dir, device=device, name="inpaint",
-                       spd=spd)
+                       spd=spd, mesh=mesh)
     export(args.export, state.model)
     return state
 

@@ -14,6 +14,10 @@ with its 8 middle blocks, the DeepLab-v3+ head); ``--grad-accum k``
 averages k microbatches' gradients into one update; ``--steps-per-dispatch
 k`` runs k steps per dispatch, as a CUDA graph on the card. Logs one
 record per ``--log-every`` window to ``logs/seg.jsonl`` and stderr.
+
+Started by ``torchrun --nproc-per-node N`` (``WORLD_SIZE`` > 1) it trains
+data-parallel over the global batch, one rank per device, as the JAX CLI
+does over every device (``train/loop.py::run_data_parallel``); no flag.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from text_segmentation_image_inpainting_tpu_torch.data.pipeline import list_image_paths, make_dataset
 from text_segmentation_image_inpainting_tpu_torch.models import TextSegmenter
 from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
+from text_segmentation_image_inpainting_tpu_torch.parallel.mesh import replicated
 from text_segmentation_image_inpainting_tpu_torch.train.config import (
     OptimizerConfig,
     SegTrainConfig,
@@ -37,7 +42,7 @@ from text_segmentation_image_inpainting_tpu_torch.train.loop import (
     add_device_flag,
     check_grad_accum,
     export,
-    resolve_device,
+    run_data_parallel,
     steps_per_dispatch,
     train_loop,
 )
@@ -108,12 +113,16 @@ def main(argv=None):
     spd = steps_per_dispatch(args.steps_per_dispatch, cfg)
     if args.custom_wgrad:
         depthwise.USE_CUSTOM_WGRAD = True  # read at every forward (ops/depthwise.py)
-    device = resolve_device(args.device)
+    device, mesh = run_data_parallel(args.device, cfg.batch_size)
+    if device is None:
+        return None  # a rank outside the data-parallel mesh: nothing to train
     dtype = torch.bfloat16 if cfg.bf16_compute else torch.float32
     model = TextSegmenter(width_mult=cfg.width_mult, output_stride=cfg.output_stride,
                           decoder_mid=cfg.decoder_mid, backbone=cfg.backbone, head=cfg.head,
                           dtype=dtype)
     model = model.init_weights(torch.Generator().manual_seed(args.seed)).to(device)
+    if mesh is not None:  # one copy of the weights on every rank, as JAX's replicated(mesh)
+        model = replicated(mesh).place(model)
 
     paths = list_image_paths(args.data_dir) if args.data_dir else None
 
@@ -123,14 +132,16 @@ def main(argv=None):
 
     frozen = freeze_mask_for(model, "encoder") if cfg.freeze_encoder else frozenset()
     # a fixed held-out set from a disjoint seed stream
-    val_batches = make_val_batches("seg", cfg, seed=args.seed + 100_000, n=args.val_batches,
-                                   device=device, paths=paths)
+    val_batches = make_val_batches("seg", cfg, mesh, seed=args.seed + 100_000,
+                                   n=args.val_batches, device=None if mesh else device,
+                                   paths=paths)
     # a step captured in a CUDA graph needs the capturable optimizer
     state = create_train_state(model, cfg.optimizer, frozen=frozen,
                                capturable=spd > 1 and device.type == "cuda")
-    state = train_loop(state, make_seg_train_step(model, cfg), make_seg_eval_step(model),
-                       make_batches, val_batches, cfg, steps=args.steps, ckpt_dir=args.ckpt_dir,
-                       device=device, name="seg", spd=spd)
+    state = train_loop(state, make_seg_train_step(model, cfg, mesh=mesh),
+                       make_seg_eval_step(model, mesh=mesh), make_batches, val_batches, cfg,
+                       steps=args.steps, ckpt_dir=args.ckpt_dir, device=device, name="seg",
+                       spd=spd, mesh=mesh)
     export(args.export, state.model)
     return state
 

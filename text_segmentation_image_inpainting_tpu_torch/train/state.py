@@ -40,6 +40,7 @@ default one to rounding, not bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Iterable, Set
@@ -189,6 +190,12 @@ class TrainState:
             self.lr.copy_(learning_rate_tensor(self.cfg, self.count))
         elif self.scheduler is not None:
             self.scheduler.load_state_dict(sd["scheduler"])
+
+
+def data_parallel(mesh):
+    """The scope of one step over ``mesh``: a rank mesh's
+    ``data_parallel()``, nothing without a mesh or for a device mesh."""
+    return contextlib.nullcontext() if mesh is None else mesh.data_parallel()
 
 
 def freeze_mask_for(model: nn.Module, *prefixes: str) -> Set[str]:
