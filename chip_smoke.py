@@ -97,8 +97,12 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
  12. f32      the f32 form of K1/K2 and of their backward (``f32_phase``)
               at the U-Net's 8 shapes against the plain version in f64,
               twice bit-identical; the f32 U-Net at 512^2, batch 8 (K1F 7,
-              K2F 1) and one f32 step (K3F 8); times beside cuDNN's f32
-              conv with TF32 off and the bound at the f32 peak
+              K2F 1); the f32 stem (``f32_stem_phase``: K4F at x (16, 512,
+              512, 3), K5F at z0 (8, 512, 512, 64) and both at
+              ``STEM_EXTRA``, against f64, twice bit-identical); one f32
+              step with the fused stem (K1F 7, K2F 1, K3F 8, K4F 1, K5F 1,
+              terms and gradients finite); times beside cuDNN's f32 with
+              TF32 off and the bound at the f32 peak
  13. ddp      data-parallel training (``ddp_phase``): the inpaint and seg
               steps over a 1-rank NCCL mesh, eager and as the k = 4 graph,
               at the graph phase's gate and launch counts; 2 gloo ranks on
@@ -115,7 +119,13 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               unsharded one's); ``pipeline2_run`` (512^2, batch 8, T 4 on
               (cuda:0, cuda:0): bit-equal to ``run``, or within two runs'
               spread); the data-parallel server on a 2-entry mesh (bit-equal
-              to ``run`` on each half); their times beside the plain paths
+              to ``run`` on each half); ``spatial_pipeline_run``, the whole
+              pipeline (width 1.0, output stride 8, depth 8, bf16) on one
+              2048^2 native page in 2 and 4 bands (``spatial_pipeline_phase``:
+              K1 7 and K2 1 per band; the page untouched outside the text;
+              mask pixels that differ from ``run`` only near the threshold;
+              relative L2 to an f32 pipeline within 1.25x ``run``'s); their
+              times beside the plain paths
  (Phases 9-14 run before the serve phase, 15 after it; each phase prints
  its seconds.)
  The inpaint step also may not block the host: no blocking CUDA call in
@@ -857,6 +867,19 @@ def main() -> int:
             "replaces": f"{TPU_KERNEL}:{line}", "launches": f32["launches"][kname],
             "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain"],
             "bound_ms": t["bound"], "bound_by": t["by"], "library_ms": t["lib"],
+        })
+    for kname, fn in (("K4F", "stem_f32_conv0, stem_f32_conv1<GRAD, DGRAD>, stem_f32_dx"),
+                      ("K5F", "stem_f32_conv1<POOL>")):
+        st = f32["stem"][kname]
+        log(f"{kname} (the f32 stem): launches from the f32 step; library_ms cuDNN f32 (TF32 "
+            f"off): " + ("its stem backward alone" if kname == "K4F" else "conv1 alone")
+            + "; max_abs_err against the plain version in f64")
+        kernels.append({
+            "name": f"{kname} {fn}", "route": "cuda", "source": CSRC_STEM,
+            "replaces": f"{TPU_STEM_BWD}:366" if kname == "K4F" else f"{TPU_STEM}:191",
+            "launches": f32["launches"][kname], "max_abs_err": st["err"], "ms": st["ms"],
+            "plain_ms": st["plain"], "bound_ms": st["bound"], "bound_by": st["by"],
+            "library_ms": st["lib"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2223,7 +2246,8 @@ def launch_counters() -> dict:
 
     return {"K1": kpc.K1_LAUNCHES, "K2": kpc.K2_LAUNCHES, "K3": kpc.K3_LAUNCHES,
             "K4": kvs.K4_LAUNCHES, "K5": kvs.K5_LAUNCHES, "K6": kdw.K6_LAUNCHES,
-            "K1F": kpc.K1F_LAUNCHES, "K2F": kpc.K2F_LAUNCHES, "K3F": kpc.K3F_LAUNCHES}
+            "K1F": kpc.K1F_LAUNCHES, "K2F": kpc.K2F_LAUNCHES, "K3F": kpc.K3F_LAUNCHES,
+            "K4F": kvs.K4F_LAUNCHES, "K5F": kvs.K5F_LAUNCHES}
 
 
 def zero_launch_counters() -> None:
@@ -2231,8 +2255,8 @@ def zero_launch_counters() -> None:
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
 
-    for mod, names in ((kpc, ("K1", "K2", "K3", "K1F", "K2F", "K3F")), (kvs, ("K4", "K5")),
-                       (kdw, ("K6",))):
+    for mod, names in ((kpc, ("K1", "K2", "K3", "K1F", "K2F", "K3F")),
+                       (kvs, ("K4", "K5", "K4F", "K5F")), (kdw, ("K6",))):
         for n in names:
             setattr(mod, f"{n}_LAUNCHES", 0)
 
@@ -2552,32 +2576,144 @@ def f32_phase(dev, rng, cases, smi: str) -> dict:
             f"f64 plain on the U-Net's own inputs, max |dy| {e:.4g}")
     del calls, out
 
-    # one f32 inpaint step (the VGG trunk in f32 on cuDNN: K4/K5 take bf16 only)
+    # one f32 inpaint step, the VGG trunk in f32 with the fused stem (K4F, K5F)
     torch.manual_seed(SEED)
-    loss_cfg = InpaintLossConfig(vgg_dtype="float32", fused_stem=False)
+    loss_cfg = InpaintLossConfig(vgg_dtype="float32", fused_stem=True)
     vgg = make_vgg(loss_cfg).to(dev)
+    stem = f32_stem_phase(dev, vgg, pages, holes, smi)
     unet.train()
     state = create_train_state(unet, InpaintTrainConfig().optimizer)
     step = make_inpaint_train_step(unet, InpaintTrainConfig(loss=loss_cfg), vgg)
     batch = {"image": pages, "mask": holes}
+    grads = {}
+
+    def keep_grads(opt, args, kwargs):
+        for name, prm in unet.named_parameters():
+            grads[name] = prm.grad is not None and bool(torch.isfinite(prm.grad).all())
+
+    hook = state.optimizer.register_step_pre_hook(keep_grads)
     zero_launch_counters()
     state, terms = step(state, batch)
     torch.cuda.synchronize()
     step_launches = launch_counters()
-    if (step_launches["K1F"], step_launches["K2F"], step_launches["K3F"], step_launches["K3"]) != (
-            7, 1, 8, 0) or not all(torch.isfinite(v) for v in terms.values()):
-        raise AssertionError(f"f32 step: launches {step_launches}, terms {terms}")
+    hook.remove()
+    want = {"K1F": 7, "K2F": 1, "K3F": 8, "K4F": 1, "K5F": 1, "K3": 0, "K4": 0, "K5": 0}
+    bad_grads = [n for n, ok in grads.items() if not ok]
+    if {k: step_launches[k] for k in want} != want or not all(
+            torch.isfinite(v) for v in terms.values()) or not grads or bad_grads:
+        raise AssertionError(f"f32 step: launches {step_launches}, terms {terms}, gradients "
+                             f"missing or non-finite {bad_grads}")
     step_ms = cuda_ms(lambda: step(state, batch), iters=3, warmup=1)
-    log(f"f32 inpaint step (512^2, batch {BATCH}, depth 8, VGG f32 on cuDNN): launches "
+    log(f"f32 inpaint step (512^2, batch {BATCH}, depth 8, VGG f32, fused stem): launches "
         f"{ {k: v for k, v in step_launches.items() if v} }; terms "
         + ", ".join(f"{k} {v.item():.5g}" for k, v in terms.items())
-        + f"; {step_ms:.3f} ms per step  [{smi}]")
+        + f"; {len(grads)} gradients finite; {step_ms:.3f} ms per step  [{smi}]")
     for n, acc in tot.items():
         log(f"{n}: {acc['n']} shape(s); ms, plain_ms, library_ms and bound_ms summed over them")
     del unet, state, step, vgg, batch, pages, holes
     torch.cuda.empty_cache()
-    return {"totals": tot, "launches": {"K1F": fwd_launches["K1F"], "K2F": fwd_launches["K2F"],
-                                        "K3F": step_launches["K3F"]}}
+    return {"totals": tot, "stem": stem,
+            "launches": {"K1F": fwd_launches["K1F"], "K2F": fwd_launches["K2F"],
+                         "K3F": step_launches["K3F"], "K4F": step_launches["K4F"],
+                         "K5F": step_launches["K5F"]}}
+
+
+def check_stem_f32(name, x, g, w0, b0, w1, b1, z0) -> dict:
+    """K4F and K5F against the f64 truth (the plain versions in f64), each
+    launched twice on the same inputs (bit-identical). K4F: relative L2 no
+    more than 1.25 x that of the plain f32 version (cuDNN f32, TF32 off):
+    at a near-tie in a 2x2 pool f32 and f64 may route the gradient to
+    different pixels, which no f32 stem avoids (the bf16 gate's reason).
+    K5F: within 1e-5 (|y| + max |y|) of f64."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
+
+    got, again = kvs.stem_dx(x, g, w0, b0, w1, b1), kvs.stem_dx(x, g, w0, b0, w1, b1)
+    plain = kvs.stem_dx_reference(x, g, w0, b0, w1, b1)
+    truth = kvs.stem_dx_reference(*(t.double() for t in (x, g, w0, b0, w1, b1)))
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32 or got.shape != x.shape or not torch.equal(got, again):
+        raise AssertionError(f"K4F {name}: dx {got.dtype} {tuple(got.shape)}, or two launches differ")
+    res = {"rel": rel_l2(got.double(), truth), "rel_plain": rel_l2(plain.double(), truth),
+           "max": (got.double() - truth).abs().max().item()}
+    del got, again, plain, truth
+    if not res["rel"] <= 1.25 * res["rel_plain"]:
+        raise AssertionError(f"K4F {name}: relative L2 to f64 {res['rel']:.4g}, more than 1.25 x "
+                             f"the f32 cuDNN stem's {res['rel_plain']:.4g}")
+    y, y2 = kvs.stem_pool(z0, w1, b1), kvs.stem_pool(z0, w1, b1)
+    want = kvs.stem_pool_reference(z0.double(), w1.double(), b1.double())
+    torch.cuda.synchronize()
+    err = (y.double() - want).abs()
+    if y.dtype != torch.float32 or not torch.equal(y, y2) or not (
+            err <= 1e-5 * (want.abs() + want.abs().max())).all():
+        raise AssertionError(f"K5F {name}: {y.dtype}, two launches differ, or |dy| up to "
+                             f"{err.max().item():.4g} (max |y| {want.abs().max().item():.4g})")
+    res["max5"] = err.max().item()
+    return res
+
+
+def f32_stem_phase(dev, vgg, pages, holes, smi: str) -> dict:
+    """K4F and K5F (the f32 stem, ``csrc/vgg_stem.cu``): gates
+    (``check_stem_f32``) at the f32 step's shapes (x of its 16 pages, z0 of
+    its 8 ground-truth pages) and at ``STEM_EXTRA``; then times with CUDA
+    events beside the plain f32 versions, cuDNN's f32 stem backward alone
+    and cuDNN's f32 conv1 alone (TF32 off; yardsticks the port never
+    calls), the bound at the f32 peak, and a profile of K4F's four passes.
+    Returns {K4F, K5F: {ms, plain, lib, bound, by, err}}."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
+
+    w0, b0 = vgg.features[0].weight, vgg.features[0].bias
+    w1, b1 = vgg.features[2].weight, vgg.features[2].bias
+    xs = vgg.normalize_input(torch.cat([pages, pages * holes])).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    gs = torch.randn((2 * BATCH, PAGE // 2, PAGE // 2, 64), generator=gen, device=dev)
+    z0 = conv2d(xs[:BATCH], w0, b0, padding=1).contiguous()
+    res = check_stem_f32("step shapes", xs, gs, w0, b0, w1, b1, z0)
+    log(f"parity K4F x {tuple(xs.shape)}: relative L2 to f64 {res['rel']:.4g} (cuDNN f32 "
+        f"{res['rel_plain']:.4g}, gate 1.25x), max |d| {res['max']:.4g}; K5F z0 {tuple(z0.shape)} "
+        f"max |d| {res['max5']:.4g}; each twice bit-identical")
+    for m, h, w in STEM_EXTRA:
+        ws = stem_weights(gen, dev)
+        x = torch.randn((m, h, w, 3), generator=gen, device=dev)
+        g = torch.randn((m, h // 2, w // 2, 64), generator=gen, device=dev)
+        z = torch.randn((m, h, w, 64), generator=gen, device=dev)
+        r = check_stem_f32(f"{m}x{h}x{w}", x, g, *ws, z)
+        log(f"parity K4F/K5F {m}x{h}x{w}: K4F relative L2 {r['rel']:.4g} (cuDNN f32 "
+            f"{r['rel_plain']:.4g}); K5F max |d| {r['max5']:.4g}; each twice bit-identical")
+
+    kern = lambda: kvs.stem_dx(xs, gs, w0, b0, w1, b1)  # noqa: E731
+    plain = lambda: kvs.stem_dx_reference(xs, gs, w0, b0, w1, b1)  # noqa: E731
+    xr = xs.detach().requires_grad_(True)
+    out = kvs.stem_forward(xr, w0, b0, w1, b1, torch.float32)
+    lib = lambda: torch.autograd.grad(out, xr, gs, retain_graph=True)  # noqa: E731
+    p1, k1, k2, p2 = (cuda_ms(f, iters=5, warmup=1) for f in (plain, kern, kern, plain))
+    t_lib = cuda_ms(lib, iters=5, warmup=1)
+    del out, xr
+    px = xs.shape[0] * PAGE * PAGE
+    flop = 2.0 * px * 64 * 64 * 9 * 2 + 4.0 * px * 64 * 27
+    k4 = {"ms": (k1 + k2) / 2, "plain": (p1 + p2) / 2, "lib": t_lib, "err": res["max"]}
+    k4["bound"], k4["by"] = bound(flop, 4.0 * (2 * xs.numel() + gs.numel() + w0.numel()
+                                               + w1.numel()), peak=PEAK_F32)
+    log(f"time K4F x {tuple(xs.shape)}: kernel {k1:.3f} / {k2:.3f} ms ({flop / k4['ms'] / 1e9:.1f} "
+        f"TFLOP/s), plain f32 forward+backward {p1:.3f} / {p2:.3f} ms, cuDNN's f32 stem backward "
+        f"alone {t_lib:.3f} ms, bound {k4['bound']:.3f} ms ({k4['by']}; f32 peak "
+        f"{PEAK_F32 / 1e12:.0f} TFLOP/s)  [{smi}]")
+    profile_run(kern, "K4F (its four passes)", runs=2)
+    kern = lambda: kvs.stem_pool(z0, w1, b1)  # noqa: E731
+    plain = lambda: kvs.stem_pool_reference(z0, w1, b1)  # noqa: E731
+    zn, w1cl = z0.permute(0, 3, 1, 2), w1.contiguous(memory_format=torch.channels_last)
+    lib = lambda: torch.nn.functional.conv2d(zn, w1cl, padding=1)  # noqa: E731
+    p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kern, kern, plain))
+    t_lib = cuda_ms(lib)
+    flop = 2.0 * z0.shape[0] * PAGE * PAGE * 64 * 64 * 9
+    k5 = {"ms": (k1 + k2) / 2, "plain": (p1 + p2) / 2, "lib": t_lib, "err": res["max5"]}
+    k5["bound"], k5["by"] = bound(flop, 4.0 * (z0.numel() * 5 / 4 + w1.numel()), peak=PEAK_F32)
+    log(f"time K5F z0 {tuple(z0.shape)}: kernel {k1:.3f} / {k2:.3f} ms ({flop / k5['ms'] / 1e9:.1f} "
+        f"TFLOP/s), plain f32 {p1:.3f} / {p2:.3f} ms, cuDNN's f32 conv1 alone {t_lib:.3f} ms, bound "
+        f"{k5['bound']:.3f} ms ({k5['by']})  [{smi}]")
+    del xs, gs, z0, zn, w1cl
+    torch.cuda.empty_cache()
+    return {"K4F": k4, "K5F": k5}
 
 
 def free_port() -> int:
@@ -3153,6 +3289,7 @@ def parallel_phase(pipe, dev, rng, smi: str) -> dict:
             f"U-Net (unsharded bf16 {whole_err:.4g}, gate 1.25x); vs the unsharded bf16 output "
             f"{rel_l2(got, whole.float()):.4g}, bit-equal {torch.equal(got, whole)}")
     del got, ref
+    out = spatial_pipeline_phase(pipe, dev, meshes, smi)
 
     # the two-stage pipeline on (cuda:0, cuda:0)
     stage = make_stage_mesh([dev, dev])
@@ -3209,7 +3346,6 @@ def parallel_phase(pipe, dev, rng, smi: str) -> dict:
         f"pages bit-equal to run on each half, in order; K1 {launches[0]}, K2 {launches[1]}")
 
     # times
-    out = {}
     with torch.no_grad():
         t_whole = cuda_ms(lambda: unet(x, m), iters=5, warmup=2)
     line = [f"unsharded {t_whole:.3f} ms"]
@@ -3257,6 +3393,116 @@ def parallel_phase(pipe, dev, rng, smi: str) -> dict:
     profile_run(lambda: served_all(PageStreamServer(pipe, depth=2, mesh=mesh2)),
                 f"DP serve, 2-entry mesh, {SERVE_BATCHES} batches", runs=1)
     return out
+
+
+def spatial_pipeline_phase(pipe, dev, meshes: dict, smi: str) -> dict:
+    """``spatial_pipeline_run``: the whole pipeline (the segmenter at width
+    1.0, output stride 8, the depth-8 U-Net, bf16: ``pipe``) on one 2048^2
+    native-engine page in 2 and 4 bands of cuda:0. Gates, against the
+    unbanded ``run`` on the same page (cuDNN may pick other algorithms for
+    a band's shape, so not bit for bit): K1 7 and K2 1 per band; (a) the
+    page bit-identical to the input outside the banded text mask, the
+    masks binary; (b) the banded mask differs from ``run``'s only within
+    the dilation radius of pixels whose f32 segmenter logit lies within
+    1.25 x the bf16 segmenter's largest logit error of the threshold; (c)
+    where the masks agree, the clean page's relative L2 to an f32 unbanded
+    pipeline (the f32 U-Net on its plain version, inpainting the same
+    holes: the banded mask's for the banded page, ``run``'s for ``run``'s)
+    at most 1.25 x ``run``'s. Then ms per page beside ``run`` and a
+    profile of the 4-band call. Returns the times."""
+    from text_segmentation_image_inpainting_tpu_torch.data.pipeline import make_page_stream_u8
+    from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet, TextSegmenter
+    from text_segmentation_image_inpainting_tpu_torch.ops.morphology import dilate_mask
+    from text_segmentation_image_inpainting_tpu_torch.parallel import spatial_pipeline_run
+    from text_segmentation_image_inpainting_tpu_torch.pipeline import TextRemovalPipeline
+    from text_segmentation_image_inpainting_tpu_torch.pipeline.serve import to_compute
+
+    size, cd, f32 = SPATIAL_PAGE, pipe.compute_dtype, torch.float32
+    u8 = next(make_page_stream_u8(1, (size, size), seed=SEED + 7))["image"]
+    page = to_compute(torch.from_numpy(u8).to(dev), f32)
+    page_c = page.to(cd)
+    want_clean, want_mask = pipe.run(page)
+    seg32 = TextSegmenter(dtype=f32)
+    seg32.load_state_dict(pipe.seg.state_dict())
+    unet32 = InpaintUNet(depth=pipe.unet.depth, dtype=f32)
+    unet32.load_state_dict(pipe.unet.state_dict())
+    ref_pipe = TextRemovalPipeline(seg32, unet32, threshold=pipe.threshold,
+                                   dilate_radius=pipe.dilate_radius, compute_dtype=f32)
+    ref_pipe = ref_pipe.to(dev).eval()
+    logit_t = float(np.log(pipe.threshold / (1.0 - pipe.threshold)))
+    with torch.no_grad():
+        lg16 = pipe.seg(page_c)[..., 0].float()
+        lg32 = ref_pipe.seg(page)[..., 0]
+        seg_err = (lg16 - lg32).abs().max().item()
+        near = ((lg32 - logit_t).abs() <= 1.25 * seg_err).to(f32)
+        allowed = dilate_mask(near, pipe.dilate_radius)[..., None] > 0
+    del lg16, lg32, near
+
+    def f32_inpaint(text):
+        """The f32 U-Net (its plain version) inpainting ``text``'s holes."""
+        with torch.no_grad(), plain_stride1():
+            return ref_pipe._inpaint2d(page, 1.0 - text[..., 0].to(f32))
+
+    ref_run = f32_inpaint(want_mask)
+    log(f"spatial pipeline: one {size}^2 native page, {float(want_mask.float().mean()):.3%} text "
+        f"in run; the bf16 segmenter's logits within {seg_err:.4g} of the f32 one's, "
+        f"{int(allowed.sum())} pixels near the threshold after dilation")
+    for bands, mesh in meshes.items():
+        calls = []
+        reset_launches()
+        with recorded_stride1(calls):
+            clean, mask = spatial_pipeline_run(mesh, pipe, page)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        per_band = Counter((c[0], "K2" if c[3].shape[0] <= 7 else "K1") for c in calls)
+        del calls
+        if launches != (7 * bands, bands) or sorted(per_band.values()) != sorted([7, 1] * bands) \
+                or len(per_band) != 2 * bands:
+            raise AssertionError(f"spatial pipeline {bands} bands: K1/K2 launched {launches}, per "
+                                 f"band {dict(per_band)}, want K1 7 and K2 1 in each")
+        if (clean.shape, mask.shape) != (want_clean.shape, want_mask.shape) or (
+                clean.dtype, mask.dtype) != (want_clean.dtype, want_mask.dtype):
+            raise AssertionError(f"spatial pipeline {bands} bands: {tuple(clean.shape)} "
+                                 f"{clean.dtype}, {tuple(mask.shape)} {mask.dtype}")
+        keep = (mask == 0).expand_as(clean)
+        if not ((mask == 0) | (mask == 1)).all() or not torch.isfinite(clean).all() or \
+                not torch.equal(clean[keep], page_c[keep]):  # (a)
+            raise AssertionError(f"spatial pipeline {bands} bands: mask not binary, clean not "
+                                 f"finite, or non-text pixels differ from the page")
+        differ = mask != want_mask
+        stray = int((differ & ~allowed).sum())
+        if stray:  # (b)
+            raise AssertionError(f"spatial pipeline {bands} bands: {stray} mask pixels differ from "
+                                 f"run away from the threshold ({int(differ.sum())} in all)")
+        agree = (~differ).expand_as(clean)
+        ref = f32_inpaint(mask)
+        err, err_run = rel_l2(clean[agree], ref[agree]), rel_l2(want_clean[agree], ref_run[agree])
+        if not err <= 1.25 * err_run:  # (c)
+            raise AssertionError(f"spatial pipeline {bands} bands: relative L2 {err:.4g} to the "
+                                 f"f32 pipeline, more than 1.25 x run's {err_run:.4g}")
+        same = torch.equal(clean, want_clean) and torch.equal(mask, want_mask)
+        log(f"spatial pipeline {bands} bands (local H {size // bands}): K1 {launches[0]}, K2 "
+            f"{launches[1]} (7 and 1 in each band); (a) non-text pixels bit-identical, masks "
+            f"binary; (b) {int(differ.sum())} mask pixels differ from run, all near the threshold; "
+            f"(c) relative L2 {err:.4g} to the f32 pipeline (run {err_run:.4g}, gate 1.25x); "
+            + ("bit-equal to run" if same else
+               f"not bit-equal to run (clean: max |d| "
+               f"{(clean.float() - want_clean.float()).abs().max().item():.4g})"))
+        del clean, mask, keep, differ, agree, ref
+    del ref_run, ref_pipe, allowed
+    torch.cuda.empty_cache()
+    times = {"run": cuda_ms(lambda: pipe.run(page), iters=5, warmup=2)}
+    for bands, mesh in meshes.items():
+        times[bands] = cuda_ms(lambda: spatial_pipeline_run(mesh, pipe, page), iters=5, warmup=2)
+    times["run again"] = cuda_ms(lambda: pipe.run(page), iters=5, warmup=2)
+    log(f"time spatial pipeline, one {size}^2 page, bf16, width 1.0, depth {pipe.unet.depth}: run "
+        f"{times['run']:.3f} / {times['run again']:.3f} ms; "
+        + ", ".join(f"{b} bands {times[b]:.3f} ms ({times[b] / times['run'] - 1:+.1%})"
+                    for b in meshes) + f"  [{smi}]")
+    profile_run(lambda: spatial_pipeline_run(meshes[4], pipe, page), "spatial pipeline, 4 bands",
+                runs=2)
+    profile_run(lambda: pipe.run(page), "run, the same page", runs=2)
+    return {f"spatial pipeline {b}": times[b] for b in meshes}
 
 
 def profile_run(fn, label: str, runs: int = 3) -> float:

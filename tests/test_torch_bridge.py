@@ -136,9 +136,10 @@ def test_port_imports_no_jax_or_flax():
     """In a fresh interpreter (this one has jax loaded by the conftest):
     every module of the port (the multi-device ``parallel`` package too),
     a synthetic training page of each kind drawn through the port's own
-    generators, and a serving batch through its prefetcher, whole and over
-    a 2-entry mesh, load neither jax nor flax nor any module of the JAX
-    package."""
+    generators, a serving batch through its prefetcher, whole and over a
+    2-entry mesh, and a page through the pipeline over 2 H bands
+    (``ops/bands.py``, ``spatial_pipeline_run``), load neither jax nor flax
+    nor any module of the JAX package."""
     code = (
         "import sys\n"
         "import text_segmentation_image_inpainting_tpu_torch.pipeline\n"
@@ -163,6 +164,7 @@ def test_port_imports_no_jax_or_flax():
         "import text_segmentation_image_inpainting_tpu_torch.ops.resize\n"
         "import text_segmentation_image_inpainting_tpu_torch.ops.morphology\n"
         "import text_segmentation_image_inpainting_tpu_torch.ops.conv\n"
+        "import text_segmentation_image_inpainting_tpu_torch.ops.bands\n"
         "import text_segmentation_image_inpainting_tpu_torch.models.experiments\n"
         "import text_segmentation_image_inpainting_tpu_torch.models.xception\n"
         "import text_segmentation_image_inpainting_tpu_torch.train.accum\n"
@@ -185,6 +187,16 @@ def test_port_imports_no_jax_or_flax():
         "pf = DevicePrefetcher(make_page_stream_u8(2, (32, 32)), mesh=make_mesh(2, platform='cpu'))\n"
         "assert [p['image'].shape for p in next(pf)] == [(1, 32, 32, 3)] * 2\n"
         "pf.close()\n"
+        "import torch\n"
+        "from text_segmentation_image_inpainting_tpu_torch.models import (\n"
+        "    InpaintUNet, TextSegmenter)\n"
+        "from text_segmentation_image_inpainting_tpu_torch.parallel import spatial_pipeline_run\n"
+        "from text_segmentation_image_inpainting_tpu_torch.pipeline import TextRemovalPipeline\n"
+        "pipe = TextRemovalPipeline(TextSegmenter(width_mult=0.35), InpaintUNet(depth=3),\n"
+        "                           compute_dtype=torch.float32).eval()\n"
+        "clean, _ = spatial_pipeline_run(make_mesh(2, platform='cpu'), pipe,\n"
+        "                                torch.rand(1, 16, 16, 3))\n"
+        "assert clean.shape == (1, 16, 16, 3)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'text_segmentation_image_inpainting_tpu'))\n"
         "assert not bad, bad\n"

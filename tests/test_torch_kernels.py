@@ -45,7 +45,11 @@ the H-sharded U-Net (K1/K2 per band, close to the unsharded forward), the
 two-stage pipeline and the data-parallel server (bit-equal to ``run``).
 The f32 form of K1/K2 and of the backward (an f32 x) against the plain
 version in f64, f16 refused, and an index-less ``"cuda"`` mesh entry that
-shares the module instead of copying it.
+shares the module instead of copying it. The f32 stem (K4F, K5F) against
+the plain versions in f64, twice bit-identical, routed by
+``vgg_stem_frozen`` in f32; and the whole pipeline over 2 bands of one
+card (``spatial_pipeline_run``: K1/K2 per band, the page untouched
+outside the text, the masks and clean pages close to ``run``'s).
 """
 
 import numpy as np
@@ -62,6 +66,7 @@ from chip_smoke import (
     check_grads,
     check_stem_dx,
     check_stem_dx_repeats,
+    check_stem_f32,
     check_stem_pool,
     check_wgrad,
     state_snapshot,
@@ -787,3 +792,74 @@ def test_pipeline2_and_dp_server_on_the_card(cuda):
             clean, mask = pipe.run(to_compute(torch.from_numpy(half).to(cuda), pipe.compute_dtype))
             np.testing.assert_array_equal(hc, to_uint8(clean).cpu().numpy())
             np.testing.assert_array_equal(hm, mask.to(torch.uint8).cpu().numpy())
+
+
+@pytest.mark.parametrize("m,h,w", [(1, 16, 16), (2, 32, 48), (2, 18, 26), (2, 512, 512)],
+                         ids=["1x16x16", "2x32x48", "2x18x26", "2x512x512"])
+def test_k4f_and_k5f_match_plain_in_f64(cuda, m, h, w):
+    """K4F and K5F: ``stem_dx`` and ``stem_pool`` on float32 CUDA tensors
+    (which raised before the f32 forms existed) against their plain
+    versions in f64 (``check_stem_f32``: K4F within 1.25 x the relative L2
+    of the f32 cuDNN stem, K5F within 1e-5 (|y| + max |y|)), each twice
+    bit-identical, each launch counted."""
+    gen = torch.Generator(cuda).manual_seed(m * h + w + 1)
+    w0, b0, w1, b1 = stem_weights(gen, cuda)
+    x = torch.randn((m, h, w, 3), generator=gen, device=cuda)
+    g = torch.randn((m, h // 2, w // 2, 64), generator=gen, device=cuda)
+    z0 = torch.randn((m, h, w, 64), generator=gen, device=cuda)
+    k4, k5 = kvs.K4F_LAUNCHES, kvs.K5F_LAUNCHES
+    check_stem_f32(f"{m}x{h}x{w}", x, g, w0, b0, w1, b1, z0)
+    assert (kvs.K4F_LAUNCHES - k4, kvs.K5F_LAUNCHES - k5) == (2, 2)
+
+
+def test_frozen_stem_in_f32_runs_k4f_and_k5f(cuda):
+    """The f32 trunk's stem: a forward with a gradient then K4F for dx, a
+    forward without one on K5F; any other non-bf16 dtype raises."""
+    gen = torch.Generator(cuda).manual_seed(6)
+    w0, b0, w1, b1 = stem_weights(gen, cuda)
+    x = torch.rand((2, 16, 16, 3), generator=gen, device=cuda, requires_grad=True)
+    k4, k5 = kvs.K4F_LAUNCHES, kvs.K5F_LAUNCHES
+    out = kvs.vgg_stem_frozen(x, w0, b0, w1, b1, torch.float32)
+    out.sum().backward()
+    with torch.no_grad():
+        pooled = kvs.vgg_stem_frozen(x, w0, b0, w1, b1, torch.float32)
+    assert (kvs.K4F_LAUNCHES - k4, kvs.K5F_LAUNCHES - k5) == (1, 1)
+    assert x.grad.dtype == torch.float32 and torch.isfinite(x.grad).all()
+    torch.testing.assert_close(pooled, out.detach(), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kvs.stem_dx(x.detach().half(), torch.zeros((2, 8, 8, 64), device=cuda).half(), w0, b0,
+                    w1, b1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kvs.stem_pool(torch.zeros((1, 16, 16, 64), device=cuda).half(), w1, b1)
+
+
+def test_spatial_pipeline_on_the_card(cuda):
+    """``spatial_pipeline_run`` over 2 bands of one card (depth 3, bf16):
+    K1 2 and K2 1 launches per band, non-text pixels bit-identical to the
+    page, binary masks; against ``run`` (cuDNN may pick other algorithms
+    for a band's shape) the masks differ in under 1% of the pixels and the
+    clean pages agree where the masks do, within 2% relative L2."""
+    from text_segmentation_image_inpainting_tpu_torch.parallel import (
+        make_mesh,
+        spatial_pipeline_run,
+    )
+
+    pipe = _small_pipe(cuda, 7)
+    pages = torch.from_numpy(np.random.default_rng(7).uniform(0, 1, (2, 64, 48, 3))
+                             .astype(np.float32)).to(cuda)
+    with torch.no_grad():  # some 1% text before the dilation, not the whole page
+        logits = pipe.seg(pages.to(pipe.compute_dtype))[..., 0].float()
+        pipe.seg.decoder.head.bias.sub_(torch.quantile(logits.flatten(), 0.99))
+    kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = 0
+    clean, mask = spatial_pipeline_run(make_mesh(devices=[cuda] * 2), pipe, pages)
+    assert (kpc.K1_LAUNCHES, kpc.K2_LAUNCHES) == (2 * 2, 2)
+    want_clean, want_mask = pipe.run(pages)
+    assert clean.shape == want_clean.shape and mask.shape == want_mask.shape
+    assert ((mask == 0) | (mask == 1)).all() and torch.isfinite(clean).all()
+    keep = (mask == 0).expand_as(clean)
+    assert torch.equal(clean[keep], pages.to(clean.dtype)[keep])
+    assert 0.005 < float(want_mask.float().mean()) < 0.95
+    agree = (mask == want_mask).expand_as(clean)
+    assert float((mask != want_mask).float().mean()) < 0.01
+    a, b = clean[agree].float(), want_clean[agree].float()
+    assert ((a - b).norm() / b.norm()).item() < 2e-2

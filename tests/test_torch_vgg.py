@@ -22,6 +22,7 @@ from text_segmentation_image_inpainting_tpu_torch.compat.from_jax import (
     vgg16_features_state_dict,
 )
 from text_segmentation_image_inpainting_tpu_torch.models import vgg as tvgg
+from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
 from tests.test_torch_bridge import one_torch_thread
 
@@ -233,3 +234,114 @@ def test_normalize_constants_live_on_the_module(vgg, dtype, monkeypatch):
     _, old = inpainting_loss(xt, gt, mask, model, config=cfg)
     for k in old:
         assert torch.equal(new[k], old[k]), k
+
+
+# --- the f32 stem: K4F and K5F's arithmetic on the CPU ---------------------------
+
+def _taps_conv(x, wt, bias=None):
+    """A 3x3 'same' conv of NHWC ``x`` through weights laid out (9 taps, in,
+    out), as K4F/K5F's conv1 kernel applies them: out[p] = sum over taps t
+    of x[p + (t // 3 - 1, t % 3 - 1)] @ wt[t], zero outside the page."""
+    n, h, w, _ = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    out = sum(xp[:, t // 3: t // 3 + h, t % 3: t % 3 + w] @ wt[t] for t in range(9))
+    return out if bias is None else out + bias
+
+
+def _f64_stem_weights(seed):
+    """Stem weights with f32 values (what the kernels read), in f64."""
+    return [(_oihw(a) if a.ndim == 4 else torch.from_numpy(a)).double()
+            for a in _stem_weights(seed)]
+
+
+def test_f32_conv1_taps_are_the_forward_and_its_dgrad():
+    """K4F/K5F's re-laid conv1 weights (``_f32_conv1_taps``), applied as the
+    kernel applies them: w1f gives conv1, w1b its dgrad. f64, within 1e-12."""
+    _, _, w1, _ = _f64_stem_weights(11)
+    w1f, w1b = (t.double() for t in kvs._f32_conv1_taps(w1))
+    assert w1f.shape == w1b.shape == (9, 64, 64)
+    x = torch.randn((2, 6, 5, 64), dtype=torch.float64, requires_grad=True)
+    y = conv2d(x, w1, padding=1)
+    torch.testing.assert_close(_taps_conv(x, w1f), y, rtol=1e-12, atol=1e-12)
+    g = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, g)
+    torch.testing.assert_close(_taps_conv(g, w1b), dx, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("m,h,w", [(2, 16, 24), (1, 18, 26)])
+def test_k4f_and_k5f_passes_compose_to_the_plain_stem(m, h, w):
+    """K4F's four passes (conv0 from its (64, 27) rows; conv1 through w1f
+    with the window's cotangent to its first maximum where z1 > 0; the
+    dgrad through w1b where a0 > 0; conv0's dgrad) and K5F's pooled conv1,
+    in torch on the wrapper's own re-laid weights, against the plain
+    versions, all in f64: within 1e-10, and within 1e-7 relative for dx,
+    which ``stem_dx_reference`` returns rounded to f32."""
+    w0, b0, w1, b1 = _f64_stem_weights(12)
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((m, h, w, 3)))
+    g = torch.from_numpy(rng.standard_normal((m, h // 2, w // 2, 64)))
+    w0t = kvs._w0_rows(w0, torch.float32).double()  # (64 out, 27), k = tap * 3 + in
+    w1f, w1b = (t.double() for t in kvs._f32_conv1_taps(w1))
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, t // 3: t // 3 + h, t % 3: t % 3 + w] for t in range(9)], dim=-1)
+    a0 = torch.relu(cols @ w0t.T + b0)                                     # pass 1
+    z1 = _taps_conv(a0, w1f, b1)                                           # pass 2
+
+    def windows(t):  # (m, h, w, 64) -> (m, h/2, w/2, 4, 64), row-major in the window
+        return t.reshape(m, h // 2, 2, w // 2, 2, 64).permute(0, 1, 3, 2, 4, 5).reshape(
+            m, h // 2, w // 2, 4, 64)
+
+    first = torch.nn.functional.one_hot(windows(torch.relu(z1)).argmax(dim=3), 4).permute(
+        0, 1, 2, 4, 3)
+    gz1 = (first * (windows(z1) > 0) * g[:, :, :, None, :]).reshape(
+        m, h // 2, w // 2, 2, 2, 64).permute(0, 1, 3, 2, 4, 5).reshape(m, h, w, 64)
+    gz0 = torch.where(a0 > 0, _taps_conv(gz1, w1b), 0.0)                   # pass 3
+    gp = torch.nn.functional.pad(gz0, (0, 0, 1, 1, 1, 1))
+    dx = sum(gp[:, 2 - t // 3: 2 - t // 3 + h, 2 - t % 3: 2 - t % 3 + w] @ w0t[:, 3 * t: 3 * t + 3]
+             for t in range(9))                                            # pass 4
+    torch.testing.assert_close(dx, kvs.stem_dx_reference(x, g, w0, b0, w1, b1).double(),
+                               rtol=1e-7, atol=1e-10)
+    z0 = torch.from_numpy(rng.standard_normal((m, h, w, 64)))
+    pooled = windows(torch.relu(_taps_conv(torch.relu(z0), w1f, b1))).amax(dim=3)  # K5F
+    torch.testing.assert_close(pooled, kvs.stem_pool_reference(z0, w1, b1), rtol=1e-10,
+                               atol=1e-10)
+
+
+def test_stem_wrappers_route_f32_to_k4f_and_k5f():
+    """On the CPU both dtypes take the plain version, in the input's dtype;
+    the f32 launchers refuse a tensor that is not a float32 CUDA one."""
+    w0, b0, w1, b1 = (_oihw(a) if a.ndim == 4 else torch.from_numpy(a) for a in _stem_weights(14))
+    x, g = torch.rand((1, 16, 16, 3)), torch.randn((1, 8, 8, 64))
+    z0 = torch.randn((1, 16, 16, 64))
+    assert kvs.stem_dx(x, g, w0, b0, w1, b1).dtype == torch.float32
+    assert kvs.stem_pool(z0, w1, b1).dtype == torch.float32
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        kvs._launch_k4f(x, g, w0, b0, w1, b1)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        kvs._launch_k5f(z0, w1, b1)
+
+
+def test_inpaint_cli_trains_in_f32_with_the_fused_stem(tmp_path, monkeypatch):
+    """``run_inpaint --no-bf16 --fused-stem`` at a tiny size on the CPU: the
+    stem's dx and its pooled forward run in float32 (on the card: K4F and
+    K5F), the terms finite."""
+    import json
+
+    from text_segmentation_image_inpainting_tpu_torch.train import run_inpaint
+
+    seen = []
+    for name in ("stem_dx", "stem_pool"):
+        fn = getattr(kvs, name)
+        monkeypatch.setattr(kvs, name, lambda t, *a, _fn=fn, _n=name: (
+            seen.append((_n, t.dtype)), _fn(t, *a))[1])
+    monkeypatch.chdir(tmp_path)
+    state = run_inpaint.main(["--steps", "2", "--batch-size", "2", "--image-size", "32",
+                              "--depth", "3", "--log-every", "1", "--val-batches", "1",
+                              "--no-bf16", "--fused-stem", "--device", "cpu",
+                              "--ckpt-dir", str(tmp_path / "c")])
+    assert state.step == 2
+    assert sorted(set(seen)) == [("stem_dx", torch.float32), ("stem_pool", torch.float32)]
+    with open("logs/inpaint.jsonl") as f:
+        logs = [json.loads(line) for line in f]
+    assert [r["step"] for r in logs] == [1, 2]
+    assert all(np.isfinite(r[k]) for r in logs for k in ("total", "perceptual", "style_out"))

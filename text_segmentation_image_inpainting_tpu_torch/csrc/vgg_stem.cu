@@ -1,5 +1,6 @@
 // The frozen VGG16 stem (torchvision features[0:5]: conv0 3->64, relu,
-// conv1 64->64, relu, 2x2 max pool) for Hopper, NHWC, bf16 in.
+// conv1 64->64, relu, 2x2 max pool) for Hopper, NHWC, bf16 in (K4, K5)
+// or f32 in (K4F, K5F).
 //
 // K4 `stem_dx` replaces the TPU kernel `_kernel` / `stem_dx_packed`
 // (text_segmentation_image_inpainting_tpu/ops/pallas/vgg_stem_bwd.py).
@@ -73,6 +74,9 @@
 // overwrites a0 in place; z1's buffer holds the im2col of x before conv1
 // and Q after the conv1 dgrad. The TPU kernel's row-pair lane packing
 // exists for Mosaic and is not ported.
+//
+// K4F and K5F are the f32 forms, for a float32 trunk: see "the f32 form"
+// below.
 //
 // Plain C interface (loaded with ctypes); each launcher returns
 // cudaGetLastError() right after its launch.
@@ -748,6 +752,356 @@ StemParams make_params(const void* x, const void* g, const void* w0, const void*
   return p;
 }
 
+// ------------------------------------------------------- the f32 form ----
+//
+// K4F and K5F: the same functions for a float32 trunk (JAX's Pallas
+// kernels take the trunk's dtype as it comes, f32 included), in f32 with
+// f32 accumulation: plain SIMT FFMA, no TF32 and no bf16 anywhere, every
+// sum in a fixed order, so two launches give the same bits.
+//
+// What bounds both is still conv1's 3x3 64->64 product, now at the f32
+// FFMA rate. In f32, conv1's weights alone (147,456 B) and a 16x16 tile's
+// a0 and z1 with their halos (226 KB) each fill a CTA's shared memory, so
+// K4F does not keep its intermediates on chip as K4 does: it runs as four
+// passes, two scratch tensors of (M, H, W, 64) f32 in device memory
+// between them (the wrapper allocates them; 2 x 1.07 GB at 16 pages of
+// 512^2, what autograd of the plain stem keeps as well):
+//
+//   1. stem_f32_conv0            a0  = relu(conv0(x) + b0)
+//   2. stem_f32_conv1<GRAD>      gz1 = g routed to the first max of
+//                                      relu(conv1(a0) + b1) in each 2x2
+//                                      window, only where that is > 0
+//   3. stem_f32_conv1<DGRAD>     gz0 = dgrad_conv1(gz1) where a0 > 0,
+//                                      written over a0 (each element is
+//                                      read and written by one thread)
+//   4. stem_f32_dx               dx  = dgrad_conv0(gz0)
+//
+// K5F is the conv1 kernel with the pool as its epilogue (POOL), relu
+// applied to z0 as it is staged: nothing but the pooled quarter is written.
+//
+// stem_f32_conv1: a CTA of 256 threads owns a 16x16 tile of conv1's output
+// pixels and all 64 output channels; a thread owns one 2x2 pool window x
+// 16 channels (64 accumulators), so the pool and its gradient happen in
+// registers. Per chunk of 16 input channels the tile's 18x18 input window
+// is staged channel-major, each row as its 9 even columns then its 9 odd
+// ones (20 floats a row): a warp's 32 windows (8 across, 4 down) then read
+// 32 distinct banks. The chunk's weights are staged as (tap, input channel,
+// 64 outputs) and read as float4s that the whole warp shares. Per input
+// channel a thread loads its 4x4 input neighbourhood once and runs the 9
+// taps on it: 52 shared loads for 576 FFMA. The dgrad is the same product
+// with the flipped, transposed weights, which the wrapper passes.
+//
+// The two dgrads sum in blocks, as a library's blocked product does: the
+// conv1 dgrad each chunk's 144 terms apart, then the 4 chunk sums; conv0's
+// each tap's 64, then the 9 tap sums. One chain of 576 FFMA per value
+// was 2.4x as far from the f64 truth as cuDNN's f32 dgrad on a 16x16 page
+// (3.7e-7 relative L2 against 1.5e-7, H100); a CPU emulation of the
+// blocked order gives 1.1x. The DGRAD instance holds the 64 block sums in
+// registers beside its 64 accumulators, so it runs one CTA per SM; the
+// forward products feed only the pool and its routing and stay unblocked.
+
+struct StemF32 {
+  const float* in;    // (m, h, w, 64): z0 (POOL), a0 (GRAD) or gz1 (DGRAD)
+  const float* wt;    // (9 taps, 64 in, 64 out) of this product
+  const float* bias;  // (64): POOL and GRAD
+  const float* g;     // GRAD: (m, h/2, w/2, 64)
+  float* out;         // POOL: pooled (m, h/2, w/2, 64); GRAD: gz1 (m, h, w, 64);
+                      // DGRAD: a0 in, gz0 out, (m, h, w, 64)
+  int m, h, w;
+};
+
+enum { SF_POOL = 0, SF_GRAD = 1, SF_DGRAD = 2 };
+
+constexpr int SF_T = 16;                 // output tile: 16 x 16 pixels
+constexpr int SF_THREADS = 256;          // 64 pool windows x 4 groups of 16 channels
+constexpr int SF_CK = 16;                // input channels per staged chunk
+constexpr int SF_ROWS = SF_T + 2;        // the chunk's input window: 18 x 18
+constexpr int SF_RP = 20;                // floats per window row: even cols 0-8, odd 10-18
+constexpr int SF_WIN = SF_ROWS * SF_RP;  // floats per channel of the window
+constexpr int SF_SMEM = (SF_CK * SF_WIN + 9 * SF_CK * C) * 4;  // bytes of f32: 59,904
+static_assert(2 * SF_RP % 32 == 8, "a warp's 4 window rows must fall on distinct banks");
+
+// Window column c of a staged row: even columns first, then odd ones.
+__device__ __forceinline__ int sf_col(int c) { return (c & 1) * (SF_RP / 2) + (c >> 1); }
+
+template <int MODE>
+__global__ void __launch_bounds__(SF_THREADS, MODE == SF_DGRAD ? 1 : 2)
+    stem_f32_conv1(const StemF32 p) {
+  extern __shared__ __align__(16) float sf_smem[];
+  float* xs = sf_smem;                   // [SF_CK][SF_ROWS][SF_RP]
+  float* ws = sf_smem + SF_CK * SF_WIN;  // [9][SF_CK][64]
+  const int tiles_w = (p.w + SF_T - 1) / SF_T;
+  const int oh0 = (int)(blockIdx.x / tiles_w) * SF_T, ow0 = (int)(blockIdx.x % tiles_w) * SF_T;
+  const int n = blockIdx.y;
+  const int tid = threadIdx.x, cg = tid >> 6, wx = tid & 7, wy = (tid >> 3) & 7;
+  float acc[4][16];  // [dy * 2 + dx][channel cg * 16 + e]
+  float tot[4][16];  // DGRAD: the sum of the chunks' sums
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[q][e] = tot[q][e] = 0.f;
+
+  for (int c0 = 0; c0 < C; c0 += SF_CK) {
+    __syncthreads();
+    // the window: rows oh0 - 1 .. oh0 + 16, columns ow0 - 1 .. ow0 + 16, zero
+    // outside the image (conv1's padding)
+    for (int i = tid; i < SF_ROWS * SF_ROWS * (SF_CK / 4); i += SF_THREADS) {
+      const int q = i % (SF_CK / 4), pix = i / (SF_CK / 4);
+      const int r = pix / SF_ROWS, c = pix % SF_ROWS;
+      const int ih = oh0 + r - 1, iw = ow0 + c - 1;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ih >= 0 && ih < p.h && iw >= 0 && iw < p.w) {
+        v = __ldg(reinterpret_cast<const float4*>(
+                      p.in + ((size_t)(n * p.h + ih) * p.w + iw) * C + c0) + q);
+        if (MODE == SF_POOL) {  // K5F's input is relu(z0)
+          v.x = fmaxf(v.x, 0.f);
+          v.y = fmaxf(v.y, 0.f);
+          v.z = fmaxf(v.z, 0.f);
+          v.w = fmaxf(v.w, 0.f);
+        }
+      }
+      float* dst = xs + q * 4 * SF_WIN + r * SF_RP + sf_col(c);
+      dst[0] = v.x;
+      dst[SF_WIN] = v.y;
+      dst[2 * SF_WIN] = v.z;
+      dst[3 * SF_WIN] = v.w;
+    }
+    for (int i = tid; i < 9 * SF_CK * C / 4; i += SF_THREADS) {
+      const int o4 = i % (C / 4), cc = (i / (C / 4)) % SF_CK, tap = i / (C / 4 * SF_CK);
+      reinterpret_cast<float4*>(ws)[i] = __ldg(
+          reinterpret_cast<const float4*>(p.wt + ((size_t)tap * C + c0 + cc) * C) + o4);
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int cc = 0; cc < SF_CK; ++cc) {
+      // the window's rows 2wy .. 2wy + 3 and columns 2wx .. 2wx + 3
+      const float* xr = xs + cc * SF_WIN + 2 * wy * SF_RP;
+      float xv[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) xv[r][c] = xr[r * SF_RP + sf_col(2 * wx + c)];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const float4* wv = reinterpret_cast<const float4*>(ws + (tap * SF_CK + cc) * C + cg * 16);
+        float wr[16];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 t = wv[j];
+          wr[4 * j] = t.x;
+          wr[4 * j + 1] = t.y;
+          wr[4 * j + 2] = t.z;
+          wr[4 * j + 3] = t.w;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float v = xv[(q >> 1) + tap / 3][(q & 1) + tap % 3];
+#pragma unroll
+          for (int e = 0; e < 16; ++e) acc[q][e] = fmaf(v, wr[e], acc[q][e]);
+        }
+      }
+    }
+    if (MODE == SF_DGRAD) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          tot[q][e] += acc[q][e];
+          acc[q][e] = 0.f;
+        }
+    }
+  }
+
+  const int oh = oh0 + 2 * wy, ow = ow0 + 2 * wx;  // the window's first pixel
+  if (oh >= p.h || ow >= p.w) return;             // h and w are even: whole windows
+  const int co = cg * 16;
+  if (MODE == SF_DGRAD) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float4* a = reinterpret_cast<float4*>(
+          p.out + ((size_t)(n * p.h + oh + (q >> 1)) * p.w + ow + (q & 1)) * C + co);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 a0 = a[j];
+        a[j] = make_float4(a0.x > 0.f ? tot[q][4 * j] : 0.f, a0.y > 0.f ? tot[q][4 * j + 1] : 0.f,
+                           a0.z > 0.f ? tot[q][4 * j + 2] : 0.f,
+                           a0.w > 0.f ? tot[q][4 * j + 3] : 0.f);
+      }
+    }
+    return;
+  }
+  float z[4][16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const float b = __ldg(p.bias + co + e);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) z[q][e] = acc[q][e] + b;
+  }
+  const size_t win = ((size_t)(n * (p.h / 2) + oh / 2) * (p.w / 2) + ow / 2) * C + co;
+  if (MODE == SF_POOL) {
+    float4* o = reinterpret_cast<float4*>(p.out + win);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float m4[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int e = 4 * j + t;
+        m4[t] = fmaxf(fmaxf(fmaxf(z[0][e], 0.f), fmaxf(z[1][e], 0.f)),
+                      fmaxf(fmaxf(z[2][e], 0.f), fmaxf(z[3][e], 0.f)));
+      }
+      o[j] = make_float4(m4[0], m4[1], m4[2], m4[3]);
+    }
+    return;
+  }
+  // GRAD: the window's cotangent to its first maximum of relu(z), row-major,
+  // where z > 0 there
+  const float4* gw = reinterpret_cast<const float4*>(p.g + win);
+  float gv[16];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 t = __ldg(gw + j);
+    gv[4 * j] = t.x;
+    gv[4 * j + 1] = t.y;
+    gv[4 * j + 2] = t.z;
+    gv[4 * j + 3] = t.w;
+  }
+  float d[4][16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    int best = 0;
+    float top = fmaxf(z[0][e], 0.f);
+#pragma unroll
+    for (int q = 1; q < 4; ++q) {
+      const float v = fmaxf(z[q][e], 0.f);
+      if (v > top) {
+        top = v;
+        best = q;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q][e] = (q == best && z[q][e] > 0.f) ? gv[e] : 0.f;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float4* o = reinterpret_cast<float4*>(
+        p.out + ((size_t)(n * p.h + oh + (q >> 1)) * p.w + ow + (q & 1)) * C + co);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[j] = make_float4(d[q][4 * j], d[q][4 * j + 1], d[q][4 * j + 2], d[q][4 * j + 3]);
+  }
+}
+
+constexpr int SF_PIX_THREADS = 256;  // stem_f32_conv0 and stem_f32_dx: one pixel a thread
+
+// Pass 1: a0 = relu(conv0(x) + b0), one pixel x 64 channels a thread, the
+// 27 products of each channel in (ky, kx, input channel) order.
+__global__ void __launch_bounds__(SF_PIX_THREADS) stem_f32_conv0(const float* __restrict__ x,
+                                                                 const float* __restrict__ w0,
+                                                                 const float* __restrict__ b0,
+                                                                 float* __restrict__ a0, int m,
+                                                                 int h, int w) {
+  __shared__ __align__(16) float ws[27 * C];  // [k][out]
+  for (int i = threadIdx.x; i < 27 * C; i += SF_PIX_THREADS) ws[i % 27 * C + i / 27] = w0[i];
+  __syncthreads();
+  const size_t pix = (size_t)blockIdx.x * SF_PIX_THREADS + threadIdx.x;
+  if (pix >= (size_t)m * h * w) return;
+  const int ox = (int)(pix % w), oy = (int)(pix / w % h);
+  const size_t n = pix / ((size_t)w * h);
+  float acc[C];
+#pragma unroll
+  for (int o = 0; o < C; ++o) acc[o] = 0.f;
+#pragma unroll 1
+  for (int t = 0; t < 9; ++t) {
+    const int iy = oy + t / 3 - 1, ix = ox + t % 3 - 1;
+    const bool in = iy >= 0 && iy < h && ix >= 0 && ix < w;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float v = in ? __ldg(x + ((n * h + iy) * w + ix) * 3 + c) : 0.f;
+      const float4* wv = reinterpret_cast<const float4*>(ws + (t * 3 + c) * C);
+#pragma unroll
+      for (int j = 0; j < C / 4; ++j) {
+        const float4 q = wv[j];
+        acc[4 * j] = fmaf(v, q.x, acc[4 * j]);
+        acc[4 * j + 1] = fmaf(v, q.y, acc[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(v, q.z, acc[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(v, q.w, acc[4 * j + 3]);
+      }
+    }
+  }
+  float4* out = reinterpret_cast<float4*>(a0 + pix * C);
+#pragma unroll
+  for (int j = 0; j < C / 4; ++j)
+    out[j] = make_float4(fmaxf(acc[4 * j] + __ldg(b0 + 4 * j), 0.f),
+                         fmaxf(acc[4 * j + 1] + __ldg(b0 + 4 * j + 1), 0.f),
+                         fmaxf(acc[4 * j + 2] + __ldg(b0 + 4 * j + 2), 0.f),
+                         fmaxf(acc[4 * j + 3] + __ldg(b0 + 4 * j + 3), 0.f));
+}
+
+// Pass 4: dx = dgrad_conv0(gz0), one pixel a thread: dx[p, c] = sum over
+// taps (ky, kx) and o of gz0[p + (1 - ky, 1 - kx), o] * w0[o, c, ky, kx],
+// each tap's 64 terms in o order, then the tap sums in tap order.
+__global__ void __launch_bounds__(SF_PIX_THREADS) stem_f32_dx(const float* __restrict__ gz0,
+                                                              const float* __restrict__ w0,
+                                                              float* __restrict__ dx, int m, int h,
+                                                              int w) {
+  __shared__ float4 ws[9 * C];  // [tap][o]: (w0[o, 0], w0[o, 1], w0[o, 2], 0) at the tap
+  for (int i = threadIdx.x; i < 9 * C; i += SF_PIX_THREADS) {
+    const float* r = w0 + (i % C) * 27 + i / C * 3;
+    ws[i] = make_float4(r[0], r[1], r[2], 0.f);
+  }
+  __syncthreads();
+  const size_t pix = (size_t)blockIdx.x * SF_PIX_THREADS + threadIdx.x;
+  if (pix >= (size_t)m * h * w) return;
+  const int px = (int)(pix % w), py = (int)(pix / w % h);
+  const size_t n = pix / ((size_t)w * h);
+  float d0 = 0.f, d1 = 0.f, d2 = 0.f;
+#pragma unroll 1
+  for (int t = 0; t < 9; ++t) {
+    const int qy = py + 1 - t / 3, qx = px + 1 - t % 3;
+    if (qy < 0 || qy >= h || qx < 0 || qx >= w) continue;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    const float4* gv = reinterpret_cast<const float4*>(gz0 + ((n * h + qy) * w + qx) * C);
+#pragma unroll 4
+    for (int j = 0; j < C / 4; ++j) {
+      const float4 g = __ldg(gv + j);
+      const float gs[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 q = ws[t * C + 4 * j + e];
+        a0 = fmaf(gs[e], q.x, a0);
+        a1 = fmaf(gs[e], q.y, a1);
+        a2 = fmaf(gs[e], q.z, a2);
+      }
+    }
+    d0 += a0;
+    d1 += a1;
+    d2 += a2;
+  }
+  dx[pix * 3] = d0;
+  dx[pix * 3 + 1] = d1;
+  dx[pix * 3 + 2] = d2;
+}
+
+template <int MODE>
+cudaError_t launch_f32_conv1(const StemF32& p, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(stem_f32_conv1<MODE>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, SF_SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)(cdiv(p.h, SF_T) * cdiv(p.w, SF_T)), (unsigned)p.m);
+  stem_f32_conv1<MODE><<<grid, SF_THREADS, SF_SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+bool f32_geometry_ok(int m, int h, int w) {
+  return m >= 1 && m <= 65535 && h >= 2 && w >= 2 && h % 2 == 0 && w % 2 == 0 &&
+         (long long)cdiv(h, SF_T) * cdiv(w, SF_T) < (1ll << 31) &&
+         (long long)m * h * w / SF_PIX_THREADS < (1ll << 31);
+}
+
+unsigned pix_blocks(int m, int h, int w) {
+  return (unsigned)(((long long)m * h * w + SF_PIX_THREADS - 1) / SF_PIX_THREADS);
+}
+
 }  // namespace
 
 extern "C" {
@@ -777,6 +1131,48 @@ int tsii_stem_pool(const void* z0, const void* w1, const void* b1, void* pooled,
   const StemParams p = make_params(z0, nullptr, nullptr, nullptr, w1, b1, nullptr, pooled, m, h, w);
   stem_pool_kernel<<<grid, THREADS, PL_SMEM, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+// K4F. x (m, h, w, 3) f32, g (m, h/2, w/2, 64) f32, w0 (64 out, 27) f32 with
+// k = (ky*3 + kx)*3 + in, b0/b1 (64) f32, w1f (9 taps, 64 in, 64 out) f32
+// (conv1 as it runs forward), w1b (9, 64, 64) f32 (its dgrad: the taps
+// flipped, in and out swapped); scratch a0 and gz1 (m, h, w, 64) f32 ->
+// dx (m, h, w, 3) f32. h and w even; 16-byte aligned. Four kernels on
+// `stream`, in order; returns the first error.
+int tsii_stem_dx_f32(const void* x, const void* g, const void* w0, const void* b0,
+                     const void* w1f, const void* w1b, const void* b1, void* a0, void* gz1,
+                     void* dx, int m, int h, int w, void* stream) {
+  if (!f32_geometry_ok(m, h, w)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  stem_f32_conv0<<<pix_blocks(m, h, w), SF_PIX_THREADS, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w0), static_cast<const float*>(b0),
+      static_cast<float*>(a0), m, h, w);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  StemF32 p{static_cast<const float*>(a0), static_cast<const float*>(w1f),
+            static_cast<const float*>(b1), static_cast<const float*>(g),
+            static_cast<float*>(gz1), m, h, w};
+  if ((e = launch_f32_conv1<SF_GRAD>(p, s)) != cudaSuccess) return (int)e;
+  p.in = static_cast<const float*>(gz1);
+  p.wt = static_cast<const float*>(w1b);
+  p.bias = nullptr;
+  p.g = nullptr;
+  p.out = static_cast<float*>(a0);
+  if ((e = launch_f32_conv1<SF_DGRAD>(p, s)) != cudaSuccess) return (int)e;
+  stem_f32_dx<<<pix_blocks(m, h, w), SF_PIX_THREADS, 0, s>>>(
+      static_cast<const float*>(a0), static_cast<const float*>(w0), static_cast<float*>(dx), m, h,
+      w);
+  return (int)cudaGetLastError();
+}
+
+// K5F. z0 (m, h, w, 64) f32, w1f (9 taps, 64 in, 64 out) f32, b1 (64) f32
+// -> pooled (m, h/2, w/2, 64) f32. h and w even; 16-byte aligned.
+int tsii_stem_pool_f32(const void* z0, const void* w1f, const void* b1, void* pooled, int m,
+                       int h, int w, void* stream) {
+  if (!f32_geometry_ok(m, h, w)) return (int)cudaErrorInvalidValue;
+  const StemF32 p{static_cast<const float*>(z0), static_cast<const float*>(w1f),
+                  static_cast<const float*>(b1), nullptr, static_cast<float*>(pooled), m, h, w};
+  return (int)launch_f32_conv1<SF_POOL>(p, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -21,6 +21,7 @@ from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import (
     round_channels,
 )
 from text_segmentation_image_inpainting_tpu_torch.models.xception import XceptionEncoder
+from text_segmentation_image_inpainting_tpu_torch.ops.bands import mean_hw
 from text_segmentation_image_inpainting_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -84,8 +85,9 @@ class DeepLabASPPDecoder(nn.Module):
     def forward(self, taps: Dict[str, torch.Tensor]) -> torch.Tensor:
         out = taps["out"]
         branches = [branch(out) for branch in self.aspp]
-        # image-level pooling (global context), broadcast back
-        pooled = self.image_pool(out.mean(dim=(1, 2), keepdim=True))
+        # image-level pooling (global context), broadcast back; over the
+        # whole page when the encoder runs on H bands (ops/bands.py)
+        pooled = self.image_pool(mean_hw(out))
         branches.append(pooled.expand(*out.shape[:3], self.mid))
         x = self.fuse(torch.cat(branches, dim=-1))
         s4 = taps["s4"]

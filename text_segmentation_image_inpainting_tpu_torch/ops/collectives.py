@@ -17,7 +17,7 @@ rank holding an equal shard of the global batch:
 * ``all_reduce_sum_`` sums tensors in place over the ranks, one collective
   per dtype (the gradients and loss terms after the backward).
 
-The per-thread scope mirrors ``ops/partial_conv.py::spatial_axis``. Outside
+The per-thread scope mirrors ``ops/bands.py::spatial_axis``. Outside
 it every function is the identity and no collective runs.
 """
 

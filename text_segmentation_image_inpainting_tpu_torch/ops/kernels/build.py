@@ -128,6 +128,10 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_stem_dx.restype = i32
         lib.tsii_stem_pool.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.tsii_stem_pool.restype = i32
+        lib.tsii_stem_dx_f32.argtypes = [ptr] * 10 + [i32] * 3 + [ptr]
+        lib.tsii_stem_dx_f32.restype = i32
+        lib.tsii_stem_pool_f32.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        lib.tsii_stem_pool_f32.restype = i32
         lib.tsii_dw_wgrad.argtypes = [ptr] * 5 + [i32] * 9 + [ptr]
         lib.tsii_dw_wgrad.restype = i32
         lib.tsii_error_string.argtypes = [i32]

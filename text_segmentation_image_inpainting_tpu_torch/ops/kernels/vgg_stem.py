@@ -7,10 +7,13 @@ torchvision VGG16 ``features[0:5]``: conv0 3->64, relu, conv1 64->64,
 relu, 2x2 max pool. The CUDA source is ``csrc/vgg_stem.cu``.
 
 ``stem_dx`` and ``stem_pool`` take the plain version only for a tensor on
-the CPU. On a CUDA tensor they launch K4 or K5, or raise; nothing falls
-back. ``K4_LAUNCHES`` / ``K5_LAUNCHES`` count the launches.
+the CPU. On a CUDA tensor they route by dtype: bf16 launches K4 or K5,
+float32 their f32 forms K4F or K5F (the same source), anything else
+raises; nothing falls back. Each form counts its own launches:
+``K4_LAUNCHES`` / ``K5_LAUNCHES`` (bf16), ``K4F_LAUNCHES`` /
+``K5F_LAUNCHES`` (f32; K4F is four device kernels, one launch).
 
-Both kernels are persistent: the wrapper launches ``stem_grid`` CTAs, at
+K4 and K5 are persistent: the wrapper launches ``stem_grid`` CTAs, at
 most one per SM, and CTA ``b`` walks the 16x16 tiles ``b``, ``b + grid``,
 ... in the order of ``stem_schedule`` (the kernel's own walk, in Python,
 for the CPU tests).
@@ -39,6 +42,8 @@ from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d, to_nch
 
 K4_LAUNCHES = 0
 K5_LAUNCHES = 0
+K4F_LAUNCHES = 0
+K5F_LAUNCHES = 0
 # Both kernels' tile: 16x16 output pixels (dx for K4, z1 for K5), as
 # DX_TH/DX_TW and PL_TH/PL_TW in csrc/vgg_stem.cu.
 STEM_TILE = 16
@@ -101,17 +106,22 @@ def stem_dx(x, g, w0, b0, w1, b1) -> torch.Tensor:
     """dx (M, H, W, 3) f32 of the frozen stem, given its input ``x`` (M, H,
     W, 3), already normalised, in the compute dtype, and the cotangent
     ``g`` (M, H/2, W/2, 64) of its pooled output. K4 on CUDA, the plain
-    version on the CPU."""
+    version on the CPU; on CUDA K4 for bf16, K4F for float32."""
     if x.device.type == "cpu":
         return stem_dx_reference(x, g, w0, b0, w1, b1)
+    if x.dtype == torch.float32:
+        return _launch_k4f(x, g, w0, b0, w1, b1)
     return _launch_k4(x, g, w0, b0, w1, b1)
 
 
 def stem_pool(z0, w1, b1) -> torch.Tensor:
-    """maxpool2(relu(conv1(relu(z0)) + b1)) of z0 (M, H, W, 64): K5 on
-    CUDA, the plain version on the CPU."""
+    """maxpool2(relu(conv1(relu(z0)) + b1)) of z0 (M, H, W, 64) in
+    z0.dtype: on CUDA K5 for bf16, K5F for float32; the plain version on
+    the CPU."""
     if z0.device.type == "cpu":
         return stem_pool_reference(z0, w1, b1)
+    if z0.dtype == torch.float32:
+        return _launch_k5f(z0, w1, b1)
     return _launch_k5(z0, w1, b1)
 
 
@@ -161,14 +171,20 @@ def _check_weights(w1, b1, device, w0=None, b0=None):
             raise ValueError(f"{name} must be {shape} on {device}, got {tuple(t.shape)} on {t.device}")
 
 
-def _w1_taps(w1):
-    """OIHW (64, 64, 3, 3) -> (9 taps, 64 out, 64 in) bf16, as K4/K5 read it."""
-    return w1.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()
+def _w0_rows(w0, dtype):
+    """OIHW (64, 3, 3, 3) -> (64 out, 27) in ``dtype``, k = (ky*3 + kx)*3 + in."""
+    return w0.to(dtype).permute(0, 2, 3, 1).reshape(64, 27).contiguous()
 
 
-def _bias(b):
-    """The bias as the forward adds it (rounded to bf16), held in f32."""
-    return b.to(torch.bfloat16).float().contiguous()
+def _w1_taps(w1, dtype):
+    """OIHW (64, 64, 3, 3) -> (3, 3, 64 out, 64 in) in ``dtype``: (9 taps, 64 out,
+    64 in) as K4/K5 read it."""
+    return w1.to(dtype).permute(2, 3, 0, 1).contiguous()
+
+
+def _bias(b, dtype):
+    """The bias as the forward adds it (rounded to ``dtype``), held in f32."""
+    return b.to(dtype).float().contiguous()
 
 
 def _stream() -> int:
@@ -184,7 +200,7 @@ def _launch_k4(x, g, w0, b0, w1, b1):
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
     if not x.is_cuda or x.dtype != torch.bfloat16:
-        raise ValueError(f"K4 takes a bfloat16 CUDA x, got {x.dtype} on {x.device}")
+        raise ValueError(f"K4 takes a bfloat16 CUDA x (K4F float32), got {x.dtype} on {x.device}")
     if x.dim() != 4 or x.shape[-1] != 3 or x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f"x must be (M, H, W, 3) with H and W even, got {tuple(x.shape)}")
     m, h, w, _ = x.shape
@@ -192,9 +208,8 @@ def _launch_k4(x, g, w0, b0, w1, b1):
     _check("g", g, (m, h // 2, w // 2, 64), torch.bfloat16, x.device)
     _check_weights(w1, b1, x.device, w0, b0)
     lib = load_library()
-    # OIHW (64, 3, 3, 3) -> (64 out, 27) bf16, k = (ky*3 + kx)*3 + in
-    w0t = w0.to(torch.bfloat16).permute(0, 2, 3, 1).reshape(64, 27).contiguous()
-    w1t, b0f, b1f = _w1_taps(w1), _bias(b0), _bias(b1)
+    bf = torch.bfloat16
+    w0t, w1t, b0f, b1f = _w0_rows(w0, bf), _w1_taps(w1, bf), _bias(b0, bf), _bias(b1, bf)
     dx = torch.empty((m, h, w, 3), dtype=torch.float32, device=x.device)
     code = lib.tsii_stem_dx(x.data_ptr(), g.data_ptr(), w0t.data_ptr(), b0f.data_ptr(),
                             w1t.data_ptr(), b1f.data_ptr(), dx.data_ptr(), m, h, w,
@@ -209,17 +224,86 @@ def _launch_k5(z0, w1, b1):
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
     if not z0.is_cuda or z0.dtype != torch.bfloat16:
-        raise ValueError(f"K5 takes a bfloat16 CUDA z0, got {z0.dtype} on {z0.device}")
+        raise ValueError(f"K5 takes a bfloat16 CUDA z0 (K5F float32), got {z0.dtype} on "
+                         f"{z0.device}")
     if z0.dim() != 4 or z0.shape[-1] != 64 or z0.shape[1] % 2 or z0.shape[2] % 2:
         raise ValueError(f"z0 must be (M, H, W, 64) with H and W even, got {tuple(z0.shape)}")
     m, h, w, _ = z0.shape
     _check("z0", z0, z0.shape, torch.bfloat16, z0.device)
     _check_weights(w1, b1, z0.device)
     lib = load_library()
-    w1t, b1f = _w1_taps(w1), _bias(b1)
+    w1t, b1f = _w1_taps(w1, torch.bfloat16), _bias(b1, torch.bfloat16)
     out = torch.empty((m, h // 2, w // 2, 64), dtype=torch.bfloat16, device=z0.device)
     code = lib.tsii_stem_pool(z0.data_ptr(), w1t.data_ptr(), b1f.data_ptr(), out.data_ptr(),
                               m, h, w, _grid(z0, m, h, w), _stream())
     check(lib, code, "K5 (VGG stem pool)")
     K5_LAUNCHES += 1
+    return out
+
+
+def _f32_conv1_taps(w1):
+    """conv1's weights as K4F/K5F's conv1 kernel reads them, (9 taps, 64 in,
+    64 out) f32: the forward (w1f), and its dgrad (w1b): the taps flipped,
+    conv1's output channels as the input, which is the (out, in) order K4
+    reads. K5F takes w1f alone."""
+    taps = _w1_taps(w1, torch.float32).reshape(9, 64, 64)  # (tap, out, in)
+    return taps.transpose(1, 2).contiguous(), taps.flip(0).contiguous()
+
+
+def _check_f32(name, t):
+    if not t.is_cuda or t.dtype != torch.float32:
+        raise ValueError(f"{name} takes a float32 CUDA tensor, got {t.dtype} on {t.device}")
+    if t.dim() != 4 or t.shape[1] % 2 or t.shape[2] % 2:
+        raise ValueError(f"{name}: (M, H, W, C) with H and W even, got {tuple(t.shape)}")
+
+
+def _launch_k4f(x, g, w0, b0, w1, b1):
+    """K4F: K4 in f32 (``tsii_stem_dx_f32``, four device kernels in order on
+    the current stream: conv0, conv1 with the pool gradient, its dgrad,
+    conv0's dgrad). Two scratch tensors of (M, H, W, 64) f32 hold a0 (then
+    gz0) and gz1 between them."""
+    global K4F_LAUNCHES
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
+
+    _check_f32("K4F", x)
+    m, h, w, c = x.shape
+    if c != 3:
+        raise ValueError(f"K4F: x must be (M, H, W, 3), got {tuple(x.shape)}")
+    f32 = torch.float32
+    _check("x", x, x.shape, f32, x.device)
+    _check("g", g, (m, h // 2, w // 2, 64), f32, x.device)
+    _check_weights(w1, b1, x.device, w0, b0)
+    lib = load_library()
+    w1f, w1b = _f32_conv1_taps(w1)
+    w0t, b0f, b1f = _w0_rows(w0, f32), _bias(b0, f32), _bias(b1, f32)
+    a0 = torch.empty((m, h, w, 64), dtype=f32, device=x.device)
+    gz1 = torch.empty_like(a0)
+    dx = torch.empty((m, h, w, 3), dtype=f32, device=x.device)
+    code = lib.tsii_stem_dx_f32(x.data_ptr(), g.data_ptr(), w0t.data_ptr(), b0f.data_ptr(),
+                                w1f.data_ptr(), w1b.data_ptr(), b1f.data_ptr(), a0.data_ptr(),
+                                gz1.data_ptr(), dx.data_ptr(), m, h, w, _stream())
+    check(lib, code, "K4F (VGG stem dx, f32)")
+    K4F_LAUNCHES += 1
+    return dx
+
+
+def _launch_k5f(z0, w1, b1):
+    """K5F: K5 in f32 (``tsii_stem_pool_f32``), the pooled output in f32."""
+    global K5F_LAUNCHES
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
+
+    _check_f32("K5F", z0)
+    m, h, w, c = z0.shape
+    if c != 64:
+        raise ValueError(f"K5F: z0 must be (M, H, W, 64), got {tuple(z0.shape)}")
+    _check("z0", z0, z0.shape, torch.float32, z0.device)
+    _check_weights(w1, b1, z0.device)
+    lib = load_library()
+    w1f, _ = _f32_conv1_taps(w1)
+    out = torch.empty((m, h // 2, w // 2, 64), dtype=torch.float32, device=z0.device)
+    b1f = _bias(b1, torch.float32)
+    code = lib.tsii_stem_pool_f32(z0.data_ptr(), w1f.data_ptr(), b1f.data_ptr(), out.data_ptr(),
+                                  m, h, w, _stream())
+    check(lib, code, "K5F (VGG stem pool, f32)")
+    K5F_LAUNCHES += 1
     return out

@@ -20,54 +20,31 @@ CUDA tensor. Every other configuration (the U-Net's stride-2 encoder)
 runs the plain cuDNN formulation ``_partial_conv2d_plain``, the
 counterpart of JAX's ``_partial_conv2d_xla``, differentiated by autograd.
 
-Under ``spatial_axis(ring)`` every call runs on one H shard of a page:
-it first takes its halo rows from the neighbouring shards through
+Under ``spatial_axis(ring)`` (``ops/bands.py``) every call runs on one H
+band of a page: it first takes its halo rows from the other bands through
 ``ring`` and convolves with H padding 0 (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
-import threading
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from text_segmentation_image_inpainting_tpu_torch.ops.conv import IntOrPair, _pair, conv2d, to_nchw, to_nhwc
-
-
-# --- spatial (H-sharded) execution context -------------------------------
-#
-# ``spatial_axis(ring)`` is a per-thread switch: while it is active, every
-# ``partial_conv2d`` call of this thread runs on one H shard of its pages.
-# It takes ``above`` = p rows from the shard above and ``below`` = p - (s - 1)
-# rows from the shard below through ``ring.exchange_rows`` (the first and last
-# shards get zeros there, which is the global zero padding) and convolves
-# with H padding 0, so the sharded output equals the unsharded op's. The
-# unmodified ``InpaintUNet.forward`` then runs H-sharded, one host thread
-# per shard (``parallel/spatial.py``). Each thread holds its own ring, as
-# JAX's ``threading.local()`` context holds its axis name.
-
-_spatial_ctx = threading.local()
-
-
-@contextlib.contextmanager
-def spatial_axis(ring):
-    """Run this thread's partial convs on an H shard: ``ring`` is the
-    shard's view of its ring of shards, with ``exchange_rows(tensors,
-    above, below)`` (``parallel.spatial.ShardRing``)."""
-    prev = getattr(_spatial_ctx, "axis", None)
-    _spatial_ctx.axis = ring
-    try:
-        yield
-    finally:
-        _spatial_ctx.axis = prev
-
-
-def _active_spatial_axis():
-    return getattr(_spatial_ctx, "axis", None)
+from text_segmentation_image_inpainting_tpu_torch.ops.bands import (  # noqa: F401 (re-exported)
+    active_spatial_axis as _active_spatial_axis,
+    conv_halo,
+    spatial_axis,
+)
+from text_segmentation_image_inpainting_tpu_torch.ops.conv import (
+    IntOrPair,
+    _pair,
+    conv2d_local,
+    to_nchw,
+    to_nhwc,
+)
 
 
 def mask_window_sum(
@@ -178,19 +155,8 @@ def partial_conv2d(
     s, p, d = _pair(stride), _pair(padding), _pair(dilation)
     mask = mask.to(x.dtype)
     ring = _active_spatial_axis()
-    if ring is not None:
-        # One H shard: take halo rows, then convolve with H padding 0. The
-        # top needs p rows; the last local output row y = Hl/s - 1 reads up
-        # to s*y - p + d*(k-1) = Hl - 1 + p - (s-1), so the bottom needs
-        # p - (s - 1).
-        kh = weight.shape[2]
-        if p[0] != d[0] * (kh - 1) // 2:
-            raise ValueError(f"spatial mode requires torch-same H padding, got p={p[0]} for "
-                             f"k={kh}, dilation={d[0]}")
-        if x.shape[1] % s[0] or p[0] < s[0] - 1:
-            raise ValueError(f"spatial mode needs the local H {x.shape[1]} divisible by the "
-                             f"stride {s[0]} and p={p[0]} >= stride - 1")
-        x, mask = ring.exchange_rows((x, mask), p[0], p[0] - (s[0] - 1))
+    if ring is not None:  # one H band: take the halo rows, then H padding 0
+        x, mask = conv_halo(ring, (x, mask), weight.shape[2], s[0], p[0], d[0])
         p = (0, p[1])
     if in_kernel_scope(s, d, weight.shape):
         from text_segmentation_image_inpainting_tpu_torch.ops.kernels.partial_conv import (
@@ -209,7 +175,8 @@ def _partial_conv2d_plain(x, mask, weight, bias, group_sizes, stride, padding, d
     _, cin, kh, kw = weight.shape
     masked = apply_mask(x, mask, group_sizes)
     acc_dtype = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
-    feat = conv2d(masked, weight, stride=stride, padding=padding, dilation=dilation).to(acc_dtype)
+    feat = conv2d_local(masked, weight, stride=stride, padding=padding,
+                        dilation=dilation).to(acc_dtype)
     msum = mask_window_sum(
         mask, group_sizes, (kh, kw), stride=stride, padding=padding, dilation=dilation
     )

@@ -24,6 +24,7 @@ from text_segmentation_image_inpainting_tpu_torch.parallel.spatial import (
     spatial_conv2d,
     spatial_inpaint_unet,
     spatial_partial_conv2d,
+    spatial_pipeline_run,
 )
 from text_segmentation_image_inpainting_tpu_torch.parallel.stage_pipeline import (
     concurrent_train2,
@@ -50,6 +51,7 @@ __all__ = [
     "spatial_conv2d",
     "spatial_inpaint_unet",
     "spatial_partial_conv2d",
+    "spatial_pipeline_run",
     "concurrent_train2",
     "make_group_meshes",
     "make_stage_mesh",

@@ -6,11 +6,12 @@ batch (N, H, W, C) is cut into one band of H / n rows per mesh entry, and
 each band runs in a host thread of its own, on its entry's device and
 CUDA stream (the recipe of ``torch.nn.parallel.parallel_apply``). Before
 each conv a band takes k//2 rows from each neighbour: each band publishes
-its edge rows with an event recorded on its stream, and once all have,
-each makes its own stream wait on its neighbours' events before it copies
-their rows, so the host never waits for the device. The first and last
-bands get zero rows there, which is the global zero padding, so the
-sharded result equals the unsharded one.
+its rows with an event recorded on its stream, and once all have, each
+makes its own stream wait on its neighbours' events before it copies their
+rows, so the host never waits for the device. Past the page's ends a band
+takes zero rows (the global zero padding of a conv or the max-pool) or,
+for the bilinear resize, none, so the sharded result equals the unsharded
+one (``ShardRing.exchange_rows``).
 
 The bands' threads take turns: one runs at a time, from one exchange to
 the next, then hands the turn on; after the last band has published, the
@@ -22,9 +23,12 @@ threads are kept across calls (``parallel.mesh.host_pool``): torch keeps
 cuDNN's execution plans per thread.
 
 :func:`spatial_inpaint_unet` runs the *unmodified* ``InpaintUNet.forward``
-once per band under ``ops.partial_conv.spatial_axis``: every partial conv
-(the stride-2 encoder too) takes its halo and convolves with H padding 0.
-On the card the stride-1 layers then run K1 and K2 with padding (0, 1).
+once per band under ``ops.bands.spatial_axis``: every partial conv (the
+stride-2 encoder too) takes its halo and convolves with H padding 0. On
+the card the stride-1 layers then run K1 and K2 with padding (0, 1).
+:func:`spatial_pipeline_run` runs the whole pipeline so: the segmenter's
+convs, its bilinear resizes and the dilation take their rows the same way
+(``ops/bands.py``).
 
 Grad mode is per thread: the bands run under ``no_grad``, with the
 modules in eval mode (BatchNorm on its running statistics, which needs no
@@ -39,8 +43,10 @@ from typing import Callable, Sequence
 
 import torch
 
-from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d
-from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import partial_conv2d, spatial_axis
+from text_segmentation_image_inpainting_tpu_torch.ops.bands import spatial_axis
+from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d_local
+from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import partial_conv2d
+from text_segmentation_image_inpainting_tpu_torch.pipeline.end_to_end import pad_to_multiple
 from text_segmentation_image_inpainting_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     Mesh,
@@ -92,8 +98,8 @@ class _Ring:
 
 class ShardRing:
     """One band's view of its ring: ``exchange_rows``, the counterpart of
-    JAX's ``ops/partial_conv.py::_halo_exchange_rows``, is what
-    ``ops.partial_conv.spatial_axis`` calls."""
+    JAX's ``ops/partial_conv.py::_halo_exchange_rows``, and ``band_sum``,
+    which the ops under ``ops.bands.spatial_axis`` call."""
 
     def __init__(self, ring: _Ring, rank: int, device: torch.device,
                  stream: torch.cuda.Stream | None):
@@ -103,13 +109,14 @@ class ShardRing:
         self.stream = stream
         self._calls = 0
 
-    def exchange_rows(self, tensors, above: int, below: int):
-        """Each (N, Hl, W, C) tensor with ``above`` rows of the band above
-        and ``below`` rows of the band below concatenated along H (zeros
-        at the ring's ends). One round of turns per call, for all the
-        tensors."""
-        single = isinstance(tensors, torch.Tensor)
-        ts = (tensors,) if single else tuple(tensors)
+    @property
+    def bands(self) -> int:
+        return self._ring.n
+
+    def _publish(self, tensors) -> list:
+        """Publish this band's tensors with an event on its stream, then wait
+        until every band has published: one round of turns. Returns the
+        slots of this exchange."""
         ring, i = self._ring, self.rank
         slots = ring.slots[self._calls % 2]
         self._calls += 1
@@ -117,32 +124,63 @@ class ShardRing:
         if self.stream is not None:
             done = torch.cuda.Event()
             done.record(self.stream)
-        slots[i] = ([t[:, :below] for t in ts] if below > 0 else None,
-                    [t[:, t.shape[1] - above:] for t in ts] if above > 0 else None, done)
+        slots[i] = (tensors, done)
         ring.pass_turn(i)
         ring.wait_turn(i)  # every band has published
-        up = slots[i - 1] if i > 0 else None
-        down = slots[i + 1] if i + 1 < ring.n else None
+        return slots
+
+    def exchange_rows(self, tensors, above: int, below: int, *, ends: str = "zeros"):
+        """Each (N, Hl, ...) tensor with ``above`` rows of the bands above
+        and ``below`` rows of the bands below concatenated along H. A halo
+        longer than a band reaches the bands beyond. Past the page's ends,
+        ``ends`` says what a band takes: ``"zeros"``, rows of zeros (the
+        global zero padding of a conv or the max-pool), or ``"none"``,
+        nothing (the bilinear resize, which clamps at the page's edge).
+        Every band calls every exchange, the end bands too: one round of
+        turns per call, for all the tensors."""
+        if ends not in ("zeros", "none"):
+            raise ValueError(f"ends must be 'zeros' or 'none', got {ends!r}")
+        single = isinstance(tensors, torch.Tensor)
+        ts = (tensors,) if single else tuple(tensors)
+        slots = self._publish(ts)
         out = []
         for j, t in enumerate(ts):
-            parts = []
-            if above > 0:
-                parts.append(self._take(up, 1, j, t, above))
-            parts.append(t)
-            if below > 0:
-                parts.append(self._take(down, 0, j, t, below))
+            parts = self._gather(slots, j, t, above, -1, ends)[::-1] + [t]
+            parts += self._gather(slots, j, t, below, 1, ends)
             out.append(torch.cat(parts, dim=1) if len(parts) > 1 else t)
         return out[0] if single else out
 
-    def _take(self, slot, which: int, j: int, like: torch.Tensor, rows: int) -> torch.Tensor:
-        if slot is None:  # a ring end: the global zero padding
-            return like.new_zeros((like.shape[0], rows, *like.shape[2:]))
-        slab, done = slot[which][j], slot[2]
-        if slab.shape[1] != rows:
-            raise ValueError(f"a band of {slab.shape[1]} rows cannot give a halo of {rows}")
-        if done is not None:
-            self.stream.wait_event(done)
-        return _to(slab, self.device)
+    def _gather(self, slots, j: int, like: torch.Tensor, rows: int, step: int, ends: str) -> list:
+        """``rows`` rows of tensor j from the bands in direction ``step``
+        (-1 up, +1 down), nearest first."""
+        parts, band = [], self.rank + step
+        while rows > 0:
+            if not 0 <= band < self._ring.n:  # past the page's end
+                if ends == "zeros":
+                    parts.append(like.new_zeros((like.shape[0], rows, *like.shape[2:])))
+                break
+            (slabs, done) = slots[band]
+            slab = slabs[j]
+            take = min(rows, slab.shape[1])
+            slab = slab[:, slab.shape[1] - take:] if step < 0 else slab[:, :take]
+            if done is not None:
+                self.stream.wait_event(done)
+            parts.append(_to(slab, self.device))
+            rows -= take
+            band += step
+        return parts
+
+    def band_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every band's ``t`` (each band's own, of one shape),
+        added in band order, so that every band gets the same bits."""
+        slots = self._publish((t,))
+        total = None
+        for (slabs, done) in slots:
+            if done is not None:
+                self.stream.wait_event(done)
+            v = _to(slabs[0], self.device)
+            total = v if total is None else total + v
+        return total
 
 
 def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -252,7 +290,8 @@ def spatial_conv2d(mesh: Mesh, x: torch.Tensor, weight: torch.Tensor,
 
     def local(ring, xb):
         w, b = weights[ring.device]
-        return conv2d(halo_exchange_rows(xb, halo, ring), w, b, stride=1, padding=(0, halo))
+        return conv2d_local(halo_exchange_rows(xb, halo, ring), w, b, stride=1,
+                            padding=(0, halo))
 
     return run_bands(mesh, local, (x,))
 
@@ -288,3 +327,52 @@ def spatial_inpaint_unet(mesh: Mesh, unet, x: torch.Tensor, mask: torch.Tensor) 
     finally:
         for r, training in modes:
             r.train(training)
+
+
+def spatial_pipeline_run(mesh: Mesh, pipe, pages: torch.Tensor):
+    """The whole page pipeline (segment -> threshold -> dilate -> inpaint
+    -> composite) with the pages' H cut into one band per mesh entry:
+    counterpart of JAX's ``spatial_pipeline_run``.
+
+    The unmodified ``pipe._segment2d`` and ``pipe._inpaint2d`` run once per
+    band (a replica of ``pipe`` per distinct device, in eval mode) under
+    ``spatial_axis``: the segmenter's convs, its bilinear resizes and the
+    dilation take their halo rows from the other bands (``ops/bands.py``),
+    the U-Net's partial convs theirs, as in :func:`spatial_inpaint_unet`.
+    With the MobileNetV2 segmenter the result equals ``pipe.run``'s (on the
+    CPU bit for bit); DeepLab's image pooling sums across the bands in
+    another order than the unbanded mean, so it agrees to rounding.
+
+    pages (N, H, W, 3) in [0, 1], edge-padded first as ``run`` pads them;
+    the padded H must be divisible by ``n * 2**pipe.unet.depth`` and the
+    U-Net may have no self-attention block. Returns ``run``'s (clean,
+    text_mask), gathered on the pages' device. Where JAX takes variables
+    and returns H-sharded arrays, this takes the module and returns
+    gathered tensors.
+    """
+    unet = pipe.unet
+    if unet.attn is not None:
+        raise ValueError("spatial_pipeline_run takes no self-attention block: it is not band-local")
+    padded, (h, w) = pad_to_multiple(pages, 1 << unet.depth)
+    n = mesh.shape[DATA_AXIS]
+    if padded.shape[1] % (n << unet.depth):
+        raise ValueError(f"padded H {padded.shape[1]} must be divisible by {n} bands x "
+                         f"2**depth={1 << unet.depth}")
+    replicas = {d: replicate(pipe, d) for d in distinct_devices(mesh)}
+    modes = [(m, m.training) for r in replicas.values() for m in r.modules()]
+    for r in replicas.values():
+        r.eval()
+
+    def local(ring, pb):
+        r = replicas[ring.device]
+        with spatial_axis(ring):
+            valid2d = r._segment2d(pb)
+            clean = r._inpaint2d(pb, valid2d)
+        return clean, (1.0 - valid2d)[..., None]
+
+    try:
+        clean, text = run_bands(mesh, local, (padded,))
+    finally:
+        for m, training in modes:
+            m.training = training
+    return clean[:, :h, :w], text[:, :h, :w]

@@ -88,7 +88,8 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false",
                    help="a float32 step: on CUDA the partial convs run the kernels' "
-                        "float32 forms (csrc/partial_conv_f32.cu)")
+                        "float32 forms (csrc/partial_conv.cu, pconv_f32), and with "
+                        "--fused-stem the VGG stem K4F/K5F (csrc/vgg_stem.cu)")
     p.add_argument("--fused-stem", action="store_true", default=False,
                    help="the VGG stem's backward on kernel K4 (csrc/vgg_stem.cu)")
     p.add_argument("--vgg-ckpt", type=str, default=None, help="torchvision vgg16 state_dict (.pth)")
