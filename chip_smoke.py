@@ -102,7 +102,9 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               ``STEM_EXTRA``, against f64, twice bit-identical); one f32
               step with the fused stem (K1F 7, K2F 1, K3F 8, K4F 1, K5F 1,
               terms and gradients finite); times beside cuDNN's f32 with
-              TF32 off and the bound at the f32 peak
+              TF32 off and the bound at the f32 peak, K1F per level with its
+              tile and split count, K4F per pass (profiler) with its rate,
+              and the resident CTAs an SM of every f32 kernel redesigned
  13. ddp      data-parallel training (``ddp_phase``): the inpaint and seg
               steps over a 1-rank NCCL mesh, eager and as the k = 4 graph,
               at the graph phase's gate and launch counts; 2 gloo ranks on
@@ -853,7 +855,8 @@ def main() -> int:
         "ms": xk6["ms"], "plain_ms": xk6["plain"], "bound_ms": xk6["bound"],
         "bound_by": xk6["by"], "library_ms": xk6["lib"],
     })
-    for kname, fn, line, tname in (("K1F", "pconv_f32 (Cout >= 8)", 184, "K1F"),
+    for kname, fn, line, tname in (("K1F", "pconv_k1f_weights, pconv_f32_mask, pconv_k1f, "
+                                           "pconv_k1f_reduce (Cout >= 8)", 184, "K1F"),
                                    ("K2F", "pconv_f32 (Cout <= 7)", 415, "K2F"),
                                    ("K3F", "pconv_k3_prep, pconv_k3_mask, pconv_f32_bwd_dx, "
                                            "pconv_f32_bwd_dw (f32)", 600, "K3F")):
@@ -868,8 +871,9 @@ def main() -> int:
             "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain"],
             "bound_ms": t["bound"], "bound_by": t["by"], "library_ms": t["lib"],
         })
-    for kname, fn in (("K4F", "stem_f32_conv0, stem_f32_conv1<GRAD, DGRAD>, stem_f32_dx"),
-                      ("K5F", "stem_f32_conv1<POOL>")):
+    for kname, fn in (("K4F", "stem_f32_weights, stem_f32_conv0, stem_f32_conv1<GRAD, DGRAD>, "
+                              "stem_f32_dx"),
+                      ("K5F", "stem_f32_weights, stem_f32_conv1<POOL>")):
         st = f32["stem"][kname]
         log(f"{kname} (the f32 stem): launches from the f32 step; library_ms cuDNN f32 (TF32 "
             f"off): " + ("its stem backward alone" if kname == "K4F" else "conv1 alone")
@@ -2469,7 +2473,8 @@ def check_grads_f32(name, x, mask, w, b, g, kw) -> tuple:
 
 
 def f32_phase(dev, rng, cases, smi: str) -> dict:
-    """The f32 form of K1/K2 (``pconv_f32``) and of their backward (K3F:
+    """The f32 form of K1/K2 (K1F ``pconv_k1f``, K2F ``pconv_f32``) and of
+    their backward (K3F:
     ``pconv_k3_prep`` and ``pconv_k3_mask`` in f32 around one f32
     ``convolution_backward``, TF32 off, at the decoder levels; at the head
     ``pconv_k3_prep``, ``pconv_f32_bwd_dx`` and ``pconv_f32_bwd_dw``), as
@@ -2494,7 +2499,14 @@ def f32_phase(dev, rng, cases, smi: str) -> dict:
     from text_segmentation_image_inpainting_tpu_torch.train.inpaint import make_inpaint_train_step
     from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
 
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import load_library
+
     f32 = torch.float32
+    lib = load_library()
+    log("resident CTAs an SM (occupancy calculator): K1F pconv_k1f<128, 128> "
+        f"{lib.tsii_k1f_occupancy(128)}, <256, 64> {lib.tsii_k1f_occupancy(256)}; "
+        + ", ".join(f"{name} {lib.tsii_stem_f32_occupancy(i)}" for i, name in enumerate(
+            ("stem_f32_conv1<POOL>", "<GRAD>", "<DGRAD>", "stem_f32_dx"))))
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     tot = {n: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "err": 0.0, "n": 0,
                "operations": 0.0, "bytes": 0.0} for n in ("K1F", "K2F", "K3F")}
@@ -2524,14 +2536,20 @@ def f32_phase(dev, rng, cases, smi: str) -> dict:
                    [True, True, False])}
         flop, nbytes = pconv_work(x, mask, w)
         bflop, bbytes = pconv_bwd_work(x, mask, w, g)
+        plan = ""
+        if fname == "K1F":
+            n_, h_, w_, cin_ = x.shape
+            kp = kpc.k1f_plan(n_, h_, w_, cin_, w.shape[0], w.shape[2], kw["padding"])
+            plan = (f", tile {kp.bm}x{kp.bn}, splits {kp.splits}, "
+                    f"{kp.grid(n_, h_, w_, w.shape[0])} CTAs")
         for tname, fns, work, e in ((fname, fwd, (flop, 2 * nbytes), err),
                                     ("K3F", bwd, (bflop, 2 * bbytes), err3)):
             t = {key: cuda_ms(fn) for key, fn in fns.items()}
             b_ms, b_by = bound(*work, peak=PEAK_F32)
             log(f"time {tname} {name}: kernel {t['ms']:.4f} ms ({work[0] / t['ms'] / 1e9:.1f} "
-                f"TFLOP/s), plain f32 {t['plain']:.4f} ms, cuDNN f32 (TF32 off) {t['lib']:.4f} "
-                f"ms, bound {b_ms:.4f} ms ({b_by}; f32 peak {PEAK_F32 / 1e12:.0f} TFLOP/s)  "
-                f"[{smi}]")
+                f"TFLOP/s{plan if tname == 'K1F' else ''}), plain f32 {t['plain']:.4f} ms, "
+                f"cuDNN f32 (TF32 off) {t['lib']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; f32 peak "
+                f"{PEAK_F32 / 1e12:.0f} TFLOP/s)  [{smi}]")
             acc = tot[tname]
             for key in ("ms", "plain", "lib"):
                 acc[key] += t[key]
@@ -2657,8 +2675,9 @@ def f32_stem_phase(dev, vgg, pages, holes, smi: str) -> dict:
     its 8 ground-truth pages) and at ``STEM_EXTRA``; then times with CUDA
     events beside the plain f32 versions, cuDNN's f32 stem backward alone
     and cuDNN's f32 conv1 alone (TF32 off; yardsticks the port never
-    calls), the bound at the f32 peak, and a profile of K4F's four passes.
-    Returns {K4F, K5F: {ms, plain, lib, bound, by, err}}."""
+    calls), the bound at the f32 peak, and a profile of K4F's four passes
+    (each pass's device time and rate). Returns {K4F, K5F: {ms, plain, lib,
+    bound, by, err}}, K4F also with its passes' ms."""
     from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
 
@@ -2698,7 +2717,22 @@ def f32_stem_phase(dev, vgg, pages, holes, smi: str) -> dict:
         f"TFLOP/s), plain f32 forward+backward {p1:.3f} / {p2:.3f} ms, cuDNN's f32 stem backward "
         f"alone {t_lib:.3f} ms, bound {k4['bound']:.3f} ms ({k4['by']}; f32 peak "
         f"{PEAK_F32 / 1e12:.0f} TFLOP/s)  [{smi}]")
-    profile_run(kern, "K4F (its four passes)", runs=2)
+    profile_run(kern, "K4F (its four passes: stem_f32_conv0, stem_f32_conv1<GRAD>, "
+                "stem_f32_conv1<DGRAD>, stem_f32_dx)", runs=2)
+    conv1_flop = 2.0 * px * 64 * 64 * 9
+    passes = {"stem_f32_conv0": ("1, conv0", 2.0 * px * 64 * 27),
+              "stem_f32_conv1<1>": ("2, conv1 with the pool gradient (GRAD)", conv1_flop),
+              "stem_f32_conv1<2>": ("3, conv1's dgrad (DGRAD)", conv1_flop),
+              "stem_f32_dx": ("4, conv0's dgrad", 2.0 * px * 64 * 27)}
+    k4["passes"] = kernel_ms(kern)
+    for key, (what, pflop) in {"stem_f32_weights": ("0, the weights' re-lay", 0.0),
+                               **passes}.items():
+        ms = k4["passes"].get(key)
+        if ms is None:
+            log(f"K4F pass {what}: {key} not recorded by the profiler")
+            continue
+        log(f"K4F pass {what}: {key} {ms:.3f} ms (device"
+            + (f", {pflop / ms / 1e9:.1f} TFLOP/s)" if pflop else ")") + f"  [{smi}]")
     kern = lambda: kvs.stem_pool(z0, w1, b1)  # noqa: E731
     plain = lambda: kvs.stem_pool_reference(z0, w1, b1)  # noqa: E731
     zn, w1cl = z0.permute(0, 3, 1, 2), w1.contiguous(memory_format=torch.channels_last)
@@ -3503,6 +3537,30 @@ def spatial_pipeline_phase(pipe, dev, meshes: dict, smi: str) -> dict:
                 runs=2)
     profile_run(lambda: pipe.run(page), "run, the same page", runs=2)
     return {f"spatial pipeline {b}": times[b] for b in meshes}
+
+
+def kernel_ms(fn, windows: int = 3, calls: int = 2) -> dict:
+    """Device milliseconds per launch of each kernel that ``fn`` launches
+    (torch.profiler), by the kernel's short name (``stem_f32_conv1<1>``):
+    each window profiles ``calls`` calls, a kernel's time is its total over
+    its recorded launches (the profiler now and then drops some), and the
+    result is the median over the windows that recorded it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = {}
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0
+                    and e.self_device_time_total > 0):
+                name = e.key.split("::", 1)[-1].split("(")[0]
+                seen.setdefault(name, []).append(e.self_device_time_total / 1e3 / e.count)
+    return {k: statistics.median(v) for k, v in seen.items()}
 
 
 def profile_run(fn, label: str, runs: int = 3) -> float:

@@ -45,10 +45,14 @@ the H-sharded U-Net (K1/K2 per band, close to the unsharded forward), the
 two-stage pipeline and the data-parallel server (bit-equal to ``run``).
 The f32 form of K1/K2 and of the backward (an f32 x) against the plain
 version in f64, f16 refused, and an index-less ``"cuda"`` mesh entry that
-shares the module instead of copying it. The f32 stem (K4F, K5F) against
-the plain versions in f64, twice bit-identical, routed by
-``vgg_stem_frozen`` in f32; and the whole pipeline over 2 bands of one
-card (``spatial_pipeline_run``: K1/K2 per band, the page untouched
+shares the module instead of copying it. K1F (the f32 form at Cout >= 8)
+also at its split-K levels, Cin off its K step, Cout off its tiles, one
+image and padding (0, 1), its weights re-laid bit for bit as the plain
+re-lay does. The f32 stem (K4F, K5F) against the plain versions in f64,
+twice bit-identical, at ``STEM_EXTRA`` and a partial last wave of its
+persistent conv1 passes, its weights re-laid as the plain re-lay does,
+routed by ``vgg_stem_frozen`` in f32; and the whole pipeline over 2 bands
+of one card (``spatial_pipeline_run``: K1/K2 per band, the page untouched
 outside the text, the masks and clean pages close to ``run``'s).
 """
 
@@ -63,6 +67,7 @@ from chip_smoke import (
     SHARD_SHAPES,
     STEM_EXTRA,
     check_close,
+    check_f32,
     check_grads,
     check_stem_dx,
     check_stem_dx_repeats,
@@ -831,6 +836,120 @@ def test_frozen_stem_in_f32_runs_k4f_and_k5f(cuda):
                     w1, b1)
     with pytest.raises(ValueError, match="bfloat16"):
         kvs.stem_pool(torch.zeros((1, 16, 16, 64), device=cuda).half(), w1, b1)
+
+
+# K1F (``pconv_k1f``) away from the U-Net's own layers: (name, N, H, W,
+# group sizes, Cout, padding). The split levels at full width, Cin off the
+# 16-channel K step, Cout off both CTA tiles, one image, unequal padding
+# (these four split K too: their tile grids are small), and a grid of 144
+# tiles, which does not split.
+K1F_CASES = (
+    ("dec7, split K", 8, 4, 4, (512, 512), 512, (1, 1)),
+    ("dec6, split K", 8, 8, 8, (512, 512), 512, (1, 1)),
+    ("dec5, split K", 8, 16, 16, (512, 512), 512, (1, 1)),
+    ("144 tiles, no split", 2, 96, 96, (64, 64), 128, (1, 1)),
+    ("Cin 200 = 123 + 77", 3, 37, 29, (123, 77), 72, (1, 1)),
+    ("Cout 200", 2, 19, 23, (64, 32), 200, (1, 1)),
+    ("batch 1", 1, 32, 32, (256, 256), 256, (1, 1)),
+    ("padding (0, 1)", 2, 18, 64, (128, 64), 96, (0, 1)),
+)
+
+
+@pytest.mark.parametrize("name,n,h,w,groups,cout,pad", K1F_CASES, ids=[c[0] for c in K1F_CASES])
+def test_k1f_matches_plain_in_f64(cuda, name, n, h, w, groups, cout, pad):
+    """K1F (Cout >= 8 in f32) against the plain version in f64
+    (``check_f32``: M' bit-exact, y within 1e-5 (|y| + max |y|), 0 in empty
+    windows), split K where ``k1f_plan`` says, twice bit-identical."""
+    x, m, wt, _ = _case(cuda, h * w + cout, n, h, w, groups, cout, 3, False)
+    x, m = x.float(), m.float()
+    kw = dict(group_sizes=groups, padding=pad)
+    plan = kpc.k1f_plan(n, h, w, sum(groups), cout, 3, pad)
+    hout, wout = h + 2 * pad[0] - 2, w + 2 * pad[1] - 2
+    assert (plan.splits > 1) == (plan._replace(splits=1).grid(n, hout, wout, cout) < 132)
+    assert (plan.splits > 1) == (name != "144 tiles, no split")
+    before = kpc.K1F_LAUNCHES
+    got = kpc.partial_conv2d_fused(x, m, wt, None, **kw)
+    again = kpc.partial_conv2d_fused(x, m, wt, None, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    check_f32(f"K1F {name}", got, x, m, wt, None, kw)
+    assert kpc.K1F_LAUNCHES - before == 2
+
+
+@pytest.mark.parametrize("cin,cout,k,bn", [(1024, 512, 3, 128), (200, 72, 3, 128), (19, 24, 5, 64)])
+def test_k1f_weights_are_relaid_as_the_plain_version(cuda, cin, cout, k, bn):
+    """``pconv_k1f_weights`` (in K1F's launch) writes ``k1f_weight_relayout``'s
+    (k*k, Cin_p, Cout_p) bit for bit, the padding left as the caller set it."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
+
+    gen = torch.Generator(cuda).manual_seed(cin + cout)
+    x = torch.randn((1, 5, 6, cin), generator=gen, device=cuda)
+    m = torch.ones((1, 5, 6, 1), device=cuda)
+    wt = torch.randn((cout, cin, k, k), generator=gen, device=cuda)
+    want = kpc.k1f_weight_relayout(wt, bn)
+    wk = torch.zeros_like(want)
+    lib = load_library()
+    pad = k // 2
+    y = torch.empty((1, 5, 6, cout), device=cuda)
+    mo = torch.empty((1, 5, 6, 1), device=cuda)
+    xm = torch.empty((1, 5 + 2 * pad, 6 + 2 * pad, want.shape[1]), device=cuda)
+    code = lib.tsii_pconv_k1f(x.data_ptr(), m.data_ptr(), wt.data_ptr(), 0, y.data_ptr(),
+                              mo.data_ptr(), xm.data_ptr(), 0, wk.data_ptr(), 1, 5, 6, cin, 1,
+                              cin, 0, 5, 6, cout, k, pad, pad, want.shape[1], want.shape[2],
+                              256 if bn == 64 else 128, bn, 1,
+                              torch.cuda.current_stream().cuda_stream)
+    check(lib, code, "K1F")
+    torch.cuda.synchronize()
+    assert torch.equal(wk, want)
+
+
+def test_stem_f32_weights_are_relaid_as_the_plain_version(cuda):
+    """``stem_f32_weights`` (in K4F's and K5F's launches) writes w1f, w1b and
+    w0's rows as ``_f32_conv1_taps`` and ``_w0_rows`` lay them out, bit for bit."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
+
+    gen = torch.Generator(cuda).manual_seed(8)
+    w0, b0, w1, b1 = stem_weights(gen, cuda)
+    x = torch.randn((1, 16, 16, 3), generator=gen, device=cuda)
+    g = torch.randn((1, 8, 8, 64), generator=gen, device=cuda)
+    lib = load_library()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    wbuf = torch.full((kvs.STEM_F32_WBUF,), float("nan"), device=cuda)
+    a0 = torch.empty((1, 64, 16, 16), device=cuda)
+    gz1, dx = torch.empty_like(a0), torch.empty_like(x)
+    check(lib, lib.tsii_stem_dx_f32(x.data_ptr(), g.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+                                    w1.data_ptr(), b1.data_ptr(), wbuf.data_ptr(), a0.data_ptr(),
+                                    gz1.data_ptr(), dx.data_ptr(), 1, 16, 16, sms, stream), "K4F")
+    pool_buf = torch.full((9 * 64 * 64,), float("nan"), device=cuda)
+    pooled = torch.empty((1, 8, 8, 64), device=cuda)
+    check(lib, lib.tsii_stem_pool_f32(a0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                                      pool_buf.data_ptr(), pooled.data_ptr(), 1, 16, 16, sms,
+                                      stream), "K5F")
+    torch.cuda.synchronize()
+    w1f, w1b = kvs._f32_conv1_taps(w1)
+    w0t = kvs._w0_rows(w0, torch.float32)
+    n = 9 * 64 * 64
+    assert torch.equal(wbuf[:n], w1f.flatten()) and torch.equal(wbuf[n:2 * n], w1b.flatten())
+    assert torch.equal(wbuf[2 * n:], w0t.flatten()) and torch.equal(pool_buf, w1f.flatten())
+
+
+@pytest.mark.parametrize("m,h,w", STEM_EXTRA + ((3, 176, 208),),
+                         ids=[f"{m}x{h}x{w}" for m, h, w in STEM_EXTRA + ((3, 176, 208),)])
+def test_k4f_at_stem_extra_and_a_partial_last_wave(cuda, m, h, w):
+    """K4F and K5F at every ``STEM_EXTRA`` shape and at 3 pages of 176 x 208,
+    whose tiles leave a partial last wave of both conv1 passes' persistent
+    grids: ``check_stem_f32``, each twice bit-identical."""
+    if (m, h, w) == (3, 176, 208):
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        for mode in ("grad", "dgrad"):
+            tiles, grid = kvs.stem_f32_tiles(m, h, w, mode), kvs.stem_f32_grid(m, h, w, mode, sms)
+            assert tiles > grid and tiles % grid, (mode, tiles, grid)
+    gen = torch.Generator(cuda).manual_seed(m * h * w)
+    w0, b0, w1, b1 = stem_weights(gen, cuda)
+    x = torch.randn((m, h, w, 3), generator=gen, device=cuda)
+    g = torch.randn((m, h // 2, w // 2, 64), generator=gen, device=cuda)
+    z0 = torch.randn((m, h, w, 64), generator=gen, device=cuda)
+    check_stem_f32(f"{m}x{h}x{w}", x, g, w0, b0, w1, b1, z0)
 
 
 def test_spatial_pipeline_on_the_card(cuda):

@@ -1383,11 +1383,12 @@ __global__ void __launch_bounds__(K3_THREADS) pconv_k3_mask(const T* x, const T*
 // ------------------------------------------------------- the f32 form ----
 //
 // K1 and K2 in f32, for x.dtype float32 (JAX's Pallas kernels take x's
-// dtype as it comes, with f32 accumulators): one SIMT direct convolution
-// for every Cout, FFMA with f32 accumulation, no TF32 and no bf16 anywhere.
-// A CTA of 256 threads owns a tile of TH x 16 output pixels of one image
-// and 8 * CG output channels; each thread PPT pixels (rows of the tile,
-// NPT pixel threads apart) x 8 channels. Per chunk of `ck` input channels
+// dtype as it comes, with f32 accumulators): SIMT FFMA with f32
+// accumulation, no TF32 and no bf16 anywhere. K1F (Cout >= 8) is
+// `pconv_k1f` below. K2F (Cout <= 7) is `pconv_f32<1, 1>`, a direct
+// convolution: a CTA of 256 threads owns a tile of TH x 16 output pixels
+// of one image and 8 * CG output channels; each thread PPT pixels (rows of
+// the tile, NPT pixel threads apart) x 8 channels. Per chunk of `ck` input channels
 // the tile's input window with its halo is staged in shared memory as
 // x * M (zero outside the image and past Cin), channel-major so that a
 // warp's pixel threads read consecutive words, and the chunk's weights as
@@ -1522,6 +1523,301 @@ cudaError_t launch_f32(F32Params p, cudaStream_t stream) {
   const int cot = (p.cout + Tile::COT - 1) / Tile::COT;
   if (tiles >= (1ll << 31) || cot > 65535 || p.n > 65535) return cudaErrorInvalidValue;
   pconv_f32<CG, PPT><<<dim3((unsigned)tiles, cot, p.n), F32_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// K1F v2, the f32 form at Cout >= 8 (v1 was `pconv_f32<8, 4>`: 4 pixels x
+// 8 channels a thread, chunks of 8 channels staged by scalar loads between
+// two __syncthreads, a grid of tiles x Cout blocks x N that left the card
+// idle at the deep levels). An implicit GEMM on FFMA: M = output pixels
+// (flat over N, Hout, Wout), N = Cout, K = (tap, input channel), bound by
+// the f32 FFMA rate at every U-Net level (425 GFLOP at dec4..dec1).
+//   - `pconv_k1f_weights` re-lays W as (k*k, Cin_p, Cout_p) in the launch
+//     (a tiled transpose), and `pconv_f32_mask` writes x * M once (f32;
+//     `masked`, so a hole is exactly 0) with a border of zeros as wide as
+//     the padding and zero channels up to Cin_p, so the GEMM's gather is
+//     plain copies with no bounds: a tap is a constant offset from each
+//     pixel's window origin.
+//   - `pconv_k1f<BM, BN>`: a CTA of 256 threads owns BM output pixels x BN
+//     output channels ((128, 128), or (256, 64) at Cout <= 64), two CTAs an
+//     SM. A K step is one tap x 16 input channels. A ring of 4 stages,
+//     filled three steps ahead: the step's x * M gathered channel-major
+//     ([channel][pixel]: 4-byte cp.async copies that transpose NHWC, a
+//     warp's copy 4 pixels x 32 contiguous bytes) through a table of the
+//     tile's window origins built once, and the step's weights (16-byte
+//     copies of the re-laid (k*k, Cin_p, Cout_p), zero padded, so no
+//     bounds). One __syncthreads a step publishes a stage and frees the one
+//     before.
+//   - A register-blocked outer product: a thread owns 8 pixels x 8 output
+//     channels, 64 sums; per input channel it reads two float4s of x * M (4
+//     pixels each, BM / 2 apart) and two of W (4 channels each, BN / 2
+//     apart) for 64 FFMA. A warp is 4 pixel groups x 8 channel groups, so
+//     each read is one shared wavefront.
+//   - Split K where the tile grid is smaller than the card
+//     (ops/kernels/partial_conv.py::k1f_plan, a pure function of the
+//     shape: dec7..dec5 of the U-Net): CTA z takes K steps [z * steps /
+//     splits, (z + 1) * steps / splits) and writes its raw f32 sums to a
+//     workspace; `pconv_k1f_reduce` adds them in split order and applies
+//     the epilogue. No atomics: two launches give the same bits.
+//   - Each output's sum runs over its K steps in order (tap-major, then
+//     the chunk's 16 channels), one FFMA chain per CTA; the epilogue is
+//     v1's (`window_count<float>`, k*k*Cin / max(msum, 1), the bias, 0 in
+//     empty windows, M').
+
+constexpr int K1F_THREADS = 256;
+constexpr int K1F_CTAS = 2;    // resident CTAs an SM
+constexpr int K1F_CK = 16;     // input channels per K step
+constexpr int K1F_STAGES = 4;
+
+template <int BM, int BN>
+struct K1fTile {
+  static constexpr int PG = BM / 8, CG = BN / 8;  // pixel and channel groups
+  static constexpr int WC = CG / 8;               // warps across the channel groups
+  static constexpr int XP = BM + 4;               // floats a staged channel: 4 mod 32
+  static constexpr int XS = K1F_CK * XP;
+  static constexpr int STAGE = XS + K1F_CK * BN;
+  static constexpr int SMEM = K1F_STAGES * STAGE * 4 + BM * 8;  // + the pixel table
+  static_assert(PG * CG == K1F_THREADS && PG % 4 == 0 && CG % 8 == 0, "8 x 8 a thread");
+};
+static_assert(K1fTile<128, 128>::SMEM * K1F_CTAS <= 226 * 1024, "two CTAs an SM");
+static_assert(K1fTile<256, 64>::SMEM * K1F_CTAS <= 226 * 1024, "two CTAs an SM");
+
+struct K1fParams {
+  const float* xm;    // x * M: (N, H + 2 ph, W + 2 pw, Cin_p), zero border and channels
+  const float* mask;  // (N, H, W, G)
+  const float* w;     // (k*k, Cin_p, Cout_p), zero padded
+  const float* bias;  // (Cout) or nullptr
+  float* y;           // (N, Hout, Wout, Cout)
+  float* mask_out;    // (N, Hout, Wout, 1)
+  float* partial;     // splits > 1: (splits, P, Cout_p)
+  int n, h, w_in, cin, g, size0, size1, hout, wout, cout, k, ph, pw, cin_p, cout_p, splits;
+};
+
+// The part of `Params` that window_count reads.
+__device__ __forceinline__ Params k1f_count_params(const K1fParams& p) {
+  Params q;
+  q.mask = reinterpret_cast<const __nv_bfloat16*>(p.mask);
+  q.h = p.h; q.w_in = p.w_in; q.g = p.g; q.size0 = p.size0; q.size1 = p.size1;
+  q.k = p.k; q.ph = p.ph; q.pw = p.pw;
+  return q;
+}
+
+// The GEMM's weights from the layer's OIHW weights: wk[(tap * Cin_p + c) *
+// Cout_p + o] = w[(o * Cin + c) * k*k + tap], a tiled transpose of w as a
+// (Cout, Cin * k*k) matrix through shared memory, both sides coalesced
+// (ops/kernels/partial_conv.py::k1f_weight_relayout is its plain version).
+// The padding (c >= Cin, o >= Cout) keeps what the caller put there.
+__global__ void pconv_k1f_weights(const float* __restrict__ w, float* __restrict__ wk, int cout,
+                                  int cin, int kk, int cin_p, int cout_p) {
+  __shared__ float tile[32][33];
+  const int jn = cin * kk, j0 = blockIdx.x * 32, o0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int r = ty; r < 32; r += 8) {
+    const int o = o0 + r, j = j0 + tx;
+    tile[r][tx] = o < cout && j < jn ? w[(size_t)o * jn + j] : 0.f;
+  }
+  __syncthreads();
+  for (int r = ty; r < 32; r += 8) {
+    const int j = j0 + r, o = o0 + tx, c = j / kk;
+    if (j < jn && o < cout) wk[((size_t)(j - c * kk) * cin_p + c) * cout_p + o] = tile[tx][r];
+  }
+}
+
+// xm = x * M (as `masked`) with a border of zeros and zero channels past
+// Cin: (N, H + 2 ph, W + 2 pw, Cin_p), so the GEMM's gather needs no bounds.
+// One thread per padded pixel and 4 channels.
+__global__ void pconv_f32_mask(const K1fParams p, const float* __restrict__ x,
+                               float* __restrict__ xm) {
+  const int hp = p.h + 2 * p.ph, wp = p.w_in + 2 * p.pw, q4 = p.cin_p / 4;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)p.n * hp * wp * q4) return;
+  const long long pix = idx / q4;
+  const int c = (int)(idx - pix * q4) * 4;
+  const int col = (int)(pix % wp), row = (int)(pix / wp % hp);
+  const int n = (int)(pix / ((long long)wp * hp));
+  const int ih = row - p.ph, iw = col - p.pw;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
+    const size_t ip = ((size_t)n * p.h + ih) * p.w_in + iw;
+    const float m0 = p.mask[ip * p.g], m1 = p.g == 2 ? p.mask[ip * p.g + 1] : m0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c + e < p.cin) v[e] = masked(x[ip * p.cin + c + e], c + e < p.size0 ? m0 : m1);
+  }
+  *reinterpret_cast<float4*>(xm + pix * p.cin_p + c) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <int BM, int BN>
+__device__ __forceinline__ void k1f_fill(const K1fParams& p, float* stage, const int2* tbl,
+                                          int step, int co0, int tid) {
+  using T = K1fTile<BM, BN>;
+  static_assert(K1F_CK == 16, "a thread copies channels (tid % 8) and 8 + (tid % 8)");
+  const int nck = p.cin_p / K1F_CK, tap = step / nck, c0 = (step - tap * nck) * K1F_CK;
+  const int dy = tap / p.k, dx = tap - dy * p.k;
+  const int off = dy * (p.w_in + 2 * p.pw) + dx;  // the tap's offset in xm's padded pixels
+  const uint32_t xs = smem_u32(stage), ws = smem_u32(stage + T::XS);
+  const int cl = tid & 7;
+#pragma unroll
+  for (int j = 0; j < BM / 32; ++j) {
+    const int pix = j * 32 + (tid >> 3);
+    const int2 t = tbl[pix];  // (xm pixel of the window's tap 0, in the grid)
+    const float* src = p.xm + ((long long)t.x + off) * p.cin_p + c0 + cl;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      cp_async4(xs + (uint32_t)((hh * 8 + cl) * T::XP + pix) * 4, t.y ? src + 8 * hh : p.xm,
+                t.y ? 4 : 0);
+  }
+  for (int i = tid; i < K1F_CK * BN / 4; i += K1F_THREADS) {
+    const int cc = i / (BN / 4), q4 = i - cc * (BN / 4);
+    cp_async16(ws + (uint32_t)i * 16,
+               p.w + ((size_t)tap * p.cin_p + c0 + cc) * p.cout_p + co0 + 4 * q4, 16);
+  }
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(K1F_THREADS, K1F_CTAS) pconv_k1f(const K1fParams p) {
+  using T = K1fTile<BM, BN>;
+  extern __shared__ __align__(16) float k1f_smem[];
+  int2* tbl = reinterpret_cast<int2*>(k1f_smem + K1F_STAGES * T::STAGE);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pg = warp / T::WC * 4 + lane / 8, cg = warp % T::WC * 8 + lane % 8;
+  const long long P = (long long)p.n * p.hout * p.wout, m0 = (long long)blockIdx.x * BM;
+  const int co0 = blockIdx.y * BN, z = blockIdx.z;
+  const int steps = p.k * p.k * (p.cin_p / K1F_CK);
+  const int sb = (int)((long long)z * steps / p.splits);  // k1_split_ranges
+  const int ns = (int)((long long)(z + 1) * steps / p.splits) - sb;
+  for (int i = tid; i < BM; i += K1F_THREADS) {  // each pixel's window origin in xm
+    const long long pix = m0 + i;
+    int2 t = make_int2(0, 0);
+    if (pix < P) {
+      const long long hw = (long long)p.hout * p.wout;
+      const int n = (int)(pix / hw), r = (int)(pix - n * hw);
+      t = make_int2((n * (p.h + 2 * p.ph) + r / p.wout) * (p.w_in + 2 * p.pw) + r % p.wout, 1);
+    }
+    tbl[i] = t;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < K1F_STAGES - 1; ++s) {
+    if (s < ns) k1f_fill<BM, BN>(p, k1f_smem + s * T::STAGE, tbl, sb + s, co0, tid);
+    cp_async_commit();
+  }
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < ns; ++s) {
+    const int nx = s + K1F_STAGES - 1;
+    cp_async_wait<K1F_STAGES - 2>();  // this thread's copies of step s have landed
+    __syncthreads();                  // everyone's; and step s - 1's stage is read
+    if (nx < ns)
+      k1f_fill<BM, BN>(p, k1f_smem + nx % K1F_STAGES * T::STAGE, tbl, sb + nx, co0, tid);
+    cp_async_commit();
+    const float* xs = k1f_smem + s % K1F_STAGES * T::STAGE + 4 * pg;
+    const float* ws = k1f_smem + s % K1F_STAGES * T::STAGE + T::XS + 4 * cg;
+#pragma unroll
+    for (int cc = 0; cc < K1F_CK; ++cc) {
+      const float4 xa = *reinterpret_cast<const float4*>(xs + cc * T::XP);
+      const float4 xb = *reinterpret_cast<const float4*>(xs + cc * T::XP + BM / 2);
+      const float4 wa = *reinterpret_cast<const float4*>(ws + cc * BN);
+      const float4 wb = *reinterpret_cast<const float4*>(ws + cc * BN + BN / 2);
+      const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+      const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // pixel i of the thread: 4 pg + i (i < 4), BM / 2 + 4 pg + i - 4; channel j likewise
+  const Params q = k1f_count_params(p);
+  const float kkc = (float)(p.k * p.k * p.cin);
+  const bool vec = p.cout % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long long pix = m0 + (i >> 2) * (BM / 2) + 4 * pg + (i & 3);
+    if (pix >= P) continue;
+    if (p.splits > 1) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float4*>(p.partial + ((size_t)z * P + pix) * p.cout_p + co0 +
+                                   hh * (BN / 2) + 4 * cg) =
+            make_float4(acc[i][4 * hh], acc[i][4 * hh + 1], acc[i][4 * hh + 2], acc[i][4 * hh + 3]);
+      continue;
+    }
+    const long long hw = (long long)p.hout * p.wout;
+    const int n = (int)(pix / hw), r = (int)(pix - n * hw);
+    const float msum = window_count<float>(q, n, r / p.wout, r % p.wout);
+    const float scale = msum > 0.f ? kkc / fmaxf(msum, 1.f) : 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int o = co0 + hh * (BN / 2) + 4 * cg;
+      if (o >= p.cout) continue;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = epilogue(acc[i][4 * hh + e], scale, p.bias && o + e < p.cout ? p.bias[o + e] : 0.f);
+      float* dst = p.y + (size_t)pix * p.cout + o;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (o + e < p.cout) dst[e] = v[e];
+      }
+    }
+    if (blockIdx.y == 0 && cg == 0) p.mask_out[pix] = msum > 0.f ? 1.f : 0.f;
+  }
+}
+
+// Split K's second pass: one thread per pixel and 4 channels adds the
+// partials in split order, then K1F's epilogue; the first 4 channels'
+// thread writes M'.
+__global__ void pconv_k1f_reduce(const K1fParams p) {
+  const long long P = (long long)p.n * p.hout * p.wout;
+  const int q4 = p.cout_p / 4;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= P * q4) return;
+  const long long pix = idx / q4;
+  const int c4 = (int)(idx - pix * q4) * 4;
+  if (c4 >= p.cout) return;
+  float4 s = *reinterpret_cast<const float4*>(p.partial + pix * p.cout_p + c4);
+  for (int z = 1; z < p.splits; ++z) {
+    const float4 v = *reinterpret_cast<const float4*>(p.partial + ((size_t)z * P + pix) * p.cout_p + c4);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  const long long hw = (long long)p.hout * p.wout;
+  const int n = (int)(pix / hw), r = (int)(pix - n * hw);
+  const float msum = window_count<float>(k1f_count_params(p), n, r / p.wout, r % p.wout);
+  const float scale = msum > 0.f ? (float)(p.k * p.k * p.cin) / fmaxf(msum, 1.f) : 0.f;
+  if (c4 == 0) p.mask_out[pix] = msum > 0.f ? 1.f : 0.f;
+  const float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (c4 + e < p.cout)
+      p.y[pix * p.cout + c4 + e] = epilogue(v[e], scale, p.bias ? p.bias[c4 + e] : 0.f);
+}
+
+template <int BM, int BN>
+cudaError_t launch_k1f(const K1fParams& p, cudaStream_t stream) {
+  using T = K1fTile<BM, BN>;
+  cudaError_t e = cudaFuncSetAttribute(pconv_k1f<BM, BN>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return e;
+  const long long P = (long long)p.n * p.hout * p.wout;
+  const dim3 grid((unsigned)((P + BM - 1) / BM), (unsigned)(p.cout_p / BN), (unsigned)p.splits);
+  pconv_k1f<BM, BN><<<grid, K1F_THREADS, T::SMEM, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || p.splits == 1) return e;
+  const long long items = P * (p.cout_p / 4);
+  pconv_k1f_reduce<<<(unsigned)((items + 255) / 256), 256, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1927,7 +2223,73 @@ int tsii_pconv_k2_bwd_f32(const void* dacc, const void* x, const void* mask, con
   return (int)e;
 }
 
-// K1 and K2's f32 form. x: (n, h, w_in, cin) f32; mask: (n, h, w_in, g) f32;
+// K1F: K1's f32 form at Cout >= 8. x: (n, h, w_in, cin) f32; mask: (n, h,
+// w_in, g) f32; w: (cout, cin, k, k) f32; bias: (cout) f32 or NULL; y: (n,
+// hout, wout, cout) f32; mask_out: (n, hout, wout, 1) f32; scratch: xm (n,
+// h + 2 ph, w_in + 2 pw, cin_p) f32, partial (splits, P, cout_p) f32 when
+// splits > 1 (else NULL), wk (k*k, cin_p, cout_p) f32, zero past cin and
+// cout where they are padded. (bm, bn) (128, 128) or (256, 64), splits as
+// ops/kernels/partial_conv.py::k1f_plan gives them. Three or four kernels
+// on `stream`; returns the first error.
+int tsii_pconv_k1f(const void* x, const void* mask, const void* w, const void* bias, void* y,
+                   void* mask_out, void* xm, void* partial, void* wk, int n, int h, int w_in,
+                   int cin, int g, int size0, int size1, int hout, int wout, int cout, int k,
+                   int ph, int pw, int cin_p, int cout_p, int bm, int bn, int splits,
+                   void* stream) {
+  K1fParams p;
+  p.xm = static_cast<const float*>(xm);
+  p.mask = static_cast<const float*>(mask);
+  p.w = static_cast<const float*>(wk);
+  p.bias = static_cast<const float*>(bias);
+  p.y = static_cast<float*>(y);
+  p.mask_out = static_cast<float*>(mask_out);
+  p.partial = static_cast<float*>(partial);
+  p.n = n; p.h = h; p.w_in = w_in; p.cin = cin; p.g = g; p.size0 = size0; p.size1 = size1;
+  p.hout = hout; p.wout = wout; p.cout = cout; p.k = k; p.ph = ph; p.pw = pw;
+  p.cin_p = cin_p; p.cout_p = cout_p; p.splits = splits;
+  const bool tile = (bm == 128 && bn == 128) || (bm == 256 && bn == 64);
+  const long long steps = (long long)k * k * (cin_p / K1F_CK);
+  if (n < 1 || cin < 1 || cout < 8 || k < 1 || hout < 1 || wout < 1 || (g != 1 && g != 2) ||
+      !tile || cin_p < cin || cin_p % K1F_CK != 0 || cout_p < cout || cout_p % bn != 0 ||
+      cout_p / bn > 65535 || splits < 1 || splits > 65535 || splits > steps ||
+      (splits > 1) != (partial != nullptr) ||
+      (long long)n * (h + 2 * ph) * (w_in + 2 * pw) >= (1ll << 31) ||
+      steps >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  pconv_k1f_weights<<<dim3((unsigned)((cin * k * k + 31) / 32), (unsigned)((cout + 31) / 32)),
+                      dim3(32, 8), 0, s>>>(static_cast<const float*>(w), static_cast<float*>(wk),
+                                           cout, cin, k * k, cin_p, cout_p);
+  const long long items = (long long)n * (h + 2 * ph) * (w_in + 2 * pw) * (cin_p / 4);
+  pconv_f32_mask<<<(unsigned)((items + 255) / 256), 256, 0, s>>>(p, static_cast<const float*>(x),
+                                                                 static_cast<float*>(xm));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)(bm == 128 ? launch_k1f<128, 128>(p, s) : launch_k1f<256, 64>(p, s));
+}
+
+// Resident CTAs an SM of pconv_k1f<bm, 16384 / bm> (the occupancy
+// calculator's answer), or a negative CUDA error.
+int tsii_k1f_occupancy(int bm) {
+  int n = 0;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (bm == 128) {
+    e = cudaFuncSetAttribute(pconv_k1f<128, 128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             K1fTile<128, 128>::SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pconv_k1f<128, 128>, K1F_THREADS,
+                                                        K1fTile<128, 128>::SMEM);
+  } else if (bm == 256) {
+    e = cudaFuncSetAttribute(pconv_k1f<256, 64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             K1fTile<256, 64>::SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pconv_k1f<256, 64>, K1F_THREADS,
+                                                        K1fTile<256, 64>::SMEM);
+  }
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// K2F: K2's f32 form (Cout <= 8). x: (n, h, w_in, cin) f32; mask: (n, h, w_in, g) f32;
 // w: (k*k, cin, cout) f32; bias: (cout) f32 or NULL; y: (n, hout, wout, cout)
 // f32; mask_out: (n, hout, wout, 1) f32.
 int tsii_pconv_f32(const void* x, const void* mask, const void* w, const void* bias, void* y,
@@ -1942,10 +2304,10 @@ int tsii_pconv_f32(const void* x, const void* mask, const void* w, const void* b
   p.mask_out = static_cast<float*>(mask_out);
   p.n = n; p.h = h; p.w_in = w_in; p.cin = cin; p.g = g; p.size0 = size0; p.size1 = size1;
   p.hout = hout; p.wout = wout; p.cout = cout; p.k = k; p.ph = ph; p.pw = pw; p.ck = 1;
-  if (n < 1 || cin < 1 || cout < 1 || k < 1 || hout < 1 || wout < 1 || (g != 1 && g != 2))
+  if (n < 1 || cin < 1 || cout < 1 || cout > 8 || k < 1 || hout < 1 || wout < 1 ||
+      (g != 1 && g != 2))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return cout <= 8 ? (int)launch_f32<1, 1>(p, s) : (int)launch_f32<8, 4>(p, s);
+  return (int)launch_f32<1, 1>(p, static_cast<cudaStream_t>(stream));
 }
 
 // out[c] = sum_r part[r, c], f32, in a fixed order.

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives shared by the port's kernels: mbarriers,
-// 16-byte cp.async, shared tiles of 128-byte rows with the 128-byte
-// swizzle and their wgmma descriptors, and wgmma m64nNk16 (bf16 in, f32
-// accumulate) at the widths the kernels use. Included by each .cu, which
+// cp.async (16 bytes, and 4 bytes; commit groups), shared tiles of
+// 128-byte rows with the 128-byte swizzle and their wgmma descriptors,
+// and wgmma m64nNk16 (bf16 in, f32 accumulate) at the widths the kernels
+// use. Included by each .cu, which
 // is compiled on its own (ops/kernels/build.py hashes this header too).
 
 #pragma once
@@ -49,6 +50,24 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
                : "memory");
+}
+
+// 4 bytes global -> shared through L1; `bytes` 0 writes a zero and reads
+// nothing. The SIMT f32 kernels gather with it to transpose as they copy.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Closes this thread's cp.async copies since the last commit into a group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The barrier counts one arrival of this thread once all its earlier

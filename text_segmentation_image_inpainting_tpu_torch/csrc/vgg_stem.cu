@@ -759,13 +759,15 @@ StemParams make_params(const void* x, const void* g, const void* w0, const void*
 // f32 accumulation: plain SIMT FFMA, no TF32 and no bf16 anywhere, every
 // sum in a fixed order, so two launches give the same bits.
 //
-// What bounds both is still conv1's 3x3 64->64 product, now at the f32
-// FFMA rate. In f32, conv1's weights alone (147,456 B) and a 16x16 tile's
-// a0 and z1 with their halos (226 KB) each fill a CTA's shared memory, so
-// K4F does not keep its intermediates on chip as K4 does: it runs as four
-// passes, two scratch tensors of (M, H, W, 64) f32 in device memory
-// between them (the wrapper allocates them; 2 x 1.07 GB at 16 pages of
-// 512^2, what autograd of the plain stem keeps as well):
+// What bounds both is conv1's 3x3 64->64 product at the f32 FFMA rate
+// (67 TFLOP/s on an H100 SXM). In f32, conv1's weights alone (147,456 B)
+// and a 16x16 tile's a0 and z1 with their halos (226 KB) each fill a CTA's
+// shared memory, so K4F does not keep its intermediates on chip as K4
+// does: it runs as four passes, two scratch tensors of f32 in device
+// memory between them (the wrapper allocates them; 2 x 1.07 GB at 16
+// pages of 512^2, what autograd of the plain stem keeps as well), each
+// laid out as 64 planes a page, (M, 64, H, sf_pitch(W)), so that a row
+// piece of 4 columns is one aligned 16-byte copy or store:
 //
 //   1. stem_f32_conv0            a0  = relu(conv0(x) + b0)
 //   2. stem_f32_conv1<GRAD>      gz1 = g routed to the first max of
@@ -777,225 +779,350 @@ StemParams make_params(const void* x, const void* g, const void* w0, const void*
 //   4. stem_f32_dx               dx  = dgrad_conv0(gz0)
 //
 // K5F is the conv1 kernel with the pool as its epilogue (POOL), relu
-// applied to z0 as it is staged: nothing but the pooled quarter is written.
+// applied to z0 as it is read: nothing but the pooled quarter is written.
 //
-// stem_f32_conv1: a CTA of 256 threads owns a 16x16 tile of conv1's output
-// pixels and all 64 output channels; a thread owns one 2x2 pool window x
-// 16 channels (64 accumulators), so the pool and its gradient happen in
-// registers. Per chunk of 16 input channels the tile's 18x18 input window
-// is staged channel-major, each row as its 9 even columns then its 9 odd
-// ones (20 floats a row): a warp's 32 windows (8 across, 4 down) then read
-// 32 distinct banks. The chunk's weights are staged as (tap, input channel,
-// 64 outputs) and read as float4s that the whole warp shares. Per input
-// channel a thread loads its 4x4 input neighbourhood once and runs the 9
-// taps on it: 52 shared loads for 576 FFMA. The dgrad is the same product
-// with the flipped, transposed weights, which the wrapper passes.
+// stem_f32_conv1 (v2; v1 staged each 16-channel chunk synchronously, one
+// CTA of 8 warps an SM in DGRAD, a CTA per tile):
+//   - Persistent CTAs, two an SM (16 warps in every mode: a thread holds
+//     at most 64 sums and 128 registers): the launcher starts min(tiles,
+//     2 x SMs) CTAs and CTA b walks tiles b, b + grid, ... over (page,
+//     tile row, tile column), column fastest.
+//   - A ring of 3 stages, each one chunk of 8 input channels: the tile's
+//     input window, channel-major, zero outside the page (GRAD, DGRAD:
+//     16-byte cp.async copies of the planes' row pieces, cut at the page's
+//     edge by the source size; POOL: 4-byte copies that turn K5F's NHWC
+//     z0 channel-major as they land), and the chunk's weights (9 taps x 8
+//     channels x 64 outputs, 16-byte copies). A stage is filled two chunks
+//     ahead, across tile ends, so the copies run under the FFMAs; one
+//     __syncthreads a chunk both publishes a stage and frees the one read
+//     before it.
+//   - Register-blocked outer products: a thread owns 2 x 4 output pixels x
+//     8 output channels (GRAD, POOL: tile 16 x 16) or x 4 (DGRAD, tile 8 x
+//     16). Per input channel it loads its window's 4 rows x 6 columns once
+//     (a float and a float4 and a float a row) and runs the 9 taps on them
+//     with the taps' weights as float4s: 30 shared loads for 576 FFMA (21
+//     for 288 in DGRAD). A warp is 8 pixel groups x 4 channel groups, so
+//     each load is one shared wavefront: rows of 24 floats put a warp's 8
+//     windows on distinct banks, and each channel's window starts 4 banks
+//     after the last one, so a 4-byte copy's 8 channels x 4 pixels land on
+//     32 banks.
+//   - The weights are staged per chunk and tile, not once per CTA: 147 KB
+//     of resident f32 weights leave room for one CTA an SM, while
+//     restaging reads 147 KB of L2 a tile (about 0.4 TB/s over the card at
+//     the FFMA rate). tools/f32_variants.py measures what the restaging
+//     (and the window's) costs.
 //
 // The two dgrads sum in blocks, as a library's blocked product does: the
-// conv1 dgrad each chunk's 144 terms apart, then the 4 chunk sums; conv0's
-// each tap's 64, then the 9 tap sums. One chain of 576 FFMA per value
-// was 2.4x as far from the f64 truth as cuDNN's f32 dgrad on a 16x16 page
-// (3.7e-7 relative L2 against 1.5e-7, H100); a CPU emulation of the
-// blocked order gives 1.1x. The DGRAD instance holds the 64 block sums in
-// registers beside its 64 accumulators, so it runs one CTA per SM; the
-// forward products feed only the pool and its routing and stay unblocked.
+// conv1 dgrad each chunk's 72 terms (8 channels x 9 taps) apart, then the
+// 8 chunk sums; conv0's each tap's 64, then the 9 tap sums. One chain of
+// 576 FFMA per value was 2.4x as far from the f64 truth as cuDNN's f32
+// dgrad on a 16x16 page (3.7e-7 relative L2 against 1.5e-7, H100); blocks
+// of 144 terms gave 1.0-1.1x on the card. The forward products
+// feed only the pool and its routing and stay one chain per value.
 
 struct StemF32 {
-  const float* in;    // (m, h, w, 64): z0 (POOL), a0 (GRAD) or gz1 (DGRAD)
+  const float* in;    // z0 (m, h, w, 64) (POOL); a0 (GRAD) or gz1 (DGRAD), planes
   const float* wt;    // (9 taps, 64 in, 64 out) of this product
   const float* bias;  // (64): POOL and GRAD
   const float* g;     // GRAD: (m, h/2, w/2, 64)
-  float* out;         // POOL: pooled (m, h/2, w/2, 64); GRAD: gz1 (m, h, w, 64);
-                      // DGRAD: a0 in, gz0 out, (m, h, w, 64)
+  float* out;         // POOL: pooled (m, h/2, w/2, 64); GRAD: gz1; DGRAD: a0 in,
+                      // gz0 out; planes (m, 64, h, sf_pitch(w))
   int m, h, w;
 };
 
 enum { SF_POOL = 0, SF_GRAD = 1, SF_DGRAD = 2 };
 
-constexpr int SF_T = 16;                 // output tile: 16 x 16 pixels
-constexpr int SF_THREADS = 256;          // 64 pool windows x 4 groups of 16 channels
-constexpr int SF_CK = 16;                // input channels per staged chunk
-constexpr int SF_ROWS = SF_T + 2;        // the chunk's input window: 18 x 18
-constexpr int SF_RP = 20;                // floats per window row: even cols 0-8, odd 10-18
-constexpr int SF_WIN = SF_ROWS * SF_RP;  // floats per channel of the window
-constexpr int SF_SMEM = (SF_CK * SF_WIN + 9 * SF_CK * C) * 4;  // bytes of f32: 59,904
-static_assert(2 * SF_RP % 32 == 8, "a warp's 4 window rows must fall on distinct banks");
-
-// Window column c of a staged row: even columns first, then odd ones.
-__device__ __forceinline__ int sf_col(int c) { return (c & 1) * (SF_RP / 2) + (c >> 1); }
+constexpr int SF_THREADS = 256;
+constexpr int SF_CTAS = 2;         // resident CTAs an SM: 16 warps
+constexpr int SF_CK = 8;           // input channels per stage
+constexpr int SF_NCH = C / SF_CK;  // stages per tile
+constexpr int SF_STAGES = 3;
+constexpr int SF_TW = 16;          // output columns of a tile
+constexpr int SF_RP = 24;          // floats per staged window row (18 used)
 
 template <int MODE>
-__global__ void __launch_bounds__(SF_THREADS, MODE == SF_DGRAD ? 1 : 2)
-    stem_f32_conv1(const StemF32 p) {
-  extern __shared__ __align__(16) float sf_smem[];
-  float* xs = sf_smem;                   // [SF_CK][SF_ROWS][SF_RP]
-  float* ws = sf_smem + SF_CK * SF_WIN;  // [9][SF_CK][64]
-  const int tiles_w = (p.w + SF_T - 1) / SF_T;
-  const int oh0 = (int)(blockIdx.x / tiles_w) * SF_T, ow0 = (int)(blockIdx.x % tiles_w) * SF_T;
-  const int n = blockIdx.y;
-  const int tid = threadIdx.x, cg = tid >> 6, wx = tid & 7, wy = (tid >> 3) & 7;
-  float acc[4][16];  // [dy * 2 + dx][channel cg * 16 + e]
-  float tot[4][16];  // DGRAD: the sum of the chunks' sums
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int e = 0; e < 16; ++e) acc[q][e] = tot[q][e] = 0.f;
+struct SfTile {
+  static constexpr int CO = MODE == SF_DGRAD ? 4 : 8;  // output channels of a thread
+  static constexpr int CG = C / CO;                     // channel groups: 8 or 16
+  static constexpr int PG = SF_THREADS / CG;            // pixel groups of 2 x 4: 32 or 16
+  static constexpr int TH = PG / (SF_TW / 4) * 2;       // tile rows: 16 or 8
+  static constexpr int WR = TH + 2;                     // window rows
+  static constexpr int WIN = (WR * SF_RP + 28) / 32 * 32 + 4;  // floats a channel, 4 mod 32
+  static constexpr int XS = SF_CK * WIN;                // floats of a stage's window
+  static constexpr int STAGE = XS + 9 * SF_CK * C;      // and of its weights
+  static constexpr int SMEM = SF_STAGES * STAGE * 4;    // bytes: 98,688 or 80,256
+};
+static_assert(SfTile<SF_GRAD>::SMEM * SF_CTAS <= 226 * 1024, "two CTAs an SM");
+static_assert(SfTile<SF_GRAD>::WIN >= SfTile<SF_GRAD>::WR * SF_RP, "window fits");
+static_assert(SfTile<SF_DGRAD>::WIN >= SfTile<SF_DGRAD>::WR * SF_RP, "window fits");
 
-  for (int c0 = 0; c0 < C; c0 += SF_CK) {
-    __syncthreads();
-    // the window: rows oh0 - 1 .. oh0 + 16, columns ow0 - 1 .. ow0 + 16, zero
-    // outside the image (conv1's padding)
-    for (int i = tid; i < SF_ROWS * SF_ROWS * (SF_CK / 4); i += SF_THREADS) {
-      const int q = i % (SF_CK / 4), pix = i / (SF_CK / 4);
-      const int r = pix / SF_ROWS, c = pix % SF_ROWS;
-      const int ih = oh0 + r - 1, iw = ow0 + c - 1;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (ih >= 0 && ih < p.h && iw >= 0 && iw < p.w) {
-        v = __ldg(reinterpret_cast<const float4*>(
-                      p.in + ((size_t)(n * p.h + ih) * p.w + iw) * C + c0) + q);
-        if (MODE == SF_POOL) {  // K5F's input is relu(z0)
-          v.x = fmaxf(v.x, 0.f);
-          v.y = fmaxf(v.y, 0.f);
-          v.z = fmaxf(v.z, 0.f);
-          v.w = fmaxf(v.w, 0.f);
-        }
-      }
-      float* dst = xs + q * 4 * SF_WIN + r * SF_RP + sf_col(c);
-      dst[0] = v.x;
-      dst[SF_WIN] = v.y;
-      dst[2 * SF_WIN] = v.z;
-      dst[3 * SF_WIN] = v.w;
+// Output channel of a thread's e-th sum: channel group cg's float4 (and,
+// with 8, the same float4 of the upper 32 channels).
+template <int CO>
+__device__ __forceinline__ int sf_co(int cg, int e) {
+  return CO == 8 ? (e >> 2) * 32 + 4 * cg + (e & 3) : 4 * cg + e;
+}
+
+// Row pitch of the passes' own (m, 64, h, pitch) planes: w rounded up to
+// 4 floats, so a row piece of 4 columns is one aligned float4.
+__host__ __device__ __forceinline__ int sf_pitch(int w) { return (w + 3) & ~3; }
+
+template <int MODE>
+__device__ __forceinline__ void sf_tile(const StemF32& p, int tile, int& n, int& oh0, int& ow0) {
+  const int tw = cdiv(p.w, SF_TW), per = cdiv(p.h, SfTile<MODE>::TH) * tw;
+  n = tile / per;
+  const int t = tile - n * per;
+  oh0 = t / tw * SfTile<MODE>::TH;
+  ow0 = t % tw * SF_TW;
+}
+
+// Copies chunk c0 .. c0 + 7 of `tile`'s window and weights into `stage`.
+template <int MODE>
+__device__ __forceinline__ void sf_fill(const StemF32& p, float* stage, int tile, int c0,
+                                         int tid) {
+  using T = SfTile<MODE>;
+  int n, oh0, ow0;
+  sf_tile<MODE>(p, tile, n, oh0, ow0);
+  const uint32_t xs = smem_u32(stage), ws = smem_u32(stage + T::XS);
+  // window rows oh0 - 1 .. oh0 + TH; row columns ow0 - 4 .. ow0 + 19, of
+  // which ow0 - 1 .. ow0 + 16 are read; zero outside the page (conv1's padding)
+  if (MODE == SF_POOL) {  // z0, NHWC: 4-byte copies, channel-major as they land
+    for (int i = tid; i < T::WR * (SF_TW + 2) * SF_CK; i += SF_THREADS) {
+      const int c = i % SF_CK, pix = i / SF_CK;
+      const int r = pix / (SF_TW + 2), col = pix % (SF_TW + 2);
+      const int ih = oh0 + r - 1, iw = ow0 + col - 1;
+      const bool in = ih >= 0 && ih < p.h && iw >= 0 && iw < p.w;
+      const float* src = in ? p.in + ((size_t)(n * p.h + ih) * p.w + iw) * C + c0 + c : p.in;
+      cp_async4(xs + (uint32_t)(c * T::WIN + r * SF_RP + col + 3) * 4, src, in ? 4 : 0);
     }
-    for (int i = tid; i < 9 * SF_CK * C / 4; i += SF_THREADS) {
-      const int o4 = i % (C / 4), cc = (i / (C / 4)) % SF_CK, tap = i / (C / 4 * SF_CK);
-      reinterpret_cast<float4*>(ws)[i] = __ldg(
-          reinterpret_cast<const float4*>(p.wt + ((size_t)tap * C + c0 + cc) * C) + o4);
+  } else {  // a0 or gz1, the passes' own planes: 16-byte copies of row pieces; a
+            // thread copies one piece (window row r, 4 columns q) of CPT channels
+    constexpr int PIECES = T::WR * (SF_RP / 4), CPT = SF_CK / (SF_THREADS / PIECES);
+    static_assert(SF_CK % (SF_THREADS / PIECES) == 0, "whole channel groups");
+    if (tid < PIECES * (SF_CK / CPT)) {
+      const int q = tid % (SF_RP / 4), r = tid / (SF_RP / 4) % T::WR, c = tid / PIECES * CPT;
+      const int ih = oh0 + r - 1, col = ow0 - 4 + 4 * q, wp = sf_pitch(p.w);
+      const int bytes = ih >= 0 && ih < p.h && col >= 0 && col < p.w ? 4 * min(4, p.w - col) : 0;
+      const float* src = p.in + ((size_t)(n * C + c0 + c) * p.h + ih) * wp + col;
+      const uint32_t dst = xs + (uint32_t)(c * T::WIN + r * SF_RP + 4 * q) * 4;
+#pragma unroll
+      for (int k = 0; k < CPT; ++k)
+        cp_async16(dst + k * T::WIN * 4, bytes ? src + (size_t)k * p.h * wp : p.in, bytes);
     }
-    __syncthreads();
+  }
+  // the chunk's rows (tap, c0 + cc) of the (9, 64, 64) weights: copy i is
+  // 16 bytes at tap i / 128, float (i % 128) * 4 of the chunk's 8 rows
+  static_assert(SF_CK * C / 4 == 128, "a chunk's tap is 128 copies");
+  const float* wt = p.wt + c0 * C;
+  for (int i = tid; i < 9 * SF_CK * C / 4; i += SF_THREADS)
+    cp_async16(ws + (uint32_t)i * 16, wt + (i >> 7) * (C * C) + (i & 127) * 4, 16);
+}
+
+// acc[i][j][e] += the stage's 8 channels x 9 taps for the thread's pixel
+// (2 rp + i, 4 cq + j) of the tile and output channel sf_co(cg, e), in
+// (channel, tap) order.
+template <int MODE>
+__device__ __forceinline__ void sf_compute(const float* stage, int rp, int cq, int cg,
+                                           float (&acc)[2][4][SfTile<MODE>::CO]) {
+  using T = SfTile<MODE>;
+  const float* ws = stage + T::XS;
 #pragma unroll 1
-    for (int cc = 0; cc < SF_CK; ++cc) {
-      // the window's rows 2wy .. 2wy + 3 and columns 2wx .. 2wx + 3
-      const float* xr = xs + cc * SF_WIN + 2 * wy * SF_RP;
-      float xv[4][4];
+  for (int cc = 0; cc < SF_CK; ++cc) {
+    const float* xr = stage + cc * T::WIN + 2 * rp * SF_RP + 4 * cq;
+    float xv[4][6];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 4; ++r) {
+      const float4 a = *reinterpret_cast<const float4*>(xr + r * SF_RP + 4);
+      xv[r][0] = xr[r * SF_RP + 3];
+      xv[r][1] = a.x;
+      xv[r][2] = a.y;
+      xv[r][3] = a.z;
+      xv[r][4] = a.w;
+      xv[r][5] = xr[r * SF_RP + 8];
+      if (MODE == SF_POOL) {  // K5F's input is relu(z0)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) xv[r][c] = xr[r * SF_RP + sf_col(2 * wx + c)];
+        for (int j = 0; j < 6; ++j) xv[r][j] = fmaxf(xv[r][j], 0.f);
+      }
+    }
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const float4* wv = reinterpret_cast<const float4*>(ws + (tap * SF_CK + cc) * C + cg * 16);
-        float wr[16];
+    for (int tap = 0; tap < 9; ++tap) {
+      const float* wr = ws + (tap * SF_CK + cc) * C + 4 * cg;
+      float wv[T::CO];
+#pragma unroll
+      for (int h = 0; h < T::CO / 4; ++h) {
+        const float4 t = *reinterpret_cast<const float4*>(wr + 32 * h);
+        wv[4 * h] = t.x;
+        wv[4 * h + 1] = t.y;
+        wv[4 * h + 2] = t.z;
+        wv[4 * h + 3] = t.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float4 t = wv[j];
-          wr[4 * j] = t.x;
-          wr[4 * j + 1] = t.y;
-          wr[4 * j + 2] = t.z;
-          wr[4 * j + 3] = t.w;
-        }
+          const float v = xv[i + tap / 3][j + tap % 3];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float v = xv[(q >> 1) + tap / 3][(q & 1) + tap % 3];
-#pragma unroll
-          for (int e = 0; e < 16; ++e) acc[q][e] = fmaf(v, wr[e], acc[q][e]);
-        }
-      }
-    }
-    if (MODE == SF_DGRAD) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          tot[q][e] += acc[q][e];
-          acc[q][e] = 0.f;
+          for (int e = 0; e < T::CO; ++e) acc[i][j][e] = fmaf(v, wv[e], acc[i][j][e]);
         }
     }
-  }
-
-  const int oh = oh0 + 2 * wy, ow = ow0 + 2 * wx;  // the window's first pixel
-  if (oh >= p.h || ow >= p.w) return;             // h and w are even: whole windows
-  const int co = cg * 16;
-  if (MODE == SF_DGRAD) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float4* a = reinterpret_cast<float4*>(
-          p.out + ((size_t)(n * p.h + oh + (q >> 1)) * p.w + ow + (q & 1)) * C + co);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 a0 = a[j];
-        a[j] = make_float4(a0.x > 0.f ? tot[q][4 * j] : 0.f, a0.y > 0.f ? tot[q][4 * j + 1] : 0.f,
-                           a0.z > 0.f ? tot[q][4 * j + 2] : 0.f,
-                           a0.w > 0.f ? tot[q][4 * j + 3] : 0.f);
-      }
-    }
-    return;
-  }
-  float z[4][16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) {
-    const float b = __ldg(p.bias + co + e);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) z[q][e] = acc[q][e] + b;
-  }
-  const size_t win = ((size_t)(n * (p.h / 2) + oh / 2) * (p.w / 2) + ow / 2) * C + co;
-  if (MODE == SF_POOL) {
-    float4* o = reinterpret_cast<float4*>(p.out + win);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float m4[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int e = 4 * j + t;
-        m4[t] = fmaxf(fmaxf(fmaxf(z[0][e], 0.f), fmaxf(z[1][e], 0.f)),
-                      fmaxf(fmaxf(z[2][e], 0.f), fmaxf(z[3][e], 0.f)));
-      }
-      o[j] = make_float4(m4[0], m4[1], m4[2], m4[3]);
-    }
-    return;
-  }
-  // GRAD: the window's cotangent to its first maximum of relu(z), row-major,
-  // where z > 0 there
-  const float4* gw = reinterpret_cast<const float4*>(p.g + win);
-  float gv[16];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float4 t = __ldg(gw + j);
-    gv[4 * j] = t.x;
-    gv[4 * j + 1] = t.y;
-    gv[4 * j + 2] = t.z;
-    gv[4 * j + 3] = t.w;
-  }
-  float d[4][16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) {
-    int best = 0;
-    float top = fmaxf(z[0][e], 0.f);
-#pragma unroll
-    for (int q = 1; q < 4; ++q) {
-      const float v = fmaxf(z[q][e], 0.f);
-      if (v > top) {
-        top = v;
-        best = q;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) d[q][e] = (q == best && z[q][e] > 0.f) ? gv[e] : 0.f;
-  }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    float4* o = reinterpret_cast<float4*>(
-        p.out + ((size_t)(n * p.h + oh + (q >> 1)) * p.w + ow + (q & 1)) * C + co);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      o[j] = make_float4(d[q][4 * j], d[q][4 * j + 1], d[q][4 * j + 2], d[q][4 * j + 3]);
   }
 }
 
-constexpr int SF_PIX_THREADS = 256;  // stem_f32_conv0 and stem_f32_dx: one pixel a thread
+// The tile's outputs from the thread's sums s (POOL, GRAD: acc; DGRAD:
+// the chunk sums' total). GRAD and DGRAD write the passes' own planes: a
+// float4 is 4 columns of one row of one channel.
+template <int MODE>
+__device__ __forceinline__ void sf_epilogue(const StemF32& p, int tile, int rp, int cq, int cg,
+                                            float (&s)[2][4][SfTile<MODE>::CO]) {
+  constexpr int CO = SfTile<MODE>::CO;
+  int n, oh0, ow0;
+  sf_tile<MODE>(p, tile, n, oh0, ow0);
+  const int oh = oh0 + 2 * rp, ow = ow0 + 4 * cq;  // h and w are even: whole pairs
+  if (oh >= p.h || ow >= p.w) return;
+  const size_t wp = sf_pitch(p.w);
+  if (MODE == SF_DGRAD) {  // gz0 = the sums where a0 > 0, over a0
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < CO; ++e) {
+        float4* a = reinterpret_cast<float4*>(
+            p.out + ((size_t)(n * C + sf_co<CO>(cg, e)) * p.h + oh + i) * wp + ow);
+        const float4 a0 = *a;
+        *a = make_float4(a0.x > 0.f ? s[i][0][e] : 0.f, a0.y > 0.f ? s[i][1][e] : 0.f,
+                         a0.z > 0.f ? s[i][2][e] : 0.f, a0.w > 0.f ? s[i][3][e] : 0.f);
+      }
+    return;
+  }
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {  // the thread's two 2x2 pool windows
+    const int wc = ow + 2 * v;
+    const size_t win = ((size_t)(n * (p.h / 2) + oh / 2) * (p.w / 2) + wc / 2) * C;
+#pragma unroll
+    for (int h = 0; h < CO / 4; ++h) {
+      const int co = sf_co<CO>(cg, 4 * h);
+      float z[4][4];  // [q = row-major place in the window][channel]
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float b = __ldg(p.bias + co + e);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) z[q][e] = s[q >> 1][2 * v + (q & 1)][4 * h + e] + b;
+      }
+      if (MODE == SF_POOL) {
+        if (wc >= p.w) continue;
+        float mx[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e] = fmaxf(fmaxf(fmaxf(z[0][e], 0.f), fmaxf(z[1][e], 0.f)),
+                        fmaxf(fmaxf(z[2][e], 0.f), fmaxf(z[3][e], 0.f)));
+        *reinterpret_cast<float4*>(p.out + win + co) = make_float4(mx[0], mx[1], mx[2], mx[3]);
+        continue;
+      }
+      // GRAD: the window's cotangent to its first maximum of relu(z),
+      // row-major, where z > 0 there; written over the window's sums
+      float gv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (wc < p.w) {
+        const float4 gt = __ldg(reinterpret_cast<const float4*>(p.g + win + co));
+        gv[0] = gt.x;
+        gv[1] = gt.y;
+        gv[2] = gt.z;
+        gv[3] = gt.w;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int best = 0;
+        float top = fmaxf(z[0][e], 0.f);
+#pragma unroll
+        for (int q = 1; q < 4; ++q) {
+          const float t = fmaxf(z[q][e], 0.f);
+          if (t > top) {
+            top = t;
+            best = q;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          s[q >> 1][2 * v + (q & 1)][4 * h + e] = (q == best && z[q][e] > 0.f) ? gv[e] : 0.f;
+      }
+    }
+  }
+  if (MODE == SF_GRAD) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < CO; ++e)
+        *reinterpret_cast<float4*>(
+            p.out + ((size_t)(n * C + sf_co<CO>(cg, e)) * p.h + oh + i) * wp + ow) =
+            make_float4(s[i][0][e], s[i][1][e], s[i][2][e], s[i][3][e]);
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(SF_THREADS, SF_CTAS) stem_f32_conv1(const StemF32 p) {
+  using T = SfTile<MODE>;
+  extern __shared__ __align__(16) float sf_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // a warp: 8 pixel groups x 4 channel groups
+  const int pg = warp % (T::PG / 8) * 8 + lane / 4, cg = warp / (T::PG / 8) * 4 + lane % 4;
+  const int rp = pg / (SF_TW / 4), cq = pg % (SF_TW / 4);
+  const int grid = (int)gridDim.x, b = (int)blockIdx.x;
+  const int tiles = p.m * cdiv(p.h, T::TH) * cdiv(p.w, SF_TW);
+  const int steps = (tiles - b + grid - 1) / grid * SF_NCH;  // stage s: tile b + s / NCH * grid
+#pragma unroll
+  for (int s = 0; s < SF_STAGES - 1; ++s) {
+    if (s < steps)
+      sf_fill<MODE>(p, sf_smem + s * T::STAGE, b + s / SF_NCH * grid, s % SF_NCH * SF_CK, tid);
+    cp_async_commit();
+  }
+  float acc[2][4][T::CO], tot[2][4][T::CO];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < T::CO; ++e) acc[i][j][e] = tot[i][j][e] = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    const int nx = s + SF_STAGES - 1;
+    cp_async_wait<SF_STAGES - 2>();  // this thread's copies of stage s have landed
+    __syncthreads();                 // everyone's; and stage s - 1 is read
+    if (nx < steps)
+      sf_fill<MODE>(p, sf_smem + nx % SF_STAGES * T::STAGE, b + nx / SF_NCH * grid,
+                     nx % SF_NCH * SF_CK, tid);
+    cp_async_commit();
+    sf_compute<MODE>(sf_smem + s % SF_STAGES * T::STAGE, rp, cq, cg, acc);
+    if (MODE == SF_DGRAD) {  // the chunk's block sum into the total
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < T::CO; ++e) {
+            tot[i][j][e] += acc[i][j][e];
+            acc[i][j][e] = 0.f;
+          }
+    }
+    if (s % SF_NCH == SF_NCH - 1) {
+      if constexpr (MODE == SF_DGRAD)
+        sf_epilogue<MODE>(p, b + s / SF_NCH * grid, rp, cq, cg, tot);
+      else
+        sf_epilogue<MODE>(p, b + s / SF_NCH * grid, rp, cq, cg, acc);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < T::CO; ++e) acc[i][j][e] = tot[i][j][e] = 0.f;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+constexpr int SF_PIX_THREADS = 256;  // stem_f32_conv0: one pixel a thread
 
 // Pass 1: a0 = relu(conv0(x) + b0), one pixel x 64 channels a thread, the
-// 27 products of each channel in (ky, kx, input channel) order.
-__global__ void __launch_bounds__(SF_PIX_THREADS) stem_f32_conv0(const float* __restrict__ x,
+// 27 products of each channel in (ky, kx, input channel) order, written
+// as (m, 64, h, pitch) planes (v1 wrote NHWC rows of 256 bytes a thread).
+__global__ void __launch_bounds__(SF_PIX_THREADS, 2) stem_f32_conv0(const float* __restrict__ x,
                                                                  const float* __restrict__ w0,
                                                                  const float* __restrict__ b0,
                                                                  float* __restrict__ a0, int m,
@@ -1007,16 +1134,23 @@ __global__ void __launch_bounds__(SF_PIX_THREADS) stem_f32_conv0(const float* __
   if (pix >= (size_t)m * h * w) return;
   const int ox = (int)(pix % w), oy = (int)(pix / w % h);
   const size_t n = pix / ((size_t)w * h);
-  float acc[C];
+  float xv[27];  // the pixel's window, loaded before any product
 #pragma unroll
-  for (int o = 0; o < C; ++o) acc[o] = 0.f;
-#pragma unroll 1
   for (int t = 0; t < 9; ++t) {
     const int iy = oy + t / 3 - 1, ix = ox + t % 3 - 1;
     const bool in = iy >= 0 && iy < h && ix >= 0 && ix < w;
 #pragma unroll
+    for (int c = 0; c < 3; ++c)
+      xv[3 * t + c] = in ? __ldg(x + ((n * h + iy) * w + ix) * 3 + c) : 0.f;
+  }
+  float acc[C];
+#pragma unroll
+  for (int o = 0; o < C; ++o) acc[o] = 0.f;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+#pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float v = in ? __ldg(x + ((n * h + iy) * w + ix) * 3 + c) : 0.f;
+      const float v = xv[3 * t + c];
       const float4* wv = reinterpret_cast<const float4*>(ws + (t * 3 + c) * C);
 #pragma unroll
       for (int j = 0; j < C / 4; ++j) {
@@ -1028,73 +1162,121 @@ __global__ void __launch_bounds__(SF_PIX_THREADS) stem_f32_conv0(const float* __
       }
     }
   }
-  float4* out = reinterpret_cast<float4*>(a0 + pix * C);
+  const size_t plane = (size_t)h * sf_pitch(w);  // a warp's stores: one row piece
+  float* out = a0 + n * C * plane + (size_t)oy * sf_pitch(w) + ox;
 #pragma unroll
-  for (int j = 0; j < C / 4; ++j)
-    out[j] = make_float4(fmaxf(acc[4 * j] + __ldg(b0 + 4 * j), 0.f),
-                         fmaxf(acc[4 * j + 1] + __ldg(b0 + 4 * j + 1), 0.f),
-                         fmaxf(acc[4 * j + 2] + __ldg(b0 + 4 * j + 2), 0.f),
-                         fmaxf(acc[4 * j + 3] + __ldg(b0 + 4 * j + 3), 0.f));
+  for (int o = 0; o < C; ++o) out[o * plane] = fmaxf(acc[o] + __ldg(b0 + o), 0.f);
 }
 
-// Pass 4: dx = dgrad_conv0(gz0), one pixel a thread: dx[p, c] = sum over
-// taps (ky, kx) and o of gz0[p + (1 - ky, 1 - kx), o] * w0[o, c, ky, kx],
-// each tap's 64 terms in o order, then the tap sums in tap order.
-__global__ void __launch_bounds__(SF_PIX_THREADS) stem_f32_dx(const float* __restrict__ gz0,
+// Pass 4 (v2; v1 ran one pixel a thread on 9 x 256-byte NHWC reads of
+// gz0 through L1): dx = dgrad_conv0(gz0) for an 8 x 32 tile a CTA, two
+// CTAs an SM. The tile's window of gz0's planes (64 channels x 10 rows x
+// columns ow0 - 4 .. ow0 + 35) is copied into shared memory once by
+// 16-byte cp.async (zero outside the page), and the weights as a float4
+// (w0[o, 0..2] at the tap) per (tap, o). A thread owns one pixel, a warp
+// one row: dx[p, c] = sum over taps (ky, kx) of the sum over o of
+// gz0[p + (1 - ky, 1 - kx), o] * w0[o, c, ky, kx], each tap's 64 terms in
+// o order, then the tap sums in tap order. Its bound is reading gz0 once
+// (0.32 ms at 16 pages of 512^2).
+constexpr int DXF_TH = 8, DXF_TW = 32;  // output tile
+constexpr int DXF_THREADS = DXF_TH * DXF_TW;
+constexpr int DXF_WR = DXF_TH + 2;      // window rows
+constexpr int DXF_RP = DXF_TW + 8;      // floats a window row: columns ow0 - 4 .. ow0 + 35
+constexpr int DXF_SMEM = (C * DXF_WR * DXF_RP + 9 * C * 4) * 4;  // 111,616 bytes
+static_assert(2 * (DXF_SMEM + 1024) <= 228 * 1024, "two CTAs an SM");
+
+__global__ void __launch_bounds__(DXF_THREADS, 2) stem_f32_dx(const float* __restrict__ gz0,
                                                               const float* __restrict__ w0,
-                                                              float* __restrict__ dx, int m, int h,
-                                                              int w) {
-  __shared__ float4 ws[9 * C];  // [tap][o]: (w0[o, 0], w0[o, 1], w0[o, 2], 0) at the tap
-  for (int i = threadIdx.x; i < 9 * C; i += SF_PIX_THREADS) {
-    const float* r = w0 + (i % C) * 27 + i / C * 3;
+                                                              float* __restrict__ dx, int m,
+                                                              int h, int w) {
+  extern __shared__ __align__(16) float dxf_smem[];
+  const float* gs = dxf_smem;  // [channel][window row][DXF_RP]
+  float4* ws = reinterpret_cast<float4*>(dxf_smem + C * DXF_WR * DXF_RP);  // [tap][o]
+  const int tw = cdiv(w, DXF_TW), per = cdiv(h, DXF_TH) * tw;
+  const int n = (int)blockIdx.x / per, t = (int)blockIdx.x % per;
+  const int oh0 = t / tw * DXF_TH, ow0 = t % tw * DXF_TW;
+  const int tid = threadIdx.x, wp = sf_pitch(w);
+  const uint32_t gsa = smem_u32(dxf_smem);
+  for (int i = tid; i < C * DXF_WR * (DXF_RP / 4); i += DXF_THREADS) {
+    const int q = i % (DXF_RP / 4), r = i / (DXF_RP / 4) % DXF_WR, c = i / (DXF_RP / 4 * DXF_WR);
+    const int ih = oh0 + r - 1, col = ow0 - 4 + 4 * q;
+    const int bytes = ih >= 0 && ih < h && col >= 0 && col < w ? 4 * min(4, w - col) : 0;
+    const float* src = bytes ? gz0 + ((size_t)(n * C + c) * h + ih) * wp + col : gz0;
+    cp_async16(gsa + (uint32_t)i * 16, src, bytes);
+  }
+  cp_async_commit();
+  for (int i = tid; i < 9 * C; i += DXF_THREADS) {
+    const float* r = w0 + (i % C) * 27 + i / C * 3;  // w0 rows (64 out, 27): k = tap * 3 + in
     ws[i] = make_float4(r[0], r[1], r[2], 0.f);
   }
+  cp_async_wait<0>();
   __syncthreads();
-  const size_t pix = (size_t)blockIdx.x * SF_PIX_THREADS + threadIdx.x;
-  if (pix >= (size_t)m * h * w) return;
-  const int px = (int)(pix % w), py = (int)(pix / w % h);
-  const size_t n = pix / ((size_t)w * h);
+  const int r = tid / DXF_TW, c = tid % DXF_TW;
   float d0 = 0.f, d1 = 0.f, d2 = 0.f;
 #pragma unroll 1
-  for (int t = 0; t < 9; ++t) {
-    const int qy = py + 1 - t / 3, qx = px + 1 - t % 3;
-    if (qy < 0 || qy >= h || qx < 0 || qx >= w) continue;
+  for (int tap = 0; tap < 9; ++tap) {
+    const float* gp = gs + (r + 2 - tap / 3) * DXF_RP + c + 5 - tap % 3;
+    const float4* wt = ws + tap * C;
     float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-    const float4* gv = reinterpret_cast<const float4*>(gz0 + ((n * h + qy) * w + qx) * C);
-#pragma unroll 4
-    for (int j = 0; j < C / 4; ++j) {
-      const float4 g = __ldg(gv + j);
-      const float gs[4] = {g.x, g.y, g.z, g.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 q = ws[t * C + 4 * j + e];
-        a0 = fmaf(gs[e], q.x, a0);
-        a1 = fmaf(gs[e], q.y, a1);
-        a2 = fmaf(gs[e], q.z, a2);
-      }
+#pragma unroll 16
+    for (int o = 0; o < C; ++o) {
+      const float g = gp[o * DXF_WR * DXF_RP];
+      const float4 u = wt[o];
+      a0 = fmaf(g, u.x, a0);
+      a1 = fmaf(g, u.y, a1);
+      a2 = fmaf(g, u.z, a2);
     }
     d0 += a0;
     d1 += a1;
     d2 += a2;
   }
-  dx[pix * 3] = d0;
-  dx[pix * 3 + 1] = d1;
-  dx[pix * 3 + 2] = d2;
+  const int py = oh0 + r, px = ow0 + c;
+  if (py >= h || px >= w) return;
+  float* o = dx + ((size_t)(n * h + py) * w + px) * 3;
+  o[0] = d0;
+  o[1] = d1;
+  o[2] = d2;
+}
+
+// The f32 passes' weights from the stem's OIHW weights, in one launch:
+// wbuf = [w1f (9 taps, 64 in, 64 out): conv1 forward | w1b (9, 64, 64):
+// its dgrad, w1b[t][a][b] = w1[a][b][8 - t] | w0t (64 out, 27), k = tap * 3
+// + in]. ops/kernels/vgg_stem.py's _f32_conv1_taps and _w0_rows are its
+// plain version.
+constexpr int SF_WBUF = 2 * 9 * C * C + C * 27;  // floats
+
+__global__ void stem_f32_weights(const float* __restrict__ w0, const float* __restrict__ w1,
+                                 float* __restrict__ wbuf, int with_dgrad) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < 9 * C * C) {  // w1f[t][in][out] = w1[out][in][t]
+    const int t = i / (C * C), ci = i / C % C, co = i % C;
+    wbuf[i] = w1[(co * C + ci) * 9 + t];
+  } else if (i < 2 * 9 * C * C) {
+    if (!with_dgrad) return;
+    const int j = i - 9 * C * C, t = j / (C * C), a = j / C % C, b = j % C;
+    wbuf[i] = w1[(a * C + b) * 9 + 8 - t];
+  } else if (i < SF_WBUF) {  // w0t[o][t * 3 + in] = w0[o][in][t]
+    if (!with_dgrad) return;
+    const int j = i - 2 * 9 * C * C, o = j / 27, t = j % 27 / 3, ci = j % 3;
+    wbuf[i] = w0[(o * 3 + ci) * 9 + t];
+  }
 }
 
 template <int MODE>
-cudaError_t launch_f32_conv1(const StemF32& p, cudaStream_t stream) {
+cudaError_t launch_f32_conv1(const StemF32& p, int sms, cudaStream_t stream) {
+  using T = SfTile<MODE>;
   const cudaError_t e = cudaFuncSetAttribute(stem_f32_conv1<MODE>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, SF_SMEM);
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)(cdiv(p.h, SF_T) * cdiv(p.w, SF_T)), (unsigned)p.m);
-  stem_f32_conv1<MODE><<<grid, SF_THREADS, SF_SMEM, stream>>>(p);
+  const long long tiles = (long long)p.m * cdiv(p.h, T::TH) * cdiv(p.w, SF_TW);
+  const long long grid = tiles < (long long)SF_CTAS * sms ? tiles : (long long)SF_CTAS * sms;
+  stem_f32_conv1<MODE><<<(unsigned)grid, SF_THREADS, T::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
-bool f32_geometry_ok(int m, int h, int w) {
-  return m >= 1 && m <= 65535 && h >= 2 && w >= 2 && h % 2 == 0 && w % 2 == 0 &&
-         (long long)cdiv(h, SF_T) * cdiv(w, SF_T) < (1ll << 31) &&
+bool f32_geometry_ok(int m, int h, int w, int sms) {
+  return m >= 1 && m <= 65535 && h >= 2 && w >= 2 && h % 2 == 0 && w % 2 == 0 && sms >= 1 &&
+         (long long)m * cdiv(h, 8) * cdiv(w, SF_TW) * SF_NCH < (1ll << 31) &&
          (long long)m * h * w / SF_PIX_THREADS < (1ll << 31);
 }
 
@@ -1133,46 +1315,97 @@ int tsii_stem_pool(const void* z0, const void* w1, const void* b1, void* pooled,
   return (int)cudaGetLastError();
 }
 
-// K4F. x (m, h, w, 3) f32, g (m, h/2, w/2, 64) f32, w0 (64 out, 27) f32 with
-// k = (ky*3 + kx)*3 + in, b0/b1 (64) f32, w1f (9 taps, 64 in, 64 out) f32
-// (conv1 as it runs forward), w1b (9, 64, 64) f32 (its dgrad: the taps
-// flipped, in and out swapped); scratch a0 and gz1 (m, h, w, 64) f32 ->
-// dx (m, h, w, 3) f32. h and w even; 16-byte aligned. Four kernels on
-// `stream`, in order; returns the first error.
+// K4F. x (m, h, w, 3) f32, g (m, h/2, w/2, 64) f32, w0 (64, 3, 3, 3) and w1
+// (64, 64, 3, 3) f32 as the stem holds them (OIHW), b0/b1 (64) f32;
+// scratch wbuf (SF_WBUF floats: the passes' re-laid weights), a0 and gz1
+// (m, 64, h, sf_pitch(w)) f32 -> dx (m, h, w, 3) f32. h and w even;
+// 16-byte aligned; sms: the card's SMs (the conv1 passes' persistent
+// grids). Five kernels on `stream`, in order; returns the first error.
 int tsii_stem_dx_f32(const void* x, const void* g, const void* w0, const void* b0,
-                     const void* w1f, const void* w1b, const void* b1, void* a0, void* gz1,
-                     void* dx, int m, int h, int w, void* stream) {
-  if (!f32_geometry_ok(m, h, w)) return (int)cudaErrorInvalidValue;
+                     const void* w1, const void* b1, void* wbuf, void* a0, void* gz1, void* dx,
+                     int m, int h, int w, int sms, void* stream) {
+  if (!f32_geometry_ok(m, h, w, sms)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* wb = static_cast<float*>(wbuf);
+  const float *w1f = wb, *w1b = wb + 9 * C * C, *w0t = wb + 2 * 9 * C * C;
+  stem_f32_weights<<<cdiv(SF_WBUF, 256), 256, 0, s>>>(static_cast<const float*>(w0),
+                                                      static_cast<const float*>(w1), wb, 1);
   stem_f32_conv0<<<pix_blocks(m, h, w), SF_PIX_THREADS, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w0), static_cast<const float*>(b0),
-      static_cast<float*>(a0), m, h, w);
+      static_cast<const float*>(x), w0t, static_cast<const float*>(b0), static_cast<float*>(a0),
+      m, h, w);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  StemF32 p{static_cast<const float*>(a0), static_cast<const float*>(w1f),
-            static_cast<const float*>(b1), static_cast<const float*>(g),
-            static_cast<float*>(gz1), m, h, w};
-  if ((e = launch_f32_conv1<SF_GRAD>(p, s)) != cudaSuccess) return (int)e;
+  StemF32 p{static_cast<const float*>(a0), w1f, static_cast<const float*>(b1),
+            static_cast<const float*>(g), static_cast<float*>(gz1), m, h, w};
+  if ((e = launch_f32_conv1<SF_GRAD>(p, sms, s)) != cudaSuccess) return (int)e;
   p.in = static_cast<const float*>(gz1);
-  p.wt = static_cast<const float*>(w1b);
+  p.wt = w1b;
   p.bias = nullptr;
   p.g = nullptr;
   p.out = static_cast<float*>(a0);
-  if ((e = launch_f32_conv1<SF_DGRAD>(p, s)) != cudaSuccess) return (int)e;
-  stem_f32_dx<<<pix_blocks(m, h, w), SF_PIX_THREADS, 0, s>>>(
-      static_cast<const float*>(a0), static_cast<const float*>(w0), static_cast<float*>(dx), m, h,
-      w);
+  if ((e = launch_f32_conv1<SF_DGRAD>(p, sms, s)) != cudaSuccess) return (int)e;
+  if ((e = cudaFuncSetAttribute(stem_f32_dx, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                DXF_SMEM)) != cudaSuccess)
+    return (int)e;
+  stem_f32_dx<<<(unsigned)(m * cdiv(h, DXF_TH) * cdiv(w, DXF_TW)), DXF_THREADS, DXF_SMEM, s>>>(
+      static_cast<const float*>(a0), w0t, static_cast<float*>(dx), m, h, w);
   return (int)cudaGetLastError();
 }
 
-// K5F. z0 (m, h, w, 64) f32, w1f (9 taps, 64 in, 64 out) f32, b1 (64) f32
-// -> pooled (m, h/2, w/2, 64) f32. h and w even; 16-byte aligned.
-int tsii_stem_pool_f32(const void* z0, const void* w1f, const void* b1, void* pooled, int m,
-                       int h, int w, void* stream) {
-  if (!f32_geometry_ok(m, h, w)) return (int)cudaErrorInvalidValue;
-  const StemF32 p{static_cast<const float*>(z0), static_cast<const float*>(w1f),
+// K5F. z0 (m, h, w, 64) f32, w1 (64, 64, 3, 3) f32, b1 (64) f32, scratch
+// wbuf (9 * 64 * 64 floats) -> pooled (m, h/2, w/2, 64) f32. h and w even;
+// 16-byte aligned; sms as for K4F.
+int tsii_stem_pool_f32(const void* z0, const void* w1, const void* b1, void* wbuf, void* pooled,
+                       int m, int h, int w, int sms, void* stream) {
+  if (!f32_geometry_ok(m, h, w, sms)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  stem_f32_weights<<<cdiv(9 * C * C, 256), 256, 0, s>>>(nullptr, static_cast<const float*>(w1),
+                                                        static_cast<float*>(wbuf), 0);
+  const StemF32 p{static_cast<const float*>(z0), static_cast<const float*>(wbuf),
                   static_cast<const float*>(b1), nullptr, static_cast<float*>(pooled), m, h, w};
-  return (int)launch_f32_conv1<SF_POOL>(p, static_cast<cudaStream_t>(stream));
+  return (int)launch_f32_conv1<SF_POOL>(p, sms, s);
+}
+
+// Resident CTAs an SM of K4F/K5F's kernels, as the occupancy calculator
+// gives them: which 0 POOL, 1 GRAD, 2 DGRAD (conv1), 3 the dx pass.
+int tsii_stem_f32_occupancy(int which) {
+  int n = 0;
+  cudaError_t e = cudaSuccess;
+  switch (which) {
+    case 0:
+      e = cudaFuncSetAttribute(stem_f32_conv1<SF_POOL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SfTile<SF_POOL>::SMEM);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stem_f32_conv1<SF_POOL>, SF_THREADS,
+                                                          SfTile<SF_POOL>::SMEM);
+      break;
+    case 1:
+      e = cudaFuncSetAttribute(stem_f32_conv1<SF_GRAD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SfTile<SF_GRAD>::SMEM);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stem_f32_conv1<SF_GRAD>, SF_THREADS,
+                                                          SfTile<SF_GRAD>::SMEM);
+      break;
+    case 2:
+      e = cudaFuncSetAttribute(stem_f32_conv1<SF_DGRAD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SfTile<SF_DGRAD>::SMEM);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stem_f32_conv1<SF_DGRAD>,
+                                                          SF_THREADS, SfTile<SF_DGRAD>::SMEM);
+      break;
+    case 3:
+      e = cudaFuncSetAttribute(stem_f32_dx, cudaFuncAttributeMaxDynamicSharedMemorySize, DXF_SMEM);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stem_f32_dx, DXF_THREADS,
+                                                          DXF_SMEM);
+      break;
+    default:
+      return -1;
+  }
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // extern "C"

@@ -120,6 +120,10 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_pconv_k3_mask_f32.restype = i32
         lib.tsii_pconv_f32.argtypes = [ptr] * 6 + [i32] * 13 + [ptr]
         lib.tsii_pconv_f32.restype = i32
+        lib.tsii_pconv_k1f.argtypes = [ptr] * 9 + [i32] * 18 + [ptr]
+        lib.tsii_pconv_k1f.restype = i32
+        lib.tsii_k1f_occupancy.argtypes = [i32]
+        lib.tsii_k1f_occupancy.restype = i32
         lib.tsii_pconv_k2_bwd_f32.argtypes = [ptr] * 6 + [i32] * 15 + [ptr]
         lib.tsii_pconv_k2_bwd_f32.restype = i32
         lib.tsii_pconv_colsum.argtypes = [ptr] * 2 + [i32] * 2 + [ptr]
@@ -128,10 +132,12 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_stem_dx.restype = i32
         lib.tsii_stem_pool.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.tsii_stem_pool.restype = i32
-        lib.tsii_stem_dx_f32.argtypes = [ptr] * 10 + [i32] * 3 + [ptr]
+        lib.tsii_stem_dx_f32.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
         lib.tsii_stem_dx_f32.restype = i32
-        lib.tsii_stem_pool_f32.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        lib.tsii_stem_pool_f32.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
         lib.tsii_stem_pool_f32.restype = i32
+        lib.tsii_stem_f32_occupancy.argtypes = [i32]
+        lib.tsii_stem_f32_occupancy.restype = i32
         lib.tsii_dw_wgrad.argtypes = [ptr] * 5 + [i32] * 9 + [ptr]
         lib.tsii_dw_wgrad.restype = i32
         lib.tsii_error_string.argtypes = [i32]

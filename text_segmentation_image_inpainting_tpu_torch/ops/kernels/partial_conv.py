@@ -12,9 +12,11 @@ K2, for Cout <= 7, a GEMM with N padded to 8 on ``mma.sync`` that stages
 its 2-byte-aligned pixels with 16-byte copies and re-lays them masked
 (``k2_plan``). Scope: stride 1, dilation 1, square kernel, G in {1, 2}
 mask groups, bf16. A float32 x takes the f32 form instead, as JAX's
-Pallas kernels take x's dtype as it comes: one SIMT direct convolution
-for every Cout (``pconv_f32``: FFMA, f32 accumulation, no TF32 and no
-bf16 rounding); its backward is ``pconv_k3_prep`` and ``pconv_k3_mask``
+Pallas kernels take x's dtype as it comes: SIMT FFMA, f32 accumulation,
+no TF32 and no bf16 rounding (K1F at Cout >= 8: ``pconv_k1f_weights``
+and ``pconv_f32_mask``, then ``pconv_k1f``, a register-blocked implicit
+GEMM with a ``cp.async`` ring and split K, ``k1f_plan``; K2F at Cout <= 7:
+``pconv_f32``); its backward is ``pconv_k3_prep`` and ``pconv_k3_mask``
 in f32 around one f32 ``convolution_backward`` with cuDNN's TF32 off for
 that call at Cout >= 8, and ``pconv_k3_prep`` with two SIMT kernels
 (``pconv_f32_bwd_dx``, ``pconv_f32_bwd_dw``) and ``pconv_colsum`` at
@@ -446,33 +448,117 @@ def _launch_k1(x, mask, weight, bias, group_sizes, padding):
 
 
 def f32_weight_relayout(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW weights -> the f32 form's (k*k, Cin, Cout) f32: per tap, a
-    row of Cout weights per input channel."""
+    """OIHW weights -> K2F's (k*k, Cin, Cout) f32: per tap, a row of Cout
+    weights per input channel."""
     cout, cin, kh, kw = weight.shape
     return weight.to(torch.float32).permute(2, 3, 1, 0).reshape(kh * kw, cin, cout).contiguous()
 
 
+# K1F's K step: one tap x K1F_CK input channels (csrc/partial_conv.cu).
+K1F_CK = 16
+# K1F's CTA tiles (BM output pixels, BN output channels) and the CTAs an
+# SM holds of either (``__launch_bounds__(256, K1F_CTAS)``).
+K1F_TILES = ((128, 128), (256, 64))
+K1F_CTAS = 2
+
+
+class K1FPlan(NamedTuple):
+    """How K1F cuts one layer: the CTA tile (BM pixels x BN channels) and
+    the number of K splits."""
+
+    bm: int
+    bn: int
+    splits: int
+
+    def grid(self, n: int, hout: int, wout: int, cout: int) -> int:
+        """CTAs of the GEMM launch: tiles x Cout blocks x splits."""
+        return -(-n * hout * wout // self.bm) * -(-cout // self.bn) * self.splits
+
+
+def k1f_steps(cin: int, k: int) -> int:
+    """K1F's K steps of one tile: k*k taps x ceil(Cin / K1F_CK) chunks,
+    tap-major (step s is tap s // chunks, chunk s % chunks)."""
+    return k * k * -(-cin // K1F_CK)
+
+
+def k1f_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, pad) -> K1FPlan:
+    """K1F's plan for N images of H x W, Cin -> Cout (>= 8) channels, a k x k
+    window and ``pad`` (one padding or (ph, pw)): a pure function of the
+    shape. BN 64 where Cout <= 64 (BM 256), else 128 (BM 128). A grid of
+    ``_SMS`` tiles or more never splits; a smaller one splits K into as many
+    contiguous ranges as the card holds CTAs of it (``K1F_CTAS`` an SM),
+    and at least enough to reach ``_SMS`` CTAs, never more than the K
+    steps (``k1_split_ranges`` gives the ranges)."""
+    ph, pw = _pads(pad)
+    hout, wout = h + 2 * ph - k + 1, w + 2 * pw - k + 1
+    bm, bn = K1F_TILES[1] if cout <= 64 else K1F_TILES[0]
+    tiles = K1FPlan(bm, bn, 1).grid(n, hout, wout, cout)
+    if tiles >= _SMS:
+        return K1FPlan(bm, bn, 1)
+    splits = max(-(-_SMS // tiles), K1F_CTAS * _SMS // tiles)
+    return K1FPlan(bm, bn, min(k1f_steps(cin, k), splits))
+
+
+def k1f_weight_relayout(weight: torch.Tensor, bn: int) -> torch.Tensor:
+    """OIHW weights -> K1F's (k*k, Cin_p, Cout_p) f32, Cin_p a multiple of
+    ``K1F_CK`` and Cout_p of ``bn``, zero in the padding: the plain version
+    of what ``pconv_k1f_weights`` (csrc/partial_conv.cu) writes in the
+    launch."""
+    cout, cin, kh, kw = weight.shape
+    cin_p, cout_p = _round_up(cin, K1F_CK), _round_up(cout, bn)
+    wt = weight.to(torch.float32).permute(2, 3, 1, 0).reshape(kh * kw, cin, cout)
+    if (cin_p, cout_p) == (cin, cout):
+        return wt.contiguous()
+    out = torch.zeros((kh * kw, cin_p, cout_p), dtype=torch.float32, device=weight.device)
+    out[:, :cin, :cout] = wt
+    return out
+
+
 def _launch_f32(x, mask, weight, bias, group_sizes, padding):
-    """K1 and K2's f32 form (``csrc/partial_conv.cu``: ``pconv_f32``) for
-    an f32 x, every Cout; it multiplies by the mask's value, as the plain
-    version does. Counted as K1F at Cout >= 8, K2F at Cout <= 7."""
+    """K1 and K2's f32 form for an f32 x: K1F (``tsii_pconv_k1f``: the
+    weights re-laid, x * M with a zero border and zero channels to Cin_p,
+    then ``pconv_k1f`` as ``k1f_plan`` says, then the split reduction) at
+    Cout >= 8, K2F (``pconv_f32``) at Cout <= 7. Both multiply by the
+    mask's value, as the plain version does. Counted as K1F or K2F."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
     n, h, w, cin, g, cout, k, (ph, pw), hout, wout = _check_inputs(x, mask, weight, bias,
                                                                    group_sizes, padding)
     lib = load_library()
-    wk = f32_weight_relayout(weight)
     b = None if bias is None else bias.to(torch.float32).contiguous()
     y = torch.empty((n, hout, wout, cout), dtype=x.dtype, device=x.device)
     m_out = torch.empty((n, hout, wout, 1), dtype=x.dtype, device=x.device)
     s0, s1 = _sizes(group_sizes)
-    code = lib.tsii_pconv_f32(
-        x.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
-        y.data_ptr(), m_out.data_ptr(), n, h, w, cin, g, s0, s1, hout, wout, cout, k, ph, pw,
-        _stream(),
+    if cout <= _K2_MAX_COUT:
+        wk = f32_weight_relayout(weight)
+        code = lib.tsii_pconv_f32(
+            x.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
+            y.data_ptr(), m_out.data_ptr(), n, h, w, cin, g, s0, s1, hout, wout, cout, k, ph, pw,
+            _stream(),
+        )
+        check(lib, code, "K2F (the f32 partial conv, Cout <= 7)")
+        _count("K2F_LAUNCHES")
+        return y, m_out
+    plan = k1f_plan(n, h, w, cin, cout, k, (ph, pw))
+    f32 = torch.float32
+    cin_p, cout_p = _round_up(cin, K1F_CK), _round_up(cout, plan.bn)
+    w32 = weight.to(f32).contiguous()
+    # re-laid in the launch; the padding, where there is one, stays zero
+    padded = (cin_p, cout_p) != (cin, cout)
+    wk = (torch.zeros if padded else torch.empty)((k * k, cin_p, cout_p), dtype=f32,
+                                                  device=x.device)
+    xm = torch.empty((n, h + 2 * ph, w + 2 * pw, cin_p), dtype=f32, device=x.device)
+    part = None
+    if plan.splits > 1:
+        part = torch.empty((plan.splits, n * hout * wout, cout_p), dtype=f32, device=x.device)
+    code = lib.tsii_pconv_k1f(
+        x.data_ptr(), mask.data_ptr(), w32.data_ptr(), 0 if b is None else b.data_ptr(),
+        y.data_ptr(), m_out.data_ptr(), xm.data_ptr(), 0 if part is None else part.data_ptr(),
+        wk.data_ptr(), n, h, w, cin, g, s0, s1, hout, wout, cout, k, ph, pw, cin_p, cout_p,
+        plan.bm, plan.bn, plan.splits, _stream(),
     )
-    check(lib, code, "the f32 partial conv")
-    _count("K2F_LAUNCHES" if cout <= _K2_MAX_COUT else "K1F_LAUNCHES")
+    check(lib, code, "K1F (the f32 partial conv, Cout >= 8)")
+    _count("K1F_LAUNCHES")
     return y, m_out
 
 

@@ -11,7 +11,9 @@ the CPU. On a CUDA tensor they route by dtype: bf16 launches K4 or K5,
 float32 their f32 forms K4F or K5F (the same source), anything else
 raises; nothing falls back. Each form counts its own launches:
 ``K4_LAUNCHES`` / ``K5_LAUNCHES`` (bf16), ``K4F_LAUNCHES`` /
-``K5F_LAUNCHES`` (f32; K4F is four device kernels, one launch).
+``K5F_LAUNCHES`` (f32; K4F is five device kernels, one launch; the
+conv1 passes of K4F and K5F are persistent too, on ``stem_f32_grid``
+CTAs).
 
 K4 and K5 are persistent: the wrapper launches ``stem_grid`` CTAs, at
 most one per SM, and CTA ``b`` walks the 16x16 tiles ``b``, ``b + grid``,
@@ -34,6 +36,8 @@ differ from JAX by one bf16 step.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -69,6 +73,26 @@ def stem_schedule(m: int, h: int, w: int, sms: int) -> list:
     grid = stem_grid(m, h, w, sms)
     return [[(t // (tx * ty), t // tx % ty * STEM_TILE, t % tx * STEM_TILE)
              for t in range(b, stem_tiles(m, h, w), grid)] for b in range(grid)]
+
+
+# K4F/K5F's conv1 passes (``stem_f32_conv1`` in csrc/vgg_stem.cu, as
+# ``SfTile``): the output tile (rows, columns) of each mode, and the CTAs
+# an SM holds (``SF_CTAS``). The launcher starts ``stem_f32_grid``
+# persistent CTAs; CTA b walks tiles b, b + grid, ... as K4/K5 do.
+STEM_F32_TILES = {"pool": (16, 16), "grad": (16, 16), "dgrad": (8, 16)}
+STEM_F32_CTAS = 2
+
+
+def stem_f32_tiles(m: int, h: int, w: int, mode: str) -> int:
+    """How many of ``mode``'s tiles cover ``m`` pages of ``h`` x ``w``."""
+    th, tw = STEM_F32_TILES[mode]
+    return m * -(-h // th) * -(-w // tw)
+
+
+def stem_f32_grid(m: int, h: int, w: int, mode: str, sms: int) -> int:
+    """The conv1 pass's persistent grid: ``STEM_F32_CTAS`` CTAs an SM, or
+    one per tile when there are fewer tiles."""
+    return min(stem_f32_tiles(m, h, w, mode), STEM_F32_CTAS * sms)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -191,8 +215,17 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _sms(t: torch.Tensor) -> int:
+    return _sm_count(t.device.index if t.device.index is not None else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _grid(t: torch.Tensor, m: int, h: int, w: int) -> int:
-    return stem_grid(m, h, w, torch.cuda.get_device_properties(t.device).multi_processor_count)
+    return stem_grid(m, h, w, _sms(t))
 
 
 def _launch_k4(x, g, w0, b0, w1, b1):
@@ -241,11 +274,17 @@ def _launch_k5(z0, w1, b1):
     return out
 
 
+# Floats of the f32 passes' re-laid weights (SF_WBUF in csrc/vgg_stem.cu):
+# w1f and w1b (9 x 64 x 64 each), then w0's (64, 27) rows.
+STEM_F32_WBUF = 2 * 9 * 64 * 64 + 64 * 27
+
+
 def _f32_conv1_taps(w1):
     """conv1's weights as K4F/K5F's conv1 kernel reads them, (9 taps, 64 in,
     64 out) f32: the forward (w1f), and its dgrad (w1b): the taps flipped,
     conv1's output channels as the input, which is the (out, in) order K4
-    reads. K5F takes w1f alone."""
+    reads. K5F takes w1f alone. The plain version of what
+    ``stem_f32_weights`` (csrc/vgg_stem.cu) writes in the launch."""
     taps = _w1_taps(w1, torch.float32).reshape(9, 64, 64)  # (tap, out, in)
     return taps.transpose(1, 2).contiguous(), taps.flip(0).contiguous()
 
@@ -258,10 +297,12 @@ def _check_f32(name, t):
 
 
 def _launch_k4f(x, g, w0, b0, w1, b1):
-    """K4F: K4 in f32 (``tsii_stem_dx_f32``, four device kernels in order on
-    the current stream: conv0, conv1 with the pool gradient, its dgrad,
-    conv0's dgrad). Two scratch tensors of (M, H, W, 64) f32 hold a0 (then
-    gz0) and gz1 between them."""
+    """K4F: K4 in f32 (``tsii_stem_dx_f32``, device kernels in order on the
+    current stream: ``stem_f32_weights`` (the re-laid weights),
+    ``stem_f32_conv0``, ``stem_f32_conv1`` with the pool
+    gradient, its dgrad, and ``stem_f32_dx``, conv0's dgrad over staged
+    tiles). Two scratch tensors of f32 planes (M, 64, H, W rounded up to 4)
+    hold a0 (then gz0) and gz1 between them."""
     global K4F_LAUNCHES
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
@@ -274,14 +315,15 @@ def _launch_k4f(x, g, w0, b0, w1, b1):
     _check("g", g, (m, h // 2, w // 2, 64), f32, x.device)
     _check_weights(w1, b1, x.device, w0, b0)
     lib = load_library()
-    w1f, w1b = _f32_conv1_taps(w1)
-    w0t, b0f, b1f = _w0_rows(w0, f32), _bias(b0, f32), _bias(b1, f32)
-    a0 = torch.empty((m, h, w, 64), dtype=f32, device=x.device)
+    w0f, w1f, b0f, b1f = (t.to(f32).contiguous() for t in (w0, w1, b0, b1))
+    wbuf = torch.empty(STEM_F32_WBUF, dtype=f32, device=x.device)  # re-laid in the launch
+    # the passes' own planes, (M, 64, H, W rounded up to 4): sf_pitch
+    a0 = torch.empty((m, 64, h, -(-w // 4) * 4), dtype=f32, device=x.device)
     gz1 = torch.empty_like(a0)
     dx = torch.empty((m, h, w, 3), dtype=f32, device=x.device)
-    code = lib.tsii_stem_dx_f32(x.data_ptr(), g.data_ptr(), w0t.data_ptr(), b0f.data_ptr(),
-                                w1f.data_ptr(), w1b.data_ptr(), b1f.data_ptr(), a0.data_ptr(),
-                                gz1.data_ptr(), dx.data_ptr(), m, h, w, _stream())
+    code = lib.tsii_stem_dx_f32(x.data_ptr(), g.data_ptr(), w0f.data_ptr(), b0f.data_ptr(),
+                                w1f.data_ptr(), b1f.data_ptr(), wbuf.data_ptr(), a0.data_ptr(),
+                                gz1.data_ptr(), dx.data_ptr(), m, h, w, _sms(x), _stream())
     check(lib, code, "K4F (VGG stem dx, f32)")
     K4F_LAUNCHES += 1
     return dx
@@ -299,11 +341,12 @@ def _launch_k5f(z0, w1, b1):
     _check("z0", z0, z0.shape, torch.float32, z0.device)
     _check_weights(w1, b1, z0.device)
     lib = load_library()
-    w1f, _ = _f32_conv1_taps(w1)
-    out = torch.empty((m, h // 2, w // 2, 64), dtype=torch.float32, device=z0.device)
-    b1f = _bias(b1, torch.float32)
-    code = lib.tsii_stem_pool_f32(z0.data_ptr(), w1f.data_ptr(), b1f.data_ptr(), out.data_ptr(),
-                                  m, h, w, _stream())
+    f32 = torch.float32
+    w1f, b1f = w1.to(f32).contiguous(), b1.to(f32).contiguous()
+    wbuf = torch.empty(9 * 64 * 64, dtype=f32, device=z0.device)  # w1f, re-laid in the launch
+    out = torch.empty((m, h // 2, w // 2, 64), dtype=f32, device=z0.device)
+    code = lib.tsii_stem_pool_f32(z0.data_ptr(), w1f.data_ptr(), b1f.data_ptr(), wbuf.data_ptr(),
+                                  out.data_ptr(), m, h, w, _sms(z0), _stream())
     check(lib, code, "K5F (VGG stem pool, f32)")
     K5F_LAUNCHES += 1
     return out
