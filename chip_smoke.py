@@ -104,7 +104,9 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               terms and gradients finite); times beside cuDNN's f32 with
               TF32 off and the bound at the f32 peak, K1F per level with its
               tile and split count, K4F per pass (profiler) with its rate,
-              and the resident CTAs an SM of every f32 kernel redesigned
+              K2F and its backward at the head per kernel (profiler; the
+              backward also for dx only and dW only), and the resident CTAs
+              an SM of every f32 kernel redesigned
  13. ddp      data-parallel training (``ddp_phase``): the inpaint and seg
               steps over a 1-rank NCCL mesh, eager and as the k = 4 graph,
               at the graph phase's gate and launch counts; 2 gloo ranks on
@@ -857,9 +859,9 @@ def main() -> int:
     })
     for kname, fn, line, tname in (("K1F", "pconv_k1f_weights, pconv_f32_mask, pconv_k1f, "
                                            "pconv_k1f_reduce (Cout >= 8)", 184, "K1F"),
-                                   ("K2F", "pconv_f32 (Cout <= 7)", 415, "K2F"),
-                                   ("K3F", "pconv_k3_prep, pconv_k3_mask, pconv_f32_bwd_dx, "
-                                           "pconv_f32_bwd_dw (f32)", 600, "K3F")):
+                                   ("K2F", "pconv_f32_relay, pconv_k2f (Cout <= 7)", 415, "K2F"),
+                                   ("K3F", "pconv_k3_prep, pconv_k3_mask, pconv_f32_relay, "
+                                           "pconv_k2f_bwd, pconv_colsum (f32)", 600, "K3F")):
         t = f32["totals"][tname]
         log(f"{kname} (the f32 form): {t['n']} shape(s); ms, plain_ms, library_ms (cuDNN f32, "
             f"TF32 off) and bound_ms (f32 peak without the tensor cores) are sums over them; "
@@ -871,6 +873,17 @@ def main() -> int:
             "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain"],
             "bound_ms": t["bound"], "bound_by": t["by"], "library_ms": t["lib"],
         })
+    hd = f32["head"]
+    log("K3F head (the f32 backward at the head, 67 -> 3, hand-written): ms, plain_ms, library_ms "
+        "(cuDNN f32 convolution_backward, TF32 off) and bound_ms at that shape alone; launches "
+        "from the f32 step, max_abs_err against autograd of the plain version in f64")
+    kernels.append({
+        "name": "K3F head pconv_k3_prep, pconv_f32_relay, pconv_k2f_bwd, pconv_colsum (Cout <= 7)",
+        "route": "cuda", "source": CSRC, "replaces": f"{TPU_KERNEL}:600",
+        "launches": f32["launches"]["K3F_HEAD"], "max_abs_err": hd["err"], "ms": hd["ms"],
+        "plain_ms": hd["plain"], "bound_ms": hd["bound"], "bound_by": hd["by"],
+        "library_ms": hd["lib"],
+    })
     for kname, fn in (("K4F", "stem_f32_weights, stem_f32_conv0, stem_f32_conv1<GRAD, DGRAD>, "
                               "stem_f32_dx"),
                       ("K5F", "stem_f32_weights, stem_f32_conv1<POOL>")):
@@ -2251,7 +2264,7 @@ def launch_counters() -> dict:
     return {"K1": kpc.K1_LAUNCHES, "K2": kpc.K2_LAUNCHES, "K3": kpc.K3_LAUNCHES,
             "K4": kvs.K4_LAUNCHES, "K5": kvs.K5_LAUNCHES, "K6": kdw.K6_LAUNCHES,
             "K1F": kpc.K1F_LAUNCHES, "K2F": kpc.K2F_LAUNCHES, "K3F": kpc.K3F_LAUNCHES,
-            "K4F": kvs.K4F_LAUNCHES, "K5F": kvs.K5F_LAUNCHES}
+            "K3F_HEAD": kpc.K3F_HEAD_LAUNCHES, "K4F": kvs.K4F_LAUNCHES, "K5F": kvs.K5F_LAUNCHES}
 
 
 def zero_launch_counters() -> None:
@@ -2259,7 +2272,7 @@ def zero_launch_counters() -> None:
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
 
-    for mod, names in ((kpc, ("K1", "K2", "K3", "K1F", "K2F", "K3F")),
+    for mod, names in ((kpc, ("K1", "K2", "K3", "K1F", "K2F", "K3F", "K3F_HEAD")),
                        (kvs, ("K4", "K5", "K4F", "K5F")), (kdw, ("K6",))):
         for n in names:
             setattr(mod, f"{n}_LAUNCHES", 0)
@@ -2473,11 +2486,11 @@ def check_grads_f32(name, x, mask, w, b, g, kw) -> tuple:
 
 
 def f32_phase(dev, rng, cases, smi: str) -> dict:
-    """The f32 form of K1/K2 (K1F ``pconv_k1f``, K2F ``pconv_f32``) and of
+    """The f32 form of K1/K2 (K1F ``pconv_k1f``, K2F ``pconv_k2f``) and of
     their backward (K3F:
     ``pconv_k3_prep`` and ``pconv_k3_mask`` in f32 around one f32
     ``convolution_backward``, TF32 off, at the decoder levels; at the head
-    ``pconv_k3_prep``, ``pconv_f32_bwd_dx`` and ``pconv_f32_bwd_dw``), as
+    ``pconv_k3_prep``, ``pconv_k2f_bwd`` and ``pconv_colsum``), as
     an f32 U-Net runs them: at the
     U-Net's 8 stride-1 shapes against the plain version in f64 (M'
     bit-exact, y within 1e-5 (|y| + max |y|); the gradients within
@@ -2487,7 +2500,12 @@ def f32_phase(dev, rng, cases, smi: str) -> dict:
     step (K3F 8, terms finite). Times per layer with CUDA events beside the
     plain version in f32, cuDNN's f32 conv on the masked input with TF32
     off (the library column, never called by the port) and the bound at
-    the card's f32 peak without the tensor cores."""
+    the card's f32 peak without the tensor cores; at the head also each
+    kernel's device time (torch.profiler) in K2F, in its backward and in
+    the backward asked for dx only and for dW only, with the head kernels'
+    resident CTAs an SM and ptxas's registers and spills. Returns the sums
+    per form, the head backward's own numbers ("head", the kernels line's
+    "K3F head"), the stem's and the launches."""
     from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import (
         InpaintLossConfig,
         make_vgg,
@@ -2507,6 +2525,15 @@ def f32_phase(dev, rng, cases, smi: str) -> dict:
         f"{lib.tsii_k1f_occupancy(128)}, <256, 64> {lib.tsii_k1f_occupancy(256)}; "
         + ", ".join(f"{name} {lib.tsii_stem_f32_occupancy(i)}" for i, name in enumerate(
             ("stem_f32_conv1<POOL>", "<GRAD>", "<DGRAD>", "stem_f32_dx"))))
+    _, hh, c_lo, c_skip, _ = SHAPES[-1]
+    head_bwd = kpc.k2f_bwd_plan(BATCH, hh, hh, c_lo + c_skip, 3, 3)
+    log(f"resident CTAs an SM (occupancy calculator), the head's kernels at Cin {c_lo + c_skip}: "
+        f"K2F pconv_k2f<3, 3> {lib.tsii_k2f_occupancy(0, c_lo + c_skip, 1)}, its backward "
+        f"pconv_k2f_bwd<3, 3> ({head_bwd.threads} threads, {head_bwd.nseg} segments) "
+        f"{lib.tsii_k2f_occupancy(1, c_lo + c_skip, head_bwd.nseg)}")
+    for line in ptxas_report(("pconv_k2fILi3ELi3E", "pconv_k2f_bwdILi3ELi3E")):
+        log(f"  ptxas (the head's kernels): {line}")
+    head = None
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     tot = {n: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "err": 0.0, "n": 0,
                "operations": 0.0, "bytes": 0.0} for n in ("K1F", "K2F", "K3F")}
@@ -2536,7 +2563,7 @@ def f32_phase(dev, rng, cases, smi: str) -> dict:
                    [True, True, False])}
         flop, nbytes = pconv_work(x, mask, w)
         bflop, bbytes = pconv_bwd_work(x, mask, w, g)
-        plan = ""
+        plan, times = "", {}
         if fname == "K1F":
             n_, h_, w_, cin_ = x.shape
             kp = kpc.k1f_plan(n_, h_, w_, cin_, w.shape[0], w.shape[2], kw["padding"])
@@ -2546,6 +2573,7 @@ def f32_phase(dev, rng, cases, smi: str) -> dict:
                                     ("K3F", bwd, (bflop, 2 * bbytes), err3)):
             t = {key: cuda_ms(fn) for key, fn in fns.items()}
             b_ms, b_by = bound(*work, peak=PEAK_F32)
+            times[tname] = dict(t, bound=b_ms, by=b_by)
             log(f"time {tname} {name}: kernel {t['ms']:.4f} ms ({work[0] / t['ms'] / 1e9:.1f} "
                 f"TFLOP/s{plan if tname == 'K1F' else ''}), plain f32 {t['plain']:.4f} ms, "
                 f"cuDNN f32 (TF32 off) {t['lib']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; f32 peak "
@@ -2560,6 +2588,16 @@ def f32_phase(dev, rng, cases, smi: str) -> dict:
         log(f"parity {fname} {name}: x {tuple(x32.shape)} f32 -> y {tuple(got[0].shape)}, M' "
             f"bit-exact, max |dy| to the f64 plain {err:.4g}; K3F relative L2 {rel3:.3g}, max "
             f"|d| {err3:.4g}; two launches bit-identical")
+        if fname == "K2F":  # the head: each kernel's device time
+            head = dict(times["K3F"], err=err3)
+            part = {"K2F": fwd["ms"], "K3F head": bwd["ms"],
+                    "K3F head, dx only": lambda: kpc.partial_conv2d_backward(
+                        g, x32, m32, w32, b32, gs, pad, (True, False, False)),
+                    "K3F head, dW only": lambda: kpc.partial_conv2d_backward(
+                        g, x32, m32, w32, b32, gs, pad, (False, True, False))}
+            for what, fn in part.items():
+                log(f"time {what} (device, ms a launch): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in sorted(kernel_ms(fn).items())) + f"  [{smi}]")
     del xm, wcl, gcl, fwd, bwd
 
     # the f32 U-Net forward at full width, every layer's inputs re-run in f64
@@ -2615,7 +2653,8 @@ def f32_phase(dev, rng, cases, smi: str) -> dict:
     torch.cuda.synchronize()
     step_launches = launch_counters()
     hook.remove()
-    want = {"K1F": 7, "K2F": 1, "K3F": 8, "K4F": 1, "K5F": 1, "K3": 0, "K4": 0, "K5": 0}
+    want = {"K1F": 7, "K2F": 1, "K3F": 8, "K3F_HEAD": 1, "K4F": 1, "K5F": 1, "K3": 0, "K4": 0,
+            "K5": 0}
     bad_grads = [n for n, ok in grads.items() if not ok]
     if {k: step_launches[k] for k in want} != want or not all(
             torch.isfinite(v) for v in terms.values()) or not grads or bad_grads:
@@ -2630,10 +2669,10 @@ def f32_phase(dev, rng, cases, smi: str) -> dict:
         log(f"{n}: {acc['n']} shape(s); ms, plain_ms, library_ms and bound_ms summed over them")
     del unet, state, step, vgg, batch, pages, holes
     torch.cuda.empty_cache()
-    return {"totals": tot, "stem": stem,
+    return {"totals": tot, "stem": stem, "head": head,
             "launches": {"K1F": fwd_launches["K1F"], "K2F": fwd_launches["K2F"],
-                         "K3F": step_launches["K3F"], "K4F": step_launches["K4F"],
-                         "K5F": step_launches["K5F"]}}
+                         "K3F": step_launches["K3F"], "K3F_HEAD": step_launches["K3F_HEAD"],
+                         "K4F": step_launches["K4F"], "K5F": step_launches["K5F"]}}
 
 
 def check_stem_f32(name, x, g, w0, b0, w1, b1, z0) -> dict:
@@ -3561,6 +3600,21 @@ def kernel_ms(fn, windows: int = 3, calls: int = 2) -> dict:
                 name = e.key.split("::", 1)[-1].split("(")[0]
                 seen.setdefault(name, []).append(e.self_device_time_total / 1e3 / e.count)
     return {k: statistics.median(v) for k, v in seen.items()}
+
+
+def ptxas_report(fragments) -> list:
+    """ptxas's register and spill lines (``-Xptxas -v``, from this run's
+    build) of each kernel whose mangled name holds one of ``fragments``."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import build
+
+    out, name = [], None
+    for line in build.last_build["log"].splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else None
+        elif name and any(f in name for f in fragments) and (
+                "registers" in line or "spill" in line):
+            out.append(f"{name}: {line.strip()}")
+    return out
 
 
 def profile_run(fn, label: str, runs: int = 3) -> float:

@@ -1,19 +1,29 @@
-"""The f32 kernels' plans and summation orders (K1F, K4F), on the CPU.
+"""The f32 kernels' plans and summation orders (K1F, K4F, K2F and its
+backward), on the CPU.
 
-K1F (``pconv_k1f``) and K4F (``stem_f32_conv1`` and ``stem_f32_dx``) run
-only on the card; what surrounds them is held here. ``k1f_plan`` at the
-U-Net's 8 layers and at ragged shapes: its split ranges cover every K step
-once, contiguously; it splits exactly where the tile grid is smaller than
-the card (dec7..dec5), to at least 132 CTAs, and never at dec4..dec1; it
-is a pure function of the shape. The plans' constants are the CUDA
-source's own. Then each kernel's order of sums, emulated in f32 torch on
-the CPU, is held to JAX's XLA twin in f64 within the gate the card applies
-(chip_smoke.py): K1F's split partials, each a chain over its K steps
-(tap-major, 16 channels a step) added in split order, within 1e-5 (|y| +
-max |y|) of ``_partial_conv2d_xla``, M' exact; K4F's dgrads in their
-blocks (conv1's: 8 channels x 9 taps apart, then the block sums in order;
-conv0's: each tap's 64 terms, then the tap sums) within 1.25x the relative
-L2 of the plain f32 stem to the autodiff of ``stem_forward_xla``.
+K1F (``pconv_k1f``), K4F (``stem_f32_conv1`` and ``stem_f32_dx``) and K2F
+(``pconv_k2f``, ``pconv_k2f_bwd``) run only on the card; what surrounds
+them is held here. ``k1f_plan`` at the U-Net's 8 layers and at ragged
+shapes: its split ranges cover every K step once, contiguously; it splits
+exactly where the tile grid is smaller than the card (dec7..dec5), to at
+least 132 CTAs, and never at dec4..dec1; it is a pure function of the
+shape. ``k2f_plan`` and ``k2f_bwd_plan``: bands that cover every row once,
+the head's grid in whole waves of two CTAs an SM, the backward's threads
+(one per segment and channel) and the shapes they refuse. The plans'
+constants are the CUDA source's own. Then each kernel's order of sums,
+emulated in f32 torch on the CPU, is held to JAX's XLA twin in f64 within
+the gate the card applies (chip_smoke.py): K1F's split partials, each a
+chain over its K steps (tap-major, 16 channels a step) added in split
+order, within 1e-5 (|y| + max |y|) of ``_partial_conv2d_xla``, M' exact;
+K4F's dgrads in their blocks (conv1's: 8 channels x 9 taps apart, then the
+block sums in order; conv0's: each tap's 64 terms, then the tap sums)
+within 1.25x the relative L2 of the plain f32 stem to the autodiff of
+``stem_forward_xla``; K2F's warps' sums (each over the input rows, the
+warp's channels, the row's taps) added in warp order, within the same 1e-5
+gate, M' exact; its backward's dx (one chain a window row, added in
+order) and dW (each segment's sums over its band's rows and pixels, the
+segments added in order, the CTAs' rows by ``pconv_colsum``'s order)
+within 1e-5 relative L2 of ``jax.vjp`` of the XLA twin in f64.
 """
 
 import re
@@ -244,3 +254,241 @@ def test_stem_f32_grids(m, h, w):
         tiles = m * -(-h // th) * -(-w // tw)
         assert kvs.stem_f32_tiles(m, h, w, mode) == tiles
         assert kvs.stem_f32_grid(m, h, w, mode, SMS) == min(tiles, 2 * SMS)
+
+
+# K2F and its backward: G 2 as (16, 3), every Cout of 1, 3, 7 with every k
+# of 1, 3, 5 once, each padding three times; then the head's channels.
+K2F_CASES = (
+    ((16, 3), 1, 1, (1, 1)), ((16, 3), 3, 1, (0, 1)), ((16, 3), 7, 1, (1, 0)),
+    ((16, 3), 1, 3, (1, 0)), ((16, 3), 3, 3, (1, 1)), ((16, 3), 7, 3, (0, 1)),
+    ((16, 3), 1, 5, (0, 1)), ((16, 3), 3, 5, (1, 0)), ((16, 3), 7, 5, (1, 1)),
+    ((64, 3), 3, 3, (1, 1)),
+)
+
+
+def _k2f_ids(case):
+    groups, cout, k, pad = case
+    return f"G{'+'.join(map(str, groups))}-cout{cout}-k{k}-pad{pad[0]}{pad[1]}"
+
+
+def test_k2f_constants_are_the_kernels():
+    """The plans' ring depths, tile widths, threads and CTAs an SM, the
+    windows built and the shared-memory terms are csrc/partial_conv.cu's."""
+    for name in ("K2F_R", "K2F_THREADS", "K2F_RING", "K2F_CTAS", "HB_SEG", "HB_NSEG",
+                 "HB_THREADS", "HB_RING"):
+        assert getattr(kpc, name) == _constexpr("partial_conv.cu", name), name
+    src = (CSRC / "partial_conv.cu").read_text()
+    assert re.search(r"constexpr int K2F_TW = 32 \* K2F_R;", src) and kpc.K2F_TW == 32 * kpc.K2F_R
+    ks = re.findall(r"case C \* 8 \+ (\d+): CALL\(C, \1\)", src)
+    couts = re.findall(r"TSII_K2F_COUT\((\d+), CALL\)", src)
+    assert tuple(sorted(map(int, ks))) == kpc.K2F_KS
+    assert sorted(map(int, couts)) == list(range(1, 8))
+    assert "return (pixels * cin + 6 + 3) / 4 * 4;" in src
+    assert "return (k2f_row_floats(pixels, cin) + 2 * pixels + 3) / 4 * 4;" in src
+    assert re.search(r"K2F_RING \* k2f_stage_floats\(K2F_TW \+ k - 1, cin\) \+ cin \* wpc \+\s+"
+                     r"8 \* K2F_TW \* cout \+ 2 \* k \* \(K2F_TW \+ k - 1\)\) \* 4", src)
+    assert re.search(r"\(size_t\)HB_RING \* k2f_stage_floats\(tw, cin\) \+\s+"
+                     r"\(size_t\)\(HB_RING \+ k - 1\) \* \(tw \+ k - 1\) \* "
+                     r"\(\(cout \+ 3\) / 4 \* 4\)", src)
+    assert "(size_t)nseg * k * k * cout * cin" in src
+    assert "__launch_bounds__(K2F_THREADS, K2F_CTAS) pconv_k2f(" in src
+    assert "__launch_bounds__(HB_THREADS, K2F_CTAS) pconv_k2f_bwd(" in src
+
+
+def test_k2f_head_fills_whole_waves_of_two_ctas():
+    """At the head (8 x 512^2, 67 -> 3, k 3) both kernels hold two CTAs an SM
+    by shared memory, and their grids are 2 full waves of 264 CTAs."""
+    n, h, w, cin, cout, k = BATCH, 512, 512, 67, 3, 3
+    fwd = kpc.k2f_plan(n, h, w, cin, cout, k, (1, 1))
+    bwd = kpc.k2f_bwd_plan(n, h, w, cin, cout, k)
+    assert 2 * (kpc.k2f_smem_bytes(cin, cout, k) + 1024) <= 233472
+    assert 2 * (kpc.k2f_bwd_smem_bytes(cin, cout, k, bwd.nseg) + 1024) <= 233472
+    assert (fwd.tw, fwd.threads) == (96, 256) and (bwd.nseg, bwd.tw, bwd.threads) == (3, 96, 224)
+    assert fwd.grid(n, h, w) == bwd.grid(n, h, w) == 2 * 2 * SMS
+
+
+@pytest.mark.parametrize("n,rows,cols,cin,k", [
+    (8, 512, 512, 67, 3), (1, 2, 37, 67, 5), (3, 37, 29, 3, 1), (2, 100, 300, 19, 7),
+    (1, 1, 1, 1, 3), (16, 64, 64, 150, 3),
+])
+def test_k2f_bands_cover_every_row_once(n, rows, cols, cin, k):
+    for plan in (kpc.k2f_plan(n, rows + k - 1, cols + k - 1, cin, 3, k, (0, 0)),
+                 kpc.k2f_bwd_plan(n, rows, cols, cin, 3, k)):
+        bands = -(-rows // plan.rb)
+        assert 1 <= plan.rb <= rows and (bands - 1) * plan.rb < rows <= bands * plan.rb
+        assert plan.grid(n, rows, cols) == n * bands * -(-cols // plan.tw)
+        assert plan.threads % 32 == 0 and plan.nseg * cin <= plan.threads <= 256
+    bwd = kpc.k2f_bwd_plan(n, rows, cols, cin, 3, k)
+    assert bwd.nseg == min(kpc.HB_NSEG, kpc.HB_THREADS // cin) and bwd.tw == 32 * bwd.nseg
+
+
+@pytest.mark.parametrize("cin,cout,k,what", [
+    (67, 8, 3, "Cout"), (67, 3, 2, "k in"), (67, 3, 9, "k in"), (300, 3, 3, "input channels"),
+])
+def test_k2f_refuses_what_it_is_not_built_for(cin, cout, k, what):
+    with pytest.raises(ValueError, match=what):
+        kpc.k2f_bwd_plan(2, 16, 16, cin, cout, k)
+    with pytest.raises(ValueError, match=what):
+        kpc.k2f_plan(2, 16, 16, cin, cout, k, (1, 1))
+
+
+def _k2f_inputs(groups, cout, k, seed, n=2, h=9, w=70):
+    rng = np.random.default_rng(seed)
+    cin = sum(groups)
+    x = rng.standard_normal((n, h, w, cin)).astype(np.float32)
+    m = (rng.random((n, h, w, len(groups))) < 0.6).astype(np.float32)
+    m[0, :k + 1, :k + 1] = 0  # a window that sees no valid pixel
+    wt = (rng.standard_normal((cout, cin, k, k)) / np.sqrt(k * k * cin)).astype(np.float32)
+    b = rng.standard_normal(cout).astype(np.float32)
+    return x, m, wt, b, rng
+
+
+def _msum(m, groups, k, pad):
+    return torch.from_numpy(np.array(jpc.mask_window_sum(
+        jnp.asarray(m), groups, (k, k), stride=(1, 1), padding=pad)))
+
+
+def _k2f_emulated(x, m, w, b, groups, pad):
+    """K2F's arithmetic in f32 torch: warp w sums over the input rows (dy),
+    its channels [Cin w / 8, Cin (w + 1) / 8), then the row's taps; the 8
+    warps' sums are added in warp order, then the epilogue."""
+    n, h, wd, cin = x.shape
+    cout, _, k, _ = w.shape
+    ph, pw = pad
+    hout, wout = h + 2 * ph - k + 1, wd + 2 * pw - k + 1
+    xm = torch.nn.functional.pad(apply_mask(x, m, groups), (0, 0, pw, pw, ph, ph))
+    total = None
+    for warp in range(kpc.K2F_THREADS // 32):
+        acc = torch.zeros((n, hout, wout, cout), dtype=torch.float32)
+        for dy in range(k):
+            for c in range(warp * cin // 8, (warp + 1) * cin // 8):
+                for dx in range(k):
+                    acc = acc + xm[:, dy:dy + hout, dx:dx + wout, c:c + 1] * w[:, c, dy, dx]
+        total = acc if total is None else total + acc
+    msum = _msum(m.numpy(), groups, k, pad)
+    scale = float(k * k * cin) / torch.clamp(msum, min=1.0)
+    y = total * scale + b
+    return torch.where(msum > 0, y, torch.zeros(())), (msum > 0).float()
+
+
+def _xla_f64(x, m, wt, b, groups, pad):
+    def f(xv, wv, bv):
+        return jpc._partial_conv2d_xla(xv, jnp.asarray(m, jnp.float64), wv.transpose(2, 3, 1, 0),
+                                       bv, groups, (1, 1), pad, (1, 1))
+    return f, tuple(jnp.asarray(a, jnp.float64) for a in (x, wt, b))
+
+
+@pytest.mark.parametrize("case", K2F_CASES, ids=_k2f_ids)
+def test_k2f_warp_order_matches_jax_in_f64(case):
+    groups, cout, k, pad = case
+    x, m, wt, b, _ = _k2f_inputs(groups, cout, k, sum(groups) + 10 * cout + k)
+    y, m_out = _k2f_emulated(*(torch.from_numpy(a) for a in (x, m, wt, b)), groups, pad)
+    with jax.enable_x64():
+        f, args = _xla_f64(x, m, wt, b, groups, pad)
+        want, want_m = (np.asarray(a) for a in f(*args))
+    np.testing.assert_array_equal(m_out.numpy(), want_m)
+    err = np.abs(y.double().numpy() - want)
+    assert (err <= 1e-5 * (np.abs(want) + np.abs(want).max())).all(), err.max()
+    assert (y.numpy()[want_m[..., 0] == 0] == 0).all() and (want_m == 0).any()
+
+
+def _dacc_window(dacc, h, w, k, pad):
+    """win[n, ih, iw, (dy * k + dx) * Cout + o] = dacc[n, ih + ph - dy, iw + pw
+    - dx, o], 0 outside: the backward's dacc window of input pixel (ih, iw)."""
+    ph, pw = pad
+    dp = torch.nn.functional.pad(dacc, (0, 0, k - 1, k - 1, k - 1, k - 1))
+    taps = [dp[:, ph - dy + k - 1:ph - dy + k - 1 + h, pw - dx + k - 1:pw - dx + k - 1 + w]
+            for dy in range(k) for dx in range(k)]
+    return torch.cat(taps, dim=-1)
+
+
+def _k2f_bwd_emulated(x, m, w, g, groups, pad):
+    """The backward in f32 torch after ``pconv_k3_prep``'s dacc: dx, one
+    chain per window row (its taps, then Cout, in order) and the rows'
+    chains added in order, times the mask; dW, per CTA of ``k2f_bwd_plan``
+    and segment of 32 columns a sum over the band's rows and the segment's
+    pixels in order, the segments added in order, the CTAs' rows by
+    ``pconv_colsum`` (8 strided chains, then their sums in order)."""
+    n, h, wd, cin = x.shape
+    cout, _, k, _ = w.shape
+    msum = _msum(m.numpy(), groups, k, pad)
+    scale = torch.where(msum > 0, float(k * k * cin) / torch.clamp(msum, min=1.0), 0.0)
+    dacc = torch.where(scale > 0, g * scale, torch.zeros(()))
+    win = _dacc_window(dacc, h, wd, k, pad)  # (n, h, w, k*k*Cout), (tap, o)
+    dx = None
+    for dy in range(k):
+        s = torch.zeros((n, h, wd, cin))
+        for dxx in range(k):
+            for o in range(cout):
+                t = (dy * k + dxx) * cout + o
+                s = s + win[..., t:t + 1] * w[o, :, dy, dxx]
+        dx = s if dx is None else dx + s
+    dx = apply_mask(dx, m, groups)
+    plan = kpc.k2f_bwd_plan(n, h, wd, cin, cout, k)
+    xm = apply_mask(x, m, groups)
+    rows = []
+    for img in range(n):
+        for ih0 in range(0, h, plan.rb):
+            for iw0 in range(0, wd, plan.tw):
+                segs = []
+                for sa in range(iw0, iw0 + plan.tw, kpc.HB_SEG):
+                    acc = torch.zeros((k * k * cout, cin))
+                    for ih in range(ih0, min(ih0 + plan.rb, h)):
+                        for iw in range(sa, min(sa + kpc.HB_SEG, wd)):
+                            acc = acc + xm[img, ih, iw][None, :] * win[img, ih, iw][:, None]
+                    segs.append(acc)
+                rows.append(sum(segs[1:], segs[0]))
+    chains = [sum(rows[y + 8::8], rows[y]) if y < len(rows) else torch.zeros_like(rows[0])
+              for y in range(8)]
+    dw = sum(chains[1:], chains[0]).reshape(k, k, cout, cin).permute(2, 3, 0, 1)
+    return dx, dw
+
+
+@pytest.mark.parametrize("case", K2F_CASES, ids=_k2f_ids)
+def test_k2f_bwd_orders_match_jax_vjp_in_f64(case):
+    groups, cout, k, pad = case
+    x, m, wt, b, rng = _k2f_inputs(groups, cout, k, 7 * sum(groups) + cout + k)
+    n, h, wd, _ = x.shape
+    hout, wout = h + 2 * pad[0] - k + 1, wd + 2 * pad[1] - k + 1
+    g = rng.standard_normal((n, hout, wout, cout)).astype(np.float32)
+    dx, dw = _k2f_bwd_emulated(*(torch.from_numpy(a) for a in (x, m, wt, g)), groups, pad)
+    with jax.enable_x64():
+        f, args = _xla_f64(x, m, wt, b, groups, pad)
+        _, vjp = jax.vjp(lambda *a: f(*a)[0], *args)
+        want_dx, want_dw, _ = (np.asarray(a) for a in vjp(jnp.asarray(g, jnp.float64)))
+    for what, got, want in (("dx", dx, want_dx), ("dW", dw, want_dw)):
+        rel = np.linalg.norm(got.double().numpy() - want) / np.linalg.norm(want)
+        assert rel < 1e-5, (what, rel)
+
+
+def test_plain_version_holds_an_f64_x_in_f64():
+    """The truth the f32 forms are held to on the card (chip_smoke's
+    ``check_f32`` and ``check_grads_f32``, the gpu tests) is the plain
+    version on f64 inputs: its conv and, through autograd, both gradient
+    products run in f64 (they ran in f32 before), with the f32 window scale
+    that JAX's epilogue and the kernels take; so does the plain backward
+    (its cotangent was rounded to f32)."""
+    groups, cout, k, pad = (64, 3), 3, 3, (1, 1)
+    x, m, wt, b, rng = _k2f_inputs(groups, cout, k, 41, h=11, w=13)
+    g = torch.from_numpy(rng.standard_normal((2, 11, 13, cout)))
+    x, wt, b = (torch.from_numpy(a.astype(np.float64)) for a in (x, wt, b))
+    m = torch.from_numpy(m).double()
+    leaves = [t.clone().requires_grad_(True) for t in (x, wt, b)]
+    y, _ = kpc.partial_conv2d_reference(*leaves[:1], m, *leaves[1:], group_sizes=groups,
+                                        padding=pad)
+    got = torch.autograd.grad(y, leaves, g)
+    msum = _msum(m.float().numpy(), groups, k, pad)
+    scale = torch.where(msum > 0, float(k * k * sum(groups)) / torch.clamp(msum, min=1.0),
+                        0.0).double()
+    xm = apply_mask(x, m, groups).permute(0, 3, 1, 2)
+    feat = torch.nn.functional.conv2d(xm, wt, padding=pad).permute(0, 2, 3, 1)
+    want_y = torch.where(scale > 0, feat * scale + b, 0.0)
+    dacc = (g * scale).permute(0, 3, 1, 2)
+    want_dx = apply_mask(torch.nn.grad.conv2d_input(xm.shape, wt, dacc, padding=pad)
+                         .permute(0, 2, 3, 1), m, groups)
+    want_dw = torch.nn.grad.conv2d_weight(xm, wt.shape, dacc, padding=pad)
+    want_db = (g * (scale > 0)).sum(dim=(0, 1, 2))
+    plain = kpc.partial_conv2d_backward_reference(g, x, m, wt, b, groups, pad)
+    assert y.dtype == torch.float64 and all(a.dtype == torch.float64 for a in plain)
+    for a, r in zip((y, *got[:2], *plain), (want_y, want_dx, want_dw, want_dx, want_dw, want_db)):
+        assert (a - r).abs().max().item() <= 1e-12 * r.abs().max().item()

@@ -48,10 +48,15 @@ version in f64, f16 refused, and an index-less ``"cuda"`` mesh entry that
 shares the module instead of copying it. K1F (the f32 form at Cout >= 8)
 also at its split-K levels, Cin off its K step, Cout off its tiles, one
 image and padding (0, 1), its weights re-laid bit for bit as the plain
-re-lay does. The f32 stem (K4F, K5F) against the plain versions in f64,
-twice bit-identical, at ``STEM_EXTRA`` and a partial last wave of its
-persistent conv1 passes, its weights re-laid as the plain re-lay does,
-routed by ``vgg_stem_frozen`` in f32; and the whole pipeline over 2 bands
+re-lay does. K2F (the f32 form at Cout <= 7) and its backward at ragged
+shapes (``K2F_CASES``: W off the strips, H shorter than the ring, one
+image, Cin 67 and Cin < 4, Cout 1 and 7, k 1, 3, 5), the backward for each
+``needs`` subset, twice bit-identical, within 1e-5 relative L2 of f64
+autograd, their weights re-laid as the plain re-lays do. The f32 stem
+(K4F, K5F) against the plain versions in f64, twice bit-identical, at
+``STEM_EXTRA`` and a partial last wave of its persistent conv1 passes,
+its weights re-laid as the plain re-lay does, routed by
+``vgg_stem_frozen`` in f32; and the whole pipeline over 2 bands
 of one card (``spatial_pipeline_run``: K1/K2 per band, the page untouched
 outside the text, the masks and clean pages close to ``run``'s).
 """
@@ -931,6 +936,99 @@ def test_stem_f32_weights_are_relaid_as_the_plain_version(cuda):
     n = 9 * 64 * 64
     assert torch.equal(wbuf[:n], w1f.flatten()) and torch.equal(wbuf[n:2 * n], w1b.flatten())
     assert torch.equal(wbuf[2 * n:], w0t.flatten()) and torch.equal(pool_buf, w1f.flatten())
+
+
+# K2F and its backward at ragged shapes: (name, N, H, W, groups, Cout, k,
+# padding). W off the strips (96 output columns forward, 32 nseg input
+# columns backward), H shorter than the ring, one image, Cin 67 and Cin < 4,
+# Cout 1 and 7, k 1, 3 and 5.
+K2F_CASES = (
+    ("head channels, W 100: a ragged second strip", 2, 19, 100, (64, 3), 3, 3, (1, 1)),
+    ("H 2: shorter than the ring", 2, 2, 37, (64, 3), 3, 3, (1, 1)),
+    ("batch 1, Cin 3, Cout 1", 1, 23, 41, (3,), 1, 3, (1, 1)),
+    ("Cin 2 + 1, Cout 7, k 5", 2, 17, 29, (2, 1), 7, 5, (2, 2)),
+    ("Cin 67, Cout 7, k 5, padding (0, 1), W 200", 1, 12, 200, (64, 3), 7, 5, (0, 1)),
+    ("Cout 1, k 1, padding (1, 0)", 3, 9, 97, (16, 3), 1, 1, (1, 0)),
+)
+K2F_NEEDS = ((True, True, True), (True, False, False), (False, True, False), (False, False, True))
+
+
+def _k2f_case(cuda, n, h, w, groups, cout, k):
+    x, m, wt, b = _case(cuda, n * h * w + cout + k, n, h, w, groups, cout, k, True)
+    return x.float(), m.float(), wt, b
+
+
+@pytest.mark.parametrize("name,n,h,w,groups,cout,k,pad", K2F_CASES, ids=[c[0] for c in K2F_CASES])
+def test_k2f_matches_plain_in_f64(cuda, name, n, h, w, groups, cout, k, pad):
+    """K2F (Cout <= 7 in f32) against the plain version in f64
+    (``check_f32``: M' bit-exact, y within 1e-5 (|y| + max |y|), 0 in empty
+    windows), twice bit-identical, counted as K2F."""
+    x, m, wt, b = _k2f_case(cuda, n, h, w, groups, cout, k)
+    kw = dict(group_sizes=groups, padding=pad)
+    before = kpc.K2F_LAUNCHES
+    got = kpc.partial_conv2d_fused(x, m, wt, b, **kw)
+    again = kpc.partial_conv2d_fused(x, m, wt, b, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    check_f32(f"K2F {name}", got, x, m, wt, b, kw)
+    assert kpc.K2F_LAUNCHES - before == 2
+
+
+@pytest.mark.parametrize("needs", K2F_NEEDS, ids=["all", "dx", "dW", "db"])
+@pytest.mark.parametrize("name,n,h,w,groups,cout,k,pad", K2F_CASES, ids=[c[0] for c in K2F_CASES])
+def test_k2f_bwd_matches_plain_in_f64(cuda, name, n, h, w, groups, cout, k, pad, needs):
+    """K2F's backward (``pconv_k3_prep``, ``pconv_k2f_bwd``, ``pconv_colsum``)
+    for each ``needs`` subset against autograd of the plain version in f64:
+    each asked gradient within 1e-5 relative L2, the others None; twice
+    bit-identical."""
+    x, m, wt, b = _k2f_case(cuda, n, h, w, groups, cout, k)
+    hout, wout = h + 2 * pad[0] - k + 1, w + 2 * pad[1] - k + 1
+    g = torch.randn((n, hout, wout, cout), generator=torch.Generator(cuda).manual_seed(5),
+                    device=cuda)
+    got = kpc.partial_conv2d_backward(g, x, m, wt, b, groups, pad, needs)
+    again = kpc.partial_conv2d_backward(g, x, m, wt, b, groups, pad, needs)
+    ref = [t.detach().double().requires_grad_(True) for t in (x, wt, b)]
+    y_ref, _ = kpc.partial_conv2d_reference(ref[0], m.double(), ref[1], ref[2],
+                                            group_sizes=groups, padding=pad)
+    want = torch.autograd.grad(y_ref, ref, g.double())
+    for what, need, a, a2, r in zip(("dx", "dW", "db"), needs, got, again, want):
+        if not need:
+            assert a is None and a2 is None, what
+            continue
+        assert a.dtype == torch.float32 and a.shape == r.shape and torch.equal(a, a2), what
+        rel = ((a.double() - r).norm() / r.norm().clamp_min(1e-30)).item()
+        assert rel < 1e-5, (what, rel)
+
+
+@pytest.mark.parametrize("cin,cout,k", [(67, 3, 3), (19, 7, 5), (3, 1, 1)])
+def test_k2f_weights_are_relaid_as_the_plain_version(cuda, cin, cout, k):
+    """``pconv_f32_relay`` in K2F's launch writes ``f32_weight_relayout``'s
+    (k*k, Cin, Cout), and in the backward's ``f32_bwd_weight_relayout``'s
+    (k*k, Cout, Cin), bit for bit."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
+
+    gen = torch.Generator(cuda).manual_seed(cin + cout + k)
+    n, h, w, pad = 1, 5, 6, k // 2
+    x = torch.randn((n, h, w, cin), generator=gen, device=cuda)
+    m = torch.ones((n, h, w, 1), device=cuda)
+    wt = torch.randn((cout, cin, k, k), generator=gen, device=cuda)
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    wk = torch.full((k * k, cin, cout), float("nan"), device=cuda)
+    y, mo = torch.empty((n, h, w, cout), device=cuda), torch.empty((n, h, w, 1), device=cuda)
+    check(lib, lib.tsii_pconv_k2f(x.data_ptr(), m.data_ptr(), wt.data_ptr(), 0, y.data_ptr(),
+                                  mo.data_ptr(), wk.data_ptr(), n, h, w, cin, 1, cin, 0, h, w,
+                                  cout, k, pad, pad, 1, stream), "K2F")
+    wkb = torch.full((k * k, cout, cin), float("nan"), device=cuda)
+    dacc, dx = torch.zeros((n, h, w, cout), device=cuda), torch.empty_like(x)
+    plan = kpc.k2f_bwd_plan(n, h, w, cin, cout, k)
+    check(lib, lib.tsii_pconv_k2f_bwd(dacc.data_ptr(), x.data_ptr(), m.data_ptr(), wt.data_ptr(),
+                                      dx.data_ptr(), 0, wkb.data_ptr(), n, h, w, cin, 1, cin, h, w,
+                                      cout, k, pad, pad, plan.rb, plan.nseg, 1, 0, stream),
+          "K2F's backward")
+    torch.cuda.synchronize()
+    assert torch.equal(wk, kpc.f32_weight_relayout(wt))
+    assert torch.equal(wkb, kpc.f32_bwd_weight_relayout(wt))
+    assert torch.equal(dx, torch.zeros_like(dx))
 
 
 @pytest.mark.parametrize("m,h,w", STEM_EXTRA + ((3, 176, 208),),

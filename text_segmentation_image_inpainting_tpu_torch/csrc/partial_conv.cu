@@ -1385,146 +1385,483 @@ __global__ void __launch_bounds__(K3_THREADS) pconv_k3_mask(const T* x, const T*
 // K1 and K2 in f32, for x.dtype float32 (JAX's Pallas kernels take x's
 // dtype as it comes, with f32 accumulators): SIMT FFMA with f32
 // accumulation, no TF32 and no bf16 anywhere. K1F (Cout >= 8) is
-// `pconv_k1f` below. K2F (Cout <= 7) is `pconv_f32<1, 1>`, a direct
-// convolution: a CTA of 256 threads owns a tile of TH x 16 output pixels
-// of one image and 8 * CG output channels; each thread PPT pixels (rows of
-// the tile, NPT pixel threads apart) x 8 channels. Per chunk of `ck` input channels
-// the tile's input window with its halo is staged in shared memory as
-// x * M (zero outside the image and past Cin), channel-major so that a
-// warp's pixel threads read consecutive words, and the chunk's weights as
-// (tap, channel, 8 * CG); the sums run chunk by chunk, tap by tap, channel
-// by channel: a fixed order, so two launches give the same bits. The
-// epilogue counts each pixel's window (`window_count<float>`), scales,
-// adds the bias and zeroes empty windows, as the bf16 kernels do.
+// `pconv_k1f` below; K2F (Cout <= 7) and its backward are here.
+//
+// K2F v2, `pconv_k2f<COUT, K>` (v1, `pconv_f32<1, 1>`, padded Cout to 8,
+// gathered 8-channel chunks of the window element by element between two
+// barriers and gave a thread one pixel). It replaces `_kernel_small_cout` /
+// `_pallas_forward_small_cout` (partial_conv_kernel.py) for an f32 x. At
+// the U-Net's head (8 x 512^2 x 67 -> 3) reading x bounds it: 562 MB, 0.17
+// ms at 3.35 TB/s, against 0.11 ms for its 3.8 G FFMA at the f32 peak.
+//   - A CTA of 256 threads owns a strip of K2F_TW = 96 output columns of
+//     one image over a band of `rb` output rows (`k2f_plan` picks the band
+//     so that the grid fills whole waves of K2F_CTAS CTAs an SM). It walks
+//     the band's rb + k - 1 input rows through a ring of K2F_RING shared
+//     stages. A stage holds the strip's input row as x lays it out, whole
+//     pixels of all Cin channels, and its pixels' masks (`k2f_fill`): a
+//     67-channel pixel is 268 bytes, only 4-byte aligned, so the row is
+//     copied in 16-byte `cp.async` words of x from the one that holds its
+//     first byte, cutting pixels anywhere, and keeps a phase of 0..3
+//     floats in front. Two rows' copies are in flight while a row's sums
+//     run.
+//   - Lane l owns output pixels 3l .. 3l + 2 of the strip and all COUT
+//     outputs of each; warp w owns input channels [Cin w / 8, Cin (w + 1) /
+//     8). Per input channel a thread reads its k + 2 window pixels (lanes
+//     3 Cin floats apart, odd at Cin 67: no bank conflict), multiplies
+//     each by its group's mask as it leaves shared memory (`masked`: 0 in
+//     a hole, whatever x holds there), and adds it into every output row
+//     the input row reaches: 9 k^2 COUT FFMA from registers per k + 2
+//     shared reads and the channel's k^2 COUT weights (float4 broadcasts).
+//   - Once an output row has seen its last input row, the warps' sums meet
+//     in shared memory and are added in warp order; the epilogue is the
+//     bf16 kernels' (k*k*Cin / max(msum, 1), the bias, 0 in empty windows,
+//     M'), stored as one contiguous run of y. msum is `window_count`'s sum
+//     in its order, taken from a shared ring of the last k input rows'
+//     masks (a count from device memory, 18 dependent loads a pixel,
+//     stalled every row's barrier). Each sum runs over the input rows,
+//     then the warp's channels, then the row's taps, in order: two
+//     launches give the same bits.
+//   - `pconv_f32_relay` re-lays W (OIHW) as (k*k, Cin, Cout) in the
+//     launch (`f32_weight_relayout` in ops/kernels/partial_conv.py is its
+//     plain version); each CTA stages it as (Cin, k*k*COUT padded to 4).
+//
+// Its backward, `pconv_k2f_bwd<COUT, K>`, after `pconv_k3_prep` has
+// written dacc = g * scale * valid and db: dx = conv_transpose(dacc, W) *
+// M and dW = corr(x * M, dacc) in one pass over the input (v1 was two
+// kernels: one whose lanes stored pixels 268 bytes apart, one with 8
+// accumulators for 3 outputs that re-staged x * M element by element). It
+// reads x (562 MB at the head) and writes dx (562 MB): bytes bound it
+// (0.35 ms with dacc and the mask; its 7.6 G FFMA take 0.23 ms).
+//   - A CTA owns a strip of nseg * 32 input columns of one image over a
+//     band of `rb` input rows; thread t owns input channel t % Cin of a
+//     segment of 32 columns (t / Cin), so a warp's lanes are consecutive
+//     channels of one pixel: their x reads are consecutive words and their
+//     dx stores one contiguous run. The x rows come through the forward's
+//     stages (`k2f_fill`, no halo: x is only read where dx is written), the
+//     dacc rows (k - 1 more, with a halo of k - 1 columns, COUT padded to
+//     4 a column) through a ring of their own.
+//   - A thread keeps its channel's k^2 COUT weights and k^2 COUT dW sums
+//     in registers, and slides a k x k x COUT window of dacc along its
+//     segment: per pixel k new columns (float4 broadcasts, shared by the
+//     warp), one x and one mask read, then k^2 COUT FFMA for dx (k blocked
+//     chains, one a window row, added in order) and k^2 COUT for dW.
+//   - dW: each thread's sums run over the band's rows, then its segment's
+//     pixels, in order; the segments meet in shared memory, added in order,
+//     as CTA b's row of f32 partials, which `pconv_colsum` adds in a fixed
+//     order: two launches give the same bits. `pconv_f32_relay` re-lays W
+//     as (k*k, Cout, Cin) in the launch.
+//
+// Both are built for COUT 1..7 and k 1, 3, 5, 7 (`K2F_KS` in
+// ops/kernels/partial_conv.py).
 
-struct F32Params {
-  const float* x;      // (N, H, W, Cin)
+constexpr int K2F_R = 3;             // output pixels a thread owns along a row
+constexpr int K2F_THREADS = 256;     // 8 warps, each a slice of the input channels
+constexpr int K2F_TW = 32 * K2F_R;   // output columns of a strip
+constexpr int K2F_RING = 3;          // input rows in the ring
+constexpr int K2F_CTAS = 2;          // resident CTAs an SM
+constexpr int HB_SEG = 32;           // input columns of a backward thread's segment
+constexpr int HB_NSEG = 8;           // most segments of a backward strip
+constexpr int HB_THREADS = 256;      // most threads of a backward CTA
+constexpr int HB_RING = 3;           // x rows in the backward's ring
+
+// Floats of the x part of a stage of `pixels` pixels: a phase of up to 3
+// floats in front, the last 16-byte copy up to 3 floats past.
+__host__ __device__ inline int k2f_row_floats(int pixels, int cin) {
+  return (pixels * cin + 6 + 3) / 4 * 4;
+}
+// Floats of a stage: the x row, then 2 mask floats a pixel.
+__host__ __device__ inline int k2f_stage_floats(int pixels, int cin) {
+  return (k2f_row_floats(pixels, cin) + 2 * pixels + 3) / 4 * 4;
+}
+inline size_t k2f_smem_bytes(int cin, int cout, int k) {
+  const int wpc = (k * k * cout + 3) / 4 * 4;
+  return (size_t)(K2F_RING * k2f_stage_floats(K2F_TW + k - 1, cin) + cin * wpc +
+                  8 * K2F_TW * cout + 2 * k * (K2F_TW + k - 1)) * 4;
+}
+// The ring (x rows and masks; HB_RING + k - 1 dacc rows) or, once the band
+// is done, the segments' dW sums, whichever is larger.
+inline size_t k2f_bwd_smem_bytes(int cin, int cout, int k, int nseg) {
+  const int tw = nseg * HB_SEG;
+  const size_t ring = (size_t)HB_RING * k2f_stage_floats(tw, cin) +
+                      (size_t)(HB_RING + k - 1) * (tw + k - 1) * ((cout + 3) / 4 * 4);
+  const size_t red = (size_t)nseg * k * k * cout * cin;
+  return (ring > red ? ring : red) * 4;
+}
+
+// W (Cout, Cin, k, k) -> K2F's (k*k, Cin, Cout) (bwd 0) or the backward's
+// (k*k, Cout, Cin) (bwd 1).
+__global__ void pconv_f32_relay(const float* __restrict__ w, float* __restrict__ out, int cout,
+                                int cin, int kk, int bwd) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cout * cin * kk) return;
+  const int tap = i % kk, r = i / kk, c = r % cin, o = r / cin;
+  out[bwd ? ((size_t)tap * cout + o) * cin + c : ((size_t)tap * cin + c) * cout + o] = w[i];
+}
+
+// Pixel iw of an input row lands at (iw - iw0) * Cin + c + phase of its
+// stage, where phase = ((row's pixel iw0) * Cin) mod 4.
+__device__ __forceinline__ int k2f_phase(int n, int h, int w_in, int cin, int ih, int iw0) {
+  return (int)((((long long)n * h + ih) * w_in + iw0) * cin & 3);
+}
+
+// Copies pixels [iw0, iw0 + np) of input row ih of image n into `stage`:
+// with `copy_x`, x's 16-byte words from the one that holds the first
+// in-image pixel's first byte to the one that holds the last one's last
+// (the last cut at x's end), so that pixel iw channel c lands at (iw - iw0)
+// * Cin + c + phase; then the pixels' G masks at rowf + 2 (iw - iw0) + g,
+// zero outside the image. A pixel outside the image keeps what the stage
+// held: its mask is 0, and `masked` gives 0 whatever x holds.
+__device__ __forceinline__ void k2f_fill(const float* x, const float* mask, long long x_floats,
+                                         int n, int h, int w_in, int cin, int g, int ih, int iw0,
+                                         int np, float* stage, int rowf, bool copy_x, int tid,
+                                         int nth) {
+  const long long rp = ((long long)n * h + ih) * w_in;  // the row's pixel 0 in x
+  const int a = max(iw0, 0), e = min(iw0 + np, w_in);
+  if (copy_x && a < e) {
+    const long long al = ((rp + iw0) * cin) & ~3ll;  // x's float at the stage's float 0
+    const long long q0 = ((rp + a) * cin) & ~3ll, q1 = ((rp + e) * cin + 3) & ~3ll;
+    for (long long q = q0 + 4ll * tid; q < q1; q += 4ll * nth) {
+      const long long left = x_floats - q;
+      cp_async16(smem_u32(stage + (q - al)), x + q, left >= 4 ? 16 : (int)left * 4);
+    }
+  }
+  float* ms = stage + rowf;
+  for (int i = tid; i < np * g; i += nth) {
+    const int j = i / g, gg = i - j * g, iw = iw0 + j;
+    const bool in = iw >= 0 && iw < w_in;
+    cp_async4(smem_u32(ms + 2 * j + gg), in ? mask + (rp + iw) * g + gg : mask, in ? 4 : 0);
+  }
+}
+
+struct K2fParams {
+  const float* x;      // (N, H, W, Cin), 16-byte aligned
   const float* mask;   // (N, H, W, G)
-  const float* w;      // (k*k, Cin, Cout)
+  const float* w;      // (k*k, Cin, Cout), re-laid in the launch
   const float* bias;   // (Cout) or nullptr
   float* y;            // (N, Hout, Wout, Cout)
   float* mask_out;     // (N, Hout, Wout, 1)
-  int n, h, w_in, cin, g, size0, size1, hout, wout, cout, k, ph, pw, ck;
+  long long x_floats;  // N * H * W * Cin
+  int n, h, w_in, cin, g, size0, size1, hout, wout, cout, k, ph, pw, rb;
 };
 
-constexpr int F32_THREADS = 256;
-constexpr int F32_TW = 16;  // output columns of a tile
-
-template <int CG, int PPT>
-struct F32Tile {
-  static constexpr int NPT = F32_THREADS / CG;  // pixel threads
-  static constexpr int TH = NPT * PPT / F32_TW;  // output rows of a tile
-  static constexpr int COT = 8 * CG;             // output channels of a CTA
-};
-
-// Shared floats of one chunk's input window, padded to 16 bytes.
-__host__ __device__ inline int f32_window(int th, int k) {
-  return ((th + k - 1) * (F32_TW + k - 1) + 3) / 4 * 4;
+// One input row's channels [ca, cb) into the K output rows it reaches:
+// acc[d] is output row ih + ph - (K - 1) + d. xb: the thread's first window
+// pixel in the stage; mv: its window pixels' masks for these channels.
+template <int COUT, int K>
+__device__ __forceinline__ void k2f_row(float (&acc)[K][K2F_R][COUT], const float* xb,
+                                        const float* ws, const float (&mv)[K2F_R + K - 1],
+                                        int ca, int cb, int cin) {
+  constexpr int NW = K2F_R + K - 1, WPC = (K * K * COUT + 3) / 4 * 4;
+  for (int c = ca; c < cb; ++c) {
+    float xv[NW], w[WPC];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) xv[i] = masked(xb[i * cin + c], mv[i]);
+#pragma unroll
+    for (int v = 0; v < WPC / 4; ++v) {
+      const float4 t = reinterpret_cast<const float4*>(ws + c * WPC)[v];
+      w[4 * v] = t.x; w[4 * v + 1] = t.y; w[4 * v + 2] = t.z; w[4 * v + 3] = t.w;
+    }
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < K; ++dx)
+#pragma unroll
+        for (int j = 0; j < K2F_R; ++j)
+#pragma unroll
+          for (int o = 0; o < COUT; ++o)
+            acc[K - 1 - dy][j][o] =
+                fmaf(xv[j + dx], w[(dy * K + dx) * COUT + o], acc[K - 1 - dy][j][o]);
+  }
 }
 
-template <int CG, int PPT>
-__global__ void __launch_bounds__(F32_THREADS) pconv_f32(const F32Params p) {
-  using Tile = F32Tile<CG, PPT>;
-  extern __shared__ __align__(16) float f32_smem[];
-  const int ck = p.ck, kk = p.k * p.k;
-  const int ww = F32_TW + p.k - 1, win = f32_window(Tile::TH, p.k);
-  float* xs = f32_smem;            // [ck][window]
-  float* ws = f32_smem + ck * win;  // [k*k][ck][COT]
-  const int tiles_w = (p.wout + F32_TW - 1) / F32_TW;
-  const int oh0 = (int)(blockIdx.x / tiles_w) * Tile::TH;
-  const int ow0 = (int)(blockIdx.x % tiles_w) * F32_TW;
-  const int co0 = blockIdx.y * Tile::COT, n = blockIdx.z;
-  const int tid = threadIdx.x, pt = tid % Tile::NPT, cg = tid / Tile::NPT;
-  int prow[PPT], pcol[PPT];
-  float acc[PPT][8];
+template <int COUT, int K>
+__global__ void __launch_bounds__(K2F_THREADS, K2F_CTAS) pconv_k2f(const K2fParams p) {
+  constexpr int R = K2F_R, TW = K2F_TW, NW = R + K - 1, NP = TW + K - 1;
+  constexpr int WPC = (K * K * COUT + 3) / 4 * 4;
+  extern __shared__ __align__(16) float k2f_smem[];
+  const int cin = p.cin, rowf = k2f_row_floats(NP, cin), stage = k2f_stage_floats(NP, cin);
+  float* ws = k2f_smem + K2F_RING * stage;  // [Cin][WPC]
+  float* red = ws + cin * WPC;               // [8][TW * COUT]: the warps' sums of a row
+  float* mring = red + 8 * TW * COUT;        // [K][NP][2]: the last K input rows' masks
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int strips = (p.wout + TW - 1) / TW, bands = (p.hout + p.rb - 1) / p.rb;
+  const int strip = blockIdx.x % strips, band = blockIdx.x / strips % bands;
+  const int n = blockIdx.x / strips / bands;
+  const int ow0 = strip * TW, oh0 = band * p.rb, oh1 = min(oh0 + p.rb, p.hout);
+  const int iw0 = ow0 - p.pw, ih0 = oh0 - p.ph, rows = oh1 - oh0 + K - 1;
+  auto fill = [&](int r) {
+    const int ih = ih0 + r;
+    if (ih >= 0 && ih < p.h)
+      k2f_fill(p.x, p.mask, p.x_floats, n, p.h, p.w_in, cin, p.g, ih, iw0, NP,
+               k2f_smem + r % K2F_RING * stage, rowf, true, tid, K2F_THREADS);
+  };
 #pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    prow[j] = (pt + j * Tile::NPT) / F32_TW;
-    pcol[j] = (pt + j * Tile::NPT) % F32_TW;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[j][e] = 0.f;
+  for (int r = 0; r < K2F_RING - 1; ++r) {
+    if (r < rows) fill(r);
+    cp_async_commit();
   }
-  const int wrows = Tile::TH + p.k - 1;
-  for (int c0 = 0; c0 < p.cin; c0 += ck) {
-    __syncthreads();
-    for (int i = tid; i < ck * wrows * ww; i += F32_THREADS) {
-      const int cc = i % ck, r = i / ck, ty = r / ww, tx = r % ww;
-      const int ih = oh0 + ty - p.ph, iw = ow0 + tx - p.pw, c = c0 + cc;
-      float v = 0.f;
-      if (c < p.cin && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
-        const size_t pix = ((size_t)n * p.h + ih) * p.w_in + iw;
-        v = masked(p.x[pix * p.cin + c], p.mask[pix * p.g + (c < p.size0 ? 0 : 1)]);
-      }
-      xs[cc * win + r] = v;
-    }
-    for (int i = tid; i < kk * ck * Tile::COT; i += F32_THREADS) {
-      const int co = i % Tile::COT, r = i / Tile::COT, cc = r % ck, tap = r / ck;
-      const int c = c0 + cc, o = co0 + co;
-      ws[i] = (c < p.cin && o < p.cout) ? p.w[((size_t)tap * p.cin + c) * p.cout + o] : 0.f;
-    }
-    __syncthreads();
-    for (int tap = 0; tap < kk; ++tap) {
-      const int dy = tap / p.k, dx = tap - dy * p.k;
-      for (int cc = 0; cc < ck; ++cc) {
-        const float* wv = ws + (tap * ck + cc) * Tile::COT + cg * 8;
-        const float4 wa = *reinterpret_cast<const float4*>(wv);
-        const float4 wb = *reinterpret_cast<const float4*>(wv + 4);
-        const float* xr = xs + cc * win;
+  for (int i = tid; i < cin * K * K * COUT; i += K2F_THREADS) {
+    const int o = i % COUT, r = i / COUT, c = r % cin, tap = r / cin;
+    ws[c * WPC + tap * COUT + o] = p.w[i];
+  }
+  const int c_lo = warp * cin / 8, c_hi = (warp + 1) * cin / 8;
+  const int c_mid = min(max(p.size0, c_lo), c_hi);  // group 1 from channel size0
+  const float kkc = (float)(K * K * cin);
+  float acc[K][R][COUT];
 #pragma unroll
-        for (int j = 0; j < PPT; ++j) {
-          const float xv = xr[(prow[j] + dy) * ww + pcol[j] + dx];
-          acc[j][0] = fmaf(xv, wa.x, acc[j][0]);
-          acc[j][1] = fmaf(xv, wa.y, acc[j][1]);
-          acc[j][2] = fmaf(xv, wa.z, acc[j][2]);
-          acc[j][3] = fmaf(xv, wa.w, acc[j][3]);
-          acc[j][4] = fmaf(xv, wb.x, acc[j][4]);
-          acc[j][5] = fmaf(xv, wb.y, acc[j][5]);
-          acc[j][6] = fmaf(xv, wb.z, acc[j][6]);
-          acc[j][7] = fmaf(xv, wb.w, acc[j][7]);
+  for (int d = 0; d < K; ++d)
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+      for (int o = 0; o < COUT; ++o) acc[d][j][o] = 0.f;
+  for (int r = 0; r < rows; ++r) {
+    cp_async_wait<K2F_RING - 2>();  // this thread's copies of row r have landed
+    __syncthreads();                // everyone's; and row r - 1's stage is read
+    if (r + K2F_RING - 1 < rows) fill(r + K2F_RING - 1);
+    cp_async_commit();
+    const int ih = ih0 + r;
+    const bool in = ih >= 0 && ih < p.h;
+    const float* st = k2f_smem + r % K2F_RING * stage;
+    for (int i = tid; i < 2 * NP; i += K2F_THREADS)  // 0 for a row outside the image
+      mring[r % K * 2 * NP + i] = in ? st[rowf + i] : 0.f;
+    if (in) {  // a row outside the image adds nothing
+      const float* xb = st + lane * R * cin + k2f_phase(n, p.h, p.w_in, cin, ih, iw0);
+      const float* mb = st + rowf + lane * R * 2;
+      float m0[NW], m1[NW];
+#pragma unroll
+      for (int i = 0; i < NW; ++i) {
+        m0[i] = mb[2 * i];
+        m1[i] = mb[2 * i + 1];
+      }
+      k2f_row<COUT, K>(acc, xb, ws, m0, c_lo, c_mid, cin);
+      k2f_row<COUT, K>(acc, xb, ws, m1, c_mid, c_hi, cin);
+    }
+    const int oh = ih + p.ph - (K - 1);  // the output row this input row completes
+    if (oh >= oh0) {
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int o = 0; o < COUT; ++o) red[(warp * TW + lane * R + j) * COUT + o] = acc[0][j][o];
+      __syncthreads();
+      const size_t pix0 = ((size_t)n * p.hout + oh) * p.wout + ow0;
+      const int ne = min(TW, p.wout - ow0) * COUT;
+      for (int e = tid; e < ne; e += K2F_THREADS) {
+        float s = red[e];
+#pragma unroll
+        for (int wp = 1; wp < 8; ++wp) s += red[wp * TW * COUT + e];
+        // window_count's sums in its order, from the ring (0 outside the image)
+        const int jp = e / COUT, o = e - jp * COUT;
+        float c0 = 0.f, c1 = 0.f;
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy) {
+          const float* mr = mring + (r + 1 + dy) % K * 2 * NP + 2 * jp;
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx) {
+            c0 += mr[2 * dx];
+            if (p.g == 2) c1 += mr[2 * dx + 1];
+          }
         }
+        const float msum = __fadd_rn(__fmul_rn((float)p.size0, c0), __fmul_rn((float)p.size1, c1));
+        const float scale = msum > 0.f ? kkc / fmaxf(msum, 1.f) : 0.f;
+        p.y[pix0 * COUT + e] = epilogue(s, scale, p.bias ? p.bias[o] : 0.f);
+        if (o == 0) p.mask_out[pix0 + jp] = msum > 0.f ? 1.f : 0.f;
       }
     }
-  }
-  Params q;  // window_count's view of the geometry
-  q.mask = reinterpret_cast<const __nv_bfloat16*>(p.mask);
-  q.h = p.h; q.w_in = p.w_in; q.g = p.g; q.size0 = p.size0; q.size1 = p.size1;
-  q.k = p.k; q.ph = p.ph; q.pw = p.pw;
-  const float kkc = (float)(kk * p.cin);
 #pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    const int oh = oh0 + prow[j], ow = ow0 + pcol[j];
-    if (oh >= p.hout || ow >= p.wout) continue;
-    const float msum = window_count<float>(q, n, oh, ow);
-    const float scale = msum > 0.f ? kkc / fmaxf(msum, 1.f) : 0.f;
-    const size_t pix = ((size_t)n * p.hout + oh) * p.wout + ow;
+    for (int d = 0; d < K; ++d)  // the next input row starts one output row further down
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int o = co0 + cg * 8 + e;
-      if (o < p.cout) p.y[pix * p.cout + o] = epilogue(acc[j][e], scale, p.bias ? p.bias[o] : 0.f);
-    }
-    if (blockIdx.y == 0 && cg == 0) p.mask_out[pix] = msum > 0.f ? 1.f : 0.f;
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int o = 0; o < COUT; ++o) acc[d][j][o] = d + 1 < K ? acc[d + 1][j][o] : 0.f;
   }
+  cp_async_wait<0>();
 }
 
-template <int CG, int PPT>
-cudaError_t launch_f32(F32Params p, cudaStream_t stream) {
-  using Tile = F32Tile<CG, PPT>;
-  const int kk = p.k * p.k, win = f32_window(Tile::TH, p.k);
-  int ck = 8;  // input channels per staged chunk: as many of 8, 4, 2, 1 as fit
-  while (ck > 1 && (size_t)ck * (win + kk * Tile::COT) * sizeof(float) > 200 * 1024) ck /= 2;
-  const size_t smem = (size_t)ck * (win + kk * Tile::COT) * sizeof(float);
+template <int COUT, int K>
+cudaError_t launch_k2f(const K2fParams& p, cudaStream_t s) {
+  const size_t smem = k2f_smem_bytes(p.cin, COUT, K);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  p.ck = ck;
-  cudaError_t e = cudaFuncSetAttribute(pconv_f32<CG, PPT>,
+  cudaError_t e = cudaFuncSetAttribute(pconv_k2f<COUT, K>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const long long tiles = (long long)((p.hout + Tile::TH - 1) / Tile::TH) *
-                          ((p.wout + F32_TW - 1) / F32_TW);
-  const int cot = (p.cout + Tile::COT - 1) / Tile::COT;
-  if (tiles >= (1ll << 31) || cot > 65535 || p.n > 65535) return cudaErrorInvalidValue;
-  pconv_f32<CG, PPT><<<dim3((unsigned)tiles, cot, p.n), F32_THREADS, smem, stream>>>(p);
+  const long long grid = (long long)p.n * ((p.hout + p.rb - 1) / p.rb) *
+                         ((p.wout + K2F_TW - 1) / K2F_TW);
+  if (grid >= (1ll << 31)) return cudaErrorInvalidValue;
+  pconv_k2f<COUT, K><<<(unsigned)grid, K2F_THREADS, smem, s>>>(p);
   return cudaGetLastError();
 }
+
+struct K2fBwdParams {
+  const float* dacc;   // (N, Hout, Wout, Cout): g * scale * valid
+  const float* x;      // (N, H, W, Cin), 16-byte aligned
+  const float* mask;   // (N, H, W, G)
+  const float* w;      // (k*k, Cout, Cin), re-laid in the launch
+  float* dx;           // (N, H, W, Cin) when need_dx
+  float* part;         // (grid, k*k*Cout*Cin) when need_dw: CTA b's dW as (tap, o, c)
+  long long x_floats;  // N * H * W * Cin
+  int n, h, w_in, cin, g, size0, hout, wout, cout, k, ph, pw, rb, nseg, need_dx, need_dw;
+};
+
+// COUT floats of a padded dacc column.
+template <int COUT>
+__device__ __forceinline__ void load_cout(float (&d)[COUT], const float* src) {
+#pragma unroll
+  for (int v = 0; v < (COUT + 3) / 4; ++v) {
+    const float4 t = reinterpret_cast<const float4*>(src)[v];
+    const float e[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * v + i < COUT) d[4 * v + i] = e[i];
+  }
+}
+
+template <int COUT, int K>
+__global__ void __launch_bounds__(HB_THREADS, K2F_CTAS) pconv_k2f_bwd(const K2fBwdParams p) {
+  constexpr int CP = (COUT + 3) / 4 * 4, KKC = K * K * COUT, SD = HB_RING + K - 1;
+  constexpr int UNROLL = KKC <= 27 ? HB_SEG : 1;  // a segment's pixels, for small windows
+  extern __shared__ __align__(16) float hb_smem[];
+  const int cin = p.cin, tw = p.nseg * HB_SEG, nth = blockDim.x, tid = threadIdx.x;
+  const int rowf = k2f_row_floats(tw, cin), stage = k2f_stage_floats(tw, cin);
+  const int dpitch = (tw + K - 1) * CP;         // floats of a dacc row
+  float* drows = hb_smem + HB_RING * stage;     // [SD][tw + K - 1][CP]
+  const int c = tid % cin, seg = tid / cin;
+  const int strips = (p.w_in + tw - 1) / tw, bands = (p.h + p.rb - 1) / p.rb;
+  const int strip = blockIdx.x % strips, band = blockIdx.x / strips % bands;
+  const int n = blockIdx.x / strips / bands;
+  const int iw0 = strip * tw, ih0 = band * p.rb, rows = min(p.rb, p.h - ih0);
+  // dacc row a, column q of the ring: output (dh0 + a, dw0 + q)
+  const int dh0 = ih0 + p.ph - (K - 1), dw0 = iw0 + p.pw - (K - 1);
+  auto fill_dacc = [&](int a) {
+    float* dst = drows + a % SD * dpitch;
+    const int oh = dh0 + a;
+    const bool row_in = oh >= 0 && oh < p.hout;
+    for (int i = tid; i < (tw + K - 1) * COUT; i += nth) {
+      const int qc = i / COUT, o = i - qc * COUT, ow = dw0 + qc;
+      const bool in = row_in && ow >= 0 && ow < p.wout;
+      cp_async4(smem_u32(dst + qc * CP + o),
+                in ? p.dacc + (((size_t)n * p.hout + oh) * p.wout + ow) * COUT + o : p.dacc,
+                in ? 4 : 0);
+    }
+  };
+  auto fill = [&](int r) {  // input row r of the band, and the dacc row it is the last to need
+    k2f_fill(p.x, p.mask, p.x_floats, n, p.h, p.w_in, cin, p.g, ih0 + r, iw0, tw,
+             hb_smem + r % HB_RING * stage, rowf, p.need_dw != 0, tid, nth);
+    fill_dacc(r + K - 1);
+  };
+  for (int a = 0; a < K - 1; ++a) fill_dacc(a);
+#pragma unroll
+  for (int r = 0; r < HB_RING - 1; ++r) {
+    if (r < rows) fill(r);
+    cp_async_commit();
+  }
+  const bool act = seg < p.nseg;
+  const int sa = seg * HB_SEG, sb = act ? min(sa + HB_SEG, p.w_in - iw0) : sa;
+  const int gsel = p.g == 2 && c >= p.size0 ? 1 : 0;
+  float wr[KKC], acc[KKC];
+#pragma unroll
+  for (int t = 0; t < KKC; ++t) {
+    wr[t] = act && p.need_dx ? p.w[(size_t)t * cin + c] : 0.f;
+    acc[t] = 0.f;
+  }
+  for (int r = 0; r < rows; ++r) {
+    cp_async_wait<HB_RING - 2>();
+    __syncthreads();
+    if (r + HB_RING - 1 < rows) fill(r + HB_RING - 1);
+    cp_async_commit();
+    if (sa >= sb) continue;
+    const int ih = ih0 + r;
+    const float* st = hb_smem + r % HB_RING * stage;
+    const float* xr = st + k2f_phase(n, p.h, p.w_in, cin, ih, iw0) + c;  // pixel j: xr[j * Cin]
+    const float* mr = st + rowf + gsel;                                  // pixel j: mr[2 j]
+    const float* dr[K];  // window row dy: output row ih + ph - dy
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy) dr[dy] = drows + (r + K - 1 - dy) % SD * dpitch;
+    float d[K][K][COUT];  // d[dy][dx]: output (ih + ph - dy, iw + pw - dx), column j + K - 1 - dx
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+      for (int dx = 1; dx < K; ++dx) load_cout<COUT>(d[dy][dx], dr[dy] + (sa + K - 1 - dx) * CP);
+    float* dxp =
+        p.need_dx ? p.dx + (((size_t)n * p.h + ih) * p.w_in + iw0) * cin + c : nullptr;
+#pragma unroll UNROLL
+    for (int u = 0; u < HB_SEG; ++u) {
+      const int j = sa + u;
+      if (j >= sb) break;
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy) load_cout<COUT>(d[dy][0], dr[dy] + (j + K - 1) * CP);
+      const float m = mr[2 * j];
+      if (p.need_dx) {
+        float t = 0.f;
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy) {
+          float s = 0.f;
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx)
+#pragma unroll
+            for (int o = 0; o < COUT; ++o) s = fmaf(d[dy][dx][o], wr[(dy * K + dx) * COUT + o], s);
+          t = dy == 0 ? s : t + s;
+        }
+        dxp[(size_t)j * cin] = masked(t, m);
+      }
+      if (p.need_dw) {
+        const float xm = masked(xr[j * cin], m);
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx)
+#pragma unroll
+            for (int o = 0; o < COUT; ++o)
+              acc[(dy * K + dx) * COUT + o] = fmaf(xm, d[dy][dx][o], acc[(dy * K + dx) * COUT + o]);
+      }
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy)  // one column on: each window column moves a tap right
+#pragma unroll
+        for (int dx = K - 1; dx > 0; --dx)
+#pragma unroll
+          for (int o = 0; o < COUT; ++o) d[dy][dx][o] = d[dy][dx - 1][o];
+    }
+  }
+  cp_async_wait<0>();
+  if (!p.need_dw) return;
+  __syncthreads();  // the ring is free: the segments' sums, then CTA b's row of partials
+  float* red = hb_smem;  // [nseg][KKC][Cin]
+  if (act)
+#pragma unroll
+    for (int t = 0; t < KKC; ++t) red[((size_t)seg * KKC + t) * cin + c] = acc[t];
+  __syncthreads();
+  const int len = KKC * cin;
+  for (int i = tid; i < len; i += nth) {
+    float s = red[i];
+    for (int sg = 1; sg < p.nseg; ++sg) s += red[(size_t)sg * len + i];
+    p.part[(size_t)blockIdx.x * len + i] = s;
+  }
+}
+
+template <int COUT, int K>
+cudaError_t launch_k2f_bwd(const K2fBwdParams& p, cudaStream_t s) {
+  const size_t smem = k2f_bwd_smem_bytes(p.cin, COUT, K, p.nseg);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(pconv_k2f_bwd<COUT, K>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int tw = p.nseg * HB_SEG, threads = (p.nseg * p.cin + 31) / 32 * 32;
+  const long long grid = (long long)p.n * ((p.h + p.rb - 1) / p.rb) * ((p.w_in + tw - 1) / tw);
+  if (grid >= (1ll << 31)) return cudaErrorInvalidValue;
+  pconv_k2f_bwd<COUT, K><<<(unsigned)grid, threads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// Dispatch on (COUT, K) over the built instances: CALL(C, K) for each.
+#define TSII_K2F_COUT(C, CALL) \
+  case C * 8 + 1: CALL(C, 1) case C * 8 + 3: CALL(C, 3) case C * 8 + 5: CALL(C, 5) \
+  case C * 8 + 7: CALL(C, 7)
+#define TSII_K2F_SWITCH(cout, k, CALL)                                                \
+  switch ((cout) * 8 + (k)) {                                                          \
+    TSII_K2F_COUT(1, CALL) TSII_K2F_COUT(2, CALL) TSII_K2F_COUT(3, CALL)               \
+    TSII_K2F_COUT(4, CALL) TSII_K2F_COUT(5, CALL) TSII_K2F_COUT(6, CALL)               \
+    TSII_K2F_COUT(7, CALL)                                                             \
+    default: return (int)cudaErrorInvalidValue;                                        \
+  }
 
 // K1F v2, the f32 form at Cout >= 8 (v1 was `pconv_f32<8, 4>`: 4 pixels x
 // 8 channels a thread, chunks of 8 channels staged by scalar loads between
@@ -1821,143 +2158,6 @@ cudaError_t launch_k1f(const K1fParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The f32 form of K2's backward (Cout <= 7), after `pconv_k3_prep` has
-// written dacc = g * scale (f32) and db. Two SIMT kernels, FFMA in f32:
-//   - `pconv_f32_bwd_dx`: dx = conv_transpose(dacc, W) * M. A CTA owns 16 x
-//     16 input pixels of one image, a thread one pixel: the tile's window
-//     of dacc (k - 1 rows and columns more, 8 slots a pixel) and a chunk of
-//     16 input channels of the weights are staged in shared memory; for
-//     each tap and output channel a thread reads its dacc value once and
-//     adds it times the chunk's 16 weights (a broadcast) into 16 sums.
-//   - `pconv_f32_bwd_dw`: dW = corr(x * M, dacc). A thread owns one (input
-//     channel, tap) pair of a chunk of 256 / k^2 channels (at most 32) and all Cout
-//     outputs; a CTA walks the 16 x 16 output tiles b, b + grid, ... of the
-//     batch, staging each tile's x * M window and dacc, and writes its
-//     sums as row b of the f32 partials, which `pconv_colsum` adds in a
-//     fixed order: two launches give the same bits.
-
-struct F32Bwd {
-  const float* dacc;  // (N, Hout, Wout, Cout)
-  const float* x;     // (N, H, W, Cin)
-  const float* mask;  // (N, H, W, G)
-  const float* w;     // (k*k, Cout, Cin)
-  float* dx;          // (N, H, W, Cin)
-  float* part;        // (grid, k*k*Cout*Cin): row b = CTA b's dW as (tap, o, c)
-  int n, h, w_in, cin, g, size0, hout, wout, cout, k, ph, pw;
-};
-
-constexpr int F32B_T = 16;   // tile edge, pixels
-constexpr int F32B_CC = 16;  // input channels of a dx chunk
-constexpr int F32B_O = 8;    // dacc slots a pixel (Cout <= 7)
-
-// Input channels of a dW chunk: a thread per (channel, tap), at most 32.
-__host__ __device__ inline int f32b_channels(int kk) { return 256 / kk < 32 ? 256 / kk : 32; }
-
-__global__ void __launch_bounds__(256) pconv_f32_bwd_dx(const F32Bwd p) {
-  extern __shared__ __align__(16) float f32b_smem[];
-  const int k = p.k, kk = k * k, tid = threadIdx.x;
-  const int ww = F32B_T + k - 1;
-  float* ds = f32b_smem;                 // [ww * ww][8]: the tile's dacc window
-  float* ws = f32b_smem + ww * ww * F32B_O;  // [kk][8][CC]: a chunk of the weights
-  const int tiles_w = (p.w_in + F32B_T - 1) / F32B_T;
-  const int ih0 = (int)(blockIdx.x / tiles_w) * F32B_T, iw0 = (int)(blockIdx.x % tiles_w) * F32B_T;
-  const int n = blockIdx.z;
-  // input pixel (ih, iw) takes output (ih - dy + ph, iw - dx + pw) at tap (dy, dx)
-  const int oh0 = ih0 + p.ph - (k - 1), ow0 = iw0 + p.pw - (k - 1);
-  for (int i = tid; i < ww * ww * F32B_O; i += 256) {
-    const int o = i % F32B_O, r = i / F32B_O, oh = oh0 + r / ww, ow = ow0 + r % ww;
-    ds[i] = (o < p.cout && oh >= 0 && oh < p.hout && ow >= 0 && ow < p.wout)
-                ? p.dacc[(((size_t)n * p.hout + oh) * p.wout + ow) * p.cout + o] : 0.f;
-  }
-  const int ty = tid / F32B_T, tx = tid % F32B_T, ih = ih0 + ty, iw = iw0 + tx;
-  const bool in = ih < p.h && iw < p.w_in;
-  const size_t pix = ((size_t)n * p.h + ih) * p.w_in + iw;
-  const float m0 = in ? p.mask[pix * p.g] : 0.f;
-  const float m1 = in && p.g == 2 ? p.mask[pix * p.g + 1] : m0;
-  for (int c0 = 0; c0 < p.cin; c0 += F32B_CC) {
-    __syncthreads();
-    for (int i = tid; i < kk * F32B_O * F32B_CC; i += 256) {
-      const int cc = i % F32B_CC, r = i / F32B_CC, o = r % F32B_O, tap = r / F32B_O;
-      const int c = c0 + cc;
-      ws[i] = (o < p.cout && c < p.cin) ? p.w[((size_t)tap * p.cout + o) * p.cin + c] : 0.f;
-    }
-    __syncthreads();
-    float acc[F32B_CC];
-#pragma unroll
-    for (int cc = 0; cc < F32B_CC; ++cc) acc[cc] = 0.f;
-    for (int tap = 0; tap < kk; ++tap) {
-      const int dy = tap / k, dx = tap - dy * k;
-      const float* d = ds + ((ty + k - 1 - dy) * ww + (tx + k - 1 - dx)) * F32B_O;
-      for (int o = 0; o < p.cout; ++o) {
-        const float dv = d[o];
-        const float* wv = ws + (tap * F32B_O + o) * F32B_CC;
-#pragma unroll
-        for (int cc = 0; cc < F32B_CC; ++cc) acc[cc] = fmaf(dv, wv[cc], acc[cc]);
-      }
-    }
-    if (in) {
-#pragma unroll
-      for (int cc = 0; cc < F32B_CC; ++cc) {
-        const int c = c0 + cc;
-        if (c < p.cin) p.dx[pix * p.cin + c] = masked(acc[cc], c < p.size0 ? m0 : m1);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(256) pconv_f32_bwd_dw(const F32Bwd p) {
-  extern __shared__ __align__(16) float f32b_smem[];
-  const int k = p.k, kk = k * k, tid = threadIdx.x;
-  const int ccw = f32b_channels(kk), ww = F32B_T + k - 1, win = ww * ww;
-  float* xs = f32b_smem;                       // [ccw][win]: x * M of the tile's window
-  float* ds = f32b_smem + ccw * win;           // [256][8]: the tile's dacc
-  const int c0 = blockIdx.y * ccw, my_c = tid / kk, tap = tid - my_c * kk;
-  const bool act = my_c < ccw && c0 + my_c < p.cin;
-  const int dy = tap / k, dx = tap - dy * k;
-  const int tiles_w = (p.wout + F32B_T - 1) / F32B_T, tiles_h = (p.hout + F32B_T - 1) / F32B_T;
-  const long long tiles = (long long)p.n * tiles_h * tiles_w;
-  float acc[F32B_O];
-#pragma unroll
-  for (int o = 0; o < F32B_O; ++o) acc[o] = 0.f;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int n = (int)(t / (tiles_h * tiles_w)), r0 = (int)(t % (tiles_h * tiles_w));
-    const int oh0 = (r0 / tiles_w) * F32B_T, ow0 = (r0 % tiles_w) * F32B_T;
-    __syncthreads();
-    for (int i = tid; i < ccw * win; i += 256) {
-      const int cc = i % ccw, r = i / ccw, c = c0 + cc;
-      const int ih = oh0 - p.ph + r / ww, iw = ow0 - p.pw + r % ww;
-      float v = 0.f;
-      if (c < p.cin && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
-        const size_t pix = ((size_t)n * p.h + ih) * p.w_in + iw;
-        v = masked(p.x[pix * p.cin + c], p.mask[pix * p.g + (c < p.size0 ? 0 : 1)]);
-      }
-      xs[cc * win + r] = v;
-    }
-    for (int i = tid; i < F32B_T * F32B_T * F32B_O; i += 256) {
-      const int o = i % F32B_O, q = i / F32B_O;
-      const int oh = oh0 + q / F32B_T, ow = ow0 + q % F32B_T;
-      ds[i] = (o < p.cout && oh < p.hout && ow < p.wout)
-                  ? p.dacc[(((size_t)n * p.hout + oh) * p.wout + ow) * p.cout + o] : 0.f;
-    }
-    __syncthreads();
-    if (!act) continue;
-    const float* xr = xs + my_c * win + dy * ww + dx;
-    for (int py = 0; py < F32B_T; ++py) {
-      for (int px = 0; px < F32B_T; ++px) {
-        const float xv = xr[py * ww + px];
-        const float* d = ds + (py * F32B_T + px) * F32B_O;
-#pragma unroll
-        for (int o = 0; o < F32B_O; ++o) acc[o] = fmaf(xv, d[o], acc[o]);
-      }
-    }
-  }
-  if (act) {
-    const size_t row = (size_t)blockIdx.x * kk * p.cout * p.cin;
-    for (int o = 0; o < p.cout; ++o)
-      p.part[row + ((size_t)tap * p.cout + o) * p.cin + c0 + my_c] = acc[o];
-  }
-}
-
 // out[c] = sum over r of part[r, c], rows added in a fixed order: thread
 // (x, y) adds rows y, y + 8, ... of column x, then the 8 sums in order.
 __global__ void __launch_bounds__(256) pconv_colsum(const float* part, float* out, int rows,
@@ -2178,49 +2378,46 @@ int tsii_pconv_k3_mask_f32(const void* x, const void* mask, void* out, long long
   return launch_k3_mask<float>(x, mask, out, pixels, c, g, size0, stream);
 }
 
-// K2's backward in f32 (Cout <= 7), after pconv_k3_prep: dacc (n, hout, wout,
-// cout) f32; x (n, h, w_in, cin) f32; mask (n, h, w_in, g) f32; w (k*k, cout,
-// cin) f32; dx (n, h, w_in, cin) f32 when need_dx; part (grid, k*k*cout*cin)
-// f32 when need_dw, row b CTA b's dW as (tap, o, c), for pconv_colsum.
-int tsii_pconv_k2_bwd_f32(const void* dacc, const void* x, const void* mask, const void* w,
-                          void* dx, void* part, int n, int h, int w_in, int cin, int g, int size0,
-                          int hout, int wout, int cout, int k, int ph, int pw, int grid,
-                          int need_dx, int need_dw, void* stream) {
-  F32Bwd p;
+// K2F's backward (Cout <= 7, k 1, 3, 5 or 7), after pconv_k3_prep: dacc (n,
+// hout, wout, cout) f32; x (n, h, w_in, cin) f32, 16-byte aligned; mask (n,
+// h, w_in, g) f32; w (cout, cin, k, k) f32; dx (n, h, w_in, cin) f32 and wk
+// (k*k, cout, cin) f32 scratch for the re-laid weights when need_dx; part
+// (grid, k*k*cout*cin) f32 when need_dw, row b CTA b's dW as (tap, o, c),
+// for pconv_colsum. rb: input rows of a CTA's band, nseg: 32-column
+// segments of its strip (k2f_bwd_plan); grid = n * ceil(h / rb) * ceil(w_in
+// / (32 nseg)). One or two kernels on `stream`.
+int tsii_pconv_k2f_bwd(const void* dacc, const void* x, const void* mask, const void* w, void* dx,
+                       void* part, void* wk, int n, int h, int w_in, int cin, int g, int size0,
+                       int hout, int wout, int cout, int k, int ph, int pw, int rb, int nseg,
+                       int need_dx, int need_dw, void* stream) {
+  K2fBwdParams p;
   p.dacc = static_cast<const float*>(dacc);
   p.x = static_cast<const float*>(x);
   p.mask = static_cast<const float*>(mask);
-  p.w = static_cast<const float*>(w);
+  p.w = static_cast<const float*>(wk);
   p.dx = static_cast<float*>(dx);
   p.part = static_cast<float*>(part);
+  p.x_floats = (long long)n * h * w_in * cin;
   p.n = n; p.h = h; p.w_in = w_in; p.cin = cin; p.g = g; p.size0 = size0;
   p.hout = hout; p.wout = wout; p.cout = cout; p.k = k; p.ph = ph; p.pw = pw;
-  const int kk = k * k, ww = F32B_T + k - 1;
-  if (cout < 1 || cout >= F32B_O || k < 1 || kk > 256 || n > 65535 || grid < 1 ||
-      (need_dx && dx == nullptr) || (need_dw && part == nullptr))
+  p.rb = rb; p.nseg = nseg; p.need_dx = need_dx; p.need_dw = need_dw;
+  if (n < 1 || h < 1 || w_in < 1 || cin < 1 || (g != 1 && g != 2) || hout < 1 || wout < 1 ||
+      rb < 1 || nseg < 1 || nseg > HB_NSEG || nseg * cin > HB_THREADS || !(need_dx || need_dw) ||
+      (need_dx && (dx == nullptr || wk == nullptr)) || (need_dw && part == nullptr) ||
+      (reinterpret_cast<uintptr_t>(x) & 15))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaSuccess;
   if (need_dx) {
-    const size_t smem = (size_t)(ww * ww * F32B_O + kk * F32B_O * F32B_CC) * sizeof(float);
-    e = cudaFuncSetAttribute(pconv_f32_bwd_dx, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)cudaGetLastError();
-    const unsigned tiles = (unsigned)(((h + F32B_T - 1) / F32B_T) * ((w_in + F32B_T - 1) / F32B_T));
-    pconv_f32_bwd_dx<<<dim3(tiles, 1, n), 256, smem, s>>>(p);
-    e = cudaGetLastError();
+    const int items = cout * cin * k * k;
+    pconv_f32_relay<<<(items + 255) / 256, 256, 0, s>>>(static_cast<const float*>(w),
+                                                        static_cast<float*>(wk), cout, cin,
+                                                        k * k, 1);
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  if (need_dw) {
-    const int ccw = f32b_channels(kk);
-    const size_t smem = (size_t)(ccw * ww * ww + F32B_T * F32B_T * F32B_O) * sizeof(float);
-    e = cudaFuncSetAttribute(pconv_f32_bwd_dw, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)cudaGetLastError();
-    pconv_f32_bwd_dw<<<dim3(grid, (cin + ccw - 1) / ccw), 256, smem, s>>>(p);
-    e = cudaGetLastError();
-  }
-  return (int)e;
+#define K2F_CALL(C, K) return (int)launch_k2f_bwd<C, K>(p, s);
+  TSII_K2F_SWITCH(cout, k, K2F_CALL)
+#undef K2F_CALL
 }
 
 // K1F: K1's f32 form at Cout >= 8. x: (n, h, w_in, cin) f32; mask: (n, h,
@@ -2289,25 +2486,62 @@ int tsii_k1f_occupancy(int bm) {
   return e == cudaSuccess ? n : -(int)e;
 }
 
-// K2F: K2's f32 form (Cout <= 8). x: (n, h, w_in, cin) f32; mask: (n, h, w_in, g) f32;
-// w: (k*k, cin, cout) f32; bias: (cout) f32 or NULL; y: (n, hout, wout, cout)
-// f32; mask_out: (n, hout, wout, 1) f32.
-int tsii_pconv_f32(const void* x, const void* mask, const void* w, const void* bias, void* y,
-                   void* mask_out, int n, int h, int w_in, int cin, int g, int size0, int size1,
-                   int hout, int wout, int cout, int k, int ph, int pw, void* stream) {
-  F32Params p;
+// K2F: K2's f32 form (Cout <= 7, k 1, 3, 5 or 7). x: (n, h, w_in, cin) f32,
+// 16-byte aligned; mask: (n, h, w_in, g) f32; w: (cout, cin, k, k) f32;
+// bias: (cout) f32 or NULL; y: (n, hout, wout, cout) f32; mask_out: (n,
+// hout, wout, 1) f32; wk: (k*k, cin, cout) f32 scratch for the re-laid
+// weights; rb: output rows of a CTA's band (k2f_plan). Two kernels on
+// `stream`.
+int tsii_pconv_k2f(const void* x, const void* mask, const void* w, const void* bias, void* y,
+                   void* mask_out, void* wk, int n, int h, int w_in, int cin, int g, int size0,
+                   int size1, int hout, int wout, int cout, int k, int ph, int pw, int rb,
+                   void* stream) {
+  K2fParams p;
   p.x = static_cast<const float*>(x);
   p.mask = static_cast<const float*>(mask);
-  p.w = static_cast<const float*>(w);
+  p.w = static_cast<const float*>(wk);
   p.bias = static_cast<const float*>(bias);
   p.y = static_cast<float*>(y);
   p.mask_out = static_cast<float*>(mask_out);
+  p.x_floats = (long long)n * h * w_in * cin;
   p.n = n; p.h = h; p.w_in = w_in; p.cin = cin; p.g = g; p.size0 = size0; p.size1 = size1;
-  p.hout = hout; p.wout = wout; p.cout = cout; p.k = k; p.ph = ph; p.pw = pw; p.ck = 1;
-  if (n < 1 || cin < 1 || cout < 1 || cout > 8 || k < 1 || hout < 1 || wout < 1 ||
-      (g != 1 && g != 2))
+  p.hout = hout; p.wout = wout; p.cout = cout; p.k = k; p.ph = ph; p.pw = pw; p.rb = rb;
+  if (n < 1 || h < 1 || w_in < 1 || cin < 1 || (g != 1 && g != 2) || hout < 1 || wout < 1 ||
+      rb < 1 || (reinterpret_cast<uintptr_t>(x) & 15))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_f32<1, 1>(p, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int items = cout * cin * k * k;
+  pconv_f32_relay<<<(items + 255) / 256, 256, 0, s>>>(static_cast<const float*>(w),
+                                                      static_cast<float*>(wk), cout, cin, k * k,
+                                                      0);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+#define K2F_CALL(C, K) return (int)launch_k2f<C, K>(p, s);
+  TSII_K2F_SWITCH(cout, k, K2F_CALL)
+#undef K2F_CALL
+}
+
+// Resident CTAs an SM of K2F (bwd 0) or of its backward (bwd 1, nseg
+// segments) at Cout 3, k 3 and cin input channels, the U-Net's head (the
+// occupancy calculator's answer), or a negative CUDA error.
+int tsii_k2f_occupancy(int bwd, int cin, int nseg) {
+  int n = 0;
+  cudaError_t e;
+  if (!bwd) {
+    const size_t smem = k2f_smem_bytes(cin, 3, 3);
+    e = cudaFuncSetAttribute(pconv_k2f<3, 3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pconv_k2f<3, 3>, K2F_THREADS, smem);
+  } else {
+    const size_t smem = k2f_bwd_smem_bytes(cin, 3, 3, nseg);
+    e = cudaFuncSetAttribute(pconv_k2f_bwd<3, 3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pconv_k2f_bwd<3, 3>,
+                                                        (nseg * cin + 31) / 32 * 32, smem);
+  }
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 // out[c] = sum_r part[r, c], f32, in a fixed order.

@@ -118,14 +118,16 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_pconv_k3_prep_f32.restype = i32
         lib.tsii_pconv_k3_mask_f32.argtypes = [ptr] * 3 + [ctypes.c_longlong] + [i32] * 3 + [ptr]
         lib.tsii_pconv_k3_mask_f32.restype = i32
-        lib.tsii_pconv_f32.argtypes = [ptr] * 6 + [i32] * 13 + [ptr]
-        lib.tsii_pconv_f32.restype = i32
+        lib.tsii_pconv_k2f.argtypes = [ptr] * 7 + [i32] * 14 + [ptr]
+        lib.tsii_pconv_k2f.restype = i32
+        lib.tsii_k2f_occupancy.argtypes = [i32] * 3
+        lib.tsii_k2f_occupancy.restype = i32
         lib.tsii_pconv_k1f.argtypes = [ptr] * 9 + [i32] * 18 + [ptr]
         lib.tsii_pconv_k1f.restype = i32
         lib.tsii_k1f_occupancy.argtypes = [i32]
         lib.tsii_k1f_occupancy.restype = i32
-        lib.tsii_pconv_k2_bwd_f32.argtypes = [ptr] * 6 + [i32] * 15 + [ptr]
-        lib.tsii_pconv_k2_bwd_f32.restype = i32
+        lib.tsii_pconv_k2f_bwd.argtypes = [ptr] * 7 + [i32] * 16 + [ptr]
+        lib.tsii_pconv_k2f_bwd.restype = i32
         lib.tsii_pconv_colsum.argtypes = [ptr] * 2 + [i32] * 2 + [ptr]
         lib.tsii_pconv_colsum.restype = i32
         lib.tsii_stem_dx.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]

@@ -16,11 +16,13 @@ Pallas kernels take x's dtype as it comes: SIMT FFMA, f32 accumulation,
 no TF32 and no bf16 rounding (K1F at Cout >= 8: ``pconv_k1f_weights``
 and ``pconv_f32_mask``, then ``pconv_k1f``, a register-blocked implicit
 GEMM with a ``cp.async`` ring and split K, ``k1f_plan``; K2F at Cout <= 7:
-``pconv_f32``); its backward is ``pconv_k3_prep`` and ``pconv_k3_mask``
-in f32 around one f32 ``convolution_backward`` with cuDNN's TF32 off for
-that call at Cout >= 8, and ``pconv_k3_prep`` with two SIMT kernels
-(``pconv_f32_bwd_dx``, ``pconv_f32_bwd_dw``) and ``pconv_colsum`` at
-Cout <= 7. Any other dtype raises.
+``pconv_f32_relay`` and ``pconv_k2f``, whole input rows through a
+``cp.async`` ring and runs of 3 output pixels a thread, ``k2f_plan``); its
+backward is ``pconv_k3_prep`` and ``pconv_k3_mask`` in f32 around one f32
+``convolution_backward`` with cuDNN's TF32 off for that call at Cout >= 8,
+and at Cout <= 7 ``pconv_k3_prep``, ``pconv_f32_relay`` and
+``pconv_k2f_bwd`` (dx and each CTA's part of dW in one pass,
+``k2f_bwd_plan``), then ``pconv_colsum``. Any other dtype raises.
 
 ``partial_conv2d_fused`` is differentiable: ``PartialConvFunction``
 runs K1 or K2 forward and K3 backward, the counterpart of the custom VJP
@@ -34,12 +36,14 @@ only for a tensor on the CPU. On a CUDA tensor they launch their kernels,
 or raise; nothing falls back. ``K1_LAUNCHES`` / ``K2_LAUNCHES`` /
 ``K3_LAUNCHES`` count the launches (K3: one per layer backward), and
 ``K1F_LAUNCHES`` / ``K2F_LAUNCHES`` / ``K3F_LAUNCHES`` those of the f32
-form (K1F at Cout >= 8, K2F at Cout <= 7).
+form (K1F at Cout >= 8, K2F at Cout <= 7), and ``K3F_HEAD_LAUNCHES`` those
+of ``pconv_k2f_bwd`` (K3F at Cout <= 7).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 from typing import NamedTuple, Sequence, Tuple
 
@@ -59,6 +63,7 @@ K3_LAUNCHES = 0
 K1F_LAUNCHES = 0
 K2F_LAUNCHES = 0
 K3F_LAUNCHES = 0
+K3F_HEAD_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()  # the H-sharded U-Net launches from one thread per shard
 
 _BK = 64  # K1's K step: one tap x 64 channels; the re-laid weights pad Cin to it
@@ -85,15 +90,17 @@ def partial_conv2d_reference(
     """Plain PyTorch version with exactly the kernels' semantics.
 
     x * M in x.dtype (exact for binary masks); weight and bias rounded to
-    x.dtype; the conv accumulates in f32 and stays f32 through the
-    epilogue; one cast at the end. (JAX's XLA twin instead rounds the
-    conv output to x.dtype before the epilogue.)
+    x.dtype; the conv accumulates in f32 (in f64 for an f64 x, the truth
+    the f32 forms are held to) and stays so through the epilogue; one cast
+    at the end. (JAX's XLA twin instead rounds the conv output to x.dtype
+    before the epilogue.)
     """
     _, cin, kh, kw = weight.shape
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     masked = apply_mask(x, mask.to(x.dtype), group_sizes)
-    feat = F.conv2d(to_nchw(masked).float(), weight.to(x.dtype).float(), padding=padding)
+    feat = F.conv2d(to_nchw(masked).to(acc), weight.to(x.dtype).to(acc), padding=padding)
     msum = mask_window_sum(mask, group_sizes, (kh, kw), stride=(1, 1), padding=padding)
-    b = None if bias is None else bias.to(x.dtype).float()
+    b = None if bias is None else bias.to(x.dtype).to(acc)
     return pconv_epilogue(to_nhwc(feat), msum, b, float(kh * kw * cin), x.dtype)
 
 
@@ -140,8 +147,8 @@ def partial_conv2d_backward(g, x, mask, weight, bias, group_sizes, padding,
     around one library call of the two products (``_launch_k3``), at
     Cout <= 7 ``pconv_k2_bwd`` alone (``_launch_k2_bwd``); in f32 the
     former at Cout >= 8, and at Cout <= 7 ``pconv_k3_prep`` before
-    ``pconv_f32_bwd_dx``/``_dw`` (``_launch_k2_bwd_f32``); a failed build
-    or launch raises. On a CPU tensor the plain version."""
+    ``pconv_k2f_bwd`` (``_launch_k2f_bwd``); a failed build or launch
+    raises. On a CPU tensor the plain version."""
     needs = (needs[0], needs[1], needs[2] and bias is not None)
     if not any(needs):
         return None, None, None
@@ -150,8 +157,8 @@ def partial_conv2d_backward(g, x, mask, weight, bias, group_sizes, padding,
                                                  needs)
     if x.dtype == torch.float32:
         small = weight.shape[0] <= _K2_MAX_COUT
-        out = (_launch_k2_bwd_f32 if small else _launch_k3)(g, x, mask, weight, bias,
-                                                             group_sizes, padding, needs)
+        out = (_launch_k2f_bwd if small else _launch_k3)(g, x, mask, weight, bias,
+                                                         group_sizes, padding, needs)
         _count("K3F_LAUNCHES")
     elif weight.shape[0] <= _K2_MAX_COUT:
         out = _launch_k2_bwd(g, x, mask, weight, bias, group_sizes, padding, needs)
@@ -166,12 +173,14 @@ def partial_conv2d_backward_reference(g, x, mask, weight, bias, group_sizes, pad
                                       needs=(True, True, True)):
     """K3's plain PyTorch version: the same arithmetic as
     ``partial_conv2d_backward`` in tensor operations, the two products on
-    the library. The CPU path and the tests use it."""
+    the library (in f64 throughout for an f64 x). The CPU path and the
+    tests use it."""
     _, cin, kh, kw = weight.shape
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     msum = mask_window_sum(mask, group_sizes, (kh, kw), stride=(1, 1), padding=padding)
     valid = msum > 0
     scale = torch.where(valid, float(kh * kw * cin) / torch.clamp(msum, min=1.0), 0.0)
-    dacc = to_nchw((g.float() * scale).to(x.dtype))
+    dacc = to_nchw((g.to(acc) * scale).to(x.dtype))
     mask_t = mask.to(x.dtype)
     dx = dw = db = None
     if needs[0]:
@@ -184,7 +193,7 @@ def partial_conv2d_backward_reference(g, x, mask, weight, bias, group_sizes, pad
         dw = torch.nn.grad.conv2d_weight(xm, weight.shape, dacc, padding=padding)
         dw = dw.to(weight.dtype)
     if needs[2] and bias is not None:
-        db = (g.float() * valid).sum(dim=(0, 1, 2)).to(bias.dtype)
+        db = (g.to(acc) * valid).sum(dim=(0, 1, 2)).to(bias.dtype)
     return dx, dw, db
 
 
@@ -449,9 +458,135 @@ def _launch_k1(x, mask, weight, bias, group_sizes, padding):
 
 def f32_weight_relayout(weight: torch.Tensor) -> torch.Tensor:
     """OIHW weights -> K2F's (k*k, Cin, Cout) f32: per tap, a row of Cout
-    weights per input channel."""
+    weights per input channel (the plain version of what
+    ``pconv_f32_relay`` writes in K2F's launch)."""
     cout, cin, kh, kw = weight.shape
     return weight.to(torch.float32).permute(2, 3, 1, 0).reshape(kh * kw, cin, cout).contiguous()
+
+
+def f32_bwd_weight_relayout(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW weights -> K2F's backward's (k*k, Cout, Cin) f32 (what
+    ``pconv_f32_relay`` writes in its launch)."""
+    cout, cin, kh, kw = weight.shape
+    return weight.to(torch.float32).permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous()
+
+
+# K2F and its backward, as csrc/partial_conv.cu has them
+# (tests/test_torch_f32_kernels.py holds the two against each other)
+K2F_R = 3  # output pixels a thread owns along a row
+K2F_THREADS = 256  # 8 warps, each a slice of the input channels
+K2F_TW = 32 * K2F_R  # output columns of a CTA's strip
+K2F_RING = 3  # input rows in the ring
+K2F_CTAS = 2  # resident CTAs an SM (``__launch_bounds__``)
+K2F_KS = (1, 3, 5, 7)  # the windows they are built for
+HB_SEG = 32  # input columns of a backward thread's segment
+HB_NSEG = 8  # most segments of a backward strip
+HB_THREADS = 256  # most threads of a backward CTA
+HB_RING = 3  # x rows in the backward's ring
+_SMEM_SM = 233472  # shared memory of an SM, of which each resident CTA also takes 1 KB
+
+
+def _k2f_stage_floats(pixels: int, cin: int) -> int:
+    """Floats of a stage of ``pixels`` input pixels: x's row (a phase of up
+    to 3 floats in front, the last 16-byte copy up to 3 past), rounded to
+    4, then 2 mask floats a pixel (``k2f_stage_floats``)."""
+    return _round_up(_round_up(pixels * cin + 6, 4) + 2 * pixels, 4)
+
+
+def k2f_smem_bytes(cin: int, cout: int, k: int) -> int:
+    """K2F's dynamic shared memory: the ring's stages, the weights as (Cin,
+    k*k*Cout padded to 4), the warps' sums of a row and the last k input
+    rows' masks (2 floats a pixel) that the window counts read."""
+    wpc = _round_up(k * k * cout, 4)
+    return 4 * (K2F_RING * _k2f_stage_floats(K2F_TW + k - 1, cin) + cin * wpc
+                + 8 * K2F_TW * cout + 2 * k * (K2F_TW + k - 1))
+
+
+def k2f_bwd_smem_bytes(cin: int, cout: int, k: int, nseg: int) -> int:
+    """The backward's: its ring (x rows with masks; HB_RING + k - 1 dacc rows
+    of 32 nseg + k - 1 columns, Cout padded to 4), or the segments' dW sums,
+    whichever is larger."""
+    tw = nseg * HB_SEG
+    ring = (HB_RING * _k2f_stage_floats(tw, cin)
+            + (HB_RING + k - 1) * (tw + k - 1) * _round_up(cout, 4))
+    return 4 * max(ring, nseg * k * k * cout * cin)
+
+
+def _ctas_an_sm(smem: int) -> int:
+    return K2F_CTAS if K2F_CTAS * (smem + 1024) <= _SMEM_SM else 1
+
+
+@functools.lru_cache(maxsize=256)
+def k2f_band_rows(n: int, strips: int, rows: int, halo: int, ctas: int) -> int:
+    """Rows of a CTA's band when N images of ``rows`` rows in ``strips``
+    strips are cut into bands: the band count whose grid, in waves of
+    ``ctas`` CTAs on each of the card's SMs, costs the fewest waves x (band
+    rows + ``halo``); the fewest CTAs among equals."""
+    best = None
+    for bands in range(1, rows + 1):
+        rb = -(-rows // bands)
+        if -(-rows // rb) != bands:  # the same rb as fewer bands
+            continue
+        cost = -(-n * strips * bands // (ctas * _SMS)) * (rb + halo)
+        if best is None or cost < best[0]:
+            best = (cost, rb)
+    return best[1]
+
+
+class K2FPlan(NamedTuple):
+    """How K2F or its backward cuts one layer: bands of ``rb`` rows (output
+    rows forward, input rows backward) and strips of ``tw`` columns; the
+    backward's strips are ``nseg`` segments of HB_SEG columns, one thread
+    per (segment, input channel)."""
+
+    rb: int
+    tw: int
+    nseg: int
+    threads: int
+
+    def grid(self, n: int, rows: int, cols: int) -> int:
+        """CTAs of the launch (and the backward's rows of dW partials)."""
+        return n * -(-rows // self.rb) * -(-cols // self.tw)
+
+
+def _k2f_scope(cin: int, cout: int, k: int) -> None:
+    if not 1 <= cout <= _K2_MAX_COUT or k not in K2F_KS:
+        raise ValueError(f"K2F takes Cout 1..{_K2_MAX_COUT} and k in {K2F_KS}, got Cout {cout}, "
+                         f"k {k}")
+
+
+def k2f_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, pad) -> K2FPlan:
+    """K2F's plan for N images of H x W, Cin -> Cout (<= 7) channels, a k x k
+    window and ``pad``: strips of K2F_TW output columns, bands by
+    ``k2f_band_rows`` (halo k - 1). A pure function of the shape; raises
+    where the ring would not fit in shared memory."""
+    _k2f_scope(cin, cout, k)
+    ph, pw = _pads(pad)
+    hout, wout = h + 2 * ph - k + 1, w + 2 * pw - k + 1
+    smem = k2f_smem_bytes(cin, cout, k)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K2F takes no {cin} input channels at k {k}: its ring would take "
+                         f"{smem} bytes of shared memory")
+    rb = k2f_band_rows(n, -(-wout // K2F_TW), hout, k - 1, _ctas_an_sm(smem))
+    return K2FPlan(rb, K2F_TW, 1, K2F_THREADS)
+
+
+def k2f_bwd_plan(n: int, h: int, w: int, cin: int, cout: int, k: int) -> K2FPlan:
+    """The backward's plan: as many 32-column segments a strip as
+    HB_THREADS threads take at one per (segment, channel), at most
+    HB_NSEG; bands of input rows by ``k2f_band_rows``. Raises above
+    HB_THREADS input channels or where shared memory would not hold it."""
+    _k2f_scope(cin, cout, k)
+    if cin > HB_THREADS:
+        raise ValueError(f"K2F's backward takes at most {HB_THREADS} input channels, got {cin}")
+    nseg = min(HB_NSEG, HB_THREADS // cin)
+    smem = k2f_bwd_smem_bytes(cin, cout, k, nseg)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K2F's backward takes no {cin} input channels at Cout {cout}, k {k}: "
+                         f"it would take {smem} bytes of shared memory")
+    tw = nseg * HB_SEG
+    rb = k2f_band_rows(n, -(-w // tw), h, k - 1, _ctas_an_sm(smem))
+    return K2FPlan(rb, tw, nseg, _round_up(nseg * cin, 32))
 
 
 # K1F's K step: one tap x K1F_CK input channels (csrc/partial_conv.cu).
@@ -518,7 +653,8 @@ def _launch_f32(x, mask, weight, bias, group_sizes, padding):
     """K1 and K2's f32 form for an f32 x: K1F (``tsii_pconv_k1f``: the
     weights re-laid, x * M with a zero border and zero channels to Cin_p,
     then ``pconv_k1f`` as ``k1f_plan`` says, then the split reduction) at
-    Cout >= 8, K2F (``pconv_f32``) at Cout <= 7. Both multiply by the
+    Cout >= 8, K2F (``tsii_pconv_k2f``: the weights re-laid, then
+    ``pconv_k2f`` as ``k2f_plan`` says) at Cout <= 7. Both multiply by the
     mask's value, as the plain version does. Counted as K1F or K2F."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
@@ -530,11 +666,13 @@ def _launch_f32(x, mask, weight, bias, group_sizes, padding):
     m_out = torch.empty((n, hout, wout, 1), dtype=x.dtype, device=x.device)
     s0, s1 = _sizes(group_sizes)
     if cout <= _K2_MAX_COUT:
-        wk = f32_weight_relayout(weight)
-        code = lib.tsii_pconv_f32(
-            x.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
-            y.data_ptr(), m_out.data_ptr(), n, h, w, cin, g, s0, s1, hout, wout, cout, k, ph, pw,
-            _stream(),
+        plan = k2f_plan(n, h, w, cin, cout, k, (ph, pw))
+        xk, w32 = _aligned16(x), weight.to(torch.float32).contiguous()
+        wk = torch.empty((k * k, cin, cout), dtype=torch.float32, device=x.device)
+        code = lib.tsii_pconv_k2f(
+            xk.data_ptr(), mask.data_ptr(), w32.data_ptr(), 0 if b is None else b.data_ptr(),
+            y.data_ptr(), m_out.data_ptr(), wk.data_ptr(), n, h, w, cin, g, s0, s1, hout, wout,
+            cout, k, ph, pw, plan.rb, _stream(),
         )
         check(lib, code, "K2F (the f32 partial conv, Cout <= 7)")
         _count("K2F_LAUNCHES")
@@ -713,35 +851,41 @@ def _launch_k2_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
     return dx, dw, db
 
 
-def _launch_k2_bwd_f32(g, x, mask, weight, bias, group_sizes, padding, needs):
+def _launch_k2f_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
     """The f32 backward at Cout <= 7: ``k3_prep`` writes dacc and db in one
-    pass over g; ``pconv_f32_bwd_dx`` writes dx = conv_transpose(dacc, W) *
-    M, and ``pconv_f32_bwd_dw`` each CTA's f32 part of dW, which
-    ``pconv_colsum`` adds in a fixed order (two launches, the same bits)."""
+    pass over g; ``tsii_pconv_k2f_bwd`` re-lays the weights and runs
+    ``pconv_k2f_bwd`` as ``k2f_bwd_plan`` says: dx = conv_transpose(dacc, W)
+    * M, and each CTA's f32 part of dW, which ``pconv_colsum`` adds in a
+    fixed order (two launches, the same bits)."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
-    n, h, w, cin, gr, cout, k, pad, hout, wout = _check_inputs(x, mask, weight, bias, group_sizes,
-                                                               padding)
+    n, h, w, cin, gr, cout, k, (ph, pw), hout, wout = _check_inputs(x, mask, weight, bias,
+                                                                    group_sizes, padding)
     g = _check_cotangent(g, x, n, hout, wout, cout)
     need_dx, need_dw, need_db = needs
-    dacc, db = k3_prep(g, mask, cin, group_sizes, k, pad, need_db)
+    plan = k2f_bwd_plan(n, h, w, cin, cout, k) if need_dx or need_dw else None
+    dacc, db = k3_prep(g, mask, cin, group_sizes, k, (ph, pw), need_db)
+    db = db.to(bias.dtype) if need_db else None
+    if plan is None:
+        return None, None, db
     lib = load_library()
-    wk = weight.to(torch.float32).permute(2, 3, 0, 1).reshape(k * k, cout, cin).contiguous()
+    f32 = torch.float32
+    xk, w32 = _aligned16(x), weight.to(f32).contiguous()
+    wk = torch.empty((k * k, cout, cin), dtype=f32, device=x.device) if need_dx else None
     dx = torch.empty_like(x) if need_dx else None
-    tiles = n * -(-hout // 16) * -(-wout // 16)
-    grid = min(tiles, 2 * _SMS)
-    part = torch.empty((grid, k * k * cout * cin), dtype=torch.float32, device=x.device) \
+    part = torch.empty((plan.grid(n, h, w), k * k * cout * cin), dtype=f32, device=x.device) \
         if need_dw else None
-    code = lib.tsii_pconv_k2_bwd_f32(
-        dacc.data_ptr(), x.data_ptr(), mask.data_ptr(), wk.data_ptr(),
-        0 if dx is None else dx.data_ptr(), 0 if part is None else part.data_ptr(),
-        n, h, w, cin, gr, group_sizes[0], hout, wout, cout, k, pad[0], pad[1], grid,
-        int(need_dx), int(need_dw), _stream())
-    check(lib, code, "K3 (the f32 partial conv backward, Cout <= 7)")
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    code = lib.tsii_pconv_k2f_bwd(
+        dacc.data_ptr(), xk.data_ptr(), mask.data_ptr(), w32.data_ptr(), ptr(dx), ptr(part),
+        ptr(wk), n, h, w, cin, gr, group_sizes[0], hout, wout, cout, k, ph, pw, plan.rb,
+        plan.nseg, int(need_dx), int(need_dw), _stream())
+    check(lib, code, "K3F (the f32 partial conv backward, Cout <= 7)")
+    _count("K3F_HEAD_LAUNCHES")
     dw = None
     if need_dw:
         dw = _colsum(lib, part).reshape(k, k, cout, cin).permute(2, 3, 0, 1).to(weight.dtype)
-    return dx, dw, (db.to(bias.dtype) if need_db else None)
+    return dx, dw, db
 
 
 def _check_nhwc(name: str, t: torch.Tensor, dtype=None) -> None:
