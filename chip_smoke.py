@@ -130,8 +130,17 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               mask pixels that differ from ``run`` only near the threshold;
               relative L2 to an f32 pipeline within 1.25x ``run``'s); their
               times beside the plain paths
- (Phases 9-14 run before the serve phase, 15 after it; each phase prints
- its seconds.)
+ 16. pretrained the pretrained-weight path on torchvision-layout files
+              fabricated from a seed (``pretrained_phase``): the runbook
+              ``compat/verify_pretrained.py`` in-process (coverage 14/14
+              and 255/255, taps against its float64 walk at 512^2, a
+              200-step finetune at 128^2, batch 4, whose loss falls);
+              ``run`` with the imported encoder (K1 7, K2 1, the page
+              gates) timed beside random weights; ``run_inpaint
+              --vgg-ckpt --fused-stem`` for 2 steps at 512^2, batch 8 (K3
+              8, K4 1, K5 1 a step, finite losses, the import's report)
+ (Phases 9-14 run before the serve phase, 15 and 16 after it; each phase
+ prints its seconds.)
  The inpaint step also may not block the host: no blocking CUDA call in
  one profiled step (``tools/host_syncs.py``).
 
@@ -147,6 +156,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -804,6 +814,9 @@ def main() -> int:
 
     # 10. multi-device serving on one card ----------------------------------
     timed_phase("parallel", parallel_phase, pipe, dev, rng, smi)
+
+    # 11. the pretrained-weight path ----------------------------------------
+    timed_phase("pretrained", pretrained_phase, pipe, dev, smi)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {time.perf_counter() - t0:.1f}")
 
@@ -3576,6 +3589,165 @@ def spatial_pipeline_phase(pipe, dev, meshes: dict, smi: str) -> dict:
                 runs=2)
     profile_run(lambda: pipe.run(page), "run, the same page", runs=2)
     return {f"spatial pipeline {b}": times[b] for b in meshes}
+
+
+class _KeepLog(logging.Handler):
+    """The messages a logger emits, kept in order."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def kept_log(name: str):
+    """Logger ``name`` at INFO into a ``_KeepLog`` for the block."""
+    logger, keep = logging.getLogger(name), _KeepLog()
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(keep)
+    try:
+        yield keep
+    finally:
+        logger.removeHandler(keep)
+        logger.setLevel(level)
+
+
+def pretrained_phase(pipe, dev, smi: str) -> dict:
+    """Phase 16: the pretrained-weight path on fabricated torchvision files
+    (no real file is in the repository). (a) The runbook
+    (``compat/verify_pretrained.py``) in-process, as JAX's recorded
+    command: ``--fabricate``, parity at 512^2 and a 200-step finetune at
+    128^2, batch 4; every gate must pass. (b) ``run`` at full width (width
+    1.0, output stride 8, depth 8, bf16, 8 pages 512^2) with the imported
+    encoder: K1 7, K2 1, binary masks, non-text pixels bit-identical; its
+    time beside the random-weight ``pipe`` in turns. (c) ``run_inpaint``'s
+    entry point with ``--vgg-ckpt`` (the fabricated vgg16.pth, imported
+    tolerantly) and ``--fused-stem``, 2 steps at 512^2, batch 8, bf16: K3
+    8, K4 1, K5 1 a step, finite losses, the import's report line."""
+    import io
+    import tempfile
+
+    from text_segmentation_image_inpainting_tpu_torch.compat import verify_pretrained as vp
+    from text_segmentation_image_inpainting_tpu_torch.compat.torchvision import (
+        load_torch_file,
+        tolerant_import,
+        torchvision_mobilenet_v2_state_dict,
+    )
+    from text_segmentation_image_inpainting_tpu_torch.models import InpaintUNet, TextSegmenter
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
+    from text_segmentation_image_inpainting_tpu_torch.pipeline import TextRemovalPipeline
+    from text_segmentation_image_inpainting_tpu_torch.train import run_inpaint
+
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the runbook, its verdict line kept off this script's output
+        buf, t = io.StringIO(), time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = vp.main(["--fabricate", tmp, "--device", "cuda", "--size", str(PAGE),
+                          "--finetune", "200", "--finetune-size", "128", "--finetune-batch", "4"])
+        verdict = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if rc != 0 or not verdict["ok"]:
+            raise AssertionError(f"pretrained runbook: exit {rc}, verdict {verdict}")
+        vg, mb, ft = verdict["vgg16"], verdict["mobilenet_v2"], verdict["finetune_smoke"]
+        log(f"pretrained runbook ({time.perf_counter() - t:.1f} s, {verdict['device']}): vgg16 "
+            f"coverage {vg['coverage']}, tap max |err| {vg['tap_max_abs_err']}, max |truth| "
+            f"{vg['tap_max_abs_truth']} (tol {vg['tol']} x max(1, max|truth|)); mobilenet_v2 "
+            f"coverage {mb['coverage']}, segmenter encoder unfilled "
+            f"{len(mb['segmenter_encoder_unfilled'])}, taps {mb['tap_max_abs_err']}, max |truth| "
+            f"{mb['tap_max_abs_truth']} (tol {mb['tol']})")
+        log(f"pretrained finetune ({smi}): {ft['steps']} steps at {ft['size']}^2, batch "
+            f"{ft['batch']}: loss first quarter {ft['loss_first_quarter']}, last quarter "
+            f"{ft['loss_last_quarter']}, final {ft['loss_final']}; {ft['ms_per_step']} ms per "
+            f"step (host clock over steps 2-{ft['steps']}), of which the batch's draw and upload "
+            f"{ft['draw_ms_per_step']} ms")
+        out["finetune_ms"] = ft["ms_per_step"]
+
+        # (b) the page pipeline with the imported encoder
+        bf = torch.bfloat16
+        imported = TextRemovalPipeline(TextSegmenter(width_mult=1.0, output_stride=8, dtype=bf),
+                                       InpaintUNet(depth=8, dtype=bf))
+        imported.init_weights(torch.Generator().manual_seed(SEED))
+        report = tolerant_import(imported.seg, torchvision_mobilenet_v2_state_dict(
+            load_torch_file(str(Path(tmp) / "mobilenet_v2.pth")), prefix="encoder."))
+        counts, enc_unfilled = vp.coverage_counts(report), vp.encoder_unfilled(report)
+        if counts["used"] != 255 or counts["skipped_shape"] or enc_unfilled:
+            raise AssertionError(f"imported encoder: {counts}, encoder unfilled {enc_unfilled[:5]}")
+        imported = imported.to(dev).eval()
+        rng = np.random.default_rng(SEED + 15)
+        pages = torch.from_numpy(rng.uniform(0.0, 1.0, (BATCH, PAGE, PAGE, 3)).astype(np.float32))
+        pages = pages.to(dev)
+        kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = 0
+        clean, text = imported.run(pages)
+        torch.cuda.synchronize()
+        launches = {"K1": kpc.K1_LAUNCHES, "K2": kpc.K2_LAUNCHES}
+        if launches != {"K1": 7, "K2": 1}:
+            raise AssertionError(f"run with the imported encoder launched {launches}, want K1 7, "
+                                 f"K2 1")
+        if clean.shape != pages.shape or not torch.isfinite(clean).all():
+            raise AssertionError("run with the imported encoder: wrong shape or non-finite")
+        if not ((text == 0) | (text == 1)).all():
+            raise AssertionError("run with the imported encoder: text mask not binary")
+        keep = (text == 0).expand_as(clean)
+        if not torch.equal(clean[keep], pages.to(bf)[keep]):
+            raise AssertionError("run with the imported encoder: non-text pixels differ")
+        r1 = cuda_ms(lambda: pipe.run(pages))
+        i1 = cuda_ms(lambda: imported.run(pages))
+        i2 = cuda_ms(lambda: imported.run(pages))
+        r2 = cuda_ms(lambda: pipe.run(pages))
+        out["run_ms"], out["run_random_ms"] = (i1 + i2) / 2, (r1 + r2) / 2
+        log(f"pretrained run ({smi}): imported encoder {counts['used']}/255 keys, launches "
+            f"{launches}, binary mask ({text.float().mean().item():.3%} text), non-text pixels "
+            f"bit-identical; {i1:.3f} / {i2:.3f} ms per batch of {BATCH} at {PAGE}^2 against "
+            f"random weights {r1:.3f} / {r2:.3f} ms (median of {ITERS}, in turns)")
+        del imported, clean, text, keep, pages
+        torch.cuda.empty_cache()
+
+        # (c) the inpaint CLI with the fabricated vgg16.pth
+        steps, cwd = 2, os.getcwd()
+        kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = kpc.K3_LAUNCHES = 0
+        kvs.K4_LAUNCHES = kvs.K5_LAUNCHES = 0
+        os.chdir(tmp)  # the loop logs to logs/inpaint.jsonl in the working directory
+        try:
+            with kept_log("text_segmentation_image_inpainting_tpu_torch.compat.torchvision") as kl:
+                state = run_inpaint.main([
+                    "--vgg-ckpt", str(Path(tmp) / "vgg16.pth"), "--fused-stem", "--steps",
+                    str(steps), "--batch-size", str(BATCH), "--image-size", str(PAGE),
+                    "--log-every", "1", "--val-batches", "1", "--ckpt-every", "1000",
+                    "--ckpt-dir", str(Path(tmp) / "ckpt"), "--device", "cuda"])
+            torch.cuda.synchronize()
+            with open("logs/inpaint.jsonl") as f:
+                records = [json.loads(line) for line in f]
+        finally:
+            os.chdir(cwd)
+        got = {"K1": kpc.K1_LAUNCHES, "K2": kpc.K2_LAUNCHES, "K3": kpc.K3_LAUNCHES,
+               "K4": kvs.K4_LAUNCHES, "K5": kvs.K5_LAUNCHES}
+        want_report = "tolerant_import: used 14, skipped 0 (missing) / 0 (shape), unfilled 0"
+        if kl.lines != [want_report]:
+            raise AssertionError(f"run_inpaint --vgg-ckpt logged {kl.lines}, want [{want_report!r}]")
+        if (got["K3"], got["K4"], got["K5"]) != (8 * steps, steps, steps):
+            raise AssertionError(f"run_inpaint --vgg-ckpt: {steps} steps launched {got}, want K3 "
+                                 f"8, K4 1, K5 1 a step")
+        bad = [(r["step"], k) for r in records for k, v in r.items()
+               if isinstance(v, float) and not np.isfinite(v)]
+        if state.step != steps or len(records) != steps or bad:
+            raise AssertionError(f"run_inpaint --vgg-ckpt: step {state.step}, {len(records)} "
+                                 f"records, non-finite {bad}")
+        out["cli_ms"] = BATCH / records[-1]["pages_per_sec"] * 1e3
+        log(f"pretrained run_inpaint --vgg-ckpt --fused-stem ({smi}): {kl.lines[0]}; launches over "
+            f"{steps} steps and {steps} val forwards {got}; losses "
+            + ", ".join(f"{k} {records[-1][k]:.5g}" for k in ("total", "valid", "hole", "perceptual",
+                                                               "style_out", "style_comp", "tv"))
+            + f"; step 2 {out['cli_ms']:.3f} ms ({records[-1]['pages_per_sec']:.2f} pages/s, the "
+            f"loop's host clock)")
+        del state
+    torch.cuda.empty_cache()
+    return out
 
 
 def kernel_ms(fn, windows: int = 3, calls: int = 2) -> dict:

@@ -161,6 +161,8 @@ def test_port_imports_no_jax_or_flax():
         "import text_segmentation_image_inpainting_tpu_torch.pipeline.demo\n"
         "import text_segmentation_image_inpainting_tpu_torch.models.base\n"
         "import text_segmentation_image_inpainting_tpu_torch.compat.msgpack\n"
+        "import text_segmentation_image_inpainting_tpu_torch.compat.torchvision\n"
+        "import text_segmentation_image_inpainting_tpu_torch.compat.verify_pretrained\n"
         "import text_segmentation_image_inpainting_tpu_torch.ops.resize\n"
         "import text_segmentation_image_inpainting_tpu_torch.ops.morphology\n"
         "import text_segmentation_image_inpainting_tpu_torch.ops.conv\n"

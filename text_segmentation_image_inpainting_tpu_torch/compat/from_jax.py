@@ -164,7 +164,7 @@ def inpaint_unet_state_dict(variables: Mapping[str, Any]) -> Dict[str, np.ndarra
     return t.out
 
 
-def _vgg16_conv_indices():
+def vgg16_conv_indices():
     """torchvision ``vgg16.features`` index of each conv: a conv is
     followed by its relu, a pool stands alone."""
     idx, out = 0, []
@@ -182,7 +182,7 @@ def vgg16_features_state_dict(variables: Mapping[str, Any]) -> Dict[str, np.ndar
     """``VGG16Features`` variables (flax ``conv{j}``) -> torchvision names
     ``features.{i}`` (as many convs as the tree holds)."""
     t = _Tree(variables)
-    for j, idx in enumerate(_vgg16_conv_indices()[: len(_indices(t.params, r"conv(\d+)"))]):
+    for j, idx in enumerate(vgg16_conv_indices()[: len(_indices(t.params, r"conv(\d+)"))]):
         t.conv((f"conv{j}",), f"features.{idx}")
     return t.out
 

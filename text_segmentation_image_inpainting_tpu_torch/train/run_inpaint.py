@@ -7,15 +7,17 @@
 The same flags as the JAX CLI, plus ``--device``: the first CUDA device
 (the default; a host without CUDA is an error) or ``cpu`` (the plain
 versions of the kernels). Train with ``--freeze-bn`` for the paper's
-phase-2 fine-tune. VGG16 weights load from ``--vgg-ckpt`` (a torchvision
-``vgg16`` state_dict) or are random, with a warning: then the U-Net and
-the trunk draw their initial weights, in that order, from one
-``torch.Generator`` seeded with ``--seed`` (flax's initialisers, as
-JAX), so a run depends on its flags alone. ``--attention`` puts the SAGAN
-block on the U-Net's bottleneck (``--attention-sn`` also spectral-
-normalises it); ``--grad-accum k`` averages k microbatches' gradients into
-one update; ``--steps-per-dispatch k`` runs k steps per dispatch, as a
-CUDA graph on the card. Logs one record per ``--log-every`` window to
+phase-2 fine-tune. The U-Net and the VGG16 trunk draw their initial
+weights, in that order, from one ``torch.Generator`` seeded with
+``--seed`` (flax's initialisers, as JAX), so a run depends on its flags
+alone. ``--vgg-ckpt`` (a torchvision ``vgg16`` state_dict) then loads
+into the trunk tolerantly, as JAX's does: the trunk convs that match in
+name and shape, with a one-line report (``compat/torchvision.py``);
+without it the trunk stays random, with a warning. ``--attention`` puts
+the SAGAN block on the U-Net's bottleneck (``--attention-sn`` also
+spectral-normalises it); ``--grad-accum k`` averages k microbatches'
+gradients into one update; ``--steps-per-dispatch k`` runs k steps per
+dispatch, as a CUDA graph on the card. Logs one record per ``--log-every`` window to
 ``logs/inpaint.jsonl`` and stderr.
 
 Started by ``torchrun --nproc-per-node N`` (``WORLD_SIZE`` > 1) it trains
@@ -29,6 +31,11 @@ import argparse
 
 import torch
 
+from text_segmentation_image_inpainting_tpu_torch.compat.torchvision import (
+    load_torch_file,
+    tolerant_import,
+    vgg16_features_state_dict,
+)
 from text_segmentation_image_inpainting_tpu_torch.data.pipeline import list_image_paths, make_dataset
 from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import (
     InpaintLossConfig,
@@ -36,10 +43,7 @@ from text_segmentation_image_inpainting_tpu_torch.losses.inpainting import (
 )
 from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import flax_init_
 from text_segmentation_image_inpainting_tpu_torch.models.partial_convolution import InpaintUNet
-from text_segmentation_image_inpainting_tpu_torch.models.vgg import (
-    VGG16Features,
-    load_vgg16_state_dict,
-)
+from text_segmentation_image_inpainting_tpu_torch.models.vgg import VGG16Features
 from text_segmentation_image_inpainting_tpu_torch.parallel.mesh import replicated
 from text_segmentation_image_inpainting_tpu_torch.train.config import (
     InpaintTrainConfig,
@@ -110,15 +114,17 @@ def parse_args(argv=None):
 
 def load_vgg(vgg: VGG16Features, ckpt_path: str | None,
              generator: torch.Generator) -> VGG16Features:
-    """``ckpt_path``'s weights, or without one random weights drawn from
-    ``generator`` with flax's ``nn.Conv`` initialisers (LeCun-normal
-    kernels, zero biases), as the JAX CLI draws them from its key."""
+    """Random weights drawn from ``generator`` with flax's ``nn.Conv``
+    initialisers (LeCun-normal kernels, zero biases), as the JAX CLI draws
+    its template from its key; then ``ckpt_path``'s trunk, tolerantly, as
+    JAX's ``load_vgg_variables``: a conv the file lacks, or holds at
+    another shape, keeps its random weights, and the report says so."""
+    flax_init_(vgg, 1.0, generator)
     if not ckpt_path:
         print("WARNING: random VGG16 weights (no --vgg-ckpt given); "
               "perceptual/style terms are untrained-feature losses")
-        flax_init_(vgg, 1.0, generator)
         return vgg
-    load_vgg16_state_dict(vgg, torch.load(ckpt_path, map_location="cpu", weights_only=True))
+    tolerant_import(vgg, vgg16_features_state_dict(load_torch_file(ckpt_path)))
     return vgg
 
 
