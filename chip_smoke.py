@@ -139,8 +139,22 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               gates) timed beside random weights; ``run_inpaint
               --vgg-ckpt --fused-stem`` for 2 steps at 512^2, batch 8 (K3
               8, K4 1, K5 1 a step, finite losses, the import's report)
- (Phases 9-14 run before the serve phase, 15 and 16 after it; each phase
- prints its seconds.)
+ 17. scope    the kernels at shapes of JAX's Pallas scope beyond the U-Net's
+              (``scope_phase``, ``SCOPE_CASES``): Cout 3 at Cin 200 and 300
+              (k 3), Cin 67 at k 2, 9, 11 and 13 and at padding (4, 1),
+              three mask groups (24, 16, 8) at Cout 16 and 3, the head's
+              67 -> 3 at k 11 on 8 pages of 512^2, each forward
+              and backward in bf16 and f32 through ``partial_conv2d`` and
+              autograd (the counters show the kernel ran, templated or
+              general form), against the f64 truth (bf16: ``check_close``
+              and ``check_grads``; f32: ``check_f32`` and
+              ``check_grads_f32``), M' bit-exact, twice bit-identical, each
+              timed beside its plain version and cuDNN; K6 at k 9, d 1 and
+              k 7, d 48, C 128 (the general form, ``check_wgrad``); an H =
+              12 bf16 layer on the plain route (no counter moves); the
+              general forms' three rows end the kernels line
+ (Phases 9-14 run before the serve phase, 15 and 16 after it, 17 last;
+ each phase prints its seconds.)
  The inpaint step also may not block the host: no blocking CUDA call in
  one profiled step (``tools/host_syncs.py``).
 
@@ -281,6 +295,30 @@ PAD_EXTRA = (
     ("K1 (1, 0): Cin 1024 = 512 + 512, Cout 512, 6x16", 1, 6, 16, (512, 512), 512, (1, 0)),
     ("K2 ragged (0, 1): Cin 67 = 64 + 3, Cout 3, 37x29", 3, 37, 29, (64, 3), 3, (0, 1)),
     ("K2 (1, 0): Cin 67 = 64 + 3, Cout 3, 34x64", 2, 34, 64, (64, 3), 3, (1, 0)),
+)
+# Shapes of JAX's Pallas scope (stride 1, dilation 1, square, an output
+# height under 8 or a multiple of 8: partial_conv_kernel.py:532-539) that
+# no model reaches: (name, N, H, W, group sizes, Cout, k, padding). Each is
+# routed through ``partial_conv2d`` in bf16 and in f32, forward and
+# backward.
+SCOPE_CASES = (
+    ("Cout 3, Cin 200, k 3", 2, 16, 40, (197, 3), 3, 3, (1, 1)),
+    ("Cout 3, Cin 67, k 2", 2, 15, 40, (64, 3), 3, 2, (1, 1)),
+    ("Cout 3, Cin 67, k 9", 2, 16, 40, (64, 3), 3, 9, (4, 4)),
+    ("Cout 3, Cin 67, k 11", 2, 16, 40, (64, 3), 3, 11, (5, 5)),
+    ("Cout 3, Cin 300, k 3", 2, 16, 40, (297, 3), 3, 3, (1, 1)),
+    ("G 3 (24, 16, 8), Cout 16, k 3", 2, 16, 40, (24, 16, 8), 16, 3, (1, 1)),
+    ("G 3 (24, 16, 8), Cout 3, k 3", 2, 16, 40, (24, 16, 8), 3, 3, (1, 1)),
+    ("Cout 3, Cin 67, k 13", 2, 16, 40, (64, 3), 3, 13, (6, 6)),
+    ("Cout 3, Cin 67, k 3, padding (4, 1)", 2, 10, 40, (64, 3), 3, 3, (4, 1)),
+    # the U-Net head's layer at k 11: the general forms at a size a model
+    # would give them
+    ("head 67 -> 3 at k 11, 512^2, batch 8", 8, 512, 512, (64, 3), 3, 11, (5, 5)),
+)
+# K6 beyond its templated form: (name, N, H, W, C, k, d).
+SCOPE_K6 = (
+    ("K6 k 9, d 1", 2, 64, 64, 128, 9, 1),
+    ("K6 k 7, d 48", 2, 96, 96, 128, 7, 48),
 )
 # The two-stage pipeline: microbatches of BATCH pages PAGE^2.
 STAGE_MICROBATCHES = 4
@@ -817,6 +855,9 @@ def main() -> int:
 
     # 11. the pretrained-weight path ----------------------------------------
     timed_phase("pretrained", pretrained_phase, pipe, dev, smi)
+
+    # 12. JAX's kernel scope beyond the models' shapes ------------------------
+    scope_rows = timed_phase("scope", scope_phase, dev, rng, smi)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {time.perf_counter() - t0:.1f}")
 
@@ -911,6 +952,11 @@ def main() -> int:
             "plain_ms": st["plain"], "bound_ms": st["bound"], "bound_by": st["by"],
             "library_ms": st["lib"],
         })
+    log("K2/K2F, K3/K3F and K6 general forms: the scope phase's cases that take them; ms, "
+        "plain_ms, library_ms (cuDNN on x * M) and bound_ms are sums over those cases; "
+        "launches from the scope phase's path runs, max_abs_err the largest against the f64 "
+        "truth (bf16 backward: autograd of the plain version in f32)")
+    kernels.extend(scope_rows)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -3209,11 +3255,14 @@ def reset_launches() -> None:
 
 def pad_gates(dev, rng, gen) -> None:
     """K1 and K2 with unequal H and W padding (``PAD_EXTRA``), reached
-    through ``partial_conv2d`` (the routing: a kernel launches, nothing
-    raises): against the plain version (M' bit-exact), twice on the same
-    inputs (bit-identical), and the backward (K3) by ``check_grads``."""
+    through ``partial_conv2d`` (the routing: a kernel launches where JAX's
+    rule, ``in_kernel_scope``, takes the output height, and none where it
+    does not; nothing raises), and called directly: against the plain
+    version (M' bit-exact), twice on the same inputs (bit-identical), and
+    the backward (K3) by ``check_grads``."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
-    from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import partial_conv2d
+    from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
+        in_kernel_scope, partial_conv2d)
 
     for name, n, h, w, groups, cout, pad in PAD_EXTRA:
         cin = sum(groups)
@@ -3225,15 +3274,18 @@ def pad_gates(dev, rng, gen) -> None:
         kw = dict(group_sizes=groups, padding=pad)
         wb = wt.to(torch.bfloat16)
         bb = None if b is None else b.to(torch.bfloat16)
+        hout, wout = h + 2 * pad[0] - 2, w + 2 * pad[1] - 2
+        routed = in_kernel_scope((1, 1), (1, 1), wb.shape, hout)
         before = launch_counts()
-        first = partial_conv2d(x, m, wb, bb, **kw)
+        partial_conv2d(x, m, wb, bb, **kw)
         after = launch_counts()
-        want = (0, 1) if cout <= 7 else (1, 0)
+        want = ((0, 1) if cout <= 7 else (1, 0)) if routed else (0, 0)
         if (after[0] - before[0], after[1] - before[1]) != want:
-            raise AssertionError(f"{name}: partial_conv2d did not launch {'K2' if cout <= 7 else 'K1'}")
+            raise AssertionError(f"{name}: partial_conv2d launched "
+                                 f"{(after[0] - before[0], after[1] - before[1])}, want {want}")
+        first = kpc.partial_conv2d_fused(x, m, wb, bb, **kw)
         again = kpc.partial_conv2d_fused(x, m, wb, bb, **kw)
         torch.cuda.synchronize()
-        hout, wout = h + 2 * pad[0] - 2, w + 2 * pad[1] - 2
         if first[0].shape != (n, hout, wout, cout):
             raise AssertionError(f"{name}: output {tuple(first[0].shape)}")
         err = check_close(name, first, kpc.partial_conv2d_reference(x, m, wb, bb, **kw),
@@ -3244,7 +3296,9 @@ def pad_gates(dev, rng, gen) -> None:
         grel, gabs = check_grads(name, x, m, wt, b, g, kw)
         plan = (kpc.k2_plan(cin, cout, 3) if cout <= 7 else
                 kpc.k1_plan(n, h, w, cout, kpc.k1_channels(groups)[2], 3, pad))
-        log(f"padding {name}: {plan}; routed by partial_conv2d, M' bit-exact, max|dy| "
+        route = ("routed by partial_conv2d" if routed else
+                 "partial_conv2d on the plain route (JAX's rule), the kernel called directly")
+        log(f"padding {name}: {plan}; {route}, M' bit-exact, max|dy| "
             f"{err:.4g}, two launches bit-identical; K3 relative L2 {grel:.3g}")
 
 
@@ -3748,6 +3802,216 @@ def pretrained_phase(pipe, dev, smi: str) -> dict:
         del state
     torch.cuda.empty_cache()
     return out
+
+
+def scope_case_inputs(gen, rng, dev, n, h, w, groups, cout, k):
+    """x, a grouped binary mask with a block of empty windows, OIHW weights
+    and a bias, in f32 on ``dev``."""
+    cin = sum(groups)
+    x = torch.randn((n, h, w, cin), generator=gen, device=dev)
+    m = torch.from_numpy(rng.random((n, h, w, len(groups))) < 0.6).to(dev, torch.float32)
+    m[0, :k + 4, :k + 4] = 0
+    wt = torch.randn((cout, cin, k, k), generator=gen, device=dev) * (2.0 / (k * k * cin)) ** 0.5
+    b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+    return x, m, wt, b
+
+
+def scope_phase(dev, rng, smi: str) -> dict:
+    """The kernels at ``SCOPE_CASES`` and ``SCOPE_K6``: shapes of JAX's
+    Pallas scope that no model of the repo reaches, which the hand-written
+    kernels take in their templated form or, past it, in their general
+    form. The general forms' counters are set to 0 first. Each case runs
+    as a user runs it, ``partial_conv2d`` and autograd's backward, in bf16
+    and in f32: the forward moves its kernel's counter alone (K1 or K2, K1F
+    or K2F), the backward K3, or K3F and at Cout <= 7 K3F_HEAD; these runs'
+    general-form launches are the kernels line's ``launches``. Then the
+    checks: the forward against the f64 truth (bf16 ``check_close`` on the
+    plain version of the same bf16 values in f64, f32 ``check_f32``), M'
+    bit-exact, two launches bit-identical; the backward by ``check_grads``
+    (bf16) and ``check_grads_f32`` (f32, twice bit-identical), the bf16
+    backward also twice bit-identical. K6 at ``SCOPE_K6`` by
+    ``check_wgrad`` (f64 truth, twice bit-identical, the counter). Last an
+    H = 12 bf16 layer, outside JAX's scope: no counter moves and y is
+    ``_partial_conv2d_plain``'s bit for bit. Each case's CUDA-event median,
+    forward and backward, beside the plain version's and the library's
+    (cuDNN on x * M), and its bound. Returns the general forms' rows of the
+    kernels line."""
+    import torch.nn.functional as F
+
+    from text_segmentation_image_inpainting_tpu_torch.ops.conv import to_nchw
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
+    from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
+        _partial_conv2d_plain, apply_mask, partial_conv2d)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    log(f"scope: {smi}")
+    kpc.GEN_LAUNCHES = kpc.GEN_BWD_LAUNCHES = kdw.K6_GEN_LAUNCHES = 0
+    path = {"fwd": 0, "bwd": 0, "k6": 0}
+    tot = {key: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "err": 0.0, "flop": 0.0,
+                 "bytes": 0.0, "peak": None}
+           for key in ("fwd", "bwd", "k6")}
+
+    def add(key, ms, plain, lib, flop, nbytes, peak, err):
+        t = tot[key]
+        b_ms, _ = bound(flop, nbytes, peak)
+        for name, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", b_ms),
+                        ("flop", flop), ("bytes", nbytes)):
+            t[name] += v
+        t["err"] = max(t["err"], err)
+        t["peak"] = peak
+
+    for name, n, h, w, groups, cout, k, pad in SCOPE_CASES:
+        cin = sum(groups)
+        x, m, wt, b = scope_case_inputs(gen, rng, dev, n, h, w, groups, cout, k)
+        kw = dict(group_sizes=groups, padding=pad)
+        needs = (True, True, True)
+        for dt in (torch.bfloat16, torch.float32):
+            f32 = dt == torch.float32
+            label = f"scope {name} {'f32' if f32 else 'bf16'}"
+            xd, md, wd, bd = (t.to(dt) for t in (x, m, wt, b))
+            fwd_key = ("K2" if cout <= 7 else "K1") + ("F" if f32 else "")
+            bwd_want = ({"K3F": 1} | ({"K3F_HEAD": 1} if cout <= 7 else {})) if f32 else {"K3": 1}
+            gen_f = cout <= 7 and (kpc.k2f_plan(n, h, w, cin, cout, k, pad, len(groups)).general
+                                   if f32 else kpc.k2_general(cin, cout, k, len(groups)))
+            gen_b = cout <= 7 and (kpc.k2f_bwd_plan(n, h, w, cin, cout, k, len(groups)).general
+                                   if f32 else kpc.k2_general(cin, cout, k, len(groups), pad, True))
+            # the path, as a user runs it: partial_conv2d, then autograd
+            leaves = [t.detach().clone().requires_grad_(True) for t in (xd, wd, bd)]
+            g = torch.randn((n, h + 2 * pad[0] - k + 1, w + 2 * pad[1] - k + 1, cout),
+                            generator=gen, device=dev).to(dt)
+            before, gen0 = launch_counters(), (kpc.GEN_LAUNCHES, kpc.GEN_BWD_LAUNCHES)
+            y, _ = partial_conv2d(leaves[0], md, leaves[1], leaves[2], **kw)
+            mid = launch_counters()
+            torch.autograd.grad(y, leaves, g)
+            torch.cuda.synchronize()
+            after = launch_counters()
+            moved_f = {c: v - before[c] for c, v in mid.items() if v != before[c]}
+            moved_b = {c: v - mid[c] for c, v in after.items() if v != mid[c]}
+            if moved_f != {fwd_key: 1} or moved_b != bwd_want:
+                raise AssertionError(f"{label}: partial_conv2d launched {moved_f} and its "
+                                     f"backward {moved_b}, want {fwd_key} 1 and {bwd_want}")
+            dgen = (kpc.GEN_LAUNCHES - gen0[0], kpc.GEN_BWD_LAUNCHES - gen0[1])
+            if dgen != (int(gen_f), int(gen_b)):
+                raise AssertionError(f"{label}: general forms launched {dgen}, the plans say "
+                                     f"{(int(gen_f), int(gen_b))}")
+            path["fwd"] += dgen[0]
+            path["bwd"] += dgen[1]
+            # the checks
+            first = kpc.partial_conv2d_fused(xd, md, wd, bd, **kw)
+            again = kpc.partial_conv2d_fused(xd, md, wd, bd, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
+                raise AssertionError(f"{label}: two launches on the same inputs differ")
+            if not torch.equal(first[0], y.detach()):
+                raise AssertionError(f"{label}: partial_conv2d differs from the kernel's call")
+            if f32:
+                err = check_f32(label, first, xd, md, wd, bd, kw)
+                grel, gabs = check_grads_f32(label, xd, md, wd, bd, g, kw)
+            else:
+                y64, m64 = kpc.partial_conv2d_reference(xd.double(), md.double(), wd.double(),
+                                                        bd.double(), **kw)
+                err = check_close(label, first, (y64, m64.to(dt)), require_empty=True)
+                grel, gabs = check_grads(label, xd, md, wt, b, g, kw)
+                d1 = kpc.partial_conv2d_backward(g, xd, md, wd, bd, groups, pad, needs)
+                d2 = kpc.partial_conv2d_backward(g, xd, md, wd, bd, groups, pad, needs)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a1, a2) for a1, a2 in zip(d1, d2)):
+                    raise AssertionError(f"{label}: two backward launches differ")
+            # the times: kernel, plain version, cuDNN on x * M (never called by the port)
+            fwd = lambda: kpc.partial_conv2d_fused(xd, md, wd, bd, **kw)  # noqa: E731
+            bwd = lambda: kpc.partial_conv2d_backward(g, xd, md, wd, bd, groups, pad,  # noqa: E731
+                                                      needs)
+            pfwd = lambda: kpc.partial_conv2d_reference(xd, md, wd, bd, **kw)  # noqa: E731
+            pbwd = lambda: kpc.partial_conv2d_backward_reference(  # noqa: E731
+                g, xd, md, wd, bd, groups, pad, needs)
+            xm = to_nchw(apply_mask(xd, md, groups))
+            wl = wd.contiguous(memory_format=torch.channels_last)
+            gl = to_nchw(g)
+            lfwd = lambda: F.conv2d(xm, wl, padding=pad)  # noqa: E731
+            lbwd = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+                gl, xm, wl, None, [1, 1], list(pad), [1, 1], False, [0, 0], 1,
+                [True, True, False])
+            t_f, t_b = cuda_ms(fwd, iters=10), cuda_ms(bwd, iters=10)
+            p_f, p_b = cuda_ms(pfwd, iters=10), cuda_ms(pbwd, iters=10)
+            l_f, l_b = cuda_ms(lfwd, iters=10), cuda_ms(lbwd, iters=10)
+            elem, peak = xd.element_size(), PEAK_F32 if f32 else PEAK_BF16
+            p_out = g.shape[0] * g.shape[1] * g.shape[2]
+            flop = 2.0 * p_out * cout * k * k * cin
+            fbytes = elem * (xd.numel() + md.numel() + wd.numel() + p_out * cout + p_out)
+            bbytes = elem * (2 * xd.numel() + g.numel() + md.numel() + 2 * wd.numel())
+            if gen_f:
+                add("fwd", t_f, p_f, l_f, flop, fbytes, peak, err)
+            if gen_b:
+                add("bwd", t_b, p_b, l_b, 2 * flop, bbytes, peak, gabs)
+            form = "general" if gen_f else "templated" if cout <= 7 else f"G {len(groups)} table"
+            bform = "general" if gen_b else "templated" if cout <= 7 else f"G {len(groups)} table"
+            log(f"{label}: x {tuple(xd.shape)} -> y {tuple(first[0].shape)}; {fwd_key} ({form}) "
+                f"{t_f:.4f} ms, plain {p_f:.4f} ms, cuDNN on x*M {l_f:.4f} ms, bound "
+                f"{bound(flop, fbytes, peak)[0]:.4f} ms; backward ({bform}) {t_b:.4f} ms, plain "
+                f"{p_b:.4f} ms, cuDNN {l_b:.4f} ms, bound {bound(2 * flop, bbytes, peak)[0]:.4f} "
+                f"ms (CUDA events, medians of 10); M' bit-exact, max|dy| {err:.4g} vs the f64 "
+                f"truth, twice bit-identical; gradients relative L2 {grel:.3g}, max |d| "
+                f"{gabs:.4g}; the path's counters {moved_f} {moved_b}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, n, h, w, c, k, d in SCOPE_K6:
+        for dt in (torch.bfloat16, torch.float32):
+            label = f"scope {name} {'bf16' if dt == torch.bfloat16 else 'f32'}"
+            x = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
+            dy = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
+            before = kdw.K6_GEN_LAUNCHES
+            kdw.depthwise_wgrad(x, dy, k, d)  # the path
+            path["k6"] += kdw.K6_GEN_LAUNCHES - before
+            res = check_wgrad(label, x, dy, k, d)
+            plan = kdw.k6_plan(n, h, w, c, k, d, x.element_size(), sms)
+            if not plan.general or kdw.K6_GEN_LAUNCHES - before != 3:
+                raise AssertionError(f"{label}: the general form did not run ({plan})")
+            p = d * (k - 1) // 2
+            wdw = torch.zeros((c, 1, k, k), device=dev, dtype=dt)
+            xc, dyc = to_nchw(x), to_nchw(dy)
+            t = cuda_ms(lambda: kdw.depthwise_wgrad(x, dy, k, d), iters=10)
+            t_p = cuda_ms(lambda: kdw.depthwise_wgrad_reference(x, dy, k, d), iters=10)
+            t_l = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                dyc, xc, wdw, None, [1, 1], [p, p], [d, d], False, [0, 0], c,
+                [False, True, False]), iters=10)
+            peak = PEAK_F32 if dt == torch.float32 else PEAK_BF16
+            flop = 2.0 * k * k * x.numel()
+            nbytes = 2.0 * x.numel() * x.element_size() + 4 * k * k * c
+            add("k6", t, t_p, t_l, flop, nbytes, peak, res["K6"])
+            log(f"{label}: x {tuple(x.shape)}, general form ({plan.chunks} chunks), {t:.4f} ms, "
+                f"plain {t_p:.4f} ms, cuDNN's depthwise wgrad {t_l:.4f} ms, bound "
+                f"{bound(flop, nbytes, peak)[0]:.4f} ms (CUDA events, medians of 10); K6 max "
+                f"|err| {res['K6']:.4g} vs the f64 truth, twice bit-identical")
+    # outside JAX's scope: an output height of 12 takes the plain route
+    x, m, wt, b = scope_case_inputs(gen, rng, dev, 2, 12, 40, (64, 3), 16, 3)
+    xd, md, wd = x.to(torch.bfloat16), m.to(torch.bfloat16), wt.to(torch.bfloat16)
+    before = launch_counters()
+    y, m_out = partial_conv2d(xd, md, wd, None, group_sizes=(64, 3), padding=1)
+    torch.cuda.synchronize()
+    if launch_counters() != before:
+        raise AssertionError("scope H 12: a kernel counter moved on the plain route")
+    y_p, m_p = _partial_conv2d_plain(xd, md, wd, None, (64, 3), (1, 1), (1, 1), (1, 1))
+    if not (torch.equal(y, y_p) and torch.equal(m_out, m_p)):
+        raise AssertionError("scope H 12: partial_conv2d differs from the plain route")
+    log("scope H 12, bf16, Cin 67 -> 16, k 3: the plain route (JAX's _partial_conv2d_xla's "
+        "counterpart), no kernel counter moved, y bit-equal to _partial_conv2d_plain")
+    if min(path.values()) < 1:
+        raise AssertionError(f"scope: a general form never ran on the path: {path}")
+    log(f"scope: the general forms' launches on the path {path}")
+    rows = []
+    for key, fn, src, tpu in (
+            ("fwd", "K2/K2F general form pconv_gen_fwd (Cout <= 7 past the templated forms)",
+             CSRC, f"{TPU_KERNEL}:480"),
+            ("bwd", "K3/K3F general form pconv_k3_prep, pconv_gen_dx, pconv_gen_dw, pconv_colsum "
+                    "(Cout <= 7 past the templated forms)", CSRC, f"{TPU_KERNEL}:600"),
+            ("k6", "K6 general form dw_wgrad_gen, dw_wgrad_gen_sum", CSRC_DW, f"{TPU_DW}:144")):
+        t = tot[key]
+        _, by = bound(t["flop"], t["bytes"], t["peak"])
+        rows.append({"name": fn, "route": "cuda", "source": src, "replaces": tpu,
+                     "launches": path[key], "max_abs_err": t["err"], "ms": t["ms"],
+                     "plain_ms": t["plain"], "bound_ms": t["bound"], "bound_by": by,
+                     "library_ms": t["lib"]})
+    return rows
 
 
 def kernel_ms(fn, windows: int = 3, calls: int = 2) -> dict:

@@ -3,12 +3,16 @@
 Also holds the helpers the other ``test_torch_*`` files share: init a
 JAX module, randomise its BatchNorm statistics and biases (so every BN
 fold and bias path does real work), and carry the variables into the
-port with ``compat/from_jax.py``.
+port with ``compat/from_jax.py``; and ``jax_native_engines``, the fixture
+of every test that holds natively drawn pages or masks against JAX's.
 """
 
+import fcntl
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import jax
@@ -88,6 +92,65 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def _reload(mod) -> bool:
+    """Reset a JAX native-engine module (``_lib``, ``_build_failed``) and
+    load its library again; True when it loaded."""
+    with mod._lock:
+        mod._lib = None
+        mod._build_failed = False
+    return mod.available()
+
+
+def ensure_jax_native_engines() -> None:
+    """Make JAX's native page and mask engines available in this process,
+    or fail the test naming the race.
+
+    JAX's ``data/native_pages.py::_load`` (and ``native_masks``') builds its
+    library in place with ``make`` at first use and, when ``ctypes`` cannot
+    load it, marks the engine unavailable for the rest of the process. The
+    test run starts from a tree without ``*.so`` files, and several workers
+    import the JAX data modules at once: one can load another's half-written
+    library, and JAX then draws that worker's pages with PIL, whose bytes
+    differ from the port's native draw. For each engine that reports
+    unavailable this reloads it, and failing that rebuilds its library
+    under a lock shared by the workers (JAX's Makefile run on a copy of the
+    sources in a temporary directory, the result moved into place with
+    ``os.replace``, so no process sees a partial file) and reloads it. A
+    native draw is never compared with a PIL one."""
+    from text_segmentation_image_inpainting_tpu.data import native_masks, native_pages
+
+    for mod, name in ((native_pages, "libpagegen.so"), (native_masks, "libmaskgen.so")):
+        if mod.available():
+            continue
+        lock = Path(tempfile.gettempdir()) / "tsii-jax-native.lock"
+        with open(lock, "w") as held:
+            fcntl.flock(held, fcntl.LOCK_EX)
+            for _ in range(3):
+                if _reload(mod):
+                    break
+                src = Path(mod._DIR)
+                with tempfile.TemporaryDirectory() as tmp:
+                    for f in [src / "Makefile", *src.glob("*.cpp")]:
+                        shutil.copy2(f, tmp)
+                    subprocess.run(["make", "-C", tmp, name], check=True, capture_output=True,
+                                   timeout=300)
+                    staged = src / f"staged-{os.getpid()}-{name}"
+                    shutil.copy2(Path(tmp) / name, staged)
+                    os.replace(staged, src / name)
+        if not mod.available():
+            pytest.fail(f"JAX's native engine {mod.__name__} is unavailable in this process "
+                        f"even after a rebuild: its in-place build at first use "
+                        f"(data/native_pages.py::_load) raced another test worker's, and the "
+                        f"JAX side would draw with PIL")
+
+
+@pytest.fixture
+def jax_native_engines():
+    """Fixture: ``ensure_jax_native_engines`` before the test."""
+    ensure_jax_native_engines()
+    yield
 
 
 @pytest.fixture(scope="module")

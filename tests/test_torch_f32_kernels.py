@@ -326,10 +326,20 @@ def test_k2f_bands_cover_every_row_once(n, rows, cols, cin, k):
     (67, 8, 3, "Cout"), (67, 3, 2, "k in"), (67, 3, 9, "k in"), (300, 3, 3, "input channels"),
 ])
 def test_k2f_refuses_what_it_is_not_built_for(cin, cout, k, what):
-    with pytest.raises(ValueError, match=what):
-        kpc.k2f_bwd_plan(2, 16, 16, cin, cout, k)
-    with pytest.raises(ValueError, match=what):
-        kpc.k2f_plan(2, 16, 16, cin, cout, k, (1, 1))
+    """Cout 8 is K1F's: both plans refuse it. The rest of JAX's scope that
+    the templated forms are not built for (a window outside K2F_KS, a ring
+    too large for shared memory, more than HB_THREADS input channels
+    backward) takes the general form."""
+    if what == "Cout":
+        with pytest.raises(ValueError, match=what):
+            kpc.k2f_bwd_plan(2, 16, 16, cin, cout, k)
+        with pytest.raises(ValueError, match=what):
+            kpc.k2f_plan(2, 16, 16, cin, cout, k, (1, 1))
+        return
+    assert kpc.k2f_bwd_plan(2, 16, 16, cin, cout, k).general
+    fwd = kpc.k2f_plan(2, 16, 16, cin, cout, k, (1, 1))
+    assert fwd.general == (k not in kpc.K2F_KS
+                           or kpc.k2f_smem_bytes(cin, cout, k) > kpc.SMEM_LIMIT)
 
 
 def _k2f_inputs(groups, cout, k, seed, n=2, h=9, w=70):

@@ -33,6 +33,7 @@ import torch
 from chip_smoke import K6_RAGGED, SEG_SHAPES
 from text_segmentation_image_inpainting_tpu.ops.conv import conv2d as jconv2d
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
+from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
 from tests.test_torch_bridge import one_torch_thread
 
 
@@ -136,8 +137,10 @@ def test_plan_cases_reach_the_partial_wave_and_the_strips():
 
 
 def test_plan_refuses_rows_that_cannot_fit():
-    with pytest.raises(ValueError, match="do not fit"):
-        kdw.k6_plan(1, 8, 8, 128, 3, 200, 2, SMS)
+    """Where not even a one-column strip fits, the templated form is
+    refused and the general form takes the call."""
+    plan = kdw.k6_plan(1, 8, 8, 128, 3, 200, 2, SMS)
+    assert plan.general and plan.chunks == kpc.gen_chunks(64, 9 * 128)
 
 
 def segments(nw, d, lpr):

@@ -58,7 +58,14 @@ autograd, their weights re-laid as the plain re-lays do. The f32 stem
 its weights re-laid as the plain re-lay does, routed by
 ``vgg_stem_frozen`` in f32; and the whole pipeline over 2 bands
 of one card (``spatial_pipeline_run``: K1/K2 per band, the page untouched
-outside the text, the masks and clean pages close to ``run``'s).
+outside the text, the masks and clean pages close to ``run``'s). The
+kernels at shapes of JAX's Pallas scope that no model reaches
+(chip_smoke.py's ``SCOPE_CASES``: Cin 200 and 300, k 2, 9, 11 and 13,
+padding above k - 1, three mask groups) in bf16 and f32 through
+``partial_conv2d``, their templated or general forms, against the f64
+truth, twice bit-identical, the backward by ``check_grads`` /
+``check_grads_f32``; K6's general form at ``SCOPE_K6`` (k 9, and k 7 at
+d 48) by ``check_wgrad``; and an output height of 12 on the plain route.
 """
 
 import numpy as np
@@ -69,16 +76,21 @@ from chip_smoke import (
     K1_EXTRA,
     K6_RAGGED,
     PAD_EXTRA,
+    SCOPE_CASES,
+    SCOPE_K6,
     SHARD_SHAPES,
     STEM_EXTRA,
     check_close,
     check_f32,
     check_grads,
+    check_grads_f32,
     check_stem_dx,
     check_stem_dx_repeats,
     check_stem_f32,
     check_stem_pool,
     check_wgrad,
+    launch_counters,
+    scope_case_inputs,
     state_snapshot,
     stem_weights,
 )
@@ -89,6 +101,7 @@ from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_con
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import vgg_stem as kvs
 from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
     apply_mask,
+    in_kernel_scope,
     mask_window_sum,
     partial_conv2d,
 )
@@ -598,8 +611,8 @@ def test_k6_refuses_what_it_does_not_take(cuda):
         kdw._launch_k6(x.half(), x.half(), 3, 1)
     with pytest.raises(ValueError, match="dy must match"):
         kdw._launch_k6(x, x.float(), 3, 1)
-    with pytest.raises(ValueError, match="built for"):
-        kdw._launch_k6(x, x, 9, 1)
+    with pytest.raises(ValueError, match="odd k"):
+        kdw._launch_k6(x, x, 4, 1)
 
 
 def test_dense_serve_is_run_bit_for_bit(cuda):
@@ -719,8 +732,11 @@ def test_unequal_padding_launches_and_matches_plain(cuda, name, n, h, w, groups,
     kw = dict(group_sizes=groups, padding=pad)
     wb, bb = wt.to(torch.bfloat16), None if b is None else b.to(torch.bfloat16)
     k1, k2 = kpc.K1_LAUNCHES, kpc.K2_LAUNCHES
-    got = partial_conv2d(x, m, wb, bb, **kw)
-    assert (kpc.K1_LAUNCHES - k1, kpc.K2_LAUNCHES - k2) == ((0, 1) if cout <= 7 else (1, 0))
+    partial_conv2d(x, m, wb, bb, **kw)
+    routed = in_kernel_scope((1, 1), (1, 1), wb.shape, h + 2 * pad[0] - 2)
+    want = ((0, 1) if cout <= 7 else (1, 0)) if routed else (0, 0)
+    assert (kpc.K1_LAUNCHES - k1, kpc.K2_LAUNCHES - k2) == want
+    got = kpc.partial_conv2d_fused(x, m, wb, bb, **kw)
     again = kpc.partial_conv2d_fused(x, m, wb, bb, **kw)
     torch.cuda.synchronize()
     assert got[0].shape == (n, h + 2 * pad[0] - 2, w + 2 * pad[1] - 2, cout)
@@ -900,7 +916,7 @@ def test_k1f_weights_are_relaid_as_the_plain_version(cuda, cin, cout, k, bn):
     code = lib.tsii_pconv_k1f(x.data_ptr(), m.data_ptr(), wt.data_ptr(), 0, y.data_ptr(),
                               mo.data_ptr(), xm.data_ptr(), 0, wk.data_ptr(), 1, 5, 6, cin, 1,
                               cin, 0, 5, 6, cout, k, pad, pad, want.shape[1], want.shape[2],
-                              256 if bn == 64 else 128, bn, 1,
+                              256 if bn == 64 else 128, bn, 1, 0,
                               torch.cuda.current_stream().cuda_stream)
     check(lib, code, "K1F")
     torch.cuda.synchronize()
@@ -1080,3 +1096,59 @@ def test_spatial_pipeline_on_the_card(cuda):
     assert float((mask != want_mask).float().mean()) < 0.01
     a, b = clean[agree].float(), want_clean[agree].float()
     assert ((a - b).norm() / b.norm()).item() < 2e-2
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", SCOPE_CASES, ids=[c[0] for c in SCOPE_CASES])
+def test_kernels_take_jaxs_scope(cuda, case, dt):
+    """A shape of JAX's scope that no model reaches, through ``partial_conv2d``:
+    the kernel's counter moves (its templated or general form), the forward
+    against the f64 truth with M' bit-exact, twice bit-identical; the
+    backward by chip_smoke.py's gates (``check_grads`` in bf16,
+    ``check_grads_f32`` in f32, twice bit-identical)."""
+    name, n, h, w, groups, cout, k, pad = case
+    gen = torch.Generator(device=cuda).manual_seed(sum(groups) + k)
+    x, m, wt, b = scope_case_inputs(gen, np.random.default_rng(k), cuda, n, h, w, groups, cout, k)
+    xd, md, wd, bd = (t.to(dt) for t in (x, m, wt, b))
+    kw = dict(group_sizes=groups, padding=pad)
+    key = ("K2" if cout <= 7 else "K1") + ("F" if dt == torch.float32 else "")
+    before = launch_counters()
+    first = partial_conv2d(xd, md, wd, bd, **kw)
+    moved = {c: v - before[c] for c, v in launch_counters().items() if v != before[c]}
+    assert moved == {key: 1}
+    again = kpc.partial_conv2d_fused(xd, md, wd, bd, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    g = torch.randn(first[0].shape, generator=gen, device=cuda).to(dt)
+    if dt == torch.float32:
+        check_f32(name, first, xd, md, wd, bd, kw)
+        check_grads_f32(name, xd, md, wd, bd, g, kw)
+    else:
+        y64, m64 = kpc.partial_conv2d_reference(xd.double(), md.double(), wd.double(),
+                                                bd.double(), **kw)
+        check_close(name, first, (y64, m64.to(dt)), require_empty=True)
+        check_grads(name, xd, md, wt, b, g, kw)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", SCOPE_K6, ids=[c[0] for c in SCOPE_K6])
+def test_k6_general_form(cuda, case, dt):
+    """K6 past its templated form (k 9; k 7 at a dilation of 48) runs the
+    general form: against the f64 truth, twice bit-identical."""
+    name, n, h, w, c, k, d = case
+    gen = torch.Generator(device=cuda).manual_seed(k * d)
+    x = torch.randn((n, h, w, c), generator=gen, device=cuda).to(dt)
+    dy = torch.randn((n, h, w, c), generator=gen, device=cuda).to(dt)
+    before = kdw.K6_GEN_LAUNCHES
+    check_wgrad(name, x, dy, k, d)
+    assert kdw.K6_GEN_LAUNCHES == before + 2
+
+
+def test_an_output_height_of_12_takes_the_plain_route(cuda):
+    """Outside JAX's scope (``_supported``: an output height under 8 or a
+    multiple of 8) no kernel launches, in bf16 and f32."""
+    x, m, w, _ = _case(cuda, 12, 2, 12, 16, (8, 8), 16, 3, False)
+    for dt in (torch.bfloat16, torch.float32):
+        before = launch_counters()
+        partial_conv2d(x.to(dt), m.to(dt), w.to(dt), group_sizes=(8, 8), padding=1)
+        assert launch_counters() == before

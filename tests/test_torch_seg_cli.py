@@ -11,6 +11,8 @@ default) where there is none is refused.
 """
 
 import json
+import shutil
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +21,13 @@ import pytest
 import torch
 
 import text_segmentation_image_inpainting_tpu_torch.ops.depthwise as tdw
-from tests.test_torch_bridge import SEG_WIDTH, one_torch_thread
+from tests.test_torch_bridge import (  # noqa: F401 (jax_native_engines: a fixture)
+    SEG_WIDTH,
+    _reload,
+    ensure_jax_native_engines,
+    jax_native_engines,
+    one_torch_thread,
+)
 from text_segmentation_image_inpainting_tpu.data.pipeline import PageSource as JaxPageSource
 from text_segmentation_image_inpainting_tpu.models import TextSegmenter as JaxTextSegmenter
 from text_segmentation_image_inpainting_tpu_torch.compat.from_jax import text_segmenter_state_dict
@@ -62,12 +70,44 @@ def _assert_same_pages(got, want):
 
 
 @pytest.mark.parametrize("idx", [0, 5])
-def test_seg_pages_equal_jax(idx):
+def test_seg_pages_equal_jax(idx, jax_native_engines):
     _assert_same_pages(PageSource(kind="seg", size=(48, 40), seed=3)[idx],
                        JaxPageSource(kind="seg", size=(48, 40), seed=3)[idx])
 
 
-def test_seg_pages_from_a_data_dir_equal_jax(tmp_path):
+def test_jax_native_engines_repair_a_lost_build(tmp_path, monkeypatch):
+    """The race of JAX's in-place build, staged: JAX's page engine pointed
+    at a copy of its sources beside a half-written library, so that its
+    ``_load`` fails and marks the engine unavailable; the helper rebuilds
+    the library, reloads the engine, and the pages are again the port's
+    bit for bit (``test_seg_pages_equal_jax``'s comparison)."""
+    from text_segmentation_image_inpainting_tpu.data import native_pages as jnp_pages
+
+    ensure_jax_native_engines()
+    src = Path(jnp_pages._DIR)
+    for f in [src / "Makefile", *src.glob("*.cpp")]:
+        shutil.copy2(f, tmp_path)
+    lib = tmp_path / "libpagegen.so"
+    # a build caught as the linker starts its file (a longer prefix can load
+    # and then fault on its missing pages: the race at its worst)
+    lib.write_bytes((src / "libpagegen.so").read_bytes()[:16])
+    monkeypatch.setattr(jnp_pages, "_DIR", str(tmp_path))
+    monkeypatch.setattr(jnp_pages, "_LIB_PATH", str(lib))
+    try:
+        monkeypatch.setattr(jnp_pages, "_lib", None)
+        monkeypatch.setattr(jnp_pages, "_build_failed", False)
+        assert not jnp_pages.available() and jnp_pages._build_failed
+        ensure_jax_native_engines()
+        assert jnp_pages.available() and lib.stat().st_size > 16
+        _assert_same_pages(PageSource(kind="seg", size=(48, 40), seed=3)[0],
+                           JaxPageSource(kind="seg", size=(48, 40), seed=3)[0])
+    finally:
+        monkeypatch.undo()
+        assert _reload(jnp_pages)  # the engine of the tree again
+    assert not any(f.name.startswith("staged-") for f in tmp_path.iterdir())
+
+
+def test_seg_pages_from_a_data_dir_equal_jax(tmp_path, jax_native_engines):
     from PIL import Image
 
     rng = np.random.default_rng(0)

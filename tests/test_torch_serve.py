@@ -34,7 +34,12 @@ import pytest
 import torch
 import torch.nn as nn
 
-from tests.test_torch_bridge import one_torch_thread, port_segmenter, port_unet
+from tests.test_torch_bridge import (  # noqa: F401 (jax_native_engines: a fixture)
+    jax_native_engines,
+    one_torch_thread,
+    port_segmenter,
+    port_unet,
+)
 from text_segmentation_image_inpainting_tpu.data.pipeline import (
     make_page_stream_u8 as jax_page_stream_u8,
 )
@@ -418,7 +423,7 @@ def test_prefetcher_close_unblocks_a_full_queue():
 
 # -- serving pages -------------------------------------------------------------------
 
-def test_page_stream_u8_equals_jax():
+def test_page_stream_u8_equals_jax(jax_native_engines):
     a = make_page_stream_u8(batch_size=2, size=(64, 48), seed=3)
     b = jax_page_stream_u8(batch_size=2, size=(64, 48), seed=3)
     for _ in range(2):

@@ -460,6 +460,68 @@ cudaError_t launch_k(const void* x, const void* dy, float* partial, unsigned* ti
   }
 }
 
+// The general form, for the rest of JAX's scope (any odd k, any equal
+// dilation): the windows the template is not built for (k other than 1, 3,
+// 5, 7) and the dilations whose halo leaves no strip a 256-pixel TMA row or
+// the rings (k6_plan). A thread per (tap, channel) and chunk of output
+// pixels sums x * dy in f32 over its chunk and writes the chunk's row of
+// partials, (tap, channel); dw_wgrad_gen_sum adds the rows in chunk order
+// into dW (c, k*k). No shared memory and no atomics: two launches give the
+// same bits. Correct and simple, not tuned.
+__device__ __forceinline__ float as_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float as_f32(float v) { return v; }
+
+template <typename T>
+__global__ void __launch_bounds__(NT) dw_wgrad_gen(const T* __restrict__ x,
+                                                   const T* __restrict__ dy, float* partial, int n,
+                                                   int h, int w, int c, int k, int d, int chunks) {
+  const int e = blockIdx.x * NT + threadIdx.x;
+  const int tap = e / c, ch = e - tap * c;
+  if (tap >= k * k) return;
+  const int p = d * (k - 1) / 2;
+  const int oy = (tap / k) * d - p, ox = (tap % k) * d - p;
+  const long long P = (long long)n * h * w;
+  const long long b = blockIdx.y * P / chunks, end = (blockIdx.y + 1) * P / chunks;
+  int ow = (int)(b % w), oh = (int)(b / w % h), nn = (int)(b / w / h);
+  float acc = 0.f;
+  for (long long pix = b; pix < end; ++pix) {
+    const int ih = oh + oy, iw = ow + ox;
+    if (ih >= 0 && ih < h && iw >= 0 && iw < w)
+      acc = fmaf(as_f32(x[(((size_t)nn * h + ih) * w + iw) * c + ch]), as_f32(dy[pix * c + ch]),
+                 acc);
+    if (++ow == w) {
+      ow = 0;
+      if (++oh == h) oh = 0, ++nn;
+    }
+  }
+  partial[(size_t)blockIdx.y * k * k * c + e] = acc;
+}
+
+__global__ void __launch_bounds__(NT) dw_wgrad_gen_sum(const float* __restrict__ partial,
+                                                       float* __restrict__ dw, int chunks, int kk,
+                                                       int c) {
+  const int e = blockIdx.x * NT + threadIdx.x;
+  const int tap = e / c, ch = e - tap * c;
+  if (tap >= kk) return;
+  float s = 0.f;
+  for (int z = 0; z < chunks; ++z) s += partial[(size_t)z * kk * c + e];
+  dw[(size_t)ch * kk + tap] = s;
+}
+
+template <typename T>
+cudaError_t launch_gen(const void* x, const void* dy, float* partial, float* dw, int n, int h,
+                       int w, int c, int k, int d, int chunks, cudaStream_t s) {
+  const long long items = (long long)k * k * c;
+  if (chunks < 1 || chunks > 65535 || items >= (1ll << 31) - NT) return cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((items + NT - 1) / NT);
+  dw_wgrad_gen<T><<<dim3(blocks, (unsigned)chunks), NT, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), partial, n, h, w, c, k, d, chunks);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dw_wgrad_gen_sum<<<blocks, NT, 0, s>>>(partial, dw, chunks, k * k, c);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -482,6 +544,23 @@ int tsii_dw_wgrad(const void* x, const void* dy, void* partial, void* tickets, v
   const cudaError_t e = is_bf16 ? launch_k<bf16>(x, dy, pf, tk, dwf, n, h, w, c, k, d, rows, tw, s)
                                 : launch_k<float>(x, dy, pf, tk, dwf, n, h, w, c, k, d, rows, tw, s);
   return (int)e;
+}
+
+// K6's general form (k odd, any d >= 1): partial holds chunks * k*k * c
+// floats (ops/kernels/depthwise_wgrad.py::k6_plan gives chunks); dw (c,
+// k*k) f32. Two kernels on `stream`.
+int tsii_dw_wgrad_gen(const void* x, const void* dy, void* partial, void* dw, int n, int h, int w,
+                      int c, int k, int d, int is_bf16, int chunks, void* stream) {
+  if (d < 1 || k < 1 || k % 2 == 0 || n < 0 || h < 0 || w < 0 || c < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c == 0) return (int)cudaSuccess;
+  if ((long long)n * h * w == 0)
+    return (int)cudaMemsetAsync(dw, 0, sizeof(float) * (size_t)k * k * c, s);
+  float* pf = static_cast<float*>(partial);
+  float* dwf = static_cast<float*>(dw);
+  return (int)(is_bf16 ? launch_gen<bf16>(x, dy, pf, dwf, n, h, w, c, k, d, chunks, s)
+                       : launch_gen<float>(x, dy, pf, dwf, n, h, w, c, k, d, chunks, s));
 }
 
 }  // extern "C"

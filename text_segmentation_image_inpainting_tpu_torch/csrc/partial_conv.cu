@@ -86,9 +86,12 @@
 
 namespace {
 
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
 struct Params {
   const __nv_bfloat16* x;     // K1: (N, H, W, cin_x); K2: (N, H, W, Cin)
-  const __nv_bfloat16* mask;  // (N, H, W, G), G in {1, 2}
+  const __nv_bfloat16* mask;  // (N, H, W, G)
   const __nv_bfloat16* w;     // K1: (k*k, Cout_p, Cin_p); K2: (blocks, k*k, 8, cb); its backward: (blocks * cb, kj)
   const float* bias;          // (Cout_p) or nullptr
   __nv_bfloat16* y;           // (N, Hout, Wout, Cout)
@@ -103,7 +106,41 @@ struct Params {
   size_t x_bytes;             // the size of x
   int cb, nblk, kj;           // channels per block, blocks, k*k*Cout padded to 16
   int need_dx, need_dw, need_db;
+  const int* groups;          // G > 2: the group table (below), else nullptr
 };
+
+// More than two mask groups: `groups` is an int32 table in device memory,
+// [0, G) the group sizes, [G, 2G + 1) each group's first channel in the
+// layer (the last entry Cin) and [2G + 1, 3G + 2) each group's first
+// channel in K1's x (multiples of 8; the last entry cin_x)
+// (ops/kernels/partial_conv.py::group_table). One or two groups travel in
+// size0 and size1 instead, and the table is nullptr.
+__device__ __forceinline__ int group_of(const int* starts, int g, int c) {
+  int i = 0;
+  while (i + 1 < g && c >= __ldg(starts + i + 1)) ++i;
+  return i;
+}
+
+// sum over the window's taps and the groups of size_g * M_g, in f32 (G > 2;
+// exact for binary masks, as the two-group count below).
+template <typename M>
+__device__ __forceinline__ float window_sum_groups(const M* mask, const int* sizes, int g, int h,
+                                                   int w_in, int k, int ph, int pw, int n, int oh,
+                                                   int ow) {
+  float msum = 0.f;
+  for (int dy = 0; dy < k; ++dy) {
+    const int ih = oh + dy - ph;
+    if (ih < 0 || ih >= h) continue;
+    for (int dx = 0; dx < k; ++dx) {
+      const int iw = ow + dx - pw;
+      if (iw < 0 || iw >= w_in) continue;
+      const M* m = mask + ((size_t)(n * h + ih) * w_in + iw) * g;
+      for (int gi = 0; gi < g; ++gi)
+        msum = __fadd_rn(msum, __fmul_rn((float)__ldg(sizes + gi), to_f32(m[gi])));
+    }
+  }
+  return msum;
+}
 
 __device__ __forceinline__ const __nv_bfloat16* mask_at(const Params& p, int n, int ih, int iw) {
   return p.mask + ((size_t)(n * p.h + ih) * p.w_in + iw) * p.g;
@@ -115,6 +152,8 @@ __device__ __forceinline__ const __nv_bfloat16* mask_at(const Params& p, int n, 
 // mask is not 0 (taps below 16).
 __device__ __forceinline__ float window_scan(const Params& p, int n, int oh, int ow,
                                              unsigned& bits) {
+  if (p.g > 2)  // no tap bits: K1 reads the mask itself at G > 2
+    return window_sum_groups(p.mask, p.groups, p.g, p.h, p.w_in, p.k, p.ph, p.pw, n, oh, ow);
   const unsigned short* mbits = reinterpret_cast<const unsigned short*>(p.mask);
   float c0 = 0.f, c1 = 0.f;
   for (int dy = 0; dy < p.k; ++dy) {
@@ -226,7 +265,7 @@ __global__ void __launch_bounds__(K1_THREADS, 1) pconv_k1(const Params p) {
   const int s_begin = (int)((long long)blockIdx.z * steps / p.splits);
   const int s_end = (int)((long long)(blockIdx.z + 1) * steps / p.splits);
   const bool split = p.splits > 1;
-  const bool tap_bits = p.k * p.k * 2 <= 32;  // else the producer reads the mask itself
+  const bool tap_bits = p.g <= 2 && p.k * p.k * 2 <= 32;  // else the producer reads the mask
   const unsigned short* mbits = reinterpret_cast<const unsigned short*>(p.mask);
 
   // Prologue: each pixel's coordinates and tap bits; without split K also
@@ -275,7 +314,8 @@ __global__ void __launch_bounds__(K1_THREADS, 1) pconv_k1(const Params p) {
       const int toff = (dy - p.ph) * p.w_in + (dx - p.pw);  // the tap's pixel offset in x
       const int ch = cb * K1_BK + c * 8;
       const bool ch_ok = ch < p.cin_x;
-      const int grp = (p.g == 2 && ch >= p.gb) ? 1 : 0;
+      const int grp = p.g > 2 ? group_of(p.groups + 2 * p.g + 1, p.g, ch)
+                              : (p.g == 2 && ch >= p.gb) ? 1 : 0;
       const unsigned bit = tap_bits ? 1u << (2 * tap + grp) : 0u;
       const __nv_bfloat16* xs = p.x + ch;
       const uint32_t a = smem_u32(ring + stage * SB) + dst0;
@@ -719,8 +759,6 @@ __device__ __forceinline__ __nv_bfloat16 masked(__nv_bfloat16 x, float m) {
 __device__ __forceinline__ float masked(float x, float m) { return m != 0.f ? x * m : 0.f; }
 
 // Element conversions of the kernels that come in bf16 and f32 forms.
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
@@ -741,6 +779,8 @@ __device__ __forceinline__ float window_count(const Params& p, int n, int oh, in
     return window_scan(p, n, oh, ow, bits);
   } else {
     const float* mask = reinterpret_cast<const float*>(p.mask);
+    if (p.g > 2)
+      return window_sum_groups(mask, p.groups, p.g, p.h, p.w_in, p.k, p.ph, p.pw, n, oh, ow);
     float c0 = 0.f, c1 = 0.f;
     for (int dy = 0; dy < p.k; ++dy) {
       const int ih = oh + dy - p.ph;
@@ -1359,7 +1399,7 @@ __global__ void __launch_bounds__(K3_THREADS) pconv_k3_prep(const Params p) {
 template <typename T, int VEC>
 __global__ void __launch_bounds__(K3_THREADS) pconv_k3_mask(const T* x, const T* mask, T* out,
                                                             unsigned items, int c, int g,
-                                                            int size0) {
+                                                            int size0, const int* groups) {
   const unsigned cpp = (unsigned)(c / VEC);
   for (unsigned i = blockIdx.x * K3_THREADS + threadIdx.x; i < items;
        i += gridDim.x * K3_THREADS) {
@@ -1372,10 +1412,13 @@ __global__ void __launch_bounds__(K3_THREADS) pconv_k3_mask(const T* x, const T*
       uint4 v = *reinterpret_cast<const uint4*>(x + at);
       T* e = reinterpret_cast<T*>(&v);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) e[j] = masked(e[j], ch + j < size0 ? m0 : m1);
+      for (int j = 0; j < VEC; ++j)
+        e[j] = masked(e[j], g > 2 ? to_f32(mask[(size_t)pix * g + group_of(groups + g, g, ch + j)])
+                                  : ch + j < size0 ? m0 : m1);
       *reinterpret_cast<uint4*>(out + at) = v;
     } else {
-      out[at] = masked(x[at], ch < size0 ? m0 : m1);
+      out[at] = masked(x[at], g > 2 ? to_f32(mask[(size_t)pix * g + group_of(groups + g, g, ch)])
+                                    : ch < size0 ? m0 : m1);
     }
   }
 }
@@ -1928,6 +1971,7 @@ struct K1fParams {
   float* mask_out;    // (N, Hout, Wout, 1)
   float* partial;     // splits > 1: (splits, P, Cout_p)
   int n, h, w_in, cin, g, size0, size1, hout, wout, cout, k, ph, pw, cin_p, cout_p, splits;
+  const int* groups;  // G > 2: the group table, else nullptr
 };
 
 // The part of `Params` that window_count reads.
@@ -1935,7 +1979,7 @@ __device__ __forceinline__ Params k1f_count_params(const K1fParams& p) {
   Params q;
   q.mask = reinterpret_cast<const __nv_bfloat16*>(p.mask);
   q.h = p.h; q.w_in = p.w_in; q.g = p.g; q.size0 = p.size0; q.size1 = p.size1;
-  q.k = p.k; q.ph = p.ph; q.pw = p.pw;
+  q.k = p.k; q.ph = p.ph; q.pw = p.pw; q.groups = p.groups;
   return q;
 }
 
@@ -1978,8 +2022,12 @@ __global__ void pconv_f32_mask(const K1fParams p, const float* __restrict__ x,
     const size_t ip = ((size_t)n * p.h + ih) * p.w_in + iw;
     const float m0 = p.mask[ip * p.g], m1 = p.g == 2 ? p.mask[ip * p.g + 1] : m0;
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (c + e < p.cin) v[e] = masked(x[ip * p.cin + c + e], c + e < p.size0 ? m0 : m1);
+    for (int e = 0; e < 4; ++e) {
+      if (c + e >= p.cin) continue;
+      const float m = p.g > 2 ? p.mask[ip * p.g + group_of(p.groups + p.g, p.g, c + e)]
+                              : c + e < p.size0 ? m0 : m1;
+      v[e] = masked(x[ip * p.cin + c + e], m);
+    }
   }
   *reinterpret_cast<float4*>(xm + pix * p.cin_p + c) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -2158,6 +2206,234 @@ cudaError_t launch_k1f(const K1fParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- general forms ----
+//
+// K2 and K2F (Cout <= 7) and their backwards take, in their templated
+// forms above, k in {1, 3, 5, 7} (K2: while its tile fits in shared
+// memory), one or two mask groups, K2F up to the input channels its ring
+// holds and K2's backward padding up to k - 1: every layer of the U-Net.
+// JAX's Pallas kernels take every stride-1 square window at any Cin, any
+// padding and any number of groups (partial_conv_kernel.py:532-539), so
+// the rest of that scope runs these general forms, in bf16 or f32 as x
+// comes, with no shared memory at all: correct and simple, not tuned.
+//
+//  * pconv_gen_fwd<T, COUT>: a warp per run of GEN_PIX output pixels. Lane
+//    l takes channels l, l + 32, ... of every tap: it loads their COUT
+//    weights once (the weights as (k*k, Cin, Cout)) and adds (x * M as
+//    `masked`) * W for each of the run's pixels into f32 sums, and the
+//    weighted window count of taps l, l + 32, ...; a fixed xor butterfly
+//    adds the lanes, so two launches give the same bits; the epilogue as
+//    K2's. Loads of x are a channel slice a warp, 32 channels wide.
+//  * pconv_gen_dx: a thread per input pixel and channel: dx = (the sum over
+//    the taps and outputs of dacc * W, W as (k*k, Cout, Cin)) rounded once,
+//    times the channel's group mask.
+//  * pconv_gen_dw: a thread per (tap, input channel) and chunk of output
+//    pixels: its f32 sums of (x * M) * dacc for each output, written as the
+//    chunk's row (tap, o, c) of the partials that pconv_colsum adds in
+//    chunk order.
+// dacc comes from pconv_k3_prep. The group table is always given here.
+
+struct GenParams {
+  const void* x;      // (N, H, W, Cin) T
+  const void* mask;   // (N, H, W, G) T
+  const void* w;      // forward (k*k, Cin, Cout), dx (k*k, Cout, Cin); T
+  const float* bias;  // (Cout) or nullptr
+  const void* dacc;   // (N, Hout, Wout, Cout) T
+  void* y;            // forward (N, Hout, Wout, Cout) T, dx (N, H, W, Cin) T
+  void* mask_out;     // (N, Hout, Wout, 1) T
+  float* part;        // dW: (chunks, k*k*Cout*Cin) f32
+  const int* groups;  // the group table
+  int n, h, w_in, cin, g, hout, wout, cout, k, ph, pw, chunks;
+};
+
+constexpr int GEN_THREADS = 256;
+constexpr int GEN_COUT = K2_NPAD - 1;  // Cout <= 7
+
+constexpr int GEN_PIX = 8;  // output pixels a warp of the forward takes
+
+template <typename T, int CO>
+__global__ void __launch_bounds__(GEN_THREADS) pconv_gen_fwd(const GenParams p) {
+  const T* x = static_cast<const T*>(p.x);
+  const T* mask = static_cast<const T*>(p.mask);
+  const T* w = static_cast<const T*>(p.w);
+  const int* sizes = p.groups;
+  const int* starts = p.groups + p.g;
+  const int lane = threadIdx.x & 31, kk = p.k * p.k;
+  const long long P = (long long)p.n * p.hout * p.wout;
+  const long long runs = (P + GEN_PIX - 1) / GEN_PIX;
+  for (long long run = (long long)blockIdx.x * (GEN_THREADS / 32) + (threadIdx.x >> 5); run < runs;
+       run += (long long)gridDim.x * (GEN_THREADS / 32)) {
+    int oh[GEN_PIX], ow[GEN_PIX], nn[GEN_PIX];
+#pragma unroll
+    for (int q = 0; q < GEN_PIX; ++q) {
+      const long long pix = run * GEN_PIX + q;
+      ow[q] = (int)(pix % p.wout);
+      const long long t = pix / p.wout;
+      oh[q] = pix < P ? (int)(t % p.hout) : -(1 << 29);  // far out: no tap in the image
+      nn[q] = (int)(t / p.hout);
+    }
+    float acc[GEN_PIX][CO];
+#pragma unroll
+    for (int q = 0; q < GEN_PIX; ++q)
+#pragma unroll
+      for (int o = 0; o < CO; ++o) acc[q][o] = 0.f;
+    for (int tap = 0; tap < kk; ++tap) {
+      const int dy = tap / p.k, dx = tap - dy * p.k;
+      long long ip[GEN_PIX];  // the tap's input pixel of each output pixel, -1 outside
+#pragma unroll
+      for (int q = 0; q < GEN_PIX; ++q) {
+        const int ih = oh[q] + dy - p.ph, iw = ow[q] + dx - p.pw;
+        ip[q] = ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in
+                    ? ((long long)nn[q] * p.h + ih) * p.w_in + iw : -1;
+      }
+      const T* wt = w + (size_t)tap * p.cin * CO;
+      int gi = 0;
+      for (int c = lane; c < p.cin; c += 32) {
+        while (gi + 1 < p.g && c >= __ldg(starts + gi + 1)) ++gi;
+        float wv[CO];
+#pragma unroll
+        for (int o = 0; o < CO; ++o) wv[o] = to_f32(wt[(size_t)c * CO + o]);
+#pragma unroll
+        for (int q = 0; q < GEN_PIX; ++q) {
+          if (ip[q] < 0) continue;
+          const float xv = to_f32(masked(x[ip[q] * p.cin + c], to_f32(mask[ip[q] * p.g + gi])));
+#pragma unroll
+          for (int o = 0; o < CO; ++o) acc[q][o] = fmaf(xv, wv[o], acc[q][o]);
+        }
+      }
+    }
+    // the lanes' sums by a fixed xor butterfly; lane q then writes pixel q
+#pragma unroll
+    for (int q = 0; q < GEN_PIX; ++q) {
+      float msum = 0.f;
+      if (oh[q] > -(1 << 28))
+        for (int t = lane; t < kk; t += 32) {
+          const int ih = oh[q] + t / p.k - p.ph, iw = ow[q] + t % p.k - p.pw;
+          if (ih < 0 || ih >= p.h || iw < 0 || iw >= p.w_in) continue;
+          const T* m = mask + (((size_t)nn[q] * p.h + ih) * p.w_in + iw) * p.g;
+          for (int g = 0; g < p.g; ++g)
+            msum = __fadd_rn(msum, __fmul_rn((float)__ldg(sizes + g), to_f32(m[g])));
+        }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        msum += __shfl_xor_sync(0xffffffffu, msum, off);
+#pragma unroll
+        for (int o = 0; o < CO; ++o) acc[q][o] += __shfl_xor_sync(0xffffffffu, acc[q][o], off);
+      }
+      const long long pix = run * GEN_PIX + q;
+      if (lane == q && pix < P) {
+        const float scale = msum > 0.f ? (float)(kk * p.cin) / fmaxf(msum, 1.f) : -1.f;
+        static_cast<T*>(p.mask_out)[pix] = from_f32<T>(msum > 0.f ? 1.f : 0.f);
+        T* y = static_cast<T*>(p.y) + pix * CO;
+#pragma unroll
+        for (int o = 0; o < CO; ++o)
+          y[o] = from_f32<T>(epilogue(acc[q][o], scale, p.bias ? p.bias[o] : 0.f));
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS) pconv_gen_dx(const GenParams p) {
+  const T* mask = static_cast<const T*>(p.mask);
+  const T* w = static_cast<const T*>(p.w);
+  const T* dacc = static_cast<const T*>(p.dacc);
+  T* dx = static_cast<T*>(p.y);
+  const long long items = (long long)p.n * p.h * p.w_in * p.cin;
+  for (long long i = (long long)blockIdx.x * GEN_THREADS + threadIdx.x; i < items;
+       i += (long long)gridDim.x * GEN_THREADS) {
+    const int c = (int)(i % p.cin);
+    const long long pix = i / p.cin;
+    const int iw = (int)(pix % p.w_in);
+    const long long t = pix / p.w_in;
+    const int ih = (int)(t % p.h), nn = (int)(t / p.h);
+    float acc = 0.f;
+    for (int dy = 0; dy < p.k; ++dy) {
+      const int oh = ih + p.ph - dy;
+      if (oh < 0 || oh >= p.hout) continue;
+      for (int dxx = 0; dxx < p.k; ++dxx) {
+        const int ow = iw + p.pw - dxx;
+        if (ow < 0 || ow >= p.wout) continue;
+        const T* dp = dacc + (((size_t)nn * p.hout + oh) * p.wout + ow) * p.cout;
+        const T* wp = w + (size_t)(dy * p.k + dxx) * p.cout * p.cin + c;
+        for (int o = 0; o < p.cout; ++o)
+          acc = fmaf(to_f32(dp[o]), to_f32(wp[(size_t)o * p.cin]), acc);
+      }
+    }
+    const float m = to_f32(mask[pix * p.g + group_of(p.groups + p.g, p.g, c)]);
+    dx[i] = masked(from_f32<T>(acc), m);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS) pconv_gen_dw(const GenParams p) {
+  const T* x = static_cast<const T*>(p.x);
+  const T* mask = static_cast<const T*>(p.mask);
+  const T* dacc = static_cast<const T*>(p.dacc);
+  const int e = blockIdx.x * GEN_THREADS + threadIdx.x;
+  const int tap = e / p.cin, c = e - tap * p.cin;
+  if (tap >= p.k * p.k) return;
+  const int dy = tap / p.k, dxx = tap - dy * p.k;
+  const int gi = group_of(p.groups + p.g, p.g, c);
+  const long long P = (long long)p.n * p.hout * p.wout;
+  const long long b = blockIdx.y * P / p.chunks, end = (blockIdx.y + 1) * P / p.chunks;
+  float acc[GEN_COUT];
+#pragma unroll
+  for (int o = 0; o < GEN_COUT; ++o) acc[o] = 0.f;
+  int ow = (int)(b % p.wout), oh = (int)(b / p.wout % p.hout), nn = (int)(b / p.wout / p.hout);
+  for (long long pix = b; pix < end; ++pix) {
+    const int ih = oh + dy - p.ph, iw = ow + dxx - p.pw;
+    if (ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
+      const size_t ip = ((size_t)nn * p.h + ih) * p.w_in + iw;
+      const float xv = to_f32(masked(x[ip * p.cin + c], to_f32(mask[ip * p.g + gi])));
+      const T* dp = dacc + pix * p.cout;
+#pragma unroll
+      for (int o = 0; o < GEN_COUT; ++o)
+        if (o < p.cout) acc[o] = fmaf(xv, to_f32(dp[o]), acc[o]);
+    }
+    if (++ow == p.wout) {
+      ow = 0;
+      if (++oh == p.hout) oh = 0, ++nn;
+    }
+  }
+  float* row = p.part + (size_t)blockIdx.y * p.k * p.k * p.cout * p.cin;
+#pragma unroll
+  for (int o = 0; o < GEN_COUT; ++o)
+    if (o < p.cout) row[((size_t)tap * p.cout + o) * p.cin + c] = acc[o];
+}
+
+template <typename T>
+cudaError_t launch_gen_fwd(const GenParams& p, cudaStream_t s) {
+  const long long runs = ((long long)p.n * p.hout * p.wout + GEN_PIX - 1) / GEN_PIX;
+  const long long blocks = (runs + GEN_THREADS / 32 - 1) / (GEN_THREADS / 32);
+  const unsigned grid = (unsigned)(blocks < (1 << 20) ? blocks : (1 << 20));
+  switch (p.cout) {
+#define GEN_FWD(CO) \
+  case CO: pconv_gen_fwd<T, CO><<<grid, GEN_THREADS, 0, s>>>(p); break;
+    GEN_FWD(1) GEN_FWD(2) GEN_FWD(3) GEN_FWD(4) GEN_FWD(5) GEN_FWD(6) GEN_FWD(7)
+#undef GEN_FWD
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_gen_bwd(const GenParams& p, bool need_dx, bool need_dw, cudaStream_t s) {
+  if (need_dx) {
+    const long long items = (long long)p.n * p.h * p.w_in * p.cin;
+    const long long blocks = (items + GEN_THREADS - 1) / GEN_THREADS;
+    pconv_gen_dx<T><<<(unsigned)(blocks < (1 << 20) ? blocks : (1 << 20)), GEN_THREADS, 0, s>>>(p);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (need_dw) {
+    const dim3 grid((unsigned)((p.k * p.k * p.cin + GEN_THREADS - 1) / GEN_THREADS),
+                    (unsigned)p.chunks);
+    pconv_gen_dw<T><<<grid, GEN_THREADS, 0, s>>>(p);
+  }
+  return cudaGetLastError();
+}
+
 // out[c] = sum over r of part[r, c], rows added in a fixed order: thread
 // (x, y) adds rows y, y + 8, ... of column x, then the 8 sums in order.
 __global__ void __launch_bounds__(256) pconv_colsum(const float* part, float* out, int rows,
@@ -2183,14 +2459,17 @@ Params make_params(const void* x, const void* mask, const void* w, const void* b
 template <typename T>
 int launch_k3_prep(const void* gout, const void* mask, void* dacc, void* partial, int n, int h,
                    int w_in, int cin, int g, int size0, int size1, int hout, int wout, int cout,
-                   int k, int ph, int pw, int grid, int need_db, void* stream) {
+                   int k, int ph, int pw, int grid, int need_db, const void* groups,
+                   void* stream) {
   constexpr int VEC = 16 / sizeof(T);
   Params p = make_params(nullptr, mask, nullptr, nullptr, dacc, nullptr, n, h, w_in, cin, g, size0,
                          size1, hout, wout, cout, cin, cout, k, ph, pw);
+  p.groups = static_cast<const int*>(groups);
   p.gout = static_cast<const __nv_bfloat16*>(gout);
   p.partial = static_cast<float*>(partial);
   p.need_db = need_db;
-  if (grid < 1 || (need_db && partial == nullptr)) return (int)cudaErrorInvalidValue;
+  if (grid < 1 || (need_db && partial == nullptr) || g < 1 || (g > 2 && groups == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = cout % VEC == 0 && !((reinterpret_cast<uintptr_t>(gout) |
                                          reinterpret_cast<uintptr_t>(dacc)) & 15);
@@ -2203,21 +2482,23 @@ int launch_k3_prep(const void* gout, const void* mask, void* dacc, void* partial
 
 template <typename T>
 int launch_k3_mask(const void* x, const void* mask, void* out, long long pixels, int c, int g,
-                   int size0, void* stream) {
+                   int size0, const void* groups, void* stream) {
   constexpr int VEC = 16 / sizeof(T);
   const bool vec = c % VEC == 0 && !((reinterpret_cast<uintptr_t>(x) |
                                       reinterpret_cast<uintptr_t>(out)) & 15);
   const long long items = pixels * (vec ? c / VEC : c);
-  if (items <= 0 || items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  if (items <= 0 || items >= (1ll << 31) || g < 1 || (g > 2 && groups == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const auto* gt = static_cast<const int*>(groups);
   const unsigned grid = (unsigned)((items + K3_THREADS - 1) / K3_THREADS);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const T*>(x);
   const auto* mp = static_cast<const T*>(mask);
   auto* op = static_cast<T*>(out);
   if (vec)
-    pconv_k3_mask<T, VEC><<<grid, K3_THREADS, 0, s>>>(xp, mp, op, (unsigned)items, c, g, size0);
+    pconv_k3_mask<T, VEC><<<grid, K3_THREADS, 0, s>>>(xp, mp, op, (unsigned)items, c, g, size0, gt);
   else
-    pconv_k3_mask<T, 1><<<grid, K3_THREADS, 0, s>>>(xp, mp, op, (unsigned)items, c, g, size0);
+    pconv_k3_mask<T, 1><<<grid, K3_THREADS, 0, s>>>(xp, mp, op, (unsigned)items, c, g, size0, gt);
   return (int)cudaGetLastError();
 }
 
@@ -2240,6 +2521,7 @@ Params make_params(const void* x, const void* mask, const void* w, const void* b
   p.x_bytes = (size_t)n * h * w_in * cin * sizeof(__nv_bfloat16);
   p.cb = 0; p.nblk = 0; p.kj = 0;
   p.need_dx = p.need_dw = p.need_db = 0;
+  p.groups = nullptr;
   return p;
 }
 
@@ -2256,20 +2538,23 @@ extern "C" {
 // width that is a multiple of 64 and of bm or a divisor of it, Hout*Wout a
 // multiple of bm;
 // (bm, bn) in {(128, 64), (128, 128), (256, 64)}). cin, size0, size1: the layer's own
-// channel counts (for the renormalisation).
+// channel counts (for the renormalisation); groups: the group table at g > 2
+// (not in the halo form), else NULL.
 int tsii_pconv_k1(const void* x, const void* mask, const void* w, const void* bias, void* y,
                   void* mask_out, void* partial, int n, int h, int w_in, int cin, int g,
                   int size0, int size1, int hout, int wout, int cout, int cin_x, int gb,
                   int cin_p, int cout_p, int k, int ph, int pw, int splits, int bm, int bn,
-                  int halo, void* stream) {
+                  int halo, const void* groups, void* stream) {
   Params p = make_params(x, mask, w, bias, y, mask_out, n, h, w_in, cin, g, size0, size1, hout,
                          wout, cout, cin_p, cout_p, k, ph, pw);
+  p.groups = static_cast<const int*>(groups);
   p.partial = static_cast<float*>(partial);
   p.cin_x = cin_x;
   p.gb = gb;
   p.splits = splits;
   if (cin_x % 8 || gb % 8 || cin_p % K1_BK || cout_p % 8 || splits < 1 ||
-      splits > k * k * (cin_p / K1_BK) || (splits > 1 && partial == nullptr))
+      splits > k * k * (cin_p / K1_BK) || (splits > 1 && partial == nullptr) || g < 1 ||
+      (g > 2 && (groups == nullptr || halo)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (halo) {
@@ -2311,7 +2596,8 @@ int tsii_pconv_k2(const void* x, const void* mask, const void* w, const void* bi
                          wout, cout, cin, cout, k, ph, pw);
   p.cb = cb;
   p.nblk = nblk;
-  if (!k2_geometry_ok(cout, cb, nblk, cin, 0) || (reinterpret_cast<uintptr_t>(x) & 15) ||
+  if (!k2_geometry_ok(cout, cb, nblk, cin, 0) || g < 1 || g > 2 ||
+      (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(w) & 15))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -2343,7 +2629,7 @@ int tsii_pconv_k2_bwd(const void* gout, const void* x, const void* mask, const v
   p.need_dx = need_dx && dx != nullptr;
   p.need_dw = need_dw;
   p.need_db = need_db;
-  if (!k2_geometry_ok(cout, cb, nblk, cin, kj) || kj < k * k * cout || grid < 1 ||
+  if (!k2_geometry_ok(cout, cb, nblk, cin, kj) || kj < k * k * cout || grid < 1 || g < 1 || g > 2 ||
       partial == nullptr || (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(w) & 15))
     return (int)cudaErrorInvalidValue;
@@ -2355,27 +2641,29 @@ int tsii_pconv_k2_bwd(const void* gout, const void* x, const void* mask, const v
 // ph, pw: the layer's own (for the window count).
 int tsii_pconv_k3_prep(const void* gout, const void* mask, void* dacc, void* partial, int n, int h,
                        int w_in, int cin, int g, int size0, int size1, int hout, int wout,
-                       int cout, int k, int ph, int pw, int grid, int need_db, void* stream) {
+                       int cout, int k, int ph, int pw, int grid, int need_db, const void* groups,
+                       void* stream) {
   return launch_k3_prep<__nv_bfloat16>(gout, mask, dacc, partial, n, h, w_in, cin, g, size0,
-                                       size1, hout, wout, cout, k, ph, pw, grid, need_db, stream);
+                                       size1, hout, wout, cout, k, ph, pw, grid, need_db, groups,
+                                       stream);
 }
 int tsii_pconv_k3_prep_f32(const void* gout, const void* mask, void* dacc, void* partial, int n,
                            int h, int w_in, int cin, int g, int size0, int size1, int hout,
                            int wout, int cout, int k, int ph, int pw, int grid, int need_db,
-                           void* stream) {
+                           const void* groups, void* stream) {
   return launch_k3_prep<float>(gout, mask, dacc, partial, n, h, w_in, cin, g, size0, size1, hout,
-                               wout, cout, k, ph, pw, grid, need_db, stream);
+                               wout, cout, k, ph, pw, grid, need_db, groups, stream);
 }
 
 // out = x * M over `pixels` pixels of c channels (out may be x); bf16, or
-// f32 in the _f32 form.
+// f32 in the _f32 form. groups: the group table at g > 2, else NULL.
 int tsii_pconv_k3_mask(const void* x, const void* mask, void* out, long long pixels, int c, int g,
-                       int size0, void* stream) {
-  return launch_k3_mask<__nv_bfloat16>(x, mask, out, pixels, c, g, size0, stream);
+                       int size0, const void* groups, void* stream) {
+  return launch_k3_mask<__nv_bfloat16>(x, mask, out, pixels, c, g, size0, groups, stream);
 }
 int tsii_pconv_k3_mask_f32(const void* x, const void* mask, void* out, long long pixels, int c,
-                           int g, int size0, void* stream) {
-  return launch_k3_mask<float>(x, mask, out, pixels, c, g, size0, stream);
+                           int g, int size0, const void* groups, void* stream) {
+  return launch_k3_mask<float>(x, mask, out, pixels, c, g, size0, groups, stream);
 }
 
 // K2F's backward (Cout <= 7, k 1, 3, 5 or 7), after pconv_k3_prep: dacc (n,
@@ -2426,14 +2714,16 @@ int tsii_pconv_k2f_bwd(const void* dacc, const void* x, const void* mask, const 
 // h + 2 ph, w_in + 2 pw, cin_p) f32, partial (splits, P, cout_p) f32 when
 // splits > 1 (else NULL), wk (k*k, cin_p, cout_p) f32, zero past cin and
 // cout where they are padded. (bm, bn) (128, 128) or (256, 64), splits as
-// ops/kernels/partial_conv.py::k1f_plan gives them. Three or four kernels
-// on `stream`; returns the first error.
+// ops/kernels/partial_conv.py::k1f_plan gives them; groups: the group table
+// at g > 2, else NULL. Three or four kernels on `stream`; returns the first
+// error.
 int tsii_pconv_k1f(const void* x, const void* mask, const void* w, const void* bias, void* y,
                    void* mask_out, void* xm, void* partial, void* wk, int n, int h, int w_in,
                    int cin, int g, int size0, int size1, int hout, int wout, int cout, int k,
                    int ph, int pw, int cin_p, int cout_p, int bm, int bn, int splits,
-                   void* stream) {
+                   const void* groups, void* stream) {
   K1fParams p;
+  p.groups = static_cast<const int*>(groups);
   p.xm = static_cast<const float*>(xm);
   p.mask = static_cast<const float*>(mask);
   p.w = static_cast<const float*>(wk);
@@ -2446,7 +2736,8 @@ int tsii_pconv_k1f(const void* x, const void* mask, const void* w, const void* b
   p.cin_p = cin_p; p.cout_p = cout_p; p.splits = splits;
   const bool tile = (bm == 128 && bn == 128) || (bm == 256 && bn == 64);
   const long long steps = (long long)k * k * (cin_p / K1F_CK);
-  if (n < 1 || cin < 1 || cout < 8 || k < 1 || hout < 1 || wout < 1 || (g != 1 && g != 2) ||
+  if (n < 1 || cin < 1 || cout < 8 || k < 1 || hout < 1 || wout < 1 || g < 1 ||
+      (g > 2 && groups == nullptr) ||
       !tile || cin_p < cin || cin_p % K1F_CK != 0 || cout_p < cout || cout_p % bn != 0 ||
       cout_p / bn > 65535 || splits < 1 || splits > 65535 || splits > steps ||
       (splits > 1) != (partial != nullptr) ||
@@ -2542,6 +2833,43 @@ int tsii_k2f_occupancy(int bwd, int cin, int nseg) {
                                                         (nseg * cin + 31) / 32 * 32, smem);
   }
   return e == cudaSuccess ? n : -(int)e;
+}
+
+// The general forms of K2 and K2F (Cout <= 7) and of their backwards, in
+// bf16 (is_f32 = 0) or f32. x, mask: (n, h, w_in, cin), (n, h, w_in, g); groups:
+// the group table (any g >= 1). Forward: w (k*k, cin, cout), bias (cout) f32
+// or NULL, y (n, hout, wout, cout), mask_out (n, hout, wout, 1).
+int tsii_pconv_gen_fwd(const void* x, const void* mask, const void* w, const void* bias, void* y,
+                       void* mask_out, const void* groups, int n, int h, int w_in, int cin, int g,
+                       int hout, int wout, int cout, int k, int ph, int pw, int is_f32,
+                       void* stream) {
+  GenParams p{x, mask, w, static_cast<const float*>(bias), nullptr, y, mask_out, nullptr,
+              static_cast<const int*>(groups), n, h, w_in, cin, g, hout, wout, cout, k, ph, pw, 1};
+  if (n < 1 || h < 1 || w_in < 1 || cin < 1 || g < 1 || groups == nullptr || cout < 1 ||
+      cout > GEN_COUT || k < 1 || hout < 1 || wout < 1 || ph < 0 || pw < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_f32 ? launch_gen_fwd<float>(p, s) : launch_gen_fwd<__nv_bfloat16>(p, s));
+}
+
+// Backward, after pconv_k3_prep: dacc (n, hout, wout, cout); w (k*k, cout,
+// cin) and dx (n, h, w_in, cin) when need_dx; part (chunks, k*k*cout*cin)
+// f32 when need_dw, for pconv_colsum.
+int tsii_pconv_gen_bwd(const void* dacc, const void* x, const void* mask, const void* w, void* dx,
+                       void* part, const void* groups, int n, int h, int w_in, int cin, int g,
+                       int hout, int wout, int cout, int k, int ph, int pw, int chunks,
+                       int is_f32, int need_dx, int need_dw, void* stream) {
+  GenParams p{x, mask, w, nullptr, dacc, dx, nullptr, static_cast<float*>(part),
+              static_cast<const int*>(groups), n, h, w_in, cin, g, hout, wout, cout, k, ph, pw,
+              chunks};
+  if (n < 1 || h < 1 || w_in < 1 || cin < 1 || g < 1 || groups == nullptr || cout < 1 ||
+      cout > GEN_COUT || k < 1 || hout < 1 || wout < 1 || ph < 0 || pw < 0 || chunks < 1 ||
+      chunks > 65535 || (long long)k * k * cin > (1ll << 30) || !(need_dx || need_dw) ||
+      (need_dx && (dx == nullptr || w == nullptr)) || (need_dw && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_f32 ? launch_gen_bwd<float>(p, need_dx, need_dw, s)
+                      : launch_gen_bwd<__nv_bfloat16>(p, need_dx, need_dw, s));
 }
 
 // out[c] = sum_r part[r, c], f32, in a fixed order.

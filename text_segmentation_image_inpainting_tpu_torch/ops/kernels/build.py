@@ -104,30 +104,35 @@ def load_library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build_library()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tsii_pconv_k1.argtypes = [ptr] * 7 + [i32] * 21 + [ptr]
+        lib.tsii_pconv_k1.argtypes = [ptr] * 7 + [i32] * 21 + [ptr, ptr]
         lib.tsii_pconv_k1.restype = i32
         lib.tsii_pconv_k2.argtypes = [ptr] * 6 + [i32] * 15 + [ptr]
         lib.tsii_pconv_k2.restype = i32
         lib.tsii_pconv_k2_bwd.argtypes = [ptr] * 6 + [i32] * 20 + [ptr]
         lib.tsii_pconv_k2_bwd.restype = i32
-        lib.tsii_pconv_k3_prep.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
+        lib.tsii_pconv_k3_prep.argtypes = [ptr] * 4 + [i32] * 15 + [ptr, ptr]
         lib.tsii_pconv_k3_prep.restype = i32
-        lib.tsii_pconv_k3_mask.argtypes = [ptr] * 3 + [ctypes.c_longlong] + [i32] * 3 + [ptr]
+        lib.tsii_pconv_k3_mask.argtypes = [ptr] * 3 + [ctypes.c_longlong] + [i32] * 3 + [ptr, ptr]
         lib.tsii_pconv_k3_mask.restype = i32
-        lib.tsii_pconv_k3_prep_f32.argtypes = [ptr] * 4 + [i32] * 15 + [ptr]
+        lib.tsii_pconv_k3_prep_f32.argtypes = [ptr] * 4 + [i32] * 15 + [ptr, ptr]
         lib.tsii_pconv_k3_prep_f32.restype = i32
-        lib.tsii_pconv_k3_mask_f32.argtypes = [ptr] * 3 + [ctypes.c_longlong] + [i32] * 3 + [ptr]
+        lib.tsii_pconv_k3_mask_f32.argtypes = ([ptr] * 3 + [ctypes.c_longlong] + [i32] * 3
+                                               + [ptr, ptr])
         lib.tsii_pconv_k3_mask_f32.restype = i32
         lib.tsii_pconv_k2f.argtypes = [ptr] * 7 + [i32] * 14 + [ptr]
         lib.tsii_pconv_k2f.restype = i32
         lib.tsii_k2f_occupancy.argtypes = [i32] * 3
         lib.tsii_k2f_occupancy.restype = i32
-        lib.tsii_pconv_k1f.argtypes = [ptr] * 9 + [i32] * 18 + [ptr]
+        lib.tsii_pconv_k1f.argtypes = [ptr] * 9 + [i32] * 18 + [ptr, ptr]
         lib.tsii_pconv_k1f.restype = i32
         lib.tsii_k1f_occupancy.argtypes = [i32]
         lib.tsii_k1f_occupancy.restype = i32
         lib.tsii_pconv_k2f_bwd.argtypes = [ptr] * 7 + [i32] * 16 + [ptr]
         lib.tsii_pconv_k2f_bwd.restype = i32
+        lib.tsii_pconv_gen_fwd.argtypes = [ptr] * 7 + [i32] * 12 + [ptr]
+        lib.tsii_pconv_gen_fwd.restype = i32
+        lib.tsii_pconv_gen_bwd.argtypes = [ptr] * 7 + [i32] * 15 + [ptr]
+        lib.tsii_pconv_gen_bwd.restype = i32
         lib.tsii_pconv_colsum.argtypes = [ptr] * 2 + [i32] * 2 + [ptr]
         lib.tsii_pconv_colsum.restype = i32
         lib.tsii_stem_dx.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
@@ -142,6 +147,8 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_stem_f32_occupancy.restype = i32
         lib.tsii_dw_wgrad.argtypes = [ptr] * 5 + [i32] * 9 + [ptr]
         lib.tsii_dw_wgrad.restype = i32
+        lib.tsii_dw_wgrad_gen.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+        lib.tsii_dw_wgrad_gen.restype = i32
         lib.tsii_error_string.argtypes = [i32]
         lib.tsii_error_string.restype = ctypes.c_char_p
         _lib = lib

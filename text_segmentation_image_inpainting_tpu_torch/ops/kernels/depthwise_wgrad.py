@@ -11,7 +11,12 @@ with x zero outside the image, summed in f32. The CUDA source is
 rows of one image and channel block with its x rows in a shared-memory
 ring, and the last CTA of each channel block adds the CTAs' partial sums in
 a fixed order. ``k6_plan`` (pure Python, CPU-tested) chooses the channel
-block, the bands and the column strips. ``depthwise_wgrad`` takes the plain
+block, the bands and the column strips. The rest of JAX's scope (any odd
+k, any equal dilation), the windows the kernel is not built for and the
+dilations whose halo leaves no strip that fits, runs its general form
+(``dw_wgrad_gen``: a thread per (tap, channel) and chunk of pixels, the
+chunks' partials added in order by ``dw_wgrad_gen_sum``), also counted as
+K6. ``depthwise_wgrad`` takes the plain
 version only for a tensor on the CPU; on a CUDA tensor it launches K6 or
 raises, nothing falls back. ``K6_LAUNCHES`` counts the launches.
 """
@@ -24,8 +29,12 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from text_segmentation_image_inpainting_tpu_torch.ops.kernels.partial_conv import gen_chunks
+
 K6_LAUNCHES = 0
-# the kernel sizes K6 is compiled for (one template instance each)
+K6_GEN_LAUNCHES = 0  # the general form's launches, also counted in K6_LAUNCHES
+# the kernel sizes K6's templated form is compiled for (one template
+# instance each); every other odd k runs its general form
 K6_KERNEL_SIZES = (1, 3, 5, 7)
 
 # K6's geometry, as csrc/depthwise_wgrad.cu has it (tests/test_torch_k6_plan.py
@@ -39,13 +48,16 @@ K6_ALIGN = 128  # ALIGN: ring rows start on 128 bytes
 K6_PIXEL_BYTES = 64  # PB: bytes of a pixel's channel block, the one a CTA owns
 SMEM_LIMIT = 232448 - 64  # MAX_SMEM: dynamic shared bytes a CTA can take beside its barriers
 K6_MIN_ROWS = 4  # the fewest rows a band is cut to
+K6_MAX_DILATION = 4096  # the most the templated form's launcher takes
 
 
 class K6Plan(NamedTuple):
     """How K6 cuts (N, H, W, C): CTA (slot, cb) owns image ``slot // (bands
     * strips)``, rows ``[band * rows, +rows)`` and columns ``[strip * tw,
     +tw)`` of it (band, strip from the slot, strip fastest), channels
-    ``[cb * cb_ch, +cb_ch)``, 64 bytes of each pixel."""
+    ``[cb * cb_ch, +cb_ch)``, 64 bytes of each pixel. ``general``: the
+    general form runs the call in ``chunks`` chunks of pixels (the other
+    fields are then 0)."""
 
     cb_ch: int
     cblocks: int
@@ -54,6 +66,8 @@ class K6Plan(NamedTuple):
     tw: int
     strips: int
     smem: int
+    general: bool = False
+    chunks: int = 0
 
     def slots(self, n: int) -> int:
         """CTAs per channel block: the grid is (slots(n), cblocks)."""
@@ -89,15 +103,16 @@ def k6_plan(n: int, h: int, w: int, c: int, k: int, d: int, elem: int, sms: int)
     """K6's cut of one call. A row strip is the whole row unless one TMA row
     (256 pixels) or the rings would not fit. The bands minimise the rows
     one SM sums, ``ceil(CTAs / sms) * (rows + p + 2)`` (p for the halo rows
-    a band re-reads, 2 for its start and end), ties to more bands. Raises
-    ValueError when even a one-column strip does not fit (a dilation far
-    beyond the segmenter's)."""
+    a band re-reads, 2 for its start and end), ties to more bands. The
+    general form (``gen_chunks`` chunks of pixels) where k is not one of
+    K6_KERNEL_SIZES, d is above K6_MAX_DILATION, or even a one-column
+    strip does not fit (a dilation far beyond the segmenter's)."""
     p = d * (k - 1) // 2
-    tw = min(w, K6_MAX_BOX - 2 * p)
+    tw = min(w, K6_MAX_BOX - 2 * p) if k in K6_KERNEL_SIZES and d <= K6_MAX_DILATION else 0
     while tw >= 1 and k6_smem_bytes(k, p, tw, elem) > SMEM_LIMIT:
         tw -= 1
     if tw < 1:
-        raise ValueError(f"K6's rows do not fit in shared memory at k={k}, d={d}")
+        return K6Plan(0, 0, 0, 0, 0, 0, 0, True, gen_chunks(n * h * w, k * k * c))
     strips = -(-w // tw)
     tw = -(-w // strips)
     cb_ch = K6_PIXEL_BYTES // elem
@@ -174,7 +189,7 @@ def _workspace(device: torch.device, floats: int, cblocks: int):
 
 
 def _launch_k6(x: torch.Tensor, dy: torch.Tensor, k: int, d: int) -> torch.Tensor:
-    global K6_LAUNCHES
+    global K6_LAUNCHES, K6_GEN_LAUNCHES
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
     if not x.is_cuda or x.dtype not in (torch.bfloat16, torch.float32):
@@ -186,12 +201,22 @@ def _launch_k6(x: torch.Tensor, dy: torch.Tensor, k: int, d: int) -> torch.Tenso
                          f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
     if not (x.is_contiguous() and dy.is_contiguous()):
         raise ValueError("K6 takes contiguous NHWC x and dy")
-    if k not in K6_KERNEL_SIZES or d < 1:
-        raise ValueError(f"K6 is built for k in {K6_KERNEL_SIZES} and d >= 1, got k={k}, d={d}")
+    if k < 1 or k % 2 == 0 or d < 1:
+        raise ValueError(f"K6 takes an odd k and d >= 1 (JAX's scope), got k={k}, d={d}")
     n, h, w, c = x.shape
     elem = x.element_size()
     plan = k6_plan(n, h, w, c, k, d, elem, _sm_count(x.device.index))
     lib = load_library()
+    if plan.general:
+        part, _ = _workspace(x.device, plan.chunks * k * k * c, 1)
+        dw = torch.empty((c, k, k), dtype=torch.float32, device=x.device)
+        code = lib.tsii_dw_wgrad_gen(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                                     n, h, w, c, k, d, int(elem == 2), plan.chunks,
+                                     torch.cuda.current_stream(x.device).cuda_stream)
+        check(lib, code, "K6 (depthwise wgrad, general form)")
+        K6_LAUNCHES += 1
+        K6_GEN_LAUNCHES += 1
+        return dw.permute(1, 2, 0).unsqueeze(2)
     # the CTAs' partial sums: (cblocks, CTAs per block, k*k, cb_ch) f32
     part, tickets = _workspace(x.device, plan.cblocks * plan.slots(n) * k * k * plan.cb_ch,
                                plan.cblocks)

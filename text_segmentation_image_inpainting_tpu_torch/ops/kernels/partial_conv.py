@@ -10,9 +10,15 @@ shared stages; a halo form that gathers a window row once for its three
 taps; split K where the tile grid does not fill the card: ``k1_plan``),
 K2, for Cout <= 7, a GEMM with N padded to 8 on ``mma.sync`` that stages
 its 2-byte-aligned pixels with 16-byte copies and re-lays them masked
-(``k2_plan``). Scope: stride 1, dilation 1, square kernel, G in {1, 2}
-mask groups, bf16. A float32 x takes the f32 form instead, as JAX's
-Pallas kernels take x's dtype as it comes: SIMT FFMA, f32 accumulation,
+(``k2_plan``). Scope: stride 1, dilation 1, square kernel, any number of
+mask groups (past two, a table of them in device memory: ``group_table``),
+bf16. Where K2 or K2F's templated form does not take a shape of that
+scope (a window other than theirs, more input channels than K2F's ring
+holds, three or more groups, K2's backward at a padding above k - 1), a
+general form in the same source takes it (``pconv_gen_fwd``,
+``pconv_gen_dx``, ``pconv_gen_dw``), counted as the kernel it stands for.
+A float32 x takes the f32 form instead, as JAX's Pallas kernels take x's
+dtype as it comes: SIMT FFMA, f32 accumulation,
 no TF32 and no bf16 rounding (K1F at Cout >= 8: ``pconv_k1f_weights``
 and ``pconv_f32_mask``, then ``pconv_k1f``, a register-blocked implicit
 GEMM with a ``cp.async`` ring and split K, ``k1f_plan``; K2F at Cout <= 7:
@@ -37,13 +43,16 @@ or raise; nothing falls back. ``K1_LAUNCHES`` / ``K2_LAUNCHES`` /
 ``K3_LAUNCHES`` count the launches (K3: one per layer backward), and
 ``K1F_LAUNCHES`` / ``K2F_LAUNCHES`` / ``K3F_LAUNCHES`` those of the f32
 form (K1F at Cout >= 8, K2F at Cout <= 7), and ``K3F_HEAD_LAUNCHES`` those
-of ``pconv_k2f_bwd`` (K3F at Cout <= 7).
+of ``pconv_k2f_bwd`` (K3F at Cout <= 7). ``GEN_LAUNCHES`` /
+``GEN_BWD_LAUNCHES`` count the general forms' launches besides.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
+import math
 import threading
 from typing import NamedTuple, Sequence, Tuple
 
@@ -64,6 +73,10 @@ K1F_LAUNCHES = 0
 K2F_LAUNCHES = 0
 K3F_LAUNCHES = 0
 K3F_HEAD_LAUNCHES = 0
+# the general forms' launches (also counted under the kernel they stand
+# for): forward (``pconv_gen_fwd``), backward (``pconv_gen_dx``/``_dw``)
+GEN_LAUNCHES = 0
+GEN_BWD_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()  # the H-sharded U-Net launches from one thread per shard
 
 _BK = 64  # K1's K step: one tap x 64 channels; the re-laid weights pad Cin to it
@@ -228,8 +241,8 @@ def _check_inputs(x, mask, weight, bias, group_sizes, padding):
         raise ValueError(f"x must be a contiguous (N, H, W, Cin) tensor, got {tuple(x.shape)}")
     n, h, w, cin = x.shape
     g = len(group_sizes)
-    if g not in (1, 2) or sum(group_sizes) != cin:
-        raise ValueError(f"group_sizes {group_sizes} must be 1 or 2 groups summing to Cin={cin}")
+    if g < 1 or sum(group_sizes) != cin:
+        raise ValueError(f"group_sizes {group_sizes} must be groups summing to Cin={cin}")
     if mask.shape != (n, h, w, g) or mask.dtype != x.dtype or mask.device != x.device:
         raise ValueError(f"mask must be ({n}, {h}, {w}, {g}) {x.dtype} on {x.device}, "
                          f"got {tuple(mask.shape)} {mask.dtype} on {mask.device}")
@@ -255,7 +268,45 @@ def _pads(pad) -> Tuple[int, int]:
 
 
 def _sizes(group_sizes):
-    return group_sizes[0], (group_sizes[1] if len(group_sizes) == 2 else 0)
+    """(size0, size1), the kernels' two-group arguments (G > 2 reads the
+    table instead)."""
+    return group_sizes[0], (group_sizes[1] if len(group_sizes) >= 2 else 0)
+
+
+def group_table(group_sizes: Sequence[int]) -> Tuple[int, ...]:
+    """The kernels' group table (csrc/partial_conv.cu, at ``group_of``):
+    the G sizes, each group's first channel in the layer (and Cin), each
+    group's first channel in K1's x (and cin_x, ``k1_group_starts``)."""
+    return (*group_sizes, *_layer_starts(group_sizes), *k1_group_starts(group_sizes))
+
+
+@functools.lru_cache(maxsize=64)
+def _group_table_on(group_sizes: Tuple[int, ...], device) -> torch.Tensor:
+    """``group_table`` as an int32 tensor on ``device``, made once per
+    (groups, device) and kept."""
+    return torch.tensor(group_table(group_sizes), dtype=torch.int32, device=device)
+
+
+def _groups_ptr(group_sizes, device, always: bool = False) -> int:
+    """The device address of the group table, or 0 where the kernel takes
+    the two sizes as arguments (G <= 2, unless ``always``)."""
+    if len(group_sizes) <= 2 and not always:
+        return 0
+    return _group_table_on(tuple(group_sizes), device).data_ptr()
+
+
+# The general forms' dW partials: at most this many f32 values (64 MiB).
+GEN_PART_FLOATS = 1 << 24
+
+
+def gen_chunks(pixels: int, elems: int) -> int:
+    """Chunks of output pixels that a general form's weight gradient cuts
+    ``pixels`` into, each a row of ``elems`` f32 partials that
+    ``pconv_colsum`` adds in order: about sqrt(pixels), so that both chains
+    of f32 adds (a chunk's pixels, then the chunks) stay short; at most
+    65535 (a grid's y) and at most GEN_PART_FLOATS / elems rows."""
+    return max(1, min(math.isqrt(max(pixels - 1, 0)) + 1, 65535,
+                      GEN_PART_FLOATS // max(elems, 1)))
 
 
 def _count(name: str) -> None:
@@ -273,17 +324,27 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def k1_channels(group_sizes: Sequence[int]) -> Tuple[int, int, int]:
-    """K1's channel layout of x: (gb, cin_x, cin_p). Each mask group
+def k1_group_starts(group_sizes: Sequence[int]) -> Tuple[int, ...]:
+    """Each mask group's first channel in K1's x, then cin_x: every group
     starts on a multiple of 8 channels, so a 16-byte chunk of x lies in one
-    group: group 1 starts at ``gb``, x has ``cin_x`` channels (a multiple of
-    8), and the weights' K axis is padded to ``cin_p``, a multiple of the
-    64-channel K step. Equal to the layer's own layout when every group
-    size is a multiple of 8, as at every U-Net level."""
-    s0 = group_sizes[0]
-    gb = -(-s0 // 8) * 8
-    cin_x = gb + (-(-group_sizes[1] // 8) * 8 if len(group_sizes) == 2 else 0)
-    return gb, cin_x, -(-cin_x // _BK) * _BK
+    group."""
+    return _layer_starts([-(-size // 8) * 8 for size in group_sizes])
+
+
+def k1_channels(group_sizes: Sequence[int]) -> Tuple[int, int, int]:
+    """K1's channel layout of x: (gb, cin_x, cin_p). The groups start as
+    ``k1_group_starts`` says: group 1 at ``gb`` (cin_x for one group), x has
+    ``cin_x`` channels (a multiple of 8), and the weights' K axis is padded
+    to ``cin_p``, a multiple of the 64-channel K step. Equal to the layer's
+    own layout when every group size is a multiple of 8, as at every U-Net
+    level."""
+    starts = k1_group_starts(group_sizes)
+    return starts[1], starts[-1], -(-starts[-1] // _BK) * _BK
+
+
+def _layer_starts(group_sizes: Sequence[int]) -> Tuple[int, ...]:
+    """Each group's first channel, then their sum."""
+    return tuple(itertools.accumulate(group_sizes, initial=0))
 
 
 class K1Plan(NamedTuple):
@@ -301,7 +362,7 @@ class K1Plan(NamedTuple):
         return (k if self.halo else k * k) * cin_p // _BK
 
 
-def k1_plan(n: int, h: int, w: int, cout: int, cin_p: int, k: int, pad) -> K1Plan:
+def k1_plan(n: int, h: int, w: int, cout: int, cin_p: int, k: int, pad, g: int = 1) -> K1Plan:
     """K1's plan for N images of H x W, Cout output channels, Cin_p
     channels (``k1_channels``), a k x k window and ``pad`` (one padding
     for H and W, or the pair (ph, pw)): a pure function of the shape, the
@@ -312,8 +373,9 @@ def k1_plan(n: int, h: int, w: int, cout: int, cin_p: int, k: int, pad) -> K1Pla
     multiple of 128 and Hout * Wout a multiple of 128 (dec2 and dec1 of
     the U-Net, whole or on an H shard); BM 256 for BN 64 where the
     geometry and the grid allow (dec1),
-    else 128. Else the plain gather, whose time is the operand tiles it
-    moves from L2 into shared memory: the tile (BM x BN) and the number of
+    else 128; only with one or two mask groups (``g``), whose per-pixel
+    bits the halo form keeps. Else the plain gather, whose time is the
+    operand tiles it moves from L2 into shared memory: the tile (BM x BN) and the number of
     K splits that give the fewest waves x K steps x stage bytes, plus the
     split partials' round trip (``_k1_gather_cost``). A grid of 132 tiles
     or more never splits; a smaller one splits K into ``splits`` CTAs per
@@ -331,7 +393,7 @@ def k1_plan(n: int, h: int, w: int, cout: int, cin_p: int, k: int, pad) -> K1Pla
         return (k == 3 and wout % 64 == 0 and (wout % bm == 0 or bm % wout == 0)
                 and (hout * wout) % bm == 0)
 
-    if cout_p <= 128 and halo_fits(128):
+    if cout_p <= 128 and g <= 2 and halo_fits(128):
         bn = 128 if cout_p > 64 else 64
         bm = 256 if bn == 64 and halo_fits(256) and tiles(256, bn) >= _SMS else 128
         plan, t = K1Plan(True, bm, bn, 1), tiles(bm, bn)
@@ -386,15 +448,15 @@ def k1_weight_relayout(weight: torch.Tensor, group_sizes: Sequence[int]) -> torc
     elsewhere. Where no padding is needed (every U-Net level) it is one
     permute copy."""
     cout, cin, kh, kw = weight.shape
-    gb, cin_x, cin_p = k1_channels(group_sizes)
+    _, _, cin_p = k1_channels(group_sizes)
+    sx, sl = k1_group_starts(group_sizes), _layer_starts(group_sizes)
     cout_p = -(-cout // 8) * 8
     wt = weight.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(kh * kw, cout, cin)
-    if (cout_p, cin_p, gb) == (cout, cin, group_sizes[0]):
+    if (cout_p, cin_p, sx) == (cout, cin, sl):
         return wt.contiguous()
     out = torch.zeros((kh * kw, cout_p, cin_p), dtype=torch.bfloat16, device=weight.device)
-    s0 = group_sizes[0]
-    out[:, :cout, :s0] = wt[..., :s0]
-    out[:, :cout, gb:gb + cin - s0] = wt[..., s0:]
+    for i, size in enumerate(group_sizes):
+        out[:, :cout, sx[i]:sx[i] + size] = wt[..., sl[i]:sl[i] + size]
     return out
 
 
@@ -402,13 +464,12 @@ def k1_input_relayout(x: torch.Tensor, group_sizes: Sequence[int]) -> torch.Tens
     """x as K1 reads it: (N, H, W, cin_x), each group from a multiple of 8
     channels (``k1_channels``), zero between, 16-byte aligned. ``x`` itself
     where it already is (every U-Net level)."""
-    gb, cin_x, _ = k1_channels(group_sizes)
-    s0 = group_sizes[0]
-    if cin_x == x.shape[-1] and gb == s0:
+    sx, sl = k1_group_starts(group_sizes), _layer_starts(group_sizes)
+    if sx == sl:
         return x if x.data_ptr() % 16 == 0 else x.clone()
-    out = x.new_zeros((*x.shape[:3], cin_x))
-    out[..., :s0] = x[..., :s0]
-    out[..., gb:gb + x.shape[-1] - s0] = x[..., s0:]
+    out = x.new_zeros((*x.shape[:3], sx[-1]))
+    for i, size in enumerate(group_sizes):
+        out[..., sx[i]:sx[i] + size] = x[..., sl[i]:sl[i] + size]
     return out
 
 
@@ -432,7 +493,7 @@ def _launch_k1(x, mask, weight, bias, group_sizes, padding):
     gb, cin_x, cin_p = k1_channels(group_sizes)
     cout_p = -(-cout // 8) * 8
     p = n * hout * wout
-    plan = k1_plan(n, h, w, cout, cin_p, k, (ph, pw))
+    plan = k1_plan(n, h, w, cout, cin_p, k, (ph, pw), g)
     xk = k1_input_relayout(x, group_sizes)
     wk = k1_weight_relayout(weight, group_sizes)
     b = None
@@ -449,7 +510,8 @@ def _launch_k1(x, mask, weight, bias, group_sizes, padding):
         xk.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
         y.data_ptr(), m_out.data_ptr(), 0 if part is None else part.data_ptr(),
         n, h, w, cin, g, s0, s1, hout, wout, cout, cin_x, gb, cin_p, cout_p, k, ph, pw,
-        plan.splits, plan.bm, plan.bn, int(plan.halo), _stream(),
+        plan.splits, plan.bm, plan.bn, int(plan.halo), _groups_ptr(group_sizes, x.device),
+        _stream(),
     )
     check(lib, code, "K1 (partial conv, Cout >= 8)")
     _count("K1_LAUNCHES")
@@ -537,53 +599,63 @@ class K2FPlan(NamedTuple):
     """How K2F or its backward cuts one layer: bands of ``rb`` rows (output
     rows forward, input rows backward) and strips of ``tw`` columns; the
     backward's strips are ``nseg`` segments of HB_SEG columns, one thread
-    per (segment, input channel)."""
+    per (segment, input channel). ``general``: the shape is outside the
+    templated form's, and the general form runs it (no bands, no strips:
+    those fields are 0)."""
 
     rb: int
     tw: int
     nseg: int
     threads: int
+    general: bool = False
 
     def grid(self, n: int, rows: int, cols: int) -> int:
         """CTAs of the launch (and the backward's rows of dW partials)."""
         return n * -(-rows // self.rb) * -(-cols // self.tw)
 
 
-def _k2f_scope(cin: int, cout: int, k: int) -> None:
-    if not 1 <= cout <= _K2_MAX_COUT or k not in K2F_KS:
-        raise ValueError(f"K2F takes Cout 1..{_K2_MAX_COUT} and k in {K2F_KS}, got Cout {cout}, "
-                         f"k {k}")
+def _k2f_scope(cout: int) -> None:
+    if not 1 <= cout <= _K2_MAX_COUT:
+        raise ValueError(f"K2F takes Cout 1..{_K2_MAX_COUT}, got Cout {cout}")
 
 
-def k2f_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, pad) -> K2FPlan:
+# The general forms' CTA (csrc/partial_conv.cu: GEN_THREADS) and the output
+# pixels a warp of the forward takes (GEN_PIX); they take no shared memory.
+GEN_THREADS = 256
+GEN_PIX = 8
+_K2F_GENERAL = K2FPlan(0, 0, 0, GEN_THREADS, True)
+
+
+def k2f_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, pad, g: int = 1) -> K2FPlan:
     """K2F's plan for N images of H x W, Cin -> Cout (<= 7) channels, a k x k
-    window and ``pad``: strips of K2F_TW output columns, bands by
-    ``k2f_band_rows`` (halo k - 1). A pure function of the shape; raises
-    where the ring would not fit in shared memory."""
-    _k2f_scope(cin, cout, k)
+    window, ``pad`` and ``g`` mask groups: strips of K2F_TW output columns,
+    bands by ``k2f_band_rows`` (halo k - 1). A pure function of the shape.
+    The general form where the templated one does not take it: k not in
+    K2F_KS, three or more groups, or a ring that would not fit in shared
+    memory (Cin 170 and up at k 3). Raises only outside Cout 1..7."""
+    _k2f_scope(cout)
+    smem = k2f_smem_bytes(cin, cout, k)
+    if k not in K2F_KS or g > 2 or smem > SMEM_LIMIT:
+        return _K2F_GENERAL
     ph, pw = _pads(pad)
     hout, wout = h + 2 * ph - k + 1, w + 2 * pw - k + 1
-    smem = k2f_smem_bytes(cin, cout, k)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"K2F takes no {cin} input channels at k {k}: its ring would take "
-                         f"{smem} bytes of shared memory")
     rb = k2f_band_rows(n, -(-wout // K2F_TW), hout, k - 1, _ctas_an_sm(smem))
     return K2FPlan(rb, K2F_TW, 1, K2F_THREADS)
 
 
-def k2f_bwd_plan(n: int, h: int, w: int, cin: int, cout: int, k: int) -> K2FPlan:
+def k2f_bwd_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, g: int = 1) -> K2FPlan:
     """The backward's plan: as many 32-column segments a strip as
     HB_THREADS threads take at one per (segment, channel), at most
-    HB_NSEG; bands of input rows by ``k2f_band_rows``. Raises above
-    HB_THREADS input channels or where shared memory would not hold it."""
-    _k2f_scope(cin, cout, k)
-    if cin > HB_THREADS:
-        raise ValueError(f"K2F's backward takes at most {HB_THREADS} input channels, got {cin}")
+    HB_NSEG; bands of input rows by ``k2f_band_rows``. The general form
+    above HB_THREADS input channels, at k not in K2F_KS, at three or more
+    groups, or where shared memory would not hold it."""
+    _k2f_scope(cout)
+    if k not in K2F_KS or g > 2 or cin > HB_THREADS:
+        return _K2F_GENERAL
     nseg = min(HB_NSEG, HB_THREADS // cin)
     smem = k2f_bwd_smem_bytes(cin, cout, k, nseg)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"K2F's backward takes no {cin} input channels at Cout {cout}, k {k}: "
-                         f"it would take {smem} bytes of shared memory")
+        return _K2F_GENERAL
     tw = nseg * HB_SEG
     rb = k2f_band_rows(n, -(-w // tw), h, k - 1, _ctas_an_sm(smem))
     return K2FPlan(rb, tw, nseg, _round_up(nseg * cin, 32))
@@ -654,8 +726,9 @@ def _launch_f32(x, mask, weight, bias, group_sizes, padding):
     weights re-laid, x * M with a zero border and zero channels to Cin_p,
     then ``pconv_k1f`` as ``k1f_plan`` says, then the split reduction) at
     Cout >= 8, K2F (``tsii_pconv_k2f``: the weights re-laid, then
-    ``pconv_k2f`` as ``k2f_plan`` says) at Cout <= 7. Both multiply by the
-    mask's value, as the plain version does. Counted as K1F or K2F."""
+    ``pconv_k2f`` as ``k2f_plan`` says, or its general form) at Cout <= 7.
+    Both multiply by the mask's value, as the plain version does. Counted
+    as K1F or K2F."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
     n, h, w, cin, g, cout, k, (ph, pw), hout, wout = _check_inputs(x, mask, weight, bias,
@@ -666,7 +739,11 @@ def _launch_f32(x, mask, weight, bias, group_sizes, padding):
     m_out = torch.empty((n, hout, wout, 1), dtype=x.dtype, device=x.device)
     s0, s1 = _sizes(group_sizes)
     if cout <= _K2_MAX_COUT:
-        plan = k2f_plan(n, h, w, cin, cout, k, (ph, pw))
+        plan = k2f_plan(n, h, w, cin, cout, k, (ph, pw), g)
+        if plan.general:
+            _launch_gen_fwd(lib, x, mask, weight, b, y, m_out, group_sizes, (ph, pw))
+            _count("K2F_LAUNCHES")
+            return y, m_out
         xk, w32 = _aligned16(x), weight.to(torch.float32).contiguous()
         wk = torch.empty((k * k, cin, cout), dtype=torch.float32, device=x.device)
         code = lib.tsii_pconv_k2f(
@@ -693,7 +770,7 @@ def _launch_f32(x, mask, weight, bias, group_sizes, padding):
         x.data_ptr(), mask.data_ptr(), w32.data_ptr(), 0 if b is None else b.data_ptr(),
         y.data_ptr(), m_out.data_ptr(), xm.data_ptr(), 0 if part is None else part.data_ptr(),
         wk.data_ptr(), n, h, w, cin, g, s0, s1, hout, wout, cout, k, ph, pw, cin_p, cout_p,
-        plan.bm, plan.bn, plan.splits, _stream(),
+        plan.bm, plan.bn, plan.splits, _groups_ptr(group_sizes, x.device), _stream(),
     )
     check(lib, code, "K1F (the f32 partial conv, Cout >= 8)")
     _count("K1F_LAUNCHES")
@@ -720,6 +797,19 @@ def k2_plan(cin: int, cout: int, k: int) -> K2Plan:
     channels, all of one width (the head: 67 -> one block of 80)."""
     nblk = -(-cin // K2_CB_MAX)
     return K2Plan(_round_up(-(-cin // nblk), 16), nblk, _round_up(k * k * cout, 16))
+
+
+def k2_general(cin: int, cout: int, k: int, g: int = 1, pad=0, backward: bool = False) -> bool:
+    """Whether K2 (bf16, Cout <= 7; its backward with ``backward``) runs
+    its general form rather than ``pconv_k2<NKB>`` / ``pconv_k2_bwd``: at
+    three or more mask groups, where the tile of ``k2_plan`` would not fit
+    in shared memory (at 67 -> 3 the forward from k 11, the backward from
+    k 12), and in the backward at a padding above k - 1. A pure function
+    of the shape."""
+    plan = k2_plan(cin, cout, k)
+    if backward and max(_pads(pad)) > k - 1:
+        return True
+    return g > 2 or k2_smem_bytes(k, plan.cb, plan.kj if backward else 0) > SMEM_LIMIT
 
 
 def k2_smem_bytes(k: int, cb: int, kj: int = 0) -> int:
@@ -763,21 +853,23 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
 
 def _launch_k2(x, mask, weight, bias, group_sizes, padding):
     """K2 (``csrc/partial_conv.cu``: ``pconv_k2``), with the weights
-    re-laid in this call (``k2_weight_relayout``). Unlike K1 it multiplies
-    by the mask's value, so a mask that is not binary gives x * M as the
-    plain version does."""
+    re-laid in this call (``k2_weight_relayout``), or its general form
+    where ``k2_general`` says. Unlike K1 it multiplies by the mask's value,
+    so a mask that is not binary gives x * M as the plain version does."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
     n, h, w, cin, g, cout, k, (ph, pw), hout, wout = _check_inputs(x, mask, weight, bias,
                                                                    group_sizes, padding)
     lib = load_library()
     plan = k2_plan(cin, cout, k)
-    if k2_smem_bytes(k, plan.cb) > SMEM_LIMIT:
-        raise ValueError(f"K2 takes no {k} x {k} window: its tile would not fit in shared memory")
-    xk, wk = _aligned16(x), k2_weight_relayout(weight, plan)
     b = None if bias is None else bias.to(x.dtype).float().contiguous()
     y = torch.empty((n, hout, wout, cout), dtype=x.dtype, device=x.device)
     m_out = torch.empty((n, hout, wout, 1), dtype=x.dtype, device=x.device)
+    if k2_general(cin, cout, k, g):
+        _launch_gen_fwd(lib, x, mask, weight, b, y, m_out, group_sizes, (ph, pw))
+        _count("K2_LAUNCHES")
+        return y, m_out
+    xk, wk = _aligned16(x), k2_weight_relayout(weight, plan)
     s0, s1 = _sizes(group_sizes)
     code = lib.tsii_pconv_k2(
         xk.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
@@ -812,19 +904,17 @@ def _launch_k2_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
     """The backward at Cout <= 7 (``pconv_k2_bwd``): dx, dW and db in one
     kernel that reads x, g and the mask once and writes dx once; each CTA
     writes its f32 part of dW and db, and ``pconv_colsum`` adds the parts in
-    a fixed order, so two launches give the same bits."""
+    a fixed order, so two launches give the same bits. The general form
+    where ``k2_general`` says (``_launch_gen_bwd``)."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
     n, h, w, cin, gr, cout, k, (ph, pw), hout, wout = _check_inputs(x, mask, weight, bias,
                                                                     group_sizes, padding)
     g = _check_cotangent(g, x, n, hout, wout, cout)
-    if max(ph, pw) > k - 1:
-        raise ValueError(f"K2's backward takes padding up to k - 1, got {padding} for k = {k}")
+    if k2_general(cin, cout, k, gr, (ph, pw), backward=True):
+        return _launch_gen_bwd(g, x, mask, weight, bias, group_sizes, (ph, pw), needs)
     lib = load_library()
     plan = k2_plan(cin, cout, k)
-    if k2_smem_bytes(k, plan.cb, plan.kj) > SMEM_LIMIT:
-        raise ValueError(f"K2's backward takes no {k} x {k} window with {cout} outputs: its "
-                         f"tile would not fit in shared memory")
     need_dx, need_dw, need_db = needs
     xk, wk = _aligned16(x), k2_bwd_weight_relayout(weight, plan)
     tiles = n * -(-max(h, hout) // K2_TH) * -(-max(w, wout) // K2_TW)
@@ -856,14 +946,19 @@ def _launch_k2f_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
     pass over g; ``tsii_pconv_k2f_bwd`` re-lays the weights and runs
     ``pconv_k2f_bwd`` as ``k2f_bwd_plan`` says: dx = conv_transpose(dacc, W)
     * M, and each CTA's f32 part of dW, which ``pconv_colsum`` adds in a
-    fixed order (two launches, the same bits)."""
+    fixed order (two launches, the same bits). The general form where
+    ``k2f_bwd_plan`` says (``_launch_gen_bwd``), counted alike."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
     n, h, w, cin, gr, cout, k, (ph, pw), hout, wout = _check_inputs(x, mask, weight, bias,
                                                                     group_sizes, padding)
     g = _check_cotangent(g, x, n, hout, wout, cout)
     need_dx, need_dw, need_db = needs
-    plan = k2f_bwd_plan(n, h, w, cin, cout, k) if need_dx or need_dw else None
+    plan = k2f_bwd_plan(n, h, w, cin, cout, k, gr) if need_dx or need_dw else None
+    if plan is not None and plan.general:
+        out = _launch_gen_bwd(g, x, mask, weight, bias, group_sizes, (ph, pw), needs)
+        _count("K3F_HEAD_LAUNCHES")
+        return out
     dacc, db = k3_prep(g, mask, cin, group_sizes, k, (ph, pw), need_db)
     db = db.to(bias.dtype) if need_db else None
     if plan is None:
@@ -885,6 +980,62 @@ def _launch_k2f_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
     dw = None
     if need_dw:
         dw = _colsum(lib, part).reshape(k, k, cout, cin).permute(2, 3, 0, 1).to(weight.dtype)
+    return dx, dw, db
+
+
+def _launch_gen_fwd(lib, x, mask, weight, b, y, m_out, group_sizes, padding) -> None:
+    """The general form of K2 and K2F (``pconv_gen_fwd``) into ``y`` and
+    ``m_out``: the weights re-laid as (k*k, Cin, Cout) in x's dtype, ``b``
+    the f32 bias or None. Inputs as ``_check_inputs`` passed them."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check
+
+    n, h, w, cin = x.shape
+    cout, _, k, _ = weight.shape
+    ph, pw = padding
+    wk = weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()
+    code = lib.tsii_pconv_gen_fwd(
+        x.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
+        y.data_ptr(), m_out.data_ptr(), _groups_ptr(group_sizes, x.device, always=True), n, h, w,
+        cin, len(group_sizes), y.shape[1], y.shape[2], cout, k, ph, pw,
+        int(x.dtype == torch.float32), _stream())
+    check(lib, code, "the general form of K2 / K2F (partial conv, Cout <= 7)")
+    _count("GEN_LAUNCHES")
+
+
+def _launch_gen_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
+    """The general form of the backward at Cout <= 7, bf16 or f32:
+    ``k3_prep`` writes dacc and db; ``pconv_gen_dx`` dx = conv_transpose(dacc,
+    W) * M (the weights re-laid as (k*k, Cout, Cin)); ``pconv_gen_dw`` each
+    chunk's (tap, o, c) partials of dW (``gen_chunks``), which
+    ``pconv_colsum`` adds in chunk order. Two launches give the same bits."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
+
+    n, h, w, cin = x.shape
+    cout, _, k, _ = weight.shape
+    hout, wout = g.shape[1:3]
+    need_dx, need_dw, need_db = needs
+    dacc, db = k3_prep(g, mask, cin, group_sizes, k, padding, need_db)
+    db = db.to(bias.dtype) if need_db else None
+    if not (need_dx or need_dw):
+        return None, None, db
+    lib = load_library()
+    wk = weight.to(x.dtype).permute(2, 3, 0, 1).contiguous() if need_dx else None
+    dx = torch.empty_like(x) if need_dx else None
+    elems = k * k * cout * cin
+    chunks = gen_chunks(n * hout * wout, elems)
+    part = torch.empty((chunks, elems), dtype=torch.float32, device=x.device) if need_dw else None
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    code = lib.tsii_pconv_gen_bwd(
+        dacc.data_ptr(), x.data_ptr(), mask.data_ptr(), ptr(wk), ptr(dx), ptr(part),
+        _groups_ptr(group_sizes, x.device, always=True), n, h, w, cin, len(group_sizes), hout,
+        wout, cout, k, padding[0], padding[1], chunks, int(x.dtype == torch.float32),
+        int(need_dx), int(need_dw), _stream())
+    check(lib, code, "the general form of the partial conv backward (Cout <= 7)")
+    _count("GEN_BWD_LAUNCHES")
+    dw = None
+    if need_dw:  # (tap, o, c) -> OIHW, rounded once as the plain version rounds it
+        dw = _colsum(lib, part).reshape(k, k, cout, cin).permute(2, 3, 0, 1)
+        dw = dw.to(x.dtype).to(weight.dtype)
     return dx, dw, db
 
 
@@ -926,7 +1077,8 @@ def k3_prep(g, mask, cin: int, group_sizes, k: int, pad, need_db: bool = True):
     prep = lib.tsii_pconv_k3_prep_f32 if g.dtype == torch.float32 else lib.tsii_pconv_k3_prep
     code = prep(
         g.data_ptr(), mask.data_ptr(), dacc.data_ptr(), 0 if part is None else part.data_ptr(),
-        n, h, w, cin, gr, s0, s1, hout, wout, cout, k, ph, pw, grid, int(need_db), _stream(),
+        n, h, w, cin, gr, s0, s1, hout, wout, cout, k, ph, pw, grid, int(need_db),
+        _groups_ptr(group_sizes, g.device), _stream(),
     )
     check(lib, code, "K3 (scaled cotangent and db)")
     return dacc, (_colsum(lib, part) if need_db else None)
@@ -949,7 +1101,7 @@ def k3_mask(src, mask, group_sizes, out=None):
     c = src.shape[-1]
     apply = lib.tsii_pconv_k3_mask_f32 if src.dtype == torch.float32 else lib.tsii_pconv_k3_mask
     code = apply(src.data_ptr(), mask.data_ptr(), out.data_ptr(), src.numel() // c, c,
-                 len(group_sizes), group_sizes[0], _stream())
+                 len(group_sizes), group_sizes[0], _groups_ptr(group_sizes, src.device), _stream())
     check(lib, code, "K3 (x * M)")
     return out
 

@@ -12,13 +12,17 @@ Masks are grouped, (N, H, W, G): group g covers a contiguous block of
 window_sum(M_g)`` and ``sum(1) = k*k*Cin``. Features are NHWC, weights
 OIHW.
 
-``partial_conv2d`` routes by static shape only: stride 1, dilation 1 and
-a square kernel go to the fused kernels (``ops/kernels/partial_conv.py``:
-K1, or K2 when Cout <= 7, with K3 as their backward), which take their
-plain version on a CPU tensor and launch the CUDA kernel, or raise, on a
-CUDA tensor. Every other configuration (the U-Net's stride-2 encoder)
-runs the plain cuDNN formulation ``_partial_conv2d_plain``, the
-counterpart of JAX's ``_partial_conv2d_xla``, differentiated by autograd.
+``partial_conv2d`` routes by static shape only, as JAX's ``_supported``
+(``ops/pallas/partial_conv_kernel.py:532-539``) routes: stride 1,
+dilation 1, a square kernel and an output height under 8 or a multiple
+of 8 go to the fused kernels (``ops/kernels/partial_conv.py``: K1, or K2
+when Cout <= 7, with K3 as their backward), which take their plain
+version on a CPU tensor and launch the CUDA kernel, or raise, on a CUDA
+tensor. Every other configuration (the U-Net's stride-2 encoder, an
+output height such as 12) runs the plain cuDNN formulation
+``_partial_conv2d_plain``, the counterpart of JAX's
+``_partial_conv2d_xla``, differentiated by autograd: its conv rounds to
+x's dtype before the f32 epilogue, as JAX's does there.
 
 Under ``spatial_axis(ring)`` (``ops/bands.py``) every call runs on one H
 band of a page: it first takes its halo rows from the other bands through
@@ -113,9 +117,13 @@ def pconv_epilogue(feat, msum, bias, window_size: float, out_dtype):
     return out, valid.to(out_dtype)
 
 
-def in_kernel_scope(stride: Tuple[int, int], dilation: Tuple[int, int], weight_shape) -> bool:
-    """The fused kernels' scope: stride 1, dilation 1, square kernel."""
-    return stride == (1, 1) and dilation == (1, 1) and weight_shape[2] == weight_shape[3]
+def in_kernel_scope(stride: Tuple[int, int], dilation: Tuple[int, int], weight_shape,
+                    h_out: int) -> bool:
+    """The fused kernels' scope, JAX's ``_supported``: stride 1, dilation
+    1, a square kernel, and an output height ``h_out`` (the page's, under
+    ``spatial_axis``) under 8 or a multiple of 8."""
+    return (stride == (1, 1) and dilation == (1, 1) and weight_shape[2] == weight_shape[3]
+            and (h_out < 8 or h_out % 8 == 0))
 
 
 def partial_conv2d(
@@ -155,10 +163,13 @@ def partial_conv2d(
     s, p, d = _pair(stride), _pair(padding), _pair(dilation)
     mask = mask.to(x.dtype)
     ring = _active_spatial_axis()
+    # the route is the page's: a band's output height is not the layer's
+    h_page = x.shape[1] * (1 if ring is None else ring.bands)
+    h_out = (h_page + 2 * p[0] - d[0] * (weight.shape[2] - 1) - 1) // s[0] + 1
     if ring is not None:  # one H band: take the halo rows, then H padding 0
         x, mask = conv_halo(ring, (x, mask), weight.shape[2], s[0], p[0], d[0])
         p = (0, p[1])
-    if in_kernel_scope(s, d, weight.shape):
+    if in_kernel_scope(s, d, weight.shape, h_out):
         from text_segmentation_image_inpainting_tpu_torch.ops.kernels.partial_conv import (
             partial_conv2d_fused,
         )
