@@ -149,7 +149,8 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               general form), against the f64 truth (bf16: ``check_close``
               and ``check_grads``; f32: ``check_f32`` and
               ``check_grads_f32``), M' bit-exact, twice bit-identical, each
-              timed beside its plain version and cuDNN; K6 at k 9, d 1 and
+              timed beside its plain version and cuDNN, the general forms'
+              kernels one by one by profiler device time; K6 at k 9, d 1 and
               k 7, d 48, C 128 (the general form, ``check_wgrad``); an H =
               12 bf16 layer on the plain route (no counter moves); the
               general forms' three rows end the kernels line
@@ -3946,6 +3947,12 @@ def scope_phase(dev, rng, smi: str) -> dict:
                 add("bwd", t_b, p_b, l_b, 2 * flop, bbytes, peak, gabs)
             form = "general" if gen_f else "templated" if cout <= 7 else f"G {len(groups)} table"
             bform = "general" if gen_b else "templated" if cout <= 7 else f"G {len(groups)} table"
+            for on, what, fn in ((gen_f, "forward", fwd), (gen_b, "backward", bwd)):
+                if on:  # the general forms' kernels one by one (device time per call)
+                    dev_ms = kernel_ms(fn)
+                    log(f"{label}: general {what}, device ms per call: " + ", ".join(
+                        f"{k_} {v:.4f}" for k_, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])
+                        if "pconv" in k_))
             log(f"{label}: x {tuple(xd.shape)} -> y {tuple(first[0].shape)}; {fwd_key} ({form}) "
                 f"{t_f:.4f} ms, plain {p_f:.4f} ms, cuDNN on x*M {l_f:.4f} ms, bound "
                 f"{bound(flop, fbytes, peak)[0]:.4f} ms; backward ({bform}) {t_b:.4f} ms, plain "
@@ -4000,9 +4007,11 @@ def scope_phase(dev, rng, smi: str) -> dict:
     log(f"scope: the general forms' launches on the path {path}")
     rows = []
     for key, fn, src, tpu in (
-            ("fwd", "K2/K2F general form pconv_gen_fwd (Cout <= 7 past the templated forms)",
+            ("fwd", "K2/K2F general form pconv_gen_relay, pconv_gen_rowsum, pconv_gen_fwd_bf16 "
+                    "(mma.sync) / pconv_gen_fwd_f32 (Cout <= 7 past the templated forms)",
              CSRC, f"{TPU_KERNEL}:480"),
-            ("bwd", "K3/K3F general form pconv_k3_prep, pconv_gen_dx, pconv_gen_dw, pconv_colsum "
+            ("bwd", "K3/K3F general form pconv_k3_prep, pconv_gen_relay, pconv_gen_dx_bf16 / "
+                    "pconv_gen_dx_f32, pconv_gen_dw_bf16 / pconv_gen_dw_f32, pconv_colsum "
                     "(Cout <= 7 past the templated forms)", CSRC, f"{TPU_KERNEL}:600"),
             ("k6", "K6 general form dw_wgrad_gen, dw_wgrad_gen_sum", CSRC_DW, f"{TPU_DW}:144")):
         t = tot[key]

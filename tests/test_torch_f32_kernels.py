@@ -264,6 +264,11 @@ K2F_CASES = (
     ((16, 3), 1, 5, (0, 1)), ((16, 3), 3, 5, (1, 0)), ((16, 3), 7, 5, (1, 1)),
     ((64, 3), 3, 3, (1, 1)),
 )
+# The backward's: its templated form takes k 1 and 3 (K2F_BWD_KS); the
+# k 5 cases' groups and paddings at Cin 19 + 3 and at k 3 stand in for them.
+K2F_BWD_CASES = tuple(case for case in K2F_CASES if case[2] in kpc.K2F_BWD_KS) + (
+    ((19, 3), 1, 3, (0, 1)), ((19, 3), 3, 3, (1, 0)), ((19, 3), 7, 3, (1, 1)),
+)
 
 
 def _k2f_ids(case):
@@ -279,9 +284,14 @@ def test_k2f_constants_are_the_kernels():
         assert getattr(kpc, name) == _constexpr("partial_conv.cu", name), name
     src = (CSRC / "partial_conv.cu").read_text()
     assert re.search(r"constexpr int K2F_TW = 32 \* K2F_R;", src) and kpc.K2F_TW == 32 * kpc.K2F_R
-    ks = re.findall(r"case C \* 8 \+ (\d+): CALL\(C, \1\)", src)
+    fwd_macro = src.split("#define TSII_K2F_COUT(C, CALL)")[1].split("#define")[0]
+    bwd_macro = src.split("#define TSII_K2F_BWD_COUT(C, CALL)")[1].split("#define")[0]
+    ks = re.findall(r"case C \* 8 \+ (\d+): CALL\(C, \1\)", fwd_macro)
+    bwd_ks = re.findall(r"case C \* 8 \+ (\d+): CALL\(C, \1\)", bwd_macro)
     couts = re.findall(r"TSII_K2F_COUT\((\d+), CALL\)", src)
     assert tuple(sorted(map(int, ks))) == kpc.K2F_KS
+    assert tuple(sorted(map(int, bwd_ks))) == kpc.K2F_BWD_KS
+    assert "TSII_K2F_BWD_SWITCH(cout, k, K2F_CALL)" in src
     assert sorted(map(int, couts)) == list(range(1, 8))
     assert "return (pixels * cin + 6 + 3) / 4 * 4;" in src
     assert "return (k2f_row_floats(pixels, cin) + 2 * pixels + 3) / 4 * 4;" in src
@@ -312,14 +322,16 @@ def test_k2f_head_fills_whole_waves_of_two_ctas():
     (1, 1, 1, 1, 3), (16, 64, 64, 150, 3),
 ])
 def test_k2f_bands_cover_every_row_once(n, rows, cols, cin, k):
+    bwd = kpc.k2f_bwd_plan(n, rows, cols, cin, 3, k)
+    assert bwd.general == (k not in kpc.K2F_BWD_KS)  # past k 3 the general backward
     for plan in (kpc.k2f_plan(n, rows + k - 1, cols + k - 1, cin, 3, k, (0, 0)),
-                 kpc.k2f_bwd_plan(n, rows, cols, cin, 3, k)):
+                 *(() if bwd.general else (bwd,))):
         bands = -(-rows // plan.rb)
         assert 1 <= plan.rb <= rows and (bands - 1) * plan.rb < rows <= bands * plan.rb
         assert plan.grid(n, rows, cols) == n * bands * -(-cols // plan.tw)
         assert plan.threads % 32 == 0 and plan.nseg * cin <= plan.threads <= 256
-    bwd = kpc.k2f_bwd_plan(n, rows, cols, cin, 3, k)
-    assert bwd.nseg == min(kpc.HB_NSEG, kpc.HB_THREADS // cin) and bwd.tw == 32 * bwd.nseg
+    if not bwd.general:
+        assert bwd.nseg == min(kpc.HB_NSEG, kpc.HB_THREADS // cin) and bwd.tw == 32 * bwd.nseg
 
 
 @pytest.mark.parametrize("cin,cout,k,what", [
@@ -454,7 +466,7 @@ def _k2f_bwd_emulated(x, m, w, g, groups, pad):
     return dx, dw
 
 
-@pytest.mark.parametrize("case", K2F_CASES, ids=_k2f_ids)
+@pytest.mark.parametrize("case", K2F_BWD_CASES, ids=_k2f_ids)
 def test_k2f_bwd_orders_match_jax_vjp_in_f64(case):
     groups, cout, k, pad = case
     x, m, wt, b, rng = _k2f_inputs(groups, cout, k, 7 * sum(groups) + cout + k)

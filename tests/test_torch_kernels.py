@@ -957,7 +957,7 @@ def test_stem_f32_weights_are_relaid_as_the_plain_version(cuda):
 # K2F and its backward at ragged shapes: (name, N, H, W, groups, Cout, k,
 # padding). W off the strips (96 output columns forward, 32 nseg input
 # columns backward), H shorter than the ring, one image, Cin 67 and Cin < 4,
-# Cout 1 and 7, k 1, 3 and 5.
+# Cout 1 and 7, k 1, 3 and 5 (the backward at k 5 is the general form).
 K2F_CASES = (
     ("head channels, W 100: a ragged second strip", 2, 19, 100, (64, 3), 3, 3, (1, 1)),
     ("H 2: shorter than the ring", 2, 2, 37, (64, 3), 3, 3, (1, 1)),
@@ -992,8 +992,9 @@ def test_k2f_matches_plain_in_f64(cuda, name, n, h, w, groups, cout, k, pad):
 @pytest.mark.parametrize("needs", K2F_NEEDS, ids=["all", "dx", "dW", "db"])
 @pytest.mark.parametrize("name,n,h,w,groups,cout,k,pad", K2F_CASES, ids=[c[0] for c in K2F_CASES])
 def test_k2f_bwd_matches_plain_in_f64(cuda, name, n, h, w, groups, cout, k, pad, needs):
-    """K2F's backward (``pconv_k3_prep``, ``pconv_k2f_bwd``, ``pconv_colsum``)
-    for each ``needs`` subset against autograd of the plain version in f64:
+    """K2F's backward (``pconv_k3_prep``, ``pconv_k2f_bwd``, ``pconv_colsum``;
+    at k 5 the general form, ``k2f_bwd_plan``) for each ``needs`` subset
+    against autograd of the plain version in f64:
     each asked gradient within 1e-5 relative L2, the others None; twice
     bit-identical."""
     x, m, wt, b = _k2f_case(cuda, n, h, w, groups, cout, k)
@@ -1015,7 +1016,7 @@ def test_k2f_bwd_matches_plain_in_f64(cuda, name, n, h, w, groups, cout, k, pad,
         assert rel < 1e-5, (what, rel)
 
 
-@pytest.mark.parametrize("cin,cout,k", [(67, 3, 3), (19, 7, 5), (3, 1, 1)])
+@pytest.mark.parametrize("cin,cout,k", [(67, 3, 3), (19, 7, 3), (3, 1, 1)])
 def test_k2f_weights_are_relaid_as_the_plain_version(cuda, cin, cout, k):
     """``pconv_f32_relay`` in K2F's launch writes ``f32_weight_relayout``'s
     (k*k, Cin, Cout), and in the backward's ``f32_bwd_weight_relayout``'s

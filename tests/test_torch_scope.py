@@ -11,14 +11,20 @@ at shapes that no model of the repo reaches.
 * Every plan returns over k 1..15, Cin 1..1024, Cout 1..7 (K1 and K1F at
   Cout >= 8) and 1..4 mask groups, and K6's over odd k up to 15 and
   dilations up to 64: the templated form within its shared memory, as the
-  ``.cu`` files' constants give it, else the general form (which takes no
-  shared memory).
-* The general forms (``csrc/partial_conv.cu``: ``pconv_gen_fwd``,
-  ``pconv_gen_dx``, ``pconv_gen_dw``; ``csrc/depthwise_wgrad.cu``:
-  ``dw_wgrad_gen``) emulated in torch, their index arithmetic and order of
-  sums (lane-strided channels and the xor butterfly; the chunks of output
-  pixels and ``pconv_colsum``'s order), against ``jax.vjp``, at even k,
-  unequal padding, padding above k - 1 and three groups.
+  ``.cu`` files' constants give it, and below the routing cut, else the
+  general form; the general forms' plan (``gen_plan``) up to k 31, within
+  SMEM_LIMIT and GEN_PART_FLOATS, its tile constants and shared-memory
+  terms read from the ``.cu``; the routing cut pinned at the head.
+* The general forms (``csrc/partial_conv.cu``: ``pconv_gen_fwd_bf16`` /
+  ``_f32``, ``pconv_gen_dx_bf16`` / ``_f32``, ``pconv_gen_dw_bf16`` /
+  ``_f32``; ``csrc/depthwise_wgrad.cu``: ``dw_wgrad_gen``) emulated in
+  torch in their own tiling, index arithmetic and order of sums (the mma
+  forward's runs of taps and Z shift-add, the SIMT forward's unit and tap
+  order, dx's reversed taps within runs, dW's segments of (row, strip)
+  items, tap pairs or runs, pixel groups and ``pconv_colsum``'s order),
+  with the weights from the wrappers' own re-lays, against ``jax.vjp``, at
+  even k, unequal padding, padding above k - 1, three groups, Cin 200, k
+  9, 11 and 13.
 * The port's ``partial_conv2d`` and its gradients against JAX's
   ``impl='pallas'`` (interpret mode) in f32 at Cin 200 (k 3), Cin 67 at k 2
   and 9, and three mask groups; K6's plain version at k 9 against
@@ -135,21 +141,53 @@ def _cu_constexpr(src: str, name: str) -> str:
     return m.group(1).strip()
 
 
-def test_general_forms_take_no_shared_memory():
-    """The general forms' kernels declare no shared memory and launch
-    GEN_THREADS threads (K6's its own NT), the forward GEN_PIX output pixels
-    a warp: whatever Cin, k and G are, their plans need no budget."""
+GEN_CONSTS = ("GEN_THREADS", "GEN_D", "GEN_TH", "GEN_R", "GEN_L", "GEN_RUN", "GM_TH", "GM_NPX",
+              "GM_MT", "GM_RUN", "GW_TW")
+
+
+@pytest.mark.parametrize("name", GEN_CONSTS)
+def test_general_forms_tiles_match_the_source(name):
+    """The general forms' tile and ring constants in ``gen_plan`` are the
+    ``.cu``'s ``constexpr``s, and the plan's shared-memory formulas are the
+    source's ``gen_*_smem`` terms: what the wrapper budgets is what the
+    launcher asks for."""
+    assert _cu_constexpr("partial_conv.cu", name) == str(getattr(kpc, name)), name
     src = (CSRC / "partial_conv.cu").read_text()
-    assert _cu_constexpr("partial_conv.cu", "GEN_THREADS") == str(kpc.GEN_THREADS)
-    assert _cu_constexpr("partial_conv.cu", "GEN_PIX") == str(kpc.GEN_PIX)
-    for kernel in ("pconv_gen_fwd", "pconv_gen_dx", "pconv_gen_dw"):
-        body = src.split(f"__launch_bounds__(GEN_THREADS) {kernel}(")[1].split("\n}\n")[0]
-        assert "__shared__" not in body, kernel
-    assert "pconv_gen_fwd<T, CO><<<grid, GEN_THREADS, 0, s>>>" in src
-    dws = (CSRC / "depthwise_wgrad.cu").read_text()
-    for kernel in ("dw_wgrad_gen(", "dw_wgrad_gen_sum("):
-        body = dws.split(f"__launch_bounds__(NT) {kernel}")[1].split("\n}\n")[0]
-        assert "__shared__" not in body, kernel
+    assert "constexpr int GEN_TW = 32 * GEN_R;" in src and kpc.GEN_TW == 32 * kpc.GEN_R
+    assert "constexpr int GM_ZS = GM_NPX + 8;" in src and kpc.GM_ZS == kpc.GM_NPX + 8
+    assert ("return ((GEN_TH + GEN_D) * cbu * (GEN_TW + run) + (GEN_D + 1) * cbu * run * cout) "
+            "* 16;") in src
+    assert ("const int ring = ((GM_TH + GEN_D) * cbu * GM_NPX + (GEN_D + 1) * cbu * GM_MT * 16) "
+            "* 16;") in src and "const int z = GM_TH * GM_MT * 16 * GM_ZS * 4;" in src
+    assert ("return ((GEN_TH + GEN_D) * du * (GEN_TW + run) + (GEN_D + 1) * run * cout * 2) "
+            "* 16;") in src
+    assert ("const int ring = (1 + GEN_D) * (xun * (GW_TW + 1) + du * (GW_TW + rg * lw)) * 16;"
+            in src) and "const int xun = scg;" in src
+    assert "const int red = (npg - 1) * rg * scg * lw * cout * 16;" in src
+    assert "return co <= 2 ? 8 : co <= 4 ? 4 : 2;" in src
+    assert [kpc.gen_dw_taps(c) for c in range(1, 8)] == [8, 8, 4, 4, 2, 2, 2]
+
+
+def _check_gen_plan(n, h, w, cin, cout, k, pad, g):
+    """``gen_plan`` in both dtypes: within SMEM_LIMIT in every kernel, its
+    dW partials within GEN_PART_FLOATS (or one row), segments covering every
+    (row, strip) item once, blocks and runs the launchers accept."""
+    items = n * h * -(-w // kpc.GW_TW)
+    for elem in (2, 4):
+        p = kpc.gen_plan(n, h, w, cin, cout, k, pad, g, elem)
+        assert max(p.fwd_smem, p.dx_smem, p.dw_smem) <= kpc.SMEM_LIMIT, (elem, p)
+        assert p.segs * k * k * cout * cin <= max(kpc.GEN_PART_FLOATS, k * k * cout * cin)
+        assert (p.segs - 1) * p.rb < items <= p.segs * p.rb
+        assert p.npg in (1, 2, 4, 8) and p.npg * p.rg * p.scg <= kpc.GEN_THREADS
+        assert p.rg * kpc.gen_dw_taps(cout) >= min(k, 64 * kpc.gen_dw_taps(cout))
+        if elem == 2:
+            assert p.cbu >= 2 and p.cbu % 2 == 0 and 1 <= p.run <= kpc.GM_RUN
+            assert p.run * cout <= kpc.GM_MT * 16 and p.run == min(k, kpc.GM_RUN, 48 // cout)
+            assert p.dx_run % 2 == 0 and p.dx_run <= kpc.GX_RUN
+        else:
+            assert 1 <= p.cbu <= -(-cin // 4) and p.run % kpc.GEN_L == 0
+            assert p.run <= kpc.GEN_RUN and p.dx_run % kpc.GEN_L == 0
+        assert p.dx_run >= min(k, kpc.GX_RUN if elem == 2 else kpc.GEN_RUN)
 
 
 @pytest.mark.parametrize("k", KS)
@@ -159,7 +197,9 @@ def test_small_cout_plans_return_over_the_scope(k):
     templated form only where its shared memory fits (``k2_smem_bytes``,
     ``k2f_smem_bytes``, ``k2f_bwd_smem_bytes``, held to the ``.cu``'s
     layout by test_torch_k2_plan.py and test_torch_f32_kernels.py), one or
-    two groups and, for K2's backward, a padding up to k - 1."""
+    two groups and, for K2's backward, a padding up to k - 1, and below the
+    routing cut (K2_GEN_K; K2F's backward at K2F_BWD_KS); the general forms' plan
+    (``gen_plan``) everywhere, as ``_check_gen_plan`` holds it."""
     n, h, w = 2, 16, 40
     for cin in CINS:
         for cout in range(1, 8):
@@ -173,15 +213,55 @@ def test_small_cout_plans_return_over_the_scope(k):
                     assert 1 <= fwd.rb and fwd.tw == kpc.K2F_TW
                 bwd = kpc.k2f_bwd_plan(n, h, w, cin, cout, k, g)
                 if not bwd.general:
-                    assert k in kpc.K2F_KS and g <= 2 and bwd.nseg * cin <= kpc.HB_THREADS
+                    assert k in kpc.K2F_BWD_KS and g <= 2 and bwd.nseg * cin <= kpc.HB_THREADS
                     assert kpc.k2f_bwd_smem_bytes(cin, cout, k, bwd.nseg) <= kpc.SMEM_LIMIT
                 for pad in ((0, 0), (k - 1, k - 1), (k, 1), (k + 3, 0)):
                     for backward in (False, True):
                         if kpc.k2_general(cin, cout, k, g, pad, backward):
                             continue
                         assert g <= 2 and (not backward or max(pad) <= k - 1)
+                        assert k < kpc.K2_GEN_K
                         kj = k2.kj if backward else 0
                         assert kpc.k2_smem_bytes(k, k2.cb, kj) <= kpc.SMEM_LIMIT
+                    if cin in (1, 67, 300, 1024):
+                        _check_gen_plan(n, h, w, cin, cout, k, pad, g)
+
+
+@pytest.mark.parametrize("k", range(16, 32))
+def test_general_plan_returns_up_to_k_31(k):
+    """Past KS, up to k 31: ``gen_plan`` at every Cin of CINS, Cout 1..7,
+    one to four groups and the paddings above, and every form general."""
+    n, h, w = 2, 16, 40
+    for cin in CINS:
+        for cout in range(1, 8):
+            for g in range(1, min(cin, 4) + 1):
+                assert kpc.k2f_plan(n, h, w, cin, cout, k, (k // 2, k // 2), g).general
+                assert kpc.k2f_bwd_plan(n, h, w, cin, cout, k, g).general
+                for pad in ((0, 0), (k - 1, k - 1), (k, 1)):
+                    assert kpc.k2_general(cin, cout, k, g, pad)
+                    assert kpc.k2_general(cin, cout, k, g, pad, True)
+                    _check_gen_plan(n, h, w, cin, cout, k, pad, g)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 6, 7, 9, 10, 11, 13])
+def test_routing_cut_at_the_head(k):
+    """The routing cut at the head's 67 -> 3 (two groups, 'same' padding, 8
+    pages of 512^2), as measured on the card (PERF.md): K2 and its backward
+    templated below K2_GEN_K = 6, general from it; K2F's forward templated
+    at every k it is built for; K2F's backward templated at k 1 and 3 only
+    (K2F_BWD_KS). The U-Net's own head (k 3, padding 1) stays templated in
+    both directions and both dtypes."""
+    n, h, w, cin, cout, g, pad = 8, 512, 512, 67, 3, 2, ((k - 1) // 2, (k - 1) // 2)
+    assert (kpc.K2_GEN_K, kpc.K2F_BWD_KS) == (6, (1, 3))
+    assert kpc.k2_general(cin, cout, k, g, pad) == (k >= 6)
+    assert kpc.k2_general(cin, cout, k, g, pad, True) == (k >= 6)
+    assert kpc.k2f_plan(n, h, w, cin, cout, k, pad, g).general == (k not in (1, 3, 5, 7))
+    assert kpc.k2f_bwd_plan(n, h, w, cin, cout, k, g).general == (k >= 5)
+    if k == 3:
+        assert not kpc.k2_general(cin, cout, 3, g, (1, 1))
+        assert not kpc.k2_general(cin, cout, 3, g, (1, 1), True)
+        assert not kpc.k2f_plan(n, h, w, cin, cout, 3, (1, 1), g).general
+        assert not kpc.k2f_bwd_plan(n, h, w, cin, cout, 3, g).general
 
 
 @pytest.mark.parametrize("k", KS)
@@ -234,70 +314,216 @@ def test_k6_plans_return_over_the_scope(k):
 
 # -- the general forms, emulated --------------------------------------------------------
 
-def emulate_gen_fwd(x, m, w, b, groups, pad):
-    """``pconv_gen_fwd`` in torch f32: lane l (of 32) sums, tap by tap,
-    channels l, l + 32, ... of x * M times W for each output pixel; the xor
-    butterfly (16, 8, 4, 2, 1) adds the lanes; the window count and the
-    epilogue as K2's. (A warp's GEN_PIX pixels share only the loads.)"""
+def _units(t: torch.Tensor, v: int) -> torch.Tensor:
+    """(N, H, W, C) -> ``pconv_gen_relay``'s units (N, H, ceil(C / v), W, v),
+    0 past C."""
+    n, h, w, c = t.shape
+    u = -(-c // v)
+    return F.pad(t, (0, u * v - c)).reshape(n, h, w, u, v).permute(0, 1, 3, 2, 4)
+
+
+def _gen_msum(m, groups, k, pad):
+    """``pconv_gen_rowsum``, then the forward's sum of k row sums: sum over
+    dy of (sum over dx of sum_g size_g M_g), each in order, in f32."""
+    n, h, w, g = m.shape
+    ph, pw = pad
+    hout, wout = h + 2 * ph - k + 1, w + 2 * pw - k + 1
+    s = torch.zeros((n, h, w))
+    for gi, size in enumerate(groups):
+        s = s + float(size) * m[..., gi]
+    sp = F.pad(s, (pw, pw, ph, ph))
+    rows = torch.zeros((n, h + 2 * ph, wout))
+    for dx in range(k):
+        rows = rows + sp[:, :, dx:dx + wout]
+    msum = torch.zeros((n, hout, wout))
+    for dy in range(k):
+        msum = msum + rows[:, dy:dy + hout]
+    return msum.unsqueeze(-1)
+
+
+def _epilogue(acc, msum, b, kkc):
+    valid = msum > 0
+    y = acc * (kkc / msum.clamp(min=1.0)) + b
+    return torch.where(valid, y, torch.zeros(())), valid.float()
+
+
+def emulate_gen_fwd_bf16(x, m, w, b, groups, pad):
+    """``pconv_gen_fwd_bf16`` in torch f32, tile by tile as the kernel walks
+    it: a CTA's row of GM_NPX input columns from ow0 - pw + dx0 (ow0 = CTA
+    x tw, tw = GM_NPX - run + 1), Z[(dx - dx0, o)][q] summed over blocks of
+    units, tap rows and channels from ``gen_fwd_weights``'s layout, then
+    y[p][o] += sum over the run's taps of Z[dx, o][p + dx], runs in order;
+    msum from the row sums; K2's epilogue. Zero-filled outside the image."""
     n, h, wd, cin = x.shape
     cout, _, k, _ = w.shape
     ph, pw = pad
     hout, wout = h + 2 * ph - k + 1, wd + 2 * pw - k + 1
-    cp = -(-cin // 32) * 32
-    xm = F.pad(apply_mask(x, m, groups), (0, cp - cin, pw, pw, ph, ph))
-    wt = F.pad(w.permute(2, 3, 1, 0), (0, 0, 0, cp - cin))  # (k, k, Cp, Cout)
-    acc = torch.zeros((n, hout, wout, 32, cout))
-    for tap in range(k * k):
-        dy, dx = divmod(tap, k)
-        patch = xm[:, dy:dy + hout, dx:dx + wout].reshape(n, hout, wout, cp // 32, 32)
-        wj = wt[dy, dx].reshape(cp // 32, 32, cout)
-        for j in range(cp // 32):
-            acc = acc + patch[..., j, :, None] * wj[j]
-    for off in (16, 8, 4, 2, 1):
-        acc = acc + acc[..., torch.arange(32) ^ off, :]
-    msum = mask_window_sum(m, groups, (k, k), stride=(1, 1), padding=pad)
-    return pconv_epilogue(acc[..., 0, :], msum, b, float(k * k * cin), x.dtype)
+    plan = kpc.gen_plan(n, h, wd, cin, cout, k, pad, len(groups), 2)
+    L, cbu = plan.run, plan.cbu
+    assert plan.fwd_smem <= kpc.SMEM_LIMIT and L * cout <= kpc.GM_MT * 16 and cbu % 2 == 0
+    wk = kpc.gen_fwd_weights(w, 2, L).float()  # (k, xu, k, cout, 8)
+    xu = wk.shape[1]
+    xm = _units(apply_mask(x, m, groups), 8)  # (n, h, xu, w, 8)
+    tw = kpc.GM_NPX - L + 1
+    y = torch.zeros((n, hout, wout, cout))
+    xu2 = -(-xu // 2) * 2
+    for ow0 in range(0, wout, tw):
+        cols = min(tw, wout - ow0)
+        for dx0 in range(0, k, L):
+            rl = min(L, k - dx0)
+            z = torch.zeros((n, hout, rl, cout, kpc.GM_NPX))
+            for b0 in range(0, xu2, cbu):
+                for dy in range(k):
+                    oh0, oh1 = max(0, ph - dy), min(hout, h + ph - dy)
+                    q0, q1 = max(0, pw - ow0 - dx0), min(kpc.GM_NPX, wd + pw - ow0 - dx0)
+                    if oh0 >= oh1 or q0 >= q1:
+                        continue
+                    iw0 = ow0 - pw + dx0 + q0
+                    for u in range(b0, min(b0 + cbu, xu)):
+                        xs = xm[:, oh0 + dy - ph:oh1 + dy - ph, u, iw0:iw0 + q1 - q0]
+                        z[:, oh0:oh1, :, :, q0:q1] += torch.einsum(
+                            "nhqc,loc->nhloq", xs, wk[dy, u, dx0:dx0 + rl])
+            for dl in range(rl):
+                y[:, :, ow0:ow0 + cols] += z[:, :, dl, :, dl:dl + cols].permute(0, 1, 3, 2)
+    return _epilogue(y, _gen_msum(m, groups, k, pad), b, float(k * k * cin))
 
 
-def emulate_gen_bwd(g, x, m, w, groups, pad):
-    """``pconv_gen_dx`` and ``pconv_gen_dw`` after ``pconv_k3_prep``, in torch
-    f32: dacc = g * scale where the window has a valid tap; dx[ih, iw, c] =
-    (sum over taps dy-major and outputs of dacc[ih + ph - dy, iw + pw - dx]
-    * W) times the channel's group mask, at any padding; dW per chunk of
-    output pixels (``gen_chunks``) and the chunks added as ``pconv_colsum``
-    adds them (rows y, y + 8, ... then the 8 sums in order)."""
+def emulate_gen_fwd_f32(x, m, w, b, groups, pad):
+    """``pconv_gen_fwd_f32`` in torch f32: the sums in its order, runs of
+    taps, blocks of 4-channel units, tap rows, units, taps (windows of GEN_L
+    taps), then the unit's 4 channels, the weights read from
+    ``gen_fwd_weights``'s layout (zero past k); msum and the epilogue as the
+    bf16 form."""
+    n, h, wd, cin = x.shape
+    cout, _, k, _ = w.shape
+    ph, pw = pad
+    hout, wout = h + 2 * ph - k + 1, wd + 2 * pw - k + 1
+    plan = kpc.gen_plan(n, h, wd, cin, cout, k, pad, len(groups), 4)
+    run, cbu = plan.run, plan.cbu
+    assert plan.fwd_smem <= kpc.SMEM_LIMIT and run % kpc.GEN_L == 0
+    wk = kpc.gen_fwd_weights(w, 4, run)  # (k, xu, runs * run, cout, 4)
+    xu = wk.shape[1]
+    xm = F.pad(_units(apply_mask(x, m, groups), 4), (0, 0, pw, pw + run, 0, 0, ph, ph))
+    acc = torch.zeros((n, hout, wout, cout))
+    for dx0 in range(0, k, run):
+        rl = -(-min(run, k - dx0) // kpc.GEN_L) * kpc.GEN_L
+        for b0 in range(0, xu, cbu):
+            for dy in range(k):
+                for u in range(b0, min(b0 + cbu, xu)):
+                    for dl in range(rl):
+                        dx = dx0 + dl
+                        win = xm[:, dy:dy + hout, u, dx:dx + wout]  # (n, hout, wout, 4)
+                        wv = wk[dy, u, dx]  # (cout, 4)
+                        for e in range(4):
+                            acc = acc + win[..., e:e + 1] * wv[:, e]
+    return _epilogue(acc, _gen_msum(m, groups, k, pad), b, float(k * k * cin))
+
+
+def emulate_gen_bwd(g, x, m, w, groups, pad, rb=None, elem=4):
+    """``pconv_gen_dx_f32`` and ``pconv_gen_dw_f32`` (elem 4) or their bf16 forms
+    ``pconv_gen_dx_bf16`` and ``pconv_gen_dw_bf16`` (elem 2; computed here
+    in f32) after ``pconv_k3_prep``, in torch, as the kernels index them:
+    dacc = g * scale where the window has a valid tap. dx: per run of
+    ``dx_run`` taps, steps j (tap row k - 1 - j), the reversed taps r (dx =
+    run * run + run - 1 - r, weights from ``gen_dx_weights``; in pairs for
+    bf16), rounded once, times the group mask. dW: segments of ``rb`` (row,
+    64-column strip) items over all images; per item the dacc window at the
+    kernel's slot column (from oc0 = iw0 + pw - (first tap past the CTA's) + 1);
+    the pixel groups added in order, the segments as ``pconv_colsum`` adds
+    them (rows y, y + 8, ... then the 8 sums in order)."""
     n, h, wd, cin = x.shape
     cout, _, k, _ = w.shape
     ph, pw = pad
     hout, wout = g.shape[1:3]
+    plan = kpc.gen_plan(n, h, wd, cin, cout, k, pad, len(groups), elem)
+    assert plan.dx_smem <= kpc.SMEM_LIMIT and plan.dw_smem <= kpc.SMEM_LIMIT
     msum = mask_window_sum(m, groups, (k, k), stride=(1, 1), padding=pad)
     dacc = torch.where(msum > 0, g * (float(k * k * cin) / msum.clamp(min=1.0)), 0.0)
-    dpad = F.pad(dacc, (0, 0, k - 1, k - 1, k - 1, k - 1))
-    dxm = torch.zeros_like(x)
-    for ky in range(k):
-        for kx in range(k):
-            r0, c0 = ph - ky + k - 1, pw - kx + k - 1
-            win = dpad[:, r0:r0 + h, c0:c0 + wd]  # (n, h, w, cout) at oh = ih + ph - ky
-            for o in range(cout):
-                dxm = dxm + win[..., o:o + 1] * w[o, :, ky, kx]
-    dx = apply_mask(dxm, m, groups)
-    xm = F.pad(apply_mask(x, m, groups), (0, 0, pw, pw, ph, ph))
-    pix = n * hout * wout
-    chunks = kpc.gen_chunks(pix, k * k * cout * cin)
-    rows = []
-    for z in range(chunks):
-        lo, hi = z * pix // chunks, (z + 1) * pix // chunks
+    # dx
+    run = plan.dx_run
+    nrun = -(-k // run)
+    wk = kpc.gen_dx_weights(w, run, elem)
+    if elem == 2:  # (k, ncb, nrun * run, GX_CB, 8) -> the f32 form's (..., o, c) order
+        wk = wk.reshape(k, -1, nrun * run, kpc.GX_CB // 8, 8, 8).permute(0, 1, 3, 2, 5, 4)
+        wk = wk.reshape(k, -1, nrun * run, 8, 8)[..., :cout, :]
+    nct = wk.shape[1]
+    big = k + nrun * run + max(h, wd) + max(ph, pw)
+    dpad = F.pad(dacc, (0, 0, big, big, big, big))  # dacc (oh, ow) at (oh + big, ow + big)
+    dxm = torch.zeros((n, h, wd, nct * 8))
+    for rho in range(nrun):
+        for j in range(k):
+            dy = k - 1 - j
+            for r in range(run):
+                dx = rho * run + run - 1 - r  # dacc row ih + ph - dy, column iw + pw - dx
+                win = dpad[:, big + ph - dy:big + ph - dy + h, big + pw - dx:big + pw - dx + wd]
+                for o in range(cout):
+                    dxm = dxm + win[..., o:o + 1] * wk[dy, :, rho * run + r, o].reshape(-1)
+    dx = apply_mask(dxm[..., :cin], m, groups)
+    # dW
+    items, strips = n * h * -(-wd // kpc.GW_TW), -(-wd // kpc.GW_TW)
+    rb = plan.rb if rb is None else rb
+    segs = -(-items // rb)
+    if elem == 2:  # tap pairs, GD_PAIRS a CTA; pixel groups of k16 steps
+        pairs = -(-k // 2)
+        span = [(p0, min(kpc.GD_PAIRS, pairs - p0)) for p0 in range(0, pairs, kpc.GD_PAIRS)]
+    else:  # runs of LW taps, all in one CTA (rg >= runs here)
+        lw = kpc.gen_dw_taps(cout)
+        assert plan.rg >= -(-k // lw)
+        span = [(0, -(-k // lw))]
+    xm = F.pad(apply_mask(x, m, groups), (0, 0, 0, kpc.GW_TW))
+    pad_w = kpc.GW_TW + 2 * k + 16
+    dwide = F.pad(dacc, (0, 0, pad_w, pad_w))  # dacc column col at pad_w + col
+    rows_out = []
+    for seg in range(segs):
         part = torch.zeros((k, k, cout, cin))
-        for ky in range(k):
-            for kx in range(k):
-                xs = xm[:, ky:ky + hout, kx:kx + wout].reshape(pix, cin)[lo:hi]
-                part[ky, kx] = dacc.reshape(pix, cout)[lo:hi].T @ xs
-        rows.append(part)
-    sums = [sum(rows[y::8], torch.zeros_like(rows[0])) for y in range(min(8, chunks))]
-    total = sums[0]
-    for s in sums[1:]:
-        total = total + s
-    return dx, total.permute(2, 3, 0, 1)
+        for dy in range(k):
+            for p0, npr in span:
+                if elem == 2:
+                    npg, width = kpc.GEN_THREADS // 32 // npr, 2
+                    taps_end = 2 * (p0 + npr)
+                else:
+                    npg, width = plan.npg, kpc.gen_dw_taps(cout)
+                    taps_end = width * (p0 + npr)
+                accs = [torch.zeros((taps_end, cout, cin)) for _ in range(npg)]
+                for r in range(seg * rb, min(seg * rb + rb, items)):
+                    row, iw0 = divmod(r, strips)
+                    iw0 *= kpc.GW_TW
+                    nn, ih = divmod(row, h)
+                    oh = ih + ph - dy
+                    if not 0 <= oh < hout:
+                        continue
+                    oc0 = iw0 + pw - taps_end + 1  # dacc column of slot column 0
+                    for pg in range(npg):
+                        if elem == 2:
+                            qs = [q for ks in range(pg, kpc.GW_TW // 16, npg)
+                                  if iw0 + ks * 16 < wd for q in range(ks * 16, ks * 16 + 16)]
+                        else:
+                            gw = kpc.GW_TW // npg
+                            qs = [q for q in range(pg * gw, pg * gw + gw)
+                                  if iw0 + q - q % width < wd]
+                        for tap in range(2 * p0 if elem == 2 else width * p0, taps_end):
+                            base = (taps_end - 1 - tap) if elem == 2 else None
+                            for q in qs:
+                                if elem == 2:
+                                    col = oc0 + q + base  # tapoff - (tap - dxa)
+                                else:
+                                    rho = tap // width
+                                    off = (p0 + npr - rho) * width - 1
+                                    col = oc0 + (q - q % width) + off + q % width - tap % width
+                                d = dwide[nn, oh, pad_w + col]
+                                accs[pg][tap] += d[:, None] * xm[nn, ih, iw0 + q]
+                total = accs[0]
+                for a in accs[1:]:
+                    total = total + a
+                lo = 2 * p0 if elem == 2 else kpc.gen_dw_taps(cout) * p0
+                hi = min(k, taps_end)
+                part[dy, lo:hi] = total[lo:hi]
+        rows_out.append(part)
+    sums = [sum(rows_out[y::8], torch.zeros_like(rows_out[0])) for y in range(min(8, segs))]
+    dw = sums[0]
+    for t in sums[1:]:
+        dw = dw + t
+    return dx, dw.permute(2, 3, 0, 1)
 
 
 GEN_CASES = [  # groups, cout, k, padding
@@ -305,14 +531,20 @@ GEN_CASES = [  # groups, cout, k, padding
     ((3, 3, 2), 3, 3, (1, 1)),           # three groups
     ((24, 16, 8), 2, 3, (4, 1)),         # three groups, padding above k - 1
     ((40,), 1, 5, (2, 2)),               # one group, Cout 1
-    ((150, 50), 5, 4, (1, 2)),           # Cin 200: lanes take 6 or 7 channels each
-    ((9, 4), 7, 4, (3, 2)),              # even k 4, padding k - 1 and above
+    ((150, 50), 5, 4, (1, 2)),           # Cin 200: several blocks of units
+    ((9, 4), 7, 4, (3, 2)),              # even k 4, padding k - 1 and above; Cout 7
+    ((64, 3), 3, 11, (5, 5)),            # the head's channels at k 11
+    ((64, 3), 3, 13, (6, 6)),            # and at k 13
+    ((9, 4), 7, 9, (4, 4)),              # Cout 7 at k 9: two mma runs of 6 and 3 taps
 ]
 
 
 @pytest.mark.parametrize("groups,cout,k,pad", GEN_CASES,
                          ids=["-".join(map(str, (*c[0], c[1], c[2], *c[3]))) for c in GEN_CASES])
 def test_general_forms_emulated_match_jax_vjp(groups, cout, k, pad):
+    """The general forms emulated in their own tiling and order (both
+    forwards, dx, and dW with the plan's segments and with segments of 3
+    items) against ``jax.vjp`` of JAX's ``_partial_conv2d_xla``; M' exact."""
     rng = np.random.default_rng(sum(groups) * 7 + k)
     cin = sum(groups)
     x = rng.standard_normal((2, 7, 9, cin)).astype(np.float32)
@@ -329,13 +561,17 @@ def test_general_forms_emulated_match_jax_vjp(groups, cout, k, pad):
     want_dx, want_dw, _ = vjp((jnp.asarray(g), jnp.zeros_like(want_m)))
     tx, tm = torch.from_numpy(x), torch.from_numpy(m)
     tw = torch.from_numpy(w.transpose(3, 2, 0, 1).copy())
-    y, nm = emulate_gen_fwd(tx, tm, tw, torch.from_numpy(b), groups, pad)
-    np.testing.assert_array_equal(nm.numpy(), np.asarray(want_m))
-    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=RTOL, atol=ATOL)
-    dx, dw = emulate_gen_bwd(torch.from_numpy(g), tx, tm, tw, groups, pad)
-    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw).transpose(3, 2, 0, 1),
-                               rtol=RTOL, atol=ATOL)
+    for emulate in (emulate_gen_fwd_bf16, emulate_gen_fwd_f32):
+        y, nm = emulate(tx, tm, tw, torch.from_numpy(b), groups, pad)
+        np.testing.assert_array_equal(nm.numpy(), np.asarray(want_m), err_msg=emulate.__name__)
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=RTOL, atol=ATOL,
+                                   err_msg=emulate.__name__)
+    for elem, rb in ((4, None), (4, 3), (2, None), (2, 3)):
+        dx, dw = emulate_gen_bwd(torch.from_numpy(g), tx, tm, tw, groups, pad, rb, elem)
+        np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), rtol=RTOL, atol=ATOL,
+                                   err_msg=f"dx, elem {elem}")
+        np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw).transpose(3, 2, 0, 1),
+                                   rtol=RTOL, atol=ATOL, err_msg=f"dW, elem {elem}, rb {rb}")
 
 
 def emulate_k6_gen(x, dy, k, d):

@@ -1494,8 +1494,10 @@ __global__ void __launch_bounds__(K3_THREADS) pconv_k3_mask(const T* x, const T*
 //     order: two launches give the same bits. `pconv_f32_relay` re-lays W
 //     as (k*k, Cout, Cin) in the launch.
 //
-// Both are built for COUT 1..7 and k 1, 3, 5, 7 (`K2F_KS` in
-// ops/kernels/partial_conv.py).
+// Both are built for COUT 1..7; K2F for k 1, 3, 5, 7 (`K2F_KS` in
+// ops/kernels/partial_conv.py), its backward for k 1 and 3 (`K2F_BWD_KS`):
+// from k 5 the general backward is the faster (2.3x at k 5, 13x at k 7 at
+// the head's 67 -> 3 on 8 pages of 512^2, tools/gen_forms.py).
 
 constexpr int K2F_R = 3;             // output pixels a thread owns along a row
 constexpr int K2F_THREADS = 256;     // 8 warps, each a slice of the input channels
@@ -1905,6 +1907,15 @@ cudaError_t launch_k2f_bwd(const K2fBwdParams& p, cudaStream_t s) {
     TSII_K2F_COUT(7, CALL)                                                             \
     default: return (int)cudaErrorInvalidValue;                                        \
   }
+// The backward's windows: k 1 and 3.
+#define TSII_K2F_BWD_COUT(C, CALL) case C * 8 + 1: CALL(C, 1) case C * 8 + 3: CALL(C, 3)
+#define TSII_K2F_BWD_SWITCH(cout, k, CALL)                                            \
+  switch ((cout) * 8 + (k)) {                                                          \
+    TSII_K2F_BWD_COUT(1, CALL) TSII_K2F_BWD_COUT(2, CALL) TSII_K2F_BWD_COUT(3, CALL)   \
+    TSII_K2F_BWD_COUT(4, CALL) TSII_K2F_BWD_COUT(5, CALL) TSII_K2F_BWD_COUT(6, CALL)   \
+    TSII_K2F_BWD_COUT(7, CALL)                                                         \
+    default: return (int)cudaErrorInvalidValue;                                        \
+  }
 
 // K1F v2, the f32 form at Cout >= 8 (v1 was `pconv_f32<8, 4>`: 4 pixels x
 // 8 channels a thread, chunks of 8 channels staged by scalar loads between
@@ -2215,223 +2226,1023 @@ cudaError_t launch_k1f(const K1fParams& p, cudaStream_t stream) {
 // JAX's Pallas kernels take every stride-1 square window at any Cin, any
 // padding and any number of groups (partial_conv_kernel.py:532-539), so
 // the rest of that scope runs these general forms, in bf16 or f32 as x
-// comes, with no shared memory at all: correct and simple, not tuned.
+// comes; so do K2 and its backward from k 6, and K2F's backward past k 3,
+// where the general forms are the faster (`K2_GEN_K`, `K2F_BWD_KS` in
+// ops/kernels/partial_conv.py). The same function as the templated forms:
+// acc = sum_taps (x * M_g) W in f32, msum = sum_taps sum_g size_g M_g, K2's
+// epilogue, M' = msum > 0; dx = conv_transpose(dacc, W) * M and dW =
+// corr(x * M, dacc) after `pconv_k3_prep`. At the head's 67 -> 3 on 8 pages of 512^2 every
+// one of them is bound by operations (k = 11: 102 GFLOP forward, 1.5 ms
+// of FFMA or 0.1 ms of bf16 tensor core), so each keeps its operands in
+// shared memory and re-reads them from registers.
 //
-//  * pconv_gen_fwd<T, COUT>: a warp per run of GEN_PIX output pixels. Lane
-//    l takes channels l, l + 32, ... of every tap: it loads their COUT
-//    weights once (the weights as (k*k, Cin, Cout)) and adds (x * M as
-//    `masked`) * W for each of the run's pixels into f32 sums, and the
-//    weighted window count of taps l, l + 32, ...; a fixed xor butterfly
-//    adds the lanes, so two launches give the same bits; the epilogue as
-//    K2's. Loads of x are a channel slice a warp, 32 channels wide.
-//  * pconv_gen_dx: a thread per input pixel and channel: dx = (the sum over
-//    the taps and outputs of dacc * W, W as (k*k, Cout, Cin)) rounded once,
-//    times the channel's group mask.
-//  * pconv_gen_dw: a thread per (tap, input channel) and chunk of output
-//    pixels: its f32 sums of (x * M) * dacc for each output, written as the
-//    chunk's row (tap, o, c) of the partials that pconv_colsum adds in
-//    chunk order.
-// dacc comes from pconv_k3_prep. The group table is always given here.
-
-struct GenParams {
-  const void* x;      // (N, H, W, Cin) T
-  const void* mask;   // (N, H, W, G) T
-  const void* w;      // forward (k*k, Cin, Cout), dx (k*k, Cout, Cin); T
-  const float* bias;  // (Cout) or nullptr
-  const void* dacc;   // (N, Hout, Wout, Cout) T
-  void* y;            // forward (N, Hout, Wout, Cout) T, dx (N, H, W, Cin) T
-  void* mask_out;     // (N, Hout, Wout, 1) T
-  float* part;        // dW: (chunks, k*k*Cout*Cin) f32
-  const int* groups;  // the group table
-  int n, h, w_in, cin, g, hout, wout, cout, k, ph, pw, chunks;
-};
+//  * Shared staging. `pconv_gen_relay` writes x * M once to device memory
+//    as 16-byte units of V = 16 / sizeof(T) channels, (N, H, units, W)
+//    (`masked`: 0 in a hole whatever x holds, 0 past Cin), and dacc the
+//    same way without a mask. At odd Cin no pixel of x starts on 16 bytes;
+//    a unit row of this layout is one contiguous, aligned span, so every
+//    kernel streams whole row spans of units with 16-byte `cp.async`
+//    copies (src-size 0 outside the image: any padding) through a ring of
+//    GEN_D + rows-in-use shared slots, one commit group per row, and a
+//    step waits for exactly its rows (`cp.async.wait_group GEN_D`).
+//    `pconv_gen_rowsum` writes each input row's weighted mask sums over
+//    the k columns of every output column (dx, then the groups, in
+//    order); the forward adds k of them per pixel (dy in order), so msum
+//    and M' are the same in every launch and exact for binary masks.
+//  * The K loop walks (run of taps, channel block, tap row): a step is
+//    one tap row dy of one block of units, and its rows are the tile's
+//    rows shifted by dy, so consecutive steps share all but one row and a
+//    row is staged once per block (rows of the tile + k - 1). Each step's
+//    weights ride with its last row. Shared memory is bounded for every
+//    k and Cin (a run holds at most GEN_RUN / GM_RUN taps, a block as many
+//    units as the plan gives: `gen_plan` in ops/kernels/partial_conv.py).
+//  * `pconv_gen_fwd_bf16` (bf16, `mma.sync` m16n8k16, f32 sums): per
+//    input pixel q of the tile's row, Z[(dx, o)][q] = sum_dy sum_c W[dy,
+//    dx, c, o] x[q + (dy, 0)][c], M = a run's taps x Cout (<= 48: three
+//    m16 tiles), N = input pixels, K = channels. A is the weights (16-byte
+//    rows of 8 channels a (tap, output) row, `ldmatrix`), B is x as staged
+//    (`ldmatrix` of 8 pixels x 8 channels): every x value is read once a
+//    step, not once a tap, and no operand is re-laid. Warps split the
+//    tile's input pixels (4 rows x 2 halves of 64 columns), so no sum
+//    crosses warps; after a run y[p][o] += sum_dx Z[dx, o][p + dx] through
+//    shared memory, dx in order.
+//  * `pconv_gen_fwd_f32<CO>` (f32, FFMA, no TF32): warp t owns output row
+//    t of the tile and lane l pixels 5l .. 5l + 4 with all CO outputs in
+//    registers. Per unit (4 channels) and GEN_L taps it loads the 8
+//    window units once (LDS.128, conflict-free at an odd run of 5) and
+//    slides them over the taps; the weights are float4 broadcasts.
+//  * dx: in bf16 `pconv_gen_dx_bf16` on `mma.sync`, D = 16 input pixels x
+//    8 channels, a k16 step two taps x the 8 outputs (Cout padded to 8),
+//    each quarter of A an `ldmatrix` of the staged dacc row at its own
+//    tap's shifted columns, B the weights; in f32 `pconv_gen_dx_f32<CO>`,
+//    the forward's SIMT tile over input pixels and 8 input channels. Both
+//    are convs of the staged dacc units with the flipped weights (taps
+//    reversed within a run, so the window slides as in the forward),
+//    rounded once, times the channel's group mask.
+//  * dW: a CTA takes one tap row dy, a segment of (row, 64-column strip)
+//    items and a group of taps and channels, and walks the segment's rows:
+//    in bf16 `pconv_gen_dw_bf16` on `mma.sync` (M = a tap pair x 8 outputs,
+//    N = 8 channels, K = 16 pixels; A = dacc^T and B = x * M both by
+//    `ldmatrix.trans`), in f32 `pconv_gen_dw_f32<CO>` with a thread on a run
+//    of LW taps, a 4-channel sub-chunk and a run of the strip's columns,
+//    LW x CO x 4 sums in registers. The pixel groups of a CTA add in order
+//    in shared memory, the CTA writes the segment's row of f32 partials
+//    (tap, o, c), and `pconv_colsum` adds the rows in order. No atomics
+//    anywhere: two launches give the same bits.
 
 constexpr int GEN_THREADS = 256;
 constexpr int GEN_COUT = K2_NPAD - 1;  // Cout <= 7
+constexpr int GEN_D = 2;                // rows in flight past the ones a step reads
+constexpr int GEN_TH = 8;               // SIMT tile: rows (a warp each)
+constexpr int GEN_R = 5;                // pixels a lane: odd, so LDS.128 does not conflict
+constexpr int GEN_TW = 32 * GEN_R;      // SIMT tile: columns
+constexpr int GEN_L = 4;                // taps a window slides over
+constexpr int GEN_RUN = 64;             // SIMT: most taps a run
+constexpr int GM_TH = 4;                // mma tile: rows (two warps each)
+constexpr int GM_NPX = 64;              // mma tile: input columns a row
+constexpr int GM_MT = 3;                // mma: m16 tiles of (tap, output) rows
+constexpr int GM_RUN = 16;              // mma: most taps a run
+constexpr int GM_ZS = GM_NPX + 8;       // Z's row pitch in floats: float2 stores do not conflict
+constexpr int GM_YPT = (GM_TH * GM_NPX * GEN_COUT + GEN_THREADS - 1) / GEN_THREADS;
+constexpr int GW_TW = 64;               // dW: columns of a segment
 
-constexpr int GEN_PIX = 8;  // output pixels a warp of the forward takes
+struct GenParams {
+  const uint4* xm;     // x * M as units: (N, H, xu, W)
+  const uint4* dm;     // dacc as units: (N, Hout, du, Wout)
+  const void* wk;      // the re-laid weights (see each kernel)
+  const float* bias;   // (Cout) or nullptr
+  const float* rsum;   // forward: (N, H, Wout) weighted mask sums over k columns
+  const void* mask;    // dx: (N, H, W, G)
+  const int* groups;   // the group table
+  void* y;             // forward: y (N, Hout, Wout, Cout); dx: dx (N, H, W, Cin)
+  void* mask_out;      // (N, Hout, Wout, 1)
+  float* part;         // dW: (segs, k*k*Cout*Cin) f32
+  int n, h, w, cin, g, hout, wout, cout, k, ph, pw;
+  int xu, du;          // units of x and of dacc a pixel
+  int cbu, run;        // units a block, taps a run
+  int rb, rg, scg, npg;  // dW: band rows, runs and sub-chunks of a CTA, pixel groups
+};
 
-template <typename T, int CO>
-__global__ void __launch_bounds__(GEN_THREADS) pconv_gen_fwd(const GenParams p) {
-  const T* x = static_cast<const T*>(p.x);
-  const T* mask = static_cast<const T*>(p.mask);
-  const T* w = static_cast<const T*>(p.w);
-  const int* sizes = p.groups;
-  const int* starts = p.groups + p.g;
-  const int lane = threadIdx.x & 31, kk = p.k * p.k;
-  const long long P = (long long)p.n * p.hout * p.wout;
-  const long long runs = (P + GEN_PIX - 1) / GEN_PIX;
-  for (long long run = (long long)blockIdx.x * (GEN_THREADS / 32) + (threadIdx.x >> 5); run < runs;
-       run += (long long)gridDim.x * (GEN_THREADS / 32)) {
-    int oh[GEN_PIX], ow[GEN_PIX], nn[GEN_PIX];
-#pragma unroll
-    for (int q = 0; q < GEN_PIX; ++q) {
-      const long long pix = run * GEN_PIX + q;
-      ow[q] = (int)(pix % p.wout);
-      const long long t = pix / p.wout;
-      oh[q] = pix < P ? (int)(t % p.hout) : -(1 << 29);  // far out: no tap in the image
-      nn[q] = (int)(t / p.hout);
-    }
-    float acc[GEN_PIX][CO];
-#pragma unroll
-    for (int q = 0; q < GEN_PIX; ++q)
-#pragma unroll
-      for (int o = 0; o < CO; ++o) acc[q][o] = 0.f;
-    for (int tap = 0; tap < kk; ++tap) {
-      const int dy = tap / p.k, dx = tap - dy * p.k;
-      long long ip[GEN_PIX];  // the tap's input pixel of each output pixel, -1 outside
-#pragma unroll
-      for (int q = 0; q < GEN_PIX; ++q) {
-        const int ih = oh[q] + dy - p.ph, iw = ow[q] + dx - p.pw;
-        ip[q] = ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in
-                    ? ((long long)nn[q] * p.h + ih) * p.w_in + iw : -1;
+// dW: taps a thread's run, LW * CO <= 16 (its sums: LW x CO x 4 floats).
+__host__ __device__ constexpr int gen_dw_taps(int co) { return co <= 2 ? 8 : co <= 4 ? 4 : 2; }
+
+// Shared bytes of each kernel, as ops/kernels/partial_conv.py::gen_plan
+// computes them.
+__host__ __device__ inline int gen_fwd_f32_smem(int cbu, int run, int cout) {
+  return ((GEN_TH + GEN_D) * cbu * (GEN_TW + run) + (GEN_D + 1) * cbu * run * cout) * 16;
+}
+__host__ __device__ inline int gen_fwd_bf16_smem(int cbu) {
+  const int ring = ((GM_TH + GEN_D) * cbu * GM_NPX + (GEN_D + 1) * cbu * GM_MT * 16) * 16;
+  const int z = GM_TH * GM_MT * 16 * GM_ZS * 4;
+  return ring > z ? ring : z;
+}
+__host__ __device__ inline int gen_dx_f32_smem(int du, int run, int cout) {
+  return ((GEN_TH + GEN_D) * du * (GEN_TW + run) + (GEN_D + 1) * run * cout * 2) * 16;
+}
+__host__ __device__ inline int gen_dw_f32_smem(int du, int cout, int rg, int scg, int npg) {
+  const int lw = gen_dw_taps(cout);
+  const int xun = scg;  // x units a row: scg sub-chunks of 4 channels, one unit each
+  const int ring = (1 + GEN_D) * (xun * (GW_TW + 1) + du * (GW_TW + rg * lw)) * 16;
+  const int red = (npg - 1) * rg * scg * lw * cout * 16;
+  return ring > red ? ring : red;
+}
+
+// x * M (with a mask) or a plain copy as units: dst[(row, u, col)] holds
+// channels uV .. uV + V - 1 of src's pixel (row, col), 0 past c. A CTA
+// takes GR_PIX consecutive pixels (of any rows) and `ub` units: each
+// pixel's slice of src comes in 16-byte loads from the 16-byte word that
+// holds its first byte (the words of consecutive pixels are consecutive
+// when the block has all the channels) into a shared slot of an odd
+// number of 4-byte words, and threads over (unit, pixel), pixel fastest,
+// read their elements without bank conflicts and write whole units: both
+// sides are coalesced.
+constexpr int GR_PIX = 64;
+constexpr int GR_SMEM = 48 * 1024;  // a relay CTA's shared bytes at most
+
+__host__ __device__ inline int gen_relay_ub(int units) {
+  const int most = (GR_SMEM / GR_PIX / 4 - 1) / 4 - 2;
+  return units < most ? units : most;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) pconv_gen_relay(const T* __restrict__ src,
+                                                       const T* __restrict__ mask,
+                                                       const int* __restrict__ starts,
+                                                       uint4* __restrict__ dst, long long pixels,
+                                                       int cols, int c, int g, int units) {
+  constexpr int V = 16 / sizeof(T), E = sizeof(T);
+  extern __shared__ __align__(16) uint32_t relay_smem[];
+  const int tid = threadIdx.x, ub = gen_relay_ub(units), slotw = ub + 2, sw = 4 * slotw + 1;
+  const long long p0 = (long long)blockIdx.x * GR_PIX;
+  const int np = (int)min((long long)GR_PIX, pixels - p0);
+  const int u0 = blockIdx.y * ub, nu = min(ub, units - u0);
+  const int c0 = u0 * V, c1 = min(c, (u0 + nu) * V);
+  const char* sb = reinterpret_cast<const char*>(src);
+  const long long nbytes = pixels * c * E;
+  for (int i = tid; i < np * slotw; i += 256) {
+    const int pp = i / slotw, j = i - pp * slotw;
+    const long long first = ((p0 + pp) * c + c0) * E, last = ((p0 + pp) * c + c1) * E;
+    const long long wb = (first & ~15ll) + 16ll * j;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (wb < last) {
+      if (wb + 16 <= nbytes) {
+        v = __ldg(reinterpret_cast<const uint4*>(sb + wb));
+      } else {  // the tensor's last word, cut at its end
+        char* d = reinterpret_cast<char*>(&v);
+        for (int b = 0; b < 16 && wb + b < nbytes; ++b) d[b] = sb[wb + b];
       }
-      const T* wt = w + (size_t)tap * p.cin * CO;
-      int gi = 0;
-      for (int c = lane; c < p.cin; c += 32) {
-        while (gi + 1 < p.g && c >= __ldg(starts + gi + 1)) ++gi;
-        float wv[CO];
+    }
+    uint32_t* sl = relay_smem + pp * sw + 4 * j;
+    sl[0] = v.x;
+    sl[1] = v.y;
+    sl[2] = v.z;
+    sl[3] = v.w;
+  }
+  __syncthreads();
+  for (int i = tid; i < nu * np; i += 256) {
+    const int uu = i / np, pp = i - uu * np;
+    const long long pix = p0 + pp;
+    const char* sl = reinterpret_cast<const char*>(relay_smem + pp * sw) +
+                     (int)(((pix * c + c0) * E) & 15) + uu * V * E;
+    uint4 out;
+    T* e = reinterpret_cast<T*>(&out);
+    const int cu = c0 + uu * V;
+    int gi = mask ? group_of(starts, g, min(cu, c - 1)) : 0;
 #pragma unroll
-        for (int o = 0; o < CO; ++o) wv[o] = to_f32(wt[(size_t)c * CO + o]);
+    for (int j = 0; j < V; ++j) {
+      const int ch = cu + j;
+      T v = from_f32<T>(0.f);
+      if (ch < c) {
+        v = *reinterpret_cast<const T*>(sl + j * E);
+        if (mask) {
+          while (gi + 1 < g && ch >= __ldg(starts + gi + 1)) ++gi;
+          v = masked(v, to_f32(mask[pix * g + gi]));
+        }
+      }
+      e[j] = v;
+    }
+    const long long row = pix / cols;
+    dst[(row * units + u0 + uu) * cols + (pix - row * cols)] = out;
+  }
+}
+
+// rs[(row, ow)] = sum over dx of the column ow + dx - pw (inside the
+// image) of sum_g size_g M_g, in that order.
+template <typename T>
+__global__ void __launch_bounds__(256) pconv_gen_rowsum(const T* __restrict__ mask,
+                                                        const int* __restrict__ sizes,
+                                                        float* __restrict__ rs, long long rows,
+                                                        int w_in, int g, int wout, int k, int pw) {
+  const long long total = rows * wout;
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < total;
+       i += (long long)gridDim.x * 256) {
+    const int ow = (int)(i % wout);
+    const long long row = i / wout;
+    float s = 0.f;
+    for (int dx = 0; dx < k; ++dx) {
+      const int iw = ow + dx - pw;
+      if (iw < 0 || iw >= w_in) continue;
+      const T* m = mask + (row * w_in + iw) * g;
+      for (int gg = 0; gg < g; ++gg)
+        s = __fadd_rn(s, __fmul_rn((float)__ldg(sizes + gg), to_f32(m[gg])));
+    }
+    rs[i] = s;
+  }
+}
+
+// Copies units [u0, u0 + nu) of row r of image n of a unit tensor (N,
+// rows, units, cols), columns [c0, c0 + np), to dst as [unit][column] with
+// units `pitch` columns apart (np when 0); zeros outside the tensor
+// (src-size 0).
+__device__ __forceinline__ void gen_stage_row(const uint4* src, int n, int rows, int units,
+                                              int cols, int r, int u0, int nu, int c0, int np,
+                                              uint4* dst, int tid, int nth, int pitch = 0) {
+  const bool rin = r >= 0 && r < rows;
+  const uint4* base = src + ((size_t)n * rows + (rin ? r : 0)) * units * cols;
+  if (pitch == 0) pitch = np;
+  for (int i = tid; i < nu * np; i += nth) {
+    const int jj = i / np, p = i - jj * np, c = c0 + p, u = u0 + jj;
+    const bool in = rin && c >= 0 && c < cols && u < units;
+    cp_async16(smem_u32(dst + jj * pitch + p), in ? base + (size_t)u * cols + c : src, in ? 16 : 0);
+  }
+}
+
+// msum of output pixel (n, oh, ow): the k row sums of its window, in order.
+__device__ __forceinline__ float gen_msum(const GenParams& p, int n, int oh, int ow) {
+  float msum = 0.f;
+  for (int dy = 0; dy < p.k; ++dy) {
+    const int ih = oh + dy - p.ph;
+    if (ih >= 0 && ih < p.h) msum = __fadd_rn(msum, p.rsum[((size_t)n * p.h + ih) * p.wout + ow]);
+  }
+  return msum;
+}
+
+// The epilogue of output pixel (n, oh, ow): y (COUT values) and M'.
+template <typename T>
+__device__ __forceinline__ void gen_store(const GenParams& p, int n, int oh, int ow, int o,
+                                          float acc, float msum) {
+  const size_t pix = ((size_t)n * p.hout + oh) * p.wout + ow;
+  const float scale = msum > 0.f ? (float)(p.k * p.k * p.cin) / fmaxf(msum, 1.f) : -1.f;
+  static_cast<T*>(p.y)[pix * p.cout + o] =
+      from_f32<T>(epilogue(acc, scale, p.bias ? p.bias[o] : 0.f));
+  if (o == 0) static_cast<T*>(p.mask_out)[pix] = from_f32<T>(msum > 0.f ? 1.f : 0.f);
+}
+
+// The forward in f32. W as (k, xu, runs * run, CO) units of 4 f32 channels
+// (tap row, unit, tap, output), zero past k and Cin.
+template <int CO>
+__global__ void __launch_bounds__(GEN_THREADS) pconv_gen_fwd_f32(const GenParams p) {
+  extern __shared__ __align__(16) uint4 gen_smem[];
+  constexpr int S = GEN_TH + GEN_D;
+  const int run = p.run, npx = GEN_TW + run, rowu = p.cbu * npx, wu = p.cbu * run * CO;
+  uint4* rows = gen_smem;
+  uint4* wts = rows + S * rowu;
+  const float4* wk = static_cast<const float4*>(p.wk);
+  const int tid = threadIdx.x, lane = tid & 31, t = tid >> 5;
+  const int ow0 = blockIdx.x * GEN_TW, oh0 = blockIdx.y * GEN_TH, n = blockIdx.z;
+  const int nblk = (p.xu + p.cbu - 1) / p.cbu, per = GEN_TH + p.k - 1;
+  const int nrun = (p.k + run - 1) / run;
+  float acc[GEN_R][CO];
 #pragma unroll
-        for (int q = 0; q < GEN_PIX; ++q) {
-          if (ip[q] < 0) continue;
-          const float xv = to_f32(masked(x[ip[q] * p.cin + c], to_f32(mask[ip[q] * p.g + gi])));
+  for (int i = 0; i < GEN_R; ++i)
 #pragma unroll
-          for (int o = 0; o < CO; ++o) acc[q][o] = fmaf(xv, wv[o], acc[q][o]);
+    for (int o = 0; o < CO; ++o) acc[i][o] = 0.f;
+  for (int rho = 0; rho < nrun; ++rho) {
+    const int dx0 = rho * run, rl = (min(run, p.k - dx0) + GEN_L - 1) / GEN_L * GEN_L;
+    const int items = nblk * per, steps = nblk * p.k;
+    auto fill = [&](int u) {
+      const int b = u / per, r = u - b * per, u0 = b * p.cbu, nu = min(p.cbu, p.xu - u0);
+      gen_stage_row(p.xm, n, p.h, p.xu, p.w, oh0 - p.ph + r, u0, nu, ow0 - p.pw + dx0, npx,
+                    rows + (u % S) * rowu, tid, GEN_THREADS);
+      if (r >= GEN_TH - 1) {  // the weights of step (b, dy = r - GEN_TH + 1)
+        const int dy = r - (GEN_TH - 1);
+        uint4* ws = wts + ((b * p.k + dy) % (GEN_D + 1)) * wu;
+        const uint4* src = reinterpret_cast<const uint4*>(wk);
+        for (int i = tid; i < nu * run * CO; i += GEN_THREADS) {
+          const int jj = i / (run * CO), e = i - jj * run * CO;
+          cp_async16(smem_u32(ws + i),
+                     src + (((size_t)dy * p.xu + u0 + jj) * nrun * run + dx0) * CO + e, 16);
+        }
+      }
+    };
+    int queued = 0;
+    for (int s = 0; s < steps; ++s) {
+      const int b = s / p.k, dy = s - b * p.k, hi = b * per + dy + GEN_TH - 1;
+      __syncthreads();  // the rows step s - 1 read and s does not may be refilled
+      for (; queued <= hi + GEN_D; ++queued) {
+        if (queued < items) fill(queued);
+        cp_async_commit();
+      }
+      cp_async_wait<GEN_D>();  // this thread's copies of rows up to hi have landed
+      __syncthreads();         // and everyone's
+      const int nu = min(p.cbu, p.xu - b * p.cbu);
+      const float4* xr = reinterpret_cast<const float4*>(rows + ((b * per + t + dy) % S) * rowu) +
+                         lane * GEN_R;
+      const float4* wr = reinterpret_cast<const float4*>(wts + (s % (GEN_D + 1)) * wu);
+      for (int jj = 0; jj < nu; ++jj, xr += npx, wr += run * CO) {
+        for (int d0 = 0; d0 < rl; d0 += GEN_L) {
+          float4 xv[GEN_R + GEN_L - 1];
+#pragma unroll
+          for (int i = 0; i < GEN_R + GEN_L - 1; ++i) xv[i] = xr[d0 + i];
+#pragma unroll
+          for (int l = 0; l < GEN_L; ++l) {
+            float4 wv[CO];
+#pragma unroll
+            for (int o = 0; o < CO; ++o) wv[o] = wr[(d0 + l) * CO + o];
+#pragma unroll
+            for (int i = 0; i < GEN_R; ++i)
+#pragma unroll
+              for (int o = 0; o < CO; ++o) {
+                float a = acc[i][o];
+                a = fmaf(xv[i + l].x, wv[o].x, a);
+                a = fmaf(xv[i + l].y, wv[o].y, a);
+                a = fmaf(xv[i + l].z, wv[o].z, a);
+                acc[i][o] = fmaf(xv[i + l].w, wv[o].w, a);
+              }
+          }
         }
       }
     }
-    // the lanes' sums by a fixed xor butterfly; lane q then writes pixel q
+    cp_async_wait<0>();
+  }
+  const int oh = oh0 + t;
+  if (oh >= p.hout) return;
 #pragma unroll
-    for (int q = 0; q < GEN_PIX; ++q) {
-      float msum = 0.f;
-      if (oh[q] > -(1 << 28))
-        for (int t = lane; t < kk; t += 32) {
-          const int ih = oh[q] + t / p.k - p.ph, iw = ow[q] + t % p.k - p.pw;
-          if (ih < 0 || ih >= p.h || iw < 0 || iw >= p.w_in) continue;
-          const T* m = mask + (((size_t)nn[q] * p.h + ih) * p.w_in + iw) * p.g;
-          for (int g = 0; g < p.g; ++g)
-            msum = __fadd_rn(msum, __fmul_rn((float)__ldg(sizes + g), to_f32(m[g])));
+  for (int i = 0; i < GEN_R; ++i) {
+    const int ow = ow0 + lane * GEN_R + i;
+    if (ow >= p.wout) break;
+    const float msum = gen_msum(p, n, oh, ow);
+#pragma unroll
+    for (int o = 0; o < CO; ++o) gen_store<float>(p, n, oh, ow, o, acc[i][o], msum);
+  }
+}
+
+// The forward in bf16. W as (k, xu, k, Cout) units of 8 bf16 channels
+// (tap row, unit, tap, output). p.run: taps a run, run * Cout <= 48.
+__global__ void __launch_bounds__(GEN_THREADS, 2) pconv_gen_fwd_bf16(const GenParams p) {
+  extern __shared__ __align__(16) uint4 gen_smem[];
+  constexpr int S = GM_TH + GEN_D, MR = GM_MT * 16;
+  const int cbu = p.cbu, rowu = cbu * GM_NPX, wu = cbu * MR;
+  uint4* rows = gen_smem;
+  uint4* wts = rows + S * rowu;
+  float* zs = reinterpret_cast<float*>(gen_smem);  // [GM_TH][MR][GM_ZS] after a run's steps
+  const uint4* wk = static_cast<const uint4*>(p.wk);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, t = warp >> 1, half = warp & 1;
+  const int L = p.run, tw = GM_NPX - L + 1, cout = p.cout;
+  const int ow0 = blockIdx.x * tw, oh0 = blockIdx.y * GM_TH, n = blockIdx.z;
+  const int xu2 = (p.xu + 1) & ~1;  // whole k16 steps
+  const int nblk = (xu2 + cbu - 1) / cbu, per = GM_TH + p.k - 1, nrun = (p.k + L - 1) / L;
+  const int nout = GM_TH * tw * cout;
+  float yacc[GM_YPT];
+#pragma unroll
+  for (int i = 0; i < GM_YPT; ++i) yacc[i] = 0.f;
+  for (int rho = 0; rho < nrun; ++rho) {
+    const int dx0 = rho * L, rl = min(L, p.k - dx0), mrows = rl * cout;
+    const int mtn = (mrows + 15) / 16;
+    const int items = nblk * per, steps = nblk * p.k;
+    auto fill = [&](int u) {
+      const int b = u / per, r = u - b * per, u0 = b * cbu, nu = min(cbu, xu2 - u0);
+      gen_stage_row(p.xm, n, p.h, p.xu, p.w, oh0 - p.ph + r, u0, nu, ow0 - p.pw + dx0, GM_NPX,
+                    rows + (u % S) * rowu, tid, GEN_THREADS);
+      if (r >= GM_TH - 1) {  // the weights of step (b, dy): rows (tap - dx0, o) of each unit
+        const int dy = r - (GM_TH - 1);
+        uint4* ws = wts + ((b * p.k + dy) % (GEN_D + 1)) * wu;
+        for (int i = tid; i < nu * MR; i += GEN_THREADS) {
+          const int jj = i / MR, m = i - jj * MR, uu = u0 + jj;
+          const bool in = m < mrows && uu < p.xu;
+          cp_async16(smem_u32(ws + i),
+                     in ? wk + (((size_t)dy * p.xu + uu) * p.k + dx0) * cout + m : wk, in ? 16 : 0);
         }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        msum += __shfl_xor_sync(0xffffffffu, msum, off);
-#pragma unroll
-        for (int o = 0; o < CO; ++o) acc[q][o] += __shfl_xor_sync(0xffffffffu, acc[q][o], off);
       }
-      const long long pix = run * GEN_PIX + q;
-      if (lane == q && pix < P) {
-        const float scale = msum > 0.f ? (float)(kk * p.cin) / fmaxf(msum, 1.f) : -1.f;
-        static_cast<T*>(p.mask_out)[pix] = from_f32<T>(msum > 0.f ? 1.f : 0.f);
-        T* y = static_cast<T*>(p.y) + pix * CO;
+    };
+    float acc[GM_MT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < GM_MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    int queued = 0;
+    for (int s = 0; s < steps; ++s) {
+      const int b = s / p.k, dy = s - b * p.k, hi = b * per + dy + GM_TH - 1;
+      __syncthreads();
+      for (; queued <= hi + GEN_D; ++queued) {
+        if (queued < items) fill(queued);
+        cp_async_commit();
+      }
+      cp_async_wait<GEN_D>();
+      __syncthreads();
+      const int nks = min(cbu, xu2 - b * cbu) / 2;
+      const uint32_t xs = smem_u32(rows + ((b * per + t + dy) % S) * rowu);
+      const uint32_t ws = smem_u32(wts + (s % (GEN_D + 1)) * wu);
+      for (int ks = 0; ks < nks; ++ks) {
+        uint32_t a[GM_MT][4];
+#pragma unroll
+        for (int mt = 0; mt < GM_MT; ++mt)
+          if (mt < mtn)
+            ldmatrix_x4(a[mt], ws + ((2 * ks + (lane >> 4)) * MR + mt * 16 + (lane & 15)) * 16);
+#pragma unroll
+        for (int nt2 = 0; nt2 < 2; ++nt2) {
+          uint32_t bb[4];
+          ldmatrix_x4(bb, xs + ((2 * ks + ((lane >> 3) & 1)) * GM_NPX + half * 32 + nt2 * 16 +
+                                (lane >> 4) * 8 + (lane & 7)) * 16);
+#pragma unroll
+          for (int mt = 0; mt < GM_MT; ++mt)
+            if (mt < mtn) {
+              mma_bf16(acc[mt][2 * nt2], a[mt], bb[0], bb[1]);
+              mma_bf16(acc[mt][2 * nt2 + 1], a[mt], bb[2], bb[3]);
+            }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free: Z goes there
+#pragma unroll
+    for (int mt = 0; mt < GM_MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int m = mt * 16 + (lane >> 2), q = half * 32 + nt * 8 + 2 * (lane & 3);
+        float* z = zs + (t * MR + m) * GM_ZS + q;
+        *reinterpret_cast<float2*>(z) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<float2*>(z + 8 * GM_ZS) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < GM_YPT; ++i) {  // y[p][o] += sum over the run's taps of Z[(dx, o)][p + dx]
+      const int e = tid + GEN_THREADS * i;
+      if (e >= nout) break;
+      const int o = e % cout, pc = e / cout % tw, tr = e / cout / tw;
+      const float* z = zs + (tr * MR + o) * GM_ZS + pc;
+      float sacc = 0.f;
+      for (int dl = 0; dl < rl; ++dl) sacc += z[dl * (cout * GM_ZS + 1)];
+      yacc[i] += sacc;
+    }
+    __syncthreads();  // before the next run's copies overwrite Z
+  }
+#pragma unroll
+  for (int i = 0; i < GM_YPT; ++i) {
+    const int e = tid + GEN_THREADS * i;
+    if (e >= nout) break;
+    const int o = e % cout, pc = e / cout % tw, tr = e / cout / tw;
+    const int oh = oh0 + tr, ow = ow0 + pc;
+    if (oh < p.hout && ow < p.wout)
+      gen_store<__nv_bfloat16>(p, n, oh, ow, o, yacc[i], gen_msum(p, n, oh, ow));
+  }
+}
+
+__device__ __forceinline__ float gen_comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// dx in f32: a CTA of GEN_TH input rows x GEN_TW input columns x 8 input
+// channels. W as (k, ceil(Cin / 8), runs * run, CO, 8) f32, (tap row,
+// channel block, run * run + r, o, c) with tap dx = run * run + run - 1 - r
+// (reversed within a run), zero past k and Cin.
+template <int CO>
+__global__ void __launch_bounds__(GEN_THREADS) pconv_gen_dx_f32(const GenParams p) {
+  extern __shared__ __align__(16) uint4 gen_smem[];
+  constexpr int S = GEN_TH + GEN_D, NSC = (CO + 3) / 4;
+  const int run = p.run, npx = GEN_TW + run, rowu = p.du * npx, wu = run * CO * 2;
+  uint4* rows = gen_smem;
+  uint4* wts = rows + S * rowu;
+  const int tid = threadIdx.x, lane = tid & 31, t = tid >> 5;
+  const int nct = (p.cin + 7) / 8, cb = blockIdx.x % nct;
+  const int iw0 = blockIdx.x / nct * GEN_TW, ih0 = blockIdx.y * GEN_TH, n = blockIdx.z;
+  const int per = GEN_TH + p.k - 1, nrun = (p.k + run - 1) / run;
+  const uint4* wk = static_cast<const uint4*>(p.wk);
+  float acc[GEN_R][8];
+#pragma unroll
+  for (int i = 0; i < GEN_R; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+  for (int rho = 0; rho < nrun; ++rho) {
+    const int oc0 = iw0 + p.pw - rho * run - run + 1;  // dacc column of slot column 0
+    // step j = k - 1 - dy reads dacc rows ih0 + ph - (k - 1) + t + j
+    auto fill = [&](int r) {
+      gen_stage_row(p.dm, n, p.hout, p.du, p.wout, ih0 + p.ph - (p.k - 1) + r, 0, p.du, oc0, npx,
+                    rows + (r % S) * rowu, tid, GEN_THREADS);
+      if (r >= GEN_TH - 1) {
+        const int j = r - (GEN_TH - 1), dy = p.k - 1 - j;
+        uint4* ws = wts + (j % (GEN_D + 1)) * wu;
+        const uint4* src = wk + (((size_t)dy * nct + cb) * nrun * run + rho * run) * CO * 2;
+        for (int i = tid; i < wu; i += GEN_THREADS) cp_async16(smem_u32(ws + i), src + i, 16);
+      }
+    };
+    int queued = 0;
+    for (int j = 0; j < p.k; ++j) {
+      const int hi = j + GEN_TH - 1;
+      __syncthreads();
+      for (; queued <= hi + GEN_D; ++queued) {
+        if (queued < per) fill(queued);
+        cp_async_commit();
+      }
+      cp_async_wait<GEN_D>();
+      __syncthreads();
+      const float4* dr = reinterpret_cast<const float4*>(rows + ((t + j) % S) * rowu);
+      const float4* wr = reinterpret_cast<const float4*>(wts + (j % (GEN_D + 1)) * wu);
+#pragma unroll
+      for (int sc = 0; sc < NSC; ++sc)
+        for (int d0 = 0; d0 < run; d0 += GEN_L) {
+          float4 dv[GEN_R + GEN_L - 1];
+#pragma unroll
+          for (int i = 0; i < GEN_R + GEN_L - 1; ++i)
+            dv[i] = dr[sc * npx + lane * GEN_R + d0 + i];
+#pragma unroll
+          for (int l = 0; l < GEN_L; ++l)
+#pragma unroll
+            for (int oo = 0; oo < 4; ++oo) {
+              const int o = sc * 4 + oo;
+              if (o >= CO) break;
+              const float4 w0 = wr[((d0 + l) * CO + o) * 2], w1 = wr[((d0 + l) * CO + o) * 2 + 1];
+#pragma unroll
+              for (int i = 0; i < GEN_R; ++i) {
+                const float v = gen_comp(dv[i + l], oo);
+                acc[i][0] = fmaf(v, w0.x, acc[i][0]);
+                acc[i][1] = fmaf(v, w0.y, acc[i][1]);
+                acc[i][2] = fmaf(v, w0.z, acc[i][2]);
+                acc[i][3] = fmaf(v, w0.w, acc[i][3]);
+                acc[i][4] = fmaf(v, w1.x, acc[i][4]);
+                acc[i][5] = fmaf(v, w1.y, acc[i][5]);
+                acc[i][6] = fmaf(v, w1.z, acc[i][6]);
+                acc[i][7] = fmaf(v, w1.w, acc[i][7]);
+              }
+            }
+        }
+    }
+    cp_async_wait<0>();
+  }
+  const int ih = ih0 + t;
+  if (ih >= p.h) return;
+  const float* mask = static_cast<const float*>(p.mask);
+  float* dx = static_cast<float*>(p.y);
+  int gi[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) gi[e] = group_of(p.groups + p.g, p.g, min(cb * 8 + e, p.cin - 1));
+#pragma unroll
+  for (int i = 0; i < GEN_R; ++i) {
+    const int iw = iw0 + lane * GEN_R + i;
+    if (iw >= p.w) break;
+    const size_t pix = ((size_t)n * p.h + ih) * p.w + iw;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = cb * 8 + e;
+      if (c < p.cin) dx[pix * p.cin + c] = masked(acc[i][e], mask[pix * p.g + gi[e]]);
+    }
+  }
+}
+
+// dW in f32: one CTA per (segment, group of (runs, sub-chunks), tap row
+// dy), dy fastest, so the k CTAs that read a segment's rows run together
+// and find them in L2. A thread
+// owns run rho of LW taps, sub-chunk sc of 4 channels (one unit) and pixel
+// group pg of the segment's 64 columns.
+template <int CO>
+__global__ void __launch_bounds__(GEN_THREADS) pconv_gen_dw_f32(const GenParams p) {
+  extern __shared__ __align__(16) uint4 gen_smem[];
+  constexpr int S = 1 + GEN_D, LW = gen_dw_taps(CO), NSC = (CO + 3) / 4;
+  const int tid = threadIdx.x, dy = blockIdx.x % p.k;
+  const int nrw = (p.k + LW - 1) / LW, c4 = (p.cin + 3) / 4, rgn = (nrw + p.rg - 1) / p.rg;
+  const int ngr = rgn * ((c4 + p.scg - 1) / p.scg), grp = blockIdx.x / p.k % ngr;
+  const int rho0 = grp % rgn * p.rg, sc0 = grp / rgn * p.scg;
+  const int nr = min(p.rg, nrw - rho0), nsc = min(p.scg, c4 - sc0);
+  const int my_sc = tid % p.scg, my_r = tid / p.scg % p.rg, pg = tid / (p.scg * p.rg);
+  const bool act = pg < p.npg && my_sc < nsc && my_r < nr;
+  // segment seg: items [it0, it0 + nrows) of the (row, 64-column strip) pairs of all images
+  const int strips = (p.w + GW_TW - 1) / GW_TW, seg = blockIdx.x / p.k / ngr;
+  const int it0 = seg * p.rb, nrows = min(p.rb, p.n * p.h * strips - it0);  // below 2^31
+  const int xun = p.scg;  // x units of a row: the group's sub-chunks
+  constexpr int XP = GW_TW + 1;  // x's unit pitch: lanes on neighbouring units, other banks
+  const int npxd = GW_TW + p.rg * LW, slot = xun * XP + p.du * npxd;
+  const int rho = rho0 + my_r, off = (rho0 + nr - rho) * LW - 1;
+  const int gw = GW_TW / p.npg, q_lo = pg * gw;
+  // item r: image n, row ih, strip columns from iw0; dacc columns from oc0
+  auto where = [&](int r, int& n, int& ih, int& iw0, int& oc0) {
+    const int gi = it0 + r, row = gi / strips;
+    iw0 = (gi - row * strips) * GW_TW;
+    n = row / p.h;
+    ih = row - n * p.h;
+    oc0 = iw0 + p.pw - (rho0 + nr) * LW + 1;
+  };
+  auto fill = [&](int r) {
+    int n, ih, iw0, oc0;
+    where(r, n, ih, iw0, oc0);
+    uint4* st = gen_smem + (r % S) * slot;
+    gen_stage_row(p.xm, n, p.h, p.xu, p.w, ih, sc0, nsc, iw0, GW_TW, st, tid, GEN_THREADS, XP);
+    gen_stage_row(p.dm, n, p.hout, p.du, p.wout, ih + p.ph - dy, 0, p.du, oc0, npxd,
+                  st + xun * XP, tid, GEN_THREADS);
+  };
+  float4 acc[LW][CO];
+#pragma unroll
+  for (int l = 0; l < LW; ++l)
+#pragma unroll
+    for (int o = 0; o < CO; ++o) acc[l][o] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int queued = 0;
+  for (int r = 0; r < nrows; ++r) {
+    __syncthreads();
+    for (; queued <= r + GEN_D; ++queued) {
+      if (queued < nrows) fill(queued);
+      cp_async_commit();
+    }
+    cp_async_wait<GEN_D>();
+    __syncthreads();
+    int n, ih, iw0, oc0;
+    where(r, n, ih, iw0, oc0);
+    const int oh = ih + p.ph - dy;
+    if (!act || oh < 0 || oh >= p.hout) continue;  // a dacc row outside adds nothing
+    const uint4* st = gen_smem + (r % S) * slot;
+    const uint4* dr = st + xun * XP;
+    for (int q0 = q_lo; q0 < q_lo + gw && iw0 + q0 < p.w; q0 += LW) {
+      float4 xv[LW];
+#pragma unroll
+      for (int i = 0; i < LW; ++i) xv[i] = reinterpret_cast<const float4*>(st)[my_sc * XP + q0 + i];
+      float4 dv[2 * LW - 1][NSC];
+#pragma unroll
+      for (int j = 0; j < 2 * LW - 1; ++j)
+#pragma unroll
+        for (int sc = 0; sc < NSC; ++sc)
+          dv[j][sc] = reinterpret_cast<const float4*>(dr)[sc * npxd + q0 + off - (LW - 1) + j];
+#pragma unroll
+      for (int l = 0; l < LW; ++l)
 #pragma unroll
         for (int o = 0; o < CO; ++o)
-          y[o] = from_f32<T>(epilogue(acc[q][o], scale, p.bias ? p.bias[o] : 0.f));
+#pragma unroll
+          for (int i = 0; i < LW; ++i) {
+            const float d = gen_comp(dv[i - l + LW - 1][o / 4], o % 4);
+            acc[l][o].x = fmaf(xv[i].x, d, acc[l][o].x);
+            acc[l][o].y = fmaf(xv[i].y, d, acc[l][o].y);
+            acc[l][o].z = fmaf(xv[i].z, d, acc[l][o].z);
+            acc[l][o].w = fmaf(xv[i].w, d, acc[l][o].w);
+          }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the pixel groups' sums go there
+  float4* red = reinterpret_cast<float4*>(gen_smem);
+  const int it = my_r * p.scg + my_sc, nit = p.rg * p.scg;
+  if (act && pg > 0)
+#pragma unroll
+    for (int l = 0; l < LW; ++l)
+#pragma unroll
+      for (int o = 0; o < CO; ++o) red[((pg - 1) * nit + it) * LW * CO + l * CO + o] = acc[l][o];
+  __syncthreads();
+  if (!act || pg > 0) return;
+  for (int q = 1; q < p.npg; ++q)
+#pragma unroll
+    for (int l = 0; l < LW; ++l)
+#pragma unroll
+      for (int o = 0; o < CO; ++o) {
+        const float4 v = red[((q - 1) * nit + it) * LW * CO + l * CO + o];
+        acc[l][o].x += v.x;
+        acc[l][o].y += v.y;
+        acc[l][o].z += v.z;
+        acc[l][o].w += v.w;
+      }
+  float* row = p.part + (size_t)seg * p.k * p.k * CO * p.cin;
+#pragma unroll
+  for (int l = 0; l < LW; ++l) {
+    const int dx = rho * LW + l;
+    if (dx >= p.k) break;
+#pragma unroll
+    for (int o = 0; o < CO; ++o)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = (sc0 + my_sc) * 4 + e;
+        if (c < p.cin) row[((size_t)(dy * p.k + dx) * CO + o) * p.cin + c] = gen_comp(acc[l][o], e);
+      }
+  }
+}
+
+// dx in bf16 on `mma.sync`: D[q][c] (16 input pixels x 8 channels) +=
+// A[q][(tap pair, o)] B[(tap pair, o)][c]: a k16 step is two taps x the 8
+// outputs (Cout padded to 8), each 8 x 8 quarter of A an `ldmatrix` of the
+// staged dacc row at its own tap's shifted columns. A CTA: GM_TH input rows
+// x GM_NPX columns (two warps a row, two m16 tiles each) x GX_CB channels.
+// W as (k, channel blocks, runs * run, GX_CB, 8) bf16: (tap row, block,
+// run * run + r, c, o) holds tap dx = run * run + run - 1 - r, zero past k,
+// Cin and Cout. y is staged in shared memory and leaves in whole rows.
+constexpr int GX_CB = 80;    // channels a block: ten n8 tiles
+constexpr int GX_RUN = 16;   // most taps a run (even: pairs)
+constexpr int GX_YP = GX_CB + 8;  // the staged dx's pixel pitch, elements
+
+__host__ __device__ inline int gen_dx_bf16_smem(int run) {
+  const int ring = ((GM_TH + GEN_D) * (GM_NPX + run) + (GEN_D + 1) * run * GX_CB) * 16;
+  const int ys = GM_TH * GM_NPX * GX_YP * 2;
+  return ring > ys ? ring : ys;
+}
+
+__global__ void __launch_bounds__(GEN_THREADS, 2) pconv_gen_dx_bf16(const GenParams p) {
+  extern __shared__ __align__(16) uint4 gen_smem[];
+  constexpr int S = GM_TH + GEN_D;
+  const int run = p.run, npx = GM_NPX + run, wu = run * GX_CB;
+  uint4* rows = gen_smem;
+  uint4* wts = rows + S * npx;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, t = warp >> 1, half = warp & 1;
+  const int ncb = (p.cin + GX_CB - 1) / GX_CB, cb = blockIdx.x % ncb;
+  const int iw0 = blockIdx.x / ncb * GM_NPX, ih0 = blockIdx.y * GM_TH, n = blockIdx.z;
+  const int ntn = (min(GX_CB, p.cin - cb * GX_CB) + 7) / 8;  // n8 tiles with channels
+  const int per = GM_TH + p.k - 1, nrun = (p.k + run - 1) / run;
+  const uint4* wk = static_cast<const uint4*>(p.wk);
+  float acc[2][GX_CB / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < GX_CB / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  for (int rho = 0; rho < nrun; ++rho) {
+    const int oc0 = iw0 + p.pw - rho * run - run + 1;  // dacc column of slot column 0
+    auto fill = [&](int r) {
+      gen_stage_row(p.dm, n, p.hout, 1, p.wout, ih0 + p.ph - (p.k - 1) + r, 0, 1, oc0, npx,
+                    rows + (r % S) * npx, tid, GEN_THREADS);
+      if (r >= GM_TH - 1) {
+        const int j = r - (GM_TH - 1), dy = p.k - 1 - j;
+        uint4* ws = wts + (j % (GEN_D + 1)) * wu;
+        const uint4* src = wk + (((size_t)dy * ncb + cb) * nrun * run + rho * run) * GX_CB;
+        for (int i = tid; i < wu; i += GEN_THREADS) cp_async16(smem_u32(ws + i), src + i, 16);
+      }
+    };
+    int queued = 0;
+    for (int j = 0; j < p.k; ++j) {
+      const int hi = j + GM_TH - 1;
+      __syncthreads();
+      for (; queued <= hi + GEN_D; ++queued) {
+        if (queued < per) fill(queued);
+        cp_async_commit();
+      }
+      cp_async_wait<GEN_D>();
+      __syncthreads();
+      const uint32_t dr = smem_u32(rows + ((t + j) % S) * npx);
+      const uint32_t ws = smem_u32(wts + (j % (GEN_D + 1)) * wu);
+      for (int d = 0; d < run; d += 2) {  // taps d and d + 1 of the run, reversed
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4(a[mt], dr + (half * 32 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8 + d +
+                                   (lane >> 4)) * 16);
+#pragma unroll
+        for (int nt2 = 0; nt2 < GX_CB / 16; ++nt2) {
+          if (2 * nt2 >= ntn) break;
+          uint32_t bb[4];
+          ldmatrix_x4(bb, ws + ((d + ((lane >> 3) & 1)) * GX_CB + (2 * nt2 + (lane >> 4)) * 8 +
+                                (lane & 7)) * 16);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(acc[mt][2 * nt2], a[mt], bb[0], bb[1]);
+            mma_bf16(acc[mt][2 * nt2 + 1], a[mt], bb[2], bb[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+  __syncthreads();  // the ring is free: dx rows, rounded once, go there
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(gen_smem);  // [GM_TH][GM_NPX][GX_YP]
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < GX_CB / 8; ++nt)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int q = half * 32 + mt * 16 + (lane >> 2) + 8 * h2, c = nt * 8 + 2 * (lane & 3);
+        *reinterpret_cast<__nv_bfloat162*>(ys + (t * GM_NPX + q) * GX_YP + c) =
+            __floats2bfloat162_rn(acc[mt][nt][2 * h2], acc[mt][nt][2 * h2 + 1]);
+      }
+  __syncthreads();
+  const __nv_bfloat16* mask = static_cast<const __nv_bfloat16*>(p.mask);
+  __nv_bfloat16* dx = static_cast<__nv_bfloat16*>(p.y);
+  const int c0 = cb * GX_CB, nc = min(GX_CB, p.cin - c0), cols = min(GM_NPX, p.w - iw0);
+  for (int i = tid; i < GM_TH * cols * nc; i += GEN_THREADS) {
+    const int c = i % nc, q = i / nc % cols, tr = i / nc / cols, ih = ih0 + tr;
+    if (ih >= p.h) break;
+    const size_t pix = ((size_t)n * p.h + ih) * p.w + iw0 + q;
+    const float m = to_f32(mask[pix * p.g + group_of(p.groups + p.g, p.g, c0 + c)]);
+    dx[pix * p.cin + c0 + c] = masked(ys[(tr * GM_NPX + q) * GX_YP + c], m);
+  }
+}
+
+// dW in bf16 on `mma.sync`: D[(tap pair, o)][c] += A[(tap pair, o)][q]
+// B[q][c] over 16 input pixels q a k16 step, A = dacc^T and B = x * M both
+// read with `ldmatrix.trans` from the staged rows, each quarter of A at its
+// own tap's shifted columns. One CTA per (segment, group of tap pairs and
+// a GX_CB-channel block, tap row dy), dy fastest, so the k CTAs that read
+// a segment's rows run together and find them in L2: it walks the
+// segment's (row, 64-column strip) items for its dy; warp w takes tap pair
+// w % np of its group (GD_PAIRS at most) and pixel group w / np of each
+// item's four k16 steps, with all ten n8 tiles of the block. The pixel
+// groups add in order in shared memory.
+constexpr int GD_PAIRS = 8;  // tap pairs of a CTA
+
+__host__ __device__ inline int gen_dw_bf16_smem(int np) {
+  const int npg = GEN_THREADS / 32 / np;
+  const int ring = (1 + GEN_D) * ((GX_CB / 8) * GW_TW + GW_TW + 2 * GD_PAIRS) * 16;
+  const int red = (npg - 1) * np * 32 * (GX_CB / 8) * 4 * 4;
+  return ring > red ? ring : red;
+}
+
+__global__ void __launch_bounds__(GEN_THREADS, 2) pconv_gen_dw_bf16(const GenParams p) {
+  extern __shared__ __align__(16) uint4 gen_smem[];
+  constexpr int S = 1 + GEN_D, XU = GX_CB / 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, dy = blockIdx.x % p.k;
+  const int pairs = (p.k + 1) / 2, pgn = (pairs + GD_PAIRS - 1) / GD_PAIRS;
+  const int ngr = pgn * ((p.cin + GX_CB - 1) / GX_CB), grp = blockIdx.x / p.k % ngr;
+  const int pr0 = grp % pgn * GD_PAIRS, cb = grp / pgn;
+  const int np = min(GD_PAIRS, pairs - pr0);     // pairs of this CTA
+  const int npg = GEN_THREADS / 32 / np;          // pixel groups
+  const int pr = pr0 + warp % np, pg = warp / np;
+  const bool act = pg < npg;
+  const int u0 = cb * XU, ntn = (min(GX_CB, p.cin - cb * GX_CB) + 7) / 8;
+  const int strips = (p.w + GW_TW - 1) / GW_TW, seg = blockIdx.x / p.k / ngr;
+  const int it0 = seg * p.rb, nrows = min(p.rb, p.n * p.h * strips - it0);  // below 2^31
+  const int npxd = GW_TW + 2 * np, slot = XU * GW_TW + npxd;
+  // the CTA's taps are 2 pr0 .. 2 (pr0 + np) - 1; dacc slot column of input
+  // column q at tap dx: q + 2 (pr0 + np) - 1 - dx
+  auto where = [&](int r, int& n, int& ih, int& iw0) {
+    const int gi = it0 + r, row = gi / strips;
+    iw0 = (gi - row * strips) * GW_TW;
+    n = row / p.h;
+    ih = row - n * p.h;
+  };
+  auto fill = [&](int r) {
+    int n, ih, iw0;
+    where(r, n, ih, iw0);
+    uint4* st = gen_smem + (r % S) * slot;
+    gen_stage_row(p.xm, n, p.h, p.xu, p.w, ih, u0, XU, iw0, GW_TW, st, tid, GEN_THREADS);
+    gen_stage_row(p.dm, n, p.hout, 1, p.wout, ih + p.ph - dy, 0, 1,
+                  iw0 + p.pw - 2 * (pr0 + np) + 1, npxd, st + XU * GW_TW, tid, GEN_THREADS);
+  };
+  float acc[XU][4];
+#pragma unroll
+  for (int nt = 0; nt < XU; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const int dxa = 2 * pr, tapoff = 2 * (pr0 + np) - 1 - dxa;  // slot column of q at tap dxa
+  int queued = 0;
+  for (int r = 0; r < nrows; ++r) {
+    __syncthreads();
+    for (; queued <= r + GEN_D; ++queued) {
+      if (queued < nrows) fill(queued);
+      cp_async_commit();
+    }
+    cp_async_wait<GEN_D>();
+    __syncthreads();
+    int n, ih, iw0;
+    where(r, n, ih, iw0);
+    const int oh = ih + p.ph - dy;
+    if (!act || oh < 0 || oh >= p.hout) continue;
+    const uint32_t xs = smem_u32(gen_smem + (r % S) * slot), ds = xs + XU * GW_TW * 16;
+    for (int ks = pg; ks < GW_TW / 16; ks += npg) {
+      if (iw0 + ks * 16 >= p.w) break;
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, ds + (ks * 16 + (lane & 7) + (lane >> 4) * 8 + tapoff -
+                                 ((lane >> 3) & 1)) * 16);
+#pragma unroll
+      for (int nt2 = 0; nt2 < XU / 2; ++nt2) {
+        if (2 * nt2 >= ntn) break;
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, xs + ((2 * nt2 + (lane >> 4)) * GW_TW + ks * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * 16);
+        mma_bf16(acc[2 * nt2], a, bb[0], bb[1]);
+        mma_bf16(acc[2 * nt2 + 1], a, bb[2], bb[3]);
       }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the pixel groups' sums go there
+  float4* red = reinterpret_cast<float4*>(gen_smem);
+  const int slotr = (warp % np) * 32 + lane;
+  if (act && pg > 0)
+#pragma unroll
+    for (int nt = 0; nt < XU; ++nt)
+      red[((pg - 1) * np * 32 + slotr) * XU + nt] =
+          make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]);
+  __syncthreads();
+  if (!act || pg > 0) return;
+  for (int q = 1; q < npg; ++q)
+#pragma unroll
+    for (int nt = 0; nt < XU; ++nt) {
+      const float4 v = red[((q - 1) * np * 32 + slotr) * XU + nt];
+      acc[nt][0] += v.x;
+      acc[nt][1] += v.y;
+      acc[nt][2] += v.z;
+      acc[nt][3] += v.w;
+    }
+  float* row = p.part + (size_t)seg * p.k * p.k * p.cout * p.cin;
+#pragma unroll
+  for (int nt = 0; nt < XU; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = (lane >> 2) + 8 * (e >> 1), o = m & 7, dx = dxa + (m >> 3);
+      const int c = cb * GX_CB + nt * 8 + 2 * (lane & 3) + (e & 1);
+      if (o < p.cout && dx < p.k && c < p.cin)
+        row[((size_t)(dy * p.k + dx) * p.cout + o) * p.cin + c] = acc[nt][e];
+    }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(GEN_THREADS) pconv_gen_dx(const GenParams p) {
-  const T* mask = static_cast<const T*>(p.mask);
-  const T* w = static_cast<const T*>(p.w);
-  const T* dacc = static_cast<const T*>(p.dacc);
-  T* dx = static_cast<T*>(p.y);
-  const long long items = (long long)p.n * p.h * p.w_in * p.cin;
-  for (long long i = (long long)blockIdx.x * GEN_THREADS + threadIdx.x; i < items;
-       i += (long long)gridDim.x * GEN_THREADS) {
-    const int c = (int)(i % p.cin);
-    const long long pix = i / p.cin;
-    const int iw = (int)(pix % p.w_in);
-    const long long t = pix / p.w_in;
-    const int ih = (int)(t % p.h), nn = (int)(t / p.h);
-    float acc = 0.f;
-    for (int dy = 0; dy < p.k; ++dy) {
-      const int oh = ih + p.ph - dy;
-      if (oh < 0 || oh >= p.hout) continue;
-      for (int dxx = 0; dxx < p.k; ++dxx) {
-        const int ow = iw + p.pw - dxx;
-        if (ow < 0 || ow >= p.wout) continue;
-        const T* dp = dacc + (((size_t)nn * p.hout + oh) * p.wout + ow) * p.cout;
-        const T* wp = w + (size_t)(dy * p.k + dxx) * p.cout * p.cin + c;
-        for (int o = 0; o < p.cout; ++o)
-          acc = fmaf(to_f32(dp[o]), to_f32(wp[(size_t)o * p.cin]), acc);
-      }
-    }
-    const float m = to_f32(mask[pix * p.g + group_of(p.groups + p.g, p.g, c)]);
-    dx[i] = masked(from_f32<T>(acc), m);
-  }
+cudaError_t gen_relay(const T* src, const T* mask, const int* starts, uint4* dst, long long rows,
+                      int cols, int c, int g, int units, cudaStream_t s) {
+  if (reinterpret_cast<uintptr_t>(src) & 15) return cudaErrorMisalignedAddress;
+  const long long pixels = rows * cols;
+  const int ub = gen_relay_ub(units);
+  const dim3 grid((unsigned)((pixels + GR_PIX - 1) / GR_PIX), (unsigned)((units + ub - 1) / ub));
+  pconv_gen_relay<T><<<grid, 256, GR_PIX * (4 * ub + 9) * 4, s>>>(src, mask, starts, dst, pixels,
+                                                                 cols, c, g, units);
+  return cudaGetLastError();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(GEN_THREADS) pconv_gen_dw(const GenParams p) {
-  const T* x = static_cast<const T*>(p.x);
-  const T* mask = static_cast<const T*>(p.mask);
-  const T* dacc = static_cast<const T*>(p.dacc);
-  const int e = blockIdx.x * GEN_THREADS + threadIdx.x;
-  const int tap = e / p.cin, c = e - tap * p.cin;
-  if (tap >= p.k * p.k) return;
-  const int dy = tap / p.k, dxx = tap - dy * p.k;
-  const int gi = group_of(p.groups + p.g, p.g, c);
-  const long long P = (long long)p.n * p.hout * p.wout;
-  const long long b = blockIdx.y * P / p.chunks, end = (blockIdx.y + 1) * P / p.chunks;
-  float acc[GEN_COUT];
-#pragma unroll
-  for (int o = 0; o < GEN_COUT; ++o) acc[o] = 0.f;
-  int ow = (int)(b % p.wout), oh = (int)(b / p.wout % p.hout), nn = (int)(b / p.wout / p.hout);
-  for (long long pix = b; pix < end; ++pix) {
-    const int ih = oh + dy - p.ph, iw = ow + dxx - p.pw;
-    if (ih >= 0 && ih < p.h && iw >= 0 && iw < p.w_in) {
-      const size_t ip = ((size_t)nn * p.h + ih) * p.w_in + iw;
-      const float xv = to_f32(masked(x[ip * p.cin + c], to_f32(mask[ip * p.g + gi])));
-      const T* dp = dacc + pix * p.cout;
-#pragma unroll
-      for (int o = 0; o < GEN_COUT; ++o)
-        if (o < p.cout) acc[o] = fmaf(xv, to_f32(dp[o]), acc[o]);
-    }
-    if (++ow == p.wout) {
-      ow = 0;
-      if (++oh == p.hout) oh = 0, ++nn;
-    }
-  }
-  float* row = p.part + (size_t)blockIdx.y * p.k * p.k * p.cout * p.cin;
-#pragma unroll
-  for (int o = 0; o < GEN_COUT; ++o)
-    if (o < p.cout) row[((size_t)tap * p.cout + o) * p.cin + c] = acc[o];
-}
-
-template <typename T>
-cudaError_t launch_gen_fwd(const GenParams& p, cudaStream_t s) {
-  const long long runs = ((long long)p.n * p.hout * p.wout + GEN_PIX - 1) / GEN_PIX;
-  const long long blocks = (runs + GEN_THREADS / 32 - 1) / (GEN_THREADS / 32);
-  const unsigned grid = (unsigned)(blocks < (1 << 20) ? blocks : (1 << 20));
-  switch (p.cout) {
-#define GEN_FWD(CO) \
-  case CO: pconv_gen_fwd<T, CO><<<grid, GEN_THREADS, 0, s>>>(p); break;
-    GEN_FWD(1) GEN_FWD(2) GEN_FWD(3) GEN_FWD(4) GEN_FWD(5) GEN_FWD(6) GEN_FWD(7)
-#undef GEN_FWD
-    default: return cudaErrorInvalidValue;
-  }
+template <typename K>
+cudaError_t gen_launch(K kernel, dim3 grid, int smem, const GenParams& p, cudaStream_t s) {
+  if (smem > 227 * 1024 || grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, GEN_THREADS, smem, s>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_gen_bwd(const GenParams& p, bool need_dx, bool need_dw, cudaStream_t s) {
+cudaError_t launch_gen_fwd(const GenParams& p, const T* x, const T* mask, cudaStream_t s) {
+  cudaError_t e = gen_relay<T>(x, mask, p.groups + p.g, const_cast<uint4*>(p.xm),
+                               (long long)p.n * p.h, p.w, p.cin, p.g, p.xu, s);
+  if (e != cudaSuccess) return e;
+  const long long total = (long long)p.n * p.h * p.wout, blocks = (total + 255) / 256;
+  pconv_gen_rowsum<T><<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, s>>>(
+      mask, p.groups, const_cast<float*>(p.rsum), (long long)p.n * p.h, p.w, p.g, p.wout, p.k,
+      p.pw);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if constexpr (sizeof(T) == 2) {
+    const dim3 grid((unsigned)((p.wout + GM_NPX - p.run) / (GM_NPX - p.run + 1)),
+                    (unsigned)((p.hout + GM_TH - 1) / GM_TH), (unsigned)p.n);
+    return gen_launch(pconv_gen_fwd_bf16, grid, gen_fwd_bf16_smem(p.cbu), p, s);
+  } else {
+    const dim3 grid((unsigned)((p.wout + GEN_TW - 1) / GEN_TW),
+                    (unsigned)((p.hout + GEN_TH - 1) / GEN_TH), (unsigned)p.n);
+    const int smem = gen_fwd_f32_smem(p.cbu, p.run, p.cout);
+    switch (p.cout) {
+#define GEN_FWD(CO) \
+  case CO: return gen_launch(pconv_gen_fwd_f32<CO>, grid, smem, p, s);
+      GEN_FWD(1) GEN_FWD(2) GEN_FWD(3) GEN_FWD(4) GEN_FWD(5) GEN_FWD(6) GEN_FWD(7)
+#undef GEN_FWD
+      default: return cudaErrorInvalidValue;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_gen_bwd(const GenParams& p, const T* dacc, const T* x, const T* mask,
+                           int dx_run, bool need_dx, bool need_dw, int segs, cudaStream_t s) {
+  cudaError_t e = gen_relay<T>(dacc, nullptr, nullptr, const_cast<uint4*>(p.dm),
+                               (long long)p.n * p.hout, p.wout, p.cout, 1, p.du, s);
+  if (e != cudaSuccess) return e;
   if (need_dx) {
-    const long long items = (long long)p.n * p.h * p.w_in * p.cin;
-    const long long blocks = (items + GEN_THREADS - 1) / GEN_THREADS;
-    pconv_gen_dx<T><<<(unsigned)(blocks < (1 << 20) ? blocks : (1 << 20)), GEN_THREADS, 0, s>>>(p);
-    const cudaError_t e = cudaGetLastError();
+    GenParams q = p;
+    q.run = dx_run;
+    if constexpr (sizeof(T) == 2) {
+      const dim3 grid((unsigned)((p.w + GM_NPX - 1) / GM_NPX * ((p.cin + GX_CB - 1) / GX_CB)),
+                      (unsigned)((p.h + GM_TH - 1) / GM_TH), (unsigned)p.n);
+      e = gen_launch(pconv_gen_dx_bf16, grid, gen_dx_bf16_smem(dx_run), q, s);
+    } else {
+      const dim3 grid((unsigned)((p.w + GEN_TW - 1) / GEN_TW * ((p.cin + 7) / 8)),
+                      (unsigned)((p.h + GEN_TH - 1) / GEN_TH), (unsigned)p.n);
+      const int smem = gen_dx_f32_smem(p.du, dx_run, p.cout);
+      switch (p.cout) {
+#define GEN_DX(CO) \
+  case CO: e = gen_launch(pconv_gen_dx_f32<CO>, grid, smem, q, s); break;
+        GEN_DX(1) GEN_DX(2) GEN_DX(3) GEN_DX(4) GEN_DX(5) GEN_DX(6) GEN_DX(7)
+#undef GEN_DX
+        default: return cudaErrorInvalidValue;
+      }
+    }
     if (e != cudaSuccess) return e;
   }
   if (need_dw) {
-    const dim3 grid((unsigned)((p.k * p.k * p.cin + GEN_THREADS - 1) / GEN_THREADS),
-                    (unsigned)p.chunks);
-    pconv_gen_dw<T><<<grid, GEN_THREADS, 0, s>>>(p);
+    if ((long long)p.n * p.h * ((p.w + GW_TW - 1) / GW_TW) >= (1ll << 31))
+      return cudaErrorInvalidValue;  // dW's (row, strip) items are counted in 32 bits
+    e = gen_relay<T>(x, mask, p.groups + p.g, const_cast<uint4*>(p.xm), (long long)p.n * p.h,
+                     p.w, p.cin, p.g, p.xu, s);
+    if (e != cudaSuccess) return e;
+    if constexpr (sizeof(T) == 2) {
+      const int pairs = (p.k + 1) / 2, np = pairs < GD_PAIRS ? pairs : GD_PAIRS;
+      const long long ctas = (long long)segs * p.k * ((pairs + GD_PAIRS - 1) / GD_PAIRS) *
+                             ((p.cin + GX_CB - 1) / GX_CB);
+      if (ctas >= (1ll << 31)) return cudaErrorInvalidValue;
+      return gen_launch(pconv_gen_dw_bf16, dim3((unsigned)ctas), gen_dw_bf16_smem(np), p, s);
+    } else {
+      const int lw = gen_dw_taps(p.cout), nrw = (p.k + lw - 1) / lw;
+      const int groups = (nrw + p.rg - 1) / p.rg * (((p.cin + 3) / 4 + p.scg - 1) / p.scg);
+      const long long ctas = (long long)segs * groups * p.k;
+      if (ctas >= (1ll << 31)) return cudaErrorInvalidValue;
+      const dim3 grid((unsigned)ctas);
+      const int smem = gen_dw_f32_smem(p.du, p.cout, p.rg, p.scg, p.npg);
+      switch (p.cout) {
+#define GEN_DW(CO) \
+  case CO: e = gen_launch(pconv_gen_dw_f32<CO>, grid, smem, p, s); break;
+        GEN_DW(1) GEN_DW(2) GEN_DW(3) GEN_DW(4) GEN_DW(5) GEN_DW(6) GEN_DW(7)
+#undef GEN_DW
+        default: return cudaErrorInvalidValue;
+      }
+    }
   }
-  return cudaGetLastError();
+  return e;
 }
 
 // out[c] = sum over r of part[r, c], rows added in a fixed order: thread
@@ -2704,7 +3515,7 @@ int tsii_pconv_k2f_bwd(const void* dacc, const void* x, const void* mask, const 
     if (e != cudaSuccess) return (int)e;
   }
 #define K2F_CALL(C, K) return (int)launch_k2f_bwd<C, K>(p, s);
-  TSII_K2F_SWITCH(cout, k, K2F_CALL)
+  TSII_K2F_BWD_SWITCH(cout, k, K2F_CALL)
 #undef K2F_CALL
 }
 
@@ -2836,40 +3647,70 @@ int tsii_k2f_occupancy(int bwd, int cin, int nseg) {
 }
 
 // The general forms of K2 and K2F (Cout <= 7) and of their backwards, in
-// bf16 (is_f32 = 0) or f32. x, mask: (n, h, w_in, cin), (n, h, w_in, g); groups:
-// the group table (any g >= 1). Forward: w (k*k, cin, cout), bias (cout) f32
-// or NULL, y (n, hout, wout, cout), mask_out (n, hout, wout, 1).
-int tsii_pconv_gen_fwd(const void* x, const void* mask, const void* w, const void* bias, void* y,
-                       void* mask_out, const void* groups, int n, int h, int w_in, int cin, int g,
-                       int hout, int wout, int cout, int k, int ph, int pw, int is_f32,
-                       void* stream) {
-  GenParams p{x, mask, w, static_cast<const float*>(bias), nullptr, y, mask_out, nullptr,
-              static_cast<const int*>(groups), n, h, w_in, cin, g, hout, wout, cout, k, ph, pw, 1};
+// bf16 (is_f32 = 0) or f32. x, mask: (n, h, w_in, cin), (n, h, w_in, g);
+// groups: the group table (any g >= 1); V = 16 / element size.
+// Forward: wk the re-laid weights (pconv_gen_fwd_f32 / _bf16), bias (cout)
+// f32 or NULL, y (n, hout, wout, cout), mask_out (n, hout, wout, 1); xm a
+// scratch of n * h * ceil(cin / V) * w_in 16-byte units, rsum one of
+// n * h * wout f32; cbu, run: `gen_plan`'s block and run.
+int tsii_pconv_gen_fwd(const void* x, const void* mask, const void* wk, const void* bias, void* y,
+                       void* mask_out, const void* groups, void* xm, void* rsum, int n, int h,
+                       int w_in, int cin, int g, int hout, int wout, int cout, int k, int ph, int pw,
+                       int is_f32, int cbu, int run, void* stream) {
+  const int v = is_f32 ? 4 : 8, xu = (cin + v - 1) / v;
+  GenParams p{static_cast<const uint4*>(xm), nullptr, wk, static_cast<const float*>(bias),
+              static_cast<const float*>(rsum), mask, static_cast<const int*>(groups), y, mask_out,
+              nullptr, n, h, w_in, cin, g, hout, wout, cout, k, ph, pw, xu, 0, cbu, run, 0, 0, 0, 0};
+  const bool plan_ok = is_f32 ? cbu >= 1 && cbu <= xu && run % GEN_L == 0 && run >= GEN_L &&
+                                    run <= GEN_RUN
+                              : cbu >= 2 && cbu % 2 == 0 && run >= 1 && run <= GM_RUN &&
+                                    run * cout <= GM_MT * 16;
   if (n < 1 || h < 1 || w_in < 1 || cin < 1 || g < 1 || groups == nullptr || cout < 1 ||
-      cout > GEN_COUT || k < 1 || hout < 1 || wout < 1 || ph < 0 || pw < 0)
+      cout > GEN_COUT || k < 1 || hout < 1 || wout < 1 || ph < 0 || pw < 0 || !plan_ok ||
+      xm == nullptr || rsum == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_f32 ? launch_gen_fwd<float>(p, s) : launch_gen_fwd<__nv_bfloat16>(p, s));
+  return (int)(is_f32 ? launch_gen_fwd<float>(p, static_cast<const float*>(x),
+                                              static_cast<const float*>(mask), s)
+                      : launch_gen_fwd<__nv_bfloat16>(p, static_cast<const __nv_bfloat16*>(x),
+                                                      static_cast<const __nv_bfloat16*>(mask), s));
 }
 
-// Backward, after pconv_k3_prep: dacc (n, hout, wout, cout); w (k*k, cout,
-// cin) and dx (n, h, w_in, cin) when need_dx; part (chunks, k*k*cout*cin)
-// f32 when need_dw, for pconv_colsum.
-int tsii_pconv_gen_bwd(const void* dacc, const void* x, const void* mask, const void* w, void* dx,
-                       void* part, const void* groups, int n, int h, int w_in, int cin, int g,
-                       int hout, int wout, int cout, int k, int ph, int pw, int chunks,
-                       int is_f32, int need_dx, int need_dw, void* stream) {
-  GenParams p{x, mask, w, nullptr, dacc, dx, nullptr, static_cast<float*>(part),
-              static_cast<const int*>(groups), n, h, w_in, cin, g, hout, wout, cout, k, ph, pw,
-              chunks};
+// Backward, after pconv_k3_prep: dacc (n, hout, wout, cout); dm a scratch
+// of n * hout * ceil(cout / V) * wout units. need_dx: wk the re-laid
+// weights of pconv_gen_dx_bf16 / _f32, dx (n, h, w_in, cin), dx_run its run. need_dw:
+// xm a scratch as the forward's, part (segs, k*k*cout*cin) f32 for
+// pconv_colsum, rb, rg, scg, npg: `gen_plan`'s segments and groups.
+int tsii_pconv_gen_bwd(const void* dacc, const void* x, const void* mask, const void* wk, void* dx,
+                       void* part, const void* groups, void* xm, void* dm, int n, int h, int w_in,
+                       int cin, int g, int hout, int wout, int cout, int k, int ph, int pw,
+                       int is_f32, int need_dx, int need_dw, int dx_run, int rb, int rg, int scg,
+                       int npg, int segs, void* stream) {
+  const int v = is_f32 ? 4 : 8;
+  GenParams p{static_cast<const uint4*>(xm), static_cast<const uint4*>(dm), wk, nullptr, nullptr,
+              mask, static_cast<const int*>(groups), dx, nullptr, static_cast<float*>(part),
+              n, h, w_in, cin, g, hout, wout, cout, k, ph, pw, (cin + v - 1) / v,
+              (cout + v - 1) / v, 0, 0, rb, rg, scg, npg};
   if (n < 1 || h < 1 || w_in < 1 || cin < 1 || g < 1 || groups == nullptr || cout < 1 ||
-      cout > GEN_COUT || k < 1 || hout < 1 || wout < 1 || ph < 0 || pw < 0 || chunks < 1 ||
-      chunks > 65535 || (long long)k * k * cin > (1ll << 30) || !(need_dx || need_dw) ||
-      (need_dx && (dx == nullptr || w == nullptr)) || (need_dw && part == nullptr))
+      cout > GEN_COUT || k < 1 || hout < 1 || wout < 1 || ph < 0 || pw < 0 ||
+      !(need_dx || need_dw) || dm == nullptr ||
+      (need_dx && (dx == nullptr || wk == nullptr ||
+                   (is_f32 ? dx_run < GEN_L || dx_run % GEN_L != 0 || dx_run > GEN_RUN
+                           : dx_run < 2 || dx_run % 2 != 0 || dx_run > GX_RUN))) ||
+      (need_dw && (part == nullptr || xm == nullptr || rb < 1 || rg < 1 || scg < 1 ||
+                   !(npg == 1 || npg == 2 || npg == 4 || npg == 8) || npg * rg * scg > GEN_THREADS ||
+                   segs < 1)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_f32 ? launch_gen_bwd<float>(p, need_dx, need_dw, s)
-                      : launch_gen_bwd<__nv_bfloat16>(p, need_dx, need_dw, s));
+  return (int)(is_f32 ? launch_gen_bwd<float>(p, static_cast<const float*>(dacc),
+                                              static_cast<const float*>(x),
+                                              static_cast<const float*>(mask), dx_run, need_dx,
+                                              need_dw, segs, s)
+                      : launch_gen_bwd<__nv_bfloat16>(
+                            p, static_cast<const __nv_bfloat16*>(dacc),
+                            static_cast<const __nv_bfloat16*>(x),
+                            static_cast<const __nv_bfloat16*>(mask), dx_run, need_dx, need_dw,
+                            segs, s));
 }
 
 // out[c] = sum_r part[r, c], f32, in a fixed order.

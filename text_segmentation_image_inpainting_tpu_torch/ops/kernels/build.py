@@ -129,9 +129,9 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_k1f_occupancy.restype = i32
         lib.tsii_pconv_k2f_bwd.argtypes = [ptr] * 7 + [i32] * 16 + [ptr]
         lib.tsii_pconv_k2f_bwd.restype = i32
-        lib.tsii_pconv_gen_fwd.argtypes = [ptr] * 7 + [i32] * 12 + [ptr]
+        lib.tsii_pconv_gen_fwd.argtypes = [ptr] * 9 + [i32] * 14 + [ptr]
         lib.tsii_pconv_gen_fwd.restype = i32
-        lib.tsii_pconv_gen_bwd.argtypes = [ptr] * 7 + [i32] * 15 + [ptr]
+        lib.tsii_pconv_gen_bwd.argtypes = [ptr] * 9 + [i32] * 20 + [ptr]
         lib.tsii_pconv_gen_bwd.restype = i32
         lib.tsii_pconv_colsum.argtypes = [ptr] * 2 + [i32] * 2 + [ptr]
         lib.tsii_pconv_colsum.restype = i32

@@ -15,8 +15,11 @@ mask groups (past two, a table of them in device memory: ``group_table``),
 bf16. Where K2 or K2F's templated form does not take a shape of that
 scope (a window other than theirs, more input channels than K2F's ring
 holds, three or more groups, K2's backward at a padding above k - 1), a
-general form in the same source takes it (``pconv_gen_fwd``,
-``pconv_gen_dx``, ``pconv_gen_dw``), counted as the kernel it stands for.
+general form in the same source takes it (``pconv_gen_fwd_bf16`` /
+``_f32``, ``pconv_gen_dx_bf16`` / ``_f32``, ``pconv_gen_dw_bf16`` / ``_f32``,
+planned by ``gen_plan``), counted as the kernel it stands for; from the
+routing cut (``K2_GEN_K``; K2F's backward past ``K2F_BWD_KS``) the general
+forms take the shapes where they are the faster.
 A float32 x takes the f32 form instead, as JAX's Pallas kernels take x's
 dtype as it comes: SIMT FFMA, f32 accumulation,
 no TF32 and no bf16 rounding (K1F at Cout >= 8: ``pconv_k1f_weights``
@@ -74,7 +77,7 @@ K2F_LAUNCHES = 0
 K3F_LAUNCHES = 0
 K3F_HEAD_LAUNCHES = 0
 # the general forms' launches (also counted under the kernel they stand
-# for): forward (``pconv_gen_fwd``), backward (``pconv_gen_dx``/``_dw``)
+# for): forward (``pconv_gen_fwd_*``), backward (``pconv_gen_dx_*``/``_dw_*``)
 GEN_LAUNCHES = 0
 GEN_BWD_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()  # the H-sharded U-Net launches from one thread per shard
@@ -540,7 +543,8 @@ K2F_THREADS = 256  # 8 warps, each a slice of the input channels
 K2F_TW = 32 * K2F_R  # output columns of a CTA's strip
 K2F_RING = 3  # input rows in the ring
 K2F_CTAS = 2  # resident CTAs an SM (``__launch_bounds__``)
-K2F_KS = (1, 3, 5, 7)  # the windows they are built for
+K2F_KS = (1, 3, 5, 7)  # the windows K2F is built for
+K2F_BWD_KS = (1, 3)  # and its backward: from k 5 the general form is the faster (PERF.md)
 HB_SEG = 32  # input columns of a backward thread's segment
 HB_NSEG = 8  # most segments of a backward strip
 HB_THREADS = 256  # most threads of a backward CTA
@@ -619,11 +623,120 @@ def _k2f_scope(cout: int) -> None:
         raise ValueError(f"K2F takes Cout 1..{_K2_MAX_COUT}, got Cout {cout}")
 
 
-# The general forms' CTA (csrc/partial_conv.cu: GEN_THREADS) and the output
-# pixels a warp of the forward takes (GEN_PIX); they take no shared memory.
+# The general forms' geometry, as csrc/partial_conv.cu has it
+# (tests/test_torch_scope.py holds the two against each other): a CTA of
+# GEN_THREADS threads and a ring of shared rows GEN_D ahead of the rows a
+# step reads; the SIMT tile (f32 forward, dx) of GEN_TH rows x GEN_R
+# pixels a lane, windows sliding over GEN_L taps, runs of at most GEN_RUN
+# taps; the bf16 forward's mma tile of GM_TH rows x GM_NPX input columns,
+# GM_MT m16 tiles of (tap, output) rows, runs of at most GM_RUN taps; the
+# bf16 dx and dW's blocks of GX_CB channels, dx's runs of at most GX_RUN
+# taps, dW's GD_PAIRS tap pairs a CTA; dW's segments of GW_TW columns. A
+# forward block takes as many 16-byte units of channels as GEN_SMEM (SIMT)
+# or GM_SMEM (mma) hold.
 GEN_THREADS = 256
-GEN_PIX = 8
+GEN_D = 2
+GEN_TH, GEN_R, GEN_L, GEN_RUN = 8, 5, 4, 64
+GEN_TW = 32 * GEN_R
+GM_TH, GM_NPX, GM_MT, GM_RUN = 4, 64, 3, 16
+GM_ZS = GM_NPX + 8
+GW_TW = 64
+GX_CB, GX_RUN, GD_PAIRS = 80, 16, 8  # the bf16 dx and dW: channels a block, taps a run, pairs
+GX_YP = GX_CB + 8
+GEN_SMEM = 64 * 1024
+GM_SMEM = 100 * 1024
 _K2F_GENERAL = K2FPlan(0, 0, 0, GEN_THREADS, True)
+
+
+class GenPlan(NamedTuple):
+    """How the general forms cut one layer (``gen_plan``). Forward: ``cbu``
+    16-byte units of channels a block, ``run`` taps a run, ``fwd_smem``
+    bytes. dx: ``dx_run`` taps a run, ``dx_smem`` bytes. dW: segments of
+    ``rb`` (row, 64-column strip) items, ``segs`` of them (the rows of f32
+    partials); a CTA takes ``rg`` runs of ``gen_dw_taps`` taps x ``scg``
+    4-channel sub-chunks, each split over ``npg`` pixel groups;
+    ``dw_smem`` bytes."""
+
+    cbu: int
+    run: int
+    fwd_smem: int
+    dx_run: int
+    dx_smem: int
+    rb: int
+    segs: int
+    rg: int
+    scg: int
+    npg: int
+    dw_smem: int
+
+
+def gen_dw_taps(cout: int) -> int:
+    """Taps of a dW thread's run: its LW x Cout x 4 sums stay within 64."""
+    return 8 if cout <= 2 else 4 if cout <= 4 else 2
+
+
+def gen_fwd_smem(elem: int, cbu: int, run: int, cout: int) -> int:
+    """Shared bytes of the forward (``gen_fwd_bf16_smem`` / ``gen_fwd_f32_smem``)."""
+    if elem == 2:
+        ring = ((GM_TH + GEN_D) * cbu * GM_NPX + (GEN_D + 1) * cbu * GM_MT * 16) * 16
+        return max(ring, GM_TH * GM_MT * 16 * GM_ZS * 4)
+    return ((GEN_TH + GEN_D) * cbu * (GEN_TW + run) + (GEN_D + 1) * cbu * run * cout) * 16
+
+
+def gen_dx_smem(elem: int, du: int, run: int, cout: int) -> int:
+    """Shared bytes of ``pconv_gen_dx_bf16`` (``gen_dx_bf16_smem``) or
+    ``pconv_gen_dx_f32`` (``gen_dx_f32_smem``)."""
+    if elem == 2:
+        ring = ((GM_TH + GEN_D) * (GM_NPX + run) + (GEN_D + 1) * run * GX_CB) * 16
+        return max(ring, GM_TH * GM_NPX * GX_YP * 2)
+    return ((GEN_TH + GEN_D) * du * (GEN_TW + run) + (GEN_D + 1) * run * cout * 2) * 16
+
+
+def gen_dw_smem(elem: int, du: int, cout: int, rg: int, scg: int, npg: int, k: int = 1) -> int:
+    """Shared bytes of ``pconv_gen_dw_bf16`` (``gen_dw_bf16_smem``, at ``k``)
+    or ``pconv_gen_dw_f32`` (``gen_dw_f32_smem``): its ring of x and dacc
+    rows, or the pixel groups' sums, the larger."""
+    if elem == 2:
+        np_ = min(GD_PAIRS, -(-k // 2))
+        ring = (1 + GEN_D) * ((GX_CB // 8) * GW_TW + GW_TW + 2 * GD_PAIRS) * 16
+        return max(ring, (GEN_THREADS // 32 // np_ - 1) * np_ * 32 * (GX_CB // 8) * 16)
+    lw = gen_dw_taps(cout)
+    ring = (1 + GEN_D) * (scg * (GW_TW + 1) + du * (GW_TW + rg * lw)) * 16
+    return max(ring, (npg - 1) * rg * scg * lw * cout * 16)
+
+
+def gen_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, pad, g: int,
+             elem: int) -> GenPlan:
+    """The general forms' plan for N images of H x W, Cin -> Cout (<= 7), a
+    k x k window, ``pad``, ``g`` groups and x's element size (2: bf16, 4:
+    f32): a pure function of the shape. Shared memory stays within
+    SMEM_LIMIT and the dW partials within GEN_PART_FLOATS (or one row) at
+    every k and Cin: runs cap the taps a stage holds, blocks the channels.
+    Raises only outside Cout 1..7."""
+    _k2f_scope(cout)
+    v = 16 // elem
+    xu, du = -(-cin // v), -(-cout // v)
+    if elem == 2:
+        run = min(k, GM_RUN, GM_MT * 16 // cout)
+        unit = ((GM_TH + GEN_D) * GM_NPX + (GEN_D + 1) * GM_MT * 16) * 16
+        cbu = max(2, min(_round_up(xu, 2), GM_SMEM // unit // 2 * 2))
+    else:
+        run = min(_round_up(k, GEN_L), GEN_RUN)
+        unit = ((GEN_TH + GEN_D) * (GEN_TW + run) + (GEN_D + 1) * run * cout) * 16
+        cbu = max(1, min(xu, GEN_SMEM // unit))
+    dx_run = min(_round_up(k, 2), GX_RUN) if elem == 2 else min(_round_up(k, GEN_L), GEN_RUN)
+    nrw, c4 = -(-k // gen_dw_taps(cout)), -(-cin // 4)
+    rg = min(nrw, 64)
+    scg = min(c4, 32, GEN_THREADS // rg)
+    npg = 1
+    while npg < 8 and 2 * npg * rg * scg <= GEN_THREADS:
+        npg *= 2
+    items = n * h * -(-w // GW_TW)
+    most = max(1, GEN_PART_FLOATS // (k * k * cout * cin))
+    rb = max(-(-items // most), min(items, 16))
+    return GenPlan(cbu, run, gen_fwd_smem(elem, cbu, run, cout), dx_run,
+                   gen_dx_smem(elem, du, dx_run, cout), rb, -(-items // rb), rg, scg, npg,
+                   gen_dw_smem(elem, du, cout, rg, scg, npg, k))
 
 
 def k2f_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, pad, g: int = 1) -> K2FPlan:
@@ -647,10 +760,10 @@ def k2f_bwd_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, g: int = 1
     """The backward's plan: as many 32-column segments a strip as
     HB_THREADS threads take at one per (segment, channel), at most
     HB_NSEG; bands of input rows by ``k2f_band_rows``. The general form
-    above HB_THREADS input channels, at k not in K2F_KS, at three or more
-    groups, or where shared memory would not hold it."""
+    above HB_THREADS input channels, at k not in K2F_BWD_KS, at three or
+    more groups, or where shared memory would not hold it."""
     _k2f_scope(cout)
-    if k not in K2F_KS or g > 2 or cin > HB_THREADS:
+    if k not in K2F_BWD_KS or g > 2 or cin > HB_THREADS:
         return _K2F_GENERAL
     nseg = min(HB_NSEG, HB_THREADS // cin)
     smem = k2f_bwd_smem_bytes(cin, cout, k, nseg)
@@ -799,15 +912,22 @@ def k2_plan(cin: int, cout: int, k: int) -> K2Plan:
     return K2Plan(_round_up(-(-cin // nblk), 16), nblk, _round_up(k * k * cout, 16))
 
 
+# The routing cut: from this window K2 and its backward run the general
+# forms in place of a tile that would fit, because they are the faster on
+# the card (tools/gen_forms.py at the head's 67 -> 3 on 8 pages of 512^2;
+# PERF.md, Findings). K2F's backward stops at k 3 (K2F_BWD_KS) for the same
+# reason; K2F's forward stays templated at every k it takes.
+K2_GEN_K = 6
+
+
 def k2_general(cin: int, cout: int, k: int, g: int = 1, pad=0, backward: bool = False) -> bool:
     """Whether K2 (bf16, Cout <= 7; its backward with ``backward``) runs
-    its general form rather than ``pconv_k2<NKB>`` / ``pconv_k2_bwd``: at
-    three or more mask groups, where the tile of ``k2_plan`` would not fit
-    in shared memory (at 67 -> 3 the forward from k 11, the backward from
-    k 12), and in the backward at a padding above k - 1. A pure function
-    of the shape."""
+    its general form rather than ``pconv_k2<NKB>`` / ``pconv_k2_bwd``: from
+    K2_GEN_K, at three or more mask groups, where the tile of ``k2_plan``
+    would not fit in shared memory, and in the backward at a padding above
+    k - 1. A pure function of the shape."""
     plan = k2_plan(cin, cout, k)
-    if backward and max(_pads(pad)) > k - 1:
+    if k >= K2_GEN_K or (backward and max(_pads(pad)) > k - 1):
         return True
     return g > 2 or k2_smem_bytes(k, plan.cb, plan.kj if backward else 0) > SMEM_LIMIT
 
@@ -983,31 +1103,78 @@ def _launch_k2f_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
     return dx, dw, db
 
 
+def gen_fwd_weights(weight: torch.Tensor, elem: int, run: int) -> torch.Tensor:
+    """OIHW weights (in x's dtype) -> the general forward's layout, zero
+    past Cin (and past k): for the bf16 form (elem 2) (k, units, k, Cout,
+    8) in the weights' dtype, for the f32 form (k, units, runs * run, Cout,
+    4) f32 (tap row, 16-byte unit of channels, tap, output, channel)."""
+    cout, cin, k, _ = weight.shape
+    v = 16 // elem
+    xu = -(-cin // v)
+    dt = weight.dtype if elem == 2 else torch.float32
+    kp = k if elem == 2 else -(-k // run) * run
+    wt = weight.to(dt).permute(2, 1, 3, 0)  # (dy, c, dx, o)
+    wt = F.pad(wt, (0, 0, 0, kp - k, 0, xu * v - cin))
+    return wt.reshape(k, xu, v, kp, cout).permute(0, 1, 3, 4, 2).contiguous()
+
+
+def gen_dx_weights(weight: torch.Tensor, run: int, elem: int = 4) -> torch.Tensor:
+    """OIHW weights (in x's dtype) -> the general dx's layout, tap dx =
+    run * run + run - 1 - r at (tap row, block, run * run + r, ...), taps
+    reversed within a run, zero past k, Cin and Cout: ``pconv_gen_dx_f32``'s
+    (k, ceil(Cin / 8), runs * run, Cout, 8) f32 (..., o, c), or for bf16
+    (elem 2) ``pconv_gen_dx_bf16``'s (k, ceil(Cin / GX_CB), runs * run,
+    GX_CB, 8) in the weights' dtype (..., c, o)."""
+    cout, cin, k, _ = weight.shape
+    nrun = -(-k // run)
+    if elem == 2:
+        ncb = -(-cin // GX_CB)
+        wt = weight.permute(2, 1, 3, 0)  # (dy, c, dx, o)
+        wt = F.pad(wt, (0, 8 - cout, 0, nrun * run - k, 0, ncb * GX_CB - cin))
+        wt = wt.reshape(k, ncb, GX_CB, nrun, run, 8).flip(4)
+        return wt.permute(0, 1, 3, 4, 2, 5).reshape(k, ncb, nrun * run, GX_CB, 8).contiguous()
+    nct = -(-cin // 8)
+    wt = weight.float().permute(2, 1, 3, 0)  # (dy, c, dx, o)
+    wt = F.pad(wt, (0, 0, 0, nrun * run - k, 0, nct * 8 - cin))
+    wt = wt.reshape(k, nct, 8, nrun, run, cout).flip(4)
+    return wt.permute(0, 1, 3, 4, 5, 2).reshape(k, nct, nrun * run, cout, 8).contiguous()
+
+
 def _launch_gen_fwd(lib, x, mask, weight, b, y, m_out, group_sizes, padding) -> None:
-    """The general form of K2 and K2F (``pconv_gen_fwd``) into ``y`` and
-    ``m_out``: the weights re-laid as (k*k, Cin, Cout) in x's dtype, ``b``
-    the f32 bias or None. Inputs as ``_check_inputs`` passed them."""
+    """The general form of K2 and K2F into ``y`` and ``m_out``:
+    ``pconv_gen_relay`` (x * M as 16-byte units), ``pconv_gen_rowsum`` (the
+    mask's row sums), then ``pconv_gen_fwd_bf16`` (``mma.sync``) or
+    ``pconv_gen_fwd_f32`` (FFMA) as ``gen_plan`` cuts it; ``b`` the f32 bias
+    or None. Inputs as ``_check_inputs`` passed them."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check
 
     n, h, w, cin = x.shape
     cout, _, k, _ = weight.shape
     ph, pw = padding
-    wk = weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()
+    hout, wout = y.shape[1:3]
+    elem = x.element_size()
+    plan = gen_plan(n, h, w, cin, cout, k, padding, len(group_sizes), elem)
+    wk = gen_fwd_weights(weight.to(x.dtype), elem, plan.run)
+    xm = torch.empty((n * h * -(-cin // (16 // elem)) * w * 16,), dtype=torch.uint8,
+                     device=x.device)
+    rsum = torch.empty((n, h, wout), dtype=torch.float32, device=x.device)
     code = lib.tsii_pconv_gen_fwd(
-        x.data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
-        y.data_ptr(), m_out.data_ptr(), _groups_ptr(group_sizes, x.device, always=True), n, h, w,
-        cin, len(group_sizes), y.shape[1], y.shape[2], cout, k, ph, pw,
-        int(x.dtype == torch.float32), _stream())
+        _aligned16(x).data_ptr(), mask.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
+        y.data_ptr(), m_out.data_ptr(), _groups_ptr(group_sizes, x.device, always=True),
+        xm.data_ptr(), rsum.data_ptr(), n, h, w, cin, len(group_sizes), hout, wout, cout, k, ph,
+        pw, int(elem == 4), plan.cbu, plan.run, _stream())
     check(lib, code, "the general form of K2 / K2F (partial conv, Cout <= 7)")
     _count("GEN_LAUNCHES")
 
 
 def _launch_gen_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
     """The general form of the backward at Cout <= 7, bf16 or f32:
-    ``k3_prep`` writes dacc and db; ``pconv_gen_dx`` dx = conv_transpose(dacc,
-    W) * M (the weights re-laid as (k*k, Cout, Cin)); ``pconv_gen_dw`` each
-    chunk's (tap, o, c) partials of dW (``gen_chunks``), which
-    ``pconv_colsum`` adds in chunk order. Two launches give the same bits."""
+    ``k3_prep`` writes dacc and db; ``pconv_gen_relay`` lays dacc (and, for
+    dW, x * M) out as 16-byte units; ``pconv_gen_dx_bf16`` / ``_f32`` dx =
+    conv_transpose(dacc, W) * M (the weights re-laid by ``gen_dx_weights``);
+    ``pconv_gen_dw_bf16`` / ``_f32`` each
+    segment's (tap, o, c) partials of dW, which ``pconv_colsum`` adds in
+    segment order (``gen_plan``). Two launches give the same bits."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels.build import check, load_library
 
     n, h, w, cin = x.shape
@@ -1019,17 +1186,23 @@ def _launch_gen_bwd(g, x, mask, weight, bias, group_sizes, padding, needs):
     if not (need_dx or need_dw):
         return None, None, db
     lib = load_library()
-    wk = weight.to(x.dtype).permute(2, 3, 0, 1).contiguous() if need_dx else None
+    elem = x.element_size()
+    v = 16 // elem
+    plan = gen_plan(n, h, w, cin, cout, k, padding, len(group_sizes), elem)
+    wk = gen_dx_weights(weight.to(x.dtype), plan.dx_run, elem) if need_dx else None
     dx = torch.empty_like(x) if need_dx else None
-    elems = k * k * cout * cin
-    chunks = gen_chunks(n * hout * wout, elems)
-    part = torch.empty((chunks, elems), dtype=torch.float32, device=x.device) if need_dw else None
+    dm = torch.empty((n * hout * -(-cout // v) * wout * 16,), dtype=torch.uint8, device=x.device)
+    xm = part = None
+    if need_dw:
+        xm = torch.empty((n * h * -(-cin // v) * w * 16,), dtype=torch.uint8, device=x.device)
+        part = torch.empty((plan.segs, k * k * cout * cin), dtype=torch.float32, device=x.device)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     code = lib.tsii_pconv_gen_bwd(
-        dacc.data_ptr(), x.data_ptr(), mask.data_ptr(), ptr(wk), ptr(dx), ptr(part),
-        _groups_ptr(group_sizes, x.device, always=True), n, h, w, cin, len(group_sizes), hout,
-        wout, cout, k, padding[0], padding[1], chunks, int(x.dtype == torch.float32),
-        int(need_dx), int(need_dw), _stream())
+        dacc.data_ptr(), _aligned16(x).data_ptr(), mask.data_ptr(), ptr(wk), ptr(dx), ptr(part),
+        _groups_ptr(group_sizes, x.device, always=True), ptr(xm), dm.data_ptr(), n, h, w, cin,
+        len(group_sizes), hout, wout, cout, k, padding[0], padding[1], int(elem == 4),
+        int(need_dx), int(need_dw), plan.dx_run, plan.rb, plan.rg, plan.scg, plan.npg, plan.segs,
+        _stream())
     check(lib, code, "the general form of the partial conv backward (Cout <= 7)")
     _count("GEN_BWD_LAUNCHES")
     dw = None

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Hash K1's and K2's outputs at the U-Net's 8 stride-1 layers, on the card.
+"""Hash K1's and K2's outputs at the U-Net's 8 stride-1 layers, and the
+head's backward (K3 in bf16, and K2F and K3F's head in f32), on the card.
 
 The inputs are ``chip_smoke.py``'s parity cases (``SHAPES`` at 512^2,
 batch 8, padding (1, 1), the same generator seeds), so two source trees
 give the same inputs. Run it in each tree, in one call, and compare the
-hashes: equal hashes mean the kernels' bytes (y and M') are identical.
+hashes: equal hashes mean the kernels' bytes (y and M'; dx, dW and db)
+are identical.
 
     python3 tools/pconv_bits.py [--out FILE] [--time]
 
@@ -105,6 +107,21 @@ def main() -> int:
                 sums["events"] += ev
                 sums["device"] += dv
         print(f"{name}: y {tuple(y.shape)} {hashes[name]}{timing}", flush=True)
+        if cout <= 7:  # the head's backward (bf16), and its f32 forward and backward
+            g = torch.randn(y.shape, generator=gen, device=dev)
+            outs = {f"{name} backward": kpc.partial_conv2d_backward(
+                g.to(torch.bfloat16), x, mask, w.to(torch.bfloat16), b, (c_lo, c_skip), (1, 1))}
+            xf, mf = x.float(), mask.float()
+            outs[f"{name} f32"] = kpc.partial_conv2d_fused(
+                xf, mf, w, b, group_sizes=(c_lo, c_skip), padding=(1, 1))
+            outs[f"{name} f32 backward"] = kpc.partial_conv2d_backward(
+                g, xf, mf, w, b, (c_lo, c_skip), (1, 1))
+            for key, ts in outs.items():
+                digest = hashlib.sha256()
+                for t in ts:
+                    digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                hashes[key] = digest.hexdigest()
+                print(f"{key}: {hashes[key]}", flush=True)
     if args.time:
         print(f"K1 over the 7 levels: {sums['events']:.4f} ms (events), device "
               f"{sums['device']:.4f} ms", flush=True)
