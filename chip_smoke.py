@@ -150,8 +150,10 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               and ``check_grads``; f32: ``check_f32`` and
               ``check_grads_f32``), M' bit-exact, twice bit-identical, each
               timed beside its plain version and cuDNN, the general forms'
-              kernels one by one by profiler device time; K6 at k 9, d 1 and
-              k 7, d 48, C 128 (the general form, ``check_wgrad``); an H =
+              kernels one by one by profiler device time; K6's general form
+              at ``SCOPE_K6`` (k 9, d 1; k 7, d 48; k 9 on block 2's map; k
+              13 at C 130; k 3, d 25 past the routing cut) by ``check_wgrad``,
+              its two kernels by profiler device time; an H =
               12 bf16 layer on the plain route (no counter moves); the
               general forms' three rows end the kernels line
  (Phases 9-14 run before the serve phase, 15 and 16 after it, 17 last;
@@ -316,10 +318,17 @@ SCOPE_CASES = (
     # would give them
     ("head 67 -> 3 at k 11, 512^2, batch 8", 8, 512, 512, (64, 3), 3, 11, (5, 5)),
 )
-# K6 beyond its templated form: (name, N, H, W, C, k, d).
+# K6 beyond its templated form: (name, N, H, W, C, k, d). k 9 also on the
+# segmenter's block-2 map (a size a model would give it), k 13 at C 130
+# (pixels off 16 bytes: the rings filled by plain loads), and k 3 at d 25
+# on that map, which the templated form takes but the routing cut
+# (K6_GEN_HALO, from tools/gen_forms.py --k6-route) gives the general form.
 SCOPE_K6 = (
     ("K6 k 9, d 1", 2, 64, 64, 128, 9, 1),
     ("K6 k 7, d 48", 2, 96, 96, 128, 7, 48),
+    ("K6 k 9 on block 2's map", 8, 128, 128, 144, 9, 1),
+    ("K6 k 13, d 2, C 130", 2, 64, 64, 130, 13, 2),
+    ("K6 k 3, d 25 on block 2's map (routing cut)", 8, 128, 128, 144, 3, 25),
 )
 # The two-stage pipeline: microbatches of BATCH pages PAGE^2.
 STAGE_MICROBATCHES = 4
@@ -396,6 +405,17 @@ def bound(flop: float, nbytes: float, peak: float = PEAK_BF16) -> tuple:
     for ``flop`` operations at ``peak`` and ``nbytes`` moved once."""
     t_op, t_mem = flop / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+
+def k6_work(x, k: int, d: int) -> tuple:
+    """(FLOP, bytes) of K6 on x (N, H, W, C), dilation d: a multiply-add for
+    each (output pixel, tap) whose x lies inside the image, 2 N C
+    sum_taps (H - |oi d|)+ (W - |oj d|)+ (separable: the rows' sum times
+    the columns'); x and dy read once, dW (k k C f32) written once."""
+    n, h, w, c = x.shape
+    offs = [abs(o) * d for o in range(-(k // 2), k // 2 + 1)]
+    rows, cols = sum(max(0, h - o) for o in offs), sum(max(0, w - o) for o in offs)
+    return 2.0 * n * c * rows * cols, 2.0 * x.numel() * x.element_size() + 4.0 * k * k * c
 
 
 def pconv_work(x, mask, w, p: int | None = None) -> tuple:
@@ -541,7 +561,8 @@ def check_wgrad(name, x, dy, k: int, d: int) -> dict:
     either side can get wrong is the order of an f32 sum: each (tap,
     channel) must be within 1e-5 · Σ|x·dy| of the truth (K6's longest chain
     of f32 adds, over one band's columns and rows and then the slots, is
-    about 130 at the segmenter's shapes: 130 · 2^-24 < 1e-5). Returns the
+    about 130 at the segmenter's shapes, and its general form's, the plan's
+    ``chain``, is under 167 at SCOPE_K6: 167 · 2^-24 < 1e-5). Returns the
     max |error| of each side and max |K6 - plain|."""
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
 
@@ -612,7 +633,10 @@ def device_ms(fn, prefix: str = "", runs: int = 10) -> float:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profiler window now and then records no kernel at all
+    # a profiler window now and then records no kernel at all, at times
+    # three in a row; the windows it took are logged where it took more
+    # than one
+    for window in range(1, 11):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
@@ -621,8 +645,11 @@ def device_ms(fn, prefix: str = "", runs: int = 10) -> float:
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and (not prefix or f"::{prefix}" in e.key))
         if total > 0:
+            if window > 1:
+                log(f"device_ms: torch.profiler recorded {prefix or 'a kernel'} in window "
+                    f"{window}, none in the {window - 1} before")
             return total / 1e3 / runs
-    raise RuntimeError(f"torch.profiler recorded no {prefix or 'kernel'} in three windows")
+    raise RuntimeError(f"torch.profiler recorded no {prefix or 'kernel'} in ten windows")
 
 
 def main() -> int:
@@ -1565,9 +1592,8 @@ def time_seg(sg) -> dict:
             f"{count} per step")
         for i, t in enumerate((k_ms, p_ms, t_cudnn, dx_flip, dx_dgrad, dev_ms)):
             tot[i] += count * t
-    # K6's bytes: x and dy read once per launch (dW is a few KB)
-    nbytes = sum(count * 2.0 * x.numel() * x.element_size() for _, x, _, _, count, _ in sg["k6"])
-    flop = sum(count * 2.0 * x.numel() * 9 for _, x, _, _, count, _ in sg["k6"])
+    flop = sum(count * k6_work(x, 3, d)[0] for _, x, _, d, count, _ in sg["k6"])
+    nbytes = sum(count * k6_work(x, 3, d)[1] for _, x, _, d, count, _ in sg["k6"])
     k6 = {"ms": tot[0], "plain": tot[1], "lib": tot[2]}
     k6["bound"], k6["by"] = bound(flop, nbytes)
     log(f"time K6 (one step's 14 launches): {tot[0]:.4f} ms, device time {tot[5]:.4f} ms, plain "
@@ -2005,8 +2031,8 @@ def xception_phase(dev, rng, smi: str) -> dict:
             f"{p_ms:.4f} ms, cuDNN bf16 wgrad {t_cudnn:.4f} ms; {count} per step")
         for i, t in enumerate((k_ms, p_ms, t_cudnn, dev_ms)):
             tot[i] += count * t
-    nbytes = sum(count * 2.0 * x.numel() * x.element_size() for _, x, _, _, count, _ in shapes)
-    flop = sum(count * 2.0 * x.numel() * 9 for _, x, _, _, count, _ in shapes)
+    flop = sum(count * k6_work(x, 3, d)[0] for _, x, _, d, count, _ in shapes)
+    nbytes = sum(count * k6_work(x, 3, d)[1] for _, x, _, d, count, _ in shapes)
     k6 = {"ms": tot[0], "plain": tot[1], "lib": tot[2], "launches": launches[0],
           "err": max(r["vs_plain"] for *_, r in shapes)}
     k6["bound"], k6["by"] = bound(flop, nbytes)
@@ -3982,11 +4008,12 @@ def scope_phase(dev, rng, smi: str) -> dict:
                 dyc, xc, wdw, None, [1, 1], [p, p], [d, d], False, [0, 0], c,
                 [False, True, False]), iters=10)
             peak = PEAK_F32 if dt == torch.float32 else PEAK_BF16
-            flop = 2.0 * k * k * x.numel()
-            nbytes = 2.0 * x.numel() * x.element_size() + 4 * k * k * c
+            flop, nbytes = k6_work(x, k, d)
             add("k6", t, t_p, t_l, flop, nbytes, peak, res["K6"])
-            log(f"{label}: x {tuple(x.shape)}, general form ({plan.chunks} chunks), {t:.4f} ms, "
-                f"plain {t_p:.4f} ms, cuDNN's depthwise wgrad {t_l:.4f} ms, bound "
+            dev_ms = kernel_ms(lambda: kdw.depthwise_wgrad(x, dy, k, d))
+            log(f"{label}: x {tuple(x.shape)}, general form {plan.gen}, {t:.4f} ms (device: "
+                + ", ".join(f"{k_} {v:.4f}" for k_, v in dev_ms.items() if "dw_wgrad" in k_)
+                + f"), plain {t_p:.4f} ms, cuDNN's depthwise wgrad {t_l:.4f} ms, bound "
                 f"{bound(flop, nbytes, peak)[0]:.4f} ms (CUDA events, medians of 10); K6 max "
                 f"|err| {res['K6']:.4g} vs the f64 truth, twice bit-identical")
     # outside JAX's scope: an output height of 12 takes the plain route
@@ -4013,7 +4040,8 @@ def scope_phase(dev, rng, smi: str) -> dict:
             ("bwd", "K3/K3F general form pconv_k3_prep, pconv_gen_relay, pconv_gen_dx_bf16 / "
                     "pconv_gen_dx_f32, pconv_gen_dw_bf16 / pconv_gen_dw_f32, pconv_colsum "
                     "(Cout <= 7 past the templated forms)", CSRC, f"{TPU_KERNEL}:600"),
-            ("k6", "K6 general form dw_wgrad_gen, dw_wgrad_gen_sum", CSRC_DW, f"{TPU_DW}:144")):
+            ("k6", "K6 general form dw_wgrad_gen_tiles (tiles of taps over staged rows), "
+                   "dw_wgrad_gen_fold", CSRC_DW, f"{TPU_DW}:144")):
         t = tot[key]
         _, by = bound(t["flop"], t["bytes"], t["peak"])
         rows.append({"name": fn, "route": "cuda", "source": src, "replaces": tpu,

@@ -18,7 +18,10 @@ take the constants from the CUDA source itself (every namespace-scope
     hold NaN, so a wrong ring index fails), the sliding k x k window of
     each lane's segment, the lanes' butterfly, the warps' and the slots'
     fixed-order sums. It must equal ``depthwise_wgrad_reference`` and
-    JAX's XLA VJP of the depthwise conv within 1e-5 of max |ref|.
+    JAX's XLA VJP of the depthwise conv within 1e-5 of max |ref|;
+  * the general form's constants, template instances and shared memory
+    against the ``.cu``, its cut at a dilation no strip can take, and the
+    routing cut (``K6_GEN_HALO``) that keeps the models' shapes templated.
 """
 
 import re
@@ -33,7 +36,6 @@ import torch
 from chip_smoke import K6_RAGGED, SEG_SHAPES
 from text_segmentation_image_inpainting_tpu.ops.conv import conv2d as jconv2d
 from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
-from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
 from tests.test_torch_bridge import one_torch_thread
 
 
@@ -138,9 +140,74 @@ def test_plan_cases_reach_the_partial_wave_and_the_strips():
 
 def test_plan_refuses_rows_that_cannot_fit():
     """Where not even a one-column strip fits, the templated form is
-    refused and the general form takes the call."""
+    refused and the general form takes the call, cut by ``k6_gen_plan``:
+    at d 200 on an 8^2 map only the centre tap reaches the image, so one
+    tile of one tap, one row group."""
     plan = kdw.k6_plan(1, 8, 8, 128, 3, 200, 2, SMS)
-    assert plan.general and plan.chunks == kpc.gen_chunks(64, 9 * 128)
+    assert plan.general and plan.gen == kdw.k6_gen_plan(1, 8, 8, 128, 3, 200, 2, SMS)
+    g = plan.gen
+    assert (g.kri, g.krj, g.tj, g.ntj, g.ntg, g.kg, g.ngr, g.ngc) == (0, 0, 1, 1, 1, 1, 1, 1)
+    assert g.strips == -(-8 // g.tw) and g.cblocks == 128 // kdw.K6_GEN_CH
+    assert g.bands == -(-8 // g.rows) and g.slots(1) == g.bands * g.strips
+    assert g.part_floats(1) == g.cblocks * g.slots(1) * 1 * kdw.K6_GEN_CH
+
+
+def test_general_constants_match_the_kernel():
+    """The general form's constants, its template instances and its shared
+    memory as csrc/depthwise_wgrad.cu has them."""
+    assert (K["GEN_CH"], K["GEN_CPT"], K["GEN_NPX"], K["GEN_TJ"], K["GEN_SEG"],
+            K["GEN_ZERO"]) == (kdw.K6_GEN_CH, kdw.K6_GEN_CPT, kdw.K6_GEN_NPX, kdw.K6_GEN_TJ,
+                               kdw.K6_GEN_SEG, kdw.K6_GEN_ZERO)
+    assert K["GEN_TPC"] * K["GEN_CPT"] == K["GEN_CH"] and K["GEN_NPX"] * K["GEN_TPC"] == K["NT"]
+    src = CU.read_text()
+    cases = re.findall(r"case (\d+): return launch_gen_t<T, \1>", src)
+    assert sorted(map(int, cases)) == list(range(1, K["GEN_TJ"] + 1))
+    # gen_geom's terms, evaluated from the constants
+    for h, w, k, d, tj, ntg, kg, tw, elem in ((64, 64, 9, 1, 5, 2, 2, 64, 2),
+                                              (96, 300, 31, 9, 8, 3, 1, 38, 4),
+                                              (12, 5000, 3, 4999, 1, 1, 1, 209, 2),
+                                              (40, 37, 9, 6, 3, 1, 3, 9, 4)):
+        krj = min((k - 1) // 2, (w - 1) // d)
+        span = min(2 * krj + 1, ntg * tj)
+        nxc = min(w, tw + (span - 1) * d)
+        pb = K["GEN_CH"] * elem
+        sk = K["ALIGN"] // pb  # a ring row's skew
+        bwx, bwg = min(K["MAX_BOX"], nxc + sk - 1), min(K["MAX_BOX"], tw + sk - 1)
+        up = lambda b: cdiv(b, K["ALIGN"]) * K["ALIGN"]  # noqa: E731
+        xrow = up(cdiv(nxc + sk - 1, bwx) * bwx * pb)
+        grow = up(cdiv(tw + sk - 1, bwg) * bwg * pb)
+        ring = ((kg - 1) * d + K["G"] * (K["PRE"] + 1)) * xrow + K["G"] * (K["PRE"] + 1) * grow
+        red = K["GEN_NPX"] * tj * K["GEN_CH"] * 4
+        want = K["ALIGN"] + K["GEN_ZERO"] + max(ring, red)
+        assert kdw.k6_gen_smem(h, w, k, d, tj, ntg, kg, tw, elem) == want
+
+
+def test_routing_cut_keeps_the_models_templated():
+    """The routing cut (``K6_GEN_HALO``, measured by ``tools/gen_forms.py
+    --k6-route``) is pinned, and the segmenter's 14 launches, Xception's 9
+    shapes and K6_RAGGED stay on the templated form; past the template's
+    limits (k 9, a halo that leaves no strip) the general form runs."""
+    from chip_smoke import XCEPTION_SHAPES
+
+    assert kdw.K6_GEN_HALO == 25
+    for _, h, c, d, _ in SEG_SHAPES:
+        for elem in (2, 4):
+            assert not kdw.k6_plan(8, h, h, c, 3, d, elem, SMS).general
+    for name, h, c, d, _ in XCEPTION_SHAPES:
+        assert not kdw.k6_plan(8, h, h, c, 3, d, 2, SMS).general, name
+    for name, n, h, w, c, k, d, dt in K6_RAGGED:
+        assert not kdw.k6_plan(n, h, w, c, k, d, 4 if dt == torch.float32 else 2, SMS).general
+    assert kdw.k6_plan(8, 128, 128, 144, 9, 1, 2, SMS).general
+    assert kdw.k6_plan(2, 96, 96, 128, 7, 48, 2, SMS).general
+    for k, d in ((3, 24), (5, 12), (7, 8)):  # halo 24: the templated form
+        assert not kdw.k6_plan(8, 128, 128, 144, k, d, 2, SMS).general
+    for k, d in ((3, 25), (5, 13), (7, 9)):  # from halo 25: the general form
+        assert kdw.k6_plan(8, 128, 128, 144, k, d, 2, SMS).general
+    # the general form's own cut at a shape the templated form takes
+    # (tools/gen_forms.py --k6-route launches it there through
+    # _launch_k6_gen): the 3x3 taps, each row one tile of three columns
+    g = kdw.k6_gen_plan(2, 64, 64, 128, 3, 1, 2, SMS)
+    assert (g.kri, g.krj, g.tj, g.ntg) == (1, 1, 3, 1) and g.smem <= kdw.SMEM_LIMIT
 
 
 def segments(nw, d, lpr):

@@ -615,6 +615,20 @@ def test_k6_refuses_what_it_does_not_take(cuda):
         kdw._launch_k6(x, x, 4, 1)
 
 
+def test_k6_takes_any_dilation(cuda):
+    """A dilation past the map (up to 2^31 - 1) leaves only the centre tap
+    in the image: dW bit-equal to that at d = max(H, W), against the plain
+    version at d = max(H, W)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 8, 12, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    dy = torch.randn((2, 8, 12, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    at_w = kdw.depthwise_wgrad(x, dy, 9, 12)
+    want = kdw.depthwise_wgrad_reference(x, dy, 9, 12)
+    assert torch.allclose(at_w, want, rtol=0, atol=1e-5 * (x.float() * dy.float()).abs().sum())
+    for d in (13, 5000, (1 << 24) + 1, (1 << 31) - 1):
+        assert torch.equal(kdw.depthwise_wgrad(x, dy, 9, d), at_w)
+
+
 def test_dense_serve_is_run_bit_for_bit(cuda):
     """The page server on the card (prefetcher stream, pinned results,
     depth 2, and chunk 2 with a flushed tail) returns exactly what

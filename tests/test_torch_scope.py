@@ -9,28 +9,33 @@ at shapes that no model of the repo reaches.
   ``impl='pallas'`` (which takes ``_partial_conv2d_xla`` there) in all but
   at most 1% of the outputs, each at most one bf16 step apart.
 * Every plan returns over k 1..15, Cin 1..1024, Cout 1..7 (K1 and K1F at
-  Cout >= 8) and 1..4 mask groups, and K6's over odd k up to 15 and
-  dilations up to 64: the templated form within its shared memory, as the
-  ``.cu`` files' constants give it, and below the routing cut, else the
+  Cout >= 8) and 1..4 mask groups, and K6's over odd k up to 31 and
+  dilations up to 5000: the templated form within its shared memory, as
+  the ``.cu`` files' constants give it, and below the routing cut, else the
   general form; the general forms' plan (``gen_plan``) up to k 31, within
   SMEM_LIMIT and GEN_PART_FLOATS, its tile constants and shared-memory
-  terms read from the ``.cu``; the routing cut pinned at the head.
+  terms read from the ``.cu``; the routing cut pinned at the head; K6's
+  general plan (``k6_gen_plan``) within SMEM_LIMIT, computing every
+  in-image (pixel, tap) once, its f32 chain under 167.
 * The general forms (``csrc/partial_conv.cu``: ``pconv_gen_fwd_bf16`` /
   ``_f32``, ``pconv_gen_dx_bf16`` / ``_f32``, ``pconv_gen_dw_bf16`` /
-  ``_f32``; ``csrc/depthwise_wgrad.cu``: ``dw_wgrad_gen``) emulated in
+  ``_f32``; ``csrc/depthwise_wgrad.cu``: ``dw_wgrad_gen_tiles`` and
+  ``dw_wgrad_gen_fold``) emulated in
   torch in their own tiling, index arithmetic and order of sums (the mma
   forward's runs of taps and Z shift-add, the SIMT forward's unit and tap
   order, dx's reversed taps within runs, dW's segments of (row, strip)
   items, tap pairs or runs, pixel groups and ``pconv_colsum``'s order),
   with the weights from the wrappers' own re-lays, against ``jax.vjp``, at
   even k, unequal padding, padding above k - 1, three groups, Cin 200, k
-  9, 11 and 13.
+  9, 11 and 13; K6's in its rings, tap-row groups, tiles, residue classes,
+  lanes' tree and slots' fold at k 9 to 15, d 1 to 48, C 130 and 200.
 * The port's ``partial_conv2d`` and its gradients against JAX's
   ``impl='pallas'`` (interpret mode) in f32 at Cin 200 (k 3), Cin 67 at k 2
   and 9, and three mask groups; K6's plain version at k 9 against
   ``jax.vjp`` of JAX's depthwise conv.
 """
 
+import itertools
 import re
 from pathlib import Path
 
@@ -288,28 +293,117 @@ def test_k1_plans_return_over_the_scope(k):
                 assert 1 <= f.splits <= kpc.k1f_steps(cin, k)
 
 
-@pytest.mark.parametrize("k", range(1, 16, 2))
+def k6_gen_coverage(plan, n, h, w, k, d):
+    """How often the general form's cut computes each (output pixel, tap)
+    whose x lies inside the image, as two factors: rows (band x row group,
+    the tap row skipped where its x row is outside) and columns (strip x
+    segment x the walk's clamp, for the tile that owns the tap column; a
+    window slot outside the image may be walked, it reads zeros). Returns
+    the row counts (H, k), the in-image rows, the column counts (one (W, k)
+    array for each size of row group: the units depend on the items) and
+    the in-image columns."""
+    hk = (k - 1) // 2
+    kri, krj, kc, tj = plan.kri, plan.krj, plan.kc, plan.tj
+    rows = np.zeros((h, k), np.int64)
+    for band in range(plan.bands):
+        h0 = band * plan.rows
+        for rg in range(plan.ngr):
+            ri0 = -kri + rg * plan.kg
+            for ri in range(ri0, min(ri0 + plan.kg, kri + 1)):
+                for oh in range(h0, min(h0 + plan.rows, h)):
+                    if 0 <= oh + ri * d < h:
+                        rows[oh, ri + hk] += 1
+    kgcs = {min(plan.kg, kri + 1 - ri0) for ri0 in range(-kri, kri + 1, plan.kg)}
+    cols = np.zeros((len(kgcs), w, k), np.int64)  # for each size of row group
+    for strip, kgc in itertools.product(range(plan.strips), sorted(kgcs)):
+        w0 = strip * plan.tw
+        nw = min(plan.tw, w - w0)
+        for ti in range(plan.ntj):
+            st = min(ti * tj, kc - tj)
+            ot = st - krj
+            tg0 = ti // plan.ntg * plan.ntg  # its column group's first tile
+            ni = kgc * min(plan.ntg, plan.ntj - tg0)
+            _, seg, spc, units = kdw.k6_gen_units(ni, nw, d)
+            for sg in range(units // kdw.K6_G):
+                r, jc = sg // spc, (sg % spc) * seg
+                ln = min(seg, -(-(nw - r) // d) - jc)
+                ow0 = w0 + r + jc * d
+                ja = max(0, -((ow0 + (ot + tj - 1) * d) // d))
+                jb = min(ln, -(-(w - ow0 - ot * d) // d))
+                for j in range(ja, jb):
+                    for tt in range(tj):
+                        cj = st + tt
+                        x_col = ow0 + j * d + (cj - krj) * d
+                        if cj >= ti * tj and 0 <= x_col < w:
+                            cols[sorted(kgcs).index(kgc), ow0 + j * d, cj - krj + hk] += 1
+    oh, o = np.arange(h)[:, None], np.arange(k)[None, :] - hk
+    row_in = (oh + o * d >= 0) & (oh + o * d < h)
+    ow = np.arange(w)[:, None]
+    col_in = (ow + o * d >= 0) & (ow + o * d < w)
+    return rows, row_in, cols, col_in
+
+
+@pytest.mark.parametrize("k", range(1, 32, 2))
 def test_k6_plans_return_over_the_scope(k):
-    """K6 at every odd k up to 15 and dilation up to 64, and 5000 (JAX's
-    depthwise ``supported``: any odd k, equal dilations): the templated
-    form at k in K6_KERNEL_SIZES and a dilation its launcher takes, while a
-    strip with its halo fits one TMA row and the shared memory, else the
-    general form, whose partials stay within GEN_PART_FLOATS."""
+    """K6 at every odd k up to 31 and dilations up to 5000 (JAX's depthwise
+    ``supported``: any odd k, equal dilations): the templated form at k in
+    K6_KERNEL_SIZES and a dilation its launcher takes, below the routing
+    cut, while a strip with its halo fits one TMA row and the shared
+    memory; else the general form, whose cut fits SMEM_LIMIT (the .cu's
+    formula, ``k6_gen_smem``), keeps at most 64 (tap row, tile) items a
+    CTA, and computes every (output pixel, tap) inside the image exactly
+    once (the row and the column factors, ``k6_gen_coverage``)."""
     src = (CSRC / "depthwise_wgrad.cu").read_text()
     assert f"if (d > {kdw.K6_MAX_DILATION} ||" in src  # the templated launcher's limit
-    for d in (1, 2, 4, 8, 16, 32, 48, 64, 5000):
+    for d in (1, 2, 3, 4, 8, 9, 16, 32, 48, 64, 5000):
         for c in (128, 200, 1024):
             for elem in (2, 4):
                 for n, h, w in ((2, 64, 64), (1, 96, 300)):
                     plan = kdw.k6_plan(n, h, w, c, k, d, elem, SMS)
-                    if plan.general:
-                        assert 1 <= plan.chunks <= n * h * w
-                        assert plan.chunks * k * k * c <= max(kpc.GEN_PART_FLOATS, k * k * c)
-                        continue
                     p = d * (k - 1) // 2
-                    assert k in kdw.K6_KERNEL_SIZES and d <= kdw.K6_MAX_DILATION
-                    assert plan.tw + 2 * p <= kdw.K6_MAX_BOX and plan.smem <= kdw.SMEM_LIMIT
-                    assert plan.smem == kdw.k6_smem_bytes(k, p, plan.tw, elem)
+                    if not plan.general:
+                        assert k in kdw.K6_KERNEL_SIZES and d <= kdw.K6_MAX_DILATION
+                        assert p < kdw.K6_GEN_HALO
+                        assert plan.tw + 2 * p <= kdw.K6_MAX_BOX and plan.smem <= kdw.SMEM_LIMIT
+                        assert plan.smem == kdw.k6_smem_bytes(k, p, plan.tw, elem)
+                        continue
+                    g = plan.gen
+                    assert g.smem == kdw.k6_gen_smem(h, w, k, d, g.tj, g.ntg, g.kg, g.tw, elem)
+                    assert g.smem <= kdw.SMEM_LIMIT
+                    assert 1 <= g.tj <= min(kdw.K6_GEN_TJ, g.kc) and g.ntj == -(-g.kc // g.tj)
+                    assert g.kg * min(g.ntg, g.ntj) <= kdw.K6_GEN_NPX
+                    assert g.cblocks == -(-c // kdw.K6_GEN_CH)
+                    if c == 128:  # the cut does not depend on C beyond the blocks
+                        rows, row_in, cols, col_in = k6_gen_coverage(g, n, h, w, k, d)
+                        assert (rows[row_in] == 1).all() and (rows[~row_in] == 0).all()
+                        assert (cols[:, col_in] == 1).all() and (cols[:, ~col_in] == 0).all()
+
+
+def test_k6_general_chain_is_short():
+    """The general form's longest chain of f32 adds into one dW value (a
+    segment, the lane's segments, the tree over the item's lanes, the
+    slots' blocks and the blocks) is under 167 = 1e-5 / 2^-24 at
+    ``chip_smoke.py``'s SCOPE_K6 cases and at k 9 on the segmenter's block-2
+    map, so ``check_wgrad``'s gate (1e-5 Σ|x·dy| of the f64 truth) holds by
+    its own argument; recounted here from the plan's fields and the
+    kernel's units."""
+    from chip_smoke import SCOPE_K6
+
+    cases = [(n, h, w, c, k, d) for _, n, h, w, c, k, d in SCOPE_K6] + [(8, 128, 128, 144, 9, 1)]
+    for n, h, w, c, k, d in cases:
+        for elem in (2, 4):
+            g = kdw.k6_gen_plan(n, h, w, c, k, d, elem, SMS)
+            steps = -(-g.rows // kdw.K6_G)
+            worst = 0
+            for kgc in {min(g.kg, 2 * g.kri + 1 - i) for i in range(0, 2 * g.kri + 1, g.kg)}:
+                for ntc in {min(g.ntg, g.ntj - i) for i in range(0, g.ntj, g.ntg)}:
+                    ni = kgc * ntc
+                    lpi, seg, _, units = kdw.k6_gen_units(ni, g.tw, d)
+                    tree = int(np.ceil(np.log2(-(-kdw.K6_GEN_NPX // ni)))) if ni < 64 else 0
+                    worst = max(worst, seg + steps * -(-units // lpi) + tree)
+            slots = g.slots(n)
+            chain = worst + g.fold + -(-slots // g.fold)
+            assert chain == g.chain < 167, (n, h, w, c, k, d, elem, g)
 
 
 # -- the general forms, emulated --------------------------------------------------------
@@ -574,25 +668,135 @@ def test_general_forms_emulated_match_jax_vjp(groups, cout, k, pad):
                                    rtol=RTOL, atol=ATOL, err_msg=f"dW, elem {elem}, rb {rb}")
 
 
-def emulate_k6_gen(x, dy, k, d):
-    """``dw_wgrad_gen`` and ``dw_wgrad_gen_sum`` in torch f32: each chunk of
-    output pixels (``gen_chunks``) sums x * dy per (tap, channel); the
-    chunks are added in order."""
+def emulate_k6_gen(x, dy, k, d, plan):
+    """K6's general form as ``plan`` (a ``K6GenPlan``) cuts the call, in
+    torch f32, every channel block at once (the blocks are independent):
+    for each CTA, its x ring filled a step ahead with the rows the kernel
+    stages (the image's own columns of the rows some tap row of the group
+    uses; NaN elsewhere, so that a wrong ring row or column fails), each
+    pixel lane's item (tap row, tile of tj tap columns) walking its units
+    (row of the step, segment of a residue class) over the columns at which
+    some slot of the tile reaches the image, window slots outside it reading
+    zeros, a segment summed in order into a fresh sum and that into the
+    lane's total; the pairwise tree over an item's lanes; each CTA's slot
+    of owned taps; ``dw_wgrad_gen_fold``'s blocks of slots, in order, +0 for
+    taps outside the image."""
     n, h, w, c = x.shape
-    p = d * (k - 1) // 2
-    pix = n * h * w
-    xp = F.pad(x, (0, 0, p, p, p, p))
-    chunks = kpc.gen_chunks(pix, k * k * c)
-    total = torch.zeros((k, k, c))
-    for z in range(chunks):
-        lo, hi = z * pix // chunks, (z + 1) * pix // chunks
-        part = torch.zeros((k, k, c))
-        for ki in range(k):
-            for kj in range(k):
-                xs = xp[:, ki * d:ki * d + h, kj * d:kj * d + w].reshape(pix, c)[lo:hi]
-                part[ki, kj] = (xs * dy.reshape(pix, c)[lo:hi]).sum(0)
-        total = total + part
-    return total.unsqueeze(2)
+    g_rows, pre, npx = kdw.K6_G, kdw.K6_PRE, kdw.K6_GEN_NPX
+    kri, krj, tj, ntj, ntg, kg = plan.kri, plan.krj, plan.tj, plan.ntj, plan.ntg, plan.kg
+    kc, ntap = plan.kc, plan.ntap
+    nxr = (kg - 1) * d + g_rows * (pre + 1)
+    ngr_rows = g_rows * (pre + 1)
+    slots = plan.slots(n)
+    part = torch.full((slots, ntap, c), float("nan"))
+
+    def tile_start(ti):
+        return min(ti * tj, kc - tj)
+
+    for slot in range(slots):
+        strip, nb = slot % plan.strips, slot // plan.strips
+        img, band = divmod(nb, plan.bands)
+        h0, w0 = band * plan.rows, strip * plan.tw
+        nrows, nw = min(plan.rows, h - h0), min(plan.tw, w - w0)
+        steps = -(-nrows // g_rows)
+        for z in range(plan.ngr * plan.ngc):
+            rg, cg = z % plan.ngr, z // plan.ngr
+            ri0 = -kri + rg * kg
+            kgc = min(kg, kri + 1 - ri0)
+            tg0 = cg * ntg
+            ntc = min(ntg, ntj - tg0)
+            span, xr0 = (kgc - 1) * d, h0 + ri0 * d
+            xc0 = max(0, w0 + (tile_start(tg0) - krj) * d)
+            xc1 = min(w, w0 + nw - 1 + (tile_start(tg0 + ntc - 1) + tj - 1 - krj) * d + 1)
+            nxc = max(0, xc1 - xc0)
+            xring = torch.full((nxr, max(nxc, 1), c), float("nan"))
+            gring = torch.full((ngr_rows, nw, c), float("nan"))
+
+            def wanted(r):
+                if not 0 <= xr0 + r < h:
+                    return False
+                return r - min(kgc - 1, r // d) * d < nrows
+
+            def issue(s):
+                if s >= steps:
+                    return
+                j0, j1 = s * g_rows, min(s * g_rows + g_rows, nrows)
+                lo, hi = (0 if s == 0 else j0 + span), j1 - 1 + span
+                for r in range(lo, hi + 1):
+                    if wanted(r):
+                        xring[r % nxr, :nxc] = x[img, xr0 + r, xc0:xc1]
+                for j in range(j0, j1):
+                    gring[j % ngr_rows] = dy[img, h0 + j, w0: w0 + nw]
+
+            ni = kgc * ntc
+            _, seg, spc, units = kdw.k6_gen_units(ni, nw, d)
+            nseg = units // g_rows
+            tot = torch.zeros((npx, tj, c))
+            for s in range(pre):
+                issue(s)
+            for s in range(steps):
+                issue(s + pre)  # before the sums, as the kernel may
+                for pl in range(npx):
+                    item, sub = pl % ni, pl // ni
+                    lpi = (npx - item + ni - 1) // ni
+                    ri, ti = ri0 + item // ntc, tg0 + item % ntc
+                    ot = tile_start(ti) - krj
+                    for u in range(sub, units, lpi):
+                        gg, sg = divmod(u, nseg)
+                        ro = s * g_rows + gg
+                        if ro >= nrows:
+                            break
+                        if not 0 <= h0 + ro + ri * d < h:
+                            continue
+                        r, jc = sg // spc, (sg % spc) * seg
+                        ln = min(seg, -(-(nw - r) // d) - jc)
+                        ow0 = w0 + r + jc * d
+                        ja = max(0, -((ow0 + (ot + tj - 1) * d) // d))
+                        jb = min(ln, -(-(w - ow0 - ot * d) // d))
+                        if ja >= jb:
+                            continue
+                        xrow = xring[(ro + (ri - ri0) * d) % nxr]
+                        # x of slot t at step j: column ow0 + (j + ot + t) d, zero outside
+                        cols = ow0 + (torch.arange(ja, jb)[:, None] + ot
+                                      + torch.arange(tj)[None, :]) * d
+                        inside = (cols >= 0) & (cols < w)
+                        win = torch.where(inside[..., None],
+                                          xrow[(cols - xc0).clamp(0, max(nxc, 1) - 1)], 0.0)
+                        gv = gring[ro % ngr_rows][(ow0 - w0 + torch.arange(ja, jb) * d)]
+                        prods = win * gv[:, None, :]
+                        acc = torch.zeros((tj, c))
+                        for j in range(jb - ja):
+                            acc = acc + prods[j]
+                        tot[pl] = tot[pl] + acc
+            # the pairwise tree over each item's lanes
+            red = tot.clone()
+            st = 1
+            while st < -(-npx // ni):
+                for pl in range(npx):
+                    if (pl // ni) % (2 * st) == 0 and pl + st * ni < npx:
+                        red[pl] = red[pl] + red[pl + st * ni]
+                st *= 2
+            for item in range(ni):
+                ti = tg0 + item % ntc
+                for tt in range(tj):
+                    cj = tile_start(ti) + tt
+                    if cj >= ti * tj:
+                        part[slot, (ri0 + item // ntc + kri) * kc + cj] = red[item, tt]
+    dw = torch.zeros((k * k, c))
+    hk = (k - 1) // 2
+    for tap in range(k * k):
+        oi, oj = tap // k - hk, tap % k - hk
+        if abs(oi) > kri or abs(oj) > krj:
+            continue  # +0: the tap never reaches the image
+        tv = (oi + kri) * kc + oj + krj
+        total = torch.zeros(c)
+        for b0 in range(0, slots, plan.fold):
+            blk = torch.zeros(c)
+            for sl in range(b0, min(b0 + plan.fold, slots)):
+                blk = blk + part[sl, tv]
+            total = total + blk
+        dw[tap] = total
+    return dw.reshape(k, k, 1, c)
 
 
 def _jax_depthwise_wgrad(x, dy, k, d):
@@ -604,19 +808,90 @@ def _jax_depthwise_wgrad(x, dy, k, d):
     return np.asarray(vjp(jnp.asarray(dy))[0])
 
 
-@pytest.mark.parametrize("k,d", [(9, 1), (7, 3), (3, 9), (11, 2)])
-def test_k6_general_form_and_plain_match_jax_vjp(k, d):
-    """K6's general form (emulated) and its plain version, at windows the
-    templated form is not built for and a dilation whose halo is wider than
-    the page, against ``jax.vjp`` of JAX's depthwise conv."""
-    rng = np.random.default_rng(k * 10 + d)
-    x = rng.standard_normal((2, 12, 13, 8)).astype(np.float32)
-    dy = rng.standard_normal((2, 12, 13, 8)).astype(np.float32)
+def _k6_gen_check(n, h, w, c, k, d, elem, forced=None):
+    """The emulated general form (``k6_gen_plan``'s cut, or ``forced``
+    fields) and the plain version against ``jax.vjp`` of JAX's depthwise
+    conv, within 1e-4 (relative and absolute) and the emulation also within
+    1e-5 of max |dW| (bf16 inputs rounded first: their products are exact
+    in f32)."""
+    rng = np.random.default_rng(n * h * w + c + 7 * k + d)
+    x = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    dy = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    if elem == 2:
+        x, dy = (torch.from_numpy(a).to(torch.bfloat16).float().numpy() for a in (x, dy))
+    plan = kdw.k6_gen_plan(n, h, w, c, k, d, elem, SMS)
+    if forced:
+        plan = plan._replace(**forced)
+        plan = plan._replace(ntj=-(-plan.kc // plan.tj), bands=-(-h // plan.rows),
+                             strips=-(-w // plan.tw))
     want = _jax_depthwise_wgrad(x, dy, k, d)
     tx, tdy = torch.from_numpy(x), torch.from_numpy(dy)
-    np.testing.assert_allclose(emulate_k6_gen(tx, tdy, k, d).numpy(), want, rtol=1e-4, atol=1e-4)
+    got = emulate_k6_gen(tx, tdy, k, d, plan)
+    scale = np.abs(want).max()
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * scale)
+    # taps that never reach the image are +0, not -0
+    kri, krj = kdw.k6_tap_radii(h, w, k, d)
+    hk = (k - 1) // 2
+    off = np.abs(np.arange(k) - hk)
+    outside = (off[:, None] > kri) | (off[None, :] > krj)
+    assert not np.signbit(got.numpy()[outside]).any()
     plain = kdw.depthwise_wgrad(tx, tdy, k, d)
     np.testing.assert_allclose(plain.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("k,d", [(9, 1), (7, 3), (3, 9), (11, 2)])
+def test_k6_general_form_and_plain_match_jax_vjp(k, d):
+    """K6's general form (emulated in its own cut) and its plain version,
+    at windows the templated form is not built for and a dilation whose
+    halo is wider than the page, against ``jax.vjp`` of JAX's depthwise
+    conv."""
+    _k6_gen_check(2, 12, 13, 8, k, d, 4)
+
+
+# (N, H, W, C, k, d, elem): k 9 to 15, d 1 to 48, C 130 (260 bytes a bf16
+# pixel) and 200, ragged maps
+K6_GEN_CASES = [
+    (2, 12, 13, 130, 9, 1, 2),
+    (2, 17, 14, 200, 9, 2, 4),
+    (2, 24, 19, 130, 11, 3, 2),
+    (2, 13, 22, 200, 11, 1, 4),
+    (2, 20, 21, 130, 13, 2, 2),
+    (2, 23, 12, 200, 13, 9, 4),
+    (2, 19, 24, 200, 15, 1, 2),
+    (2, 24, 17, 130, 15, 48, 4),  # only the centre tap reaches the image
+    (2, 14, 15, 200, 9, 48, 2),
+    (2, 21, 18, 130, 15, 3, 4),
+    (2, 16, 23, 200, 11, 9, 2),
+    (2, 22, 13, 130, 13, 1, 4),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,k,d,elem", K6_GEN_CASES,
+                         ids=[f"{h}x{w}-C{c}-k{k}-d{d}-e{e}"
+                              for n, h, w, c, k, d, e in K6_GEN_CASES])
+def test_k6_general_walk_matches_jax(n, h, w, c, k, d, elem):
+    _k6_gen_check(n, h, w, c, k, d, elem)
+
+
+# cuts the plan does not take at these sizes: column strips, tiles narrower
+# than the row (column groups of one tile, tj 1 to 4), tap rows in groups
+# whose x rows leave gaps (d > G), a short last row group and band
+K6_GEN_FORCED = [
+    (2, 15, 22, 130, 9, 1, 2, dict(tj=3, ntg=1, kg=2, rows=6, tw=9)),
+    (2, 15, 22, 130, 9, 1, 4, dict(tj=5, ntg=2, kg=9, rows=15, tw=22)),
+    (1, 19, 17, 40, 9, 6, 2, dict(tj=1, ntg=3, kg=2, rows=7, tw=17)),
+    (1, 21, 20, 24, 11, 2, 4, dict(tj=4, ntg=2, kg=4, rows=9, tw=7)),
+    (1, 13, 16, 20, 13, 1, 2, dict(tj=2, ntg=7, kg=5, rows=13, tw=16)),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,k,d,elem,forced", K6_GEN_FORCED,
+                         ids=[f"k{e[4]}-d{e[5]}-" + "-".join(f"{a}{v}" for a, v in e[7].items())
+                              for e in K6_GEN_FORCED])
+def test_k6_general_walk_forced_cuts(n, h, w, c, k, d, elem, forced):
+    _k6_gen_check(n, h, w, c, k, d, elem, forced)
 
 
 # -- the port against JAX's Pallas kernels at the new shapes --------------------------------

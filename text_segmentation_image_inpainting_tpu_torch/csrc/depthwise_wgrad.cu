@@ -57,6 +57,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <algorithm>
 #include <atomic>
 
 #include "sm90.cuh"
@@ -460,66 +461,389 @@ cudaError_t launch_k(const void* x, const void* dy, float* partial, unsigned* ti
   }
 }
 
-// The general form, for the rest of JAX's scope (any odd k, any equal
-// dilation): the windows the template is not built for (k other than 1, 3,
-// 5, 7) and the dilations whose halo leaves no strip a 256-pixel TMA row or
-// the rings (k6_plan). A thread per (tap, channel) and chunk of output
-// pixels sums x * dy in f32 over its chunk and writes the chunk's row of
-// partials, (tap, channel); dw_wgrad_gen_sum adds the rows in chunk order
-// into dW (c, k*k). No shared memory and no atomics: two launches give the
-// same bits. Correct and simple, not tuned.
-__device__ __forceinline__ float as_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float as_f32(float v) { return v; }
+// ---------------------------------------------------------------------------
+// The general form, for the rest of JAX's scope (any odd k, any d >= 1):
+// the windows the template is not built for (k other than 1, 3, 5, 7) and
+// the dilations whose halo leaves no strip a 256-pixel TMA row or the rings
+// (k6_plan). Its FLOP are what bound it: 2 k*k per dy element against x and
+// dy read once (at k 9 on a 128^2 map, 81 FMA per 4 bytes of bf16), so the
+// design keeps the FMA pipe fed from shared memory:
+//
+//  * A CTA owns one image, 16 channels (GEN_CH), a band of output rows, a
+//    strip of columns, a group of tap rows and a group of tiles of tap
+//    columns (ops/kernels/depthwise_wgrad.py::k6_gen_plan). The x rows its
+//    tap rows read for the band are one run; it streams the rows of that
+//    run that some tap row uses, and the band's dy rows, through
+//    shared-memory rings a step of G rows ahead (TMA boxes of at most 256
+//    pixels where the pixels are 16-byte aligned, else plain loads), as
+//    dw_wgrad_band does. Only the image's own columns are staged.
+//  * Only the taps that reach the image are computed: rows and columns of
+//    taps whose shift |o| * d is W (or H) or more are never walked, and
+//    their dW is +0. A tap row whose x row lies outside the image is
+//    skipped for that output row.
+//  * A lane owns GEN_CPT adjacent channels and a tile of TJ adjacent tap
+//    columns of one tap row (tiles of a row overlap where TJ does not divide
+//    the row; a tap belongs to its first tile). It walks a segment of output
+//    columns of one residue class mod d, so that its window of TJ x pixels
+//    moves by one column a step: one new x vector, one dy vector and TJ *
+//    GEN_CPT FMA per output column, in f32 on widened values (bf16 products
+//    are exact in f32). Window slots outside the image read a zero pixel.
+//  * Deterministic and short f32 chains, no float atomics: a lane adds a
+//    segment (at most GEN_SEG columns) into a fresh sum, then that into its
+//    total; the lanes of one tile are added by a fixed pairwise tree in
+//    shared memory; each CTA writes its slot of partials, and
+//    dw_wgrad_gen_fold adds the slots in blocks of `fold`, in order. Taps
+//    outside the image come out +0 there.
+constexpr int GEN_CH = 16;                 // channels of a CTA's block, in both dtypes
+constexpr int GEN_CPT = 4;                 // channels per lane
+constexpr int GEN_TPC = GEN_CH / GEN_CPT;  // lanes per pixel lane
+constexpr int GEN_NPX = NT / GEN_TPC;      // pixel lanes of a CTA
+constexpr int GEN_TJ = 8;                  // widest tile of tap columns (instances 1..GEN_TJ)
+constexpr int GEN_SEG = 64;                // most columns a lane walks into one sum
+constexpr int GEN_ZERO = 128;              // bytes of zeros for window slots outside the image
+constexpr int GEN_MAX_D = 1 << 24;         // the largest dilation the launcher takes
 
-template <typename T>
-__global__ void __launch_bounds__(NT) dw_wgrad_gen(const T* __restrict__ x,
-                                                   const T* __restrict__ dy, float* partial, int n,
-                                                   int h, int w, int c, int k, int d, int chunks) {
-  const int e = blockIdx.x * NT + threadIdx.x;
-  const int tap = e / c, ch = e - tap * c;
-  if (tap >= k * k) return;
-  const int p = d * (k - 1) / 2;
-  const int oy = (tap / k) * d - p, ox = (tap % k) * d - p;
-  const long long P = (long long)n * h * w;
-  const long long b = blockIdx.y * P / chunks, end = (blockIdx.y + 1) * P / chunks;
-  int ow = (int)(b % w), oh = (int)(b / w % h), nn = (int)(b / w / h);
-  float acc = 0.f;
-  for (long long pix = b; pix < end; ++pix) {
-    const int ih = oh + oy, iw = ow + ox;
-    if (ih >= 0 && ih < h && iw >= 0 && iw < w)
-      acc = fmaf(as_f32(x[(((size_t)nn * h + ih) * w + iw) * c + ch]), as_f32(dy[pix * c + ch]),
-                 acc);
-    if (++ow == w) {
-      ow = 0;
-      if (++oh == h) oh = 0, ++nn;
-    }
-  }
-  partial[(size_t)blockIdx.y * k * k * c + e] = acc;
+// the general form's geometry (k6_gen_plan has the same in Python)
+struct GenArgs {
+  int n, h, w, c, d;
+  int kri, krj, kc, ntj;  // tap rows and columns reaching the image: |o| <= kri, krj; kc = 2krj+1
+  int kg, ngr, ntg, ngc;  // tap rows a row group, row groups; tiles a column group, column groups
+  int rows, bands, tw, strips;
+  int bwx, bwg;           // pixels of one TMA box of x and of dy
+  int xrow, grow, nxr;    // bytes of an x and a dy ring row; x ring rows
+  int ntap;               // (2 kri + 1) * kc: the partials' taps
+  int tma;
+};
+
+__host__ __device__ inline int ceil_div(int a, int b) {  // b > 0, any a
+  return a >= 0 ? (a + b - 1) / b : -((-a) / b);
 }
 
-__global__ void __launch_bounds__(NT) dw_wgrad_gen_sum(const float* __restrict__ partial,
-                                                       float* __restrict__ dw, int chunks, int kk,
-                                                       int c) {
-  const int e = blockIdx.x * NT + threadIdx.x;
-  const int tap = e / c, ch = e - tap * c;
-  if (tap >= kk) return;
-  float s = 0.f;
-  for (int z = 0; z < chunks; ++z) s += partial[(size_t)z * kk * c + e];
+template <typename T, int TJ>
+__global__ void __launch_bounds__(NT, MIN_CTAS)
+dw_wgrad_gen_tiles(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmg,
+                   const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ part,
+                   const GenArgs a) {
+  constexpr int PBT = GEN_CH * (int)sizeof(T);  // bytes of a pixel's channel block
+  constexpr int NGR = G * (PRE + 1);             // dy ring rows
+  constexpr int SK = ALIGN / PBT;                // pixels of one 128-byte line
+  using U = typename Bits<T>::type;
+  // ring row s starts skew(s) pixels into its line, so that lanes reading
+  // the same column of rows 1 or 2 apart hit other banks
+  auto skew = [](int s) { return (s + s / SK) % SK; };
+
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[NBAR];
+  unsigned char* smem = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
+  unsigned char* xs = smem + GEN_ZERO;              // x ring: rel row r in row r % nxr
+  unsigned char* gs = xs + (size_t)a.nxr * a.xrow;  // dy ring: band row j in row j % NGR
+  const int t = threadIdx.x;
+  const int slot = blockIdx.x, cb = blockIdx.y;
+  const int rg = blockIdx.z % a.ngr, cg = blockIdx.z / a.ngr;
+  const int strip = slot % a.strips, nb = slot / a.strips;
+  const int n = nb / a.bands, band = nb - n * a.bands;
+  const int h = a.h, w = a.w, d = a.d;
+  const int h0 = band * a.rows, nrows = min(a.rows, h - h0);
+  const int w0 = strip * a.tw, nw = min(a.tw, w - w0);
+  const int c0 = cb * GEN_CH;
+  const int steps = cdiv(nrows, G);
+  // tap rows o in [ri0, ri0 + kgc), tiles [tg0, tg0 + ntc); a tile's first
+  // tap column, as an index into the kc columns reaching the image
+  const int ri0 = -a.kri + rg * a.kg, kgc = min(a.kg, a.kri + 1 - ri0);
+  const int tg0 = cg * a.ntg, ntc = min(a.ntg, a.ntj - tg0);
+  auto tile_start = [&](int ti) { return min(ti * TJ, a.kc - TJ); };
+  const int span = (kgc - 1) * d;  // x rows between the group's first and last tap row
+  const int xr0 = h0 + ri0 * d;    // image row of rel row 0 of the run
+  // the image's columns the CTA's taps read for its strip
+  const int xc0 = max(0, w0 + (tile_start(tg0) - a.krj) * d);
+  const int xc1 = min(w, w0 + nw - 1 + (tile_start(tg0 + ntc - 1) + TJ - 1 - a.krj) * d + 1);
+  const int nxc = max(0, xc1 - xc0);
+  const int nbx = nxc > 0 ? cdiv(nxc + SK - 1, a.bwx) : 0, nbg = cdiv(nw + SK - 1, a.bwg);
+
+  if (t < GEN_ZERO / 4) reinterpret_cast<uint32_t*>(smem)[t] = 0u;
+  if (a.tma && t == 0) {
+    for (int b = 0; b < NBAR; ++b) mbar_init(&bars[b], NWARPS);  // lane 0 of each warp arrives
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const T* ximg = x + (size_t)n * h * w * a.c;
+  const T* gimg = dy + (size_t)n * h * w * a.c;
+  // plain fill of one ring row: columns [col0, col0 + ncols) of image row
+  // ih, zero past the last channel
+  auto stage = [&](unsigned char* dst, const T* img, int ih, int col0, int ncols) {
+    const U* src = reinterpret_cast<const U*>(img) + (size_t)ih * w * a.c;
+    for (int i = t; i < ncols * GEN_CH; i += NT) {
+      const int j = i / GEN_CH, cl = i - j * GEN_CH;
+      const int cc = c0 + cl;
+      reinterpret_cast<U*>(dst + j * PBT)[cl] =
+          cc < a.c ? src[(size_t)(col0 + j) * a.c + cc] : U(0);
+    }
+  };
+  // rel row r of the run is staged if it lies in the image and a tap row
+  // of the group reads it for a row of the band
+  auto wanted = [&](int r) {
+    const int ih = xr0 + r;
+    if (ih < 0 || ih >= h) return false;
+    const int i = min(kgc - 1, r / d);
+    return r - i * d < nrows;
+  };
+  // step s: dy rows [sG, min(sG + G, nrows)) and the rel x rows they newly
+  // need (all of [0, G + span) at s = 0)
+  auto issue = [&](int s) {
+    if (s >= steps) return;
+    const int j0 = s * G, j1 = min(j0 + G, nrows);
+    const int lo = s == 0 ? 0 : j0 + span, hi = j1 - 1 + span;
+    if (a.tma) {
+      // lane 0 of warp y takes copies y, y + NWARPS, ... of the step's x
+      // boxes then dy boxes, and arrives with their bytes (none for a warp without)
+      if (t % 32 == 0) {
+        uint64_t* bar = &bars[s % NBAR];
+        const int y = t / 32;
+        uint32_t bytes = 0;
+        int i = 0;
+        for (int r = lo; r <= hi; ++r)
+          if (wanted(r))
+            for (int b = 0; b < nbx; ++b, ++i)
+              if (i % NWARPS == y) bytes += a.bwx * PBT;
+        for (int j = j0; j < j1; ++j)
+          for (int b = 0; b < nbg; ++b, ++i)
+            if (i % NWARPS == y) bytes += a.bwg * PBT;
+        mbar_expect_tx(bar, bytes);
+        i = 0;
+        for (int r = lo; r <= hi; ++r)
+          if (wanted(r))
+            for (int b = 0; b < nbx; ++b, ++i)
+              if (i % NWARPS == y)
+                tma_load_4d(xs + (size_t)(r % a.nxr) * a.xrow + (size_t)b * a.bwx * PBT, &tmx, bar,
+                            c0, xc0 - skew(r % a.nxr) + b * a.bwx, xr0 + r, n);
+        for (int j = j0; j < j1; ++j)
+          for (int b = 0; b < nbg; ++b, ++i)
+            if (i % NWARPS == y)
+              tma_load_4d(gs + (size_t)(j % NGR) * a.grow + (size_t)b * a.bwg * PBT, &tmg, bar, c0,
+                          w0 - skew(j % NGR) + b * a.bwg, h0 + j, n);
+      }
+    } else {
+      for (int r = lo; r <= hi; ++r)
+        if (wanted(r))
+          stage(xs + (size_t)(r % a.nxr) * a.xrow + skew(r % a.nxr) * PBT, ximg, xr0 + r, xc0, nxc);
+      for (int j = j0; j < j1; ++j)
+        stage(gs + (size_t)(j % NGR) * a.grow + skew(j % NGR) * PBT, gimg, h0 + j, w0, nw);
+    }
+  };
+
+#pragma unroll 1
+  for (int s = 0; s < PRE; ++s) issue(s);
+
+  // this lane: channels [c0 + q*CPT, +CPT), item (tap row, tile) pl % ni,
+  // the sub-th of the item's lpi lanes
+  const int ni = kgc * ntc;
+  const int q = t % GEN_TPC, pl = t / GEN_TPC;
+  const int item = pl % ni, sub = pl / ni, lpi = (GEN_NPX - item + ni - 1) / ni;
+  const int ri = ri0 + item / ntc, ti = tg0 + item % ntc;
+  const int ot = tile_start(ti) - a.krj;  // slot 0's tap column offset
+  const bool live = c0 + q * GEN_CPT < a.c;
+  const int lane_off = q * GEN_CPT * (int)sizeof(T);
+  const unsigned char* zero = smem + lane_off;
+  // a row's output columns by residue class mod d (the classes holding a
+  // column), each cut into spc segments of seg columns (odd where a class
+  // has several, so that lanes on neighbouring segments hit other banks);
+  // unit u of a step is (row u / nseg, segment u % nseg)
+  const int lpi_min = GEN_NPX / ni;
+  const int ncls = min(d, nw), m = cdiv(nw, d);
+  const int spc = max(max(1, cdiv(lpi_min, G * ncls)), cdiv(m, GEN_SEG));
+  const int seg = cdiv(m, spc) + (spc > 1 && cdiv(m, spc) % 2 == 0);
+  const int nseg = ncls * spc, units = G * nseg;
+
+  float tot[TJ][GEN_CPT];
+#pragma unroll
+  for (int i = 0; i < TJ; ++i)
+#pragma unroll
+    for (int v = 0; v < GEN_CPT; ++v) tot[i][v] = 0.0f;
+
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    __syncthreads();  // step s - 1 is summed: its ring rows and barrier are free
+    issue(s + PRE);
+    if (a.tma) mbar_wait(&bars[s % NBAR], (s / NBAR) & 1);
+    if (!live) continue;
+#pragma unroll 1
+    for (int u = sub; u < units; u += lpi) {
+      const int g = u / nseg, sg = u - g * nseg;
+      const int ro = s * G + g;
+      if (ro >= nrows) break;  // units run by row
+      const int xr = h0 + ro + ri * d;
+      if (xr < 0 || xr >= h) continue;  // this tap row's x row is outside the image
+      const int r = sg / spc, jc = (sg - r * spc) * seg;
+      const int len = min(seg, cdiv(nw - r, d) - jc);
+      const int ow0 = w0 + r + jc * d;  // the segment's first output column
+      // the columns at which some slot of the tile lies inside the image
+      const int ja = max(0, ceil_div(-(ow0 + (ot + TJ - 1) * d), d));
+      const int jb = min(len, ceil_div(w - ow0 - ot * d, d));
+      if (ja >= jb) continue;
+      const int xslot = (ro + (ri - ri0) * d) % a.nxr, gslot = ro % NGR;
+      const unsigned char* xrow =
+          xs + (size_t)xslot * a.xrow + (skew(xslot) - xc0) * PBT + lane_off;
+      const unsigned char* gp =
+          gs + (size_t)gslot * a.grow + (skew(gslot) + ow0 - w0 + ja * d) * PBT + lane_off;
+      // window slot t at step i holds x column cx0 + (i + t) d: entry e in win[e % TJ]
+      const int cx0 = ow0 + (ja + ot) * d;
+      auto xat = [&](int e) {
+        const int cx = cx0 + e * d;
+        return (unsigned)cx < (unsigned)w ? xrow + cx * PBT : zero;
+      };
+      float win[TJ][GEN_CPT], acc[TJ][GEN_CPT];
+#pragma unroll
+      for (int i = 0; i < TJ; ++i)
+#pragma unroll
+        for (int v = 0; v < GEN_CPT; ++v) acc[i][v] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < TJ - 1; ++e) load_vec<T, GEN_CPT>(xat(e), win[e]);
+      const int len2 = jb - ja;
+#pragma unroll 1
+      for (int ib = 0; ib < len2; ib += TJ) {
+#pragma unroll
+        for (int ii = 0; ii < TJ; ++ii) {
+          if (ib + ii >= len2) break;
+          load_vec<T, GEN_CPT>(xat(ib + ii + TJ - 1), win[(ii + TJ - 1) % TJ]);
+          float gv[GEN_CPT];
+          load_vec<T, GEN_CPT>(gp, gv);
+          gp += d * PBT;
+#pragma unroll
+          for (int tt = 0; tt < TJ; ++tt)
+#pragma unroll
+            for (int v = 0; v < GEN_CPT; ++v)
+              acc[tt][v] = fmaf(win[(ii + tt) % TJ][v], gv[v], acc[tt][v]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < TJ; ++i)
+#pragma unroll
+        for (int v = 0; v < GEN_CPT; ++v) tot[i][v] += acc[i][v];
+    }
+  }
+  __syncthreads();  // the rings are dead: their space takes the lanes' sums
+
+  // the lanes of one item, by a fixed pairwise tree: lane sub adds lane
+  // sub + st at level st where sub % 2st == 0
+  float* red = reinterpret_cast<float*>(xs);  // [GEN_NPX][TJ][GEN_CH]
+#pragma unroll
+  for (int i = 0; i < TJ; ++i)
+#pragma unroll
+    for (int v = 0; v < GEN_CPT; ++v) red[(pl * TJ + i) * GEN_CH + q * GEN_CPT + v] = tot[i][v];
+  __syncthreads();
+  const int lpi_max = cdiv(GEN_NPX, ni);
+  for (int st = 1; st < lpi_max; st <<= 1) {
+    for (int i = t; i < GEN_NPX * TJ * GEN_CH; i += NT) {
+      const int p = i / (TJ * GEN_CH), sb = p / ni;
+      if (sb % (2 * st) == 0 && p + st * ni < GEN_NPX) red[i] += red[i + st * ni * TJ * GEN_CH];
+    }
+    __syncthreads();
+  }
+  // the CTA's slot: part[cb][slot][tap][GEN_CH], the taps this CTA owns
+  float* mine = part + ((size_t)cb * gridDim.x + slot) * a.ntap * GEN_CH;
+  for (int i = t; i < ni * TJ * GEN_CH; i += NT) {
+    const int it = i / (TJ * GEN_CH), tt = (i / GEN_CH) % TJ, ch = i % GEN_CH;
+    const int tile = tg0 + it % ntc, cj = tile_start(tile) + tt;
+    if (cj < tile * TJ) continue;  // the previous tile's tap
+    const int tap = (ri0 + it / ntc + a.kri) * a.kc + cj;
+    mine[(size_t)tap * GEN_CH + ch] = red[i];
+  }
+}
+
+// dW (c, k*k) from the slots: for each (tap, channel) the sum of its slots
+// in blocks of `fold`, in order; +0 for a tap outside the image.
+__global__ void __launch_bounds__(NT) dw_wgrad_gen_fold(const float* __restrict__ part,
+                                                        float* __restrict__ dw, int c, int k,
+                                                        int kri, int krj, int slots, int fold) {
+  const long long e = (long long)blockIdx.x * NT + threadIdx.x;
+  const int kk = k * k;
+  if (e >= (long long)kk * c) return;
+  const int tap = (int)(e / c), ch = (int)(e - (long long)tap * c);  // channels fastest
+  const int hk = (k - 1) / 2, oi = tap / k - hk, oj = tap % k - hk;
+  float s = 0.0f;
+  if (abs(oi) <= kri && abs(oj) <= krj) {
+    const int kc = 2 * krj + 1, ntap = (2 * kri + 1) * kc;
+    const size_t stride = (size_t)ntap * GEN_CH;
+    const float* p = part + ((size_t)(ch / GEN_CH) * slots * ntap + (oi + kri) * kc + oj + krj) *
+                                GEN_CH + ch % GEN_CH;
+    for (int b0 = 0; b0 < slots; b0 += fold) {
+      float blk = 0.0f;
+      const int b1 = min(b0 + fold, slots);
+      for (int sl = b0; sl < b1; ++sl) blk += __ldg(p + (size_t)sl * stride);
+      s += blk;
+    }
+  }
   dw[(size_t)ch * kk + tap] = s;
 }
 
-template <typename T>
-cudaError_t launch_gen(const void* x, const void* dy, float* partial, float* dw, int n, int h,
-                       int w, int c, int k, int d, int chunks, cudaStream_t s) {
-  const long long items = (long long)k * k * c;
-  if (chunks < 1 || chunks > 65535 || items >= (1ll << 31) - NT) return cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((items + NT - 1) / NT);
-  dw_wgrad_gen<T><<<dim3(blocks, (unsigned)chunks), NT, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), partial, n, h, w, c, k, d, chunks);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  dw_wgrad_gen_sum<<<blocks, NT, 0, s>>>(partial, dw, chunks, k * k, c);
+// The general form's shared memory: 128 bytes of alignment, the zero
+// pixel, then the rings or the lanes' sums after them, whichever is larger.
+struct GenGeom {
+  int kri, krj, kc, ntj, nxc, bwx, bwg, xrow, grow;
+  long long nxr, smem;
+};
+
+GenGeom gen_geom(int h, int w, int k, int d, int tj, int ntg, int kg, int tw, int elem) {
+  GenGeom g;
+  const int hk = (k - 1) / 2;
+  g.kri = min(hk, (h - 1) / d);
+  g.krj = min(hk, (w - 1) / d);
+  g.kc = 2 * g.krj + 1;
+  g.ntj = cdiv(g.kc, tj);
+  const int span = min(g.kc, ntg * tj);  // tap columns a column group reaches over
+  g.nxc = (int)std::min<long long>(w, tw + (long long)(span - 1) * d);
+  const int pb = GEN_CH * elem, sk = ALIGN / pb;  // a row's skew takes up to sk - 1 pixels
+  g.bwx = min(MAX_BOX, g.nxc + sk - 1);
+  g.bwg = min(MAX_BOX, tw + sk - 1);
+  g.xrow = up128(cdiv(g.nxc + sk - 1, g.bwx) * g.bwx * pb);
+  g.grow = up128(cdiv(tw + sk - 1, g.bwg) * g.bwg * pb);
+  g.nxr = (long long)(kg - 1) * d + G * (PRE + 1);
+  const long long ring = g.nxr * g.xrow + (long long)G * (PRE + 1) * g.grow;
+  const long long red = (long long)GEN_NPX * tj * GEN_CH * 4;
+  g.smem = ALIGN + GEN_ZERO + (ring > red ? ring : red);
+  return g;
+}
+
+template <typename T, int TJ>
+cudaError_t launch_gen_t(const void* x, const void* dy, float* part, const GenArgs& a, int smem,
+                         unsigned slots, unsigned cblocks, unsigned groups, cudaStream_t s) {
+  static std::atomic<int> smem_set{0};  // the largest opt-in made for this instance
+  if (smem > smem_set.load()) {
+    const cudaError_t e = cudaFuncSetAttribute(dw_wgrad_gen_tiles<T, TJ>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set.store(smem);
+  }
+  CUtensorMap tmx, tmg;
+  memset(&tmx, 0, sizeof(tmx));
+  memset(&tmg, 0, sizeof(tmg));
+  if (a.tma) {
+    const bool bf = sizeof(T) == 2;
+    cudaError_t e = row_map(&tmx, x, bf, a.n, a.h, a.w, a.c, GEN_CH, a.bwx);
+    if (e == cudaSuccess) e = row_map(&tmg, dy, bf, a.n, a.h, a.w, a.c, GEN_CH, a.bwg);
+    if (e != cudaSuccess) return e;
+  }
+  dw_wgrad_gen_tiles<T, TJ><<<dim3(slots, cblocks, groups), NT, smem, s>>>(
+      tmx, tmg, static_cast<const T*>(x), static_cast<const T*>(dy), part, a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_gen_tj(int tj, const void* x, const void* dy, float* part, const GenArgs& a,
+                          int smem, unsigned slots, unsigned cblocks, unsigned groups,
+                          cudaStream_t s) {
+  switch (tj) {
+    case 1: return launch_gen_t<T, 1>(x, dy, part, a, smem, slots, cblocks, groups, s);
+    case 2: return launch_gen_t<T, 2>(x, dy, part, a, smem, slots, cblocks, groups, s);
+    case 3: return launch_gen_t<T, 3>(x, dy, part, a, smem, slots, cblocks, groups, s);
+    case 4: return launch_gen_t<T, 4>(x, dy, part, a, smem, slots, cblocks, groups, s);
+    case 5: return launch_gen_t<T, 5>(x, dy, part, a, smem, slots, cblocks, groups, s);
+    case 6: return launch_gen_t<T, 6>(x, dy, part, a, smem, slots, cblocks, groups, s);
+    case 7: return launch_gen_t<T, 7>(x, dy, part, a, smem, slots, cblocks, groups, s);
+    case 8: return launch_gen_t<T, 8>(x, dy, part, a, smem, slots, cblocks, groups, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -546,21 +870,49 @@ int tsii_dw_wgrad(const void* x, const void* dy, void* partial, void* tickets, v
   return (int)e;
 }
 
-// K6's general form (k odd, any d >= 1): partial holds chunks * k*k * c
-// floats (ops/kernels/depthwise_wgrad.py::k6_plan gives chunks); dw (c,
-// k*k) f32. Two kernels on `stream`.
+// K6's general form (k odd, any d >= 1): x, dy (n, h, w, c) bf16 or f32,
+// contiguous -> dw (c, k*k) f32. tj, ntg, kg, rows, tw and fold from
+// ops/kernels/depthwise_wgrad.py::k6_gen_plan; partial holds cdiv(c, 16) *
+// n * cdiv(h, rows) * cdiv(w, tw) * (2 kri + 1) * (2 krj + 1) * 16 floats
+// (kri = min((k-1)/2, (h-1)/d), krj the same with w). Two kernels on `stream`.
 int tsii_dw_wgrad_gen(const void* x, const void* dy, void* partial, void* dw, int n, int h, int w,
-                      int c, int k, int d, int is_bf16, int chunks, void* stream) {
-  if (d < 1 || k < 1 || k % 2 == 0 || n < 0 || h < 0 || w < 0 || c < 0)
+                      int c, int k, int d, int is_bf16, int tj, int ntg, int kg, int rows, int tw,
+                      int fold, void* stream) {
+  if (d < 1 || d > GEN_MAX_D || k < 1 || k % 2 == 0 || n < 0 || h < 0 || w < 0 || c < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c == 0) return (int)cudaSuccess;
   if ((long long)n * h * w == 0)
     return (int)cudaMemsetAsync(dw, 0, sizeof(float) * (size_t)k * k * c, s);
+  const int elem = is_bf16 ? 2 : 4;
+  if (tj < 1 || tj > GEN_TJ || ntg < 1 || kg < 1 || rows < 1 || tw < 1 || tw > w || fold < 1)
+    return (int)cudaErrorInvalidValue;
+  const GenGeom g = gen_geom(h, w, k, d, tj, ntg, kg, tw, elem);
+  if (tj > g.kc || ntg > g.ntj || kg > 2 * g.kri + 1 || kg * ntg > GEN_NPX || g.smem > MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  GenArgs a;
+  a.n = n; a.h = h; a.w = w; a.c = c; a.d = d;
+  a.kri = g.kri; a.krj = g.krj; a.kc = g.kc; a.ntj = g.ntj;
+  a.kg = kg; a.ngr = cdiv(2 * g.kri + 1, kg); a.ntg = ntg; a.ngc = cdiv(g.ntj, ntg);
+  a.rows = rows; a.bands = cdiv(h, rows); a.tw = tw; a.strips = cdiv(w, tw);
+  a.bwx = g.bwx; a.bwg = g.bwg; a.xrow = g.xrow; a.grow = g.grow; a.nxr = (int)g.nxr;
+  a.ntap = (2 * g.kri + 1) * g.kc;
+  // TMA needs 16-byte aligned rows: pixel strides and base addresses
+  a.tma = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) % 16 == 0) &&
+          ((size_t)c * elem) % 16 == 0;
+  const long long slots = (long long)n * a.bands * a.strips;
+  const int cblocks = cdiv(c, GEN_CH), groups = a.ngr * a.ngc;
+  if (slots > 0x7fffffffLL || cblocks > 65535 || groups > 65535) return (int)cudaErrorInvalidValue;
   float* pf = static_cast<float*>(partial);
-  float* dwf = static_cast<float*>(dw);
-  return (int)(is_bf16 ? launch_gen<bf16>(x, dy, pf, dwf, n, h, w, c, k, d, chunks, s)
-                       : launch_gen<float>(x, dy, pf, dwf, n, h, w, c, k, d, chunks, s));
+  cudaError_t e = is_bf16 ? launch_gen_tj<bf16>(tj, x, dy, pf, a, (int)g.smem, (unsigned)slots,
+                                                cblocks, groups, s)
+                          : launch_gen_tj<float>(tj, x, dy, pf, a, (int)g.smem, (unsigned)slots,
+                                                 cblocks, groups, s);
+  if (e != cudaSuccess) return (int)e;
+  const long long items = (long long)k * k * c;
+  dw_wgrad_gen_fold<<<(unsigned)((items + NT - 1) / NT), NT, 0, s>>>(
+      pf, static_cast<float*>(dw), c, k, g.kri, g.krj, (int)slots, fold);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

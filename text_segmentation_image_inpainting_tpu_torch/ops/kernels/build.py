@@ -147,7 +147,7 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_stem_f32_occupancy.restype = i32
         lib.tsii_dw_wgrad.argtypes = [ptr] * 5 + [i32] * 9 + [ptr]
         lib.tsii_dw_wgrad.restype = i32
-        lib.tsii_dw_wgrad_gen.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+        lib.tsii_dw_wgrad_gen.argtypes = [ptr] * 4 + [i32] * 13 + [ptr]
         lib.tsii_dw_wgrad_gen.restype = i32
         lib.tsii_error_string.argtypes = [i32]
         lib.tsii_error_string.restype = ctypes.c_char_p

@@ -16,23 +16,32 @@ CUDA-event median and each device kernel's time (torch.profiler) of
   - cuDNN's conv on x already masked and its ``convolution_backward`` in
     the same dtype (TF32 off; yardsticks the port never calls),
   - and the bound of each (``chip_smoke.py::bound``: operations at the
-    dtype's peak or bytes at 3.35 TB/s, the larger);
+    dtype's peak or bytes at 3.35 TB/s, the larger; K6's operations are
+    ``chip_smoke.py::k6_work``'s, the products inside the image);
 
 then, for the routing cut (``ROUTE_CASES``: the head's 67 -> 3 at k 3 and
 5 to 11), wherever the plans pick a templated form (K2,
 ``pconv_k2_bwd``, K2F, ``pconv_k2f_bwd``), that form beside the general
 form forced on the same inputs (``_launch_gen_fwd`` / ``_launch_gen_bwd``); and
-K6's general form (``dw_wgrad_gen``, ``dw_wgrad_gen_sum``) at k 9 on the
-segmenter's block-2 map (8, 128, 128, 144) beside cuDNN's depthwise wgrad;
+K6's general form (``dw_wgrad_gen_tiles``, ``dw_wgrad_gen_fold``) at
+``K6_CASES`` (k 9 on the segmenter's block-2 map (8, 128, 128, 144) and
+``chip_smoke.py``'s SCOPE_K6) beside cuDNN's depthwise wgrad and the bound;
 with the card's name and power limit. Each line names the form the plans
 pick; where that is the templated one, the general form forced on the same
 inputs follows it.
 
-    python3 tools/gen_forms.py [--quick | --no-route]
+    python3 tools/gen_forms.py [--quick | --no-route | --k6 | --k6-route]
 
 ``--quick`` times only ``CASES``' first entry, ``--no-route`` only
-``CASES``. The script also runs in an older tree (copy it there) for an
-A/B.
+``CASES``, ``--k6`` only K6 at ``K6_CASES``. ``--k6-route`` weighs K6's
+templated form against its general form forced on the same inputs at the
+shapes near the template's limits (``K6_ROUTE``: k 3 at d 8 to 27, k 5 at
+d 4 to 13, k 7 at d 2 to 9 on block 2's map, and K6_RAGGED's d 20 strips),
+both dtypes, each with its plan, the two results' largest difference and
+the ratio general / templated: the routing cut ``K6_GEN_HALO`` comes from
+it. The script also runs in an older tree for an A/B (copy it there, with
+this tree's ``chip_smoke.py``, whose ``bound`` and ``k6_work`` it imports);
+there ``--k6`` reads the older plan's fields.
 """
 
 from __future__ import annotations
@@ -57,7 +66,14 @@ CASES = (
 ROUTE_CASES = tuple(
     (f"head 67 -> 3, k {k}", 8, 512, 512, (64, 3), 3, k, ((k - 1) // 2, (k - 1) // 2))
     for k in (3, 5, 6, 7, 8, 9, 10, 11))
-K6_CASE = ("K6 k 9, block 2", 8, 128, 128, 144, 9, 1)
+K6_CASES = (("K6 k 9, block 2", 8, 128, 128, 144, 9, 1),
+            ("K6 k 9, d 1", 2, 64, 64, 128, 9, 1),
+            ("K6 k 7, d 48", 2, 96, 96, 128, 7, 48),
+            ("K6 k 13, d 2, C 130", 2, 64, 64, 130, 13, 2),
+            ("K6 k 3, d 25, block 2", 8, 128, 128, 144, 3, 25))
+K6_ROUTE = tuple((f"K6 k {k}, d {d}, block 2", 8, 128, 128, 144, k, d) for k, ds in (
+    (3, (8, 12, 16, 20, 24, 25, 26, 27)), (5, (4, 6, 8, 10, 12, 13)), (7, (2, 3, 4, 5, 6, 7, 8, 9)))
+    for d in ds) + (("K6 k 3, d 20, 50x100, C 128 (K6_RAGGED)", 1, 50, 100, 128, 3, 20),)
 
 
 def event_ms(fn, iters: int = 10, warmup: int = 3) -> float:
@@ -117,11 +133,14 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true", help="CASES' first entry only")
     ap.add_argument("--no-route", action="store_true",
                     help="CASES only: no routing comparison, no K6 (for an A/B)")
+    ap.add_argument("--k6", action="store_true", help="K6 at K6_CASES only (for an A/B)")
+    ap.add_argument("--k6-route", action="store_true",
+                    help="K6's templated form beside its general form forced, at K6_ROUTE")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("gen_forms: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import PEAK_BF16, PEAK_F32, bound
+    from chip_smoke import PEAK_BF16, PEAK_F32, bound, k6_work
     from text_segmentation_image_inpainting_tpu_torch.ops.conv import to_nchw
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
     from text_segmentation_image_inpainting_tpu_torch.ops.kernels import partial_conv as kpc
@@ -135,7 +154,10 @@ def main() -> int:
     print(f"gen_forms: {smi}; torch {torch.__version__}; tree {ROOT}", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     lib = load_library()
-    cases = CASES[:1] if args.quick else CASES if args.no_route else CASES + ROUTE_CASES
+    if args.k6_route:
+        return k6_route(dev, gen)
+    cases = (() if args.k6 else CASES[:1] if args.quick else CASES if args.no_route
+             else CASES + ROUTE_CASES)
     for ci, (name, n, h, w, groups, cout, k, pad) in enumerate(cases):
         cin = sum(groups)
         x, m, wt, b = inputs(gen, dev, n, h, w, groups, cout, k)
@@ -189,24 +211,53 @@ def main() -> int:
                   flush=True)
     if args.quick or args.no_route:
         return 0
-    name, n, h, w, c, k, d = K6_CASE
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for dt in (torch.bfloat16, torch.float32):
-        x = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
-        dy = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
-        plan = kdw.k6_plan(n, h, w, c, k, d, x.element_size(), sms)
-        assert plan.general, plan
-        label = f"{name} {'f32' if dt == torch.float32 else 'bf16'} ({plan.chunks} chunks)"
-        show(label, lambda: kdw.depthwise_wgrad(x, dy, k, d))
-        p = d * (k - 1) // 2
-        wdw = torch.zeros((c, 1, k, k), device=dev, dtype=dt)
-        xc, dyc = to_nchw(x), to_nchw(dy)
-        lib_w = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
-            dyc, xc, wdw, None, [1, 1], [p, p], [d, d], False, [0, 0], c, [False, True, False])
-        t_b, by = bound(2.0 * k * k * x.numel(), 2.0 * x.numel() * x.element_size() + 4 * k * k * c,
-                        PEAK_F32 if dt == torch.float32 else PEAK_BF16)
-        print(f"{label} cuDNN's depthwise wgrad {event_ms(lib_w):.4f} ms (events); bound "
-              f"{t_b:.4f} ms ({by})", flush=True)
+    for name, n, h, w, c, k, d in K6_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
+            dy = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
+            plan = kdw.k6_plan(n, h, w, c, k, d, x.element_size(), sms)
+            cut = getattr(plan, "gen", None)
+            if cut is None:  # an older tree: chunks of pixels, or the templated form
+                cut = (f"{plan.chunks} chunks" if plan.general
+                       else f"templated, strips {plan.strips} of {plan.tw}")
+            label = f"{name} {'f32' if dt == torch.float32 else 'bf16'}"
+            show(f"{label} ({cut})", lambda: kdw.depthwise_wgrad(x, dy, k, d))
+            p = d * (k - 1) // 2
+            wdw = torch.zeros((c, 1, k, k), device=dev, dtype=dt)
+            xc, dyc = to_nchw(x), to_nchw(dy)
+            lib_w = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+                dyc, xc, wdw, None, [1, 1], [p, p], [d, d], False, [0, 0], c,
+                [False, True, False])
+            flop, nbytes = k6_work(x, k, d)
+            t_b, by = bound(flop, nbytes, PEAK_F32 if dt == torch.float32 else PEAK_BF16)
+            print(f"{label} cuDNN's depthwise wgrad {event_ms(lib_w):.4f} ms (events); bound "
+                  f"{t_b:.4f} ms ({by}); FFMA floor {flop / PEAK_F32 * 1e3:.4f} ms", flush=True)
+    return 0
+
+
+def k6_route(dev, gen) -> int:
+    """K6's templated form beside its general form forced, at K6_ROUTE."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_wgrad as kdw
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, n, h, w, c, k, d in K6_ROUTE:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
+            dy = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
+            label = f"{name} {'f32' if dt == torch.float32 else 'bf16'}"
+            plan = kdw.k6_plan(n, h, w, c, k, d, x.element_size(), sms)
+            forced = kdw.k6_gen_plan(n, h, w, c, k, d, x.element_size(), sms)
+            if plan.general:
+                print(f"{label}: the plan takes the general form ({plan.gen})", flush=True)
+                continue
+            a, b = kdw._launch_k6(x, dy, k, d), kdw._launch_k6_gen(x, dy, k, d, forced)
+            diff = (a - b).abs().max().item()
+            t_t = event_ms(lambda: kdw._launch_k6(x, dy, k, d))
+            t_g = event_ms(lambda: kdw._launch_k6_gen(x, dy, k, d, forced))
+            print(f"{label}: templated {t_t:.4f} ms (strips {plan.strips} of {plan.tw}, bands "
+                  f"{plan.bands}), general forced {t_g:.4f} ms ({forced}); general / "
+                  f"templated {t_g / t_t:.3f}; max |templated - general| {diff:.3g}", flush=True)
     return 0
 
 

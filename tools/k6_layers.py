@@ -18,11 +18,18 @@ the truth at ``chip_smoke.py::K6_RAGGED``. Runs in any tree whose
 ``depthwise_wgrad(x, dy, k, d)`` and ``chip_smoke.py`` have these names,
 so an older tree can be timed beside this one in the same call:
 
-    python3 tools/k6_layers.py
+    python3 tools/k6_layers.py [--hash]
+
+``--hash`` only prints the SHA-256 of K6's dW bytes at the segmenter's
+shapes (``SEG_SHAPES``), Xception's (``XCEPTION_SHAPES``) and
+``K6_RAGGED``, on inputs drawn from a fixed seed: run it in two trees and
+compare the lines to show that a change left the templated form's results
+as they were.
 """
 
 from __future__ import annotations
 
+import hashlib
 import subprocess
 import sys
 from pathlib import Path
@@ -54,6 +61,8 @@ def main() -> int:
             cs.log(f"  ptxas: {line.strip()}")
 
     dev = torch.device("cuda", 0)
+    if "--hash" in sys.argv[1:]:
+        return hash_dw(dev, kdw)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 2)
     bf = torch.bfloat16
     names = ("K6 events", "K6 device", "plain f32", "cuDNN wgrad", "dx flipped conv", "dx dgrad",
@@ -94,6 +103,24 @@ def main() -> int:
         dy = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
         res = cs.check_wgrad(f"K6 {name}", x, dy, k, d)
         cs.log(f"K6 {name}: max |d| to the f64 truth {res['K6']:.4g}")
+    return 0
+
+
+def hash_dw(dev, kdw) -> int:
+    """SHA-256 of K6's dW bytes at every shape of the seg and Xception steps
+    and at K6_RAGGED, each on inputs from its own seed."""
+    cases = ([(f"seg {name}", cs.BATCH, h, h, c, 3, d, torch.bfloat16)
+              for name, h, c, d, _ in cs.SEG_SHAPES]
+             + [(f"xception {name}", cs.BATCH, h, h, c, 3, d, torch.bfloat16)
+                for name, h, c, d, _ in cs.XCEPTION_SHAPES]
+             + [(f"ragged {name}", *rest) for name, *rest in cs.K6_RAGGED])
+    for i, (name, n, h, w, c, k, d, dt) in enumerate(cases):
+        gen = torch.Generator(device=dev).manual_seed(1000 + i)
+        x = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
+        dy = torch.randn((n, h, w, c), generator=gen, device=dev).to(dt)
+        dw = kdw.depthwise_wgrad(x, dy, k, d).contiguous()
+        digest = hashlib.sha256(dw.cpu().numpy().tobytes()).hexdigest()[:16]
+        cs.log(f"hash K6 {name} {(n, h, w, c)} k {k} d {d} {dt}: {digest}")
     return 0
 
 
