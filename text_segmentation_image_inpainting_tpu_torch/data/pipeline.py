@@ -26,6 +26,8 @@ from typing import Any, Iterator, Sequence
 import numpy as np
 import torch
 
+from text_segmentation_image_inpainting_tpu_torch.utils.profiling import count
+
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
 
 
@@ -218,6 +220,10 @@ class DevicePrefetcher:
     A batch the worker fails on is raised once from ``__next__``, after
     which the iterator stops; ``close()`` stops the worker, drains the
     queue and joins the thread.
+
+    ``__next__`` counts ``prefetch.batches`` for each batch it hands out and
+    ``prefetch.starved`` for each that found the queue empty
+    (``utils/profiling.py::counters``).
     """
 
     def __init__(self, host_iter: Iterator, device: Any = "cuda", depth: int = 2, mesh=None,
@@ -292,6 +298,7 @@ class DevicePrefetcher:
         # end marker: later calls must not block on get()
         if self._dead:
             raise StopIteration
+        starved = self._q.empty()
         item = self._q.get()
         if item is None:
             self._dead = True
@@ -304,6 +311,9 @@ class DevicePrefetcher:
             for device, ev in done:
                 torch.cuda.current_stream(device).wait_event(ev)
             _tree_map(lambda t: t.record_stream(torch.cuda.current_stream(t.device)), batch)
+        count("prefetch.batches")
+        if starved:
+            count("prefetch.starved")
         return batch
 
     def close(self) -> None:

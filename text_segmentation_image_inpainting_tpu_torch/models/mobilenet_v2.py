@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from text_segmentation_image_inpainting_tpu_torch.ops import collectives, depthwise
 from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d, torch_same_padding
+from text_segmentation_image_inpainting_tpu_torch.utils.profiling import span
 
 # (expansion t, out channels c, repeats n, first-block stride s)
 MOBILENETV2_CONFIG: Tuple[Tuple[int, int, int, int], ...] = (
@@ -68,32 +69,34 @@ class BatchNorm(nn.BatchNorm2d):
     differentiable all-reduce and divided by their number, so the gradient
     through the statistics crosses ranks. ``torch.nn.SyncBatchNorm`` is not
     used: it too moves ``running_var`` with the unbiased variance. Frozen
-    and eval mode take no collective.
+    and eval mode take no collective. The whole of ``forward`` is the span
+    ``bn`` (``utils/profiling.py::span``).
     """
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor, *, frozen: bool = False) -> torch.Tensor:
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if self.training and not frozen:
-            mean = xf.mean(dim=(0, 1, 2))
-            mean2 = (xf * xf).mean(dim=(0, 1, 2))
-            if collectives.active() is not None:
-                both = collectives.all_reduce_stats(torch.cat([mean, mean2]))
-                both = both / collectives.dp_world()
-                mean, mean2 = both[:mean.shape[0]], both[mean.shape[0]:]
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(0.9).add_(0.1 * mean)
-                self.running_var.mul_(0.9).add_(0.1 * var)
-                self.num_batches_tracked.add_(1)
-        else:
-            mean, var = self.running_mean, self.running_var
-        y = xf - mean
-        y = y * (torch.rsqrt(var + self.eps) * self.weight)
-        y = y + self.bias
-        return y.to(x.dtype)
+        with span("bn"):
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            if self.training and not frozen:
+                mean = xf.mean(dim=(0, 1, 2))
+                mean2 = (xf * xf).mean(dim=(0, 1, 2))
+                if collectives.active() is not None:
+                    both = collectives.all_reduce_stats(torch.cat([mean, mean2]))
+                    both = both / collectives.dp_world()
+                    mean, mean2 = both[:mean.shape[0]], both[mean.shape[0]:]
+                var = torch.clamp(mean2 - mean * mean, min=0.0)
+                with torch.no_grad():
+                    self.running_mean.mul_(0.9).add_(0.1 * mean)
+                    self.running_var.mul_(0.9).add_(0.1 * var)
+                    self.num_batches_tracked.add_(1)
+            else:
+                mean, var = self.running_mean, self.running_var
+            y = xf - mean
+            y = y * (torch.rsqrt(var + self.eps) * self.weight)
+            y = y + self.bias
+            return y.to(x.dtype)
 
 
 @torch.no_grad()

@@ -68,6 +68,7 @@ from text_segmentation_image_inpainting_tpu_torch.ops.partial_conv import (
     mask_window_sum,
     pconv_epilogue,
 )
+from text_segmentation_image_inpainting_tpu_torch.utils.profiling import span
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
@@ -164,24 +165,26 @@ def partial_conv2d_backward(g, x, mask, weight, bias, group_sizes, padding,
     Cout <= 7 ``pconv_k2_bwd`` alone (``_launch_k2_bwd``); in f32 the
     former at Cout >= 8, and at Cout <= 7 ``pconv_k3_prep`` before
     ``pconv_k2f_bwd`` (``_launch_k2f_bwd``); a failed build or launch
-    raises. On a CPU tensor the plain version."""
+    raises. On a CPU tensor the plain version. The CUDA path is the span
+    ``pconv.k3`` (``utils/profiling.py::span``)."""
     needs = (needs[0], needs[1], needs[2] and bias is not None)
     if not any(needs):
         return None, None, None
     if x.device.type == "cpu":
         return partial_conv2d_backward_reference(g, x, mask, weight, bias, group_sizes, padding,
                                                  needs)
-    if x.dtype == torch.float32:
-        small = weight.shape[0] <= _K2_MAX_COUT
-        out = (_launch_k2f_bwd if small else _launch_k3)(g, x, mask, weight, bias,
-                                                         group_sizes, padding, needs)
-        _count("K3F_LAUNCHES")
-    elif weight.shape[0] <= _K2_MAX_COUT:
-        out = _launch_k2_bwd(g, x, mask, weight, bias, group_sizes, padding, needs)
-        _count("K3_LAUNCHES")
-    else:
-        out = _launch_k3(g, x, mask, weight, bias, group_sizes, padding, needs)
-        _count("K3_LAUNCHES")
+    with span("pconv.k3"):
+        if x.dtype == torch.float32:
+            small = weight.shape[0] <= _K2_MAX_COUT
+            out = (_launch_k2f_bwd if small else _launch_k3)(g, x, mask, weight, bias,
+                                                             group_sizes, padding, needs)
+            _count("K3F_LAUNCHES")
+        elif weight.shape[0] <= _K2_MAX_COUT:
+            out = _launch_k2_bwd(g, x, mask, weight, bias, group_sizes, padding, needs)
+            _count("K3_LAUNCHES")
+        else:
+            out = _launch_k3(g, x, mask, weight, bias, group_sizes, padding, needs)
+            _count("K3_LAUNCHES")
     return out
 
 

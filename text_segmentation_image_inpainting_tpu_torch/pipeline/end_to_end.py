@@ -22,6 +22,7 @@ from text_segmentation_image_inpainting_tpu_torch.models.partial_convolution imp
 from text_segmentation_image_inpainting_tpu_torch.models.text_segmentation import TextSegmenter
 from text_segmentation_image_inpainting_tpu_torch.ops.morphology import dilate_mask
 from text_segmentation_image_inpainting_tpu_torch.ops.resize import resize_bilinear
+from text_segmentation_image_inpainting_tpu_torch.utils.profiling import span
 
 
 def preprocess_page(image: torch.Tensor, size: Tuple[int, int] = (512, 512)) -> torch.Tensor:
@@ -76,13 +77,14 @@ class TextRemovalPipeline(nn.Module):
         on the device: ``torch.tensor(logit_t, device=...)`` would be a
         blocking host-to-device copy, a stream synchronize in every call.
         """
-        logits = self.seg(pages.to(self.compute_dtype))
-        logit_t = float(np.log(self.threshold / (1.0 - self.threshold)))
-        thr = torch.full((), logit_t, dtype=logits.dtype, device=logits.device)
-        text2d = (logits[..., 0] > thr).to(self.compute_dtype)
-        if dilate:
-            text2d = dilate_mask(text2d, self.dilate_radius)
-        return 1.0 - text2d  # valid = not text
+        with span("pipeline.segment"):
+            logits = self.seg(pages.to(self.compute_dtype))
+            logit_t = float(np.log(self.threshold / (1.0 - self.threshold)))
+            thr = torch.full((), logit_t, dtype=logits.dtype, device=logits.device)
+            text2d = (logits[..., 0] > thr).to(self.compute_dtype)
+            if dilate:
+                text2d = dilate_mask(text2d, self.dilate_radius)
+            return 1.0 - text2d  # valid = not text
 
     @torch.no_grad()
     def segment(self, pages: torch.Tensor, *, dilate: bool = True) -> torch.Tensor:
@@ -111,10 +113,11 @@ class TextRemovalPipeline(nn.Module):
         return self._inpaint2d(pages, valid2d)[:, :h, :w]
 
     def _inpaint2d(self, pages: torch.Tensor, valid2d: torch.Tensor) -> torch.Tensor:
-        pages = pages.to(self.compute_dtype)
-        valid = valid2d[..., None]
-        out = self.unet(pages * valid, valid)
-        return valid * pages + (1.0 - valid) * out
+        with span("pipeline.inpaint"):
+            pages = pages.to(self.compute_dtype)
+            valid = valid2d[..., None]
+            out = self.unet(pages * valid, valid)
+            return valid * pages + (1.0 - valid) * out
 
     @torch.no_grad()
     def run(self, pages: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -57,6 +57,7 @@ from text_segmentation_image_inpainting_tpu_torch.pipeline.sparse import (
     sparse_unflatten,
     to_uint8,
 )
+from text_segmentation_image_inpainting_tpu_torch.utils.profiling import span
 
 
 def to_compute(pages: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -214,8 +215,9 @@ class PageStreamServer:
 
     @staticmethod
     def _wait(host, done) -> list:
-        for ev in done or ():
-            ev.synchronize()
+        with span("serve.result_wait"):
+            for ev in done or ():
+                ev.synchronize()
         return [t.numpy() for t in host]
 
     def _compute(self, fn, pages) -> list:
@@ -228,14 +230,15 @@ class PageStreamServer:
         self._enqueue(self._upload(host if host is not None else pages), host, chunked=chunked)
 
     def _enqueue(self, parts: list, host, *, chunked: bool) -> None:
-        if self._sparse:
-            k = self._k_next
-            run = self._run_sparse_chunk if chunked else self._run_sparse
-            res = self._each(lambda pipe, pages: run(pipe, pages, k), parts)
-            self._inflight.append(_Inflight(chunked, k, *self._to_host(res), host))
-        else:
-            res = self._each(self._run_chunk if chunked else self._run, parts)
-            self._inflight.append(_Inflight(chunked, 0, *self._to_host(res), None))
+        with span("serve.dispatch"):
+            if self._sparse:
+                k = self._k_next
+                run = self._run_sparse_chunk if chunked else self._run_sparse
+                res = self._each(lambda pipe, pages: run(pipe, pages, k), parts)
+                self._inflight.append(_Inflight(chunked, k, *self._to_host(res), host))
+            else:
+                res = self._each(self._run_chunk if chunked else self._run, parts)
+                self._inflight.append(_Inflight(chunked, 0, *self._to_host(res), None))
 
     def _observe_counts(self, counts: np.ndarray) -> None:
         """Track recent changed-tile demand; pick the next dispatch's
@@ -368,7 +371,11 @@ class PageStreamServer:
 
         pf = DevicePrefetcher(_images(), device=self._device, depth=prefetch, mesh=self._mesh)
         try:
-            for batch in pf:
+            while True:
+                with span("serve.feed_wait"):
+                    batch = next(pf, None)
+                if batch is None:
+                    break
                 img = [batch["image"]] if self._mesh is None else [b["image"] for b in batch]
                 host = host_q.popleft()
                 chunked = self._chunk > 1 and host.ndim == 5

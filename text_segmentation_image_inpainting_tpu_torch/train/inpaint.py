@@ -26,6 +26,7 @@ from text_segmentation_image_inpainting_tpu_torch.train.accum import accumulate_
 from text_segmentation_image_inpainting_tpu_torch.train.config import InpaintTrainConfig
 from text_segmentation_image_inpainting_tpu_torch.train.metrics import psnr, ssim
 from text_segmentation_image_inpainting_tpu_torch.train.state import TrainState, data_parallel
+from text_segmentation_image_inpainting_tpu_torch.utils.profiling import span
 
 
 def make_inpaint_train_step(model, cfg: InpaintTrainConfig, vgg: VGG16Features, *, mesh=None):
@@ -46,16 +47,20 @@ def make_inpaint_train_step(model, cfg: InpaintTrainConfig, vgg: VGG16Features, 
 
     def micro_step(mb: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         gt, mask = mb["image"], mb["mask"]
-        if cfg.remat == "full":
-            # the recompute in backward would move the BN running stats a
-            # second time: keep the first forward's and put them back
-            out = torch.utils.checkpoint.checkpoint(fwd, gt * mask, mask, use_reentrant=False)
-            with torch.no_grad():
-                stats = [b.clone() for b in model.buffers()]
-        else:
-            out = fwd(gt * mask, mask)
-        loss, terms = inpainting_loss(out, gt, mask, vgg, config=cfg.loss)
-        loss.backward()
+        with span("train.forward"):
+            if cfg.remat == "full":
+                # the recompute in backward would move the BN running stats a
+                # second time: keep the first forward's and put them back
+                out = torch.utils.checkpoint.checkpoint(fwd, gt * mask, mask,
+                                                        use_reentrant=False)
+                with torch.no_grad():
+                    stats = [b.clone() for b in model.buffers()]
+            else:
+                out = fwd(gt * mask, mask)
+        with span("train.loss"):
+            loss, terms = inpainting_loss(out, gt, mask, vgg, config=cfg.loss)
+        with span("train.backward"):
+            loss.backward()
         if cfg.remat == "full":
             with torch.no_grad():
                 for b, saved in zip(model.buffers(), stats):
@@ -66,7 +71,8 @@ def make_inpaint_train_step(model, cfg: InpaintTrainConfig, vgg: VGG16Features, 
         model.train()
         with data_parallel(mesh):
             terms = accumulate_grads(micro_step, batch, cfg.grad_accum, state.clip_params)
-        state.apply_gradients()
+        with span("train.update"):
+            state.apply_gradients()
         return state, terms
 
     train_step.mesh = mesh

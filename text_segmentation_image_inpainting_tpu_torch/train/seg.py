@@ -24,6 +24,7 @@ from text_segmentation_image_inpainting_tpu_torch.ops.collectives import global_
 from text_segmentation_image_inpainting_tpu_torch.train.accum import accumulate_grads
 from text_segmentation_image_inpainting_tpu_torch.train.config import SegTrainConfig
 from text_segmentation_image_inpainting_tpu_torch.train.state import TrainState, data_parallel
+from text_segmentation_image_inpainting_tpu_torch.utils.profiling import span
 
 
 def make_seg_train_step(model, cfg: SegTrainConfig, *, mesh=None):
@@ -37,12 +38,15 @@ def make_seg_train_step(model, cfg: SegTrainConfig, *, mesh=None):
     """
 
     def micro_step(mb: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        logits = model(mb["image"])
-        loss, terms = segmentation_loss(
-            logits, mb["mask"], bce_weight=cfg.bce_weight, dice_weight=cfg.dice_weight,
-            focal_weight=cfg.focal_weight, pos_weight=cfg.pos_weight,
-        )
-        loss.backward()
+        with span("train.forward"):
+            logits = model(mb["image"])
+        with span("train.loss"):
+            loss, terms = segmentation_loss(
+                logits, mb["mask"], bce_weight=cfg.bce_weight, dice_weight=cfg.dice_weight,
+                focal_weight=cfg.focal_weight, pos_weight=cfg.pos_weight,
+            )
+        with span("train.backward"):
+            loss.backward()
         return {k: v.detach() for k, v in terms.items()}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -51,9 +55,11 @@ def make_seg_train_step(model, cfg: SegTrainConfig, *, mesh=None):
             metrics = accumulate_grads(micro_step, batch, cfg.grad_accum, state.clip_params)
         # before apply_gradients, which clips in place: JAX takes the norm of
         # the (mean) raw gradients of every parameter, frozen ones included
-        grads = [p.grad for p in state.clip_params if p.grad is not None]
-        metrics["grad_norm"] = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
-        state.apply_gradients()
+        with span("train.update"):
+            grads = [p.grad for p in state.clip_params if p.grad is not None]
+            metrics["grad_norm"] = torch.stack(
+                [g.float().square().sum() for g in grads]).sum().sqrt()
+            state.apply_gradients()
         return state, metrics
 
     train_step.mesh = mesh

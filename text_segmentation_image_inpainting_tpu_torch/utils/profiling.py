@@ -9,7 +9,17 @@ Counterpart of ``text_segmentation_image_inpainting_tpu/utils/profiling.py``:
   CUDA events when the result lies on the card, else the host's clock;
 * ``enable_nan_debugging()``: autograd's anomaly mode;
 * ``checked(fn)``: ``(err, out)`` with ``err.throw()`` raising if any
-  floating tensor of ``out`` holds a NaN or an infinity.
+  floating tensor of ``out`` holds a NaN or an infinity;
+* ``span(name)``: ``with span("serve.dispatch"): ...`` names the block
+  ``tsii.<name>`` in a profiler's trace (a ``RecordFunction`` range, as
+  ``record_function`` makes) while one records on this thread
+  (``torch.autograd._profiler_enabled()``), and is one shared no-op
+  otherwise: no flag turns it on, a profiler does. The spans share the
+  trace's clock with the device's operations, so an operation can be put
+  down to the spans open where it was launched, and an idle gap to the
+  span the host was in;
+* ``count(name, n)`` and ``counters()``: process-wide counters, always on,
+  safe from several threads (the prefetcher's worker counts too).
 
 torch has neither JAX's ``checkify`` nor a forward ``debug_nans``. So
 ``checked`` looks at the function's outputs only, after it ran (JAX also
@@ -21,6 +31,7 @@ a forward (a difference by design, ROADMAP Queue 3).
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Callable
 
@@ -48,6 +59,49 @@ def trace(log_dir: str = "logs/profile"):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield
+
+
+class _NoSpan:
+    """The span while no profiler records: enters and leaves, nothing else."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, value, tb):
+        return None
+
+
+_NO_SPAN = _NoSpan()
+_profiler_enabled = torch.autograd._profiler_enabled
+# the profiler's range in C++, as torch's compiled code opens it (torch
+# 2.11): under a profiler an eighth to a twelfth of ``record_function``'s cost
+_range = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """The profiler range ``tsii.<name>`` while a profiler records on this
+    thread, else the one shared ``_NoSpan``: off, a span costs one call."""
+    if _profiler_enabled():
+        return _range("tsii." + name)
+    return _NO_SPAN
+
+
+_COUNTS: dict = {}
+_COUNTS_LOCK = threading.Lock()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process-wide counter ``name``."""
+    with _COUNTS_LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters() -> dict:
+    """A copy of every counter's total since the process started."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
 
 
 def sync(tree):
