@@ -21,10 +21,20 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               also at a ragged shape, with one mask group, on an all-hole
               page and twice on the head's inputs
   4. pipeline ``run`` and ``inpaint`` once each with the launch counters
-              reset: K1 must run 7 times and K2 once per U-Net forward;
+              reset: K1 must run 7 times and K2 once per U-Net forward,
+              BatchNorm's kernels once per BatchNorm call (``bn_counted``:
+              every call on the kernels, as here in the train, seg,
+              Xception and serve phases' steps and runs, 4 launches a
+              training call, 3 a frozen one);
               outputs finite, masks binary, non-text pixels bit-identical
               to the input; every stride-1 partial conv's real inputs,
               caught by forward hooks, re-run through the plain version
+  4b. bn     BatchNorm's kernels (``bn_phase``) at Xception's middle flow
+              and MobileNetV2's largest BatchNorm, bf16, ReLU inside, in
+              training (4 launches) and eval (1): against the plain chain,
+              twice bit-identical, timed beside it, their bound (the
+              function's bytes; the two-pass design's beside it) and one
+              cuDNN ``F.batch_norm``
   5. train    K3 (the partial conv's backward: ``pconv_k3_prep`` and
               ``pconv_k3_mask`` around the two library products at the
               decoder levels, ``pconv_k2_bwd`` at the head) against
@@ -203,6 +213,21 @@ TPU_STEM_BWD = "text_segmentation_image_inpainting_tpu/ops/pallas/vgg_stem_bwd.p
 TPU_STEM = "text_segmentation_image_inpainting_tpu/ops/pallas/vgg_stem.py"
 CSRC_DW = "text_segmentation_image_inpainting_tpu_torch/csrc/depthwise_wgrad.cu"
 TPU_DW = "text_segmentation_image_inpainting_tpu/ops/pallas/depthwise_wgrad.py"
+CSRC_BN = "text_segmentation_image_inpainting_tpu_torch/csrc/batchnorm.cu"
+
+# BatchNorm's kernels at two shapes of the models at 512^2, batch 8, bf16:
+# Xception's middle flow (24 of its 91 BatchNorms a step) and MobileNetV2's
+# largest (block 1's expansion, before its stride-2 depthwise conv).
+BN_SHAPES = (
+    ("xception middle flow", (8, 64, 64, 728)),
+    ("mobilenet_v2 block 1 expansion", (8, 256, 256, 96)),
+)
+# Bytes an element of a bf16 training BatchNorm: what the function needs
+# (x read and y written forward; dy and x read and dx written backward)
+# and what the kernels' two passes each way move (x once more forward, dy
+# and x once more backward). Eval reads x and writes y: 4 either way.
+BN_FN_BYTES = 10
+BN_PASS_BYTES = 16
 
 # The stride-1 depthwise convs with C >= 128 of TextSegmenter(width 1.0,
 # output stride 8) at 512^2 pages, whose weight gradient is K6 with
@@ -729,7 +754,8 @@ def main() -> int:
     pconvs = [m for m in pipe.modules() if isinstance(m, PartialConv)]
     hooks = [m.register_forward_hook(keep_inputs, with_kwargs=True) for m in pconvs]
     kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = 0
-    clean, text = pipe.run(pages)
+    with bn_counted("pipeline run", pipe) as bn_run:
+        clean, text = pipe.run(pages)
     torch.cuda.synchronize()
     launches = {"K1": kpc.K1_LAUNCHES, "K2": kpc.K2_LAUNCHES}
     for hk in hooks:
@@ -769,7 +795,8 @@ def main() -> int:
     holes = torch.from_numpy(hole_mask(rng, BATCH, PAGE, PAGE)[..., None]).to(dev)
     text_in = 1.0 - holes
     kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = 0
-    inpainted = pipe.inpaint(pages, text_in)
+    with bn_counted("pipeline inpaint", pipe):
+        inpainted = pipe.inpaint(pages, text_in)
     torch.cuda.synchronize()
     got = {"K1": kpc.K1_LAUNCHES, "K2": kpc.K2_LAUNCHES}
     if got != {"K1": 7, "K2": 1}:
@@ -784,6 +811,8 @@ def main() -> int:
         phase_s[name] = time.perf_counter() - t
         log(f"phase {name}: {phase_s[name]:.1f} s")
         return out
+
+    bn_row = timed_phase("bn", bn_phase, dev, smi)
 
     # 5. train --------------------------------------------------------------
     tr = timed_phase("train", train_phase, dev, rng, cases)
@@ -985,6 +1014,11 @@ def main() -> int:
         "launches from the scope phase's path runs, max_abs_err the largest against the f64 "
         "truth (bf16 backward: autograd of the plain version in f32)")
     kernels.extend(scope_rows)
+    bn_row["launches"] = sg["bn"]["launches"]
+    log(f"BN: launches from the first seg train step, {sg['bn']['calls']} calls; the first "
+        f"inpaint train step {tr['bn']['launches']} for {tr['bn']['calls']} calls, the "
+        f"pipeline run {bn_run['launches']} for {bn_run['calls']} calls")
+    kernels.append(bn_row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1111,6 +1145,193 @@ def kernels_per_call(fn, runs: int = 3) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / runs
 
 
+@contextlib.contextmanager
+def bn_counted(what: str, *models):
+    """BatchNorm's launches on the main path: ``BN_LAUNCHES`` set to 0, the
+    calls of ``models``' BatchNorms seen by forward hooks while the block
+    runs (the step's backward included), then the launches held to what
+    those calls make (2 forward with the batch's statistics, 1 on the
+    running ones; where the call takes a gradient, ``bn_bwd_reduce`` where
+    the weight, the bias or, with the batch's statistics, x needs one and
+    ``bn_bwd_dx`` where x does: 4 a training call, 3 a frozen one, 1 in
+    eval) and every call counted as ``bn.kernel``, none as ``bn.plain``.
+    Yields a dict that holds ``calls`` and ``launches`` after the block."""
+    from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import BatchNorm
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import batchnorm as kbn
+    from text_segmentation_image_inpainting_tpu_torch.utils.profiling import counters
+
+    seen = Counter()
+
+    def hook(m, args, kwargs, y):
+        batch = m.training and not kwargs.get("frozen", False)
+        want = 2 if batch else 1
+        if y.requires_grad:
+            need_x = args[0].requires_grad
+            want += int(m.weight.requires_grad or m.bias.requires_grad or (need_x and batch))
+            want += int(need_x)
+        seen[want] += 1
+
+    hooks = [m.register_forward_hook(hook, with_kwargs=True)
+             for model in models for m in model.modules() if isinstance(m, BatchNorm)]
+    before = counters()
+    kbn.BN_LAUNCHES = 0
+    out = {}
+    try:
+        yield out
+    finally:
+        for h in hooks:
+            h.remove()
+    after = counters()
+    calls = sum(seen.values())
+    want = sum(k * n for k, n in seen.items())
+    kern, plain = (after.get(f"bn.{r}", 0) - before.get(f"bn.{r}", 0) for r in ("kernel", "plain"))
+    out.update(calls=calls, launches=kbn.BN_LAUNCHES)
+    if calls == 0 or kbn.BN_LAUNCHES != want or kern != calls or plain:
+        raise AssertionError(f"{what}: BatchNorm launched {kbn.BN_LAUNCHES} for {calls} calls "
+                             f"(want {want}: calls by launches {dict(seen)}), bn.kernel {kern}, "
+                             f"bn.plain {plain}")
+    log(f"{what}: BatchNorm {calls} calls ({', '.join(f'{n} x {k}' for k, n in sorted(seen.items()))}"
+        f" launches), {kbn.BN_LAUNCHES} launches, all bn.kernel")
+
+
+def bn_phase(dev, smi: str) -> dict:
+    """BatchNorm's kernels (``ops/kernels/batchnorm.py``) at ``BN_SHAPES``,
+    bf16, ReLU inside: in training (batch statistics, forward and
+    backward: 4 launches) and in eval (running statistics, 1 launch), each
+    against the plain chain (y and dx one bf16 step plus 1e-3 of max;
+    dweight, dbias and the running statistics 2^-22 plus 1e-5 of max) and
+    twice bit-identical. Times: CUDA-event medians of the kernels' path
+    (the module as the models call it) and of the plain chain, the
+    kernels' device time (profiler), the bound (the bytes the function
+    needs at 3.35 TB/s: ``BN_FN_BYTES`` an element in training, 4 in eval;
+    beside it the two-pass design's ``BN_PASS_BYTES``) and, as a yardstick
+    the port never calls, one cuDNN ``F.batch_norm`` on the NCHW view
+    (without the ReLU). Returns the kernels line's row."""
+    import torch.nn.functional as F
+
+    from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import BatchNorm
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import batchnorm as kbn
+    from text_segmentation_image_inpainting_tpu_torch.utils.profiling import counters
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "err": 0.0}
+    launches = {}
+    for name, shape in BN_SHAPES:
+        c = shape[-1]
+        m = BatchNorm(c).to(dev)
+        with torch.no_grad():
+            m.weight.copy_(1 + 0.3 * torch.randn(c, generator=gen, device=dev))
+            m.bias.copy_(0.5 * torch.randn(c, generator=gen, device=dev))
+        x = (torch.randn(shape, generator=gen, device=dev) * 1.7 + 0.3).to(torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        state = {k: v.clone() for k, v in m.state_dict().items()}
+
+        def fused(train=True):
+            m.weight.grad = m.bias.grad = None
+            if not train:
+                with torch.no_grad():
+                    return (m(x, act="relu"),)
+            xr = x.clone().requires_grad_()
+            y = m(xr, act="relu")
+            y.backward(dy)
+            return y, xr.grad, m.weight.grad, m.bias.grad
+
+        def plain(train=True):
+            m.weight.grad = m.bias.grad = None
+            xr = x.clone().requires_grad_(train)
+            with torch.set_grad_enabled(train):
+                y = kbn.batchnorm_plain(xr, m.weight, m.bias, m.running_mean, m.running_var,
+                                        m.num_batches_tracked, batch_stats=m.training,
+                                        eps=m.eps, act="relu")
+            if not train:
+                return (y,)
+            y.backward(dy)
+            return y, xr.grad, m.weight.grad, m.bias.grad
+
+        xn = x.permute(0, 3, 1, 2)
+        rm, rv = m.running_mean.clone(), m.running_var.clone()
+
+        def library(train=True):
+            if not train:
+                return F.batch_norm(xn, rm, rv, m.weight, m.bias, False, 0.1, m.eps)
+            xr = xn.detach().requires_grad_()
+            y = F.batch_norm(xr, rm, rv, m.weight, m.bias, True, 0.1, m.eps)
+            y.backward(dy.permute(0, 3, 1, 2))
+            return y
+
+        for mode in ("train", "eval"):
+            train = mode == "train"
+            m.load_state_dict(state)
+            m.train(train)
+            n0, k0 = kbn.BN_LAUNCHES, counters().get("bn.kernel", 0)
+            got = [t.detach().clone() for t in fused(train)]
+            torch.cuda.synchronize()
+            launches[(name, mode)] = kbn.BN_LAUNCHES - n0
+            if launches[(name, mode)] != (4 if train else 1):
+                raise AssertionError(f"BN {name} {mode}: {launches[(name, mode)]} launches")
+            if counters().get("bn.kernel", 0) - k0 != 1:
+                raise AssertionError(f"BN {name} {mode}: bn.kernel did not count the call")
+            moved = {k: v.clone() for k, v in m.state_dict().items()}
+            m.load_state_dict(state)
+            want = plain(train)
+            for k, v in m.state_dict().items():
+                if not torch.allclose(moved[k].double(), v.double(), rtol=2.0 ** -22, atol=1e-6):
+                    raise AssertionError(f"BN {name} {mode}: {k} differs from the plain chain")
+            errs = []
+            for what, g, w in zip(("y", "dx", "dweight", "dbias"), got, want):
+                g, w = g.float(), w.detach().float()
+                bf = what in ("y", "dx")
+                step, floor = (2.0 ** -7, 1e-3) if bf else (2.0 ** -22, 1e-5)
+                err = (g - w).abs()
+                if not (err <= step * w.abs() + floor * w.abs().max() + 1e-6).all():
+                    raise AssertionError(f"BN {name} {mode}: {what} off by up to "
+                                         f"{err.max().item():.4g} (max |want| "
+                                         f"{w.abs().max().item():.4g})")
+                errs.append(err.max().item())
+            m.load_state_dict(state)
+            again = [t.detach().clone() for t in fused(train)]
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"BN {name} {mode}: two launches differ")
+            del got, again, want
+            # times (the running statistics move with every training call)
+            elems = x.numel()
+            b_ms = elems * (BN_FN_BYTES if train else 4) / HBM_BYTES_PER_S * 1e3
+            b2_ms = elems * (BN_PASS_BYTES if train else 4) / HBM_BYTES_PER_S * 1e3
+            k1, p1 = cuda_ms(lambda: fused(train)), cuda_ms(lambda: plain(train))
+            k2, p2 = cuda_ms(lambda: fused(train)), cuda_ms(lambda: plain(train))
+            lib = cuda_ms(lambda: library(train))
+            dev_ms = device_ms(lambda: fused(train), "bn_")
+            per = kernel_ms(lambda: fused(train))
+            k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            log(f"time BN {name} {tuple(shape)} {mode}: kernels {k_ms:.4f} ms (device "
+                f"{dev_ms:.4f} ms, {b_ms / dev_ms:.1%} of the bound, {b2_ms / dev_ms:.1%} of the "
+                f"two-pass design's; "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(per.items()) if "bn_" in k)
+                + f"), bound {b_ms:.4f} ms (bytes the function needs; the two-pass design's "
+                f"{b2_ms:.4f} ms), plain chain {p_ms:.4f} ms, cuDNN "
+                f"F.batch_norm {lib:.4f} ms; max err y/dx/dw/db "
+                + "/".join(f"{e:.3g}" for e in errs))
+            tot["ms"] += k_ms
+            tot["plain"] += p_ms
+            tot["lib"] += lib
+            tot["bound"] += b_ms
+            tot["err"] = max(tot["err"], errs[0])
+        del x, dy, xn, m
+        torch.cuda.empty_cache()
+    for line in ptxas_report(("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx")):
+        log(f"  ptxas: {line}")
+    log(f"BN: {len(BN_SHAPES)} shape(s) in train and eval; ms, plain_ms, library_ms and "
+        f"bound_ms (the function's bytes) are sums over them; launches per call {launches}; "
+        f"the row's launches from the first seg train step; {smi}")
+    return {
+        "name": "BN bn_stats, bn_apply, bn_bwd_reduce, bn_bwd_dx", "route": "cuda",
+        "source": CSRC_BN, "replaces": "none: flax's BatchNorm runs under XLA",
+        "launches": None, "max_abs_err": tot["err"], "ms": tot["ms"],
+        "plain_ms": tot["plain"], "bound_ms": tot["bound"], "bound_by": "bytes",
+        "library_ms": tot["lib"],
+    }
+
+
 def train_phase(dev, rng, cases) -> dict:
     """Phase 5: K3, K4 and K5 against their plain versions at the train
     shapes, then three full-width train steps (the third with
@@ -1196,14 +1417,16 @@ def train_phase(dev, rng, cases) -> dict:
     hook = state.optimizer.register_step_pre_hook(keep_grads)
     enc_bns = [m for m in model.enc_bns if isinstance(m, BatchNorm)]
     stats = lambda bns: [torch.cat([m.running_mean, m.running_var]).clone() for m in bns]  # noqa: E731
-    first = None
+    first = first_bn = None
     for i, freeze in enumerate((False, False, True)):
         params = {n: p.detach().clone() for n, p in model.named_parameters()}
         enc0, dec0 = stats(enc_bns), stats(model.dec_bns)
         kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = kpc.K3_LAUNCHES = 0
         kvs.K4_LAUNCHES = kvs.K5_LAUNCHES = 0
-        state, terms = steps[freeze](state, batch)
+        with bn_counted(f"train step {i} (freeze_bn={freeze})", model) as bn:
+            state, terms = steps[freeze](state, batch)
         torch.cuda.synchronize()
+        first_bn = first_bn or bn
         got = {"K1": kpc.K1_LAUNCHES, "K2": kpc.K2_LAUNCHES, "K3": kpc.K3_LAUNCHES,
                "K4": kvs.K4_LAUNCHES, "K5": kvs.K5_LAUNCHES}
         first = first or got
@@ -1227,7 +1450,7 @@ def train_phase(dev, rng, cases) -> dict:
             + f"; {len(grads)} grads finite, decoder/head nonzero, params moved, decoder BN "
             f"moved, encoder BN {'unchanged' if freeze else 'moved'}")
     hook.remove()
-    return {"launches": first, "err": {"K3": err3, "K4": res["max"], "K5": err5[BATCH]}, "k3": k3,
+    return {"launches": first, "bn": first_bn, "err": {"K3": err3, "K4": res["max"], "K5": err5[BATCH]}, "k3": k3,
             "stem": (xs, gs, w0, b0, w1, b1, z0, z0_gt), "step": steps[False], "state": state,
             "batch": batch, "vgg": vgg, "loss_cfg": loss_cfg}
 
@@ -1521,16 +1744,18 @@ def seg_phase(dev, rng) -> dict:
     hooks = [st.optimizer.register_step_pre_hook(keep_grads) for st in states.values()]
     bns = [(n, m) for n, m in model.named_modules() if isinstance(m, BatchNorm)]
     stats = lambda: [torch.cat([m.running_mean, m.running_var]).clone() for _, m in bns]  # noqa: E731
-    first = None
+    first = first_bn = None
     kdw.depthwise_wgrad_reference = no_plain
     for i, freeze in enumerate((False, False, True)):
         params = {n: p.detach().clone() for n, p in model.named_parameters()}
         bn0 = stats()
         kdw.K6_LAUNCHES = 0
-        _, metrics = step(states[freeze], batch)
+        with bn_counted(f"seg step {i} (freeze_encoder={freeze})", model) as bn:
+            _, metrics = step(states[freeze], batch)
         torch.cuda.synchronize()
         launches = kdw.K6_LAUNCHES
         first = first or launches
+        first_bn = first_bn or bn
         bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
         not_finite = [n for n, (fin, _) in grads.items() if not fin]
         zero = [n for n, (_, mx) in grads.items() if mx == 0]
@@ -1554,7 +1779,7 @@ def seg_phase(dev, rng) -> dict:
     kdw.depthwise_wgrad_reference = real_plain
     for hk in hooks:
         hk.remove()
-    return {"k6": k6, "launches": first, "step": step, "state": states[False], "batch": batch}
+    return {"k6": k6, "launches": first, "bn": first_bn, "step": step, "state": states[False], "batch": batch}
 
 
 def time_seg(sg) -> dict:
@@ -1742,8 +1967,11 @@ def serve_phase(pipe, dev, smi: str) -> None:
     def gated(what: str, server, feed) -> list:
         runs[0] = 0
         kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = 0
-        out = feed(server)
+        with bn_counted(f"serve {what}", pipe) as bn:
+            out = feed(server)
         check_launches(what)
+        if bn["calls"] % runs[0]:
+            raise AssertionError(f"serve {what}: {bn['calls']} BatchNorm calls in {runs[0]} runs")
         return out
 
     def check_dense(what: str, got, ref) -> None:
@@ -1989,7 +2217,8 @@ def xception_phase(dev, rng, smi: str) -> dict:
             stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
             seen.clear()
             kdw.K6_LAUNCHES = 0
-            _, metrics = step(state, batch)
+            with bn_counted(f"xception step {i}", model):
+                _, metrics = step(state, batch)
             torch.cuda.synchronize()
             launches.append(kdw.K6_LAUNCHES)
             bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
@@ -2951,6 +3180,56 @@ def per_rank_statistics():
         collectives.all_reduce_stats = summed
 
 
+def dp2_orders(n: int) -> list:
+    """Orders of a global batch of ``n`` pages in which one process's step
+    is the same function of the batch while its f32 sums (BatchNorm's row
+    blocks, the loss's reductions) round otherwise, as the 2-rank step's
+    do: reversed, halves swapped, evens then odds."""
+    i = torch.arange(n)
+    return [i.flip(0), i.roll(n // 2), torch.cat([i[0::2], i[1::2]])]
+
+
+def dp2_references(dev) -> tuple:
+    """The 1-process references of the 2-rank runs, per label of
+    ``DP2_LABELS``: the same step in bf16, three times on the batch as it
+    is and once in each of ``dp2_orders``, then in f32, the truth; with
+    each label's initial state dict. ({label: [snapshots]}, {label: init})."""
+    from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
+
+    refs, inits = {}, {}
+    for label in DP2_LABELS:
+        runs = []
+        for dtype, order in ([(torch.bfloat16, None)] * 3
+                             + [(torch.bfloat16, o) for o in dp2_orders(BATCH)]
+                             + [(torch.float32, None)]):
+            model, opt, make_step, batch = dp2_case(label, dev, dtype)
+            if order is not None:
+                batch = {n: v[order.to(v.device)] for n, v in batch.items()}
+            inits[label] = {n: t.detach().cpu().clone() for n, t in model.state_dict().items()}
+            state = create_train_state(model, opt)
+            state, m = make_step(model)(state, batch)
+            runs.append(cpu_snapshot(state, m))
+            del model, state, batch
+            torch.cuda.empty_cache()
+        refs[label] = runs
+    return refs, inits
+
+
+def dp2_distances(label: str, got: dict, per_rank: dict, refs: dict, inits: dict) -> tuple:
+    """Per kind (``pooled_distances``), the distance to the f32 1-process
+    step of the 2-rank step ``got``, the floor (the farthest of the bf16
+    1-process steps of ``dp2_references``: bf16 noise, as rounded by
+    reductions that differ) and the 2-rank step with each rank's own
+    BatchNorm statistics ``per_rank``: (d, d_ref, d_bad)."""
+    init = inits[label]
+    truth = moves(refs[label][-1], init)
+    names = [n for n in truth if not n.endswith("num_batches_tracked")]
+    runs_d = [pooled_distances(moves(r, init), truth, names) for r in refs[label][:-1]]
+    d_ref = {k: max(d[k] for d in runs_d) for k in runs_d[0]}
+    return (pooled_distances(moves(got, init), truth, names), d_ref,
+            pooled_distances(moves(per_rank, init), truth, names))
+
+
 def moves(snap: dict, init: dict) -> dict:
     """A 1-step snapshot as what the step did: each parameter's and float
     buffer's move from ``init`` (the state dict it started from), and the
@@ -3066,14 +3345,19 @@ def ddp_phase(dev, gr, smi: str) -> dict:
     Two ranks on the card (gloo; ``dp2_worker``): one SGD step of each on
     4 pages a rank of a global batch of 8 whose halves differ. A rank's
     kernels see 4 pages where one process's see 8, so their plans and
-    cuDNN's algorithms differ and the bf16 activations round differently
-    (reordering the batch, or the seg step's atomics, change no per-page
-    arithmetic, so their spreads are no yardstick: at one SGD step the seg
-    runs' spread is 3% of the 2-rank step's distance). So the 2-rank step
-    is held to the same step of one process in f32, the truth: in each
-    kind (the parameters' moves, the BN statistics' moves, the metrics;
-    ``pooled_distances``) no farther from it than ``GRAPH_NOISE_RATIO``
-    times the 1-process bf16 step is. The run with each rank's own
+    cuDNN's algorithms differ and the bf16 activations round differently:
+    BatchNorm's kernels sum a rank's rows in other row blocks, and one
+    changed rounding makes another bf16 step (the seg step's atomics alone
+    do not: three runs on one batch differ by a few percent of the 2-rank step's
+    distance). So the 2-rank step is held to the same step of one process
+    in f32, the truth: in each kind (the parameters' moves, the BN
+    statistics' moves, the metrics; ``pooled_distances``) no farther from
+    it than ``GRAPH_NOISE_RATIO`` times the farthest of the 1-process bf16
+    steps, on the batch as it is and in ``dp2_orders``, whose sums round
+    otherwise as the 2-rank step's do (``dp2_references``,
+    ``dp2_distances``). The metrics are a few scalars, so one bf16 step's
+    distance is a single draw of that noise and the floor takes the
+    farthest of four. The run with each rank's own
     BatchNorm statistics must fail that gate in some kind (the BN
     statistics: bf16 noise barely touches them); both ranks end
     bit-equal, with the plain step's launches.
@@ -3089,7 +3373,6 @@ def ddp_phase(dev, gr, smi: str) -> dict:
         make_rank_mesh,
     )
     from text_segmentation_image_inpainting_tpu_torch.train.multistep import make_multi_step
-    from text_segmentation_image_inpainting_tpu_torch.train.state import create_train_state
 
     from text_segmentation_image_inpainting_tpu_torch.ops import collectives, depthwise
 
@@ -3147,20 +3430,7 @@ def ddp_phase(dev, gr, smi: str) -> dict:
         f"{host:.4f} ms of host time per call  [{smi}]")
     dist.destroy_process_group()
 
-    # the 1-process references of the 2-rank runs: the same step in bf16
-    # (three times) and in f32, the truth
-    refs, inits = {}, {}
-    for label in DP2_LABELS:
-        runs = []
-        for dtype in (torch.bfloat16,) * 3 + (torch.float32,):
-            model, opt, make_step, batch = dp2_case(label, dev, dtype)
-            inits[label] = {n: t.detach().cpu().clone() for n, t in model.state_dict().items()}
-            state = create_train_state(model, opt)
-            state, m = make_step(model)(state, batch)
-            runs.append(cpu_snapshot(state, m))
-            del model, state, batch
-            torch.cuda.empty_cache()
-        refs[label] = runs
+    refs, inits = dp2_references(dev)
     out_dir = tempfile.mkdtemp(prefix="ddp2_")
     t0 = time.perf_counter()
     mp.spawn(dp2_worker, args=(free_port(), out_dir), nprocs=2, join=True)
@@ -3174,17 +3444,11 @@ def ddp_phase(dev, gr, smi: str) -> dict:
         if {n: v * 2 * GRAPH_K for n, v in counts.items()} != gr[label]["counts"]:
             raise AssertionError(f"ddp {label}, 2 ranks: launches {counts} a step, the plain "
                                  f"step's {gr[label]['counts']} over {2 * GRAPH_K}")
-        bf_runs, truth = [moves(r, inits[label]) for r in refs[label][:3]], moves(
-            refs[label][3], inits[label])
-        names = [n for n in truth if not n.endswith("num_batches_tracked")]
-        runs_d = [pooled_distances(r, truth, names) for r in bf_runs]
-        d_ref = {k: float(np.mean([d[k] for d in runs_d])) for k in runs_d[0]}
-        d = pooled_distances(moves(got, inits[label]), truth, names)
-        d_bad = pooled_distances(moves(ranks[0][f"{label} per-rank"], inits[label]), truth,
-                                 names)
+        d, d_ref, d_bad = dp2_distances(label, got, ranks[0][f"{label} per-rank"], refs, inits)
         log(f"ddp {label}, 2 ranks x 4 pages against 1 process x 8 (SGD; relative L2 to the "
             f"f32 1-process step of the parameters' moves, the BN statistics' moves and the "
-            f"metrics, each kind pooled): "
+            f"metrics, each kind pooled; the floor the farthest 1-process bf16 step, the batch "
+            f"as it is and in {len(dp2_orders(BATCH))} other orders): "
             + "; ".join(f"{k}: 2 ranks {d[k]:.4g}, 1 process bf16 {d_ref[k]:.4g} (ratio "
                         f"{d[k] / d_ref[k]:.3f}), per-rank BN statistics {d_bad[k]:.4g} (ratio "
                         f"{d_bad[k] / d_ref[k]:.2f})" for k in d_ref)

@@ -18,6 +18,10 @@ Jobs:
         ``make_mesh_for_batch`` narrows for a batch of 6; then
         ``concurrent_train2`` over ``make_group_meshes``: ranks 0-1 train
         the segmenter, ranks 2-3 the U-Net.
+  bn    (2 ranks on cuda:0, gloo; tests/test_torch_batchnorm.py) one
+        BatchNorm forward and backward through the CUDA kernels on this
+        rank's half of the batch, in bf16 and f32 with each fused
+        activation, under ``data_parallel``.
 """
 
 import os
@@ -200,18 +204,48 @@ def quad(inputs, out):
         assert seg_state is None and seg_metrics is None
 
 
+def bn(inputs, out):
+    from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import BatchNorm
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import batchnorm as kbn
+    from text_segmentation_image_inpainting_tpu_torch.utils.profiling import counters
+
+    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    half = inputs["x"].shape[0] // world
+    rows = slice(rank * half, (rank + 1) * half)
+    for dtype in (torch.bfloat16, torch.float32):
+        for act in inputs["acts"]:
+            m = BatchNorm(inputs["x"].shape[-1])
+            m.load_state_dict(inputs["bn_state"])
+            m = m.cuda().train()
+            x = torch.from_numpy(inputs["x"][rows]).to("cuda", dtype).requires_grad_()
+            dy = torch.from_numpy(inputs["dy"][rows]).to("cuda", dtype)
+            launches, calls = kbn.BN_LAUNCHES, counters().get("bn.kernel", 0)
+            with collectives.data_parallel(torch.distributed.group.WORLD, world):
+                y = m(x, act=act)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            out[(str(dtype), act)] = {
+                "y": y.detach().cpu(), "dx": x.grad.cpu(), "dw": m.weight.grad.cpu(),
+                "db": m.bias.grad.cpu(), "running_mean": m.running_mean.cpu(),
+                "running_var": m.running_var.cpu(), "launches": kbn.BN_LAUNCHES - launches,
+                "kernel_calls": counters().get("bn.kernel", 0) - calls}
+
+
 def main():
     job, rank, world, port, work = sys.argv[1:6]
     rank, world, work = int(rank), int(world), Path(work)
     torch.set_num_threads(1)
     if job == "quad":
         os.environ["GROUP_RANK"] = str(rank % 2)
-    device = parallel.initialize_distributed(f"127.0.0.1:{port}", num_processes=world,
-                                             process_id=rank, platform="cpu")
-    assert device == torch.device("cpu")
+    on_card = job == "bn"
+    device = parallel.initialize_distributed(
+        f"127.0.0.1:{port}", num_processes=world, process_id=rank,
+        platform="cuda" if on_card else "cpu", local_device_ids=[0] if on_card else None,
+        backend="gloo")
+    assert device == (torch.device("cuda", 0) if on_card else torch.device("cpu"))
     inputs = torch.load(work / "inputs.pt", weights_only=False)
     out = {}
-    {"pair": pair, "quad": quad}[job](inputs, out)
+    {"pair": pair, "quad": quad, "bn": bn}[job](inputs, out)
     torch.save(out, work / f"{job}_{rank}.pt")
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()

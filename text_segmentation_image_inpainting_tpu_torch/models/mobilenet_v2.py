@@ -15,8 +15,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from text_segmentation_image_inpainting_tpu_torch.ops import collectives, depthwise
+from text_segmentation_image_inpainting_tpu_torch.ops import depthwise
 from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d, torch_same_padding
+from text_segmentation_image_inpainting_tpu_torch.ops.kernels.batchnorm import FUSED_ACTS, batchnorm
 from text_segmentation_image_inpainting_tpu_torch.utils.profiling import span
 
 # (expansion t, out channels c, repeats n, first-block stride s)
@@ -40,13 +41,8 @@ def round_channels(c: float, width_mult: float, divisor: int = 8) -> int:
     return new_c
 
 
-_ACTS = {
-    "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
-    "relu": F.relu,
-    "leaky": lambda x: F.leaky_relu(x, 0.2),
-    "selu": F.selu,
-    "none": lambda x: x,
-}
+# the activations after a BatchNorm: those of FUSED_ACTS run inside its kernels
+_ACTS = {**FUSED_ACTS, "selu": F.selu}
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -69,34 +65,24 @@ class BatchNorm(nn.BatchNorm2d):
     differentiable all-reduce and divided by their number, so the gradient
     through the statistics crosses ranks. ``torch.nn.SyncBatchNorm`` is not
     used: it too moves ``running_var`` with the unbiased variance. Frozen
-    and eval mode take no collective. The whole of ``forward`` is the span
-    ``bn`` (``utils/profiling.py::span``).
+    and eval mode take no collective.
+
+    ``act`` (one of ``FUSED_ACTS``) is applied to the result, inside the
+    kernels on a CUDA bf16 or f32 input (``ops/kernels/batchnorm.py``:
+    2 launches forward and 2 backward with the batch's statistics, 1 in
+    eval); a CPU or f64 input takes the eager chain. The whole of
+    ``forward``, the activation included, is the span ``bn``
+    (``utils/profiling.py::span``).
     """
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x: torch.Tensor, *, frozen: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, frozen: bool = False, act: str = "none") -> torch.Tensor:
         with span("bn"):
-            xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            if self.training and not frozen:
-                mean = xf.mean(dim=(0, 1, 2))
-                mean2 = (xf * xf).mean(dim=(0, 1, 2))
-                if collectives.active() is not None:
-                    both = collectives.all_reduce_stats(torch.cat([mean, mean2]))
-                    both = both / collectives.dp_world()
-                    mean, mean2 = both[:mean.shape[0]], both[mean.shape[0]:]
-                var = torch.clamp(mean2 - mean * mean, min=0.0)
-                with torch.no_grad():
-                    self.running_mean.mul_(0.9).add_(0.1 * mean)
-                    self.running_var.mul_(0.9).add_(0.1 * var)
-                    self.num_batches_tracked.add_(1)
-            else:
-                mean, var = self.running_mean, self.running_var
-            y = xf - mean
-            y = y * (torch.rsqrt(var + self.eps) * self.weight)
-            y = y + self.bias
-            return y.to(x.dtype)
+            return batchnorm(x, self.weight, self.bias, self.running_mean, self.running_var,
+                             self.num_batches_tracked, batch_stats=self.training and not frozen,
+                             eps=self.eps, act=act)
 
 
 @torch.no_grad()
@@ -152,6 +138,8 @@ class ConvBNAct(nn.Sequential):
             y = depthwise.depthwise_conv2d(x, conv.weight.to(self.dtype), conv.dilation[0])
         else:
             y = apply_conv(conv, x)
+        if self.act in FUSED_ACTS:
+            return self[1](y, act=self.act)
         return _ACTS[self.act](self[1](y))
 
 

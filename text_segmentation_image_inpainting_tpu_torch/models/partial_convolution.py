@@ -120,15 +120,13 @@ class InpaintUNet(nn.Module):
         f, m = x, mask
         for conv, bn in zip(self.enc_convs, self.enc_bns):
             f, m = conv(f, m)
-            if isinstance(bn, BatchNorm):
-                f = bn(f, frozen=freeze_enc_bn)
-            f = F.relu(f)
+            f = bn(f, frozen=freeze_enc_bn, act="relu") if isinstance(bn, BatchNorm) else F.relu(f)
             skips.append((f, m))
         if self.attn is not None:
             f = self.attn(f)
         for j, (conv, bn) in enumerate(zip(self.dec_convs, self.dec_bns)):
             f, m = self._up_cat_conv(conv, f, m, *skips[self.depth - 1 - j])
-            f = F.leaky_relu(bn(f), 0.2)
+            f = bn(f, act="leaky")
         out, _ = self._up_cat_conv(self.head, f, m, *skips[0])
         return out
 

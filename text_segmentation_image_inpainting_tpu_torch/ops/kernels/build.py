@@ -149,6 +149,15 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_dw_wgrad.restype = i32
         lib.tsii_dw_wgrad_gen.argtypes = [ptr] * 4 + [i32] * 13 + [ptr]
         lib.tsii_dw_wgrad_gen.restype = i32
+        f32 = ctypes.c_float
+        lib.tsii_bn_stats.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+        lib.tsii_bn_stats.restype = i32
+        lib.tsii_bn_apply.argtypes = [ptr] * 9 + [i32] * 9 + [f32] * 4 + [ptr]
+        lib.tsii_bn_apply.restype = i32
+        lib.tsii_bn_bwd_reduce.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
+        lib.tsii_bn_bwd_reduce.restype = i32
+        lib.tsii_bn_bwd_dx.argtypes = [ptr] * 6 + [i32] * 9 + [f32] + [ptr]
+        lib.tsii_bn_bwd_dx.restype = i32
         lib.tsii_error_string.argtypes = [i32]
         lib.tsii_error_string.restype = ctypes.c_char_p
         _lib = lib
