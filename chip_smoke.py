@@ -29,12 +29,22 @@ the pipeline, weights from a seeded ``torch.Generator``. Phases, each printing i
               outputs finite, masks binary, non-text pixels bit-identical
               to the input; every stride-1 partial conv's real inputs,
               caught by forward hooks, re-run through the plain version
+              The depthwise kernel likewise (``dw_counted``: every
+              depthwise conv of the pipeline run, seg, Xception and serve
+              phases on it, its forward and, at stride 1, its dx)
   4b. bn     BatchNorm's kernels (``bn_phase``) at Xception's middle flow
               and MobileNetV2's largest BatchNorm, bf16, ReLU inside, in
               training (4 launches) and eval (1): against the plain chain,
               twice bit-identical, timed beside it, their bound (the
               function's bytes; the two-pass design's beside it) and one
               cuDNN ``F.batch_norm``
+  4c. dw     the depthwise kernel (``dw_phase``) at every depthwise conv
+              of the cells (``DW_SHAPES``), forward and stride-1 dx, bf16
+              and f32, against the f64 truth, twice bit-identical, beside
+              its plain version; its device time beside cuDNN's and the
+              bound; the Xception phase names, from a profiled step with
+              ``record_shapes``, the layers behind cuDNN's grouped kernels
+              on the route before the kernel and on the kernel's
   5. train    K3 (the partial conv's backward: ``pconv_k3_prep`` and
               ``pconv_k3_mask`` around the two library products at the
               decoder levels, ``pconv_k2_bwd`` at the head) against
@@ -214,6 +224,34 @@ TPU_STEM = "text_segmentation_image_inpainting_tpu/ops/pallas/vgg_stem.py"
 CSRC_DW = "text_segmentation_image_inpainting_tpu_torch/csrc/depthwise_wgrad.cu"
 TPU_DW = "text_segmentation_image_inpainting_tpu/ops/pallas/depthwise_wgrad.py"
 CSRC_BN = "text_segmentation_image_inpainting_tpu_torch/csrc/batchnorm.cu"
+CSRC_DWC = "text_segmentation_image_inpainting_tpu_torch/csrc/depthwise_conv.cu"
+
+# Every depthwise conv of the cells' segmenters at 512^2 pages, batch 8
+# (k 3, torch-'same' padding): (model, C, H = W of x, stride, dilation,
+# layers). Xception's 38 (2 strided) and MobileNetV2's 17 (2 strided);
+# tests/test_torch_depthwise_conv.py counts them from the models.
+DW_SHAPES = (
+    ("xception", 64, 256, 1, 1, 1),
+    ("xception", 128, 256, 1, 1, 1),
+    ("xception", 128, 256, 2, 1, 1),
+    ("xception", 128, 128, 1, 1, 1),
+    ("xception", 256, 128, 1, 1, 1),
+    ("xception", 256, 128, 2, 1, 1),
+    ("xception", 256, 64, 1, 1, 1),
+    ("xception", 728, 64, 1, 1, 2),
+    ("xception", 728, 64, 1, 2, 26),
+    ("xception", 1024, 64, 1, 2, 1),
+    ("xception", 1024, 64, 1, 4, 1),
+    ("xception", 1536, 64, 1, 4, 1),
+    ("mobilenet_v2", 32, 256, 1, 1, 1),
+    ("mobilenet_v2", 96, 256, 2, 1, 1),
+    ("mobilenet_v2", 144, 128, 1, 1, 1),
+    ("mobilenet_v2", 144, 128, 2, 1, 1),
+    ("mobilenet_v2", 192, 64, 1, 1, 3),
+    ("mobilenet_v2", 384, 64, 1, 2, 4),
+    ("mobilenet_v2", 576, 64, 1, 2, 3),
+    ("mobilenet_v2", 960, 64, 1, 4, 3),
+)
 
 # BatchNorm's kernels at two shapes of the models at 512^2, batch 8, bf16:
 # Xception's middle flow (24 of its 91 BatchNorms a step) and MobileNetV2's
@@ -754,7 +792,7 @@ def main() -> int:
     pconvs = [m for m in pipe.modules() if isinstance(m, PartialConv)]
     hooks = [m.register_forward_hook(keep_inputs, with_kwargs=True) for m in pconvs]
     kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = 0
-    with bn_counted("pipeline run", pipe) as bn_run:
+    with bn_counted("pipeline run", pipe) as bn_run, dw_counted("pipeline run", pipe):
         clean, text = pipe.run(pages)
     torch.cuda.synchronize()
     launches = {"K1": kpc.K1_LAUNCHES, "K2": kpc.K2_LAUNCHES}
@@ -813,6 +851,7 @@ def main() -> int:
         return out
 
     bn_row = timed_phase("bn", bn_phase, dev, smi)
+    dw_row = timed_phase("dw", dw_phase, dev, smi)
 
     # 5. train --------------------------------------------------------------
     tr = timed_phase("train", train_phase, dev, rng, cases)
@@ -1019,6 +1058,13 @@ def main() -> int:
         f"inpaint train step {tr['bn']['launches']} for {tr['bn']['calls']} calls, the "
         f"pipeline run {bn_run['launches']} for {bn_run['calls']} calls")
     kernels.append(bn_row)
+    log("DW: 20 shapes (DW_SHAPES); launches from the first Xception train step; ms (events), "
+        "plain_ms (its plain version, F.conv2d), "
+        "library_ms (cuDNN's forward and dgrad, device time) and bound_ms are sums over one "
+        "Xception train step's 38 forwards and 36 stride-1 dx; max_abs_err the largest in bf16 "
+        "against the f64 truth")
+    dw_row["launches"] = xk6["dw_launches"]
+    kernels.append(dw_row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1192,6 +1238,189 @@ def bn_counted(what: str, *models):
                              f"bn.plain {plain}")
     log(f"{what}: BatchNorm {calls} calls ({', '.join(f'{n} x {k}' for k, n in sorted(seen.items()))}"
         f" launches), {kbn.BN_LAUNCHES} launches, all bn.kernel")
+
+
+@contextlib.contextmanager
+def dw_counted(what: str, *models):
+    """The depthwise kernel's launches on the main path: ``DW_LAUNCHES`` set
+    to 0, the calls of ``models``' depthwise ``ConvBNAct``s seen by forward
+    hooks while the block runs (the step's backward included), then the
+    launches held to what those calls make (the forward; the flipped dx
+    where the conv has stride 1 and its input takes a gradient) and every
+    call counted as ``dw.kernel``, none as ``dw.plain``. Yields a dict that
+    holds ``calls`` and ``launches`` after the block."""
+    from text_segmentation_image_inpainting_tpu_torch.models.mobilenet_v2 import ConvBNAct
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_conv as kdc
+    from text_segmentation_image_inpainting_tpu_torch.utils.profiling import counters
+
+    seen = Counter()
+
+    def hook(m, args, y):
+        seen[1 + int(m[0].stride[0] == 1 and y.requires_grad and args[0].requires_grad)] += 1
+
+    hooks = [m.register_forward_hook(hook) for model in models for m in model.modules()
+             if isinstance(m, ConvBNAct) and m[0].groups == m[0].in_channels
+             == m[0].out_channels > 1]
+    before = counters()
+    kdc.DW_LAUNCHES = 0
+    out = {}
+    try:
+        yield out
+    finally:
+        for h in hooks:
+            h.remove()
+    after = counters()
+    calls = sum(seen.values())
+    want = sum(k * n for k, n in seen.items())
+    kern, plain = (after.get(f"dw.{r}", 0) - before.get(f"dw.{r}", 0) for r in ("kernel", "plain"))
+    out.update(calls=calls, launches=kdc.DW_LAUNCHES)
+    if calls == 0 or kdc.DW_LAUNCHES != want or kern != calls or plain:
+        raise AssertionError(f"{what}: the depthwise kernel launched {kdc.DW_LAUNCHES} for "
+                             f"{calls} depthwise convs (want {want}: calls by launches "
+                             f"{dict(seen)}), dw.kernel {kern}, dw.plain {plain}")
+    log(f"{what}: {calls} depthwise convs ({', '.join(f'{n} x {k}' for k, n in sorted(seen.items()))}"
+        f" launches), {kdc.DW_LAUNCHES} launches, all dw.kernel")
+
+
+def check_dw(name: str, x, w, s: int, d: int, pad: tuple, flip: bool = False) -> dict:
+    """The depthwise kernel on x (N, H, W, C) with the f32 weight w (C, 1,
+    k, k), launched twice (bit-identical), against the f64 conv of the same
+    rounded operands (w cast to x's dtype; flipped with ``flip``). The
+    tolerance: one rounding of the result to its dtype (2^-8 of |truth| in
+    bf16, 0 in f32) plus the f32 sum of k*k terms in another order (2^-20
+    of the sum of |terms| in bf16, 2^-19 in f32: nine adds at 2^-24 each,
+    with room). Returns the kernel's output, its largest error and its
+    largest distance to the plain version (``F.conv2d``)."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_conv as kdc
+
+    one = 2.0 ** -8 if x.dtype is torch.bfloat16 else 0.0
+    acc = 2.0 ** -20 if x.dtype is torch.bfloat16 else 2.0 ** -19
+    got = kdc.depthwise_conv2d_fused(x, w, s, d, pad, flip)
+    again = kdc.depthwise_conv2d_fused(x, w, s, d, pad, flip)
+    wq = w.to(x.dtype)
+    plain = kdc.depthwise_conv2d_plain(x, wq.flip((2, 3)) if flip else wq, s, d, pad)
+    wd = wq.double().flip((2, 3)) if flip else wq.double()
+    xd = x.double().permute(0, 3, 1, 2)
+    c = x.shape[-1]
+    want = torch.nn.functional.conv2d(xd, wd, None, s, pad, d, c).permute(0, 2, 3, 1)
+    absum = torch.nn.functional.conv2d(xd.abs(), wd.abs(), None, s, pad, d, c).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    excess = ((got.double() - want).abs() - one * want.abs() - acc * absum).max().item()
+    err = (got.double() - want).abs().max().item()
+    if excess > 0 or not torch.equal(got, again) or got.shape != want.shape:
+        raise AssertionError(f"depthwise kernel {name}: max |d| to the f64 truth {err:.4g}, past "
+                             f"its tolerance by {excess:.3g}, or two launches differ")
+    return {"y": got, "err": err, "vs_plain": (got.float() - plain.float()).abs().max().item()}
+
+
+def dw_phase(dev, smi: str) -> dict:
+    """The depthwise kernel (``ops/kernels/depthwise_conv.py``) at every
+    depthwise conv of the cells (``DW_SHAPES``), bf16 and f32: the forward
+    and, at stride 1, the flipped dx (the data gradient) by ``check_dw``;
+    in bf16 its device time beside cuDNN's forward and dgrad and the bound
+    (x read and y written once, the weights once). Returns the kernel
+    line's row: sums over one Xception train step's layers (38 forwards,
+    36 dx)."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_conv as kdc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "err": 0.0, "dev": 0.0}
+    per_model = Counter()
+    for dt in (torch.bfloat16, torch.float32):
+        for model, c, h, s, d, layers in DW_SHAPES:
+            x = torch.randn((BATCH, h, h, c), generator=gen, device=dev).to(dt)
+            w = torch.randn((c, 1, 3, 3), generator=gen, device=dev) * 0.3
+            wq = w.to(dt)
+            runs = [("fwd", x, s, False)]
+            if s == 1:
+                runs.append(("dx", torch.randn_like(x), 1, True))
+            for what, inp, st, flip in runs:
+                name = f"{model} C {c} {h}^2 s {st} d {d} x{layers} {what} {str(dt)[6:]}"
+                res = check_dw(name, inp, w, st, d, (d, d), flip)
+                line = (f"parity depthwise {name}: max |d| to the f64 truth {res['err']:.4g}, to "
+                        f"the plain {res['vs_plain']:.4g}; two launches bit-identical")
+                if dt is torch.bfloat16:
+                    tot["err"] = max(tot["err"], res["err"])
+                    fused = lambda: kdc.depthwise_conv2d_fused(inp, w, st, d, (d, d), flip)  # noqa: E731
+                    xn, inn = x.permute(0, 3, 1, 2), inp.permute(0, 3, 1, 2)
+                    if flip:
+                        lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+                            inn, xn, wq, None, [1, 1], [d, d], [d, d], False, [0, 0], c,
+                            [True, False, False])
+                    else:
+                        lib = lambda: torch.nn.functional.conv2d(xn, wq, None, st, d, d, c)  # noqa: E731
+                    k_ms, l_ms = device_ms(fused, "dw_conv"), device_ms(lib)
+                    p_ms = cuda_ms(lambda: kdc.depthwise_conv2d_plain(inp, wq, st, d, (d, d)),
+                                   iters=5)
+                    e_ms = cuda_ms(fused, iters=10)
+                    y = res["y"]
+                    b_ms = (inp.numel() + y.numel() + w.numel()) * 2 / HBM_BYTES_PER_S * 1e3
+                    plan = kdc.dw_plan(BATCH, y.shape[1], y.shape[2], c, 3, st, d, 2, sms)
+                    line += (f"; device {k_ms * 1e3:.1f} us ({b_ms / k_ms:.1%} of the bound "
+                             f"{b_ms * 1e3:.1f} us), events {e_ms * 1e3:.1f} us, cuDNN "
+                             f"{'dgrad' if flip else 'forward'} {l_ms * 1e3:.1f} us; {plan}")
+                    per_model[(model, what, "kernel")] += layers * k_ms
+                    per_model[(model, what, "cuDNN")] += layers * l_ms
+                    per_model[(model, what, "bound")] += layers * b_ms
+                    if model == "xception":
+                        for key, v in (("ms", e_ms), ("dev", k_ms), ("plain", p_ms),
+                                       ("lib", l_ms), ("bound", b_ms)):
+                            tot[key] += layers * v
+                log(line)
+                del res
+            del x, w, wq, runs
+        torch.cuda.empty_cache()
+    for (model, what, kind), v in sorted(per_model.items()):
+        log(f"time depthwise {model} {what} (a step's or batch's layers, device): {kind} "
+            f"{v:.4f} ms")
+    for line in ptxas_report(("dw_conv",)):
+        log(f"  ptxas: {line}")
+    log(f"depthwise kernel: one Xception step's 38 forwards and 36 dx: events {tot['ms']:.4f} ms, "
+        f"device {tot['dev']:.4f} ms, plain {tot['plain']:.4f} ms, cuDNN {tot['lib']:.4f} ms, "
+        f"bound {tot['bound']:.4f} ms  [{smi}]")
+    return {
+        "name": "DW dw_conv (forward, stride-1 dx flipped)", "route": "cuda", "source": CSRC_DWC,
+        "replaces": "none: the JAX package leaves its depthwise convs to XLA",
+        "launches": None, "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain"],
+        "bound_ms": tot["bound"], "bound_by": "bytes", "library_ms": tot["lib"],
+    }
+
+
+def name_library_layers(step, state, batch, label: str) -> None:
+    """One profiled step (record_shapes) on the depthwise kernel and one on
+    the route before it (every depthwise conv on cuDNN: ``in_scope`` False):
+    the device time of cuDNN's grouped kernels by name, and the input shapes
+    of the convolution ops that launched them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_conv as kdc
+
+    real = kdc.in_scope
+    for route in ("cuDNN", "kernel"):
+        if route == "cuDNN":
+            kdc.in_scope = lambda x, k, stride: False
+        try:
+            step(state, batch)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
+                step(state, batch)
+                torch.cuda.synchronize()
+        finally:
+            kdc.in_scope = real
+        rows = Counter()
+        for e in prof.events():  # a kernel is listed under the op that launched it
+            shapes = tuple(tuple(v) for v in (e.input_shapes or [])[:2] if v)
+            for k in e.kernels:
+                name = k.name.split("(")[0].split("<")[0].split("::")[-1]
+                if any(f in k.name for f in ("dgrad2d_c1_k1", "wgrad_alg1", "grouped_direct")):
+                    rows[(name, e.name, shapes)] += k.duration / 1e3
+        by_name = Counter()
+        for (name, op, shapes), ms in sorted(rows.items(), key=lambda r: -r[1]):
+            by_name[name] += ms
+            log(f"{label}, {route} route: {name} {ms:.3f} ms under {op} of {shapes}")
+        log(f"{label}, {route} route: " + ", ".join(f"{n} {v:.3f} ms" for n, v in by_name.items()))
 
 
 def bn_phase(dev, smi: str) -> dict:
@@ -1710,7 +1939,7 @@ def seg_phase(dev, rng) -> dict:
             f"{own[name]:.3g}")
     del caught
     # (2) the whole backward with the flag on against the flag off. Both
-    # take dx from cuDNN's dgrad, and each layer's own dW agrees to about
+    # take dx from the depthwise kernel, and each layer's own dW agrees to about
     # 3e-4 in (1); but the two backwards also differ upstream of each layer,
     # as two flag-off backwards of the same batch do (printed beside), and
     # BatchNorm's backward amplifies that toward the input. The card put
@@ -1723,8 +1952,9 @@ def seg_phase(dev, rng) -> dict:
     worst = max(rels, key=rels.get)
     if rels[worst] > 4e-2 or not all(torch.isfinite(g).all() for g in on.values()):
         raise AssertionError(f"dW with the flag on against off: relative L2 {rels}")
-    log("grads: one backward at 512^2, batch 8, bf16: dW of the 14 layers, flag on (K6, cuDNN "
-        "dgrad) against flag off (cuDNN wgrad and dgrad), relative L2 by layer from the output: "
+    log("grads: one backward at 512^2, batch 8, bf16: dW of the 14 layers, flag on (K6, the "
+        "kernel's dx) against flag off (cuDNN wgrad, the kernel's dx), relative L2 by layer "
+        "from the output: "
         + ", ".join(f"{rels[n]:.3g}" for n, _ in reversed(dw_layers))
         + "; two flag-off backwards against each other: "
         + ", ".join(f"{noise[n]:.3g}" for n, _ in reversed(dw_layers)))
@@ -1750,7 +1980,8 @@ def seg_phase(dev, rng) -> dict:
         params = {n: p.detach().clone() for n, p in model.named_parameters()}
         bn0 = stats()
         kdw.K6_LAUNCHES = 0
-        with bn_counted(f"seg step {i} (freeze_encoder={freeze})", model) as bn:
+        with (bn_counted(f"seg step {i} (freeze_encoder={freeze})", model) as bn,
+              dw_counted(f"seg step {i} (freeze_encoder={freeze})", model)):
             _, metrics = step(states[freeze], batch)
         torch.cuda.synchronize()
         launches = kdw.K6_LAUNCHES
@@ -1784,8 +2015,9 @@ def seg_phase(dev, rng) -> dict:
 
 def time_seg(sg) -> dict:
     """Phase 7, seg part: K6 per shape against its plain version and
-    cuDNN's bf16 wgrad alone, and the two ways to the same layer's dx (the
-    flipped-kernel conv, and cuDNN's dgrad, which the Function calls); the seg train step
+    cuDNN's bf16 wgrad alone, and two library ways to the same layer's dx (the
+    flipped-kernel conv, and cuDNN's dgrad, the Function's before the depthwise
+    kernel); the seg train step
     with the flag on and off (on, off, off, on); torch.profiler over one
     step each way. Returns K6's {ms, plain, lib, bound, by}, times summed
     over one step's 14 launches."""
@@ -1813,7 +2045,7 @@ def time_seg(sg) -> dict:
         log(f"time K6 {name} {tuple(x.shape)} d {d}: kernel {k_ms:.4f} ms, device time "
             f"{dev_ms:.4f} ms ({gbytes / dev_ms * 1e3:.0f} GB/s of x and dy), plain f32 "
             f"{p_ms:.4f} ms, cuDNN bf16 wgrad {t_cudnn:.4f} ms; dx as the flipped-kernel conv "
-            f"{dx_flip:.4f} ms, as cuDNN's dgrad (the Function's) {dx_dgrad:.4f} ms; "
+            f"{dx_flip:.4f} ms, as cuDNN's dgrad {dx_dgrad:.4f} ms; "
             f"{count} per step")
         for i, t in enumerate((k_ms, p_ms, t_cudnn, dx_flip, dx_dgrad, dev_ms)):
             tot[i] += count * t
@@ -1823,8 +2055,8 @@ def time_seg(sg) -> dict:
     k6["bound"], k6["by"] = bound(flop, nbytes)
     log(f"time K6 (one step's 14 launches): {tot[0]:.4f} ms, device time {tot[5]:.4f} ms, plain "
         f"f32 {tot[1]:.4f} ms, cuDNN bf16 wgrad {tot[2]:.4f} ms, bound {k6['bound']:.4f} ms "
-        f"({k6['by']}); their dx: flipped-kernel conv {tot[3]:.4f} ms, cuDNN dgrad (the "
-        f"Function's) {tot[4]:.4f} ms")
+        f"({k6['by']}); their dx on cuDNN: flipped-kernel conv {tot[3]:.4f} ms, dgrad "
+        f"{tot[4]:.4f} ms")
 
     step, state, batch = sg["step"], sg["state"], sg["batch"]
     runs = []
@@ -1967,7 +2199,7 @@ def serve_phase(pipe, dev, smi: str) -> None:
     def gated(what: str, server, feed) -> list:
         runs[0] = 0
         kpc.K1_LAUNCHES = kpc.K2_LAUNCHES = 0
-        with bn_counted(f"serve {what}", pipe) as bn:
+        with bn_counted(f"serve {what}", pipe) as bn, dw_counted(f"serve {what}", pipe):
             out = feed(server)
         check_launches(what)
         if bn["calls"] % runs[0]:
@@ -2210,17 +2442,19 @@ def xception_phase(dev, rng, smi: str) -> dict:
 
     hook = state.optimizer.register_step_pre_hook(keep_grads)
     depthwise.depthwise_wgrad, kdw.depthwise_wgrad_reference = catch, no_plain
-    launches = []
+    launches, dw_launches = [], 0
     try:
         for i in range(3):
             params = {n: p.detach().clone() for n, p in model.named_parameters()}
             stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
             seen.clear()
             kdw.K6_LAUNCHES = 0
-            with bn_counted(f"xception step {i}", model):
+            with (bn_counted(f"xception step {i}", model),
+                  dw_counted(f"xception step {i}", model) as dwc):
                 _, metrics = step(state, batch)
             torch.cuda.synchronize()
             launches.append(kdw.K6_LAUNCHES)
+            dw_launches = dw_launches or dwc["launches"]
             bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
             unmoved = [n for n, p in model.named_parameters()
                        if grads[n] > 0 and torch.equal(p, params[n])]
@@ -2263,7 +2497,7 @@ def xception_phase(dev, rng, smi: str) -> dict:
     flop = sum(count * k6_work(x, 3, d)[0] for _, x, _, d, count, _ in shapes)
     nbytes = sum(count * k6_work(x, 3, d)[1] for _, x, _, d, count, _ in shapes)
     k6 = {"ms": tot[0], "plain": tot[1], "lib": tot[2], "launches": launches[0],
-          "err": max(r["vs_plain"] for *_, r in shapes)}
+          "err": max(r["vs_plain"] for *_, r in shapes), "dw_launches": dw_launches}
     k6["bound"], k6["by"] = bound(flop, nbytes)
     log(f"time K6 xception (one step's 35 launches): {tot[0]:.4f} ms, device time {tot[3]:.4f} "
         f"ms, plain f32 {tot[1]:.4f} ms, cuDNN bf16 wgrad {tot[2]:.4f} ms, bound "
@@ -2287,6 +2521,7 @@ def xception_phase(dev, rng, smi: str) -> dict:
             f"the step  [{smi}]")
     depthwise.USE_CUSTOM_WGRAD = True
     profile_run(lambda: step(state, batch), "xception seg step, flag on", runs=1)
+    name_library_layers(step, state, batch, "xception seg step, flag on")
     return k6
 
 

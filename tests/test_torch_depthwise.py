@@ -76,6 +76,7 @@ def test_function_forward_is_conv2d_and_grads_match_jax(c, d, k, h, w):
     """f32: the forward is the plain conv; dx (the library's data gradient
     on channels-last views) equals the flipped-kernel conv and JAX's VJP,
     and dW JAX's, within 1e-5 of max |ref|."""
+    tdw.USE_CUSTOM_WGRAD = True  # the Function, dW on K6's plain version
     rng = np.random.default_rng(1 + c + d + k)
     x = rng.standard_normal((2, h, w, c)).astype(np.float32)
     kern = rng.standard_normal((k, k, 1, c)).astype(np.float32)
@@ -100,6 +101,7 @@ def test_function_dx_in_bf16(d):
     """bf16: dx is the f32 flipped-kernel conv of the same bf16 values,
     rounded once (one bf16 step, 2^-8 relative, plus 1e-5 of max |ref| for
     the order of the sums), and comes back NHWC in x's dtype."""
+    tdw.USE_CUSTOM_WGRAD = True  # the Function
     g = torch.Generator().manual_seed(5 + d)
     c, k = 128, 3
     x = torch.randn((2, 11, 9, c), generator=g).to(torch.bfloat16).requires_grad_(True)
@@ -114,6 +116,7 @@ def test_function_dx_in_bf16(d):
 def test_dw_is_rounded_once_to_the_weight_dtype():
     """bf16: dW is the f32 sum rounded once (JAX's ``.astype(kernel.dtype)``),
     and a dy with other strides (as autograd may hand it over) changes nothing."""
+    tdw.USE_CUSTOM_WGRAD = True  # the Function, dW on K6's plain version
     g = torch.Generator().manual_seed(2)
     c = 128
     x = torch.randn((2, 10, 10, c), generator=g).to(torch.bfloat16)

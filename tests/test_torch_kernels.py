@@ -66,6 +66,13 @@ padding above k - 1, three mask groups) in bf16 and f32 through
 truth, twice bit-identical, the backward by ``check_grads`` /
 ``check_grads_f32``; K6's general form at ``SCOPE_K6`` (k 9, and k 7 at
 d 48) by ``check_wgrad``; and an output height of 12 on the plain route.
+The depthwise kernel (``csrc/depthwise_conv.cu``) at every depthwise conv
+of the benchmark's cells (chip_smoke.py's ``DW_SHAPES``, 2 pages) and at
+``DW_RAGGED`` (odd maps, one channel vector, stride 2 at dilations 2 and
+3, a band's padding, a partial last wave), forward and flipped dx in bf16
+and f32, by ``check_dw`` (the f64 truth within one rounding to the dtype
+plus the f32 sum's order; twice bit-identical); routed by what the input
+shows, a misaligned x copied, and the Function's dx the kernel's.
 """
 
 import numpy as np
@@ -73,6 +80,7 @@ import pytest
 import torch
 
 from chip_smoke import (
+    DW_SHAPES,
     K1_EXTRA,
     K6_RAGGED,
     PAD_EXTRA,
@@ -81,6 +89,7 @@ from chip_smoke import (
     SHARD_SHAPES,
     STEM_EXTRA,
     check_close,
+    check_dw,
     check_f32,
     check_grads,
     check_grads_f32,
@@ -540,10 +549,12 @@ def test_k6_matches_truth(cuda, name, n, h, w, c, k, d, dtype):
         assert (dw == 0).all()
 
 
-def test_depthwise_backward_launches_k6(cuda):
-    """The Function's backward on CUDA: K6 once, dW in the weight's dtype,
-    rounded once from the plain f32 sum (up to its summation order), and
-    dy taken from autograd with another layout (an NCHW tensor's view)."""
+def test_depthwise_backward_launches_k6(cuda, monkeypatch):
+    """The Function's backward on CUDA with the flag on: K6 once, dW in the
+    weight's dtype, rounded once from the plain f32 sum (up to its
+    summation order), and dy taken from autograd with another layout (an
+    NCHW tensor's view)."""
+    monkeypatch.setattr(depthwise, "USE_CUSTOM_WGRAD", True)
     gen = torch.Generator(cuda).manual_seed(11)
     c, d = 192, 2
     x = torch.randn((2, 24, 20, c), generator=gen, device=cuda).to(torch.bfloat16)
@@ -560,9 +571,9 @@ def test_depthwise_backward_launches_k6(cuda):
 
 
 def test_depthwise_backward_dx_is_the_flipped_conv(cuda):
-    """The Function's dx on the card (cuDNN's dgrad on channels-last views)
-    is the flipped-kernel conv of the same bf16 values, within one bf16
-    step plus 1e-5 of max |ref| for the order of the sums."""
+    """The Function's dx on the card (the depthwise kernel with its taps
+    flipped) is the flipped-kernel conv of the same bf16 values, within one
+    bf16 step plus 1e-5 of max |ref| for the order of the sums."""
     from text_segmentation_image_inpainting_tpu_torch.ops.conv import conv2d
 
     gen = torch.Generator(cuda).manual_seed(12)
@@ -1167,3 +1178,101 @@ def test_an_output_height_of_12_takes_the_plain_route(cuda):
         before = launch_counters()
         partial_conv2d(x.to(dt), m.to(dt), w.to(dt), group_sizes=(8, 8), padding=1)
         assert launch_counters() == before
+
+
+# The depthwise kernel away from the cells: (name, N, H, W, C, stride,
+# dilation, padding, flip).
+DW_RAGGED = (
+    ("odd 37x29, C 200, d 2", 3, 37, 29, 200, 1, 2, (2, 2), False),
+    ("one channel vector: C 8, 5x7", 1, 5, 7, 8, 1, 1, (1, 1), False),
+    ("stride 2 at d 3: runs 3 columns apart", 2, 41, 23, 24, 2, 3, (3, 3), False),
+    ("stride 2 at d 2, odd map", 2, 33, 31, 48, 2, 2, (2, 2), False),
+    ("a band: H padding 0", 2, 20, 16, 64, 1, 2, (0, 2), False),
+    ("dx of a band's conv: padding (4, 2)", 2, 16, 16, 64, 1, 2, (4, 2), True),
+    ("every off-centre tap in the padding", 2, 4, 4, 128, 1, 4, (4, 4), False),
+    ("partial last wave: 40 pages 8x8, C 960", 40, 8, 8, 960, 1, 1, (1, 1), False),
+)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", DW_SHAPES,
+                         ids=[f"{m}-C{c}-{h}-s{s}-d{d}" for m, c, h, s, d, _ in DW_SHAPES])
+def test_depthwise_conv_at_the_cells_shapes(cuda, case, dt):
+    """Every depthwise conv of the cells, on 2 pages: the forward and, at
+    stride 1, the flipped dx by ``check_dw``."""
+    _, c, h, s, d, _ = case
+    gen = torch.Generator(device=cuda).manual_seed(c + h + s + d)
+    x = torch.randn((2, h, h, c), generator=gen, device=cuda).to(dt)
+    w = torch.randn((c, 1, 3, 3), generator=gen, device=cuda) * 0.3
+    check_dw(f"C {c} {h}^2 s {s} d {d}", x, w, s, d, (d, d))
+    if s == 1:
+        check_dw(f"dx C {c} {h}^2 d {d}", x, w, 1, d, (d, d), flip=True)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", DW_RAGGED, ids=[c[0] for c in DW_RAGGED])
+def test_depthwise_conv_away_from_the_cells(cuda, case, dt):
+    name, n, h, w, c, s, d, pad, flip = case
+    gen = torch.Generator(device=cuda).manual_seed(n * h + w + c)
+    x = torch.randn((n, h, w, c), generator=gen, device=cuda).to(dt)
+    wt = torch.randn((c, 1, 3, 3), generator=gen, device=cuda) * 0.3
+    check_dw(name, x, wt, s, d, pad, flip)
+    # a bf16 weight is read as it is: the same bits as the f32 one rounded
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_conv as kdc
+
+    assert torch.equal(kdc.depthwise_conv2d_fused(x, wt.to(dt), s, d, pad, flip),
+                       kdc.depthwise_conv2d_fused(x, wt, s, d, pad, flip))
+
+
+def test_depthwise_routes_by_what_the_input_shows(cuda):
+    """A CUDA bf16 or f32 3x3 conv launches the kernel (``dw.kernel``); a
+    5x5 one and an f64 one take the plain version (``dw.plain``); an x
+    that starts off 16 bytes is copied first, with the same result."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_conv as kdc
+    from text_segmentation_image_inpainting_tpu_torch.utils.profiling import counters
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 12, 10, 64), generator=gen, device=cuda)
+    for dt, k, route in ((torch.bfloat16, 3, "kernel"), (torch.float32, 3, "kernel"),
+                         (torch.bfloat16, 5, "plain"), (torch.float64, 3, "plain")):
+        w = torch.randn((64, 1, k, k), generator=gen, device=cuda)
+        before, launches = counters(), kdc.DW_LAUNCHES
+        y = depthwise.depthwise_conv2d(x.to(dt), w, 2, 1)
+        grew = {r: counters().get(f"dw.{r}", 0) - before.get(f"dw.{r}", 0)
+                for r in ("kernel", "plain")}
+        assert grew == {"kernel": int(route == "kernel"), "plain": int(route == "plain")}
+        assert kdc.DW_LAUNCHES - launches == int(route == "kernel")
+        want = kdc.depthwise_conv2d_plain(x.to(dt), w, 1, 2, (2 * (k // 2),) * 2)
+        torch.testing.assert_close(y.double(), want.double(), rtol=2**-7, atol=1e-3)
+    xb = x.to(torch.bfloat16)
+    flat = torch.empty(xb.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    off = flat[1:].view(xb.shape)
+    off.copy_(xb)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    w = torch.randn((64, 1, 3, 3), generator=gen, device=cuda)
+    assert torch.equal(kdc.depthwise_conv2d_fused(off, w, 1, 1, (1, 1)),
+                       kdc.depthwise_conv2d_fused(xb, w, 1, 1, (1, 1)))
+
+
+@pytest.mark.parametrize("s", [1, 2])
+def test_depthwise_function_dx(cuda, s):
+    """Training: at stride 1 x's gradient is the kernel's flipped conv of
+    dy, bit for bit; at stride 2 cuDNN's dgrad, within one bf16 rounding
+    (relative L2 1e-2) of the f64 gradient."""
+    from text_segmentation_image_inpainting_tpu_torch.ops.kernels import depthwise_conv as kdc
+
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    x = torch.randn((2, 16, 12, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((128, 1, 3, 3), generator=gen, device=cuda) * 0.3).requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+    y = depthwise.depthwise_conv2d(xr, w, 2, s)
+    dy = torch.randn(y.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    y.backward(dy)
+    if s == 1:
+        assert torch.equal(xr.grad, kdc.depthwise_conv2d_fused(dy, w, 1, 2, (2, 2), flip=True))
+    x64 = x.double().requires_grad_(True)
+    y64 = torch.nn.functional.conv2d(x64.permute(0, 3, 1, 2), w.detach().to(torch.bfloat16)
+                                     .double(), None, s, 2, 2, 128)
+    y64.backward(dy.double().permute(0, 3, 1, 2))
+    rel = ((xr.grad.double() - x64.grad).norm() / x64.grad.norm()).item()
+    assert rel < 1e-2 and w.grad.dtype == torch.float32

@@ -112,9 +112,10 @@ def apply_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 class ConvBNAct(nn.Sequential):
     """Conv -> BatchNorm -> activation; children ``0`` (conv) and ``1`` (bn).
 
-    A depthwise conv in ``depthwise.supports``'s scope (flag on, stride 1,
-    C >= 128) runs through ``depthwise.depthwise_conv2d``: the same
-    forward and parameters, its weight gradient on K6."""
+    A depthwise conv (groups == cin == cout) runs through
+    ``depthwise.depthwise_conv2d``: on a CUDA bf16 or f32 input its
+    forward and stride-1 dx on the depthwise kernel, its weight gradient on
+    K6 in ``depthwise.supports``'s scope (flag on, stride 1, C >= 128)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
                  dilation: int = 1, groups: int = 1, act: str = "relu6",
@@ -132,10 +133,8 @@ class ConvBNAct(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv, x = self[0], x.to(self.dtype)
-        if depthwise.supports(conv.out_channels, conv.groups, x.shape[-1], conv.kernel_size[0],
-                              conv.stride[0]):
-            # the same forward conv; the weight gradient is K6 (ops/depthwise.py)
-            y = depthwise.depthwise_conv2d(x, conv.weight.to(self.dtype), conv.dilation[0])
+        if conv.groups == conv.in_channels == conv.out_channels > 1:
+            y = depthwise.depthwise_conv2d(x, conv.weight, conv.dilation[0], conv.stride[0])
         else:
             y = apply_conv(conv, x)
         if self.act in FUSED_ACTS:

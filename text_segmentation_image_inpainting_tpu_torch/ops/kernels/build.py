@@ -149,6 +149,8 @@ def load_library() -> ctypes.CDLL:
         lib.tsii_dw_wgrad.restype = i32
         lib.tsii_dw_wgrad_gen.argtypes = [ptr] * 4 + [i32] * 13 + [ptr]
         lib.tsii_dw_wgrad_gen.restype = i32
+        lib.tsii_dw_conv.argtypes = [ptr] * 3 + [i32] * 18 + [ptr]
+        lib.tsii_dw_conv.restype = i32
         f32 = ctypes.c_float
         lib.tsii_bn_stats.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
         lib.tsii_bn_stats.restype = i32
